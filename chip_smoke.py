@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving path and recognition training step on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -24,6 +25,22 @@ Phases (any failure exits non-zero, before the final line):
    probabilities are checked against the CPU on two pages.
 6. ``_recognize_crops`` on 128 crops in each width bucket (256, 512, 768,
    800), so every recognition shape runs whatever detection found.
+   Serving launches only the forward kernels.
+7. Hold each backward kernel against its plain version at the training
+   step's largest shapes: stage-1 backward at x [256,1,64,256] and
+   [128,1,64,1024]; the biGRU backward at T=65, N=256 and T=257, N=128,
+   H=256; the CTC alpha and beta recursions at T=257, N=128, S=129 with
+   ragged lengths, repeated labels, an empty label and an infeasible row.
+   Time kernel, plain version and the library yardstick (autograd backward
+   of conv2d+relu+max_pool2d; cuDNN nn.GRU backward; F.ctc_loss forward
+   and backward) with CUDA events.
+8. The training step (``training.steps.make_recognition_steps``) at full
+   width (CRNN 32-64-128, 2-layer biGRU H=256, 97 classes, f32, TF32 off,
+   Adam with clip 4.0, lr 1e-3): one step against the same step with every
+   kernel's plain version swapped in, from the same weights; the headline
+   batch 256 x 64x256 (one warm-up step, then timed steps on which the
+   loss must fall, launch counts zeroed just before and read just after);
+   the wide bucket 128 x 64x1024; ``grad_accum=4``; ``eval_step``.
 
 Prints the nvidia-smi line, throughput lines, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -108,7 +125,8 @@ def synthetic_crop(rng: np.random.Generator, w: int) -> np.ndarray:
 
 
 def check_stage1(dev, gen) -> dict:
-    from ocrs_models_torch.ops import stage1, stage1_reference
+    from ocrs_models_torch.ops import stage1_fwd as stage1
+    from ocrs_models_torch.ops import stage1_reference
 
     weight = (torch.randn((32, 1, 3, 3), generator=gen) * 0.3).to(dev)
     bias = (torch.randn((32,), generator=gen) * 0.1).to(dev)
@@ -146,7 +164,8 @@ def check_stage1(dev, gen) -> dict:
 
 
 def check_gru(dev, gen) -> dict:
-    from ocrs_models_torch.ops import gru_recurrence, gru_recurrence_reference
+    from ocrs_models_torch.ops import gru_fwd as gru_recurrence
+    from ocrs_models_torch.ops import gru_recurrence_reference
 
     t_len, n, hid = 201, REC_BATCH, 256  # T = 800 // 4 + 1 at the widest bucket
     k = 1.0 / hid**0.5
@@ -207,6 +226,369 @@ def check_recognition(pipe, gen) -> float:
     return err
 
 
+def _err(got, want) -> float:
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
+def check_stage1_bwd(dev, gen) -> dict:
+    """Stage-1 backward kernel vs autograd of the plain forward. The sums
+    run over ~1M pool windows per channel; where two pre-activations of a
+    window are within the last bits of the two conv orders the maximum may
+    differ, so the tolerance is 1e-2 of the largest |dW| (measured, see
+    PERF.md)."""
+    from ocrs_models_torch.ops import stage1_bwd, stage1_bwd_reference, stage1_reference
+
+    weight = (torch.randn((32, 1, 3, 3), generator=gen) * 0.3).to(dev)
+    bias = (torch.randn((32,), generator=gen) * 0.1).to(dev)
+    out = {}
+    for n, w in ((256, 256), (128, 1024)):
+        x = (torch.rand((n, 1, 64, w), generator=gen) - 0.5).to(dev)
+        dy = torch.randn((n, 32, 32, w // 2), generator=gen).to(dev)
+        with _no_tf32():
+            want = stage1_bwd_reference(x, weight, bias, dy)
+        got = stage1_bwd(x, weight, bias, dy)
+        again = stage1_bwd(x, weight, bias, dy)
+        torch.cuda.synchronize()
+        err = _err(got, want)
+        scale = max(t.abs().max().item() for t in want)
+        print(f"stage1_bwd [{n},1,64,{w}]: max_abs_err {err:.3e} (max |dW| {scale:.3e})", flush=True)
+        if not err <= 1e-2 * scale:
+            raise AssertionError(f"stage1_bwd disagrees with its plain version at W={w}: {err}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("stage1_bwd is not deterministic")
+        with _no_tf32():
+            ms = _cuda_time_ms(lambda: stage1_bwd(x, weight, bias, dy), iters=20)
+            plain_ms = _cuda_time_ms(lambda: stage1_bwd_reference(x, weight, bias, dy), iters=5)
+            wr = weight.clone().requires_grad_(True)
+            br = bias.clone().requires_grad_(True)
+            y = F.max_pool2d(F.relu(F.conv2d(x, wr, br, padding=1)), 2)
+            library_ms = _cuda_time_ms(
+                lambda: torch.autograd.grad(y, (wr, br), dy, retain_graph=True), iters=5)
+            del y
+        n_bytes = 4 * (x.numel() + dy.numel() + 2 * 32 * 10)
+        n_flops = 2 * n * 32 * 32 * (w // 2) * (4 * 9 + 10)
+        bound_ms, bound_by = _bound(n_bytes, n_flops)
+        out[w] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, shape=f"x [{n},1,64,{w}], dy [{n},32,32,{w // 2}]")
+    wide, head = out[1024], out[256]
+    return {
+        "name": "stage1_bwd", "route": "cuda",
+        "source": "ocrs_models_torch/csrc/stage1_bwd.cu",
+        "replaces": "ocrs_models_tpu/ops/pallas/stage1_kernel.py:223",
+        "shape": wide["shape"], "max_abs_err": max(wide["err"], head["err"]),
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
+        "headline": {k: head[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")},
+    }
+
+
+def check_gru_bwd(dev, gen) -> dict:
+    """biGRU backward kernel vs autograd of the plain recurrence: dpx atol
+    1e-3 (errors carried back over up to 257 steps), dW_hh and db_hh
+    within 1e-4 of their largest entry (sums over T*N rows)."""
+    from ocrs_models_torch.ops import gru_bwd, gru_bwd_reference, gru_fwd
+
+    hid = 256
+    k = 1.0 / hid**0.5
+    w_hh = ((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
+    b_hh = ((torch.rand((2, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
+    out = {}
+    for t_len, n in ((65, 256), (257, 128)):
+        px_f = torch.randn((t_len, n, 3 * hid), generator=gen).to(dev)
+        px_b = torch.randn((t_len, n, 3 * hid), generator=gen).to(dev)
+        dy_f = (torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev)
+        dy_b = (torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev)
+        ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
+        args = (px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
+        want = gru_bwd_reference(*args)
+        got = gru_bwd(*args)
+        torch.cuda.synchronize()
+        err_dpx = _err(got[:2], want[:2])
+        err_dw = _err(got[2:], want[2:])
+        scale = max(t.abs().max().item() for t in want[2:])
+        print(f"gru_bwd [T={t_len},N={n},H={hid}]: dpx max_abs_err {err_dpx:.3e}, "
+              f"dW/db max_abs_err {err_dw:.3e} (max {scale:.3e})", flush=True)
+        if not (err_dpx <= 1e-3 and err_dw <= 1e-4 * scale):
+            raise AssertionError(f"gru_bwd disagrees with its plain version at T={t_len}")
+        ms = _cuda_time_ms(lambda: gru_bwd(*args), iters=5)
+        plain_ms = _cuda_time_ms(lambda: gru_bwd_reference(*args), iters=2, warmup=1)
+        # Yardstick: cuDNN's bidirectional GRU layer backward (F=128; it
+        # also computes its input projection's gradients).
+        lib_gru = torch.nn.GRU(128, hid, bidirectional=True).to(dev)
+        xs = torch.randn((t_len, n, 128), generator=gen).to(dev).requires_grad_(True)
+        with _no_tf32():
+            ys, _ = lib_gru(xs)
+            dys = torch.randn(ys.shape, generator=gen).to(dev)
+            ins = [xs, *lib_gru.parameters()]
+            library_ms = _cuda_time_ms(
+                lambda: torch.autograd.grad(ys, ins, dys, retain_graph=True), iters=5)
+            del ys
+        h3 = 3 * hid
+        n_bytes = 4 * (2 * t_len * n * h3 * 2 + 2 * t_len * n * hid * 2
+                       + 2 * 2 * hid * h3 + 2 * 2 * h3)
+        n_flops = 2 * 3 * 2 * t_len * n * hid * h3
+        bound_ms, bound_by = _bound(n_bytes, n_flops)
+        out[t_len] = dict(err=max(err_dpx, err_dw), ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          shape=f"px [{t_len},{n},{h3}] x2, dy [{t_len},{n},{hid}] x2")
+    wide, head = out[257], out[65]
+    return {
+        "name": "gru_bwd", "route": "cuda",
+        "source": "ocrs_models_torch/csrc/gru_bwd.cu",
+        "replaces": "ocrs_models_tpu/ops/pallas/gru_kernel4.py:171",
+        "shape": wide["shape"], "max_abs_err": max(wide["err"], head["err"]),
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
+        "headline": {k: head[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")},
+    }
+
+
+def check_ctc(dev, gen) -> list[dict]:
+    """CTC alpha and beta kernels vs their plain versions at T=257, N=128,
+    S=129: ragged input and label lengths, repeated labels, one empty
+    label, one row whose labels cannot fit. alphas atol 1e-3 (log values
+    down to ~-1e3), demit and dalpha0 atol 1e-5 (posteriors in [0, 1])."""
+    from ocrs_models_torch.ops import ctc_alpha, ctc_alpha_reference, ctc_beta, ctc_beta_reference
+    from ocrs_models_torch.ops.ctc import NEG_INF
+
+    n, t_len, n_cls, lmax = 128, 257, 97, 64
+    rng = np.random.default_rng(SEED)
+    label_len = rng.integers(6, 49, n)
+    label_len[0] = 0  # empty label
+    label_len[2] = 40  # with 20 input steps below: cannot fit
+    labels = np.zeros((n, lmax), np.int64)
+    for i, ll in enumerate(label_len):
+        labels[i, :ll] = rng.integers(1, n_cls, ll)
+    labels[1, :6] = [5, 5, 5, 7, 7, 9]  # repeats
+    input_len = rng.integers(160, t_len, n)
+    input_len[2] = 20
+    log_probs = torch.log_softmax(torch.randn((n, t_len, n_cls), generator=gen), -1).to(dev)
+    labels_t = torch.from_numpy(labels).to(dev)
+    lens = torch.from_numpy(input_len.astype(np.int32)).to(dev)
+    # The operands exactly as ctc_loss_forward builds them.
+    s = 2 * lmax + 1
+    ext = labels_t.new_zeros((n, s))
+    ext[:, 1::2] = labels_t
+    prev2 = F.pad(ext[:, :-2], (2, 0))
+    skip = torch.where((ext != 0) & (ext != prev2), 0.0, NEG_INF).float().contiguous()
+    emit = log_probs.gather(2, ext[:, None, :].expand(n, t_len, s)).contiguous()
+    pos = torch.arange(s, device=dev)[None, :]
+    label_len_t = torch.from_numpy(label_len).to(dev)
+    alpha0 = torch.where(pos <= 1, emit[:, 0], NEG_INF)
+    alpha0 = torch.where((pos == 1) & (label_len_t[:, None] == 0), NEG_INF, alpha0).contiguous()
+
+    want_a = ctc_alpha_reference(emit, skip, alpha0, lens)
+    got_a = ctc_alpha(emit, skip, alpha0, lens)
+    got_final = ctc_alpha(emit, skip, alpha0, lens, final_only=True)
+    d_last = -torch.rand((n, s), generator=gen).to(dev)
+    d_last[2] = 0.0  # the infeasible row carries no cotangent
+    mag = d_last.abs()
+    seed = torch.where(mag > 0, torch.log(mag) - got_a[:, -1], torch.full_like(mag, NEG_INF))
+    sign = torch.where(d_last < 0, -1.0, 1.0).amin(dim=1).contiguous()
+    want_b = ctc_beta_reference(emit, skip, got_a, seed, sign, lens)
+    got_b = ctc_beta(emit, skip, got_a, seed, sign, lens)
+    torch.cuda.synchronize()
+    err_a = max((got_a - want_a).abs().max().item(),
+                (got_final - want_a[:, -1]).abs().max().item())
+    err_b = _err(got_b, want_b)
+    print(f"ctc_alpha [N={n},T={t_len},S={s}]: max_abs_err {err_a:.3e}; "
+          f"ctc_beta: max_abs_err {err_b:.3e}", flush=True)
+    if not (err_a <= 1e-3 and err_b <= 1e-5):
+        raise AssertionError(f"CTC kernels disagree with their plain versions: {err_a}, {err_b}")
+    if not all(torch.isfinite(t).all() for t in (*got_b, got_a)) or got_b[0][2].abs().max() != 0:
+        raise AssertionError("ctc_beta: non-finite values, or a gradient on the infeasible row")
+
+    ms_a = _cuda_time_ms(lambda: ctc_alpha(emit, skip, alpha0, lens), iters=20)
+    ms_b = _cuda_time_ms(lambda: ctc_beta(emit, skip, got_a, seed, sign, lens), iters=20)
+    plain_a = _cuda_time_ms(lambda: ctc_alpha_reference(emit, skip, alpha0, lens), iters=2, warmup=1)
+    plain_b = _cuda_time_ms(
+        lambda: ctc_beta_reference(emit, skip, got_a, seed, sign, lens), iters=2, warmup=1)
+    # Yardstick: torch's own CTC loss (cuDNN or native CUDA) on the same
+    # log-probs, forward, then backward alone.
+    lp = log_probs.transpose(0, 1).detach().requires_grad_(True)
+    il = torch.from_numpy(input_len).to(dev)
+    ctc_args = (lp, labels_t, il, label_len_t)
+    lib_a = _cuda_time_ms(lambda: F.ctc_loss(*ctc_args, reduction="sum", zero_infinity=True), iters=20)
+    loss = F.ctc_loss(*ctc_args, reduction="sum", zero_infinity=True)
+    lib_b = _cuda_time_ms(lambda: torch.autograd.grad(loss, lp, retain_graph=True), iters=20)
+    active = int(np.minimum(input_len, t_len).sum())
+    state_bytes = 4 * n * t_len * s
+    rows = []
+    for name, ms, plain_ms, lib_ms, n_bytes, n_flops, err in (
+        ("ctc_alpha", ms_a, plain_a, lib_a, 2 * state_bytes + 4 * (3 * n * s + n),
+         14 * (active - n) * s, err_a),
+        ("ctc_beta", ms_b, plain_b, lib_b, 3 * state_bytes + 4 * (4 * n * s + 2 * n),
+         20 * active * s, err_b),
+    ):
+        bound_ms, bound_by = _bound(n_bytes, n_flops)
+        rows.append({
+            "name": name, "route": "cuda", "source": f"ocrs_models_torch/csrc/{name}.cu",
+            "replaces": "ocrs_models_tpu/ops/pallas/ctc_kernel.py:"
+                        + ("119" if name == "ctc_alpha" else "145"),
+            "shape": f"emit [{n},{t_len},{s}] f32", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms,
+        })
+    return rows
+
+
+def rec_batch(n: int, width: int, max_chars: int, dev, seed: int = 0) -> dict:
+    """The JAX package's benchmark batch (``bench.py``: uniform images,
+    ``max_chars`` labels in 1..96 padded to 64), NCHW, on the card."""
+    rng = np.random.default_rng(seed)
+    text = np.zeros((n, 64), np.int64)
+    text[:, :max_chars] = rng.integers(1, 97, (n, max_chars))
+    batch = {
+        "image": rng.uniform(-0.5, 0.5, (n, 1, 64, width)).astype(np.float32),
+        "text": text,
+        "text_len": np.full((n,), max_chars, np.int64),
+        "image_width": np.full((n,), width, np.int64),
+        "sample_weight": np.ones((n,), np.float32),
+    }
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+TRAIN_LAUNCHES = {"stage1_fwd": 1, "stage1_bwd": 1, "gru_fwd": 2, "gru_bwd": 2,
+                  "ctc_alpha": 1, "ctc_beta": 1}
+
+
+def _counts() -> dict:
+    from ocrs_models_torch.ops import KERNELS
+
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def _zero_counts() -> None:
+    from ocrs_models_torch.ops import KERNELS
+
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _expect(counts: dict, per_step: dict, steps: int, what: str) -> None:
+    want = {k: per_step.get(k, 0) * steps for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def check_train_step_vs_plain(dev) -> None:
+    """One headline step with the kernels vs the same step with every
+    kernel's plain version swapped in, from the same weights. Tolerances
+    as the CPU parity test's first step: loss rtol 1e-5, grad norm rtol
+    1e-3, parameters within 1e-5 but for at most 1% of entries (max-pool
+    near-ties route a few gradients elsewhere, and Adam's first step is
+    +-lr per entry), all within 2 * lr."""
+    import copy
+
+    from ocrs_models_torch import ops
+    from ocrs_models_torch.models import RecognitionModel
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import make_recognition_steps
+
+    torch.manual_seed(SEED)
+    model = RecognitionModel(n_classes=97).to(dev)
+    plain_model = copy.deepcopy(model)
+    batch = rec_batch(256, 256, 24, dev)
+    lr = 1e-3
+    results = []
+    for m, plain in ((model, False), (plain_model, True)):
+        state = create_train_state(m, grad_clip_norm=4.0)
+        train_step, _ = make_recognition_steps(m)
+        patches = [
+            mock.patch("ocrs_models_torch.ops.stage1.stage1_fwd", ops.stage1_reference),
+            mock.patch("ocrs_models_torch.ops.stage1.stage1_bwd", ops.stage1_bwd_reference),
+            mock.patch("ocrs_models_torch.ops.gru.gru_fwd", ops.gru_recurrence_reference),
+            mock.patch("ocrs_models_torch.ops.gru.gru_bwd", ops.gru_bwd_reference),
+            mock.patch("ocrs_models_torch.ops.ctc.ctc_alpha", ops.ctc_alpha_reference),
+            mock.patch("ocrs_models_torch.ops.ctc.ctc_beta", ops.ctc_beta_reference),
+        ] if plain else []
+        _zero_counts()
+        for p in patches:
+            p.start()
+        try:
+            _, metrics = train_step(state, batch, lr)
+            torch.cuda.synchronize()
+        finally:
+            for p in patches:
+                p.stop()
+        counts = _counts()
+        _expect(counts, {} if plain else TRAIN_LAUNCHES, 1, f"train step (plain={plain})")
+        results.append(metrics)
+    got, want = results
+    loss_rel = abs(got["loss"].item() / want["loss"].item() - 1)
+    norm_rel = abs(got["grad_norm"].item() / want["grad_norm"].item() - 1)
+    diffs = [(a - b).abs() for a, b in zip(model.parameters(), plain_model.parameters())]
+    n_far = sum(int((d > 1e-5).sum()) for d in diffs)
+    n_all = sum(d.numel() for d in diffs)
+    max_diff = max(d.max().item() for d in diffs)
+    print(json.dumps({"path": "train_step vs plain", "loss": got["loss"].item(),
+                      "loss_plain": want["loss"].item(), "loss_rel": loss_rel,
+                      "grad_norm": got["grad_norm"].item(), "grad_norm_rel": norm_rel,
+                      "params_far_frac": n_far / n_all, "params_max_diff": max_diff}), flush=True)
+    if not (loss_rel <= 1e-5 and norm_rel <= 1e-3 and n_far <= 0.01 * n_all
+            and max_diff <= 2 * lr + 1e-6):
+        raise AssertionError("the training step with kernels disagrees with the plain step")
+
+
+def run_training(dev) -> dict:
+    """Phase 8's main path: headline, wide, grad_accum=4 and eval steps."""
+    from ocrs_models_torch.models import RecognitionModel
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import make_recognition_steps
+
+    torch.manual_seed(SEED + 1)
+    model = RecognitionModel(n_classes=97).to(dev)
+    state = create_train_state(model, grad_clip_norm=4.0)
+    train_step, eval_step = make_recognition_steps(model)
+    lr = 1e-3
+    report = {}
+
+    def timed(batch, steps, what, step_fn=train_step, per_step=TRAIN_LAUNCHES):
+        nonlocal state
+        state, _ = step_fn(state, batch, lr)  # warm-up: cuDNN picks its algorithms
+        torch.cuda.synchronize()
+        _zero_counts()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, metrics = step_fn(state, batch, lr)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = _counts()
+        _expect(counts, per_step, steps, what)
+        losses = [v.item() for v in losses]
+        preds = metrics["preds"]
+        n, _, _, w = batch["image"].shape
+        if not all(np.isfinite(losses)) or preds.shape != (n, w // 4 + 1):
+            raise AssertionError(f"{what}: losses {losses}, preds {tuple(preds.shape)}")
+        line = {"path": what, "batch": n, "width": w, "steps": steps,
+                "seconds": elapsed, "crops_per_s": n * steps / elapsed,
+                "ms_per_step": 1e3 * elapsed / steps, "losses": losses, "launches": counts}
+        print(json.dumps(line), flush=True)
+        return line
+
+    head = rec_batch(256, 256, 24, dev)
+    line = timed(head, 10, "train_step headline 256x64x256")
+    if not line["losses"][-1] < line["losses"][0]:
+        raise AssertionError(f"the loss did not fall on a fixed batch: {line['losses']}")
+    report["headline"] = line
+    report["wide"] = timed(rec_batch(128, 1024, 48, dev, seed=1), 3, "train_step wide 128x64x1024")
+    ga4_step, _ = make_recognition_steps(model, grad_accum=4)
+    report["ga4"] = timed(head, 1, "train_step headline grad_accum=4", ga4_step,
+                          {k: 4 * v for k, v in TRAIN_LAUNCHES.items()})
+
+    _zero_counts()
+    metrics = eval_step(state, head)
+    loss = metrics["loss"].item()
+    counts = _counts()
+    _expect(counts, {"stage1_fwd": 1, "gru_fwd": 2, "ctc_alpha": 1}, 1, "eval_step")
+    if not np.isfinite(loss) or not model.training:
+        raise AssertionError(f"eval_step: loss {loss}, train mode not restored")
+    print(json.dumps({"path": "eval_step headline", "loss": loss, "launches": counts}), flush=True)
+    return report
+
+
 def run(root: Path) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU to run on", file=sys.stderr)
@@ -214,7 +596,7 @@ def run(root: Path) -> int:
     sys.path.insert(0, str(root))
     from ocrs_models_torch.config import DEFAULT_ALPHABET
     from ocrs_models_torch.geometry import native
-    from ocrs_models_torch.ops import _build, gru_recurrence, stage1
+    from ocrs_models_torch.ops import _build
     from ocrs_models_torch.pipeline import OcrPipeline
 
     # Phase 1: the card.
@@ -254,13 +636,12 @@ def run(root: Path) -> int:
     ]
     pipe.run_batch(pages, det_batch=DET_BATCH, rec_batch=REC_BATCH)  # warm-up
     torch.cuda.synchronize()
-    stage1.launches = 0
-    gru_recurrence.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     results = pipe.run_batch(pages, det_batch=DET_BATCH, rec_batch=REC_BATCH)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    counts = {"stage1_fwd": stage1.launches, "gru_fwd": gru_recurrence.launches}
+    counts = _counts()
     n_lines = sum(len(p) for p in results)
     print(json.dumps({"path": "run_batch", "pages": N_PAGES, "lines": n_lines,
                       "seconds": elapsed, "pages_per_s": N_PAGES / elapsed,
@@ -272,10 +653,9 @@ def run(root: Path) -> int:
     if any(not np.isfinite(ln.box).all() for p in results for ln in p):
         raise AssertionError("run_batch produced non-finite line boxes")
     for name, count in counts.items():
-        if count <= 0:
-            raise AssertionError(f"the main path never launched {name} (lines found: {n_lines})")
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
+        if (count > 0) != (name in ("stage1_fwd", "gru_fwd")):
+            raise AssertionError(f"run_batch launched {name} {count} times (lines found: {n_lines})")
+    serve_counts = counts
 
     # Detection on the card against the CPU, on two pages.
     cpu = OcrPipeline(
@@ -297,19 +677,36 @@ def run(root: Path) -> int:
     crops = [synthetic_crop(rng, w) for w in BUCKET_WIDTHS for _ in range(REC_BATCH)]
     pipe._recognize_crops(crops, REC_BATCH)  # warm-up
     torch.cuda.synchronize()
-    stage1.launches = 0
-    gru_recurrence.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     texts = pipe._recognize_crops(crops, REC_BATCH)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    bucket_counts = {"stage1_fwd": stage1.launches, "gru_fwd": gru_recurrence.launches}
+    bucket_counts = _counts()
     print(json.dumps({"path": "recognize_crops", "crops": len(crops),
                       "buckets": list(BUCKET_WIDTHS), "seconds": elapsed,
                       "crops_per_s": len(crops) / elapsed, "launches": bucket_counts}),
           flush=True)
-    if len(texts) != len(crops) or bucket_counts != {"stage1_fwd": 4, "gru_fwd": 8}:
-        raise AssertionError(f"recognize_crops: {len(texts)} texts, launches {bucket_counts}")
+    if len(texts) != len(crops):
+        raise AssertionError(f"recognize_crops: {len(texts)} texts for {len(crops)} crops")
+    _expect(bucket_counts, {"stage1_fwd": 1, "gru_fwd": 2}, len(BUCKET_WIDTHS), "recognize_crops")
+    del pipe, cpu
+    torch.cuda.empty_cache()
+
+    # Phase 7: each backward kernel against its plain version.
+    kernels += [check_stage1_bwd(dev, gen), check_gru_bwd(dev, gen), *check_ctc(dev, gen)]
+
+    # Phase 8: the training step.
+    check_train_step_vs_plain(dev)
+    train = run_training(dev)
+    head = train["headline"]
+    for k in kernels:
+        k["launches"] = head["launches"][k["name"]]
+        k["launches_per_step"] = head["launches"][k["name"]] // head["steps"]
+        if k["name"] in serve_counts:
+            k["serve_launches"] = serve_counts[k["name"]]
+        if not k["launches"] > 0:
+            raise AssertionError(f"the training step never launched {k['name']}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

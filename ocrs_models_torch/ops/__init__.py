@@ -1,4 +1,20 @@
-from .gru import BiGRU, gru_recurrence, gru_recurrence_reference
-from .stage1 import stage1, stage1_reference
+from .ctc import ctc_alpha, ctc_alpha_reference, ctc_beta, ctc_beta_reference, ctc_loss, ctc_loss_forward
+from .gru import (
+    BiGRU,
+    gru_bwd,
+    gru_bwd_reference,
+    gru_fwd,
+    gru_recurrence,
+    gru_recurrence_reference,
+)
+from .stage1 import stage1, stage1_bwd, stage1_bwd_reference, stage1_fwd, stage1_reference
 
-__all__ = ["BiGRU", "gru_recurrence", "gru_recurrence_reference", "stage1", "stage1_reference"]
+KERNELS = (stage1_fwd, stage1_bwd, gru_fwd, gru_bwd, ctc_alpha, ctc_beta)
+"""Every kernel wrapper; each counts its launches in ``.launches``."""
+
+__all__ = [
+    "BiGRU", "KERNELS", "ctc_alpha", "ctc_alpha_reference", "ctc_beta", "ctc_beta_reference",
+    "ctc_loss", "ctc_loss_forward", "gru_bwd", "gru_bwd_reference", "gru_fwd",
+    "gru_recurrence", "gru_recurrence_reference", "stage1", "stage1_bwd",
+    "stage1_bwd_reference", "stage1_fwd", "stage1_reference",
+]

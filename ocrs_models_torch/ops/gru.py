@@ -1,14 +1,17 @@
 """Bidirectional multi-layer GRU with a hand-written CUDA recurrence.
 
-Counterpart of ``ocrs_models_tpu/ops/gru.py`` and of the forward of its
-Pallas kernel ``gru_recurrence4``. The input projections ``x @ W_ih +
-b_ih`` for all steps are one large matmul per direction, outside the
+Counterpart of ``ocrs_models_tpu/ops/gru.py`` and of its Pallas kernel
+``gru_recurrence4`` with its custom VJP. The input projections ``x @ W_ih
++ b_ih`` for all steps are one large matmul per direction, outside the
 recurrence; only ``h @ W_hh`` and the gate math run step by step, in
-:func:`gru_recurrence`: the kernel ``csrc/gru_fwd.cu`` on a CUDA tensor,
-:func:`gru_recurrence_reference` (a Python loop of torch ops) on a CPU
-tensor. Gate order and parameter names follow torch's ``nn.GRU`` (r, z, n;
-``n = tanh(xn + r * (W_hn h + b_hn))``), so its state dict loads into
-:class:`BiGRU` and back.
+:func:`gru_recurrence`, differentiable through
+:class:`GRURecurrenceFunction`: the forward runs :func:`gru_fwd`
+(``csrc/gru_fwd.cu``), the backward :func:`gru_bwd` (``csrc/gru_bwd.cu``).
+On CPU tensors both wrappers run their plain versions
+(:func:`gru_recurrence_reference`, a Python loop of torch ops, and
+autograd of it). Gate order and parameter names follow torch's
+``nn.GRU`` (r, z, n; ``n = tanh(xn + r * (W_hn h + b_hn))``), so its
+state dict loads into :class:`BiGRU` and back.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ def gru_recurrence_reference(px_f, px_b, w_hh, b_hh):
     return ys_f, ys_b
 
 
-def _lib() -> ctypes.CDLL:
+def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("gru_fwd")
     fn = lib.ocrs_gru_fwd
     if fn.argtypes is None:
@@ -62,47 +65,142 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def gru_recurrence(px_f, px_b, w_hh, b_hh):
-    """Recurrence of one bidirectional layer; same contract as
-    :func:`gru_recurrence_reference`. A CUDA tensor goes through the
-    kernel (one ctypes call, T step launches); a CPU tensor through the
-    plain version."""
+def _check(name: str, tensors: dict, t_len: int, n: int, hid: int) -> None:
+    h3 = 3 * hid
+    shapes = {
+        "px_f": (t_len, n, h3), "px_b": (t_len, n, h3), "ys_f": (t_len, n, hid),
+        "ys_b": (t_len, n, hid), "dy_f": (t_len, n, hid), "dy_b": (t_len, n, hid),
+        "w_hh": (2, hid, h3), "b_hh": (2, h3),
+    }
+    dev = tensors["px_f"].device
+    for key, t in tensors.items():
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous float32 on {dev}")
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} shape {tuple(t.shape)} != {shapes[key]}")
+    if hid % 8:
+        raise ValueError(f"{name}: the kernel needs H % 8 == 0, got H={hid}")
+
+
+def gru_fwd(px_f, px_b, w_hh, b_hh):
+    """Forward kernel of one bidirectional layer's recurrence; same
+    contract as :func:`gru_recurrence_reference`. A CUDA tensor goes
+    through ``gru_fwd.cu`` (one ctypes call, T step launches); a CPU tensor
+    through the plain version."""
     if px_f.device.type == "cpu":
         return gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
     if not px_f.is_cuda:
-        raise RuntimeError(f"gru_recurrence: unsupported device {px_f.device}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (px_f, px_b, w_hh, b_hh)
-    ):
-        raise NotImplementedError("gru_recurrence: the backward kernel is not ported yet (ROADMAP.md)")
+        raise RuntimeError(f"gru_fwd: unsupported device {px_f.device}")
     t_len, n, h3 = px_f.shape
     hid = h3 // 3
-    expect = {
-        "px_f": (t_len, n, h3), "px_b": (t_len, n, h3),
-        "w_hh": (2, hid, h3), "b_hh": (2, h3),
-    }
-    for name, t in zip(expect, (px_f, px_b, w_hh, b_hh)):
-        if t.device != px_f.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"gru_recurrence: {name} must be contiguous float32 on {px_f.device}")
-        if tuple(t.shape) != expect[name]:
-            raise ValueError(f"gru_recurrence: {name} shape {tuple(t.shape)} != {expect[name]}")
-    if hid % 8:
-        raise ValueError(f"gru_recurrence: the kernel needs H % 8 == 0, got H={hid}")
+    _check("gru_fwd", {"px_f": px_f, "px_b": px_b, "w_hh": w_hh, "b_hh": b_hh}, t_len, n, hid)
     ys_f = torch.empty((t_len, n, hid), device=px_f.device, dtype=torch.float32)
     ys_b = torch.empty_like(ys_f)
     h_buf = torch.empty((2, 2, n, hid), device=px_f.device, dtype=torch.float32)
-    lib = _lib()
+    lib = _fwd_lib()
     p = _build.ptr
     rc = lib.ocrs_gru_fwd(
         px_f.device.index, p(px_f), p(px_b), p(w_hh), p(b_hh), p(ys_f), p(ys_b), p(h_buf),
         t_len, n, hid, _build.stream_ptr(px_f.device),
     )
     _build.check(lib, rc, "gru_fwd")
-    gru_recurrence.launches += 1
+    gru_fwd.launches += 1
     return ys_f, ys_b
 
 
-gru_recurrence.launches = 0
+gru_fwd.launches = 0
+
+
+def gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
+    """Plain version of the backward: autograd of
+    :func:`gru_recurrence_reference` (which recomputes the forward, so
+    ``ys_f`` and ``ys_b`` are not read).
+
+    :return: ``(dpx_f, dpx_b [T, N, 3H], dw_hh [2, H, 3H], db_hh [2, 3H])``.
+    """
+    del ys_f, ys_b
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (px_f, px_b, w_hh, b_hh)]
+        outs = gru_recurrence_reference(*ins)
+        return torch.autograd.grad(outs, ins, (dy_f, dy_b))
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("gru_bwd")
+    fn = lib.ocrs_gru_bwd
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [i] + [p] * 16 + [i, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
+    """Backward kernel of one bidirectional layer's recurrence; same
+    contract as :func:`gru_bwd_reference`. A CUDA tensor goes through
+    ``gru_bwd.cu`` (one ctypes call: two launches per step, then the
+    weight-gradient reduction); a CPU tensor through the plain version."""
+    if px_f.device.type == "cpu":
+        return gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
+    if not px_f.is_cuda:
+        raise RuntimeError(f"gru_bwd: unsupported device {px_f.device}")
+    t_len, n, h3 = px_f.shape
+    hid = h3 // 3
+    _check("gru_bwd", {
+        "px_f": px_f, "px_b": px_b, "ys_f": ys_f, "ys_b": ys_b, "dy_f": dy_f, "dy_b": dy_b,
+        "w_hh": w_hh, "b_hh": b_hh,
+    }, t_len, n, hid)
+    dev = px_f.device
+    w_t = w_hh.transpose(1, 2).contiguous()  # [2, 3H, H]: rows of W_hh^T
+    dpx_f = torch.empty_like(px_f)
+    dpx_b = torch.empty_like(px_b)
+    dph = torch.empty((2, t_len, n, h3), device=dev, dtype=torch.float32)
+    dh_buf = torch.empty((2, 2, n, hid), device=dev, dtype=torch.float32)
+    dhz = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
+    dw = torch.empty_like(w_hh)
+    db = torch.empty_like(b_hh)
+    lib = _bwd_lib()
+    p = _build.ptr
+    rc = lib.ocrs_gru_bwd(
+        dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(dy_f), p(dy_b), p(w_hh), p(w_t),
+        p(b_hh), p(dpx_f), p(dpx_b), p(dph), p(dh_buf), p(dhz), p(dw), p(db),
+        t_len, n, hid, _build.stream_ptr(dev),
+    )
+    _build.check(lib, rc, "gru_bwd")
+    gru_bwd.launches += 1
+    return dpx_f, dpx_b, dw, db
+
+
+gru_bwd.launches = 0
+
+
+class GRURecurrenceFunction(torch.autograd.Function):
+    """Differentiable recurrence: forward :func:`gru_fwd`, backward
+    :func:`gru_bwd`, saving ``px_f, px_b, ys_f, ys_b, w_hh, b_hh`` (the
+    JAX VJP's residuals)."""
+
+    @staticmethod
+    def forward(ctx, px_f, px_b, w_hh, b_hh):
+        ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
+        ctx.save_for_backward(px_f, px_b, ys_f, ys_b, w_hh, b_hh)
+        return ys_f, ys_b
+
+    @staticmethod
+    def backward(ctx, dy_f, dy_b):
+        px_f, px_b, ys_f, ys_b, w_hh, b_hh = ctx.saved_tensors
+        dy_f = torch.zeros_like(ys_f) if dy_f is None else dy_f.contiguous()
+        dy_b = torch.zeros_like(ys_b) if dy_b is None else dy_b.contiguous()
+        return gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
+
+
+def gru_recurrence(px_f, px_b, w_hh, b_hh):
+    """Recurrence of one bidirectional layer, differentiable in all four
+    inputs; same contract as :func:`gru_recurrence_reference`. Without a
+    gradient to track it is one :func:`gru_fwd` call."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (px_f, px_b, w_hh, b_hh)):
+        return GRURecurrenceFunction.apply(px_f, px_b, w_hh, b_hh)
+    return gru_fwd(px_f, px_b, w_hh, b_hh)
 
 
 class BiGRU(nn.Module):

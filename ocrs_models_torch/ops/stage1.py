@@ -1,10 +1,14 @@
 """Recognition stage 1: conv 3x3 (1 -> 32, pad 1) + bias, ReLU, 2x2 max-pool.
 
-Counterpart of the forward of ``stage1_fused``
-(``ocrs_models_tpu/ops/pallas/stage1_kernel.py``). On a CUDA tensor
-:func:`stage1` launches the hand-written kernel ``csrc/stage1_fwd.cu``; on
-a CPU tensor it runs :func:`stage1_reference`, the same function in plain
-PyTorch ops. Layout is NCHW in and out.
+Counterpart of ``stage1_fused`` (``ocrs_models_tpu/ops/pallas/stage1_kernel.py``)
+and its custom VJP. :func:`stage1` is differentiable through
+:class:`Stage1Function`: the forward runs :func:`stage1_fwd`
+(``csrc/stage1_fwd.cu``), the backward :func:`stage1_bwd`
+(``csrc/stage1_bwd.cu``), which gives the weight and bias gradients only;
+the image gradient, which training never asks for, comes from autograd of
+:func:`stage1_reference`, as the JAX package takes it from its XLA
+reference. On CPU tensors both wrappers run their plain versions. Layout is
+NCHW in and out.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ def stage1_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) 
     return F.max_pool2d(F.relu(F.conv2d(x, weight, bias, padding=1)), 2)
 
 
-def _lib() -> ctypes.CDLL:
+def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("stage1_fwd")
     fn = lib.ocrs_stage1_fwd
     if fn.argtypes is None:
@@ -35,8 +39,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def stage1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """Fused conv(1->32, 3x3, pad 1) + bias + ReLU + 2x2/2 max-pool.
+def _check(name: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> None:
+    for key, t in (("x", x), ("weight", weight), ("bias", bias)):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {key} must be float32 on {x.device}")
+    if x.dim() != 4 or x.shape[1] != 1 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous [N, 1, H, W], got {tuple(x.shape)}")
+    if weight.shape != (CHANNELS, 1, 3, 3) or bias.shape != (CHANNELS,):
+        raise ValueError(f"{name}: weight must be [32, 1, 3, 3] and bias [32]")
+
+
+def _w10(weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``[32, 10]``: the 9 taps (``dy * 3 + dx``) and the bias of each channel."""
+    return torch.cat([weight.reshape(CHANNELS, 9), bias.reshape(CHANNELS, 1)], 1).contiguous()
+
+
+def stage1_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Forward kernel: conv(1->32, 3x3, pad 1) + bias + ReLU + 2x2/2 max-pool.
 
     :param x: ``[N, 1, H, W]`` float32.
     :param weight: ``[32, 1, 3, 3]`` float32 (torch Conv2d layout).
@@ -46,27 +65,110 @@ def stage1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.T
     if x.device.type == "cpu":
         return stage1_reference(x, weight, bias)
     if not x.is_cuda:
-        raise RuntimeError(f"stage1: unsupported device {x.device}")
-    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError(f"stage1: {name} must be float32 on {x.device}")
-    if torch.is_grad_enabled() and (weight.requires_grad or bias.requires_grad):
-        raise NotImplementedError("stage1: the backward kernel is not ported yet (ROADMAP.md)")
-    if x.dim() != 4 or x.shape[1] != 1 or not x.is_contiguous():
-        raise ValueError(f"stage1: x must be contiguous [N, 1, H, W], got {tuple(x.shape)}")
-    if weight.shape != (CHANNELS, 1, 3, 3) or bias.shape != (CHANNELS,):
-        raise ValueError("stage1: weight must be [32, 1, 3, 3] and bias [32]")
+        raise RuntimeError(f"stage1_fwd: unsupported device {x.device}")
+    _check("stage1_fwd", x, weight, bias)
     n, _, h, w = x.shape
     y = torch.empty((n, CHANNELS, h // 2, w // 2), device=x.device, dtype=torch.float32)
-    w10 = torch.cat([weight.reshape(CHANNELS, 9), bias.reshape(CHANNELS, 1)], 1).contiguous()
-    lib = _lib()
+    w10 = _w10(weight.detach(), bias.detach())
+    lib = _fwd_lib()
     rc = lib.ocrs_stage1_fwd(
         x.device.index, _build.ptr(x), _build.ptr(w10), _build.ptr(y), n, h, w,
         _build.stream_ptr(x.device),
     )
     _build.check(lib, rc, "stage1_fwd")
-    stage1.launches += 1
+    stage1_fwd.launches += 1
     return y
 
 
-stage1.launches = 0
+stage1_fwd.launches = 0
+
+
+def stage1_bwd_reference(x, weight, bias, dy):
+    """Plain version of the backward: ``(dweight [32, 1, 3, 3], dbias [32])``
+    by autograd of :func:`stage1_reference` (max-pool routes ``dy`` to the
+    first maximum of each window, ReLU passes it where the pre-activation
+    is > 0)."""
+    with torch.enable_grad():
+        w = weight.detach().requires_grad_(True)
+        b = bias.detach().requires_grad_(True)
+        dw, db = torch.autograd.grad(stage1_reference(x.detach(), w, b), (w, b), dy)
+    return dw, db
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("stage1_bwd")
+    fn = lib.ocrs_stage1_bwd
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, p]
+        fn.restype = ctypes.c_int
+        lib.ocrs_stage1_bwd_blocks.argtypes = [i, i, i]
+        lib.ocrs_stage1_bwd_blocks.restype = ctypes.c_int
+    return lib
+
+
+def stage1_bwd(x, weight, bias, dy):
+    """Backward kernel: weight and bias gradients of :func:`stage1_fwd`
+    for the output cotangent ``dy [N, 32, H // 2, W // 2]``; same contract
+    as :func:`stage1_bwd_reference`. Deterministic: per-block partial sums
+    and a second pass that adds them in a fixed order."""
+    if x.device.type == "cpu":
+        return stage1_bwd_reference(x, weight, bias, dy)
+    if not x.is_cuda:
+        raise RuntimeError(f"stage1_bwd: unsupported device {x.device}")
+    _check("stage1_bwd", x, weight, bias)
+    n, _, h, w = x.shape
+    if dy.shape != (n, CHANNELS, h // 2, w // 2) or dy.dtype != torch.float32 \
+            or dy.device != x.device or not dy.is_contiguous():
+        raise ValueError(f"stage1_bwd: dy must be contiguous float32 [{n}, 32, {h // 2}, {w // 2}]")
+    lib = _bwd_lib()
+    n_part = lib.ocrs_stage1_bwd_blocks(n, h, w)
+    partial = torch.empty((max(n_part, 1), CHANNELS * 10), device=x.device, dtype=torch.float32)
+    dw10 = torch.empty((CHANNELS, 10), device=x.device, dtype=torch.float32)
+    p = _build.ptr
+    rc = lib.ocrs_stage1_bwd(
+        x.device.index, p(x), p(_w10(weight.detach(), bias.detach())), p(dy), p(partial),
+        p(dw10), n, h, w, _build.stream_ptr(x.device),
+    )
+    _build.check(lib, rc, "stage1_bwd")
+    stage1_bwd.launches += 1
+    return dw10[:, :9].reshape(CHANNELS, 1, 3, 3), dw10[:, 9].contiguous()
+
+
+stage1_bwd.launches = 0
+
+
+class Stage1Function(torch.autograd.Function):
+    """Differentiable stage 1: forward :func:`stage1_fwd`, backward
+    :func:`stage1_bwd`, saving ``x``, ``weight`` and ``bias`` (the JAX
+    VJP's residuals)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight, bias)
+        return stage1_fwd(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = stage1_bwd(x, weight, bias, dy)
+        if ctx.needs_input_grad[0]:
+            with torch.enable_grad():
+                xx = x.detach().requires_grad_(True)
+                (dx,) = torch.autograd.grad(
+                    stage1_reference(xx, weight.detach(), bias.detach()), xx, dy
+                )
+        return dx, dw, db
+
+
+def stage1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Stage 1, differentiable in all three inputs; same contract as
+    :func:`stage1_fwd`. Without a gradient to track it is one
+    :func:`stage1_fwd` call."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
+        return Stage1Function.apply(x, weight, bias)
+    return stage1_fwd(x, weight, bias)

@@ -1,11 +1,16 @@
-"""Profile the port's recognition chunk and its kernels on one GPU.
+"""Profile the port's recognition forward, its training step and its
+kernels on one GPU.
 
     python -m ocrs_models_torch.profile_kernels [--width 800] [--batch 128]
+        [--train-width 256] [--train-batch 256]
 
-Runs the recognition forward of one ``rec_batch`` chunk (random weights,
-seed 1234) and the biGRU recurrence alone under ``torch.profiler``, and
-prints the device time by kernel, the span of each region on the host
-clock, and the device's busy share of that span. Needs CUDA.
+Runs, under ``torch.profiler``, the recognition forward of one
+``rec_batch`` chunk (random weights, seed 1234), the biGRU recurrence
+alone, and one training step of ``training.steps.make_recognition_steps``
+at the JAX package's headline shape (256 crops of 64 x 256, 24 labels,
+Adam with clip 4.0), and prints for each the device time by kernel, the
+span on the host clock, and the device's busy share of that span. Needs
+CUDA.
 """
 
 from __future__ import annotations
@@ -17,8 +22,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+import numpy as np
+
 from .models import RecognitionModel
 from .ops import gru_recurrence
+from .training.state import create_train_state
+from .training.steps import make_recognition_steps
 
 
 def _device_busy_us(prof) -> float:
@@ -67,6 +76,8 @@ def main() -> None:
     ap.add_argument("--width", type=int, default=800)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--train-width", type=int, default=256)
+    ap.add_argument("--train-batch", type=int, default=256)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
@@ -87,6 +98,25 @@ def main() -> None:
         b_hh = torch.zeros((2, 3 * hid), device=dev)
         prof, wall = _profiled(lambda: gru_recurrence(px, px, w_hh, b_hh), args.iters)
         _report(f"gru_fwd T={t} N={args.batch} H={hid}", prof, wall, args.iters)
+
+    # One training step (its own numerics: f32, TF32 off, cuDNN benchmark).
+    n, w = args.train_batch, args.train_width
+    rng = np.random.default_rng(0)
+    text = np.zeros((n, 64), np.int64)
+    text[:, :24] = rng.integers(1, 97, (n, 24))
+    batch = {
+        "image": torch.from_numpy(rng.uniform(-0.5, 0.5, (n, 1, 64, w)).astype(np.float32)),
+        "text": torch.from_numpy(text),
+        "text_len": torch.full((n,), 24),
+        "image_width": torch.full((n,), w),
+        "sample_weight": torch.ones((n,)),
+    }
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    model.requires_grad_(True).train()
+    state = create_train_state(model, grad_clip_norm=4.0)
+    train_step, _ = make_recognition_steps(model)
+    prof, wall = _profiled(lambda: train_step(state, batch, 1e-3), args.iters)
+    _report(f"train step [{n},1,64,{w}]", prof, wall, args.iters)
 
 
 if __name__ == "__main__":

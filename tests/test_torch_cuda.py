@@ -16,11 +16,22 @@ import torch
 from ocrs_models_torch.models import RecognitionModel
 from ocrs_models_torch.ops import (
     BiGRU,
-    gru_recurrence,
+    ctc_alpha,
+    ctc_alpha_reference,
+    ctc_beta,
+    ctc_beta_reference,
+    gru_bwd,
+    gru_bwd_reference,
+    gru_fwd,
     gru_recurrence_reference,
-    stage1,
+    stage1_bwd,
+    stage1_bwd_reference,
+    stage1_fwd,
     stage1_reference,
 )
+from ocrs_models_torch.ops.ctc import NEG_INF
+from ocrs_models_torch.training.state import create_train_state
+from ocrs_models_torch.training.steps import make_recognition_steps
 
 pytestmark = pytest.mark.cuda
 
@@ -52,10 +63,10 @@ def test_stage1_kernel_matches_plain(dev, shape):
     bias = (torch.randn((32,), generator=g) * 0.1).to(dev)
     with _no_tf32():
         want = stage1_reference(x, weight, bias)
-    before = stage1.launches
-    got = stage1(x, weight, bias)
+    before = stage1_fwd.launches
+    got = stage1_fwd(x, weight, bias)
     torch.cuda.synchronize()
-    assert stage1.launches == before + 1
+    assert stage1_fwd.launches == before + 1
     assert got.shape == (n, 32, h // 2, w // 2) and got.is_contiguous()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
@@ -70,10 +81,10 @@ def test_gru_kernel_matches_plain(dev, shape):
     w_hh = ((torch.rand((2, h, 3 * h), generator=g) * 2 - 1) * k).to(dev)
     b_hh = ((torch.rand((2, 3 * h), generator=g) * 2 - 1) * k).to(dev)
     want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
-    before = gru_recurrence.launches
-    got = gru_recurrence(px_f, px_b, w_hh, b_hh)
+    before = gru_fwd.launches
+    got = gru_fwd(px_f, px_b, w_hh, b_hh)
     torch.cuda.synchronize()
-    assert gru_recurrence.launches == before + 1
+    assert gru_fwd.launches == before + 1
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
 
@@ -102,7 +113,120 @@ def test_recognition_on_card_matches_cpu(dev):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
-def test_kernels_refuse_autograd(dev):
-    w = torch.randn((32, 1, 3, 3), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        stage1(torch.rand((1, 1, 8, 8), device=dev), w, torch.zeros(32, device=dev))
+def test_recognition_gradients_on_card_match_cpu(dev):
+    # One training step's loss and gradients through all six kernels
+    # against the same step on the CPU (plain versions). Gradients are
+    # compared in relative L2 per tensor, 1e-2: a max-pool window whose
+    # candidates are within the last bits of the two conv orders may route
+    # its gradient to the other candidate.
+    torch.manual_seed(2)
+    cpu_model = RecognitionModel(n_classes=97, gru_hidden=32)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    rng = np.random.default_rng(2)
+    batch = {
+        "image": rng.uniform(-0.5, 0.5, (6, 1, 64, 96)).astype(np.float32),
+        "text": rng.integers(1, 97, (6, 16)),
+        "text_len": np.asarray([16, 5, 0, 9, 3, 12]),
+        "image_width": np.asarray([96, 96, 80, 64, 96, 40]),
+        "sample_weight": np.asarray([1, 1, 1, 1, 0, 0], np.float32),
+    }
+    losses, grads = [], []
+    for m in (cpu_model, card_model):
+        train_step, _ = make_recognition_steps(m)
+        _, metrics = train_step(create_train_state(m), batch, 0.0)
+        losses.append(metrics["loss"].item())
+        grads.append({n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+    assert np.isfinite(losses).all()
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    for name, g in grads[0].items():
+        rel = float((grads[1][name] - g).norm() / g.norm())
+        assert rel <= 1e-2, (name, rel)
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 256), (3, 15, 13), (2, 16, 200), (1, 2, 2)])
+def test_stage1_bwd_kernel_matches_plain(dev, shape):
+    n, h, w = shape
+    g = torch.Generator().manual_seed(sum(shape) + 1)
+    x = (torch.rand((n, 1, h, w), generator=g) - 0.5).to(dev)
+    weight = (torch.randn((32, 1, 3, 3), generator=g) * 0.3).to(dev)
+    bias = (torch.randn((32,), generator=g) * 0.1).to(dev)
+    dy = torch.randn((n, 32, h // 2, w // 2), generator=g).to(dev)
+    with _no_tf32():
+        want = stage1_bwd_reference(x, weight, bias, dy)
+    before = stage1_bwd.launches
+    got = stage1_bwd(x, weight, bias, dy)
+    torch.cuda.synchronize()
+    assert stage1_bwd.launches == before + 1
+    # Sums over up to 64K windows in another order: 1e-3 of the largest
+    # entry (a near-tie routed differently moves one |dy * x| <= ~2).
+    scale = max(t.abs().max().item() for t in want)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * scale + 1e-5)
+
+
+def test_stage1_bwd_kernel_ties_take_the_first_window_position(dev):
+    # A zero image: every window holds four equal pre-activations (the
+    # bias). Channels with bias > 0 send dy to position (0, 0) only;
+    # channels with bias <= 0 get no gradient.
+    x = torch.zeros((2, 1, 8, 8), device=dev)
+    weight = torch.randn((32, 1, 3, 3), device=dev)
+    bias = torch.linspace(-1, 1, 32, device=dev)
+    dy = torch.rand((2, 32, 4, 4), device=dev)
+    dw, db = stage1_bwd(x, weight, bias, dy)
+    torch.testing.assert_close(db, torch.where(bias > 0, dy.sum((0, 2, 3)), 0.0))
+    assert (dw == 0).all()
+    want = stage1_bwd_reference(x, weight, bias, dy)
+    torch.testing.assert_close(db, want[1])
+
+
+@pytest.mark.parametrize("shape", [(33, 40, 256), (5, 3, 48), (1, 17, 8), (65, 20, 256)])
+def test_gru_bwd_kernel_matches_plain(dev, shape):
+    t, n, h = shape
+    g = torch.Generator().manual_seed(sum(shape) + 2)
+    k = 1.0 / h**0.5
+    px_f = torch.randn((t, n, 3 * h), generator=g).to(dev)
+    px_b = torch.randn((t, n, 3 * h), generator=g).to(dev)
+    w_hh = ((torch.rand((2, h, 3 * h), generator=g) * 2 - 1) * k).to(dev)
+    b_hh = ((torch.rand((2, 3 * h), generator=g) * 2 - 1) * k).to(dev)
+    dy_f = torch.randn((t, n, h), generator=g).to(dev)
+    dy_b = torch.randn((t, n, h), generator=g).to(dev)
+    ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
+    args = (px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
+    want = gru_bwd_reference(*args)
+    before = gru_bwd.launches
+    got = gru_bwd(*args)
+    again = gru_bwd(*args)
+    torch.cuda.synchronize()
+    assert gru_bwd.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)  # no atomics: bit-identical reruns
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-5)
+
+
+@pytest.mark.parametrize("t_len,n,s", [(20, 4, 13), (65, 9, 129), (3, 2, 1)])
+def test_ctc_kernels_match_plain(dev, t_len, n, s):
+    rng = np.random.default_rng(t_len + n + s)
+    emit = torch.from_numpy(rng.normal(-3.0, 1.0, (n, t_len, s)).astype(np.float32)).to(dev)
+    skip = torch.from_numpy(np.where(rng.random((n, s)) < 0.5, 0.0, NEG_INF).astype(np.float32)).to(dev)
+    alpha0 = torch.full((n, s), NEG_INF, device=dev)
+    alpha0[:, : min(2, s)] = emit[:, 0, : min(2, s)]
+    lens = torch.from_numpy(rng.integers(1, t_len + 1, n).astype(np.int32)).to(dev)
+    before = (ctc_alpha.launches, ctc_beta.launches)
+    alphas = ctc_alpha(emit, skip, alpha0, lens)
+    final = ctc_alpha(emit, skip, alpha0, lens, final_only=True)
+    torch.testing.assert_close(alphas, ctc_alpha_reference(emit, skip, alpha0, lens), rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(final, alphas[:, -1], rtol=0, atol=0)
+    d = -torch.from_numpy(rng.random((n, s)).astype(np.float32)).to(dev)
+    d[0] = 0.0
+    seed = torch.where(d != 0, torch.log(d.abs()) - alphas[:, -1], torch.full_like(d, NEG_INF))
+    sign = torch.where(d < 0, -1.0, 1.0).amin(dim=1).contiguous()
+    got = ctc_beta(emit, skip, alphas, seed.contiguous(), sign, lens)
+    want = ctc_beta_reference(emit, skip, alphas, seed, sign, lens)
+    torch.cuda.synchronize()
+    assert (ctc_alpha.launches, ctc_beta.launches) == (before[0] + 2, before[1] + 1)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert (got[0][0] == 0).all() and (got[1][0] == 0).all()

@@ -66,3 +66,21 @@ def test_bigru_matches_nn_gru():
         got = port(torch.from_numpy(xs))
         want, _ = ref(torch.from_numpy(xs))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [1, 7, 33])
+def test_recurrence_gradients_match_pallas_vjp(t):
+    # The port's backward on CPU (autograd of the plain recurrence, the
+    # twin of gru_bwd.cu) against gru_recurrence4's Pallas backward in
+    # interpret mode. Tolerance atol 1e-5: float32, cotangents of order 1
+    # summed over up to 33 steps.
+    args = _case(t, seed=4)
+    rng = np.random.default_rng(5)
+    dys = [rng.normal(size=(t, 8, 16)).astype(np.float32) for _ in range(2)]
+    _, vjp = jax.vjp(lambda *a: gru_recurrence4(*a, jnp.float32, True), *map(jnp.asarray, args))
+    want = vjp(tuple(map(jnp.asarray, dys)))
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    outs = gru_recurrence(*ins)
+    torch.autograd.backward(outs, [torch.from_numpy(d) for d in dys])
+    for name, a, w in zip(("dpx_f", "dpx_b", "dw_hh", "db_hh"), ins, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), rtol=0, atol=1e-5, err_msg=name)

@@ -10,7 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from ocrs_models_torch.ops import BiGRU, gru_recurrence, stage1
+from ocrs_models_torch.ops import (
+    KERNELS,
+    BiGRU,
+    ctc_alpha,
+    ctc_beta,
+    ctc_loss,
+    gru_bwd,
+    gru_recurrence,
+    stage1,
+    stage1_bwd,
+)
 from ocrs_models_torch.ops import _build
 from ocrs_models_torch.pipeline import OcrPipeline
 
@@ -47,17 +57,21 @@ def test_pipeline_without_cuda_raises():
 
 
 def test_cpu_tensors_use_plain_versions_and_count_no_launch():
-    stage1.launches = 0
-    gru_recurrence.launches = 0
+    for kernel in KERNELS:
+        kernel.launches = 0
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 1, 16, 12)).astype(np.float32))
     conv = torch.nn.Conv2d(1, 32, 3, padding=1)
-    with torch.no_grad():
-        y = stage1(x, conv.weight, conv.bias)
-        out = BiGRU(8, 4)(torch.from_numpy(rng.normal(size=(2, 5, 8)).astype(np.float32)))
+    gru = BiGRU(8, 4)
+    y = stage1(x, conv.weight, conv.bias)
+    out = gru(torch.from_numpy(rng.normal(size=(2, 5, 8)).astype(np.float32)))
+    log_probs = torch.log_softmax(out, -1)
+    loss = ctc_loss(log_probs, torch.tensor([[1, 2], [3, 0]]), torch.tensor([5, 4]),
+                    torch.tensor([2, 1]))
+    (loss + y.sum()).backward()
     assert y.shape == (2, 32, 8, 6) and out.shape == (2, 5, 8)
-    assert stage1.launches == 0
-    assert gru_recurrence.launches == 0
+    assert conv.weight.grad is not None and gru.weight_hh_l0.grad is not None
+    assert {k.__name__: k.launches for k in KERNELS} == {k.__name__: 0 for k in KERNELS}
 
 
 def test_wrappers_refuse_other_devices():
@@ -70,6 +84,18 @@ def test_wrappers_refuse_other_devices():
     px = torch.empty((3, 2, 12), device="meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
         gru_recurrence(px, px, torch.empty((2, 4, 12), device="meta"), torch.empty((2, 12), device="meta"))
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    ys = meta(3, 2, 4)
+    emit, ns = meta(2, 3, 5), meta(2, 5)
+    lens = torch.empty(2, dtype=torch.int32, device="meta")
+    for call in (
+        lambda: stage1_bwd(x, w, meta(32), meta(1, 32, 4, 4)),
+        lambda: gru_bwd(px, px, ys, ys, ys, ys, meta(2, 4, 12), meta(2, 12)),
+        lambda: ctc_alpha(emit, ns, ns, lens),
+        lambda: ctc_beta(emit, ns, emit, ns, meta(2), lens),
+    ):
+        with pytest.raises(RuntimeError, match="unsupported device"):
+            call()
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):
@@ -82,7 +108,8 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
 
 def test_every_kernel_source_has_its_note():
     names = _build.sources()
-    assert names == ["gru_fwd", "stage1_fwd"]
+    assert names == ["ctc_alpha", "ctc_beta", "gru_bwd", "gru_fwd", "stage1_bwd", "stage1_fwd"]
+    assert names == sorted(k.__name__ for k in KERNELS)
     for name in names:
         text = (_build.CSRC_DIR / f"{name}.cu").read_text()
         assert "Replaces:" in text and "ocrs_models_tpu/ops/pallas/" in text

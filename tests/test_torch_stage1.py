@@ -2,6 +2,7 @@
 JAX package's ``stage1_fused`` (Pallas, interpret mode on CPU) and its XLA
 reference, on the same numpy inputs."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,3 +43,41 @@ def test_odd_sizes_floor_like_reference(shape):
     x, k, b = _case(*shape, seed=1)
     y_ref = np.asarray(_reference_stage1(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b), jnp.float32))
     np.testing.assert_allclose(_port(x, k, b), y_ref, rtol=0, atol=1e-5)
+
+
+def _grads_jax(x, k, b, dy):
+    _, vjp = jax.vjp(lambda xx, kk, bb: stage1_fused(xx, kk, bb, True, jnp.float32),
+                     jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
+    dx, dk, db = vjp(jnp.asarray(dy))
+    return np.asarray(dx), np.asarray(dk), np.asarray(db)
+
+
+def _grads_port(x, k, b, dy):
+    xt = nhwc_to_nchw(x).requires_grad_(True)
+    wt = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1))).requires_grad_(True)
+    bt = torch.from_numpy(b.copy()).requires_grad_(True)
+    stage1(xt, wt, bt).backward(nhwc_to_nchw(dy))
+    return (xt.grad.numpy().transpose(0, 2, 3, 1), wt.grad.numpy().transpose(2, 3, 1, 0),
+            bt.grad.numpy())
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "tied-windows"])
+@pytest.mark.parametrize("shape", [(2, 16, 16), (3, 32, 12)])
+def test_gradients_match_pallas_vjp(shape, ties):
+    # dW and db against the Pallas backward (interpret mode), dx against
+    # the JAX package's XLA reference VJP. "tied-windows" zeroes the image
+    # right of a column, so every pool window there holds four equal
+    # pre-activations (the bias): the first one in window order takes dy,
+    # and only where the bias is > 0. Tolerance atol 1e-5 (float32 sums
+    # of at most 3*32*12 products).
+    x, k, b = _case(*shape, seed=2)
+    if ties:
+        x[:, :, shape[2] // 2 :, :] = 0.0
+        b[::2] = np.abs(b[::2]) + 0.1
+        b[1::2] = -np.abs(b[1::2]) - 0.1
+    dy = np.random.default_rng(3).normal(size=(shape[0], shape[1] // 2, shape[2] // 2, 32))
+    dy = dy.astype(np.float32)
+    got = _grads_port(x, k, b, dy)
+    want = _grads_jax(x, k, b, dy)
+    for name, g, w in zip(("dx", "dkernel", "dbias"), got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=name)
