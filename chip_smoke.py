@@ -8,13 +8,16 @@ Phases (any failure exits non-zero, before the final line):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build the CUDA kernels from ``ocrs_models_torch/csrc`` (nvcc, sm_90a,
-   one process per source, in parallel) and the host geometry core.
+   one process per source, in parallel) and the host geometry core; print
+   how many thread block clusters of the biGRU kernels the card holds at
+   once (``cudaOccupancyMaxActiveClusters``) beside how many they launch.
 3. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes: stage 1 at [128, 1, 64, W] for W in {256, 800}
-   (atol 1e-5), the biGRU recurrence at T=201, N=128, H=256 (atol 1e-4:
-   error accumulates over 201 steps). Time kernel, plain version and the
-   library yardstick (F.conv2d + relu + max_pool2d; cuDNN nn.GRU) with
-   CUDA events.
+   (atol 1e-5), the biGRU recurrence at T=201, N=128 and T=65, N=256,
+   H=256 (atol 1e-4: error accumulates over 201 steps). Time kernel, plain
+   version and the library yardstick (F.conv2d + relu + max_pool2d; cuDNN
+   nn.GRU) with CUDA events; for the biGRU kernels also the time per step
+   and the device launches of one call (torch.profiler).
 4. Hold the full recognition forward (kernels) against the same model
    with the kernels' plain versions swapped in: log-probs at atol 1e-4.
 5. The main path: ``OcrPipeline.run_batch`` on 16 synthetic pages at the
@@ -83,10 +86,30 @@ def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_launches(fn, calls: int = 3) -> float:
+    """Kernels, copies and sets that one call of ``fn`` puts on the device
+    (``torch.profiler`` over ``calls`` calls after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ocrs_models_torch.profile_kernels import device_launches
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return device_launches(prof) / calls
+
+
 def _no_tf32():
     return torch.backends.cudnn.flags(
         enabled=True, benchmark=True, deterministic=False, allow_tf32=False
     )
+
+
+_HEADLINE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "us_per_step",
+                  "device_launches_per_call")
 
 
 def _bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -164,43 +187,61 @@ def check_stage1(dev, gen) -> dict:
 
 
 def check_gru(dev, gen) -> dict:
+    """biGRU forward kernel vs the plain recurrence at the serving path's
+    largest shape (T=201, N=128) and the training headline's (T=65,
+    N=256), H=256: atol 1e-4 (error accumulates over up to 201 steps)."""
     from ocrs_models_torch.ops import gru_fwd as gru_recurrence
     from ocrs_models_torch.ops import gru_recurrence_reference
 
-    t_len, n, hid = 201, REC_BATCH, 256  # T = 800 // 4 + 1 at the widest bucket
+    hid = 256
     k = 1.0 / hid**0.5
-    px_f = torch.randn((t_len, n, 3 * hid), generator=gen).to(dev)
-    px_b = torch.randn((t_len, n, 3 * hid), generator=gen).to(dev)
     w_hh = ((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
     b_hh = ((torch.rand((2, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
-    with torch.inference_mode():
-        want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
-        got = gru_recurrence(px_f, px_b, w_hh, b_hh)
-        torch.cuda.synchronize()
-        err = max((g - w).abs().max().item() for g, w in zip(got, want))
-        print(f"gru [T=201,N=128,H=256]: max_abs_err {err:.3e}", flush=True)
-        if not err <= 1e-4:
-            raise AssertionError(f"gru_fwd disagrees with its plain version: {err}")
-        ms = _cuda_time_ms(lambda: gru_recurrence(px_f, px_b, w_hh, b_hh), iters=10)
-        plain_ms = _cuda_time_ms(
-            lambda: gru_recurrence_reference(px_f, px_b, w_hh, b_hh), iters=3, warmup=1
-        )
-        # Yardstick: cuDNN's bidirectional GRU layer at the first layer's
-        # shape; it also computes the input projection (F=128).
-        lib_gru = torch.nn.GRU(128, hid, bidirectional=True).to(dev)
-        xs = torch.randn((t_len, n, 128), generator=gen).to(dev)
-        with _no_tf32():
-            library_ms = _cuda_time_ms(lambda: lib_gru(xs), iters=10)
-    n_bytes = 4 * (2 * t_len * n * 3 * hid + 2 * hid * 3 * hid + 2 * 3 * hid + 2 * t_len * n * hid)
-    n_flops = 2 * t_len * 2 * n * hid * 3 * hid
-    bound_ms, bound_by = _bound(n_bytes, n_flops)
+    out = {}
+    # T = 800 // 4 + 1 at the widest serving bucket, 256 // 4 + 1 in training.
+    for t_len, n in ((201, REC_BATCH), (65, 256)):
+        px_f = torch.randn((t_len, n, 3 * hid), generator=gen).to(dev)
+        px_b = torch.randn((t_len, n, 3 * hid), generator=gen).to(dev)
+        with torch.inference_mode():
+            want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
+            got = gru_recurrence(px_f, px_b, w_hh, b_hh)
+            torch.cuda.synchronize()
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            print(f"gru [T={t_len},N={n},H={hid}]: max_abs_err {err:.3e}", flush=True)
+            if not err <= 1e-4:
+                raise AssertionError(f"gru_fwd disagrees with its plain version at T={t_len}: {err}")
+            ms = _cuda_time_ms(lambda: gru_recurrence(px_f, px_b, w_hh, b_hh), iters=10)
+            plain_ms = _cuda_time_ms(
+                lambda: gru_recurrence_reference(px_f, px_b, w_hh, b_hh), iters=3, warmup=1
+            )
+            launches = _device_launches(lambda: gru_recurrence(px_f, px_b, w_hh, b_hh))
+            # Yardstick: cuDNN's bidirectional GRU layer at the first layer's
+            # shape; it also computes the input projection (F=128).
+            lib_gru = torch.nn.GRU(128, hid, bidirectional=True).to(dev)
+            xs = torch.randn((t_len, n, 128), generator=gen).to(dev)
+            with _no_tf32():
+                library_ms = _cuda_time_ms(lambda: lib_gru(xs), iters=10)
+        n_bytes = 4 * (2 * t_len * n * 3 * hid + 2 * hid * 3 * hid + 2 * 3 * hid
+                       + 2 * t_len * n * hid)
+        n_flops = 2 * t_len * 2 * n * hid * 3 * hid
+        bound_ms, bound_by = _bound(n_bytes, n_flops)
+        print(f"gru_fwd [T={t_len},N={n}]: {ms:.4f} ms, {1e3 * ms / t_len:.3f} us per step, "
+              f"{launches:g} device launches per call", flush=True)
+        out[t_len] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, us_per_step=1e3 * ms / t_len,
+                          device_launches_per_call=launches,
+                          shape=f"px [{t_len},{n},{3 * hid}] x2, w_hh [2,{hid},{3 * hid}] f32")
+    wide, head = out[201], out[65]
     return {
         "name": "gru_fwd", "route": "cuda",
         "source": "ocrs_models_torch/csrc/gru_fwd.cu",
         "replaces": "ocrs_models_tpu/ops/pallas/gru_kernel4.py:139",
-        "shape": f"px [{t_len},{n},{3 * hid}] x2, w_hh [2,{hid},{3 * hid}] f32",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "shape": wide["shape"], "max_abs_err": max(wide["err"], head["err"]),
+        "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
+        "us_per_step": wide["us_per_step"],
+        "device_launches_per_call": wide["device_launches_per_call"],
+        "headline": {k: head[k] for k in _HEADLINE_KEYS},
     }
 
 
@@ -310,8 +351,14 @@ def check_gru_bwd(dev, gen) -> dict:
               f"dW/db max_abs_err {err_dw:.3e} (max {scale:.3e})", flush=True)
         if not (err_dpx <= 1e-3 and err_dw <= 1e-4 * scale):
             raise AssertionError(f"gru_bwd disagrees with its plain version at T={t_len}")
+        again = gru_bwd(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("gru_bwd is not deterministic")
         ms = _cuda_time_ms(lambda: gru_bwd(*args), iters=5)
         plain_ms = _cuda_time_ms(lambda: gru_bwd_reference(*args), iters=2, warmup=1)
+        launches = _device_launches(lambda: gru_bwd(*args))
+        print(f"gru_bwd [T={t_len},N={n}]: {ms:.4f} ms, {1e3 * ms / t_len:.3f} us per step, "
+              f"{launches:g} device launches per call", flush=True)
         # Yardstick: cuDNN's bidirectional GRU layer backward (F=128; it
         # also computes its input projection's gradients).
         lib_gru = torch.nn.GRU(128, hid, bidirectional=True).to(dev)
@@ -330,6 +377,7 @@ def check_gru_bwd(dev, gen) -> dict:
         bound_ms, bound_by = _bound(n_bytes, n_flops)
         out[t_len] = dict(err=max(err_dpx, err_dw), ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          us_per_step=1e3 * ms / t_len, device_launches_per_call=launches,
                           shape=f"px [{t_len},{n},{h3}] x2, dy [{t_len},{n},{hid}] x2")
     wide, head = out[257], out[65]
     return {
@@ -339,7 +387,9 @@ def check_gru_bwd(dev, gen) -> dict:
         "shape": wide["shape"], "max_abs_err": max(wide["err"], head["err"]),
         "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
-        "headline": {k: head[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")},
+        "us_per_step": wide["us_per_step"],
+        "device_launches_per_call": wide["device_launches_per_call"],
+        "headline": {k: head[k] for k in _HEADLINE_KEYS},
     }
 
 
@@ -617,6 +667,11 @@ def run(root: Path) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     print(f"host geometry core: {native.backend()}", flush=True)
+    from ocrs_models_torch.ops.gru import max_active_clusters
+
+    for n in (REC_BATCH, 256):  # the serving chunk and the training headline, H=256
+        print(f"biGRU clusters at N={n}, H=256: {json.dumps(max_active_clusters(n, 256))}",
+              flush=True)
 
     gen = torch.Generator().manual_seed(SEED)
     dev = torch.device("cuda", 0)

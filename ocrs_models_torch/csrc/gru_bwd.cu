@@ -2,11 +2,11 @@
 //
 // Replaces: the backward of the Pallas kernel `gru_recurrence4` in
 // ocrs_models_tpu/ops/pallas/gru_kernel4.py (`_bwd_call`, body
-// `_bwd_kernel`). Same math: both directions' reverse scans in one pass
-// (the forward direction walks time backwards, the backward direction
-// forwards); at each step h_prev in scan order (ys_f[t-1] or ys_b[t+1],
-// zero at each direction's first step), ph = h_prev @ W_hh + b_hh and the
-// gates are recomputed, and
+// `_bwd_kernel`). Same math: both directions' reverse scans (the forward
+// direction walks time backwards, the backward direction forwards); at
+// each step h_prev in scan order (ys_f[t-1] or ys_b[t+1], zero at each
+// direction's first step), ph = h_prev @ W_hh + b_hh and the gates are
+// recomputed, and
 //   dht = dh + dy[t];  dc = dht (1 - z);  da_c = dc (1 - c^2);
 //   da_z = dht (h_prev - c) z (1 - z);  dhn = da_c r;
 //   da_r = da_c hn r (1 - r);
@@ -23,418 +23,727 @@
 // [3H,H] (dh), and dW_hh is [H, T*N] x [T*N, 3H]: 3 * 2*128*256*768 FLOP
 // * 257 steps * 2 directions = 77.6 GFLOP, 1.16 ms at the f32 rate. The
 // bytes are px, ys, dy read once and dpx written once: 2 * (101 + 33.7 +
-// 33.7 + 101) MB = 539 MB, 0.16 ms. Operations bound it; besides, two
-// of the three products form a chain of T dependent steps.
+// 33.7 + 101) MB = 539 MB, 0.16 ms. Operations bound it. Only one of the
+// three products is a chain of T dependent steps: ph reads the saved ys
+// and dW reads finished gradients, so both run over all T*N rows at once.
 //
-// Design: per step two launches, in stream order, each with the forward
-// kernel's tiling (a block owns 32 hidden units x 16 batch rows of one
-// direction; 2 x 2 register tiles; the k range split over two thread
-// groups). (a) `gates` stages its W_hh columns (96 KB) and 16 rows of
-// h_prev, recomputes its units' r, z and n pre-activations, finishes the
-// gate math, and writes dpx[t], dph (into a [2, T, N, 3H] buffer) and
-// dht * z. (b) `dh` stages its units' rows of W_hh^T (96 KB, from a
-// transposed copy) and the 16 rows of dph across all 3H columns (48 KB)
-// and writes the new dh = dht z + dph @ W_hh^T. dh ping-pongs between two
-// buffers in device memory. After the loop, (c) `dw` reduces
-// h_prev^T dph over all T*N rows: a 32 x 64 output tile per block, 16-row
-// stages in shared memory, 4 x 4 register tiles; the blocks of the first
-// row tile also sum dph's columns into db. Every sum runs in a fixed
-// order, so repeated runs agree bit for bit. Keeping W_hh on chip across
-// steps and wgmma are later work.
+// Design: four launches, whatever T is.
+// (a) `coef`, parallel over all T*N rows: ph = h_prev @ W_hh + b_hh as a
+//     tiled product (128 rows x 32 units x 3 gates per block, 16-deep k
+//     stages double-buffered through registers, `mma.sync` m16n8k8 tiles
+//     with the error-compensated TF32 product described below), the
+//     gates in its epilogue, and per element the five numbers the chain
+//     needs: z, (1-z)(1-c^2), (h_prev-c) z (1-z), r, hn r (1-r), into
+//     coef [2, T*N, 5, H].
+// (b) `chain`, ONE launch for all T steps, the forward kernel's layout: a
+//     block owns 32 hidden units x R batch rows of one direction, the
+//     blocks of one (batch tile, direction) form a thread block cluster of
+//     ceil(H/32) blocks, and the loop over steps is inside the kernel. Per
+//     step a thread turns dht into da_r, da_z, da_c, dhn for its elements
+//     (dht z stays in its registers), writes dpx[t] and the block's dph
+//     slice [R, 96] to shared memory. dph @ W_hh^T is split over the
+//     contraction: a block multiplies its OWN 96 columns of dph with its
+//     96 x H slice of W_hh^T, which gives a partial sum for all H units.
+//     That slice stays in REGISTERS: each of the block's 512 threads
+//     owns two units and 24 of the block's 96 columns, W_hh[2][24], 48
+//     registers, loaded once; per step it reads the dph slice as float4
+//     broadcasts (every lane of a warp the same address) with 8 FMAs per
+//     load, and the four column groups are added through shared memory in
+//     a fixed order. The thread that adds them holds the partial for a
+//     unit of block w and writes it into block w's shared memory
+//     (distributed shared memory, buffers by step parity), then one
+//     cluster barrier per step, split into arrive and wait around the
+//     prefetch of the next step's coefficients and dy. After the barrier a
+//     block sums the partials of its units in block order. Exchanging
+//     partial sums moves [R, 32] per pair of blocks and step, a third of
+//     what exchanging dph itself would. R is 16 or 20, chosen per call
+//     from the batch size and the clusters the card holds at once
+//     (gru_cluster.cuh).
+// (c) `dw`: h_prev^T dph over all T*N rows, 128 x 96 output tiles (the
+//     same `mma.sync` tiles as `coef`), the rows split into up to 8 ranges
+//     so that every SM works; a block writes
+//     its partial tile, and the blocks of the first row tile also the
+//     column sums for db. dph is read as dpx, with its n columns times r
+//     from coef, so the chain does not store dph.
+// (d) `dw_sum` adds the partials in range order.
+// Every sum runs in a fixed order and there are no atomics, so repeated
+// runs agree bit for bit. The two products outside the chain run on the
+// tensor cores as error-compensated TF32 ("3xTF32": hi/lo split of both
+// operands, three `mma` per tile, f32 accumulation), which keeps f32
+// accuracy (plain TF32 does not meet the tolerances against the plain
+// version) at about 1.5 times the speed of an f32 FMA loop with the same
+// tiles (measured on an H100 80GB HBM3). The chain's
+// product stays on the f32 FMA pipes: its 16 or 20 rows do not fill the
+// 16-row tiles of `mma` at the cluster sizes that fit the card. H > 256
+// would need a cluster of more than 8 blocks; the wrapper raises for it.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "gru_cluster.cuh"
 
 namespace {
 
-constexpr int kBU = 32;                // hidden units per block
-constexpr int kBN = 16;                // batch rows per block
-constexpr int kTU = kBU / 2;           // thread columns: 2 units each
-constexpr int kTR = kBN / 2;           // thread rows: 2 batch rows each
-constexpr int kKSplit = 2;             // k range split across thread groups
-constexpr int kThreads = kTU * kTR * kKSplit;  // 256
-constexpr int kMaxSmem = 232448;       // per block on an H100
+using namespace gru_cluster;
+
+constexpr int kThreads = 256;
+constexpr int kNC = 5;                 // coefficients per element
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
-__host__ __device__ constexpr int pad_stride(int k) { return k + 4; }  // keeps float4 alignment
-
-size_t gates_smem(int H) {
-    return sizeof(float) * ((size_t)H * 3 * kBU + (size_t)kBN * pad_stride(H) + kBN * 3 * kBU);
+__device__ __forceinline__ float4 ldg4(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-size_t dh_smem(int H) {
-    return sizeof(float) * ((size_t)3 * H * kBU + (size_t)kBN * pad_stride(3 * H) + kBN * kBU);
+__device__ __forceinline__ float2 ldg2(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
 }
 
-// (a) Recompute the gates at step `step` and write dpx[t], dph[dir][t] and
-// dhz = dht * z. Requires H % 8 == 0.
+// Error-compensated TF32 products on the tensor cores ("3xTF32"): x is
+// split into hi, its upper 19 bits, and lo = x - hi (exact), of which the
+// tensor core in turn reads the upper 19 bits; a * b is taken as a_lo b_hi
+// + a_hi b_lo + a_hi b_hi with f32 accumulation. What is dropped is below
+// 2^-20 of the product. The split is a mask and a subtraction: `cvt` to
+// tf32 rounds better but runs at a quarter of the rate and then bounds
+// the kernel.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+    hi = __float_as_uint(x) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c[16 x 8] += a[16 x 8] b[8 x 8], one warp. With gid = lane / 4 and tig =
+// lane % 4 a thread holds a: (gid, tig), (gid+8, tig), (gid, tig+4),
+// (gid+8, tig+4); b: (tig, gid), (tig+4, gid); c: (gid, 2 tig), (gid, 2 tig
+// + 1), (gid+8, 2 tig), (gid+8, 2 tig + 1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+    mma_tf32(c, a_lo, b_hi);
+    mma_tf32(c, a_hi, b_lo);
+    mma_tf32(c, a_hi, b_hi);
+}
+
+// ---------------------------------------------------------------------
+// (a) coefficients
+
+constexpr int kGM = 128;               // rows (t, n) per block
+constexpr int kGK = 16;                // k per stage
+constexpr int kGAS = kGK + 4;          // row stride of the A stage
+constexpr int kGBS = 3 * kBU + 8;      // row stride of the B stage
+
+struct CoefStage {
+    float4 a[2];
+    float4 b[2];
+};
+
+// Global loads of one k stage: 128 x 16 of h_prev and 16 x 96 of W_hh.
+__device__ __forceinline__ void coef_load(CoefStage& s, const float* __restrict__ ys,
+                                          const float* __restrict__ W, int k0, int m0, int u0,
+                                          long long shift, int M, int H, int tid) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int H3 = 3 * H;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int idx = tid + i * kThreads;
+        const int r = idx / (kGK / 4), k = k0 + 4 * (idx % (kGK / 4));
+        const long long src = (long long)(m0 + r) + shift;  // row of h_prev in ys
+        s.a[i] = (m0 + r < M && src >= 0 && src < M && k < H) ? ldg4(ys + src * H + k) : zero;
+        if (idx < kGK * 3 * (kBU / 4)) {
+            const int kb = k0 + idx / (3 * (kBU / 4));
+            const int g = (idx / (kBU / 4)) % 3;
+            const int u = u0 + 4 * (idx % (kBU / 4));
+            s.b[i] = (kb < H && u < H) ? ldg4(W + (size_t)kb * H3 + g * H + u) : zero;
+        }
+    }
+}
+
+__device__ __forceinline__ void coef_store(const CoefStage& s, float (*As)[kGAS],
+                                           float (*Bs)[kGBS], int tid) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int idx = tid + i * kThreads;
+        *reinterpret_cast<float4*>(&As[idx / (kGK / 4)][4 * (idx % (kGK / 4))]) = s.a[i];
+        if (idx < kGK * 3 * (kBU / 4))
+            *reinterpret_cast<float4*>(&Bs[idx / (3 * (kBU / 4))][4 * (idx % (3 * (kBU / 4)))]) =
+                s.b[i];
+    }
+}
+
+// coef[dir][m][q][u], m = t * N + n, q: 0 z, 1 (1-z)(1-c^2), 2 (h_prev-c) z (1-z),
+// 3 r, 4 hn r (1-r). Requires H % 8 == 0.
 __global__ void __launch_bounds__(kThreads)
-gru_bwd_gates_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
-                     const float* __restrict__ ys_f, const float* __restrict__ ys_b,
-                     const float* __restrict__ dy_f, const float* __restrict__ dy_b,
-                     const float* __restrict__ w_hh, const float* __restrict__ b_hh,
-                     float* __restrict__ dpx_f, float* __restrict__ dpx_b,
-                     float* __restrict__ dph, const float* __restrict__ dh_in,
-                     float* __restrict__ dhz, int step, int T, int N, int H) {
-    extern __shared__ __align__(16) float smem[];
-    const int HS = pad_stride(H);
-    float* ws = smem;                        // [H][3][kBU]: this block's W_hh columns
-    float* hs = ws + (size_t)H * 3 * kBU;    // [kBN][HS]: rows of h_prev
-    float* red = hs + kBN * HS;              // [kBN][3][kBU]: partials of k-half 1
+gru_bwd_coef_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
+                    const float* __restrict__ ys_f, const float* __restrict__ ys_b,
+                    const float* __restrict__ w_hh, const float* __restrict__ b_hh,
+                    float* __restrict__ coef, int T, int N, int H) {
+    // Strides 20 and 104: the fragment loads below hit 32 different banks.
+    __shared__ __align__(16) float As[2][kGM][kGAS];
+    __shared__ __align__(16) float Bs[2][kGK][kGBS];
 
     const int dir = blockIdx.z;
     const int u0 = blockIdx.x * kBU;
-    const int n0 = blockIdx.y * kBN;
-    const int t = dir == 0 ? T - 1 - step : step;
-    const bool has_prev = dir == 0 ? t > 0 : t < T - 1;
+    const int m0 = blockIdx.y * kGM;
+    const int M = T * N;
     const int H3 = 3 * H;
-    const size_t state = (size_t)N * H;
-
-    const int half = threadIdx.x / (kTU * kTR);
-    const int tu = threadIdx.x % kTU;
-    const int tr = (threadIdx.x / kTU) % kTR;
-
-    // Group 0 finishes the gate math: fetch its operands now, so their
-    // latency hides under the staging and the k loop.
-    const float* px = (dir == 0 ? px_f : px_b) + (size_t)t * N * H3;
-    const float* dy = (dir == 0 ? dy_f : dy_b) + (size_t)t * N * H;
-    const float* dhi = dh_in + dir * state;
-    const float* b = b_hh + dir * H3;
-    float xg[3][2][2], bg[3][2], dht[2][2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-        const int u = u0 + 2 * tu + j;
-        const bool u_ok = half == 0 && u < H;
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-            bg[g][j] = u_ok ? b[g * H + u] : 0.f;
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                const int row = n0 + 2 * tr + i;
-                xg[g][i][j] = u_ok && row < N ? px[(size_t)row * H3 + g * H + u] : 0.f;
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int row = n0 + 2 * tr + i;
-            dht[i][j] = u_ok && row < N ? dhi[(size_t)row * H + u] + dy[(size_t)row * H + u] : 0.f;
-        }
-    }
-
-    // Stage the block's W_hh columns and its rows of h_prev (zero at the
-    // direction's first step), 16 bytes per load.
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int tid = threadIdx.x;
+    // Warp tile: 32 rows x (16 units x 3 gates), as 2 x 6 mma tiles, so a
+    // thread ends up with all three gates of its elements.
+    const int warp = tid / 32, gid = (tid % 32) / 4, tig = tid % 4;
+    const int wm = warp % 4, wn = warp / 4;
+    const float* ys = dir == 0 ? ys_f : ys_b;
+    const long long shift = dir == 0 ? -(long long)N : (long long)N;
     const float* W = w_hh + (size_t)dir * H * H3;
-    constexpr int kQ = kBU / 4;
-#pragma unroll 8
-    for (int i = threadIdx.x; i < H * 3 * kQ; i += kThreads) {
-        const int k = i / (3 * kQ);
-        const int g = (i / kQ) % 3;
-        const int u = u0 + 4 * (i % kQ);
-        reinterpret_cast<float4*>(ws)[i] =
-            u < H ? __ldg(reinterpret_cast<const float4*>(W + (size_t)k * H3 + g * H + u)) : zero;
-    }
-    const float* hprev = !has_prev ? ys_f
-                         : dir == 0 ? ys_f + (size_t)(t - 1) * state
-                                    : ys_b + (size_t)(t + 1) * state;
-    const int h4 = H / 4;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < kBN * h4; i += kThreads) {
-        const int r = i / h4, k = 4 * (i % h4);
-        *reinterpret_cast<float4*>(hs + r * HS + k) =
-            has_prev && n0 + r < N
-                ? __ldg(reinterpret_cast<const float4*>(hprev + (size_t)(n0 + r) * H + k))
-                : zero;
-    }
+
+    float acc[2][6][4];                // [row tile][gate * 2 + unit tile][fragment]
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 6; ++nt)
+#pragma unroll
+            for (int f = 0; f < 4; ++f) acc[mt][nt][f] = 0.f;
+
+    CoefStage st;
+    coef_load(st, ys, W, 0, m0, u0, shift, M, H, tid);
+    coef_store(st, As[0], Bs[0], tid);
     __syncthreads();
+    const int n_stages = (H + kGK - 1) / kGK;
+    for (int s = 0; s < n_stages; ++s) {
+        const int buf = s & 1;
+        if (s + 1 < n_stages) coef_load(st, ys, W, (s + 1) * kGK, m0, u0, shift, M, H, tid);
+#pragma unroll
+        for (int k8 = 0; k8 < kGK; k8 += 8) {
+            uint32_t a_hi[2][4], a_lo[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+                const int r = wm * 32 + mt * 16 + gid;
+                split_tf32(As[buf][r][k8 + tig], a_hi[mt][0], a_lo[mt][0]);
+                split_tf32(As[buf][r + 8][k8 + tig], a_hi[mt][1], a_lo[mt][1]);
+                split_tf32(As[buf][r][k8 + tig + 4], a_hi[mt][2], a_lo[mt][2]);
+                split_tf32(As[buf][r + 8][k8 + tig + 4], a_hi[mt][3], a_lo[mt][3]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < 6; ++nt) {
+                const int col = (nt / 2) * kBU + wn * 16 + (nt % 2) * 8 + gid;
+                uint32_t b_hi[2], b_lo[2];
+                split_tf32(Bs[buf][k8 + tig][col], b_hi[0], b_lo[0]);
+                split_tf32(Bs[buf][k8 + tig + 4][col], b_hi[1], b_lo[1]);
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt)
+                    mma_3xtf32(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);
+            }
+        }
+        if (s + 1 < n_stages) coef_store(st, As[buf ^ 1], Bs[buf ^ 1], tid);
+        __syncthreads();
+    }
 
-    const float* h0 = hs + (2 * tr) * HS;
-    const float* h1 = h0 + HS;
-    float acc[3][2][2];
+    // Epilogue: fragment (f / 2, f % 2) of tile (mt, ut) is row wm*32 + mt*16
+    // + gid + 8 * (f / 2), unit wn*16 + ut*8 + 2*tig + f % 2.
+    const float* px = dir == 0 ? px_f : px_b;
 #pragma unroll
-    for (int g = 0; g < 3; ++g)
-        acc[g][0][0] = acc[g][0][1] = acc[g][1][0] = acc[g][1][1] = 0.f;
-
-    const int kbeg = half * (H / kKSplit), kend = kbeg + H / kKSplit;
-#pragma unroll 2
-    for (int k = kbeg; k < kend; k += 4) {
-        const float4 a4 = *reinterpret_cast<const float4*>(h0 + k);
-        const float4 b4 = *reinterpret_cast<const float4*>(h1 + k);
-        const float ha[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float hb[4] = {b4.x, b4.y, b4.z, b4.w};
+    for (int ut = 0; ut < 2; ++ut) {
+        const int u = u0 + wn * 16 + ut * 8 + 2 * tig;
+        if (u >= H) continue;
+        const float* b = b_hh + dir * H3 + u;
+        const float2 br = ldg2(b), bz = ldg2(b + H), bn = ldg2(b + 2 * H);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+        for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-            for (int g = 0; g < 3; ++g) {
-                const float2 w = *reinterpret_cast<const float2*>(
-                    ws + ((k + kk) * 3 + g) * kBU + 2 * tu);
-                acc[g][0][0] = fmaf(ha[kk], w.x, acc[g][0][0]);
-                acc[g][0][1] = fmaf(ha[kk], w.y, acc[g][0][1]);
-                acc[g][1][0] = fmaf(hb[kk], w.x, acc[g][1][0]);
-                acc[g][1][1] = fmaf(hb[kk], w.y, acc[g][1][1]);
+            for (int half = 0; half < 2; ++half) {
+                const int m = m0 + wm * 32 + mt * 16 + gid + 8 * half;
+                if (m >= M) continue;
+                const long long src = (long long)m + shift;
+                const float* p = px + (size_t)m * H3 + u;
+                const float2 xr = ldg2(p), xz = ldg2(p + H), xn = ldg2(p + 2 * H);
+                const float2 hp =
+                    (src >= 0 && src < M) ? ldg2(ys + src * H + u) : make_float2(0.f, 0.f);
+                float out[kNC][2];
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const int f = 2 * half + j;
+                    const float hr = acc[mt][0 + ut][f] + (j ? br.y : br.x);
+                    const float hz = acc[mt][2 + ut][f] + (j ? bz.y : bz.x);
+                    const float hn = acc[mt][4 + ut][f] + (j ? bn.y : bn.x);
+                    const float r = sigmoid((j ? xr.y : xr.x) + hr);
+                    const float z = sigmoid((j ? xz.y : xz.x) + hz);
+                    const float c = tanhf((j ? xn.y : xn.x) + r * hn);
+                    const float h_prev = j ? hp.y : hp.x;
+                    out[0][j] = z;
+                    out[1][j] = (1.f - z) * (1.f - c * c);
+                    out[2][j] = (h_prev - c) * z * (1.f - z);
+                    out[3][j] = r;
+                    out[4][j] = hn * r * (1.f - r);
+                }
+                float* o = coef + (((size_t)dir * M + m) * kNC) * H + u;
+#pragma unroll
+                for (int q = 0; q < kNC; ++q)
+                    *reinterpret_cast<float2*>(o + (size_t)q * H) =
+                        make_float2(out[q][0], out[q][1]);
             }
         }
     }
-
-    if (half == 1) {
-#pragma unroll
-        for (int g = 0; g < 3; ++g)
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-                    red[((2 * tr + i) * 3 + g) * kBU + 2 * tu + j] = acc[g][i][j];
-    }
-    __syncthreads();
-    if (half == 1) return;
-
-    float* dpx = (dir == 0 ? dpx_f : dpx_b) + (size_t)t * N * H3;
-    float* dp = dph + ((size_t)dir * T + t) * N * H3;
-    float* dz_out = dhz + dir * state;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int r_local = 2 * tr + i;
-        const int row = n0 + r_local;
-        if (row >= N) continue;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const int u = u0 + 2 * tu + j;
-            if (u >= H) continue;
-            const float* part = red + (r_local * 3) * kBU + 2 * tu + j;
-            const float hr = acc[0][i][j] + part[0] + bg[0][j];
-            const float hz = acc[1][i][j] + part[kBU] + bg[1][j];
-            const float hn = acc[2][i][j] + part[2 * kBU] + bg[2][j];
-            const float r = sigmoid(xg[0][i][j] + hr);
-            const float z = sigmoid(xg[1][i][j] + hz);
-            const float c = tanhf(xg[2][i][j] + r * hn);
-            const float h_prev = hs[r_local * HS + u];
-            const float d = dht[i][j];
-            const float da_c = d * (1.f - z) * (1.f - c * c);
-            const float da_z = d * (h_prev - c) * z * (1.f - z);
-            const float dhn = da_c * r;
-            const float da_r = da_c * hn * r * (1.f - r);
-            const size_t o = (size_t)row * H3 + u;
-            dpx[o] = da_r;
-            dpx[o + H] = da_z;
-            dpx[o + 2 * H] = da_c;
-            dp[o] = da_r;
-            dp[o + H] = da_z;
-            dp[o + 2 * H] = dhn;
-            dz_out[(size_t)row * H + u] = d * z;
-        }
-    }
 }
 
-// (b) dh_out = dhz + dph[dir][t] @ W_hh^T for this block's units and rows.
-__global__ void __launch_bounds__(kThreads)
-gru_bwd_dh_kernel(const float* __restrict__ w_t, const float* __restrict__ dph,
-                  const float* __restrict__ dhz, float* __restrict__ dh_out,
-                  int step, int T, int N, int H) {
+// ---------------------------------------------------------------------
+// (b) the chain
+
+constexpr int kDS = 3 * kBU + 4;       // row stride of the dph slice
+
+constexpr int kChainThreads = 512;
+constexpr int kJQ = 4;                 // the block's 96 dph columns split over warp groups
+constexpr int kJW = 3 * kBU / kJQ;     // dph columns per thread
+constexpr int kUnits = kMaxCluster * kBU;  // widest H
+
+size_t chain_smem(int rows, int n_tiles) {
+    return sizeof(float) * ((size_t)2 * n_tiles * rows * kBU + (size_t)rows * kDS +
+                            (size_t)kJQ * rows * kUnits);
+}
+
+// R batch rows per block (a multiple of 4, at most 32). Requires H % 8 ==
+// 0 and a cluster of ceil(H / kBU) <= 8 blocks along x, equal to gridDim.x.
+template <int R>
+__global__ void __launch_bounds__(kChainThreads, 1)
+gru_bwd_chain_kernel(const float* __restrict__ dy_f, const float* __restrict__ dy_b,
+                     const float* __restrict__ w_hh, const float* __restrict__ coef,
+                     float* __restrict__ dpx_f, float* __restrict__ dpx_b, int T, int N, int H) {
+    constexpr int kThreads = kChainThreads;
+    constexpr int kPairs = R * (kBU / 2);  // elements come in pairs of units
+    constexpr int kNE = (kPairs + kThreads - 1) / kThreads;
+    static_assert(R % 4 == 0 && 2 * kUnits == kThreads && kJQ * 2 * 64 == kThreads,
+                  "tile sizes");
     extern __shared__ __align__(16) float smem[];
-    const int H3 = 3 * H;
-    const int DS = pad_stride(H3);
-    float* ws = smem;                        // [3H][kBU]: W_hh^T rows for this block's units
-    float* ds = ws + (size_t)H3 * kBU;       // [kBN][DS]: rows of dph
-    float* red = ds + kBN * DS;              // [kBN][kBU]: partials of k-half 1
+    const uint32_t n_peers = cluster_size();
+    const uint32_t rank = cluster_rank();
+    float* recv = smem;                      // [2][n_peers][R][kBU]: partial dh, by parity
+    float* ds = recv + 2 * n_peers * R * kBU;  // [R][kDS]: this block's dph slice
+    float* part = ds + R * kDS;              // [kJQ][R][kUnits]: products per column group
 
     const int dir = blockIdx.z;
-    const int u0 = blockIdx.x * kBU;
-    const int n0 = blockIdx.y * kBN;
-    const int t = dir == 0 ? T - 1 - step : step;
-    const size_t state = (size_t)N * H;
+    const int u0 = (int)rank * kBU;
+    const int n0 = blockIdx.y * R;
+    const int H3 = 3 * H;
+    const int M = T * N;
+    const int tid = threadIdx.x;
+    // Product tile of this thread: the block's dph columns [24 jq, 24 jq +
+    // 24) times W_hh^T for the units `unit0` and `unit0 + 32`; a warp shares
+    // jq, so its reads of dph are broadcasts.
+    const int warp = tid / 32, lane = tid % 32;
+    const int jq = warp / 4;
+    const int unit0 = (warp % 4) * 64 + lane;
 
-    const int half = threadIdx.x / (kTU * kTR);
-    const int tu = threadIdx.x % kTU;
-    const int tr = (threadIdx.x / kTU) % kTR;
-
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* Wt = w_t + (size_t)dir * H3 * H;
-    constexpr int kQ = kBU / 4;
-#pragma unroll 8
-    for (int i = threadIdx.x; i < H3 * kQ; i += kThreads) {
-        const int k = i / kQ;
-        const int u = u0 + 4 * (i % kQ);
-        reinterpret_cast<float4*>(ws)[i] =
-            u < H ? __ldg(reinterpret_cast<const float4*>(Wt + (size_t)k * H + u)) : zero;
-    }
-    const float* dp = dph + ((size_t)dir * T + t) * N * H3;
-    const int d4 = H3 / 4;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < kBN * d4; i += kThreads) {
-        const int r = i / d4, k = 4 * (i % d4);
-        *reinterpret_cast<float4*>(ds + r * DS + k) =
-            n0 + r < N ? *reinterpret_cast<const float4*>(dp + (size_t)(n0 + r) * H3 + k) : zero;
-    }
-    __syncthreads();
-
-    const float* d0 = ds + (2 * tr) * DS;
-    const float* d1 = d0 + DS;
-    float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    const int kbeg = half * (H3 / kKSplit), kend = kbeg + H3 / kKSplit;
-#pragma unroll 2
-    for (int k = kbeg; k < kend; k += 4) {
-        const float4 a4 = *reinterpret_cast<const float4*>(d0 + k);
-        const float4 b4 = *reinterpret_cast<const float4*>(d1 + k);
-        const float da[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float db[4] = {b4.x, b4.y, b4.z, b4.w};
+    // This thread's W_hh entries, for all steps: rows unit0 and unit0 + 32,
+    // its 24 of the block's 96 columns.
+    float w[2][kJW];
+    {
+        const float* W = w_hh + (size_t)dir * H * H3 + u0;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-            const float2 w = *reinterpret_cast<const float2*>(ws + (k + kk) * kBU + 2 * tu);
-            acc[0][0] = fmaf(da[kk], w.x, acc[0][0]);
-            acc[0][1] = fmaf(da[kk], w.y, acc[0][1]);
-            acc[1][0] = fmaf(db[kk], w.x, acc[1][0]);
-            acc[1][1] = fmaf(db[kk], w.y, acc[1][1]);
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int x = 0; x < kJW; ++x) {
+                const int unit = unit0 + 32 * c;
+                const int g = (jq * kJW + x) / kBU, ul = (jq * kJW + x) % kBU;
+                w[c][x] = (unit < H && u0 + ul < H) ? __ldg(W + (size_t)unit * H3 + g * H + ul)
+                                                    : 0.f;
+            }
+    }
+
+    const float* dy = dir == 0 ? dy_f : dy_b;
+    float* dpx = dir == 0 ? dpx_f : dpx_b;
+    const float* cf = coef + (size_t)dir * M * kNC * H;
+
+    // Elements of this thread: pairs e = tid + j * kThreads, row e / 16,
+    // units 2 * (e % 16) and the next. Coefficients and dy of the first
+    // step; zero where the tile hangs over N or H, so that those elements
+    // give zero gradients and zero partial sums.
+    const float2 zero2 = make_float2(0.f, 0.f);
+    float2 c[kNE][kNC], dyv[kNE], dhz[kNE];  // dhz: dht * z of the previous step
+    {
+        const int t = dir == 0 ? T - 1 : 0;
+#pragma unroll
+        for (int j = 0; j < kNE; ++j) {
+            const int e = tid + j * kThreads;
+            const int row = n0 + e / (kBU / 2), u = u0 + 2 * (e % (kBU / 2));
+            const bool ok = e < kPairs && row < N && u < H;
+            const size_t m = (size_t)t * N + row;
+#pragma unroll
+            for (int q = 0; q < kNC; ++q) c[j][q] = ok ? ldg2(cf + (m * kNC + q) * H + u) : zero2;
+            dyv[j] = ok ? ldg2(dy + m * H + u) : zero2;
+            dhz[j] = zero2;
         }
     }
 
-    if (half == 1) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j) red[(2 * tr + i) * kBU + 2 * tu + j] = acc[i][j];
-    }
+    // No block of the cluster writes into a peer before that peer runs.
     __syncthreads();
-    if (half == 1) return;
+    cluster_arrive();
+    cluster_wait();
+
+    for (int step = 0; step < T; ++step) {
+        const int t = dir == 0 ? T - 1 - step : step;
+        const int par = step & 1;
+        const bool last = step + 1 == T;
 
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int row = n0 + 2 * tr + i;
-        if (row >= N) continue;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const int u = u0 + 2 * tu + j;
-            if (u >= H) continue;
-            const size_t o = dir * state + (size_t)row * H + u;
-            dh_out[o] = dhz[o] + (acc[i][j] + red[(2 * tr + i) * kBU + 2 * tu + j]);
-        }
-    }
-}
-
-// (c) dw[dir][k][j] = sum over rows (t, n) of h_prev(t)[n][k] * dph[dir][t][n][j],
-// and db[dir][j] = sum of dph[dir][t][n][j], in row order.
-constexpr int kTK = 32;                  // rows of dW (k) per block
-constexpr int kTJ = 64;                  // columns of dW (j) per block
-constexpr int kR = 16;                   // (t, n) rows per stage
-constexpr int kDwThreads = (kTK / 4) * (kTJ / 4);  // 128
-
-__global__ void __launch_bounds__(kDwThreads)
-gru_bwd_dw_kernel(const float* __restrict__ ys_f, const float* __restrict__ ys_b,
-                  const float* __restrict__ dph, float* __restrict__ dw,
-                  float* __restrict__ db, int T, int N, int H) {
-    __shared__ __align__(16) float as[kR][kTK];
-    __shared__ __align__(16) float bs[kR][kTJ];
-    const int dir = blockIdx.z;
-    const int j0 = blockIdx.x * kTJ;
-    const int k0 = blockIdx.y * kTK;
-    const int H3 = 3 * H;
-    const int rows = T * N;
-    const int tx = threadIdx.x % (kTJ / 4);
-    const int ty = threadIdx.x / (kTJ / 4);
-    const bool with_db = blockIdx.y == 0 && threadIdx.x < kTJ;
-    const float* D = dph + (size_t)dir * rows * H3;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-
-    float acc[4][4] = {};
-    float dbacc = 0.f;
-    for (int r0 = 0; r0 < rows; r0 += kR) {
-        {   // h_prev rows: kR x kTK floats, one float4 per thread.
-            const int rr = threadIdx.x / (kTK / 4), q = threadIdx.x % (kTK / 4);
-            const int r = r0 + rr, k = k0 + 4 * q;
-            float4 v = zero;
-            if (r < rows && k < H) {
-                const int t = r / N, n = r % N;
-                if (dir == 0 ? t > 0 : t < T - 1) {
-                    const float* src = dir == 0 ? ys_f + ((size_t)(t - 1) * N + n) * H
-                                                : ys_b + ((size_t)(t + 1) * N + n) * H;
-                    v = __ldg(reinterpret_cast<const float4*>(src + k));
+        for (int j = 0; j < kNE; ++j) {
+            const int e = tid + j * kThreads;
+            const int er = e / (kBU / 2), eu = 2 * (e % (kBU / 2));
+            const int row = n0 + er, u = u0 + eu;
+            if (e >= kPairs) continue;
+            // dh = dht z + the partial products of all blocks, in block order.
+            float2 back = zero2;
+            if (step > 0) {
+                const float* src = recv + (((par ^ 1) * n_peers) * R + er) * kBU + eu;
+                for (uint32_t p = 0; p < n_peers; ++p) {
+                    const float2 v = *reinterpret_cast<const float2*>(src + p * R * kBU);
+                    back.x += v.x;
+                    back.y += v.y;
                 }
             }
-            *reinterpret_cast<float4*>(&as[rr][4 * q]) = v;
+            const float dht0 = dhz[j].x + back.x + dyv[j].x;
+            const float dht1 = dhz[j].y + back.y + dyv[j].y;
+            const float da_c0 = dht0 * c[j][1].x, da_c1 = dht1 * c[j][1].y;
+            const float da_z0 = dht0 * c[j][2].x, da_z1 = dht1 * c[j][2].y;
+            const float dhn0 = da_c0 * c[j][3].x, dhn1 = da_c1 * c[j][3].y;
+            const float da_r0 = da_c0 * c[j][4].x, da_r1 = da_c1 * c[j][4].y;
+            dhz[j] = make_float2(dht0 * c[j][0].x, dht1 * c[j][0].y);
+            if (row < N && u < H) {
+                float* o = dpx + ((size_t)t * N + row) * H3 + u;
+                *reinterpret_cast<float2*>(o) = make_float2(da_r0, da_r1);
+                *reinterpret_cast<float2*>(o + H) = make_float2(da_z0, da_z1);
+                *reinterpret_cast<float2*>(o + 2 * H) = make_float2(da_c0, da_c1);
+            }
+            if (!last) {  // the last step's dh is not needed
+                float* d = ds + er * kDS + eu;
+                *reinterpret_cast<float2*>(d) = make_float2(da_r0, da_r1);
+                *reinterpret_cast<float2*>(d + kBU) = make_float2(da_z0, da_z1);
+                *reinterpret_cast<float2*>(d + 2 * kBU) = make_float2(dhn0, dhn1);
+            }
         }
+
+        if (!last) {
+            __syncthreads();
+            // Two chunks of R / 2 rows, so that the accumulators and the 48
+            // registers of W_hh fit 128 registers a thread.
 #pragma unroll
-        for (int s = 0; s < 2; ++s) {  // dph rows: kR x kTJ floats, two float4 per thread.
-            const int i = threadIdx.x + s * kDwThreads;
-            const int rr = i / (kTJ / 4), q = i % (kTJ / 4);
-            const int r = r0 + rr, j = j0 + 4 * q;
-            *reinterpret_cast<float4*>(&bs[rr][4 * q]) =
-                r < rows && j < H3 ? *reinterpret_cast<const float4*>(D + (size_t)r * H3 + j) : zero;
+            for (int ch = 0; ch < 2; ++ch) {
+                constexpr int kRC = R / 2;
+                const float* drow = ds + ch * kRC * kDS + jq * kJW;
+                float acc[kRC][2];
+#pragma unroll
+                for (int r = 0; r < kRC; ++r) acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll
+                for (int r = 0; r < kRC; r += 2) {
+#pragma unroll
+                    for (int j = 0; j < kJW; j += 4) {
+                        float4 dv[2];
+#pragma unroll
+                        for (int i = 0; i < 2; ++i)
+                            dv[i] = *reinterpret_cast<const float4*>(drow + (r + i) * kDS + j);
+#pragma unroll
+                        for (int i = 0; i < 2; ++i)
+#pragma unroll
+                            for (int c = 0; c < 2; ++c) {
+                                float a = acc[r + i][c];
+                                a = fmaf(dv[i].x, w[c][j], a);
+                                a = fmaf(dv[i].y, w[c][j + 1], a);
+                                a = fmaf(dv[i].z, w[c][j + 2], a);
+                                a = fmaf(dv[i].w, w[c][j + 3], a);
+                                acc[r + i][c] = a;
+                            }
+                    }
+                }
+#pragma unroll
+                for (int r = 0; r < kRC; ++r)
+#pragma unroll
+                    for (int c = 0; c < 2; ++c)
+                        part[(jq * R + ch * kRC + r) * kUnits + unit0 + 32 * c] = acc[r][c];
+            }
+            __syncthreads();
+            // Add the column groups in a fixed order; a warp holds 32 units
+            // of one row, all of one peer, and hands them over.
+#pragma unroll
+            for (int i = 0; i < R * kUnits / kThreads; ++i) {
+                const int o = tid + i * kThreads;
+                const int r = o / kUnits, unit = o % kUnits;
+                const uint32_t peer = unit / kBU;
+                if (peer < n_peers) {
+                    float v = part[o];
+#pragma unroll
+                    for (int q = 1; q < kJQ; ++q) v += part[q * R * kUnits + o];
+                    st_peer_f1(recv + ((par * n_peers + rank) * R + r) * kBU + lane, peer, v);
+                }
+            }
         }
-        __syncthreads();
+        cluster_arrive();
+        if (!last) {
+            const int tn = dir == 0 ? T - 2 - step : step + 1;
 #pragma unroll
-        for (int rr = 0; rr < kR; ++rr) {
-            const float4 a4 = *reinterpret_cast<const float4*>(&as[rr][4 * ty]);
-            const float4 b4 = *reinterpret_cast<const float4*>(&bs[rr][4 * tx]);
-            const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-            const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+            for (int j = 0; j < kNE; ++j) {
+                const int e = tid + j * kThreads;
+                const int row = n0 + e / (kBU / 2), u = u0 + 2 * (e % (kBU / 2));
+                if (e < kPairs && row < N && u < H) {
+                    const size_t m = (size_t)tn * N + row;
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+                    for (int q = 0; q < kNC; ++q) c[j][q] = ldg2(cf + (m * kNC + q) * H + u);
+                    dyv[j] = ldg2(dy + m * H + u);
+                }
+            }
+        }
+        cluster_wait();
+    }
+}
+
+// ---------------------------------------------------------------------
+// (c) dW and db partials, (d) their sum
+
+constexpr int kDK = 128;               // rows of dW (k) per block
+constexpr int kDR = 16;                // (t, n) rows per stage
+constexpr int kDAS = kDK + 8;          // row stride of the h_prev stage
+constexpr int kDDS = 3 * kBU + 8;      // row stride of the dph stage
+
+struct DwStage {
+    float4 a[2];
+    float4 d[2];
+};
+
+__device__ __forceinline__ void dw_load(DwStage& s, const float* __restrict__ ys,
+                                        const float* __restrict__ dpx,
+                                        const float* __restrict__ cr, int r0, int r_end, int k0,
+                                        int u0, long long shift, int M, int H, int tid) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int H3 = 3 * H;
 #pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int i = 0; i < 2; ++i) {
+        const int idx = tid + i * kThreads;
+        {
+            const int m = r0 + idx / (kDK / 4), k = k0 + 4 * (idx % (kDK / 4));
+            const long long src = (long long)m + shift;
+            s.a[i] = (m < r_end && src >= 0 && src < M && k < H) ? ldg4(ys + src * H + k) : zero;
+        }
+        if (idx < kDR * 3 * (kBU / 4)) {
+            const int m = r0 + idx / (3 * (kBU / 4));
+            const int g = (idx / (kBU / 4)) % 3;
+            const int u = u0 + 4 * (idx % (kBU / 4));
+            float4 v = zero;
+            if (m < r_end && u < H) {
+                v = ldg4(dpx + (size_t)m * H3 + g * H + u);
+                if (g == 2) {  // dph's n columns are da_c * r
+                    const float4 r = ldg4(cr + (size_t)m * kNC * H + u);
+                    v = make_float4(v.x * r.x, v.y * r.y, v.z * r.z, v.w * r.w);
+                }
+            }
+            s.d[i] = v;
+        }
+    }
+}
+
+__device__ __forceinline__ void dw_store(const DwStage& s, float (*As)[kDAS],
+                                         float (*Ds)[kDDS], int tid) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int idx = tid + i * kThreads;
+        *reinterpret_cast<float4*>(&As[idx / (kDK / 4)][4 * (idx % (kDK / 4))]) = s.a[i];
+        if (idx < kDR * 3 * (kBU / 4))
+            *reinterpret_cast<float4*>(&Ds[idx / (3 * (kBU / 4))][4 * (idx % (3 * (kBU / 4)))]) =
+                s.d[i];
+    }
+}
+
+// dwp[split][dir][k][j] = sum over the split's rows m of h_prev[m][k] * dph[m][j];
+// dbp[split][dir][j] = sum of dph[m][j]. blockIdx.z = split * 2 + dir.
+__global__ void __launch_bounds__(kThreads)
+gru_bwd_dw_kernel(const float* __restrict__ ys_f, const float* __restrict__ ys_b,
+                  const float* __restrict__ dpx_f, const float* __restrict__ dpx_b,
+                  const float* __restrict__ coef, float* __restrict__ dwp,
+                  float* __restrict__ dbp, int rows_per_split, int T, int N, int H) {
+    // Strides 136 and 104: the fragment loads below hit 32 different banks.
+    __shared__ __align__(16) float As[2][kDR][kDAS];
+    __shared__ __align__(16) float Ds[2][kDR][kDDS];
+
+    const int dir = blockIdx.z % 2;
+    const int split = blockIdx.z / 2;
+    const int u0 = blockIdx.x * kBU;
+    const int k0 = blockIdx.y * kDK;
+    const int M = T * N;
+    const int H3 = 3 * H;
+    const int tid = threadIdx.x;
+    // Warp tile: 32 rows of dW (k) x 48 of the block's 96 columns, as 2 x 6
+    // mma tiles; the contraction runs over the stage's 16 (t, n) rows.
+    const int warp = tid / 32, gid = (tid % 32) / 4, tig = tid % 4;
+    const int wk = warp % 4, wj = warp / 4;
+    const float* ys = dir == 0 ? ys_f : ys_b;
+    const float* dpx = dir == 0 ? dpx_f : dpx_b;
+    const float* cr = coef + ((size_t)dir * M * kNC + 3) * H;  // r of row 0
+    const long long shift = dir == 0 ? -(long long)N : (long long)N;
+    const int r_beg = split * rows_per_split;
+    const int r_end = min(M, r_beg + rows_per_split);
+    const bool with_db = blockIdx.y == 0 && tid < 3 * kBU;
+
+    float acc[2][6][4];                // [k tile][column tile][fragment]
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 6; ++nt)
+#pragma unroll
+            for (int f = 0; f < 4; ++f) acc[mt][nt][f] = 0.f;
+    float dbacc = 0.f;
+
+    DwStage st;
+    dw_load(st, ys, dpx, cr, r_beg, r_end, k0, u0, shift, M, H, tid);
+    dw_store(st, As[0], Ds[0], tid);
+    __syncthreads();
+    int buf = 0;
+    for (int r0 = r_beg; r0 < r_end; r0 += kDR, buf ^= 1) {
+        const bool more = r0 + kDR < r_end;
+        if (more) dw_load(st, ys, dpx, cr, r0 + kDR, r_end, k0, u0, shift, M, H, tid);
+#pragma unroll
+        for (int m8 = 0; m8 < kDR; m8 += 8) {
+            uint32_t a_hi[2][4], a_lo[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+                const int k = wk * 32 + mt * 16 + gid;
+                split_tf32(As[buf][m8 + tig][k], a_hi[mt][0], a_lo[mt][0]);
+                split_tf32(As[buf][m8 + tig][k + 8], a_hi[mt][1], a_lo[mt][1]);
+                split_tf32(As[buf][m8 + tig + 4][k], a_hi[mt][2], a_lo[mt][2]);
+                split_tf32(As[buf][m8 + tig + 4][k + 8], a_hi[mt][3], a_lo[mt][3]);
+            }
+#pragma unroll
+            for (int nt = 0; nt < 6; ++nt) {
+                const int col = wj * 48 + nt * 8 + gid;
+                uint32_t b_hi[2], b_lo[2];
+                split_tf32(Ds[buf][m8 + tig][col], b_hi[0], b_lo[0]);
+                split_tf32(Ds[buf][m8 + tig + 4][col], b_hi[1], b_lo[1]);
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt)
+                    mma_3xtf32(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);
+            }
         }
         if (with_db) {
 #pragma unroll
-            for (int rr = 0; rr < kR; ++rr) dbacc += bs[rr][threadIdx.x];
+            for (int mm = 0; mm < kDR; ++mm) dbacc += Ds[buf][mm][tid];
         }
+        if (more) dw_store(st, As[buf ^ 1], Ds[buf ^ 1], tid);
         __syncthreads();
     }
+
+    // Fragment (f / 2, f % 2) of tile (mt, nt) is row k0 + wk*32 + mt*16 + gid
+    // + 8 * (f / 2) of dW, column wj*48 + nt*8 + 2*tig + f % 2 of the block's 96.
+    float* out = dwp + (size_t)blockIdx.z * H * H3;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int k = k0 + 4 * ty + i;
-        if (k >= H) continue;
+    for (int nt = 0; nt < 6; ++nt) {
+        const int jl = wj * 48 + nt * 8 + 2 * tig;
+        const int g = jl / kBU, u = u0 + jl % kBU;
+        if (u >= H) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int jj = j0 + 4 * tx + j;
-            if (jj < H3) dw[((size_t)dir * H + k) * H3 + jj] = acc[i][j];
-        }
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int k = k0 + wk * 32 + mt * 16 + gid + 8 * half;
+                if (k < H)
+                    *reinterpret_cast<float2*>(out + (size_t)k * H3 + g * H + u) =
+                        make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+            }
     }
-    if (with_db && j0 + threadIdx.x < H3) db[dir * H3 + j0 + threadIdx.x] = dbacc;
+    if (with_db && u0 + tid % kBU < H)
+        dbp[(size_t)blockIdx.z * H3 + (tid / kBU) * H + u0 + tid % kBU] = dbacc;
 }
+
+// dw[i] = sum over splits of dwp[split][i], in split order; db likewise.
+__global__ void __launch_bounds__(kThreads)
+gru_bwd_dw_sum_kernel(const float* __restrict__ dwp, const float* __restrict__ dbp,
+                      float* __restrict__ dw, float* __restrict__ db, int splits, int n_dw,
+                      int n_db) {
+    const int i = blockIdx.x * kThreads + threadIdx.x;
+    if (i < n_dw) {
+        float s = dwp[i];
+        for (int p = 1; p < splits; ++p) s += dwp[(size_t)p * n_dw + i];
+        dw[i] = s;
+    } else if (i < n_dw + n_db) {
+        const int j = i - n_dw;
+        float s = dbp[j];
+        for (int p = 1; p < splits; ++p) s += dbp[(size_t)p * n_db + j];
+        db[j] = s;
+    }
+}
+
+const void* chain_for(int rows) {
+    return rows == 16 ? (const void*)gru_bwd_chain_kernel<16>
+                      : (const void*)gru_bwd_chain_kernel<20>;
+}
+
+const Family kChain = {chain_for, chain_smem, kChainThreads};
 
 }  // namespace
 
 extern "C" {
 
-// See the contract above. w_t [2, 3H, H] is w_hh transposed per direction;
-// scratch: dph [2, T, N, 3H], dh_buf [2 (ping-pong), 2, N, H], dhz [2, N, H].
+// See the contract above. Scratch: coef [2, T*N, 5, H], dwp [splits, 2, H, 3H],
+// dbp [splits, 2, 3H]; `splits` >= 1 ranges of rows for the dW reduction.
 // All float32, contiguous, on CUDA device `device`, whose stream is
-// `stream`. Returns the first CUDA error of the launches, or 0.
+// `stream`. H % 8 == 0 and H <= 256. Returns the first CUDA error of the
+// four launches, or 0.
 int ocrs_gru_bwd(int device, const float* px_f, const float* px_b, const float* ys_f,
                  const float* ys_b, const float* dy_f, const float* dy_b, const float* w_hh,
-                 const float* w_t, const float* b_hh, float* dpx_f, float* dpx_b, float* dph,
-                 float* dh_buf, float* dhz, float* dw, float* db, int T, int N, int H,
+                 const float* b_hh, float* dpx_f, float* dpx_b, float* coef, float* dwp,
+                 float* dbp, float* dw, float* db, int splits, int T, int N, int H,
                  void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (H % 8 != 0) return (int)cudaErrorInvalidValue;
-    const size_t smem_a = gates_smem(H), smem_b = dh_smem(H);
-    if (smem_a > kMaxSmem || smem_b > kMaxSmem) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const size_t buf = (size_t)2 * N * H;  // both directions
-    err = cudaMemsetAsync(dh_buf, 0, buf * sizeof(float), s);
+    if (T < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+    int rows = 0, max_active = 0;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    err = pick_rows(kChain, N, H, &rows, &max_active);
+    if (err == cudaSuccess) err = configure(kChain, rows, N, H, &cfg, &attr);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(gru_bwd_gates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_a);
+    cfg.stream = s;
+    const int M = T * N;
+    const int n_tiles = (H + kBU - 1) / kBU;
+
+    const dim3 coef_grid(n_tiles, (M + kGM - 1) / kGM, 2);
+    gru_bwd_coef_kernel<<<coef_grid, kThreads, 0, s>>>(px_f, px_b, ys_f, ys_b, w_hh, b_hh, coef,
+                                                       T, N, H);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(gru_bwd_dh_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_b);
+
+    const float* coef_in = coef;
+    void* args[] = {&dy_f, &dy_b, &w_hh, &coef_in, &dpx_f, &dpx_b, &T, &N, &H};
+    err = cudaLaunchKernelExC(&cfg, chain_for(rows), args);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((H + kBU - 1) / kBU, (N + kBN - 1) / kBN, 2);
-    for (int step = 0; step < T; ++step) {
-        const float* dh_in = dh_buf + (step % 2) * buf;
-        float* dh_out = dh_buf + ((step + 1) % 2) * buf;
-        gru_bwd_gates_kernel<<<grid, kThreads, smem_a, s>>>(
-            px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, dpx_f, dpx_b, dph, dh_in, dhz,
-            step, T, N, H);
-        if (step + 1 < T) {  // the last step's dh is not needed
-            gru_bwd_dh_kernel<<<grid, kThreads, smem_b, s>>>(w_t, dph, dhz, dh_out, step, T, N, H);
-        }
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
-    const dim3 dw_grid((3 * H + kTJ - 1) / kTJ, (H + kTK - 1) / kTK, 2);
-    gru_bwd_dw_kernel<<<dw_grid, kDwThreads, 0, s>>>(ys_f, ys_b, dph, dw, db, T, N, H);
+
+    int rows_per_split = (M + splits - 1) / splits;
+    rows_per_split = (rows_per_split + kDR - 1) / kDR * kDR;
+    const dim3 dw_grid(n_tiles, (H + kDK - 1) / kDK, 2 * splits);
+    gru_bwd_dw_kernel<<<dw_grid, kThreads, 0, s>>>(ys_f, ys_b, dpx_f, dpx_b, coef, dwp, dbp,
+                                                   rows_per_split, T, N, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    const int n_dw = 2 * H * 3 * H, n_db = 2 * 3 * H;
+    gru_bwd_dw_sum_kernel<<<(n_dw + n_db + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        dwp, dbp, dw, db, splits, n_dw, n_db);
     return (int)cudaGetLastError();
+}
+
+// How many clusters of the chain's launch for (N, H) the device can hold
+// at once (cudaOccupancyMaxActiveClusters); *rows_out gets the batch rows
+// per block that ocrs_gru_bwd picks for that shape. Returns the count, or
+// minus the CUDA error code.
+int ocrs_gru_bwd_max_clusters(int device, int N, int H, int* rows_out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return -(int)err;
+    int max_active = 0;
+    err = pick_rows(kChain, N, H, rows_out, &max_active);
+    return err == cudaSuccess ? max_active : -(int)err;
 }
 
 const char* ocrs_error_string(int code) {

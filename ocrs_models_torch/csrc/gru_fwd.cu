@@ -14,209 +14,284 @@
 // the T steps form a chain of dependent products, so the whole call is
 // 20.2 GFLOP, 0.30 ms at the f32 rate. The device-memory traffic is px
 // read once (158 MB), ys written once (52.7 MB) and W_hh (1.6 MB): 212 MB,
-// 63 us. Operations bound it. Besides, W_hh is read again from L2 at
-// every step, 1.6 MB per step for each batch tile that needs it.
+// 63 us. Operations bound it, and the chain bounds it harder: a block's
+// share of one step, 16 x 256 x 96 FMAs, takes 3072 cycles of one SM's
+// FMA pipes (1.75 us at 1.755 GHz) whatever the rest of the card does.
 //
-// Design: one launch per step, with the loop over steps in the C entry
-// (one ctypes call per layer); stream order is the barrier between steps.
-// The grid is (tiles of 32 hidden units, tiles of 16 batch rows,
-// direction), 128 blocks at H=256, N=128. A block owns the r, z and n
-// columns of its 32 units, so it finishes the gate math itself and writes
-// h_t with no second pass. Each step it stages its 256x96 slice of W_hh
-// (96 KB, from L2, in unrolled 16-byte loads) and its 16 rows of h_{t-1}
-// in shared memory; every thread then computes a 2-row x 2-unit x 3-gate
-// register tile over half of the k range (the two halves are summed through shared memory), with
-// one float4 read of h per 4 k and one float2 read of W per gate and k:
-// 14 shared loads per 48 FMAs. The threads that do the gate math fetch
-// their x-projections first, so that HBM latency hides under the staging.
-// h lives in two ping-pong buffers in device memory, f32. Keeping W_hh on chip across steps (a persistent grid or
-// thread block clusters with DSMEM) and wgmma are later work.
+// Design: ONE launch for all T steps. The grid is (tiles of 32 hidden
+// units, tiles of R batch rows, direction); the blocks of one (batch
+// tile, direction) form a thread block cluster of ceil(H/32) blocks (8 at
+// H=256, the portable maximum), and clusters are independent of each
+// other. A block owns the r, z and n columns of its 32 units and loops
+// over the steps inside the kernel.
+// - W_hh stays in REGISTERS: warp q of the block's 16 owns the k range
+//   [16q, 16q+16) and lane l the unit l, so a thread keeps W_hh[16 k][3
+//   gates] of its unit, 48 registers, loaded once. Per step it reads the
+//   rows of h as float4 broadcasts (every lane of a warp reads the same
+//   address, one wavefront) and does 12 FMAs per load; four warps per
+//   scheduler hide the latency of those loads. An earlier layout that
+//   kept the 96 KB slice in shared memory was bound by its shared loads
+//   of W_hh, not by its FMAs. The product is straight-line code: the h
+//   buffers have a fixed row stride and zero columns from H on, so no
+//   guard on k breaks the unrolled loop into branches.
+// - The 16 partial sums per output (one per warp) go through shared
+//   memory; the thread that finishes the gate math of an element adds
+//   them in a fixed order (gate math and px loads are spread over R * 16
+//   threads, two units each).
+// - The rows h_{t-1}[R, H] of the batch tile live in two ping-pong buffers
+//   in every block's shared memory: after the gate math a block writes its
+//   [R, 32] slice of h_t into the other-parity buffer of every block of
+//   its cluster (distributed shared memory, `mapa` + `st.shared::cluster`),
+//   then one cluster barrier per step, split into arrive and wait so that
+//   the prefetch of px[t+1] overlaps the wait. Nothing of the state goes
+//   through device memory.
+// - R is 16 or 20, chosen per call from the batch size and the clusters
+//   the card holds at once (gru_cluster.cuh).
+// The products stay on the f32 FMA pipes: plain TF32 tensor-core products
+// over a 200-step recurrence do not meet the 1e-4 tolerance against the
+// plain version, and an error-compensated 3xTF32 product was not tried.
+// H > 256 would need a cluster of more than 8 blocks; the wrapper raises
+// for it (every width the repo's models use is <= 256).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "gru_cluster.cuh"
 
 namespace {
 
-constexpr int kBU = 32;                // hidden units per block
-constexpr int kBN = 16;                // batch rows per block
-constexpr int kTU = kBU / 2;           // thread columns: 2 units each
-constexpr int kTR = kBN / 2;           // thread rows: 2 batch rows each
-constexpr int kKSplit = 2;             // k range split across thread groups
-constexpr int kThreads = kTU * kTR * kKSplit;  // 256
+using namespace gru_cluster;
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;  // k range split across the warps
+constexpr int kKPT = 16;               // k per warp: kWarps * kKPT >= H
 
-__host__ __device__ constexpr int h_stride(int H) { return H + 4; }  // keeps float4 alignment
+// Gate functions on the fast exponential and division (ex2.approx,
+// rcp.approx): they sit on every step's critical path, and the result
+// stays within 5e-7 of the plain version after 201 steps (measured).
+__device__ __forceinline__ float sigmoid(float v) { return __fdividef(1.f, 1.f + __expf(-v)); }
 
-size_t smem_bytes(int H) {
-    return sizeof(float) * ((size_t)H * 3 * kBU + (size_t)kBN * h_stride(H) + kBN * 3 * kBU);
+__device__ __forceinline__ float tanh_fast(float v) { return 2.f * sigmoid(2.f * v) - 1.f; }
+
+// Row stride of the h buffers: the widest H, whatever H is, plus 4 floats
+// so that rows start in different banks. Columns from H on stay zero, so
+// the product runs over all kWarps * kKPT columns without a guard.
+constexpr int kHS = kWarps * kKPT + 4;
+
+size_t smem_bytes(int rows, int) {
+    return sizeof(float) * ((size_t)2 * rows * kHS + (size_t)kWarps * rows * 3 * kBU);
 }
 
-// Requires H % 8 == 0 (16-byte loads of W_hh and h; float4 reads of h
-// over each half of k).
-__global__ void __launch_bounds__(kThreads)
-gru_step_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
-                const float* __restrict__ w_hh, const float* __restrict__ b_hh,
-                float* __restrict__ ys_f, float* __restrict__ ys_b,
-                const float* __restrict__ h_in, float* __restrict__ h_out,
-                int step, int T, int N, int H) {
+// R batch rows per block (a multiple of 4, at most 32). Requires H % 8 == 0, H <= 256
+// and a cluster of ceil(H / kBU) blocks along x, equal to gridDim.x.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_fwd_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
+               const float* __restrict__ w_hh, const float* __restrict__ b_hh,
+               float* __restrict__ ys_f, float* __restrict__ ys_b, int T, int N, int H) {
+    constexpr int kPairs = R * (kBU / 2);  // gate-math elements come in pairs of units
+    constexpr int kNE = (kPairs + kThreads - 1) / kThreads;
+    static_assert(R % 4 == 0 && kWarps * kKPT == kMaxCluster * kBU, "tile sizes");
     extern __shared__ __align__(16) float smem[];
-    const int HS = h_stride(H);
-    float* ws = smem;                        // [H][3][kBU]: this block's W_hh columns
-    float* hs = ws + (size_t)H * 3 * kBU;    // [kBN][HS]: rows of h_{t-1}
-    float* red = hs + kBN * HS;              // [kBN][3][kBU]: partials of k-half 1
+    constexpr int HS = kHS;
+    float* hs = smem;                        // [2][R][HS]: rows of h, by step parity
+    float* red = hs + 2 * R * HS;            // [kWarps][R][3][kBU]: partial products
 
     const int dir = blockIdx.z;
-    const int u0 = blockIdx.x * kBU;
-    const int n0 = blockIdx.y * kBN;
-    const int t = dir == 0 ? step : T - 1 - step;
+    const uint32_t n_peers = cluster_size();
+    const int u0 = (int)cluster_rank() * kBU;
+    const int n0 = blockIdx.y * R;
     const int H3 = 3 * H;
-    const size_t state = (size_t)N * H;
+    const int tid = threadIdx.x;
+    const int kq = tid / 32, lane = tid % 32;
+    const int kb = kq * kKPT;
 
-    const int half = threadIdx.x / (kTU * kTR);
-    const int tu = threadIdx.x % kTU;
-    const int tr = (threadIdx.x / kTU) % kTR;
+    // This thread's W_hh entries, for all steps: k in [kb, kb + kKPT), the
+    // three gates of unit u0 + lane.
+    float w[kKPT][3];
+    {
+        const float* W = w_hh + (size_t)dir * H * H3 + u0 + lane;
+#pragma unroll
+        for (int kk = 0; kk < kKPT; ++kk)
+#pragma unroll
+            for (int g = 0; g < 3; ++g)
+                w[kk][g] = (kb + kk < H && u0 + lane < H)
+                               ? __ldg(W + (size_t)(kb + kk) * H3 + g * H) : 0.f;
+    }
+    for (int i = tid; i < 2 * R * HS; i += kThreads) hs[i] = 0.f;  // h_0 = 0
 
-    // Group 0 does the gate math: fetch its x-projections and biases now,
-    // so their latency hides under the staging and the k loop.
-    const float* px = (dir == 0 ? px_f : px_b) + (size_t)t * N * H3;
     const float* b = b_hh + dir * H3;
-    float xg[3][2][2], bg[3][2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-        const int u = u0 + 2 * tu + j;
-        const bool u_ok = half == 0 && u < H;
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-            bg[g][j] = u_ok ? b[g * H + u] : 0.f;
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-                const int row = n0 + 2 * tr + i;
-                xg[g][i][j] = u_ok && row < N ? px[(size_t)row * H3 + g * H + u] : 0.f;
-            }
-        }
-    }
-
-    // Stage the block's W_hh columns and its rows of h_{t-1}, 16 bytes per
-    // load, unrolled so that many loads are in flight at once.
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* W = w_hh + (size_t)dir * H * H3;
-    constexpr int kQ = kBU / 4;  // float4 per (k, gate) row of the slice
-#pragma unroll 8
-    for (int i = threadIdx.x; i < H * 3 * kQ; i += kThreads) {
-        const int k = i / (3 * kQ);
-        const int g = (i / kQ) % 3;
-        const int u = u0 + 4 * (i % kQ);
-        reinterpret_cast<float4*>(ws)[i] =
-            u < H ? __ldg(reinterpret_cast<const float4*>(W + (size_t)k * H3 + g * H + u)) : zero;
-    }
-    const float* hin = h_in + dir * state;
-    const int h4 = H / 4;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < kBN * h4; i += kThreads) {
-        const int r = i / h4, k = 4 * (i % h4);
-        *reinterpret_cast<float4*>(hs + r * HS + k) =
-            n0 + r < N ? *reinterpret_cast<const float4*>(hin + (size_t)(n0 + r) * H + k) : zero;
-    }
-    __syncthreads();
-
-    const float* h0 = hs + (2 * tr) * HS;
-    const float* h1 = h0 + HS;
-    float acc[3][2][2];
-#pragma unroll
-    for (int g = 0; g < 3; ++g)
-        acc[g][0][0] = acc[g][0][1] = acc[g][1][0] = acc[g][1][1] = 0.f;
-
-    const int kbeg = half * (H / kKSplit), kend = kbeg + H / kKSplit;
-#pragma unroll 2
-    for (int k = kbeg; k < kend; k += 4) {
-        const float4 a4 = *reinterpret_cast<const float4*>(h0 + k);
-        const float4 b4 = *reinterpret_cast<const float4*>(h1 + k);
-        const float ha[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float hb[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-            for (int g = 0; g < 3; ++g) {
-                const float2 w = *reinterpret_cast<const float2*>(
-                    ws + ((k + kk) * 3 + g) * kBU + 2 * tu);
-                acc[g][0][0] = fmaf(ha[kk], w.x, acc[g][0][0]);
-                acc[g][0][1] = fmaf(ha[kk], w.y, acc[g][0][1]);
-                acc[g][1][0] = fmaf(hb[kk], w.x, acc[g][1][0]);
-                acc[g][1][1] = fmaf(hb[kk], w.y, acc[g][1][1]);
-            }
-        }
-    }
-
-    // Sum the two k-halves; group 0 finishes the gate math.
-    if (half == 1) {
-#pragma unroll
-        for (int g = 0; g < 3; ++g)
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-                    red[((2 * tr + i) * 3 + g) * kBU + 2 * tu + j] = acc[g][i][j];
-    }
-    __syncthreads();
-    if (half == 1) return;
-
+    const float* px = dir == 0 ? px_f : px_b;
     float* ys = dir == 0 ? ys_f : ys_b;
+    const size_t px_step = (size_t)N * H3, ys_step = (size_t)N * H;
+
+    // Gate-math elements of this thread: pairs e = tid + j * kThreads, row
+    // e / 16, units 2 * (e % 16) and the next.
+    float2 xg[kNE][3];
+    {
+        const int t = dir == 0 ? 0 : T - 1;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int r_local = 2 * tr + i;
-        const int row = n0 + r_local;
-        if (row >= N) continue;
+        for (int j = 0; j < kNE; ++j) {
+            const int e = tid + j * kThreads;
+            const int row = n0 + e / (kBU / 2), u = u0 + 2 * (e % (kBU / 2));
+            const bool ok = e < kPairs && row < N && u < H;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const int u = u0 + 2 * tu + j;
-            if (u >= H) continue;
-            const float* part = red + (r_local * 3) * kBU + 2 * tu + j;
-            const float hr = acc[0][i][j] + part[0];
-            const float hz = acc[1][i][j] + part[kBU];
-            const float hn = acc[2][i][j] + part[2 * kBU];
-            const float r = sigmoid(xg[0][i][j] + (hr + bg[0][j]));
-            const float z = sigmoid(xg[1][i][j] + (hz + bg[1][j]));
-            const float c = tanhf(xg[2][i][j] + r * (hn + bg[2][j]));
-            const float h_new = (1.f - z) * c + z * hs[r_local * HS + u];
-            h_out[dir * state + (size_t)row * H + u] = h_new;
-            ys[((size_t)t * N + row) * H + u] = h_new;
+            for (int g = 0; g < 3; ++g)
+                xg[j][g] = ok ? __ldg(reinterpret_cast<const float2*>(
+                                    px + t * px_step + (size_t)row * H3 + g * H + u))
+                              : make_float2(0.f, 0.f);
         }
+    }
+
+    // Every block of the cluster has zeroed its buffers before any peer
+    // writes into them.
+    __syncthreads();
+    cluster_arrive();
+    cluster_wait();
+
+    for (int step = 0; step < T; ++step) {
+        const int t = dir == 0 ? step : T - 1 - step;
+        const float* cur = hs + (step & 1) * R * HS;
+        float* nxt = hs + ((step + 1) & 1) * R * HS;
+
+        // Two chunks of R / 2 rows, so that the accumulators and the 48
+        // registers of W_hh fit 128 registers a thread.
+#pragma unroll
+        for (int ch = 0; ch < 2; ++ch) {
+            constexpr int kRC = R / 2;
+            const float* hrow = cur + ch * kRC * HS + kb;
+            float acc[kRC][3];
+#pragma unroll
+            for (int r = 0; r < kRC; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.f;
+#pragma unroll
+            for (int r = 0; r < kRC; r += 2) {
+#pragma unroll
+                for (int c = 0; c < kKPT; c += 4) {
+                    float4 hv[2];
+#pragma unroll
+                    for (int i = 0; i < 2; ++i)
+                        hv[i] = *reinterpret_cast<const float4*>(hrow + (r + i) * HS + c);
+#pragma unroll
+                    for (int i = 0; i < 2; ++i)
+#pragma unroll
+                        for (int g = 0; g < 3; ++g) {
+                            float a = acc[r + i][g];
+                            a = fmaf(hv[i].x, w[c][g], a);
+                            a = fmaf(hv[i].y, w[c + 1][g], a);
+                            a = fmaf(hv[i].z, w[c + 2][g], a);
+                            a = fmaf(hv[i].w, w[c + 3][g], a);
+                            acc[r + i][g] = a;
+                        }
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < kRC; ++r)
+#pragma unroll
+                for (int g = 0; g < 3; ++g)
+                    red[((kq * R + ch * kRC + r) * 3 + g) * kBU + lane] = acc[r][g];
+        }
+        __syncthreads();
+
+        // Sum the warps' partials in a fixed order and finish the gate
+        // math of this thread's elements.
+#pragma unroll
+        for (int j = 0; j < kNE; ++j) {
+            const int e = tid + j * kThreads;
+            const int er = e / (kBU / 2), eu = 2 * (e % (kBU / 2));
+            const int row = n0 + er, u = u0 + eu;
+            if (e < kPairs && u < H) {
+                float2 ph[3], bg[3];
+#pragma unroll
+                for (int g = 0; g < 3; ++g) {
+                    float2 s = *reinterpret_cast<const float2*>(red + (er * 3 + g) * kBU + eu);
+#pragma unroll
+                    for (int q = 1; q < kWarps; ++q) {
+                        const float2 v = *reinterpret_cast<const float2*>(
+                            red + ((q * R + er) * 3 + g) * kBU + eu);
+                        s.x += v.x;
+                        s.y += v.y;
+                    }
+                    ph[g] = s;
+                    bg[g] = __ldg(reinterpret_cast<const float2*>(b + g * H + u));
+                }
+                const float2 hp = *reinterpret_cast<const float2*>(cur + er * HS + u);
+                const float r0 = sigmoid(xg[j][0].x + (ph[0].x + bg[0].x));
+                const float r1 = sigmoid(xg[j][0].y + (ph[0].y + bg[0].y));
+                const float z0 = sigmoid(xg[j][1].x + (ph[1].x + bg[1].x));
+                const float z1 = sigmoid(xg[j][1].y + (ph[1].y + bg[1].y));
+                const float c0 = tanh_fast(xg[j][2].x + r0 * (ph[2].x + bg[2].x));
+                const float c1 = tanh_fast(xg[j][2].y + r1 * (ph[2].y + bg[2].y));
+                const float hn0 = (1.f - z0) * c0 + z0 * hp.x;
+                const float hn1 = (1.f - z1) * c1 + z1 * hp.y;
+                const float* dst = nxt + er * HS + u;
+                for (uint32_t p = 0; p < n_peers; ++p) st_peer_f2(dst, p, hn0, hn1);
+                if (row < N)
+                    *reinterpret_cast<float2*>(ys + t * ys_step + (size_t)row * H + u) =
+                        make_float2(hn0, hn1);
+            }
+        }
+        cluster_arrive();
+        if (step + 1 < T) {
+            const int tn = dir == 0 ? step + 1 : T - 2 - step;
+#pragma unroll
+            for (int j = 0; j < kNE; ++j) {
+                const int e = tid + j * kThreads;
+                const int row = n0 + e / (kBU / 2), u = u0 + 2 * (e % (kBU / 2));
+                if (e < kPairs && row < N && u < H) {
+#pragma unroll
+                    for (int g = 0; g < 3; ++g)
+                        xg[j][g] = __ldg(reinterpret_cast<const float2*>(
+                            px + tn * px_step + (size_t)row * H3 + g * H + u));
+                }
+            }
+        }
+        cluster_wait();
     }
 }
+
+const void* kernel_for(int rows) {
+    return rows == 16 ? (const void*)gru_fwd_kernel<16> : (const void*)gru_fwd_kernel<20>;
+}
+
+const Family kFamily = {kernel_for, smem_bytes, kThreads};
 
 }  // namespace
 
 extern "C" {
 
-// px_f, px_b [T, N, 3H]; w_hh [2, H, 3H]; b_hh [2, 3H]; ys_f, ys_b [T, N, H];
-// h_buf: scratch of 2 * 2 * N * H floats (ping-pong x direction). All
-// float32, contiguous, on CUDA device `device`, whose stream is `stream`.
-// Returns the first CUDA error of the T launches, or 0.
+// px_f, px_b [T, N, 3H]; w_hh [2, H, 3H]; b_hh [2, 3H]; ys_f, ys_b [T, N, H].
+// All float32, contiguous, on CUDA device `device`, whose stream is
+// `stream`. H % 8 == 0 and H <= 256. Returns the launch's CUDA error, or 0.
 int ocrs_gru_fwd(int device, const float* px_f, const float* px_b, const float* w_hh,
-                 const float* b_hh, float* ys_f, float* ys_b, float* h_buf,
-                 int T, int N, int H, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (H % 8 != 0) return (int)cudaErrorInvalidValue;
+                 const float* b_hh, float* ys_f, float* ys_b, int T, int N, int H,
+                 void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const size_t buf = (size_t)2 * N * H;  // both directions
-    err = cudaMemsetAsync(h_buf, 0, buf * sizeof(float), s);
+    if (T < 1) return (int)cudaErrorInvalidValue;
+    int rows = 0, max_active = 0;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    err = pick_rows(kFamily, N, H, &rows, &max_active);
+    if (err == cudaSuccess) err = configure(kFamily, rows, N, H, &cfg, &attr);
     if (err != cudaSuccess) return (int)err;
-    const size_t smem = smem_bytes(H);
-    err = cudaFuncSetAttribute(gru_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    cfg.stream = (cudaStream_t)stream;
+    void* args[] = {&px_f, &px_b, &w_hh, &b_hh, &ys_f, &ys_b, &T, &N, &H};
+    err = cudaLaunchKernelExC(&cfg, kernel_for(rows), args);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((H + kBU - 1) / kBU, (N + kBN - 1) / kBN, 2);
-    for (int step = 0; step < T; ++step) {
-        const float* h_in = h_buf + (step % 2) * buf;
-        float* h_out = h_buf + ((step + 1) % 2) * buf;
-        gru_step_kernel<<<grid, kThreads, smem, s>>>(px_f, px_b, w_hh, b_hh, ys_f, ys_b,
-                                                     h_in, h_out, step, T, N, H);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
-    }
     return (int)cudaGetLastError();
+}
+
+// How many clusters of the launch for (N, H) the device can hold at once
+// (cudaOccupancyMaxActiveClusters); *rows_out gets the batch rows per block
+// that ocrs_gru_fwd picks for that shape. Returns the count, or minus the
+// CUDA error code.
+int ocrs_gru_fwd_max_clusters(int device, int N, int H, int* rows_out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return -(int)err;
+    int max_active = 0;
+    err = pick_rows(kFamily, N, H, rows_out, &max_active);
+    return err == cudaSuccess ? max_active : -(int)err;
 }
 
 const char* ocrs_error_string(int code) {

@@ -2,6 +2,10 @@ from .ctc import ctc_alpha, ctc_alpha_reference, ctc_beta, ctc_beta_reference, c
 from .gru import (
     BiGRU,
     gru_bwd,
+    gru_bwd_chain_reference,
+    gru_bwd_coefficients_reference,
+    gru_bwd_dw_reference,
+    gru_bwd_phases_reference,
     gru_bwd_reference,
     gru_fwd,
     gru_recurrence,
@@ -14,7 +18,9 @@ KERNELS = (stage1_fwd, stage1_bwd, gru_fwd, gru_bwd, ctc_alpha, ctc_beta)
 
 __all__ = [
     "BiGRU", "KERNELS", "ctc_alpha", "ctc_alpha_reference", "ctc_beta", "ctc_beta_reference",
-    "ctc_loss", "ctc_loss_forward", "gru_bwd", "gru_bwd_reference", "gru_fwd",
+    "ctc_loss", "ctc_loss_forward", "gru_bwd", "gru_bwd_chain_reference",
+    "gru_bwd_coefficients_reference", "gru_bwd_dw_reference", "gru_bwd_phases_reference",
+    "gru_bwd_reference", "gru_fwd",
     "gru_recurrence", "gru_recurrence_reference", "stage1", "stage1_bwd",
     "stage1_bwd_reference", "stage1_fwd", "stage1_reference",
 ]

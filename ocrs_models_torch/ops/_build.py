@@ -61,9 +61,11 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
+    """Whether the library is missing or older than its source or any
+    header beside it (``csrc/*.cuh``)."""
     lib = lib_path(name)
-    src = CSRC_DIR / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in (CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")))
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def build() -> dict[str, Path]:

@@ -21,6 +21,7 @@ from ocrs_models_torch.ops import (
     ctc_beta,
     ctc_beta_reference,
     gru_bwd,
+    gru_bwd_phases_reference,
     gru_bwd_reference,
     gru_fwd,
     gru_recurrence_reference,
@@ -71,22 +72,71 @@ def test_stage1_kernel_matches_plain(dev, shape):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(33, 40, 256), (5, 3, 48), (1, 17, 8)])
-def test_gru_kernel_matches_plain(dev, shape):
-    t, n, h = shape
-    g = torch.Generator().manual_seed(sum(shape))
+def _gru_case(t, n, h, dev, seed, dy_scale=1.0):
+    g = torch.Generator().manual_seed(seed)
     k = 1.0 / h**0.5
     px_f = torch.randn((t, n, 3 * h), generator=g).to(dev)
     px_b = torch.randn((t, n, 3 * h), generator=g).to(dev)
     w_hh = ((torch.rand((2, h, 3 * h), generator=g) * 2 - 1) * k).to(dev)
     b_hh = ((torch.rand((2, 3 * h), generator=g) * 2 - 1) * k).to(dev)
+    dy_f = (torch.randn((t, n, h), generator=g) * dy_scale).to(dev)
+    dy_b = (torch.randn((t, n, h), generator=g) * dy_scale).to(dev)
+    return px_f, px_b, w_hh, b_hh, dy_f, dy_b
+
+
+# T=1 and T=2: no exchange between the blocks of a cluster, then one.
+# N=259: 34 clusters, more than the card holds at once, and a ragged last
+# batch tile. H=8, 48, 64: clusters of 1, 2 (ragged unit tile) and 2.
+GRU_SHAPES = [(33, 40, 256), (5, 3, 48), (1, 17, 8), (2, 20, 256), (1, 3, 64), (2, 5, 64),
+              (7, 259, 256), (201, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", GRU_SHAPES)
+def test_gru_kernel_matches_plain(dev, shape):
+    t, n, h = shape
+    px_f, px_b, w_hh, b_hh, _, _ = _gru_case(t, n, h, dev, sum(shape))
     want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
     before = gru_fwd.launches
     got = gru_fwd(px_f, px_b, w_hh, b_hh)
+    again = gru_fwd(px_f, px_b, w_hh, b_hh)
     torch.cuda.synchronize()
-    assert gru_fwd.launches == before + 1
+    assert gru_fwd.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)  # bit-identical reruns
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+def test_gru_kernels_on_two_streams_do_not_disturb_each_other(dev):
+    # Two calls in flight at once on two streams, each with its own
+    # inputs, must give what each gives alone (bit for bit: the kernels
+    # share no scratch in device memory between calls).
+    cases = [_gru_case(65, 72, 256, dev, 11), _gru_case(40, 100, 256, dev, 12)]
+    alone = []
+    for px_f, px_b, w_hh, b_hh, dy_f, dy_b in cases:
+        ys = gru_fwd(px_f, px_b, w_hh, b_hh)
+        alone.append((ys, gru_bwd(px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    together = [None, None]
+    for _ in range(3):  # interleave the launches of the two streams
+        for i, (px_f, px_b, w_hh, b_hh, dy_f, dy_b) in enumerate(cases):
+            with torch.cuda.stream(streams[i]):
+                ys = gru_fwd(px_f, px_b, w_hh, b_hh)
+                together[i] = (ys, gru_bwd(px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh))
+    torch.cuda.synchronize()
+    for (ys_a, grads_a), (ys_t, grads_t) in zip(alone, together):
+        for a, b in zip((*ys_a, *grads_a), (*ys_t, *grads_t)):
+            assert torch.equal(a, b)
+
+
+def test_gru_kernels_refuse_a_hidden_size_beyond_one_cluster(dev):
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(2, 4, 264, dev, 13)
+    with pytest.raises(ValueError, match="H <= 256"):
+        gru_fwd(px_f, px_b, w_hh, b_hh)
+    ys = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
+    with pytest.raises(ValueError, match="H <= 256"):
+        gru_bwd(px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
 
 
 def test_bigru_matches_cudnn_gru(dev):
@@ -179,17 +229,13 @@ def test_stage1_bwd_kernel_ties_take_the_first_window_position(dev):
     torch.testing.assert_close(db, want[1])
 
 
-@pytest.mark.parametrize("shape", [(33, 40, 256), (5, 3, 48), (1, 17, 8), (65, 20, 256)])
+@pytest.mark.parametrize("shape", GRU_SHAPES + [(65, 20, 256)])
 def test_gru_bwd_kernel_matches_plain(dev, shape):
     t, n, h = shape
-    g = torch.Generator().manual_seed(sum(shape) + 2)
-    k = 1.0 / h**0.5
-    px_f = torch.randn((t, n, 3 * h), generator=g).to(dev)
-    px_b = torch.randn((t, n, 3 * h), generator=g).to(dev)
-    w_hh = ((torch.rand((2, h, 3 * h), generator=g) * 2 - 1) * k).to(dev)
-    b_hh = ((torch.rand((2, 3 * h), generator=g) * 2 - 1) * k).to(dev)
-    dy_f = torch.randn((t, n, h), generator=g).to(dev)
-    dy_b = torch.randn((t, n, h), generator=g).to(dev)
+    # Cotangents of order 1 up to 65 steps; at T=201 of order 0.1, as the
+    # training step's are, so that atol 1e-3 means the same relative error.
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(
+        t, n, h, dev, sum(shape) + 2, dy_scale=1.0 if t <= 65 else 0.1)
     ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
     args = (px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
     want = gru_bwd_reference(*args)
@@ -200,6 +246,20 @@ def test_gru_bwd_kernel_matches_plain(dev, shape):
     assert gru_bwd.launches == before + 2
     for a, b in zip(got, again):
         assert torch.equal(a, b)  # no atomics: bit-identical reruns
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-5)
+
+
+def test_gru_bwd_kernel_matches_its_phases_plain_versions(dev):
+    # The kernel against the composition of its phases' plain versions
+    # (which read the saved ys, as the kernel does), same tolerances.
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(33, 40, 256, dev, 5)
+    ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
+    args = (px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
+    want = gru_bwd_phases_reference(*args)
+    got = gru_bwd(*args)
     for a, b in zip(got[:2], want[:2]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
     for a, b in zip(got[2:], want[2:]):

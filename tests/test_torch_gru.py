@@ -10,7 +10,13 @@ import torch
 
 from ocrs_models_tpu.ops.gru import BiGRU as JaxBiGRU
 from ocrs_models_tpu.ops.pallas.gru_kernel4 import gru_recurrence4
-from ocrs_models_torch.ops import BiGRU, gru_recurrence
+from ocrs_models_torch.ops import (
+    BiGRU,
+    gru_bwd_phases_reference,
+    gru_bwd_reference,
+    gru_recurrence,
+    gru_recurrence_reference,
+)
 from ocrs_models_torch.weights import bigru_state_dict_from_jax
 
 
@@ -84,3 +90,43 @@ def test_recurrence_gradients_match_pallas_vjp(t):
     torch.autograd.backward(outs, [torch.from_numpy(d) for d in dys])
     for name, a, w in zip(("dpx_f", "dpx_b", "dw_hh", "db_hh"), ins, want):
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), rtol=0, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("t", [1, 7, 33])
+def test_backward_phases_match_autograd_and_pallas_vjp(t):
+    # The backward as gru_bwd.cu computes it (coefficients over all rows,
+    # then the chain, then the dW reduction), composed from the phases'
+    # plain versions, against autograd of the plain recurrence and against
+    # gru_recurrence4's Pallas backward in interpret mode. Tolerance atol
+    # 1e-5: float32, cotangents of order 1 carried over up to 33 steps and
+    # summed over up to 33 * 8 rows in another order.
+    args = _case(t, seed=6)
+    rng = np.random.default_rng(7)
+    dys = [rng.normal(size=(t, 8, 16)).astype(np.float32) for _ in range(2)]
+    _, vjp = jax.vjp(lambda *a: gru_recurrence4(*a, jnp.float32, True), *map(jnp.asarray, args))
+    want_jax = vjp(tuple(map(jnp.asarray, dys)))
+    px_f, px_b, w, b = map(torch.from_numpy, args)
+    dy_f, dy_b = map(torch.from_numpy, dys)
+    ys_f, ys_b = gru_recurrence_reference(px_f, px_b, w, b)
+    got = gru_bwd_phases_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w, b)
+    want = gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w, b)
+    for name, g, a, j in zip(("dpx_f", "dpx_b", "dw_hh", "db_hh"), got, want, want_jax):
+        assert g.shape == a.shape, name
+        np.testing.assert_allclose(g.numpy(), a.numpy(), rtol=0, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=0, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("t,n,h", [(2, 3, 8), (5, 17, 48)])
+def test_backward_phases_match_autograd_at_ragged_shapes(t, n, h):
+    # The shapes the kernel masks (N not a multiple of 16, H not of 32),
+    # in float64 so that only the algebra is compared: atol 1e-12.
+    rng = np.random.default_rng(t + n + h)
+    px_f, px_b = (torch.from_numpy(rng.normal(size=(t, n, 3 * h))) for _ in range(2))
+    w = torch.from_numpy(rng.normal(size=(2, h, 3 * h)) * 0.3)
+    b = torch.from_numpy(rng.normal(size=(2, 3 * h)) * 0.1)
+    dy_f, dy_b = (torch.from_numpy(rng.normal(size=(t, n, h))) for _ in range(2))
+    ys_f, ys_b = gru_recurrence_reference(px_f, px_b, w, b)
+    got = gru_bwd_phases_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w, b)
+    want = gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w, b)
+    for name, g, a in zip(("dpx_f", "dpx_b", "dw_hh", "db_hh"), got, want):
+        torch.testing.assert_close(g, a, rtol=0, atol=1e-12, msg=name)
