@@ -31,12 +31,18 @@ Phases (any failure exits non-zero, before the final line):
    Serving launches only the forward kernels.
 7. Hold each backward kernel against its plain version at the training
    step's largest shapes: stage-1 backward at x [256,1,64,256] and
-   [128,1,64,1024]; the biGRU backward at T=65, N=256 and T=257, N=128,
-   H=256; the CTC alpha and beta recursions at T=257, N=128, S=129 with
-   ragged lengths, repeated labels, an empty label and an infeasible row.
-   Time kernel, plain version and the library yardstick (autograd backward
-   of conv2d+relu+max_pool2d; cuDNN nn.GRU backward; F.ctc_loss forward
-   and backward) with CUDA events.
+   [128,1,64,1024] (with the device time of its two passes, its device
+   launches per call and the grid it chose); the biGRU backward at T=65,
+   N=256 and T=257, N=128, H=256; the CTC alpha and beta recursions at
+   T=257, N=128, S=129 with ragged lengths, repeated labels, an empty
+   label and an infeasible row, and at the training step's two shapes
+   (N=256, T=65 and N=128, T=257; S=49 and 97, and S=129 as the step pads
+   its labels). Time kernel, plain version and the library yardstick
+   (autograd backward of conv2d+relu+max_pool2d; cuDNN nn.GRU backward;
+   F.ctc_loss forward and backward) with CUDA events, the short CTC
+   kernels also on the device's own clock (torch.profiler); for
+   ``ctc_beta`` also ``chain_ms``, its dependent steps alone as timed by
+   the kernel's clocks on one block with no global access in the loop.
 8. The training step (``training.steps.make_recognition_steps``) at full
    width (CRNN 32-64-128, 2-layer biGRU H=256, 97 classes, f32, TF32 off,
    Adam with clip 4.0, lr 1e-3): one step against the same step with every
@@ -86,12 +92,13 @@ def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_launches(fn, calls: int = 3) -> float:
-    """Kernels, copies and sets that one call of ``fn`` puts on the device
-    (``torch.profiler`` over ``calls`` calls after a warm-up)."""
+def _device_profile(fn, calls: int = 3) -> tuple[float, dict]:
+    """What one call of ``fn`` puts on the device (``torch.profiler`` over
+    ``calls`` calls after a warm-up): the number of kernels, copies and
+    sets, and the device time of each by name, in ms."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ocrs_models_torch.profile_kernels import device_launches
+    from ocrs_models_torch.profile_kernels import device_launches, device_ms_by_kernel
 
     fn()
     torch.cuda.synchronize()
@@ -99,7 +106,19 @@ def _device_launches(fn, calls: int = 3) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return device_launches(prof) / calls
+    return device_launches(prof) / calls, device_ms_by_kernel(prof, calls)
+
+
+def _device_launches(fn, calls: int = 3) -> float:
+    return _device_profile(fn, calls)[0]
+
+
+def _device_ms(times: dict, part: str) -> float:
+    """Device time per call of the kernels whose name contains ``part``."""
+    found = [ms for name, ms in times.items() if part in name]
+    if not found:
+        raise AssertionError(f"no kernel named *{part}* ran on the device: {sorted(times)}")
+    return sum(found)
 
 
 def _no_tf32():
@@ -110,6 +129,7 @@ def _no_tf32():
 
 _HEADLINE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "us_per_step",
                   "device_launches_per_call")
+_STAGE1_BWD_EXTRA = ("device_ms", "second_pass_ms", "device_launches_per_call", "grid")
 
 
 def _bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -277,7 +297,7 @@ def check_stage1_bwd(dev, gen) -> dict:
     window are within the last bits of the two conv orders the maximum may
     differ, so the tolerance is 1e-2 of the largest |dW| (measured, see
     PERF.md)."""
-    from ocrs_models_torch.ops import stage1_bwd, stage1_bwd_reference, stage1_reference
+    from ocrs_models_torch.ops import stage1_bwd, stage1_bwd_grid, stage1_bwd_reference
 
     weight = (torch.randn((32, 1, 3, 3), generator=gen) * 0.3).to(dev)
     bias = (torch.randn((32,), generator=gen) * 0.1).to(dev)
@@ -306,11 +326,19 @@ def check_stage1_bwd(dev, gen) -> dict:
             library_ms = _cuda_time_ms(
                 lambda: torch.autograd.grad(y, (wr, br), dy, retain_graph=True), iters=5)
             del y
+        launches, times = _device_profile(lambda: stage1_bwd(x, weight, bias, dy), calls=5)
+        first, second = _device_ms(times, "stage1_bwd_partial"), _device_ms(times, "stage1_bwd_finish")
+        grid = stage1_bwd_grid(dev, n, 64, w)
         n_bytes = 4 * (x.numel() + dy.numel() + 2 * 32 * 10)
         n_flops = 2 * n * 32 * 32 * (w // 2) * (4 * 9 + 10)
         bound_ms, bound_by = _bound(n_bytes, n_flops)
+        print(f"stage1_bwd [{n},1,64,{w}]: {ms:.4f} ms ({100 * bound_ms / ms:.0f}% of its bound), "
+              f"on the device {first:.4f} + {second:.4f} ms (second pass), {launches:g} device "
+              f"launches per call, grid {grid} x 256 threads", flush=True)
         out[w] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                      bound_ms=bound_ms, bound_by=bound_by, shape=f"x [{n},1,64,{w}], dy [{n},32,32,{w // 2}]")
+                      bound_ms=bound_ms, bound_by=bound_by, device_ms=first + second,
+                      second_pass_ms=second, device_launches_per_call=launches, grid=grid,
+                      shape=f"x [{n},1,64,{w}], dy [{n},32,32,{w // 2}]")
     wide, head = out[1024], out[256]
     return {
         "name": "stage1_bwd", "route": "cuda",
@@ -319,7 +347,9 @@ def check_stage1_bwd(dev, gen) -> dict:
         "shape": wide["shape"], "max_abs_err": max(wide["err"], head["err"]),
         "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
         "bound_by": wide["bound_by"], "library_ms": wide["library_ms"],
-        "headline": {k: head[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")},
+        **{k: wide[k] for k in _STAGE1_BWD_EXTRA},
+        "headline": {k: head[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                          *_STAGE1_BWD_EXTRA)},
     }
 
 
@@ -393,45 +423,46 @@ def check_gru_bwd(dev, gen) -> dict:
     }
 
 
-def check_ctc(dev, gen) -> list[dict]:
-    """CTC alpha and beta kernels vs their plain versions at T=257, N=128,
-    S=129: ragged input and label lengths, repeated labels, one empty
-    label, one row whose labels cannot fit. alphas atol 1e-3 (log values
-    down to ~-1e3), demit and dalpha0 atol 1e-5 (posteriors in [0, 1])."""
-    from ocrs_models_torch.ops import ctc_alpha, ctc_alpha_reference, ctc_beta, ctc_beta_reference
-    from ocrs_models_torch.ops.ctc import NEG_INF
+def _ctc_case(dev, gen, n, t_len, label_width, label_len, input_len, repeats=False) -> dict:
+    """Random log-probs and labels of the given lengths, in label arrays
+    ``label_width`` wide, and the operands the loss builds from them."""
+    from ocrs_models_torch.ops import ctc_operands
 
-    n, t_len, n_cls, lmax = 128, 257, 97, 64
+    n_cls = 97
     rng = np.random.default_rng(SEED)
-    label_len = rng.integers(6, 49, n)
-    label_len[0] = 0  # empty label
-    label_len[2] = 40  # with 20 input steps below: cannot fit
-    labels = np.zeros((n, lmax), np.int64)
+    labels = np.zeros((n, label_width), np.int64)
     for i, ll in enumerate(label_len):
         labels[i, :ll] = rng.integers(1, n_cls, ll)
-    labels[1, :6] = [5, 5, 5, 7, 7, 9]  # repeats
-    input_len = rng.integers(160, t_len, n)
-    input_len[2] = 20
+    if repeats:
+        labels[1, :6] = [5, 5, 5, 7, 7, 9]
     log_probs = torch.log_softmax(torch.randn((n, t_len, n_cls), generator=gen), -1).to(dev)
     labels_t = torch.from_numpy(labels).to(dev)
-    lens = torch.from_numpy(input_len.astype(np.int32)).to(dev)
-    # The operands exactly as ctc_loss_forward builds them.
-    s = 2 * lmax + 1
-    ext = labels_t.new_zeros((n, s))
-    ext[:, 1::2] = labels_t
-    prev2 = F.pad(ext[:, :-2], (2, 0))
-    skip = torch.where((ext != 0) & (ext != prev2), 0.0, NEG_INF).float().contiguous()
-    emit = log_probs.gather(2, ext[:, None, :].expand(n, t_len, s)).contiguous()
-    pos = torch.arange(s, device=dev)[None, :]
-    label_len_t = torch.from_numpy(label_len).to(dev)
-    alpha0 = torch.where(pos <= 1, emit[:, 0], NEG_INF)
-    alpha0 = torch.where((pos == 1) & (label_len_t[:, None] == 0), NEG_INF, alpha0).contiguous()
+    label_len_t = torch.from_numpy(np.asarray(label_len, np.int64)).to(dev)
+    input_len_t = torch.from_numpy(np.asarray(input_len, np.int64)).to(dev)
+    emit, skip, alpha0, lens = ctc_operands(log_probs, labels_t, input_len_t, label_len_t)
+    return dict(log_probs=log_probs, labels=labels_t, label_len=label_len_t,
+                input_len=input_len_t, input_len_np=np.asarray(input_len),
+                emit=emit, skip=skip, alpha0=alpha0, lens=lens)
 
+
+def _check_ctc_case(case: dict, gen, what: str, zero_rows=()) -> dict:
+    """Both CTC kernels against their plain versions on one case, then
+    their times: alphas atol 1e-3 (log values down to ~-1e3), demit and
+    dalpha0 atol 1e-5 (posteriors in [0, 1]). ``zero_rows`` carry no
+    cotangent and must get no gradient."""
+    from ocrs_models_torch.ops import (ctc_alpha, ctc_alpha_reference, ctc_beta,
+                                       ctc_beta_chain_probe, ctc_beta_reference)
+    from ocrs_models_torch.ops.ctc import NEG_INF
+
+    emit, skip, alpha0, lens = (case[k] for k in ("emit", "skip", "alpha0", "lens"))
+    n, t_len, s = emit.shape
+    dev = emit.device
     want_a = ctc_alpha_reference(emit, skip, alpha0, lens)
     got_a = ctc_alpha(emit, skip, alpha0, lens)
     got_final = ctc_alpha(emit, skip, alpha0, lens, final_only=True)
     d_last = -torch.rand((n, s), generator=gen).to(dev)
-    d_last[2] = 0.0  # the infeasible row carries no cotangent
+    for row in zero_rows:
+        d_last[row] = 0.0
     mag = d_last.abs()
     seed = torch.where(mag > 0, torch.log(mag) - got_a[:, -1], torch.full_like(mag, NEG_INF))
     sign = torch.where(d_last < 0, -1.0, 1.0).amin(dim=1).contiguous()
@@ -441,43 +472,102 @@ def check_ctc(dev, gen) -> list[dict]:
     err_a = max((got_a - want_a).abs().max().item(),
                 (got_final - want_a[:, -1]).abs().max().item())
     err_b = _err(got_b, want_b)
-    print(f"ctc_alpha [N={n},T={t_len},S={s}]: max_abs_err {err_a:.3e}; "
+    print(f"ctc_alpha {what} [N={n},T={t_len},S={s}]: max_abs_err {err_a:.3e}; "
           f"ctc_beta: max_abs_err {err_b:.3e}", flush=True)
     if not (err_a <= 1e-3 and err_b <= 1e-5):
-        raise AssertionError(f"CTC kernels disagree with their plain versions: {err_a}, {err_b}")
-    if not all(torch.isfinite(t).all() for t in (*got_b, got_a)) or got_b[0][2].abs().max() != 0:
-        raise AssertionError("ctc_beta: non-finite values, or a gradient on the infeasible row")
+        raise AssertionError(f"CTC kernels disagree with their plain versions ({what}): {err_a}, {err_b}")
+    if not all(torch.isfinite(t).all() for t in (*got_b, got_a)) or \
+            any(got_b[0][row].abs().max() != 0 for row in zero_rows):
+        raise AssertionError(f"ctc_beta ({what}): non-finite values, or a gradient on a zero row")
 
-    ms_a = _cuda_time_ms(lambda: ctc_alpha(emit, skip, alpha0, lens), iters=20)
-    ms_b = _cuda_time_ms(lambda: ctc_beta(emit, skip, got_a, seed, sign, lens), iters=20)
+    def alpha():
+        return ctc_alpha(emit, skip, alpha0, lens)
+
+    def beta():
+        return ctc_beta(emit, skip, got_a, seed, sign, lens)
+
+    ms_a, ms_b = _cuda_time_ms(alpha, iters=20), _cuda_time_ms(beta, iters=20)
     plain_a = _cuda_time_ms(lambda: ctc_alpha_reference(emit, skip, alpha0, lens), iters=2, warmup=1)
     plain_b = _cuda_time_ms(
         lambda: ctc_beta_reference(emit, skip, got_a, seed, sign, lens), iters=2, warmup=1)
+    launches_a, times_a = _device_profile(alpha, calls=5)
+    launches_b, times_b = _device_profile(beta, calls=5)
+    dev_a, dev_b = _device_ms(times_a, "ctc_alpha_kernel"), _device_ms(times_b, "ctc_beta_kernel")
     # Yardstick: torch's own CTC loss (cuDNN or native CUDA) on the same
     # log-probs, forward, then backward alone.
-    lp = log_probs.transpose(0, 1).detach().requires_grad_(True)
-    il = torch.from_numpy(input_len).to(dev)
-    ctc_args = (lp, labels_t, il, label_len_t)
+    lp = case["log_probs"].transpose(0, 1).detach().requires_grad_(True)
+    ctc_args = (lp, case["labels"], case["input_len"], case["label_len"])
     lib_a = _cuda_time_ms(lambda: F.ctc_loss(*ctc_args, reduction="sum", zero_infinity=True), iters=20)
     loss = F.ctc_loss(*ctc_args, reduction="sum", zero_infinity=True)
     lib_b = _cuda_time_ms(lambda: torch.autograd.grad(loss, lp, retain_graph=True), iters=20)
-    active = int(np.minimum(input_len, t_len).sum())
+    # The chain alone: the recursion's dependent steps of the longest
+    # sample, timed by the kernel's own clocks on one block with no global
+    # access in the loop. No recursion of that many steps can be faster,
+    # whatever the bytes bound says.
+    steps = int(np.clip(case["input_len_np"], 1, t_len).max()) - 1
+    probe = ctc_beta_chain_probe(steps + 1, s, dev)
+    chain_ms = probe["ns"] / 1e6
+    active = int(np.minimum(case["input_len_np"], t_len).sum())
     state_bytes = 4 * n * t_len * s
-    rows = []
-    for name, ms, plain_ms, lib_ms, n_bytes, n_flops, err in (
-        ("ctc_alpha", ms_a, plain_a, lib_a, 2 * state_bytes + 4 * (3 * n * s + n),
-         14 * (active - n) * s, err_a),
-        ("ctc_beta", ms_b, plain_b, lib_b, 3 * state_bytes + 4 * (4 * n * s + 2 * n),
-         20 * active * s, err_b),
+    out = {}
+    for name, ms, dev_ms, launches, plain_ms, lib_ms, n_bytes, n_flops, err in (
+        ("ctc_alpha", ms_a, dev_a, launches_a, plain_a, lib_a,
+         2 * state_bytes + 4 * (3 * n * s + n), 14 * (active - n) * s, err_a),
+        ("ctc_beta", ms_b, dev_b, launches_b, plain_b, lib_b,
+         3 * state_bytes + 4 * (4 * n * s + 2 * n), 20 * active * s, err_b),
     ):
         bound_ms, bound_by = _bound(n_bytes, n_flops)
-        rows.append({
-            "name": name, "route": "cuda", "source": f"ocrs_models_torch/csrc/{name}.cu",
-            "replaces": "ocrs_models_tpu/ops/pallas/ctc_kernel.py:"
-                        + ("119" if name == "ctc_alpha" else "145"),
+        out[name] = {
             "shape": f"emit [{n},{t_len},{s}] f32", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "device_ms": dev_ms,
+            "us_per_step": 1e3 * dev_ms / max(steps, 1), "device_launches_per_call": launches,
+        }
+    out["ctc_beta"].update(chain_ms=chain_ms, chain_cycles_per_step=probe["cycles"] / max(steps, 1))
+    b = out["ctc_beta"]
+    print(f"ctc_beta {what}: {b['ms']:.4f} ms by events over wrapper calls, {b['device_ms']:.4f} ms "
+          f"on the device, {b['us_per_step']:.3f} us per step of {steps}; the chain alone "
+          f"chain_ms {chain_ms:.4f} ({b['chain_cycles_per_step']:.0f} cycles per step); "
+          f"bound_ms {b['bound_ms']:.4f} ({b['bound_by']}); F.ctc_loss backward {b['library_ms']:.4f} ms; "
+          f"ctc_alpha {out['ctc_alpha']['ms']:.4f} ms, {out['ctc_alpha']['device_ms']:.4f} on the device",
+          flush=True)
+    return out
+
+
+def check_ctc(dev, gen) -> list[dict]:
+    """CTC alpha and beta kernels vs their plain versions. The main case,
+    T=257, N=128, S=129: ragged input and label lengths, repeated labels,
+    one empty label, one row whose labels cannot fit. Then the training
+    step's two shapes (``rec_batch``: every label and input the same
+    length): ``headline`` N=256, T=65 with 24 labels and ``wide`` N=128,
+    T=257 with 48, in label arrays as wide as the labels (S=49, S=97), and
+    ``headline_padded``, ``wide_padded`` in arrays 64 wide as the training
+    step hands them over (S=129)."""
+    n, t_len = 128, 257
+    rng = np.random.default_rng(SEED)
+    label_len = rng.integers(6, 49, n)
+    label_len[0] = 0  # empty label
+    label_len[2] = 40  # with 20 input steps below: cannot fit
+    input_len = rng.integers(160, t_len, n)
+    input_len[2] = 20
+    main = _check_ctc_case(
+        _ctc_case(dev, gen, n, t_len, 64, label_len, input_len, repeats=True), gen, "ragged",
+        zero_rows=(2,))  # the infeasible row carries no cotangent
+    subs = {}
+    for what, n, width, chars in (("headline", 256, 256, 24), ("wide", 128, 1024, 48)):
+        for label_width, key in ((chars, what), (64, f"{what}_padded")):
+            case = _ctc_case(dev, gen, n, width // 4 + 1, label_width, np.full(n, chars),
+                             np.full(n, width // 4))
+            subs[key] = _check_ctc_case(case, gen, key)
+    rows = []
+    for name, line in (("ctc_alpha", "119"), ("ctc_beta", "145")):
+        rows.append({
+            "name": name, "route": "cuda", "source": f"ocrs_models_torch/csrc/{name}.cu",
+            "replaces": f"ocrs_models_tpu/ops/pallas/ctc_kernel.py:{line}",
+            **main[name],
+            "max_abs_err": max(main[name]["max_abs_err"], *(v[name]["max_abs_err"] for v in subs.values())),
+            **{key: {k: v for k, v in sub[name].items() if k not in ("max_abs_err", "bound_by")}
+               for key, sub in subs.items()},
         })
     return rows
 

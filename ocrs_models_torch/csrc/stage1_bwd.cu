@@ -16,171 +16,317 @@
 // 9 FMAs and 10 FMAs of the selected patch: 33.6M * 46 FMA = 3.1 GFLOP,
 // 46 us. Both bounds are about equal; reading dy is 89% of the bytes.
 //
-// Design: a block owns 64 pooled columns of one image and walks its 32
-// pooled rows. Per row it stages the 4 x 130 input patch rows and the
-// 32 x 64 tile of dy in shared memory, both with coalesced loads (dy rows
-// are contiguous per channel). Thread (c, g) takes channel c = tid % 32 and
-// every 8th column from g = tid / 32, so the 32 lanes of a warp share one
-// pooled position: its patch reads are broadcasts, its dy reads hit 32
-// banks (the tile is padded to 65 columns). Each thread keeps its
-// channel's 10 weights and 10 gradient sums in registers over all 32 x 8
-// positions; the 8 groups are summed through shared memory into one
-// partial [32, 10] per block, and a second kernel adds the partials in
-// block order. No float atomics, so repeated runs agree bit for bit.
-// Pooling floors odd sizes, like torch's MaxPool2d.
+// Design: FMAs, not loads, set the pace.
+// - A lane owns a pooled POSITION: a warp takes 32 neighbouring pooled
+//   columns, so its dy loads (one per channel) and x loads are coalesced
+//   with no transposing stage. The lane keeps its 4 x 4 input patch in 16
+//   registers and reuses it for the kGroup (4) channels of its warp, whose
+//   40 gradient sums also stay in registers; the 8 warps of a block are the
+//   8 channel groups of one tile. A patch row is two loads per lane
+//   (columns 2j, 2j+1; the outer two come from the neighbouring lanes by
+//   shuffle, the tile's two edge columns by one extra load), and walking
+//   down the rows only the two new input rows are loaded.
+// - The weights wait in shared memory and come as three 16-byte broadcast
+//   loads per channel and row: held in registers (40 of 128) they made the
+//   compiler spill and recompute addresses, 462 instructions a row against
+//   414 now. 8 channels per warp, or registers cut for a third block per
+//   SM, lost to 4 channels and two blocks.
+// - Loads stay in flight: the x rows and dy values of pooled row ph + 1 are
+//   requested into registers before the FMAs of row ph.
+// - The arg-max is three compares on the pre-activations (first maximum in
+//   window order; equal to the first maximum of the ReLU'd values whenever
+//   a gradient passes), the patch is routed by 12 selects on the column and
+//   two masked gradients on the row (one is 0, so the sum is the selected
+//   product exactly): 55 FMAs and 23 compares and selects per (position,
+//   channel). Selecting rows, then columns (21 selects, 9 FMAs), and four
+//   masked gradients (36 FMAs) were both slower.
+// - The grid is sized from the card: SM count x resident blocks, each block
+//   walking an equal share of the (image, column tile, pooled row) items in
+//   a fixed order that depends on the shapes and the block index alone.
+// - Sums over positions stay in a lane's registers for the whole walk,
+//   cross lanes once by shuffles in a fixed order, and go to one partial
+//   [32, 10] per block, scratch of the call; a second kernel adds the few
+//   hundred partials, 32 outputs per block with 8 warps striding over the
+//   partials and a fixed order across warps. No float atomics: reruns agree
+//   bit for bit.
+// Pooling floors odd sizes, like torch's MaxPool2d; any w is taken (the
+// loads are 4-byte, predicated at the edges).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kC = 32;                  // output channels
-constexpr int kK = 10;                  // 9 taps (dy * 3 + dx) + bias
-constexpr int kThreads = 256;
-constexpr int kGroups = kThreads / kC;  // column groups per block
-constexpr int kSeg = 64;                // pooled columns per block
-constexpr int kXW = 2 * kSeg + 2;       // input columns those need
+constexpr int kC = 32;                // output channels
+constexpr int kK = 10;                // 9 taps (dy * 3 + dx) + bias
+constexpr int kGroup = 4;             // channels per warp
+constexpr int kWarps = kC / kGroup;   // warps per block: all channels of a tile
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 32;             // pooled columns per item: one per lane
+constexpr int kMinBlocks = 2;         // resident blocks per SM the registers are held to
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
+// What a lane loads of one input row: columns 2j and 2j + 1 of its pooled
+// column j, and (lanes 0 and 31) the tile's outer column.
+struct RawRow {
+    float v0, v1, edge;
+};
+
+// Which of the three the image holds (fixed over a run of rows).
+struct Cols {
+    bool ok0, ok1, eok;
+};
+
+// `at`: the row's column 2j; `edge_at`: its outer column; `in`: the row is
+// inside the image. Outside, zeros (the convolution's padding).
+__device__ __forceinline__ RawRow load_row(const float* __restrict__ at,
+                                           const float* __restrict__ edge_at, bool in,
+                                           const Cols& c) {
+    RawRow r;
+    r.v0 = in && c.ok0 ? __ldg(at) : 0.f;
+    r.v1 = in && c.ok1 ? __ldg(at + 1) : 0.f;
+    r.edge = in && c.eok ? __ldg(edge_at) : 0.f;
+    return r;
+}
+
+// The four patch columns 2j - 1 .. 2j + 2 of a row, from the lane's two and
+// its neighbours'.
+__device__ __forceinline__ void expand_row(const RawRow& r, int lane, float out[4]) {
+    const float left = __shfl_up_sync(kFull, r.v1, 1);
+    const float right = __shfl_down_sync(kFull, r.v0, 1);
+    out[0] = lane == 0 ? r.edge : left;
+    out[1] = r.v0;
+    out[2] = r.v1;
+    out[3] = lane == 31 ? r.edge : right;
+}
+
+// One pooled row of one warp: the gradients g of its kGroup channels at the
+// lane's position, whose 4 x 4 patch is the row pairs `top` and `bot`.
+__device__ __forceinline__ void accumulate(const float (&top)[2][4], const float (&bot)[2][4],
+                                           const float (&g)[kGroup],
+                                           const float4* __restrict__ ws,
+                                           float (&acc)[kGroup][kK]) {
+    float p[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        p[0][i] = top[0][i];
+        p[1][i] = top[1][i];
+        p[2][i] = bot[0][i];
+        p[3][i] = bot[1][i];
+    }
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+        // The channel's taps and bias: three 16-byte broadcast loads.
+        const float4 wa = ws[3 * j], wb = ws[3 * j + 1], wc = ws[3 * j + 2];
+        const float wr[kK] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w, wc.x, wc.y};
+        // The four pre-activations, in the forward kernel's FMA order.
+        float y[2][2];
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                float s = wr[9];
+#pragma unroll
+                for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+                    for (int kx = 0; kx < 3; ++kx)
+                        s = fmaf(wr[ky * 3 + kx], p[a + ky][q + kx], s);
+                y[a][q] = s;
+            }
+        // First maximum in window order (0,0), (0,1), (1,0), (1,1): a later
+        // one wins only if strictly greater. Where the maximum is > 0 it is
+        // also the first maximum of the ReLU'd values; where it is not, no
+        // gradient passes.
+        const bool qt = y[0][1] > y[0][0];
+        const bool qb = y[1][1] > y[1][0];
+        const float yt = qt ? y[0][1] : y[0][0];
+        const float yb = qb ? y[1][1] : y[1][0];
+        const bool a = yb > yt;
+        const bool q = a ? qb : qt;
+        const float gg = (a ? yb : yt) > 0.f ? g[j] : 0.f;
+        const float g0 = a ? 0.f : gg;  // the window's upper row took it
+        const float g1 = a ? gg : 0.f;  // the lower row
+        // acc[ky][kx] += gg * p[a + ky][q + kx]: the column by select, the
+        // row by the two masked gradients (one of them is 0).
+        float v[4][3];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int kx = 0; kx < 3; ++kx) v[i][kx] = q ? p[i][kx + 1] : p[i][kx];
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+            for (int kx = 0; kx < 3; ++kx)
+                acc[j][ky * 3 + kx] =
+                    fmaf(g1, v[ky + 1][kx], fmaf(g0, v[ky][kx], acc[j][ky * 3 + kx]));
+        acc[j][9] += gg;
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 stage1_bwd_partial_kernel(const float* __restrict__ x, const float* __restrict__ w10,
                           const float* __restrict__ dy, float* __restrict__ partial,
-                          int h, int w) {
-    __shared__ float xs[4][kXW];
-    __shared__ float dys[kC][kSeg + 1];
-    __shared__ float red[kGroups][kC * kK];
-
+                          int n, int h, int w) {
+    const int lane = threadIdx.x & 31;
+    const int c0 = (threadIdx.x >> 5) * kGroup;
     const int hp = h / 2, wp = w / 2;
-    const int b = blockIdx.y;
-    const int pw0 = blockIdx.x * kSeg;
-    const int c = threadIdx.x % kC;
-    const int grp = threadIdx.x / kC;
-    const float* xb = x + (size_t)b * h * w;
-    const float* dyb = dy + (size_t)b * kC * hp * wp;
+    const int ntile = (wp + kTile - 1) / kTile;
+    const size_t plane = (size_t)hp * wp;
+    const long long total = (long long)n * ntile * hp;  // items: (image, column tile, pooled row)
+    long long it = total * blockIdx.x / gridDim.x;
+    const long long end = total * (blockIdx.x + 1) / gridDim.x;
 
-    float wc[kK], acc[kK];
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-        wc[k] = w10[c * kK + k];
-        acc[k] = 0.f;
+    // The weights wait in shared memory, 12 floats a channel: in registers
+    // they would be 40 of a thread's 128.
+    __shared__ float4 ws[kC][3];
+    for (int i = threadIdx.x; i < kC * 12; i += kThreads) {
+        const int ch = i / 12, k = i % 12;
+        reinterpret_cast<float*>(ws[ch])[k] = k < kK ? __ldg(w10 + ch * kK + k) : 0.f;
     }
-
-    for (int ph = 0; ph < hp; ++ph) {
-        __syncthreads();  // the previous row's tiles are no longer read
-        for (int i = threadIdx.x; i < 4 * kXW; i += kThreads) {
-            const int r = i / kXW, col = i % kXW;
-            const int yy = 2 * ph - 1 + r, xx = 2 * pw0 - 1 + col;
-            xs[r][col] = (yy >= 0 && yy < h && xx >= 0 && xx < w) ? xb[(size_t)yy * w + xx] : 0.f;
-        }
-        for (int i = threadIdx.x; i < kC * kSeg; i += kThreads) {
-            const int cc = i / kSeg, j = i % kSeg;
-            dys[cc][j] = pw0 + j < wp ? dyb[((size_t)cc * hp + ph) * wp + pw0 + j] : 0.f;
-        }
-        __syncthreads();
-
-        for (int j = grp; j < kSeg && pw0 + j < wp; j += kGroups) {
-            const float g = dys[c][j];
-            float p[4][4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int q = 0; q < 4; ++q) p[i][q] = xs[i][2 * j + q];
-            // The four pre-activations, in the forward kernel's FMA order.
-            float y4[4];
-#pragma unroll
-            for (int a = 0; a < 2; ++a) {
-#pragma unroll
-                for (int q = 0; q < 2; ++q) {
-                    float s = wc[9];
-#pragma unroll
-                    for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-                        for (int kx = 0; kx < 3; ++kx) s = fmaf(wc[ky * 3 + kx], p[a + ky][q + kx], s);
-                    y4[a * 2 + q] = s;
-                }
-            }
-            // First maximum of the ReLU'd values in window order; the
-            // gradient passes only where its pre-activation is > 0.
-            int best = 0;
-            float m = fmaxf(y4[0], 0.f);
-#pragma unroll
-            for (int k = 1; k < 4; ++k) {
-                const float r = fmaxf(y4[k], 0.f);
-                if (r > m) {
-                    m = r;
-                    best = k;
-                }
-            }
-            float sel = y4[0];
-#pragma unroll
-            for (int k = 1; k < 4; ++k) sel = best == k ? y4[k] : sel;
-            const float gg = sel > 0.f ? g : 0.f;
-            const int a = best >> 1, q = best & 1;
-#pragma unroll
-            for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-                for (int kx = 0; kx < 3; ++kx) {
-                    // p[a + ky][q + kx] with a, q in {0, 1}, without dynamic
-                    // register indexing.
-                    const float v0 = a ? p[1 + ky][kx] : p[ky][kx];
-                    const float v1 = a ? p[1 + ky][1 + kx] : p[ky][1 + kx];
-                    acc[ky * 3 + kx] = fmaf(gg, q ? v1 : v0, acc[ky * 3 + kx]);
-                }
-            }
-            acc[9] += gg;
-        }
-    }
-
-#pragma unroll
-    for (int k = 0; k < kK; ++k) red[grp][c * kK + k] = acc[k];
     __syncthreads();
-    float* out = partial + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (kC * kK);
-    for (int i = threadIdx.x; i < kC * kK; i += kThreads) {
-        float s = 0.f;
+    float acc[kGroup][kK];
 #pragma unroll
-        for (int g = 0; g < kGroups; ++g) s += red[g][i];
-        out[i] = s;
+    for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+        for (int k = 0; k < kK; ++k) acc[j][k] = 0.f;
+
+    while (it < end) {
+        // A run of pooled rows of one (image, column tile).
+        const int ph0 = (int)(it % hp);
+        const long long rest = it / hp;
+        const int ct = (int)(rest % ntile);
+        const int b = (int)(rest / ntile);
+        const int rows = (int)min((long long)(hp - ph0), end - it);
+        const int pw = ct * kTile + lane;
+        const bool live = pw < wp;
+        const int col = 2 * pw;
+        const int ecol = lane == 0 ? col - 1 : col + 2;
+        Cols c;
+        c.ok0 = col < w;
+        c.ok1 = col + 1 < w;
+        c.eok = (lane == 0 && ecol >= 0) || (lane == 31 && ecol < w);
+        // Input row 2 * ph0 - 1 at the lane's columns; pointers outside the
+        // image are never read through.
+        const float* at = x + ((size_t)b * h + 2 * ph0) * w - w + col;
+        const float* edge_at = at + (ecol - col);
+        const float* dyr = dy + ((size_t)b * kC + c0) * plane + (size_t)ph0 * wp + pw;
+
+        // The patch as two row pairs: going down a pooled row, the lower
+        // pair becomes the upper one and only the new lower pair is loaded.
+        float top[2][4], bot[2][4], g[kGroup], gn[kGroup];
+        expand_row(load_row(at, edge_at, ph0 > 0, c), lane, top[0]);
+        expand_row(load_row(at + w, edge_at + w, true, c), lane, top[1]);
+        at += 2 * w;  // from here on: the row of n2, input row 2 * ph + 1
+        edge_at += 2 * w;
+        RawRow n2 = load_row(at, edge_at, true, c);
+        RawRow n3 = load_row(at + w, edge_at + w, 2 * ph0 + 2 < h, c);
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) gn[j] = live ? __ldcs(dyr + j * plane) : 0.f;
+
+        for (int r = 0; r < rows; ++r) {
+            expand_row(n2, lane, bot[0]);
+            expand_row(n3, lane, bot[1]);
+#pragma unroll
+            for (int j = 0; j < kGroup; ++j) g[j] = gn[j];
+            if (r + 1 < rows) {  // the next pooled row's loads, in flight over this row's FMAs
+                at += 2 * w;
+                edge_at += 2 * w;
+                dyr += wp;
+                n2 = load_row(at, edge_at, true, c);
+                n3 = load_row(at + w, edge_at + w, 2 * (ph0 + r) + 4 < h, c);
+#pragma unroll
+                for (int j = 0; j < kGroup; ++j) gn[j] = live ? __ldcs(dyr + j * plane) : 0.f;
+            }
+            accumulate(top, bot, g, ws[c0], acc);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                top[0][i] = bot[0][i];
+                top[1][i] = bot[1][i];
+            }
+        }
+        it += rows;
+    }
+
+    // Lanes in a fixed butterfly order; each warp owns its channels.
+    float* out = partial + (size_t)blockIdx.x * (kC * kK) + c0 * kK;
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+        for (int k = 0; k < kK; ++k) {
+            float s = acc[j][k];
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+            if (lane == 0) out[j * kK + k] = s;
+        }
+}
+
+// dw10[i] = sum over the blocks' partials of partial[block][i]. A block
+// takes 32 outputs (one per lane); warp g adds partials g, g + 8, ... in
+// order, and the 8 warps' sums are added in warp order.
+constexpr int kFinishWarps = 8;
+
+__global__ void __launch_bounds__(32 * kFinishWarps)
+stage1_bwd_finish_kernel(const float* __restrict__ partial, float* __restrict__ dw10,
+                         int n_part) {
+    __shared__ float red[kFinishWarps][32];
+    const int lane = threadIdx.x & 31, wq = threadIdx.x >> 5;
+    const int i = blockIdx.x * 32 + lane;
+    float s = 0.f;
+#pragma unroll 4
+    for (int p = wq; p < n_part; p += kFinishWarps) s += partial[(size_t)p * (kC * kK) + i];
+    red[wq][lane] = s;
+    __syncthreads();
+    if (wq == 0) {
+        float t = 0.f;
+#pragma unroll
+        for (int g = 0; g < kFinishWarps; ++g) t += red[g][lane];
+        dw10[i] = t;
     }
 }
 
-// dw10[i] = sum over blocks, in block order, of partial[block][i].
-__global__ void stage1_bwd_finish_kernel(const float* __restrict__ partial,
-                                         float* __restrict__ dw10, int n_part) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= kC * kK) return;
-    float s = 0.f;
-    for (int p = 0; p < n_part; ++p) s += partial[(size_t)p * (kC * kK) + i];
-    dw10[i] = s;
+// Blocks of the first pass: what the card holds at once, no more than items.
+int partial_blocks(int device, int n, int h, int w) {
+    const long long total = (long long)n * ((w / 2 + kTile - 1) / kTile) * (h / 2);
+    if (total <= 0) return 0;
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stage1_bwd_partial_kernel, kThreads,
+                                                      0) != cudaSuccess ||
+        sms < 1 || per_sm < 1)
+        return -1;
+    const long long held = (long long)sms * per_sm;
+    return (int)(held < total ? held : total);
 }
-
-dim3 partial_grid(int n, int w) { return dim3((w / 2 + kSeg - 1) / kSeg, n); }
 
 }  // namespace
 
 extern "C" {
 
-// Number of per-block partials ([blocks, 320] floats) ocrs_stage1_bwd needs.
-int ocrs_stage1_bwd_blocks(int n, int h, int w) {
-    if (h / 2 == 0 || w / 2 == 0) return 0;
-    const dim3 g = partial_grid(n, w);
-    return (int)(g.x * g.y);
+// Number of per-block partials ([blocks, 320] floats) ocrs_stage1_bwd needs
+// on CUDA device `device`: the grid of its first pass. -1 if the card
+// cannot be asked.
+int ocrs_stage1_bwd_blocks(int device, int n, int h, int w) {
+    if (cudaSetDevice(device) != cudaSuccess) return -1;
+    return partial_blocks(device, n, h, w);
 }
 
 // x [n, 1, h, w], w10 [32, 10] (taps + bias), dy [n, 32, h/2, w/2];
-// partial: scratch of ocrs_stage1_bwd_blocks(n, h, w) * 320 floats; dw10
-// [32, 10] out (dW taps, db). All float32, contiguous, on CUDA device
-// `device`, whose stream is `stream`. Returns cudaGetLastError().
+// partial: scratch of `n_part` * 320 floats, n_part as
+// ocrs_stage1_bwd_blocks(device, n, h, w) gave it; dw10 [32, 10] out (dW
+// taps, db). All float32, contiguous, on CUDA device `device`, whose stream
+// is `stream`. Returns cudaGetLastError().
 int ocrs_stage1_bwd(int device, const float* x, const float* w10, const float* dy,
-                    float* partial, float* dw10, int n, int h, int w, void* stream) {
+                    float* partial, float* dw10, int n, int h, int w, int n_part, void* stream) {
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
+    if (n_part < 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const int n_part = ocrs_stage1_bwd_blocks(n, h, w);
     if (n_part > 0) {
-        stage1_bwd_partial_kernel<<<partial_grid(n, w), kThreads, 0, s>>>(x, w10, dy, partial, h, w);
+        stage1_bwd_partial_kernel<<<n_part, kThreads, 0, s>>>(x, w10, dy, partial, n, h, w);
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
-    stage1_bwd_finish_kernel<<<(kC * kK + 127) / 128, 128, 0, s>>>(partial, dw10, n_part);
+    stage1_bwd_finish_kernel<<<kC * kK / 32, 32 * kFinishWarps, 0, s>>>(partial, dw10, n_part);
     return (int)cudaGetLastError();
 }
 

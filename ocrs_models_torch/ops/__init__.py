@@ -1,4 +1,13 @@
-from .ctc import ctc_alpha, ctc_alpha_reference, ctc_beta, ctc_beta_reference, ctc_loss, ctc_loss_forward
+from .ctc import (
+    ctc_alpha,
+    ctc_alpha_reference,
+    ctc_beta,
+    ctc_beta_chain_probe,
+    ctc_beta_reference,
+    ctc_loss,
+    ctc_loss_forward,
+    ctc_operands,
+)
 from .gru import (
     BiGRU,
     gru_bwd,
@@ -11,16 +20,23 @@ from .gru import (
     gru_recurrence,
     gru_recurrence_reference,
 )
-from .stage1 import stage1, stage1_bwd, stage1_bwd_reference, stage1_fwd, stage1_reference
+from .stage1 import (
+    stage1,
+    stage1_bwd,
+    stage1_bwd_grid,
+    stage1_bwd_reference,
+    stage1_fwd,
+    stage1_reference,
+)
 
 KERNELS = (stage1_fwd, stage1_bwd, gru_fwd, gru_bwd, ctc_alpha, ctc_beta)
 """Every kernel wrapper; each counts its launches in ``.launches``."""
 
 __all__ = [
-    "BiGRU", "KERNELS", "ctc_alpha", "ctc_alpha_reference", "ctc_beta", "ctc_beta_reference",
-    "ctc_loss", "ctc_loss_forward", "gru_bwd", "gru_bwd_chain_reference",
-    "gru_bwd_coefficients_reference", "gru_bwd_dw_reference", "gru_bwd_phases_reference",
-    "gru_bwd_reference", "gru_fwd",
-    "gru_recurrence", "gru_recurrence_reference", "stage1", "stage1_bwd",
+    "BiGRU", "KERNELS", "ctc_alpha", "ctc_alpha_reference", "ctc_beta", "ctc_beta_chain_probe",
+    "ctc_beta_reference", "ctc_loss", "ctc_loss_forward", "ctc_operands", "gru_bwd",
+    "gru_bwd_chain_reference", "gru_bwd_coefficients_reference", "gru_bwd_dw_reference",
+    "gru_bwd_phases_reference", "gru_bwd_reference", "gru_fwd", "gru_recurrence",
+    "gru_recurrence_reference", "stage1", "stage1_bwd", "stage1_bwd_grid",
     "stage1_bwd_reference", "stage1_fwd", "stage1_reference",
 ]

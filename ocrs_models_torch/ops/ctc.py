@@ -163,13 +163,17 @@ def _beta_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.ocrs_ctc_beta_probe.argtypes = [i, i, i, p, p]
+        lib.ocrs_ctc_beta_probe.restype = ctypes.c_int
     return lib
 
 
 def ctc_beta(emit, skip, alphas, seed, sign, input_lengths):
     """Reverse recursion, same contract as :func:`ctc_beta_reference`.
     A CUDA tensor goes through ``ctc_beta.cu`` (one launch, one block per
-    sample); a CPU tensor through the plain version."""
+    sample, or one warp where ``S <= 32``; the recursion starts at each
+    sample's last active step and its inputs are copied into shared memory
+    eight steps ahead); a CPU tensor through the plain version."""
     if emit.device.type == "cpu":
         return ctc_beta_reference(emit, skip, alphas, seed, sign, input_lengths)
     if not emit.is_cuda:
@@ -193,6 +197,25 @@ def ctc_beta(emit, skip, alphas, seed, sign, input_lengths):
 
 
 ctc_beta.launches = 0
+
+
+def ctc_beta_chain_probe(t_len: int, s: int, device: torch.device) -> dict:
+    """Time of :func:`ctc_beta`'s dependent chain alone on ``device``: one
+    sample's ``t_len - 1`` steps over ``s`` positions on emissions held in
+    registers, with no global access in the loop, read from the kernel's
+    own clocks. Not a launch of the gradient kernel: it counts none.
+
+    :return: ``steps``, ``cycles`` (``clock64``) and ``ns``
+        (``%globaltimer``) of the whole chain.
+    """
+    if device.type != "cuda":
+        raise RuntimeError(f"ctc_beta_chain_probe: needs a CUDA device, got {device}")
+    lib = _beta_lib()
+    out = torch.zeros(3, device=device, dtype=torch.int64)
+    rc = lib.ocrs_ctc_beta_probe(device.index, t_len, s, _build.ptr(out), _build.stream_ptr(device))
+    _build.check(lib, rc, "ctc_beta_chain_probe")
+    cycles, ns, _ = out.tolist()
+    return {"steps": t_len - 1, "cycles": cycles, "ns": ns}
 
 
 class CTCAlphaFunction(torch.autograd.Function):
@@ -220,16 +243,11 @@ class CTCAlphaFunction(torch.autograd.Function):
         return demit, None, dalpha0, None
 
 
-def ctc_loss_forward(log_probs, labels, input_lengths, label_lengths):
-    """Per-sample CTC negative log-likelihood.
-
-    :param log_probs: ``[N, T, C]`` float32 log-probabilities (class 0 = blank).
-    :param labels: ``[N, L]`` int labels, 0-padded.
-    :param input_lengths: ``[N]`` valid steps per sample.
-    :param label_lengths: ``[N]`` valid labels per sample.
-    :return: ``[N]`` negative log-likelihoods (1e30 where the labels cannot
-        fit the input).
-    """
+def ctc_operands(log_probs, labels, input_lengths, label_lengths):
+    """What the recursions run on, from the loss's arguments (see
+    :func:`ctc_loss_forward`): ``(emit [N, T, S], skip [N, S], alpha0
+    [N, S], input_lengths [N] int32)`` over the extended label sequence of
+    ``S = 2L + 1`` positions, all on the device of ``log_probs``."""
     n, t_len, _ = log_probs.shape
     dev = log_probs.device
     labels = labels.to(device=dev, dtype=torch.int64)
@@ -250,6 +268,22 @@ def ctc_loss_forward(log_probs, labels, input_lengths, label_lengths):
     pos = torch.arange(s, device=dev)[None, :]
     alpha0 = torch.where(pos <= 1, emit[:, 0], NEG_INF)
     alpha0 = torch.where((pos == 1) & (label_lengths[:, None] == 0), NEG_INF, alpha0).contiguous()
+    return emit, skip, alpha0, input_lengths
+
+
+def ctc_loss_forward(log_probs, labels, input_lengths, label_lengths):
+    """Per-sample CTC negative log-likelihood.
+
+    :param log_probs: ``[N, T, C]`` float32 log-probabilities (class 0 = blank).
+    :param labels: ``[N, L]`` int labels, 0-padded.
+    :param input_lengths: ``[N]`` valid steps per sample.
+    :param label_lengths: ``[N]`` valid labels per sample.
+    :return: ``[N]`` negative log-likelihoods (1e30 where the labels cannot
+        fit the input).
+    """
+    emit, skip, alpha0, input_lengths = ctc_operands(
+        log_probs, labels, input_lengths, label_lengths)
+    label_lengths = label_lengths.to(device=log_probs.device, dtype=torch.int64)
 
     if torch.is_grad_enabled() and (emit.requires_grad or alpha0.requires_grad):
         alpha_final = CTCAlphaFunction.apply(emit, skip, alpha0, input_lengths)

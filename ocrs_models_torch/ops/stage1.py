@@ -101,18 +101,30 @@ def _bwd_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        lib.ocrs_stage1_bwd_blocks.argtypes = [i, i, i]
+        lib.ocrs_stage1_bwd_blocks.argtypes = [i, i, i, i]
         lib.ocrs_stage1_bwd_blocks.restype = ctypes.c_int
     return lib
+
+
+def stage1_bwd_grid(device: torch.device, n: int, h: int, w: int) -> int:
+    """Blocks of :func:`stage1_bwd`'s first pass for ``x [n, 1, h, w]`` on
+    ``device``: the card's SM count times the blocks an SM holds, at most
+    one per (image, 32-column tile, pooled row)."""
+    n_part = _bwd_lib().ocrs_stage1_bwd_blocks(device.index, n, h, w)
+    if n_part < 0:
+        raise RuntimeError(f"stage1_bwd: cannot size the grid on {device}")
+    return n_part
 
 
 def stage1_bwd(x, weight, bias, dy):
     """Backward kernel: weight and bias gradients of :func:`stage1_fwd`
     for the output cotangent ``dy [N, 32, H // 2, W // 2]``; same contract
-    as :func:`stage1_bwd_reference`. Deterministic: per-block partial sums
-    and a second pass that adds them in a fixed order."""
+    as :func:`stage1_bwd_reference`. Deterministic: one partial sum per
+    block of a grid sized from the card (:func:`stage1_bwd_grid`), in
+    scratch of this call's own, and a second pass that adds them in a fixed
+    order."""
     if x.device.type == "cpu":
         return stage1_bwd_reference(x, weight, bias, dy)
     if not x.is_cuda:
@@ -123,13 +135,13 @@ def stage1_bwd(x, weight, bias, dy):
             or dy.device != x.device or not dy.is_contiguous():
         raise ValueError(f"stage1_bwd: dy must be contiguous float32 [{n}, 32, {h // 2}, {w // 2}]")
     lib = _bwd_lib()
-    n_part = lib.ocrs_stage1_bwd_blocks(n, h, w)
+    n_part = stage1_bwd_grid(x.device, n, h, w)
     partial = torch.empty((max(n_part, 1), CHANNELS * 10), device=x.device, dtype=torch.float32)
     dw10 = torch.empty((CHANNELS, 10), device=x.device, dtype=torch.float32)
     p = _build.ptr
     rc = lib.ocrs_stage1_bwd(
         x.device.index, p(x), p(_w10(weight.detach(), bias.detach())), p(dy), p(partial),
-        p(dw10), n, h, w, _build.stream_ptr(x.device),
+        p(dw10), n, h, w, n_part, _build.stream_ptr(x.device),
     )
     _build.check(lib, rc, "stage1_bwd")
     stage1_bwd.launches += 1

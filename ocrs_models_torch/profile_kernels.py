@@ -2,7 +2,7 @@
 kernels on one GPU.
 
     python -m ocrs_models_torch.profile_kernels [--width 800] [--batch 128]
-        [--train-width 256] [--train-batch 256] [--only gru]
+        [--train-width 256] [--train-batch 256] [--only gru|stage1|ctc]
 
 Runs, under ``torch.profiler``, the recognition forward of one
 ``rec_batch`` chunk (random weights, seed 1234), the biGRU recurrence
@@ -13,7 +13,12 @@ shape (256 crops of 64 x 256, 24 labels, Adam with clip 4.0), and prints
 for each the device time by kernel, the number of device launches per
 iteration, the span on the host clock, and the device's busy share of that
 span. ``--only gru`` runs the two recurrence sections alone, at
-``T = width // 4 + 1`` and ``N = batch``. Needs CUDA.
+``T = width // 4 + 1`` and ``N = batch``. ``--only stage1`` runs
+``stage1_fwd`` and ``stage1_bwd`` (whose table splits the two passes) and
+``--only ctc`` runs ``ctc_alpha`` and ``ctc_beta``, each alone at the
+training shapes given by ``--train-width`` and ``--train-batch`` (labels
+of 24 characters at width 256, else 48, in arrays 64 wide as the trainer
+pads them). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from torch.profiler import ProfilerActivity, profile
 import numpy as np
 
 from .models import RecognitionModel
-from .ops import gru_bwd, gru_fwd
+from .ops import ctc_alpha, ctc_beta, gru_bwd, gru_fwd, stage1_bwd, stage1_fwd
+from .ops.ctc import NEG_INF, ctc_operands
 from .training.state import create_train_state
 from .training.steps import make_recognition_steps
 
@@ -65,11 +71,33 @@ def device_launches(prof) -> int:
     return sum(1 for e in prof.events() if e.name in _LAUNCH_CALLS)
 
 
+# Name parts of the hand-written kernels (``csrc/*.cu``), by phase.
+OWN_KERNELS = ("stage1_fwd", "stage1_bwd_partial", "stage1_bwd_finish", "gru_fwd", "gru_bwd_coef",
+               "gru_bwd_chain", "gru_bwd_dw", "ctc_alpha", "ctc_beta")
+
+
+def device_ms_by_kernel(prof, calls: int) -> dict[str, float]:
+    """Device time of one call, in ms, of each kernel, copy or set under
+    ``prof`` (``calls`` calls), by name."""
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name:
+            out[e.name] = out.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
+    return out
+
+
 def _report(name: str, prof, wall_s: float, iters: int) -> None:
     busy = _device_busy_us(prof) / iters
     print(f"== {name}: {wall_s / iters * 1e3:.3f} ms per iteration (host clock), "
           f"device busy {busy / 1e3:.3f} ms ({100 * busy / (wall_s / iters * 1e6):.1f}%), "
           f"{device_launches(prof) / iters:g} device launches per iteration")
+    own = {}
+    for kernel, ms in device_ms_by_kernel(prof, iters).items():
+        for part in OWN_KERNELS:
+            if part in kernel:
+                own[part] = own.get(part, 0.0) + ms
+    print("   the port's own kernels, device ms per iteration: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(own.items())))
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
 
 
@@ -86,6 +114,40 @@ def _profiled(fn, iters: int):
     return prof, wall
 
 
+def _stage1_sections(n: int, w: int, iters: int, dev, gen) -> None:
+    """``stage1_fwd`` and ``stage1_bwd`` alone at the training shape."""
+    weight = (torch.randn((32, 1, 3, 3), generator=gen) * 0.3).to(dev)
+    bias = (torch.randn((32,), generator=gen) * 0.1).to(dev)
+    x = (torch.rand((n, 1, 64, w), generator=gen) - 0.5).to(dev)
+    dy = torch.randn((n, 32, 32, w // 2), generator=gen).to(dev)
+    for name, fn in (("stage1_fwd", lambda: stage1_fwd(x, weight, bias)),
+                     ("stage1_bwd", lambda: stage1_bwd(x, weight, bias, dy))):
+        prof, wall = _profiled(fn, iters)
+        _report(f"{name} x [{n},1,64,{w}]", prof, wall, iters)
+
+
+def _ctc_sections(n: int, w: int, iters: int, dev, gen) -> None:
+    """``ctc_alpha`` and ``ctc_beta`` alone at the training shape, on the
+    operands and the cotangent the training step's loss gives them."""
+    n_chars = 24 if w == 256 else 48
+    t_len = w // 4 + 1
+    labels = torch.zeros((n, 64), dtype=torch.int64)
+    labels[:, :n_chars] = torch.randint(1, 97, (n, n_chars), generator=gen)
+    log_probs = torch.log_softmax(torch.randn((n, t_len, 97), generator=gen), -1).to(dev)
+    emit, skip, alpha0, lens = ctc_operands(
+        log_probs, labels.to(dev), torch.full((n,), w // 4), torch.full((n,), n_chars))
+    alphas = ctc_alpha(emit, skip, alpha0, lens)
+    # An NLL's cotangent lies on the last label and the last blank.
+    pos = torch.arange(emit.shape[2], device=dev)[None, :]
+    at_end = (pos >= 2 * n_chars - 1) & (pos <= 2 * n_chars)
+    seed = torch.where(at_end, -alphas[:, -1], torch.full_like(alphas[:, -1], NEG_INF)).contiguous()
+    sign = -torch.ones((n,), device=dev)
+    for name, fn in (("ctc_alpha", lambda: ctc_alpha(emit, skip, alpha0, lens)),
+                     ("ctc_beta", lambda: ctc_beta(emit, skip, alphas, seed, sign, lens))):
+        prof, wall = _profiled(fn, iters)
+        _report(f"{name} emit [{n},{t_len},{emit.shape[2]}]", prof, wall, iters)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--width", type=int, default=800)
@@ -93,8 +155,8 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--train-width", type=int, default=256)
     ap.add_argument("--train-batch", type=int, default=256)
-    ap.add_argument("--only", choices=["gru"], default=None,
-                    help="run only the recurrence sections")
+    ap.add_argument("--only", choices=["gru", "stage1", "ctc"], default=None,
+                    help="run only the sections of these kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
@@ -102,9 +164,14 @@ def main() -> None:
     print(torch.cuda.get_device_name(0))
     gen = torch.Generator().manual_seed(1234)
     torch.manual_seed(1234)
+    if args.only == "stage1":
+        return _stage1_sections(args.train_batch, args.train_width, args.iters, dev, gen)
+    if args.only == "ctc":
+        return _ctc_sections(args.train_batch, args.train_width, args.iters, dev, gen)
     model = RecognitionModel(n_classes=97).to(dev).eval().requires_grad_(False)
     x = (torch.rand((args.batch, 1, 64, args.width), generator=gen) - 0.5).to(dev)
     flags = dict(enabled=True, benchmark=True, deterministic=False, allow_tf32=False)
+    n, w = args.train_batch, args.train_width
     with torch.inference_mode(), torch.backends.cudnn.flags(**flags):
         if args.only is None:
             prof, wall = _profiled(lambda: model(x), args.iters)
@@ -129,7 +196,6 @@ def main() -> None:
         return
 
     # One training step (its own numerics: f32, TF32 off, cuDNN benchmark).
-    n, w = args.train_batch, args.train_width
     rng = np.random.default_rng(0)
     text = np.zeros((n, 64), np.int64)
     text[:, :24] = rng.integers(1, 97, (n, 24))

@@ -19,7 +19,13 @@ import torch.nn.functional as F
 
 from ocrs_models_tpu.ops.ctc import ctc_loss as jax_ctc_loss
 from ocrs_models_tpu.ops.ctc import ctc_loss_forward as jax_ctc_loss_forward
-from ocrs_models_torch.ops import ctc_alpha_reference, ctc_loss, ctc_loss_forward
+from ocrs_models_tpu.ops.pallas.ctc_kernel import ctc_alpha_final as jax_ctc_alpha_final
+from ocrs_models_torch.ops import (
+    ctc_alpha_reference,
+    ctc_beta_reference,
+    ctc_loss,
+    ctc_loss_forward,
+)
 from ocrs_models_torch.ops.ctc import NEG_INF, CTCAlphaFunction
 
 
@@ -153,3 +159,86 @@ def test_eval_path_matches_training_path():
         eval_nll = ctc_loss_forward(*args)
     train_nll = ctc_loss_forward(args[0].clone().requires_grad_(True), *args[1:])
     torch.testing.assert_close(eval_nll, train_nll.detach(), rtol=0, atol=0)
+
+
+# The edges the CUDA beta kernel's design makes dangerous, pinned on its
+# plain version: S at the lane and warp boundaries (1, 31, 33, 65), and
+# input lengths 1, 2 and T, so that every sample is frozen from another step.
+FROZEN_LENGTHS = np.asarray([1, 2, 9, 3, 8, 5], np.int32)
+
+
+@pytest.mark.parametrize("s", [1, 31, 33, 65])
+def test_beta_reference_matches_pallas_vjp_at_lane_boundaries(s):
+    # ctc_beta_reference against the VJP of the JAX package's
+    # ctc_alpha_final (Pallas alpha and beta kernels in interpret mode) on
+    # the same recursion operands. The JAX cotangent is that of its gated
+    # emissions (zeroed at frozen steps, where the port's is 0): it is
+    # compared at the active steps. rtol 1e-4 / atol 1e-6 as the test of the
+    # plain beta recursion against autograd above.
+    rng = np.random.default_rng(s)
+    n, t = len(FROZEN_LENGTHS), 9
+    emit = rng.normal(-2.0, 1.0, (n, t, s)).astype(np.float32)
+    skip = np.where(rng.random((n, s)) < 0.5, 0.0, NEG_INF).astype(np.float32)
+    alpha0 = np.full((n, s), NEG_INF, np.float32)
+    alpha0[:, :2] = rng.normal(-1.0, 0.5, (n, min(2, s)))
+    active = np.arange(t)[None, :] < FROZEN_LENGTHS[:, None]  # [N, T]
+
+    emit_t, skip_t, alpha0_t = (torch.from_numpy(a) for a in (emit, skip, alpha0))
+    lens_t = torch.from_numpy(FROZEN_LENGTHS)
+    alphas = ctc_alpha_reference(emit_t, skip_t, alpha0_t, lens_t)
+    # A cotangent only where the final state can be reached, as a reduction
+    # of log-likelihoods gives it (the JAX gate is additive: on a state of
+    # NEG_INF a seed of log|d| + 1e30 would leak through its frozen steps).
+    d_last = -rng.random((n, s)).astype(np.float32)
+    d_last[:, 2::3] = 0.0
+    d_last[3] = 0.0  # a sample with no cotangent at all
+    d_last[alphas[:, -1].numpy() < NEG_INF / 2] = 0.0
+    d_t = torch.from_numpy(d_last)
+    mag = d_t.abs()
+    seed = torch.where(mag > 0, torch.log(mag) - alphas[:, -1], torch.full_like(mag, NEG_INF))
+    sign = torch.where(d_t < 0, -1.0, 1.0).amin(dim=1)
+    demit, dalpha0 = ctc_beta_reference(emit_t, skip_t, alphas, seed, sign, lens_t)
+
+    act_j = jnp.asarray(active.T[:, :, None])  # [T, N, 1]
+    emit_g = jnp.where(act_j, jnp.asarray(emit.transpose(1, 0, 2)), 0.0)
+    gate = jnp.where(act_j, 0.0, NEG_INF) * jnp.ones((1, 1, s))
+    final, vjp = jax.vjp(lambda e, a0: jax_ctc_alpha_final(e, gate, jnp.asarray(skip), a0, True),
+                         emit_g, jnp.asarray(alpha0))
+    want_demit, want_dalpha0 = vjp(jnp.asarray(d_last))
+    want_demit = np.asarray(want_demit).transpose(1, 0, 2) * active[:, :, None]
+
+    np.testing.assert_allclose(alphas[:, -1].numpy(), np.asarray(final), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(demit.numpy(), want_demit, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(dalpha0.numpy(), np.asarray(want_dalpha0), rtol=1e-4, atol=1e-6)
+    assert (demit.numpy()[~active] == 0).all() and (demit[:, 0] == 0).all()
+    assert (demit[3] == 0).all() and (dalpha0[3] == 0).all()
+
+
+@pytest.mark.parametrize("n_labels", [15, 16, 32], ids=["S31", "S33", "S65"])
+@pytest.mark.parametrize("backend", ["pallas-interpret", "scan"])
+def test_loss_gradient_matches_jax_with_every_sample_frozen_elsewhere(n_labels, backend):
+    # The whole loss and its gradient through the plain alpha and beta
+    # recursions against the JAX package, label arrays 15, 16 and 32 wide
+    # (S = 31, 33, 65), input lengths 1, 2, T and between. Labels without
+    # neighbouring repeats, short enough to fit: every row is feasible.
+    # Tolerances as test_matches_jax.
+    t, c = 40, 12
+    rng = np.random.default_rng(n_labels)
+    input_lengths = np.asarray([1, 2, t, t // 2, t - 1], np.int32)
+    label_lengths = np.asarray([1, 1, n_labels, min(n_labels, t // 4), n_labels], np.int32)
+    n = len(input_lengths)
+    logits = rng.standard_normal((n, t, c)).astype(np.float32)
+    log_probs = np.asarray(jax.nn.log_softmax(jnp.asarray(logits), -1))
+    labels = np.zeros((n, n_labels), np.int32)
+    for i, ll in enumerate(label_lengths):
+        labels[i, :ll] = (np.arange(ll) + i) % (c - 1) + 1
+    args = (log_probs, labels, input_lengths, label_lengths)
+    nll, grad = _port_nll_and_grad(*args)
+    jargs = [jnp.asarray(a) for a in args]
+    want = np.asarray(jax_ctc_loss_forward(*jargs, backend=backend))
+    want_grad = np.asarray(jax.grad(lambda lp: jax_ctc_loss(lp, *jargs[1:], backend=backend))(jargs[0]))
+    assert (nll < 1e29).all()
+    np.testing.assert_allclose(nll, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(grad, want_grad, rtol=1e-4, atol=1e-5)
+    for i, length in enumerate(input_lengths):
+        assert (grad[i, length:] == 0).all()

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from ocrs_models_tpu.ops.pallas.stage1_kernel import _reference_stage1, stage1_fused
-from ocrs_models_torch.ops import stage1
+from ocrs_models_torch.ops import stage1, stage1_bwd_reference
 from torch_port_common import nhwc_to_nchw
 
 
@@ -81,3 +81,22 @@ def test_gradients_match_pallas_vjp(shape, ties):
     want = _grads_jax(x, k, b, dy)
     for name, g, w in zip(("dx", "dkernel", "dbias"), got, want):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 132), (1, 16, 260)])
+def test_bwd_reference_matches_pallas_vjp_at_widths_off_every_tile(shape):
+    # stage1_bwd_reference, the plain version the CUDA backward is held to,
+    # against the Pallas backward (interpret mode) at pooled widths (66,
+    # 130) that are no multiple of the kernel's 32-column tile. float32;
+    # the sums run over up to 2 * 32 * 66 windows, in another order:
+    # 1e-4 of the largest |dW|.
+    x, k, b = _case(*shape, seed=4)
+    dy = np.random.default_rng(5).normal(size=(shape[0], shape[1] // 2, shape[2] // 2, 32))
+    dy = dy.astype(np.float32)
+    weight = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    dw, db = stage1_bwd_reference(nhwc_to_nchw(x), weight, torch.from_numpy(b), nhwc_to_nchw(dy))
+    _, want_dk, want_db = _grads_jax(x, k, b, dy)
+    assert dw.shape == (32, 1, 3, 3) and db.shape == (32,)
+    atol = 1e-4 * np.abs(want_dk).max()
+    np.testing.assert_allclose(dw.numpy().transpose(2, 3, 1, 0), want_dk, rtol=0, atol=atol)
+    np.testing.assert_allclose(db.numpy(), want_db, rtol=0, atol=atol)
