@@ -109,10 +109,6 @@ def _device_profile(fn, calls: int = 3) -> tuple[float, dict]:
     return device_launches(prof) / calls, device_ms_by_kernel(prof, calls)
 
 
-def _device_launches(fn, calls: int = 3) -> float:
-    return _device_profile(fn, calls)[0]
-
-
 def _device_ms(times: dict, part: str) -> float:
     """Device time per call of the kernels whose name contains ``part``."""
     found = [ms for name, ms in times.items() if part in name]
@@ -234,7 +230,7 @@ def check_gru(dev, gen) -> dict:
             plain_ms = _cuda_time_ms(
                 lambda: gru_recurrence_reference(px_f, px_b, w_hh, b_hh), iters=3, warmup=1
             )
-            launches = _device_launches(lambda: gru_recurrence(px_f, px_b, w_hh, b_hh))
+            launches = _device_profile(lambda: gru_recurrence(px_f, px_b, w_hh, b_hh))[0]
             # Yardstick: cuDNN's bidirectional GRU layer at the first layer's
             # shape; it also computes the input projection (F=128).
             lib_gru = torch.nn.GRU(128, hid, bidirectional=True).to(dev)
@@ -386,7 +382,7 @@ def check_gru_bwd(dev, gen) -> dict:
             raise AssertionError("gru_bwd is not deterministic")
         ms = _cuda_time_ms(lambda: gru_bwd(*args), iters=5)
         plain_ms = _cuda_time_ms(lambda: gru_bwd_reference(*args), iters=2, warmup=1)
-        launches = _device_launches(lambda: gru_bwd(*args))
+        launches = _device_profile(lambda: gru_bwd(*args))[0]
         print(f"gru_bwd [T={t_len},N={n}]: {ms:.4f} ms, {1e3 * ms / t_len:.3f} us per step, "
               f"{launches:g} device launches per call", flush=True)
         # Yardstick: cuDNN's bidirectional GRU layer backward (F=128; it

@@ -14,6 +14,7 @@ NCHW in and out.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -108,10 +109,12 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
 def stage1_bwd_grid(device: torch.device, n: int, h: int, w: int) -> int:
     """Blocks of :func:`stage1_bwd`'s first pass for ``x [n, 1, h, w]`` on
     ``device``: the card's SM count times the blocks an SM holds, at most
-    one per (image, 32-column tile, pooled row)."""
+    one per (image, 32-column tile, pooled row). Asked of the card once
+    per (device, shape) and remembered."""
     n_part = _bwd_lib().ocrs_stage1_bwd_blocks(device.index, n, h, w)
     if n_part < 0:
         raise RuntimeError(f"stage1_bwd: cannot size the grid on {device}")
