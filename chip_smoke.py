@@ -40,9 +40,9 @@ Phases (any failure exits non-zero, before the final line):
    its labels). Time kernel, plain version and the library yardstick
    (autograd backward of conv2d+relu+max_pool2d; cuDNN nn.GRU backward;
    F.ctc_loss forward and backward) with CUDA events, the short CTC
-   kernels also on the device's own clock (torch.profiler); for
-   ``ctc_beta`` also ``chain_ms``, its dependent steps alone as timed by
-   the kernel's clocks on one block with no global access in the loop.
+   kernels also on the device's own clock (torch.profiler); for both CTC
+   kernels also ``chain_ms``, their dependent steps alone as timed by the
+   kernel's clocks on one block with no global access in the loop.
 8. The training step (``training.steps.make_recognition_steps``) at full
    width (CRNN 32-64-128, 2-layer biGRU H=256, 97 classes, f32, TF32 off,
    Adam with clip 4.0, lr 1e-3): one step against the same step with every
@@ -92,21 +92,31 @@ def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_profile(fn, calls: int = 3) -> tuple[float, dict]:
+def _device_profile(fn, calls: int = 3) -> tuple[float, dict, dict]:
     """What one call of ``fn`` puts on the device (``torch.profiler`` over
     ``calls`` calls after a warm-up): the number of kernels, copies and
-    sets, and the device time of each by name, in ms."""
+    sets it launches; by name, the device time of one launch in ms; and by
+    name, the number of device records the profiler delivered. Each of
+    ``fn``'s kernels runs once a call, so the time is the mean over the
+    records: the profiler now and then delivers fewer than there were
+    launches, and now and then none for a whole window, which is then
+    profiled again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ocrs_models_torch.profile_kernels import device_launches, device_ms_by_kernel
+    from ocrs_models_torch.profile_kernels import device_launches, device_records
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return device_launches(prof) / calls, device_ms_by_kernel(prof, calls)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        records = device_records(prof)
+        if records:
+            break
+    return (device_launches(prof) / calls, {k: sum(v) / len(v) for k, v in records.items()},
+            {k: len(v) for k, v in records.items()})
 
 
 def _device_ms(times: dict, part: str) -> float:
@@ -322,7 +332,7 @@ def check_stage1_bwd(dev, gen) -> dict:
             library_ms = _cuda_time_ms(
                 lambda: torch.autograd.grad(y, (wr, br), dy, retain_graph=True), iters=5)
             del y
-        launches, times = _device_profile(lambda: stage1_bwd(x, weight, bias, dy), calls=5)
+        launches, times, _ = _device_profile(lambda: stage1_bwd(x, weight, bias, dy), calls=5)
         first, second = _device_ms(times, "stage1_bwd_partial"), _device_ms(times, "stage1_bwd_finish")
         grid = stage1_bwd_grid(dev, n, 64, w)
         n_bytes = 4 * (x.numel() + dy.numel() + 2 * 32 * 10)
@@ -446,8 +456,8 @@ def _check_ctc_case(case: dict, gen, what: str, zero_rows=()) -> dict:
     their times: alphas atol 1e-3 (log values down to ~-1e3), demit and
     dalpha0 atol 1e-5 (posteriors in [0, 1]). ``zero_rows`` carry no
     cotangent and must get no gradient."""
-    from ocrs_models_torch.ops import (ctc_alpha, ctc_alpha_reference, ctc_beta,
-                                       ctc_beta_chain_probe, ctc_beta_reference)
+    from ocrs_models_torch.ops import (ctc_alpha, ctc_alpha_chain_probe, ctc_alpha_reference,
+                                       ctc_beta, ctc_beta_chain_probe, ctc_beta_reference)
     from ocrs_models_torch.ops.ctc import NEG_INF
 
     emit, skip, alpha0, lens = (case[k] for k in ("emit", "skip", "alpha0", "lens"))
@@ -486,9 +496,11 @@ def _check_ctc_case(case: dict, gen, what: str, zero_rows=()) -> dict:
     plain_a = _cuda_time_ms(lambda: ctc_alpha_reference(emit, skip, alpha0, lens), iters=2, warmup=1)
     plain_b = _cuda_time_ms(
         lambda: ctc_beta_reference(emit, skip, got_a, seed, sign, lens), iters=2, warmup=1)
-    launches_a, times_a = _device_profile(alpha, calls=5)
-    launches_b, times_b = _device_profile(beta, calls=5)
+    launches_a, times_a, records_a = _device_profile(alpha, calls=5)
+    launches_b, times_b, records_b = _device_profile(beta, calls=5)
     dev_a, dev_b = _device_ms(times_a, "ctc_alpha_kernel"), _device_ms(times_b, "ctc_beta_kernel")
+    records = {name: sum(n for k, n in recs.items() if name in k)
+               for name, recs in (("ctc_alpha", records_a), ("ctc_beta", records_b))}
     # Yardstick: torch's own CTC loss (cuDNN or native CUDA) on the same
     # log-probs, forward, then backward alone.
     lp = case["log_probs"].transpose(0, 1).detach().requires_grad_(True)
@@ -496,13 +508,13 @@ def _check_ctc_case(case: dict, gen, what: str, zero_rows=()) -> dict:
     lib_a = _cuda_time_ms(lambda: F.ctc_loss(*ctc_args, reduction="sum", zero_infinity=True), iters=20)
     loss = F.ctc_loss(*ctc_args, reduction="sum", zero_infinity=True)
     lib_b = _cuda_time_ms(lambda: torch.autograd.grad(loss, lp, retain_graph=True), iters=20)
-    # The chain alone: the recursion's dependent steps of the longest
+    # The chains alone: each recursion's dependent steps of the longest
     # sample, timed by the kernel's own clocks on one block with no global
     # access in the loop. No recursion of that many steps can be faster,
     # whatever the bytes bound says.
     steps = int(np.clip(case["input_len_np"], 1, t_len).max()) - 1
-    probe = ctc_beta_chain_probe(steps + 1, s, dev)
-    chain_ms = probe["ns"] / 1e6
+    probes = {"ctc_alpha": ctc_alpha_chain_probe(steps + 1, s, dev),
+              "ctc_beta": ctc_beta_chain_probe(steps + 1, s, dev)}
     active = int(np.minimum(case["input_len_np"], t_len).sum())
     state_bytes = 4 * n * t_len * s
     out = {}
@@ -519,14 +531,16 @@ def _check_ctc_case(case: dict, gen, what: str, zero_rows=()) -> dict:
             "library_ms": lib_ms, "device_ms": dev_ms,
             "us_per_step": 1e3 * dev_ms / max(steps, 1), "device_launches_per_call": launches,
         }
-    out["ctc_beta"].update(chain_ms=chain_ms, chain_cycles_per_step=probe["cycles"] / max(steps, 1))
-    b = out["ctc_beta"]
-    print(f"ctc_beta {what}: {b['ms']:.4f} ms by events over wrapper calls, {b['device_ms']:.4f} ms "
-          f"on the device, {b['us_per_step']:.3f} us per step of {steps}; the chain alone "
-          f"chain_ms {chain_ms:.4f} ({b['chain_cycles_per_step']:.0f} cycles per step); "
-          f"bound_ms {b['bound_ms']:.4f} ({b['bound_by']}); F.ctc_loss backward {b['library_ms']:.4f} ms; "
-          f"ctc_alpha {out['ctc_alpha']['ms']:.4f} ms, {out['ctc_alpha']['device_ms']:.4f} on the device",
-          flush=True)
+    for name, lib_what in (("ctc_alpha", "forward"), ("ctc_beta", "backward")):
+        k = out[name]
+        k.update(chain_ms=probes[name]["ns"] / 1e6,
+                 chain_cycles_per_step=probes[name]["cycles"] / max(steps, 1))
+        print(f"{name} {what}: {k['ms']:.4f} ms by events over wrapper calls, "
+              f"{k['device_ms']:.4f} ms on the device ({records[name]:g} records of 5 calls), "
+              f"{k['us_per_step']:.3f} us per step of {steps}; the chain alone "
+              f"chain_ms {k['chain_ms']:.4f} ({k['chain_cycles_per_step']:.0f} cycles per step); "
+              f"bound_ms {k['bound_ms']:.4f} ({k['bound_by']}); F.ctc_loss {lib_what} "
+              f"{k['library_ms']:.4f} ms", flush=True)
     return out
 
 

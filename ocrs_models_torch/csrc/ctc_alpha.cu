@@ -5,73 +5,194 @@
 // recursion over the S = 2L+1 extended-label positions:
 //   alpha[t, p] = lse(alpha[t-1, p], alpha[t-1, p-1],
 //                     alpha[t-1, p-2] + skip[p]) + emit[t, p]
-// for 1 <= t < input_len; later steps are frozen (alpha[t] = alpha[t-1]).
-// The Pallas design read a precomputed [T, N, S] additive gate for that;
-// this kernel compares t with the sample's length. alpha[0] = alpha0.
-// NEG_INF is -1e30 with the JAX package's `_lse3` guard, so unreachable
-// states stay finite. Out: all T states, or only alpha[T-1] (`final_only`,
-// the no-gradient path).
+// for 1 <= t < input_len; later steps are frozen (alpha[t] = alpha[t-1]),
+// and a length of 0 acts as 1. The Pallas design read a precomputed
+// [T, N, S] additive gate for that; this kernel compares t with the
+// sample's length. alpha[0] = alpha0. NEG_INF is -1e30 with the JAX
+// package's `_lse3` guard (ctc_step.cuh), so unreachable states stay
+// finite. Out: all T states, or only alpha[T-1] (`final_only`, the
+// no-gradient path).
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 67 TFLOP/s float32). At N=128,
 // T=257, S=129: emit read once (17.0 MB) and the states written once
-// (17.0 MB): 34 MB, 10 us; about 14 operations per state, 0.9 us. The
-// real limit is neither: T-1 dependent steps, each a few hundred cycles
-// of shared-memory and special-function latency.
+// (17.0 MB): 34 MB, 10 us; about 14 operations per state, 0.9 us. No
+// recursion of T-1 dependent steps reaches that: a step is a shared-memory
+// round trip, a barrier and an lse3 (three expf, one logf), some 230-290
+// cycles, so T-1 steps take 30-40 us. The chain, not the bytes, is what
+// this kernel can be held to; `ocrs_ctc_alpha_probe` measures it.
 //
-// Design: samples are independent, so one block per sample holds its S
-// states in shared memory (double-buffered, two leading NEG_INF lanes so
-// the p-1 / p-2 reads need no branch) and loops over all T steps in one
-// launch with one __syncthreads per step. Thread p owns position p; its
-// emission row is contiguous per sample in the [N, T, S] layout the
-// gather produces. expf/logf, no fast-math.
+// Design: nothing but the chain is on the chain, as in ctc_beta.cu.
+// - One block per sample, thread p owns position p, and a step starts with
+//   what the other threads wait for: the thread publishes its state
+//   alpha[t-1, p] in shared memory (double-buffered, two leading NEG_INF
+//   lanes, so the reads of p-1 and p-2 need no branch), one __syncthreads,
+//   and reads p-1 and p-2. The sum is the plain version's, in its order,
+//   so the result is the plain version's bit for bit. A sample of S <= 32
+//   is one warp: neighbours by __shfl_up_sync, no shared state, no block
+//   barrier.
+// - No global load is waited for inside a step: a thread copies its
+//   emission of a row into a ring in shared memory 8 steps ahead (cp.async,
+//   4 bytes: a sample's base is not 16-byte aligned for odd S; 4 steps
+//   ahead above S = 512) and waits only for its own copy of the row it
+//   needs next. Each thread reads only what it copied, so the ring needs no
+//   barrier.
+// - The states are stored off the chain: the state published at step t is
+//   stored as row t-1 after the barrier, and nothing waits for the store.
+// - Frozen steps are skipped: the loop runs t = 1 .. len-1 only, then each
+//   thread writes its final state into rows len-1 .. T-1 (one row for
+//   `final_only`). Rows above len-1 are never copied into the ring.
+// - The loop has no branch: threads beyond S copy and compute like the
+//   others on the inputs of position S-1 and store nothing (their lanes are
+//   read only by threads beyond S, since reads go to p-1 and p-2). It is
+//   unrolled by two so that the two state buffers are fixed addresses.
+// What holds it on an H100 SXM: the chain, some 80% of its time at T=257;
+// then the per-step store and the ring's copy, wait and shared load (a
+// build without either one ran some 13% faster; neither can go). Measured
+// and lost (PERF.md): the emission loaded into a register one step ahead
+// (the step waits for it whenever the row is not in L2), the store after
+// the lse3 instead of after the barrier, a ring of 16 rows (4 did as well
+// as 8).
+// expf/logf, no fast-math.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "ctc_step.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using ctc::kNegInf;
 
-__device__ __forceinline__ float lse3(float a, float b, float c) {
-    const float m = fmaxf(fmaxf(a, b), c);
-    const float ms = fmaxf(m, kNegInf);
-    const float out = ms + logf(expf(a - ms) + expf(b - ms) + expf(c - ms));
-    return m <= kNegInf ? kNegInf : out;
-}
+constexpr int kWarpMaxS = 32;           // up to here a sample is one warp
+constexpr int kDeep = 8, kShallow = 4;  // ring rows: S <= 512, and above
 
+// kWarp: the block is one warp and neighbours are exchanged by shuffles;
+// else through shared memory. kRing: rows of emissions in flight or landed
+// in the ring (a power of two). kFinal: only alpha[T-1] is stored. kProbe:
+// the chain alone, on made-up emissions in registers, timed by the block's
+// own clocks (no global access in the loop).
+template <bool kWarp, int kRing, bool kFinal, bool kProbe>
 __global__ void ctc_alpha_kernel(const float* __restrict__ emit, const float* __restrict__ skip,
                                  const float* __restrict__ alpha0, const int* __restrict__ lens,
-                                 float* __restrict__ out, int T, int S, int final_only) {
-    extern __shared__ float st[];  // two buffers of S + 2 lanes
+                                 float* __restrict__ out, int T, int S,
+                                 long long* __restrict__ probe) {
+    static_assert((kRing & (kRing - 1)) == 0, "kRing is a power of two");
+    // Shared floats: [!kWarp: two state buffers of blockDim.x + 2] [the
+    // ring: kRing x blockDim.x emissions].
+    extern __shared__ float st[];
     const int n = blockIdx.x;
     const int p = threadIdx.x;
-    const bool active = p < S;
-    const float* e = emit + (size_t)n * T * S;
-    float* o = out + (size_t)n * (final_only ? 1 : T) * S;
-    const int len = lens[n];
-    float* cur = st;
-    float* nxt = st + S + 2;
-    if (p < 2) cur[p] = nxt[p] = kNegInf;
-    const float sk = active ? skip[(size_t)n * S + p] : 0.f;
-    if (active) {
-        const float a = alpha0[(size_t)n * S + p];
-        cur[p + 2] = a;
-        if (!final_only) o[p] = a;
+    const int P = blockDim.x;
+    const bool act = p < S;
+    const int q = min(p, S - 1);  // the position whose inputs this thread reads
+    const float* e_col = emit + (size_t)n * T * S + q;
+    float* o = out + (size_t)n * (kFinal ? 1 : T) * S + p;
+    float* v_odd = st + p;            // the state buffer of steps 1, 3, 5, ...
+    float* v_even = v_odd + (P + 2);  // ... and of steps 2, 4, 6, ...
+    float* ring = st + (kWarp ? 0 : 2 * (P + 2)) + p;
+    const int len = kProbe ? T : lens[n];
+    const int tl = min(max(len, 1), T) - 1;  // the last active step
+
+    // This thread's emission of `row` into the ring, one group per row. A
+    // row above tl copies nothing: the group is empty.
+    auto fetch = [&](int row) {
+        if (!kProbe && row <= tl)
+            ctc::cp_async4(ring + (row & (kRing - 1)) * P, e_col + (unsigned)(row * S));
+        ctc::cp_async_commit();
+    };
+    // ... and back out of it, once `row` is the oldest group in flight.
+    auto landed = [&](int row) {
+        ctc::cp_async_wait<kRing - 1>();
+        if (kProbe) return -3.f - 0.1f * (row & 3);
+        return ring[(row & (kRing - 1)) * P];
+    };
+
+#pragma unroll
+    for (int d = 1; d <= kRing; ++d) fetch(d);
+    float a, sk;
+    if (kProbe) {
+        a = p < 2 ? -1.f - 0.5f * p : kNegInf;
+        sk = (p & 1) && p >= 3 ? 0.f : kNegInf;
+    } else {
+        a = act ? alpha0[(size_t)n * S + p] : kNegInf;
+        sk = skip[(size_t)n * S + q];
     }
-    __syncthreads();
-    for (int t = 1; t < T; ++t) {
-        if (active) {
-            const float e_t = e[(size_t)t * S + p];
-            const float v = t < len ? lse3(cur[p + 2], cur[p + 1], cur[p] + sk) + e_t : cur[p + 2];
-            nxt[p + 2] = v;
-            if (!final_only) o[(size_t)t * S + p] = v;
-        }
+    if (!kWarp && p < 2) v_odd[0] = v_even[0] = kNegInf;
+    float e_t = landed(1);
+    long long c0 = 0;
+    unsigned long long ns0 = 0;
+    if (kProbe) {
         __syncthreads();
-        float* tmp = cur;
-        cur = nxt;
-        nxt = tmp;
+        c0 = clock64();
+        ns0 = ctc::global_ns();
     }
-    if (final_only && active) o[p] = cur[p + 2];
+
+    // Step t holds alpha[t-1] in `a` and emit[t] in `e_t`, and makes
+    // alpha[t]. The order within it: what the other threads wait for first
+    // (publish, barrier, read), then the store, copy and load nothing waits
+    // for, then the arithmetic, which the compiler interleaves.
+    auto step = [&](int t, float* vb) {
+        float a1, a2;
+        if (kWarp) {
+            const float n1 = __shfl_up_sync(0xffffffffu, a, 1);
+            const float n2 = __shfl_up_sync(0xffffffffu, a, 2);
+            a1 = p >= 1 ? n1 : kNegInf;
+            a2 = p >= 2 ? n2 : kNegInf;
+        } else {
+            vb[2] = a;
+            __syncthreads();
+            a1 = vb[1];
+            a2 = vb[0];
+        }
+        if (!kFinal && !kProbe && act) o[(unsigned)((t - 1) * S)] = a;
+        fetch(t + kRing);  // into the slot of row t, whose emission is in e_t
+        const float e_next = landed(t + 1);
+        a = ctc::lse3(a, a1, a2 + sk) + e_t;
+        e_t = e_next;
+    };
+    int t = 1;
+    for (; t < tl; t += 2) {
+        step(t, v_odd);
+        step(t + 1, v_even);
+    }
+    if (t == tl) step(t, v_odd);
+
+    if (kProbe) {
+        __syncthreads();
+        const long long c1 = clock64();
+        const unsigned long long ns1 = ctc::global_ns();
+        if (p == 0) {
+            probe[0] = c1 - c0;
+            probe[1] = (long long)(ns1 - ns0);
+        }
+        if (a == 12345.f) probe[2] = 1;  // keep the chain alive: its result decides a store
+        return;
+    }
+    // Here a is alpha[tl]: it is also every frozen row's value.
+    if (act) {
+        if (kFinal) {
+            o[0] = a;
+        } else {
+            for (int r = tl; r < T; ++r) o[(unsigned)(r * S)] = a;
+        }
+    }
+}
+
+template <bool kFinal, bool kProbe>
+cudaError_t launch(const float* emit, const float* skip, const float* alpha0, const int* lens,
+                   float* out, int n, int T, int S, long long* probe, cudaStream_t s) {
+    const int P = (S + 31) / 32 * 32;
+#define OCRS_CTC_ALPHA(warp, ring, floats)                                                   \
+    ctc_alpha_kernel<warp, ring, kFinal, kProbe><<<n, P, sizeof(float) * (floats), s>>>(   \
+        emit, skip, alpha0, lens, out, T, S, probe)
+    if (S <= kWarpMaxS)
+        OCRS_CTC_ALPHA(true, kDeep, kDeep * P);
+    else if (S <= 512)
+        OCRS_CTC_ALPHA(false, kDeep, 2 * (P + 2) + kDeep * P);
+    else
+        OCRS_CTC_ALPHA(false, kShallow, 2 * (P + 2) + kShallow * P);
+#undef OCRS_CTC_ALPHA
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -80,21 +201,34 @@ extern "C" {
 
 // emit [n, T, S], skip [n, S] (0 or -1e30), alpha0 [n, S], lens [n] int32;
 // out [n, T, S], or [n, 1, S] when final_only. All contiguous, on CUDA
-// device `device`, whose stream is `stream`. S <= 1024. Returns
-// cudaGetLastError().
+// device `device`, whose stream is `stream`. S <= 1024 and T * S < 2^31.
+// Returns cudaGetLastError().
 int ocrs_ctc_alpha(int device, const float* emit, const float* skip, const float* alpha0,
                    const int* lens, float* out, int n, int T, int S, int final_only,
                    void* stream) {
-    if (S < 1 || S > 1024 || T < 1) return (int)cudaErrorInvalidValue;
+    if (S < 1 || S > 1024 || T < 1 || (long long)T * S > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (n > 0) {
-        const int threads = (S + 31) / 32 * 32;
-        const size_t smem = sizeof(float) * 2 * (S + 2);
-        ctc_alpha_kernel<<<n, threads, smem, (cudaStream_t)stream>>>(emit, skip, alpha0, lens, out,
-                                                                     T, S, final_only);
-    }
-    return (int)cudaGetLastError();
+    if (n == 0) return (int)cudaGetLastError();
+    const cudaStream_t s = (cudaStream_t)stream;
+    return (int)(final_only
+                     ? launch<true, false>(emit, skip, alpha0, lens, out, n, T, S, nullptr, s)
+                     : launch<false, false>(emit, skip, alpha0, lens, out, n, T, S, nullptr, s));
+}
+
+// The dependent chain alone: one sample of T steps and S positions runs the
+// recursion on made-up emissions held in registers, with no global access
+// in the loop, in the design ocrs_ctc_alpha picks for S. out[0]: cycles
+// (clock64) of the T - 1 steps, out[1]: their nanoseconds (%globaltimer),
+// out[2]: unused.
+int ocrs_ctc_alpha_probe(int device, int T, int S, long long* out, void* stream) {
+    if (S < 1 || S > 1024 || T < 1 || (long long)T * S > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch<false, true>(nullptr, nullptr, nullptr, nullptr, nullptr, 1, T, S, out,
+                                    (cudaStream_t)stream);
 }
 
 const char* ocrs_error_string(int code) {

@@ -16,7 +16,14 @@ package's ``_vjp_bwd``. On CPU tensors both wrappers run their plain
 versions (:func:`ctc_alpha_reference`, :func:`ctc_beta_reference`, loops of
 torch ops over time). Steps at or past a sample's input length are frozen
 (``alpha[t] = alpha[t-1]``); the kernels compare ``t`` with the length
-instead of reading the Pallas design's ``[T, N, S]`` additive gate.
+instead of reading the Pallas design's ``[T, N, S]`` additive gate, and
+skip the frozen steps: each runs only a sample's active steps and fills
+the frozen rows from its last state. Both kernels share one design (one
+block per sample, one warp with shuffles where ``S <= 32``; each thread
+copies its inputs eight steps ahead into a ring in shared memory, so no
+step waits for device memory), and each has a probe that times its chain
+of dependent steps alone (:func:`ctc_alpha_chain_probe`,
+:func:`ctc_beta_chain_probe`).
 
 Log space uses ``NEG_INF = -1e30``, not ``-inf``, with the JAX package's
 ``_lse3`` guard: a zero-weight row whose labels cannot fit its input then
@@ -87,14 +94,18 @@ def _alpha_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.ocrs_ctc_alpha_probe.argtypes = [i, i, i, p, p]
+        lib.ocrs_ctc_alpha_probe.restype = ctypes.c_int
     return lib
 
 
 def ctc_alpha(emit, skip, alpha0, input_lengths, final_only=False):
     """Forward recursion, same contract as :func:`ctc_alpha_reference`
     (``input_lengths`` int32). A CUDA tensor goes through ``ctc_alpha.cu``
-    (one launch, one block per sample); a CPU tensor through the plain
-    version."""
+    (one launch, one block per sample, or one warp where ``S <= 32``; each
+    sample runs only its active steps, with its emissions copied into
+    shared memory eight steps ahead, and its frozen rows are filled from
+    its last state); a CPU tensor through the plain version."""
     if emit.device.type == "cpu":
         return ctc_alpha_reference(emit, skip, alpha0, input_lengths, final_only)
     if not emit.is_cuda:
@@ -114,6 +125,30 @@ def ctc_alpha(emit, skip, alpha0, input_lengths, final_only=False):
 
 
 ctc_alpha.launches = 0
+
+
+def _chain_probe(lib: ctypes.CDLL, entry: str, what: str, t_len: int, s: int,
+                 device: torch.device) -> dict:
+    if device.type != "cuda":
+        raise RuntimeError(f"{what}: needs a CUDA device, got {device}")
+    out = torch.zeros(3, device=device, dtype=torch.int64)
+    rc = getattr(lib, entry)(device.index, t_len, s, _build.ptr(out), _build.stream_ptr(device))
+    _build.check(lib, rc, what)
+    cycles, ns, _ = out.tolist()
+    return {"steps": t_len - 1, "cycles": cycles, "ns": ns}
+
+
+def ctc_alpha_chain_probe(t_len: int, s: int, device: torch.device) -> dict:
+    """Time of :func:`ctc_alpha`'s dependent chain alone on ``device``: one
+    sample's ``t_len - 1`` steps over ``s`` positions on emissions held in
+    registers, with no global access in the loop, read from the kernel's
+    own clocks. Not a launch of the forward kernel: it counts none.
+
+    :return: ``steps``, ``cycles`` (``clock64``) and ``ns``
+        (``%globaltimer``) of the whole chain.
+    """
+    return _chain_probe(_alpha_lib(), "ocrs_ctc_alpha_probe", "ctc_alpha_chain_probe",
+                        t_len, s, device)
 
 
 # ------------------------------------------------------------------- beta
@@ -208,14 +243,8 @@ def ctc_beta_chain_probe(t_len: int, s: int, device: torch.device) -> dict:
     :return: ``steps``, ``cycles`` (``clock64``) and ``ns``
         (``%globaltimer``) of the whole chain.
     """
-    if device.type != "cuda":
-        raise RuntimeError(f"ctc_beta_chain_probe: needs a CUDA device, got {device}")
-    lib = _beta_lib()
-    out = torch.zeros(3, device=device, dtype=torch.int64)
-    rc = lib.ocrs_ctc_beta_probe(device.index, t_len, s, _build.ptr(out), _build.stream_ptr(device))
-    _build.check(lib, rc, "ctc_beta_chain_probe")
-    cycles, ns, _ = out.tolist()
-    return {"steps": t_len - 1, "cycles": cycles, "ns": ns}
+    return _chain_probe(_beta_lib(), "ocrs_ctc_beta_probe", "ctc_beta_chain_probe",
+                        t_len, s, device)
 
 
 class CTCAlphaFunction(torch.autograd.Function):

@@ -76,14 +76,23 @@ OWN_KERNELS = ("stage1_fwd", "stage1_bwd_partial", "stage1_bwd_finish", "gru_fwd
                "gru_bwd_chain", "gru_bwd_dw", "ctc_alpha", "ctc_beta")
 
 
+def device_records(prof) -> dict[str, list[float]]:
+    """The device time, in ms, of every record of each kernel, copy or set
+    under ``prof``, by name. In a short window the profiler often delivers
+    fewer records than there were launches (4 for 5 launches of a kernel),
+    so a kernel launched once a call is read as the mean of its records,
+    not as their sum over the calls."""
+    out: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name:
+            out.setdefault(e.name, []).append((e.time_range.end - e.time_range.start) / 1e3)
+    return out
+
+
 def device_ms_by_kernel(prof, calls: int) -> dict[str, float]:
     """Device time of one call, in ms, of each kernel, copy or set under
     ``prof`` (``calls`` calls), by name."""
-    out: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name:
-            out[e.name] = out.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
-    return out
+    return {name: sum(ms) / calls for name, ms in device_records(prof).items()}
 
 
 def _report(name: str, prof, wall_s: float, iters: int) -> None:

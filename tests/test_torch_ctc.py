@@ -2,7 +2,8 @@
 ``csrc/ctc_alpha.cu`` and ``csrc/ctc_beta.cu``) vs the JAX package's
 ``ctc_loss_forward`` on both of its backends (Pallas in interpret mode and
 ``lax.scan``) and torch's ``F.ctc_loss``, values and gradients with respect
-to the log-probs, on the same numpy inputs.
+to the log-probs, on the same numpy inputs; and each plain recursion
+against its Pallas kernel on the same operands.
 
 Tolerances: NLL values rtol 1e-5 / atol 1e-5 (float32 log-space sums over
 at most 20 steps, as ``tests/test_pallas_ctc.py`` uses); gradients rtol
@@ -19,6 +20,7 @@ import torch.nn.functional as F
 
 from ocrs_models_tpu.ops.ctc import ctc_loss as jax_ctc_loss
 from ocrs_models_tpu.ops.ctc import ctc_loss_forward as jax_ctc_loss_forward
+from ocrs_models_tpu.ops.pallas.ctc_kernel import _alpha_call as jax_alpha_call
 from ocrs_models_tpu.ops.pallas.ctc_kernel import ctc_alpha_final as jax_ctc_alpha_final
 from ocrs_models_torch.ops import (
     ctc_alpha_reference,
@@ -212,6 +214,42 @@ def test_beta_reference_matches_pallas_vjp_at_lane_boundaries(s):
     np.testing.assert_allclose(dalpha0.numpy(), np.asarray(want_dalpha0), rtol=1e-4, atol=1e-6)
     assert (demit.numpy()[~active] == 0).all() and (demit[:, 0] == 0).all()
     assert (demit[3] == 0).all() and (dalpha0[3] == 0).all()
+
+
+@pytest.mark.parametrize("s", [1, 31, 33, 65])
+def test_alpha_reference_states_match_pallas_alpha_call_with_frozen_rows(s):
+    # Every state of ctc_alpha_reference against the JAX package's Pallas
+    # alpha kernel (interpret mode) on the same operands, gated as
+    # ctc_loss_forward gates them, at input lengths 0, 1, 2, T and T + 3.
+    # Rows at and past a sample's last active step hold that step's state:
+    # the rows the CUDA kernel fills after its loop. A length of 0 acts as
+    # 1. rtol 1e-5 / atol 1e-5 as the NLL values of test_matches_jax.
+    rng = np.random.default_rng(s + 100)
+    t = 9
+    lengths = np.asarray([0, 1, 2, t, t + 3], np.int32)
+    n = len(lengths)
+    emit = rng.normal(-2.0, 1.0, (n, t, s)).astype(np.float32)
+    skip = np.where(rng.random((n, s)) < 0.5, 0.0, NEG_INF).astype(np.float32)
+    alpha0 = np.full((n, s), NEG_INF, np.float32)
+    alpha0[:, :2] = rng.normal(-1.0, 0.5, (n, min(2, s)))
+    alphas = ctc_alpha_reference(*(torch.from_numpy(a) for a in (emit, skip, alpha0, lengths)))
+    alphas = alphas.numpy()
+
+    active = np.arange(t)[None, :] < lengths[:, None]  # [N, T]
+    act_j = jnp.asarray(active.T[:, :, None])  # [T, N, 1]
+    emit_g = jnp.where(act_j, jnp.asarray(emit.transpose(1, 0, 2)), 0.0)
+    gate = jnp.where(act_j, 0.0, NEG_INF) * jnp.ones((1, 1, s))
+    want = jax_alpha_call(emit_g, gate, jnp.asarray(skip), jnp.asarray(alpha0), interpret=True)
+    want = np.asarray(want).transpose(1, 0, 2)
+
+    assert alphas.shape == want.shape == (n, t, s)
+    np.testing.assert_allclose(alphas, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(alphas[:, 0], alpha0)
+    for i, length in enumerate(lengths):
+        last = min(max(int(length), 1), t) - 1
+        assert (alphas[i, last:] == alphas[i, last]).all()
+        np.testing.assert_allclose(want[i, last:], np.broadcast_to(want[i, last], (t - last, s)),
+                                   rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("n_labels", [15, 16, 32], ids=["S31", "S33", "S65"])

@@ -17,6 +17,7 @@ from ocrs_models_torch.models import RecognitionModel
 from ocrs_models_torch.ops import (
     BiGRU,
     ctc_alpha,
+    ctc_alpha_chain_probe,
     ctc_alpha_reference,
     ctc_beta,
     ctc_beta_reference,
@@ -323,6 +324,48 @@ def test_ctc_kernels_match_plain(dev, t_len, n, s):
     assert (got[0][:, 0] == 0).all()  # step 0's gradient goes to dalpha0
 
 
+# S = 1, 2, 31, 32: one warp per sample (lanes 0 and 1 take NEG_INF for
+# their missing neighbours); 33, 64, 65, 129: blocks of 2 to 5 warps; 512
+# and 513: the last with an 8-row ring and the first with a 4-row one; 1024:
+# the largest block. T = 20 wraps both rings. Lengths 0 (acts as 1), 1, 2,
+# T and T + 3: from every sample another step on is frozen.
+@pytest.mark.parametrize("s", [1, 2, 31, 32, 33, 64, 65, 129, 512, 513, 1024])
+def test_ctc_alpha_kernel_matches_plain_with_frozen_rows(dev, s):
+    t_len = 20
+    emit, skip, alpha0, _, _ = _ctc_case(t_len, 5, s, dev, s + 7)
+    lens = torch.tensor([0, 1, 2, t_len, t_len + 3], dtype=torch.int32, device=dev)
+    before = ctc_alpha.launches
+    alphas = ctc_alpha(emit, skip, alpha0, lens)
+    again = ctc_alpha(emit, skip, alpha0, lens)
+    final = ctc_alpha(emit, skip, alpha0, lens, final_only=True)
+    torch.cuda.synchronize()
+    assert ctc_alpha.launches == before + 3
+    assert torch.equal(alphas, again)  # bit-identical reruns
+    assert torch.equal(final, alphas[:, -1])
+    torch.testing.assert_close(alphas, ctc_alpha_reference(emit, skip, alpha0, lens),
+                               rtol=1e-6, atol=1e-4)
+    for i, length in enumerate(lens.tolist()):
+        last = min(max(length, 1), t_len) - 1
+        assert torch.equal(alphas[i, last:], alphas[i, last].expand(t_len - last, s))
+    assert torch.equal(alphas[:, 0], alpha0)
+
+
+def test_ctc_alpha_refuses_more_positions_than_a_block_holds(dev):
+    emit, skip, alpha0, lens, _ = _ctc_case(3, 2, 1025, dev, 4)
+    with pytest.raises(RuntimeError, match="ctc_alpha: CUDA error"):
+        ctc_alpha(emit, skip, alpha0, lens)
+
+
+def test_ctc_alpha_chain_probe_times_its_steps(dev):
+    # The warp path (S=13), the block paths with an 8-row and a 4-row ring
+    # (S=129, 513); the probe is no launch of the kernel.
+    before = ctc_alpha.launches
+    for t_len, s in ((9, 13), (257, 129), (20, 513)):
+        got = ctc_alpha_chain_probe(t_len, s, dev)
+        assert got["steps"] == t_len - 1 and got["cycles"] > 0 and got["ns"] >= 0
+    assert ctc_alpha.launches == before
+
+
 def test_ctc_beta_refuses_more_positions_than_a_block_holds(dev):
     emit, skip, alpha0, lens, d = _ctc_case(3, 2, 1025, dev, 3)
     alphas = ctc_alpha_reference(emit, skip, alpha0, lens)
@@ -332,26 +375,32 @@ def test_ctc_beta_refuses_more_positions_than_a_block_holds(dev):
 
 
 def test_ctc_beta_and_stage1_bwd_on_two_streams_do_not_disturb_each_other(dev):
-    # Two calls of each kernel in flight at once on two streams, each with
-    # its own inputs, must give what each gives alone, bit for bit: the
-    # partial sums of stage1_bwd are scratch of one call, and neither kernel
-    # keeps a counter or a buffer in device memory between calls.
-    ctc_cases, s1_cases = [], []
+    # Two calls of ctc_alpha, ctc_beta and stage1_bwd in flight at once on
+    # two streams, each with its own inputs, must give what each gives
+    # alone, bit for bit: the partial sums of stage1_bwd are scratch of one
+    # call, and no kernel keeps a counter or a buffer in device memory
+    # between calls.
+    alpha_cases, ctc_cases, s1_cases = [], [], []
     for seed, (t_len, n, s), shape in ((21, (129, 140, 97), (64, 64, 512)),
                                        (22, (65, 200, 49), (96, 64, 256))):
         emit, skip, alpha0, lens, d = _ctc_case(t_len, n, s, dev, seed)
         alphas = ctc_alpha(emit, skip, alpha0, lens)
+        alpha_cases.append((emit, skip, alpha0, lens))
         ctc_cases.append((emit, skip, alphas, *_beta_operands(alphas, d), lens))
         s1_cases.append(_stage1_bwd_case(shape, dev, seed))
-    alone = [(ctc_beta(*c), stage1_bwd(*s)) for c, s in zip(ctc_cases, s1_cases)]
+
+    def run(i):
+        return (ctc_alpha(*alpha_cases[i]), *ctc_beta(*ctc_cases[i]), *stage1_bwd(*s1_cases[i]))
+
+    alone = [run(0), run(1)]
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
     together = [None, None]
     for _ in range(3):  # interleave the launches of the two streams
-        for i, (c, s) in enumerate(zip(ctc_cases, s1_cases)):
+        for i in range(2):
             with torch.cuda.stream(streams[i]):
-                together[i] = (ctc_beta(*c), stage1_bwd(*s))
+                together[i] = run(i)
     torch.cuda.synchronize()
-    for (beta_a, s1_a), (beta_t, s1_t) in zip(alone, together):
-        for a, b in zip((*beta_a, *s1_a), (*beta_t, *s1_t)):
+    for got_alone, got_together in zip(alone, together):
+        for a, b in zip(got_alone, got_together):
             assert torch.equal(a, b)
