@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and recognition training step on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving path, recognition training step and
+recognition trainer on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -50,6 +50,17 @@ Phases (any failure exits non-zero, before the final line):
    batch 256 x 64x256 (one warm-up step, then timed steps on which the
    loss must fall, launch counts zeroed just before and read just after);
    the wide bucket 128 x 64x1024; ``grad_accum=4``; ``eval_step``.
+9. The trainer CLI (``training/train_rec.py``) on synthetic lines, in a
+   temporary directory, with exact launch counts for each run: three
+   epochs at the JAX trainer's defaults (512 augmented lines, batch 20;
+   every loss finite, epoch 2's train loss below epoch 0's, a checkpoint
+   and three metrics records); a resume from the checkpoint for exactly
+   one more epoch, the Adam step restored; ``--validate-only``; then two
+   epochs each at batch 20 without augmentation and at batch 128 (2048
+   lines) without and with it, printing epoch 1's crops/s beside phase
+   8's wide step rate; then the host's work alone at batch 128 (the
+   loader's rate at two threads and one, ms per line drawn, per batch
+   collated and per batch scored).
 
 Prints the nvidia-smi line, throughput lines, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -76,6 +87,7 @@ REC_BATCH = 128
 BUCKET_WIDTHS = (256, 512, 768, 800)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+PROFILE_CALLS = 10  # calls per profiler window
 
 
 def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -92,7 +104,7 @@ def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_profile(fn, calls: int = 3) -> tuple[float, dict, dict]:
+def _device_profile(fn, calls: int = PROFILE_CALLS) -> tuple[float, dict, dict]:
     """What one call of ``fn`` puts on the device (``torch.profiler`` over
     ``calls`` calls after a warm-up): the number of kernels, copies and
     sets it launches; by name, the device time of one launch in ms; and by
@@ -100,7 +112,7 @@ def _device_profile(fn, calls: int = 3) -> tuple[float, dict, dict]:
     ``fn``'s kernels runs once a call, so the time is the mean over the
     records: the profiler now and then delivers fewer than there were
     launches, and now and then none for a whole window, which is then
-    profiled again, up to three times."""
+    profiled again, up to three times, before this raises."""
     from torch.profiler import ProfilerActivity, profile
 
     from ocrs_models_torch.profile_kernels import device_launches, device_records
@@ -115,6 +127,8 @@ def _device_profile(fn, calls: int = 3) -> tuple[float, dict, dict]:
         records = device_records(prof)
         if records:
             break
+    else:
+        raise AssertionError(f"the profiler delivered no device record in 3 windows of {calls} calls")
     return (device_launches(prof) / calls, {k: sum(v) / len(v) for k, v in records.items()},
             {k: len(v) for k, v in records.items()})
 
@@ -332,7 +346,7 @@ def check_stage1_bwd(dev, gen) -> dict:
             library_ms = _cuda_time_ms(
                 lambda: torch.autograd.grad(y, (wr, br), dy, retain_graph=True), iters=5)
             del y
-        launches, times, _ = _device_profile(lambda: stage1_bwd(x, weight, bias, dy), calls=5)
+        launches, times, _ = _device_profile(lambda: stage1_bwd(x, weight, bias, dy))
         first, second = _device_ms(times, "stage1_bwd_partial"), _device_ms(times, "stage1_bwd_finish")
         grid = stage1_bwd_grid(dev, n, 64, w)
         n_bytes = 4 * (x.numel() + dy.numel() + 2 * 32 * 10)
@@ -496,8 +510,8 @@ def _check_ctc_case(case: dict, gen, what: str, zero_rows=()) -> dict:
     plain_a = _cuda_time_ms(lambda: ctc_alpha_reference(emit, skip, alpha0, lens), iters=2, warmup=1)
     plain_b = _cuda_time_ms(
         lambda: ctc_beta_reference(emit, skip, got_a, seed, sign, lens), iters=2, warmup=1)
-    launches_a, times_a, records_a = _device_profile(alpha, calls=5)
-    launches_b, times_b, records_b = _device_profile(beta, calls=5)
+    launches_a, times_a, records_a = _device_profile(alpha)
+    launches_b, times_b, records_b = _device_profile(beta)
     dev_a, dev_b = _device_ms(times_a, "ctc_alpha_kernel"), _device_ms(times_b, "ctc_beta_kernel")
     records = {name: sum(n for k, n in recs.items() if name in k)
                for name, recs in (("ctc_alpha", records_a), ("ctc_beta", records_b))}
@@ -536,7 +550,7 @@ def _check_ctc_case(case: dict, gen, what: str, zero_rows=()) -> dict:
         k.update(chain_ms=probes[name]["ns"] / 1e6,
                  chain_cycles_per_step=probes[name]["cycles"] / max(steps, 1))
         print(f"{name} {what}: {k['ms']:.4f} ms by events over wrapper calls, "
-              f"{k['device_ms']:.4f} ms on the device ({records[name]:g} records of 5 calls), "
+              f"{k['device_ms']:.4f} ms on the device ({records[name]:g} records of {PROFILE_CALLS} calls), "
               f"{k['us_per_step']:.3f} us per step of {steps}; the chain alone "
               f"chain_ms {k['chain_ms']:.4f} ({k['chain_cycles_per_step']:.0f} cycles per step); "
               f"bound_ms {k['bound_ms']:.4f} ({k['bound_by']}); F.ctc_loss {lib_what} "
@@ -600,6 +614,7 @@ def rec_batch(n: int, width: int, max_chars: int, dev, seed: int = 0) -> dict:
 
 TRAIN_LAUNCHES = {"stage1_fwd": 1, "stage1_bwd": 1, "gru_fwd": 2, "gru_bwd": 2,
                   "ctc_alpha": 1, "ctc_beta": 1}
+EVAL_LAUNCHES = {"stage1_fwd": 1, "gru_fwd": 2, "ctc_alpha": 1}
 
 
 def _counts() -> dict:
@@ -732,11 +747,181 @@ def run_training(dev) -> dict:
     metrics = eval_step(state, head)
     loss = metrics["loss"].item()
     counts = _counts()
-    _expect(counts, {"stage1_fwd": 1, "gru_fwd": 2, "ctc_alpha": 1}, 1, "eval_step")
+    _expect(counts, EVAL_LAUNCHES, 1, "eval_step")
     if not np.isfinite(loss) or not model.training:
         raise AssertionError(f"eval_step: loss {loss}, train mode not restored")
     print(json.dumps({"path": "eval_step headline", "loss": loss, "launches": counts}), flush=True)
     return report
+
+
+def _train_rec(argv: list[str]) -> tuple[list[str], dict, float]:
+    """``train_rec.main(argv)`` in the working directory with the launch
+    counts zeroed just before; returns its printed lines, the counts read
+    just after, and its seconds."""
+    import contextlib
+    import io
+
+    from ocrs_models_torch.training import train_rec
+
+    out = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train_rec.main(argv)
+    torch.cuda.synchronize()
+    return out.getvalue().splitlines(), _counts(), time.perf_counter() - t0
+
+
+def _epoch_records() -> list[dict]:
+    lines = Path("text-recognition-metrics.jsonl").read_text().splitlines()
+    return [r for r in map(json.loads, lines) if "epoch" in r]
+
+
+def _rates(lines: list[str]) -> list[float]:
+    """Each epoch's ``Throughput N crops/sec/chip``."""
+    return [float(ln.split()[1]) for ln in lines if ln.startswith("Throughput ")]
+
+
+def run_trainer(step_rate: float) -> dict[str, int]:
+    """Phase 9: the trainer CLI ``training/train_rec.py`` on synthetic
+    lines, in a temporary directory: (a) three epochs at the JAX defaults,
+    (b) a resume for one more epoch, (c) ``--validate-only``, (d) two
+    epochs at batch 20 and 128, with and without augmentation, for the
+    trainer's rate against the bare step's (``step_rate``, phase 8's wide
+    step at batch 128), then the host's share of it. Returns the launch
+    counts of (a)."""
+    import math
+    import os
+    import tempfile
+
+    train_size, val_size, batch = 512, 64, 20
+    steps = math.ceil(train_size / batch)
+    val_batches = math.ceil(val_size / batch)
+
+    def expect(counts, epochs, what, train=True):
+        want = {k: (TRAIN_LAUNCHES.get(k, 0) * steps if train else 0)
+                + EVAL_LAUNCHES.get(k, 0) * val_batches for k in counts}
+        want = {k: v * epochs for k, v in want.items()}
+        if counts != want:
+            raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as run_dir:
+        os.chdir(run_dir)
+        try:
+            # (a) Three epochs: 512 augmented lines, 64 validation lines, batch 20.
+            lines, counts, seconds = _train_rec(["synthetic", "-", "--max-epochs", "3"])
+            expect(counts, 3, "train_rec 3 epochs")
+            records = _epoch_records()
+            losses = [r["train_loss"] for r in records]
+            if [r["epoch"] for r in records] != [0, 1, 2] or not all(
+                    np.isfinite([v for r in records for v in (r["train_loss"], r["val_loss"])])):
+                raise AssertionError(f"train_rec: epoch records {records}")
+            if not losses[2] < losses[0]:
+                raise AssertionError(f"train_rec: the train loss did not fall: {losses}")
+            if "Model param count 2426913" not in lines:
+                raise AssertionError("train_rec: not the full-width CRNN")
+            print(json.dumps({
+                "path": "train_rec synthetic 3 epochs", "batch": batch, "augment": True,
+                "seconds": seconds, "launches": counts, "crops_per_s": _rates(lines),
+                "train_loss": losses, "val_loss": [r["val_loss"] for r in records],
+                "train_cer": [r["train_accuracy"]["char_error_rate"] for r in records],
+                "val_cer": [r["val_accuracy"]["char_error_rate"] for r in records]}), flush=True)
+            launches = counts
+
+            # (b) Resume for one epoch, the Adam state as (a) left it.
+            ckpt = torch.load("text-rec-checkpoint.pt", map_location="cpu", weights_only=True)
+            adam_steps = {float(v["step"]) for v in ckpt["optimizer_state"]["state"].values()}
+            if (ckpt["epoch"], ckpt["step"], adam_steps) != (3, 3 * steps, {3.0 * steps}):
+                raise AssertionError(f"checkpoint: epoch {ckpt['epoch']}, step {ckpt['step']}, "
+                                     f"Adam steps {adam_steps}; expected 3, {3 * steps}")
+            lines, counts, seconds = _train_rec(
+                ["synthetic", "-", "--checkpoint", "text-rec-checkpoint.pt", "--max-epochs", "4"])
+            expect(counts, 1, "train_rec resumed")
+            records = _epoch_records()
+            ckpt = torch.load("text-rec-checkpoint.pt", map_location="cpu", weights_only=True)
+            if [r["epoch"] for r in records] != [0, 1, 2, 3] or ckpt["step"] != 4 * steps:
+                raise AssertionError(f"resume: epochs {[r['epoch'] for r in records]}, "
+                                     f"step {ckpt['step']}")
+            print(json.dumps({"path": "train_rec resumed, epoch 3", "seconds": seconds,
+                              "launches": counts, "train_loss": records[3]["train_loss"],
+                              "val_cer": records[3]["val_accuracy"]["char_error_rate"]}), flush=True)
+
+            # (c) Validation alone from the checkpoint.
+            lines, counts, _ = _train_rec(
+                ["synthetic", "-", "--checkpoint", "text-rec-checkpoint.pt", "--validate-only"])
+            expect(counts, 1, "train_rec --validate-only", train=False)
+            (line,) = [ln for ln in lines if ln.startswith("Validation loss")]
+            if not np.isfinite(float(line.split()[2])):
+                raise AssertionError(f"--validate-only: {line}")
+            print(json.dumps({"path": "train_rec --validate-only", "line": line}), flush=True)
+        finally:
+            os.chdir(cwd)
+
+    # (d) The trainer's rate, host pipeline included: epoch 1 of two.
+    for n_images, batch_size, augment in ((512, 20, False), (2048, 128, False), (2048, 128, True)):
+        with tempfile.TemporaryDirectory() as run_dir:
+            os.chdir(run_dir)
+            try:
+                lines, counts, seconds = _train_rec(
+                    ["synthetic", "-", "--max-images", str(n_images), "--batch-size",
+                     str(batch_size), "--max-epochs", "2", "--augment" if augment else "--no-augment"])
+                records = _epoch_records()
+            finally:
+                os.chdir(cwd)
+        rates = _rates(lines)
+        if len(rates) != 2 or len(records) != 2 or not all(v > 0 for k, v in counts.items()):
+            raise AssertionError(f"train_rec rate run: rates {rates}, counts {counts}")
+        line = {"path": "train_rec rate", "images": n_images, "batch": batch_size,
+                "augment": augment, "crops_per_s": rates[1],
+                "epoch_seconds": records[1]["time"] - records[0]["time"],
+                "train_cer": [r["train_accuracy"]["char_error_rate"] for r in records],
+                "val_cer": [r["val_accuracy"]["char_error_rate"] for r in records],
+                "step_crops_per_s": step_rate if batch_size == 128 else None,
+                "share_of_step_rate": rates[1] / step_rate if batch_size == 128 else None,
+                "seconds": seconds}
+        print(json.dumps(line), flush=True)
+    _host_breakdown()
+    return launches
+
+
+def _host_breakdown(n: int = 2048, batch: int = 128) -> None:
+    """The trainer's host work at batch 128, on the host alone: the
+    loader's rate over ``n`` lines, collated (two threads as the trainer
+    runs it, and one), and one thread's ms per line drawn, per batch
+    collated and per batch scored (CER of 128 lines at T = 129)."""
+    import functools
+
+    from ocrs_models_torch.config import DEFAULT_ALPHABET
+    from ocrs_models_torch.data import DataLoader, SyntheticRecognition, collate_recognition
+    from ocrs_models_torch.data.augment import RecognitionAugment
+    from ocrs_models_torch.utils.metrics import RecognitionAccuracyStats
+
+    collate = functools.partial(collate_recognition, width_step=256, max_width=800)
+    out = {"path": "train_rec host", "batch": batch}
+    drawn = {}
+    for augment, threads in ((False, 2), (True, 2), (False, 1)):
+        ds = SyntheticRecognition(size=n, seed=SEED, transform=RecognitionAugment(SEED) if augment else None)
+        loader = DataLoader(ds, batch, collate, shuffle=True, seed=SEED, num_threads=threads)
+        t0 = time.perf_counter()
+        lines = sum(len(b["text_len"]) for b in loader)
+        key = f"{'augment' if augment else 'plain'}_{threads}_threads"
+        out[f"loader_lines_per_s_{key}"] = lines / (time.perf_counter() - t0)
+        if threads == 2:
+            t0 = time.perf_counter()
+            drawn[augment] = [ds[i] for i in range(256)]
+            out[f"ms_per_line_{'augment' if augment else 'plain'}"] = (time.perf_counter() - t0) / 256 * 1e3
+    t0 = time.perf_counter()
+    for i in range(2):
+        b = collate(drawn[False][i * batch : (i + 1) * batch])
+    out["collate_ms_per_batch"] = (time.perf_counter() - t0) / 2 * 1e3
+    preds = np.random.default_rng(SEED).integers(0, 97, (batch, 129)).astype(np.int32)
+    stats = RecognitionAccuracyStats(DEFAULT_ALPHABET)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        stats.update(b["text"], b["text_len"], preds, np.full(batch, 128))
+    out["cer_ms_per_batch"] = (time.perf_counter() - t0) / 2 * 1e3
+    print(json.dumps(out), flush=True)
 
 
 def run(root: Path) -> int:
@@ -862,6 +1047,12 @@ def run(root: Path) -> int:
             k["serve_launches"] = serve_counts[k["name"]]
         if not k["launches"] > 0:
             raise AssertionError(f"the training step never launched {k['name']}")
+
+    # Phase 9: the trainer CLI.
+    trainer_launches = run_trainer(train["wide"]["crops_per_s"])
+    for k in kernels:
+        k["trainer_launches"] = trainer_launches[k["name"]]
+        k["trainer_launches_per_epoch"] = k["trainer_launches"] // 3
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

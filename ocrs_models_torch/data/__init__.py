@@ -1,0 +1,5 @@
+from .collate import collate_recognition
+from .loader import DataLoader
+from .synthetic import SyntheticRecognition
+
+__all__ = ["DataLoader", "SyntheticRecognition", "collate_recognition"]

@@ -24,6 +24,8 @@ pads them). Needs CUDA.
 from __future__ import annotations
 
 import argparse
+import json
+import re
 import time
 
 import torch
@@ -33,7 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 import numpy as np
 
 from .models import RecognitionModel
-from .ops import ctc_alpha, ctc_beta, gru_bwd, gru_fwd, stage1_bwd, stage1_fwd
+from .ops import KERNELS, ctc_alpha, ctc_beta, gru_bwd, gru_fwd, stage1_bwd, stage1_fwd
 from .ops.ctc import NEG_INF, ctc_operands
 from .training.state import create_train_state
 from .training.steps import make_recognition_steps
@@ -74,14 +76,14 @@ def device_launches(prof) -> int:
 # Name parts of the hand-written kernels (``csrc/*.cu``), by phase.
 OWN_KERNELS = ("stage1_fwd", "stage1_bwd_partial", "stage1_bwd_finish", "gru_fwd", "gru_bwd_coef",
                "gru_bwd_chain", "gru_bwd_dw", "ctc_alpha", "ctc_beta")
+_WRAPPER = re.compile(r"\b(" + "|".join(k.__name__ for k in KERNELS) + r")_")
 
 
 def device_records(prof) -> dict[str, list[float]]:
     """The device time, in ms, of every record of each kernel, copy or set
     under ``prof``, by name. In a short window the profiler often delivers
     fewer records than there were launches (4 for 5 launches of a kernel),
-    so a kernel launched once a call is read as the mean of its records,
-    not as their sum over the calls."""
+    so a record count says nothing of the launches."""
     out: dict[str, list[float]] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name:
@@ -89,38 +91,68 @@ def device_records(prof) -> dict[str, list[float]]:
     return out
 
 
-def device_ms_by_kernel(prof, calls: int) -> dict[str, float]:
+def own_wrapper(kernel: str) -> str | None:
+    """The wrapper (``ops.KERNELS``) that launches the device kernel named
+    ``kernel`` once a call, or None for a library kernel."""
+    found = _WRAPPER.search(kernel)
+    return found.group(1) if found else None
+
+
+def device_ms_by_kernel(prof, calls: int, launches: dict[str, float]) -> dict[str, float]:
     """Device time of one call, in ms, of each kernel, copy or set under
-    ``prof`` (``calls`` calls), by name."""
-    return {name: sum(ms) / calls for name, ms in device_records(prof).items()}
+    ``prof`` (``calls`` calls), by name. A kernel of the port's own is read
+    as the mean of its records times its wrapper's launches per call
+    (``launches``, from the wrappers' counters), so a missing record costs
+    nothing; a library kernel, whose launches nothing counts, as the sum of
+    its records over the calls (its record count is printed beside)."""
+    out = {}
+    for name, ms in device_records(prof).items():
+        wrapper = own_wrapper(name)
+        if wrapper is not None:
+            out[name] = sum(ms) / len(ms) * launches[wrapper]
+        else:
+            out[name] = sum(ms) / calls
+    return out
 
 
-def _report(name: str, prof, wall_s: float, iters: int) -> None:
+def _report(name: str, prof, wall_s: float, iters: int, launches: dict[str, float]) -> None:
     busy = _device_busy_us(prof) / iters
     print(f"== {name}: {wall_s / iters * 1e3:.3f} ms per iteration (host clock), "
           f"device busy {busy / 1e3:.3f} ms ({100 * busy / (wall_s / iters * 1e6):.1f}%), "
           f"{device_launches(prof) / iters:g} device launches per iteration")
-    own = {}
-    for kernel, ms in device_ms_by_kernel(prof, iters).items():
-        for part in OWN_KERNELS:
-            if part in kernel:
-                own[part] = own.get(part, 0.0) + ms
-    print("   the port's own kernels, device ms per iteration: "
-          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(own.items())))
+    records = device_records(prof)
+    own, library = {}, []
+    for kernel, ms in device_ms_by_kernel(prof, iters, launches).items():
+        part = next((p for p in OWN_KERNELS if p in kernel), None)
+        if part is not None:
+            own[part] = own.get(part, 0.0) + ms
+        else:
+            library.append((ms, kernel))
+    print("   the port's own kernels, device ms per iteration (mean record x launches per "
+          "iteration): " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(own.items())))
+    print(f"   wrapper launches per iteration: {json.dumps(launches)}")
+    print(f"   library kernels, device ms per iteration (records over {iters} iterations):")
+    for ms, kernel in sorted(library, reverse=True)[:12]:
+        print(f"     {ms:.4f} ms ({len(records[kernel])} records) {kernel[:100]}")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
 
 
 def _profiled(fn, iters: int):
+    """``fn`` under the profiler ``iters`` times after two warm-up calls;
+    returns the profile, the host seconds and each wrapper's launches per
+    iteration (its counter, zeroed just before the window)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    for kernel in KERNELS:
+        kernel.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return prof, wall
+    return prof, wall, {k.__name__: k.launches / iters for k in KERNELS}
 
 
 def _stage1_sections(n: int, w: int, iters: int, dev, gen) -> None:
@@ -131,8 +163,8 @@ def _stage1_sections(n: int, w: int, iters: int, dev, gen) -> None:
     dy = torch.randn((n, 32, 32, w // 2), generator=gen).to(dev)
     for name, fn in (("stage1_fwd", lambda: stage1_fwd(x, weight, bias)),
                      ("stage1_bwd", lambda: stage1_bwd(x, weight, bias, dy))):
-        prof, wall = _profiled(fn, iters)
-        _report(f"{name} x [{n},1,64,{w}]", prof, wall, iters)
+        prof, wall, launches = _profiled(fn, iters)
+        _report(f"{name} x [{n},1,64,{w}]", prof, wall, iters, launches)
 
 
 def _ctc_sections(n: int, w: int, iters: int, dev, gen) -> None:
@@ -153,8 +185,8 @@ def _ctc_sections(n: int, w: int, iters: int, dev, gen) -> None:
     sign = -torch.ones((n,), device=dev)
     for name, fn in (("ctc_alpha", lambda: ctc_alpha(emit, skip, alpha0, lens)),
                      ("ctc_beta", lambda: ctc_beta(emit, skip, alphas, seed, sign, lens))):
-        prof, wall = _profiled(fn, iters)
-        _report(f"{name} emit [{n},{t_len},{emit.shape[2]}]", prof, wall, iters)
+        prof, wall, launches = _profiled(fn, iters)
+        _report(f"{name} emit [{n},{t_len},{emit.shape[2]}]", prof, wall, iters, launches)
 
 
 def main() -> None:
@@ -183,24 +215,24 @@ def main() -> None:
     n, w = args.train_batch, args.train_width
     with torch.inference_mode(), torch.backends.cudnn.flags(**flags):
         if args.only is None:
-            prof, wall = _profiled(lambda: model(x), args.iters)
-            _report(f"recognition forward [{args.batch},1,64,{args.width}]", prof, wall, args.iters)
+            prof, wall, launches = _profiled(lambda: model(x), args.iters)
+            _report(f"recognition forward [{args.batch},1,64,{args.width}]", prof, wall, args.iters, launches)
 
         t, hid = args.width // 4 + 1, 256
         px_f = torch.randn((t, args.batch, 3 * hid), generator=gen).to(dev)
         px_b = torch.randn((t, args.batch, 3 * hid), generator=gen).to(dev)
         w_hh = ((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) / 16).to(dev)
         b_hh = torch.zeros((2, 3 * hid), device=dev)
-        prof, wall = _profiled(lambda: gru_fwd(px_f, px_b, w_hh, b_hh), args.iters)
-        _report(f"gru_fwd T={t} N={args.batch} H={hid}", prof, wall, args.iters)
+        prof, wall, launches = _profiled(lambda: gru_fwd(px_f, px_b, w_hh, b_hh), args.iters)
+        _report(f"gru_fwd T={t} N={args.batch} H={hid}", prof, wall, args.iters, launches)
 
         # The backward alone; its kernels are its phases.
         ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
         dy_f = (torch.randn((t, args.batch, hid), generator=gen) * 0.1).to(dev)
         dy_b = (torch.randn((t, args.batch, hid), generator=gen) * 0.1).to(dev)
-        prof, wall = _profiled(
+        prof, wall, launches = _profiled(
             lambda: gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh), args.iters)
-        _report(f"gru_bwd T={t} N={args.batch} H={hid}", prof, wall, args.iters)
+        _report(f"gru_bwd T={t} N={args.batch} H={hid}", prof, wall, args.iters, launches)
     if args.only is not None:
         return
 
@@ -219,8 +251,8 @@ def main() -> None:
     model.requires_grad_(True).train()
     state = create_train_state(model, grad_clip_norm=4.0)
     train_step, _ = make_recognition_steps(model)
-    prof, wall = _profiled(lambda: train_step(state, batch, 1e-3), args.iters)
-    _report(f"train step [{n},1,64,{w}]", prof, wall, args.iters)
+    prof, wall, launches = _profiled(lambda: train_step(state, batch, 1e-3), args.iters)
+    _report(f"train step [{n},1,64,{w}]", prof, wall, args.iters, launches)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,252 @@
+"""Text recognition trainer CLI (the port's counterpart of
+``ocrs_models_tpu/training/train_rec.py``).
+
+The synthetic line dataset, CTC loss with ``W//4`` input lengths, Adam
+(1e-3) with reduce-on-plateau, global-norm clip 4.0, per-epoch CER,
+sample-prediction previews, a checkpoint and a JSONL metrics record every
+epoch, and the NaN-loss guard, on one GPU: each train step runs the
+port's six CUDA kernels (stage 1 forward and backward, the biGRU
+recurrence forward and backward for each of the two layers, the CTC alpha
+and beta recursions), each validation batch the three forward ones.
+
+Usage:
+    python -m ocrs_models_torch.training.train_rec synthetic - --max-epochs 2
+
+Where the port differs from the JAX trainer:
+
+- It trains in float32: ``--bf16`` defaults to off (the JAX trainer's
+  default is on), and ``--bf16`` raises until bf16 training is ported
+  (ROADMAP.md, Queue 1 item 3).
+- ``hiertext`` raises: it needs a JPEG decoder and a dataset download.
+- ``--num-devices`` other than 1 raises: multi-GPU training is ROADMAP.md,
+  Queue 1 item 7.
+- Checkpoints are reference-format ``.pt`` files,
+  ``text-rec-checkpoint.pt`` in the working directory; ``--checkpoint``
+  also takes the JAX trainer's ``--export x.pt``.
+- ``main(argv, device="cuda")`` runs on the GPU and raises without one;
+  tests pass ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import math
+from argparse import ArgumentParser, BooleanOptionalAction
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_ALPHABET, RecognitionModelConfig, RecognitionTrainConfig
+from ..data import DataLoader, SyntheticRecognition, collate_recognition
+from ..data.augment import RecognitionAugment
+from ..data.loader import device_prefetch
+from ..device import resolve_device
+from ..models import RecognitionModel
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.logging import MetricsLogger
+from ..utils.metrics import RecognitionAccuracyStats
+from ..utils.profiling import Throughput
+from ..utils.text import ctc_greedy_decode_text, decode_text
+from .schedules import ReduceLROnPlateau
+from .state import create_train_state
+from .steps import make_recognition_steps
+
+
+def preview_predictions(batch, preds, alphabet: str, tag: str, limit: int = 10):
+    input_lengths = batch["image_width"] // 4
+    for i in range(min(limit, len(preds))):
+        if batch["sample_weight"][i] == 0:
+            continue
+        target = decode_text(batch["text"][i][: batch["text_len"][i]], alphabet)
+        pred = ctc_greedy_decode_text(preds[i][: input_lengths[i]], alphabet)
+        print(f'Sample {tag} prediction "{pred}" target "{target}"')
+
+
+def run_epoch(loader, state, step_fn, alphabet, device, lr=None, train=True):
+    """One pass over ``loader``; returns ``(state, mean loss, stats)`` when
+    training, else ``(mean loss, stats)``."""
+    stats = RecognitionAccuracyStats(alphabet)
+    throughput = Throughput(warmup=1)
+    total_loss = 0.0
+    total_grad_norm = 0.0
+    n_batches = 0
+    for batch_idx, (batch, on_device) in enumerate(device_prefetch(iter(loader), device, depth=2)):
+        if train:
+            state, metrics = step_fn(state, on_device, lr)
+        else:
+            metrics = step_fn(state, on_device)
+        loss = float(metrics["loss"])
+        if math.isnan(loss):
+            raise RuntimeError(
+                "Training produced invalid loss. Check input and target "
+                "lengths are compatible with CTC loss"
+            )
+        preds = metrics["preds"].cpu().numpy()
+        valid = batch["sample_weight"] > 0
+        stats.update(
+            batch["text"][valid],
+            batch["text_len"][valid],
+            preds[valid],
+            (batch["image_width"] // 4)[valid],
+        )
+        if batch_idx == 0:
+            preview_predictions(batch, preds, alphabet, "train" if train else "test")
+        total_loss += loss
+        if train:
+            total_grad_norm += float(metrics["grad_norm"])
+        n_batches += 1
+        throughput.update(int(valid.sum()))
+    mean_loss = total_loss / max(n_batches, 1)
+    if train:
+        print(f"Mean grad norm {total_grad_norm / max(n_batches, 1):.3f}")
+        if throughput.updates > throughput.warmup:
+            print(f"Throughput {throughput.last_rate:.0f} crops/sec/chip")
+        return state, mean_loss, stats
+    return mean_loss, stats
+
+
+def main(argv=None, device: str | torch.device = "cuda"):
+    """Run the trainer; returns the final train state (``None`` after
+    ``--export``)."""
+    parser = ArgumentParser(description="Train text recognition model.")
+    parser.add_argument("dataset_type", choices=["hiertext", "synthetic"])
+    parser.add_argument("data_dir")
+    parser.add_argument(
+        "--augment", default=True, action=BooleanOptionalAction,
+        help="Enable data augmentations",
+    )
+    parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--checkpoint", type=str, help="Checkpoint (.pt) to load")
+    parser.add_argument("--export", type=str, help="Export weights (.pt)")
+    parser.add_argument("--lr", type=float, help="Initial learning rate")
+    parser.add_argument(
+        "--plateau-patience",
+        type=int,
+        default=RecognitionTrainConfig().plateau_patience,
+        help="Epochs without val-loss improvement before the LR decays "
+        "(raise for tiny datasets where epochs are few steps)",
+    )
+    parser.add_argument("--max-epochs", type=int)
+    parser.add_argument("--max-images", type=int)
+    parser.add_argument("--validate-only", action="store_true")
+    parser.add_argument("--num-devices", type=int, default=None)
+    parser.add_argument(
+        "--grad-accum", type=int, default=1,
+        help="Microbatches per optimizer step (run in sequence, one update; "
+        "about k times less activation memory at the same math)",
+    )
+    parser.add_argument(
+        "--bf16", default=False, action=BooleanOptionalAction,
+        help="bfloat16 compute (not ported yet: the port trains in float32)",
+    )
+    args = parser.parse_args(argv)
+
+    if args.bf16:
+        raise NotImplementedError(
+            "--bf16: bf16 training is not ported yet (ROADMAP.md, Queue 1 item 3); "
+            "the port trains in float32 (--no-bf16, its default)")
+    if args.num_devices not in (None, 1):
+        raise NotImplementedError(
+            f"--num-devices {args.num_devices}: multi-GPU training is not ported yet "
+            "(ROADMAP.md, Queue 1 item 7)")
+    if args.dataset_type == "hiertext":
+        raise NotImplementedError(
+            "hiertext: the HierText dataset needs a JPEG decoder and a dataset download, "
+            "neither of which the port has; use 'synthetic'")
+    dev = resolve_device(device)
+
+    cfg = RecognitionTrainConfig()
+    batch_size = args.batch_size or cfg.batch_size
+    seed = cfg.seed
+
+    augment = RecognitionAugment(seed=seed) if args.augment else None
+    val_max = max(10, int(args.max_images * 0.1)) if args.max_images else None
+    train_ds = SyntheticRecognition(size=args.max_images or 512, seed=seed, transform=augment)
+    val_ds = SyntheticRecognition(size=val_max or 64, seed=seed + 1)
+
+    def collate(samples):
+        return collate_recognition(samples, width_step=cfg.width_step,
+                                   batch_multiple=args.grad_accum, max_width=cfg.max_width)
+
+    train_loader = DataLoader(train_ds, batch_size, collate, shuffle=True, seed=seed, num_threads=2)
+    val_loader = DataLoader(val_ds, batch_size, collate, shuffle=True, seed=seed)
+
+    mcfg = RecognitionModelConfig()
+    torch.manual_seed(seed)
+    model = RecognitionModel(
+        n_classes=mcfg.n_classes, gru_hidden=mcfg.gru_hidden, gru_layers=mcfg.gru_layers
+    ).to(dev)
+    state = create_train_state(model, grad_clip_norm=cfg.grad_clip_norm)
+    n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
+    print(f"Model param count {n_params}")
+
+    epoch = 0
+    if args.checkpoint:
+        state, epoch = load_checkpoint(args.checkpoint, state)
+
+    if args.export:
+        from .export_utils import export_weights
+
+        export_weights(state, args.export, model="recognition", epoch=epoch)
+        return None
+
+    # Collation pads every batch to a multiple of grad_accum (zero-weight
+    # rows), so any --batch-size is valid.
+    train_step, eval_step = make_recognition_steps(model, grad_accum=args.grad_accum)
+
+    if args.validate_only:
+        val_loss, val_stats = run_epoch(
+            val_loader, state, eval_step, DEFAULT_ALPHABET, dev, train=False
+        )
+        print(f"Validation loss {val_loss} char error rate {val_stats.char_error_rate()}")
+        return state
+
+    initial_lr = args.lr or cfg.learning_rate
+    scheduler = ReduceLROnPlateau(
+        initial_lr, factor=cfg.plateau_factor, patience=args.plateau_patience
+    )
+    logger = MetricsLogger(
+        "text-recognition",
+        config={
+            "batch_size": batch_size,
+            "dataset_size": len(train_ds),
+            "model_params": n_params,
+            "seed": seed,
+            "mesh_devices": 1,
+        },
+    )
+
+    lr = initial_lr
+    while args.max_epochs is None or epoch < args.max_epochs:
+        state, train_loss, train_stats = run_epoch(
+            train_loader, state, train_step, DEFAULT_ALPHABET, dev, lr=lr, train=True
+        )
+        print(
+            f"Epoch {epoch} train loss {train_loss} "
+            f"char error rate {train_stats.char_error_rate()}"
+        )
+        val_loss, val_stats = run_epoch(
+            val_loader, state, eval_step, DEFAULT_ALPHABET, dev, train=False
+        )
+        print(
+            f"Epoch {epoch} validation loss {val_loss} "
+            f"char error rate {val_stats.char_error_rate()}"
+        )
+        lr = scheduler.step(val_loss)
+        print(f"Current learning rate [{lr}]")
+
+        logger.log(
+            {
+                "train_loss": train_loss,
+                "train_accuracy": train_stats.stats_dict(),
+                "val_loss": val_loss,
+                "val_accuracy": val_stats.stats_dict(),
+            },
+            step=epoch,
+        )
+        epoch += 1
+        save_checkpoint(f"{cfg.checkpoint_name}.pt", state, epoch)
+    return state
+
+
+if __name__ == "__main__":
+    main()

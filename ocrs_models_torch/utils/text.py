@@ -1,6 +1,7 @@
 """Text decode utilities (counterpart of ``ocrs_models_tpu/utils/text.py``).
 
-Class index 0 is the CTC blank; class ``i > 0`` is ``alphabet[i - 1]``.
+Class index 0 is the CTC blank; class ``i > 0`` is ``alphabet[i - 1]``;
+characters outside the alphabet encode as ``unknown_char``.
 :func:`ctc_greedy_decode_batch` runs on the device in plain torch ops, so a
 recognition chunk costs one small integer fetch instead of a ``[N, T, C]``
 log-prob round trip.
@@ -8,13 +9,62 @@ log-prob round trip.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
+
+
+@lru_cache(maxsize=8)
+def _char_to_index(alphabet: str) -> dict[str, int]:
+    return {ch: i + 1 for i, ch in enumerate(alphabet)}
+
+
+def encode_text(text: str, alphabet: str, unknown_char: str = "?") -> np.ndarray:
+    """Encode ``text`` as a ``[len(text)]`` int32 array of class indices."""
+    table = _char_to_index(alphabet)
+    unknown = table[unknown_char]
+    return np.array([table.get(ch, unknown) for ch in text], dtype=np.int32)
 
 
 def decode_text(indices, alphabet: str) -> str:
     """Decode class indices to a string, skipping blanks (class 0)."""
     return "".join(alphabet[i - 1] for i in np.asarray(indices).tolist() if i > 0)
+
+
+def ctc_greedy_decode_text(indices, alphabet: str) -> str:
+    """Greedy CTC decode: collapse adjacent repeats, then drop blanks."""
+    chars = []
+    last = None
+    for cls in np.asarray(indices).tolist():
+        if cls == last:
+            continue
+        last = cls
+        if cls != 0:
+            chars.append(alphabet[cls - 1])
+    return "".join(chars)
+
+
+def levenshtein(a: str, b: str) -> int:
+    """Edit distance between two strings: the dynamic programme one row at
+    a time in numpy, the left-to-right dependency of a row resolved with a
+    running minimum."""
+    if a == b:
+        return 0
+    if not a:
+        return len(b)
+    if not b:
+        return len(a)
+    bn = np.frombuffer(b.encode("utf-32-le"), dtype=np.uint32)
+    steps = np.arange(len(bn) + 1)
+    prev = steps.astype(np.int64)
+    for i, ch in enumerate(a):
+        cur = np.empty_like(prev)
+        cur[0] = i + 1
+        # cur[j+1] = min(prev[j+1] + 1, prev[j] + (a[i] != b[j]), cur[j] + 1)
+        np.minimum(prev[1:] + 1, prev[:-1] + (bn != ord(ch)), out=cur[1:])
+        prev = np.minimum(cur, np.minimum.accumulate(cur - steps) + steps)
+    return int(prev[-1])
 
 
 def ctc_greedy_decode_batch(

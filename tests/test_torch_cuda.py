@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+recognition trainer, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc``; without a GPU they skip. The
 file imports nothing of JAX, so it runs on a machine that has only the
@@ -8,6 +9,7 @@ port's dependencies:
 """
 
 import copy
+import json
 
 import numpy as np
 import pytest
@@ -88,8 +90,10 @@ def _gru_case(t, n, h, dev, seed, dy_scale=1.0):
 # T=1 and T=2: no exchange between the blocks of a cluster, then one.
 # N=259: 34 clusters, more than the card holds at once, and a ragged last
 # batch tile. H=8, 48, 64: clusters of 1, 2 (ragged unit tile) and 2.
+# N=12 and N=20 at T=193: the trainer's short last batch and its default
+# batch at its 768-wide bucket.
 GRU_SHAPES = [(33, 40, 256), (5, 3, 48), (1, 17, 8), (2, 20, 256), (1, 3, 64), (2, 5, 64),
-              (7, 259, 256), (201, 128, 256)]
+              (7, 259, 256), (201, 128, 256), (193, 12, 256), (193, 20, 256)]
 
 
 @pytest.mark.parametrize("shape", GRU_SHAPES)
@@ -404,3 +408,54 @@ def test_ctc_beta_and_stage1_bwd_on_two_streams_do_not_disturb_each_other(dev):
     for got_alone, got_together in zip(alone, together):
         for a, b in zip(got_alone, got_together):
             assert torch.equal(a, b)
+
+
+def test_device_prefetch_copies_pinned_host_batches(dev, monkeypatch):
+    from ocrs_models_torch.data.loader import device_prefetch
+
+    pinned = []
+    pin_memory = torch.Tensor.pin_memory
+
+    def record(t, *args, **kwargs):
+        out = pin_memory(t, *args, **kwargs)
+        pinned.append(out.is_pinned())
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", record)
+    rng = np.random.default_rng(0)
+    batches = [{"image": rng.uniform(-0.5, 0.5, (8, 1, 64, 256)).astype(np.float32),
+                "text": rng.integers(0, 97, (8, 64)).astype(np.int32)} for _ in range(4)]
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):  # copies go on the current stream
+        out = list(device_prefetch(iter(batches), dev, depth=2))
+    side.synchronize()
+    assert pinned == [True] * 8
+    for (host, on_card), want in zip(out, batches):
+        assert host is want
+        for key, value in want.items():
+            assert on_card[key].device == dev
+            assert np.array_equal(on_card[key].cpu().numpy(), value)
+
+
+def test_train_rec_trains_one_epoch_on_the_card(dev, tmp_path, monkeypatch, capsys):
+    # 40 lines (2 steps of 20) and 10 validation lines (1 batch): every
+    # kernel launches, as many times as the steps and batches need.
+    from ocrs_models_torch.ops import KERNELS
+    from ocrs_models_torch.training import train_rec
+
+    monkeypatch.chdir(tmp_path)
+    for kernel in KERNELS:
+        kernel.launches = 0
+    state = train_rec.main(["synthetic", "-", "--max-images", "40", "--max-epochs", "1"])
+    counts = {k.__name__: k.launches for k in KERNELS}
+    per_step = {"stage1_fwd": 1, "stage1_bwd": 1, "gru_fwd": 2, "gru_bwd": 2, "ctc_alpha": 1,
+                "ctc_beta": 1}
+    per_batch = {"stage1_fwd": 1, "gru_fwd": 2, "ctc_alpha": 1}
+    assert counts == {k: 2 * per_step[k] + per_batch.get(k, 0) for k in per_step}
+    assert state.step == 2 and next(state.model.parameters()).is_cuda
+    out = capsys.readouterr().out
+    assert "Model param count 2426913" in out and "Epoch 0 validation loss" in out
+    lines = (tmp_path / "text-recognition-metrics.jsonl").read_text().splitlines()
+    (record,) = [r for r in map(json.loads, lines) if "epoch" in r]
+    assert np.isfinite(record["train_loss"]) and np.isfinite(record["val_loss"])
+    assert (tmp_path / "text-rec-checkpoint.pt").exists()
