@@ -88,6 +88,7 @@ BUCKET_WIDTHS = (256, 512, 768, 800)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 PROFILE_CALLS = 10  # calls per profiler window
+BF16 = torch.bfloat16
 
 
 def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -150,6 +151,21 @@ def _no_tf32():
 _HEADLINE_KEYS = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "us_per_step",
                   "device_launches_per_call")
 _STAGE1_BWD_EXTRA = ("device_ms", "second_pass_ms", "device_launches_per_call", "grid")
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference, in bf16 ulps of the larger magnitude."""
+    a, b = got.float(), want.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=1e-30)
+    return float(((a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def _equal_share(got, want) -> float:
+    """The share of elements of ``got`` (one tensor or several) exactly
+    equal to ``want``'s."""
+    pairs = list(zip(got, want)) if isinstance(got, (tuple, list)) else [(got, want)]
+    equal = sum(int((a == b).sum()) for a, b in pairs)
+    return equal / sum(a.numel() for a, _ in pairs)
 
 
 def _bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -226,6 +242,27 @@ def check_stage1(dev, gen) -> dict:
     }
 
 
+def _gru_weights(gen, dev, hid=256):
+    k = 1.0 / hid**0.5
+    w_hh = ((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
+    b_hh = ((torch.rand((2, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
+    return w_hh, b_hh
+
+
+def _cudnn_gru(dev, gen, t_len, n, hid, dtype, backward: bool):
+    """cuDNN's bidirectional GRU layer (F=128, so it also computes its input
+    projection) in ``dtype``, forward or backward alone, as a callable."""
+    lib_gru = torch.nn.GRU(128, hid, bidirectional=True).to(dev, dtype)
+    xs = torch.randn((t_len, n, 128), generator=gen).to(dev, dtype)
+    if not backward:
+        return lambda: lib_gru(xs)
+    xs.requires_grad_(True)
+    ys, _ = lib_gru(xs)
+    dys = torch.randn(ys.shape, generator=gen).to(dev, dtype)
+    ins = [xs, *lib_gru.parameters()]
+    return lambda: torch.autograd.grad(ys, ins, dys, retain_graph=True)
+
+
 def check_gru(dev, gen) -> dict:
     """biGRU forward kernel vs the plain recurrence at the serving path's
     largest shape (T=201, N=128) and the training headline's (T=65,
@@ -234,9 +271,7 @@ def check_gru(dev, gen) -> dict:
     from ocrs_models_torch.ops import gru_recurrence_reference
 
     hid = 256
-    k = 1.0 / hid**0.5
-    w_hh = ((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
-    b_hh = ((torch.rand((2, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
+    w_hh, b_hh = _gru_weights(gen, dev, hid)
     out = {}
     # T = 800 // 4 + 1 at the widest serving bucket, 256 // 4 + 1 in training.
     for t_len, n in ((201, REC_BATCH), (65, 256)):
@@ -255,12 +290,9 @@ def check_gru(dev, gen) -> dict:
                 lambda: gru_recurrence_reference(px_f, px_b, w_hh, b_hh), iters=3, warmup=1
             )
             launches = _device_profile(lambda: gru_recurrence(px_f, px_b, w_hh, b_hh))[0]
-            # Yardstick: cuDNN's bidirectional GRU layer at the first layer's
-            # shape; it also computes the input projection (F=128).
-            lib_gru = torch.nn.GRU(128, hid, bidirectional=True).to(dev)
-            xs = torch.randn((t_len, n, 128), generator=gen).to(dev)
             with _no_tf32():
-                library_ms = _cuda_time_ms(lambda: lib_gru(xs), iters=10)
+                library_ms = _cuda_time_ms(
+                    _cudnn_gru(dev, gen, t_len, n, hid, torch.float32, False), iters=10)
         n_bytes = 4 * (2 * t_len * n * 3 * hid + 2 * hid * 3 * hid + 2 * 3 * hid
                        + 2 * t_len * n * hid)
         n_flops = 2 * t_len * 2 * n * hid * 3 * hid
@@ -285,9 +317,96 @@ def check_gru(dev, gen) -> dict:
     }
 
 
+def check_stage1_bf16(dev, gen) -> dict:
+    """bf16 stage-1 forward kernel vs its bf16 plain version at the serving
+    chunk [128, 1, 64, 800]: at least 99% of the outputs equal and the rest
+    within one bf16 ulp (both sum exact bf16 products in f32, in another
+    order, and round once)."""
+    from ocrs_models_torch.ops import stage1_fwd, stage1_reference
+
+    weight = (torch.randn((32, 1, 3, 3), generator=gen) * 0.3).to(dev)
+    bias = (torch.randn((32,), generator=gen) * 0.1).to(dev)
+    x = (torch.rand((REC_BATCH, 1, 64, 800), generator=gen) - 0.5).to(dev).to(BF16)
+    with _no_tf32():
+        want = stage1_reference(x, weight, bias)
+    got = stage1_fwd(x, weight, bias)
+    torch.cuda.synchronize()
+    err, share, ulps = (got.float() - want.float()).abs().max().item(), _equal_share(got, want), \
+        _bf16_ulps(got, want)
+    print(f"stage1_fwd bf16 [128,1,64,800]: max_abs_err {err:.3e}, equal {share:.6f}, "
+          f"max {ulps:g} ulp", flush=True)
+    if not (got.dtype == BF16 and share >= 0.99 and ulps <= 1.0):
+        raise AssertionError("bf16 stage1_fwd disagrees with its plain version")
+    wb, bb = weight.to(BF16), bias.to(BF16)
+    with _no_tf32(), torch.inference_mode():
+        ms = _cuda_time_ms(lambda: stage1_fwd(x, weight, bias), iters=50)
+        plain_ms = _cuda_time_ms(lambda: stage1_reference(x, weight, bias), iters=50)
+        library_ms = _cuda_time_ms(
+            lambda: F.max_pool2d(F.relu(F.conv2d(x, wb, bb, padding=1)), 2), iters=50)
+    device_ms = _device_ms(_device_profile(lambda: stage1_fwd(x, weight, bias))[1],
+                           "stage1_fwd_kernel")
+    n, _, h, w = x.shape
+    bound_ms, bound_by = _bound(2 * x.numel() + 4 * 32 * 10 + 2 * n * 32 * (h // 2) * (w // 2),
+                                n * 32 * h * w * 19)
+    return {
+        "name": "stage1_fwd", "dtype": "bf16", "route": "cuda",
+        "source": "ocrs_models_torch/csrc/stage1_fwd.cu",
+        "replaces": "ocrs_models_tpu/ops/pallas/stage1_kernel.py:201",
+        "shape": f"x [{n},1,{h},{w}] bf16 -> [{n},32,{h // 2},{w // 2}] bf16",
+        "max_abs_err": err, "equal_share": share, "max_ulps": ulps, "ms": ms,
+        "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def check_gru_bf16(dev, gen) -> dict:
+    """bf16 biGRU forward kernel vs its bf16 plain version at the serving
+    chunk's T=201, N=128, H=256: ys within 2e-2 (a bf16 rounding of h that
+    flips feeds the following steps) and at least 95% of it equal (a kernel
+    that exchanges the unrounded state reads 88%: tests/test_torch_cuda.py)."""
+    from ocrs_models_torch.ops import gru_fwd, gru_recurrence_reference
+
+    t_len, n, hid = 201, REC_BATCH, 256
+    w_hh, b_hh = _gru_weights(gen, dev, hid)
+    px_f, px_b = (torch.randn((t_len, n, 3 * hid), generator=gen).to(dev).to(BF16)
+                  for _ in range(2))
+    with torch.inference_mode():
+        want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
+        got = gru_fwd(px_f, px_b, w_hh, b_hh)
+        torch.cuda.synchronize()
+        err, share = _err(got, want), _equal_share(got, want)
+        print(f"gru_fwd bf16 [T={t_len},N={n},H={hid}]: max_abs_err {err:.3e}, "
+              f"equal {share:.6f}", flush=True)
+        if not (got[0].dtype == BF16 and err <= 2e-2 and share >= 0.95):
+            raise AssertionError(f"bf16 gru_fwd disagrees with its plain version: {err}, {share}")
+        ms = _cuda_time_ms(lambda: gru_fwd(px_f, px_b, w_hh, b_hh), iters=10)
+        plain_ms = _cuda_time_ms(
+            lambda: gru_recurrence_reference(px_f, px_b, w_hh, b_hh), iters=3, warmup=1)
+        launches, times, _ = _device_profile(lambda: gru_fwd(px_f, px_b, w_hh, b_hh))
+        with _no_tf32():
+            library_ms = _cuda_time_ms(_cudnn_gru(dev, gen, t_len, n, hid, BF16, False), iters=10)
+    n_bytes = 2 * (2 * t_len * n * 3 * hid + 2 * t_len * n * hid) + 4 * (2 * hid * 3 * hid
+                                                                         + 2 * 3 * hid)
+    bound_ms, bound_by = _bound(n_bytes, 2 * t_len * 2 * n * hid * 3 * hid)
+    print(f"gru_fwd bf16 [T={t_len},N={n}]: {ms:.4f} ms, {1e3 * ms / t_len:.3f} us per step, "
+          f"{launches:g} device launches per call", flush=True)
+    return {
+        "name": "gru_fwd", "dtype": "bf16", "route": "cuda",
+        "source": "ocrs_models_torch/csrc/gru_fwd.cu",
+        "replaces": "ocrs_models_tpu/ops/pallas/gru_kernel4.py:139",
+        "shape": f"px [{t_len},{n},{3 * hid}] x2 bf16, w_hh [2,{hid},{3 * hid}] f32",
+        "max_abs_err": err, "equal_share": share, "ms": ms,
+        "device_ms": _device_ms(times, "gru_fwd_kernel"), "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "us_per_step": 1e3 * ms / t_len, "device_launches_per_call": launches,
+    }
+
+
 def check_recognition(pipe, gen) -> float:
     """Full recognition forward with the kernels vs the same model with the
-    kernels' plain versions swapped in, on the card."""
+    kernels' plain versions swapped in, on the card: log-probs within 1e-4
+    in float32, 5e-2 in bf16 (where a bf16 rounding that flips in stage 1 or
+    the biGRU moves the convolutions' inputs by one bf16 ulp)."""
     from ocrs_models_torch.ops import gru_recurrence_reference, stage1_reference
 
     model = pipe.rec_model
@@ -301,9 +420,12 @@ def check_recognition(pipe, gen) -> float:
     if got.shape != (REC_BATCH, 201, 97) or not torch.isfinite(got).all():
         raise AssertionError(f"recognition output shape {tuple(got.shape)} or non-finite values")
     err = (got - want).abs().max().item()
-    print(f"recognition forward [128,1,64,800] vs plain ops: max_abs_err {err:.3e}", flush=True)
-    if not err <= 1e-4:
-        raise AssertionError(f"recognition log-probs disagree with plain ops: {err}")
+    dtype = "bf16" if model.dtype == BF16 else "f32"
+    tol = 5e-2 if model.dtype == BF16 else 1e-4
+    print(f"recognition forward {dtype} [128,1,64,800] vs plain ops: max_abs_err {err:.3e}",
+          flush=True)
+    if not err <= tol:
+        raise AssertionError(f"{dtype} recognition log-probs disagree with plain ops: {err}")
     return err
 
 
@@ -380,9 +502,7 @@ def check_gru_bwd(dev, gen) -> dict:
     from ocrs_models_torch.ops import gru_bwd, gru_bwd_reference, gru_fwd
 
     hid = 256
-    k = 1.0 / hid**0.5
-    w_hh = ((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
-    b_hh = ((torch.rand((2, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
+    w_hh, b_hh = _gru_weights(gen, dev, hid)
     out = {}
     for t_len, n in ((65, 256), (257, 128)):
         px_f = torch.randn((t_len, n, 3 * hid), generator=gen).to(dev)
@@ -409,17 +529,9 @@ def check_gru_bwd(dev, gen) -> dict:
         launches = _device_profile(lambda: gru_bwd(*args))[0]
         print(f"gru_bwd [T={t_len},N={n}]: {ms:.4f} ms, {1e3 * ms / t_len:.3f} us per step, "
               f"{launches:g} device launches per call", flush=True)
-        # Yardstick: cuDNN's bidirectional GRU layer backward (F=128; it
-        # also computes its input projection's gradients).
-        lib_gru = torch.nn.GRU(128, hid, bidirectional=True).to(dev)
-        xs = torch.randn((t_len, n, 128), generator=gen).to(dev).requires_grad_(True)
         with _no_tf32():
-            ys, _ = lib_gru(xs)
-            dys = torch.randn(ys.shape, generator=gen).to(dev)
-            ins = [xs, *lib_gru.parameters()]
             library_ms = _cuda_time_ms(
-                lambda: torch.autograd.grad(ys, ins, dys, retain_graph=True), iters=5)
-            del ys
+                _cudnn_gru(dev, gen, t_len, n, hid, torch.float32, True), iters=5)
         h3 = 3 * hid
         n_bytes = 4 * (2 * t_len * n * h3 * 2 + 2 * t_len * n * hid * 2
                        + 2 * 2 * hid * h3 + 2 * 2 * h3)
@@ -440,6 +552,114 @@ def check_gru_bwd(dev, gen) -> dict:
         "us_per_step": wide["us_per_step"],
         "device_launches_per_call": wide["device_launches_per_call"],
         "headline": {k: head[k] for k in _HEADLINE_KEYS},
+    }
+
+
+def check_stage1_bwd_bf16(dev, gen) -> dict:
+    """bf16 stage-1 backward kernel vs its bf16 plain version at the wide
+    training shape x [128,1,64,1024]: dW, db within 1e-2 of the largest
+    |dW| (the float32 check's tolerance: max-pool near-ties)."""
+    from ocrs_models_torch.ops import stage1_bwd, stage1_bwd_grid, stage1_bwd_reference
+
+    weight = (torch.randn((32, 1, 3, 3), generator=gen) * 0.3).to(dev)
+    bias = (torch.randn((32,), generator=gen) * 0.1).to(dev)
+    n, w = 128, 1024
+    x = (torch.rand((n, 1, 64, w), generator=gen) - 0.5).to(dev).to(BF16)
+    dy = torch.randn((n, 32, 32, w // 2), generator=gen).to(dev).to(BF16)
+    with _no_tf32():
+        want = stage1_bwd_reference(x, weight, bias, dy)
+    got = stage1_bwd(x, weight, bias, dy)
+    again = stage1_bwd(x, weight, bias, dy)
+    torch.cuda.synchronize()
+    err, share = _err(got, want), _equal_share(got, want)
+    scale = max(t.abs().max().item() for t in want)
+    print(f"stage1_bwd bf16 [{n},1,64,{w}]: max_abs_err {err:.3e} (max |dW| {scale:.3e}), "
+          f"equal {share:.4f}", flush=True)
+    if not (err <= 1e-2 * scale and all(t.dtype == torch.float32 for t in got)):
+        raise AssertionError(f"bf16 stage1_bwd disagrees with its plain version: {err}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("bf16 stage1_bwd is not deterministic")
+    with _no_tf32():
+        ms = _cuda_time_ms(lambda: stage1_bwd(x, weight, bias, dy), iters=20)
+        plain_ms = _cuda_time_ms(lambda: stage1_bwd_reference(x, weight, bias, dy), iters=5)
+        wr = weight.to(BF16).requires_grad_(True)
+        br = bias.to(BF16).requires_grad_(True)
+        y = F.max_pool2d(F.relu(F.conv2d(x, wr, br, padding=1)), 2)
+        library_ms = _cuda_time_ms(
+            lambda: torch.autograd.grad(y, (wr, br), dy, retain_graph=True), iters=5)
+        del y
+    launches, times, _ = _device_profile(lambda: stage1_bwd(x, weight, bias, dy))
+    first, second = _device_ms(times, "stage1_bwd_partial"), _device_ms(times, "stage1_bwd_finish")
+    n_bytes = 2 * (x.numel() + dy.numel()) + 4 * 2 * 32 * 10
+    bound_ms, bound_by = _bound(n_bytes, 2 * n * 32 * 32 * (w // 2) * (4 * 9 + 10))
+    grid = stage1_bwd_grid(dev, n, 64, w, BF16)
+    print(f"stage1_bwd bf16 [{n},1,64,{w}]: {ms:.4f} ms ({100 * bound_ms / ms:.0f}% of its bound), "
+          f"on the device {first:.4f} + {second:.4f} ms, {launches:g} device launches per call, "
+          f"grid {grid} x 256 threads", flush=True)
+    return {
+        "name": "stage1_bwd", "dtype": "bf16", "route": "cuda",
+        "source": "ocrs_models_torch/csrc/stage1_bwd.cu",
+        "replaces": "ocrs_models_tpu/ops/pallas/stage1_kernel.py:223",
+        "shape": f"x [{n},1,64,{w}], dy [{n},32,32,{w // 2}] bf16",
+        "max_abs_err": err, "equal_share": share, "ms": ms, "device_ms": first + second,
+        "second_pass_ms": second, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms, "device_launches_per_call": launches,
+        "grid": grid,
+    }
+
+
+def check_gru_bwd_bf16(dev, gen) -> dict:
+    """bf16 biGRU backward kernel vs its bf16 plain version (the phases with
+    the Pallas kernel's rounding points) at the wide step's T=257, N=128,
+    H=256: dpx within 2e-2 and at least 95% of it equal, dW and db within
+    1e-3 of their largest entry (the bounds tests/test_torch_cuda.py gives
+    its reasons for)."""
+    from ocrs_models_torch.ops import gru_bwd, gru_bwd_reference, gru_fwd
+
+    t_len, n, hid = 257, 128, 256
+    w_hh, b_hh = _gru_weights(gen, dev, hid)
+    px_f, px_b = (torch.randn((t_len, n, 3 * hid), generator=gen).to(dev).to(BF16)
+                  for _ in range(2))
+    dy_f, dy_b = ((torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev).to(BF16)
+                  for _ in range(2))
+    ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
+    args = (px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
+    want = gru_bwd_reference(*args)
+    got = gru_bwd(*args)
+    again = gru_bwd(*args)
+    torch.cuda.synchronize()
+    err_dpx, err_dw = _err(got[:2], want[:2]), _err(got[2:], want[2:])
+    scale = max(t.abs().max().item() for t in want[2:])
+    share = _equal_share(got[:2], want[:2])
+    print(f"gru_bwd bf16 [T={t_len},N={n},H={hid}]: dpx max_abs_err {err_dpx:.3e} (equal "
+          f"{share:.4f}), dW/db max_abs_err {err_dw:.3e} (max {scale:.3e})", flush=True)
+    if not (got[0].dtype == BF16 and err_dpx <= 2e-2 and share >= 0.95
+            and err_dw <= 1e-3 * scale):
+        raise AssertionError("bf16 gru_bwd disagrees with its plain version")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("bf16 gru_bwd is not deterministic")
+    ms = _cuda_time_ms(lambda: gru_bwd(*args), iters=5)
+    plain_ms = _cuda_time_ms(lambda: gru_bwd_reference(*args), iters=2, warmup=1)
+    launches, times, _ = _device_profile(lambda: gru_bwd(*args))
+    with _no_tf32():
+        library_ms = _cuda_time_ms(_cudnn_gru(dev, gen, t_len, n, hid, BF16, True), iters=5)
+    h3 = 3 * hid
+    n_bytes = 2 * (2 * t_len * n * h3 * 2 + 2 * t_len * n * hid * 2) + 4 * (2 * 2 * hid * h3
+                                                                            + 2 * 2 * h3)
+    bound_ms, bound_by = _bound(n_bytes, 2 * 3 * 2 * t_len * n * hid * h3)
+    device_ms = sum(_device_ms(times, f"gru_bwd_{k}") for k in ("coef", "chain", "dw_kernel",
+                                                                  "dw_sum"))
+    print(f"gru_bwd bf16 [T={t_len},N={n}]: {ms:.4f} ms, {1e3 * ms / t_len:.3f} us per step, "
+          f"{launches:g} device launches per call", flush=True)
+    return {
+        "name": "gru_bwd", "dtype": "bf16", "route": "cuda",
+        "source": "ocrs_models_torch/csrc/gru_bwd.cu",
+        "replaces": "ocrs_models_tpu/ops/pallas/gru_kernel4.py:171",
+        "shape": f"px [{t_len},{n},{h3}] x2, dy [{t_len},{n},{hid}] x2 bf16",
+        "max_abs_err": max(err_dpx, err_dw), "max_abs_err_dpx": err_dpx, "max_abs_err_dw": err_dw,
+        "equal_share": share, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "us_per_step": 1e3 * ms / t_len, "device_launches_per_call": launches,
     }
 
 
@@ -636,13 +856,15 @@ def _expect(counts: dict, per_step: dict, steps: int, what: str) -> None:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
 
-def check_train_step_vs_plain(dev) -> None:
+def check_train_step_vs_plain(dev, dtype=torch.float32) -> None:
     """One headline step with the kernels vs the same step with every
     kernel's plain version swapped in, from the same weights. Tolerances
-    as the CPU parity test's first step: loss rtol 1e-5, grad norm rtol
-    1e-3, parameters within 1e-5 but for at most 1% of entries (max-pool
-    near-ties route a few gradients elsewhere, and Adam's first step is
-    +-lr per entry), all within 2 * lr."""
+    in float32 as the CPU parity test's first step: loss rtol 1e-5, grad
+    norm rtol 1e-3, parameters within 1e-5 but for at most 1% of entries
+    (max-pool near-ties route a few gradients elsewhere, and Adam's first
+    step is +-lr per entry), all within 2 * lr. In bf16 (where a bf16
+    rounding that flips moves a value by one bf16 ulp): the loss rtol 1e-2,
+    each module's gradient norm rtol 5e-2."""
     import copy
 
     from ocrs_models_torch import ops
@@ -651,7 +873,7 @@ def check_train_step_vs_plain(dev) -> None:
     from ocrs_models_torch.training.steps import make_recognition_steps
 
     torch.manual_seed(SEED)
-    model = RecognitionModel(n_classes=97).to(dev)
+    model = RecognitionModel(n_classes=97, dtype=dtype).to(dev)
     plain_model = copy.deepcopy(model)
     batch = rec_batch(256, 256, 24, dev)
     lr = 1e-3
@@ -682,28 +904,41 @@ def check_train_step_vs_plain(dev) -> None:
     got, want = results
     loss_rel = abs(got["loss"].item() / want["loss"].item() - 1)
     norm_rel = abs(got["grad_norm"].item() / want["grad_norm"].item() - 1)
+    module_rel = {k: abs(v.item() / want["grad_norms"][k].item() - 1)
+                  for k, v in got["grad_norms"].items()}
     diffs = [(a - b).abs() for a, b in zip(model.parameters(), plain_model.parameters())]
     n_far = sum(int((d > 1e-5).sum()) for d in diffs)
     n_all = sum(d.numel() for d in diffs)
     max_diff = max(d.max().item() for d in diffs)
-    print(json.dumps({"path": "train_step vs plain", "loss": got["loss"].item(),
-                      "loss_plain": want["loss"].item(), "loss_rel": loss_rel,
-                      "grad_norm": got["grad_norm"].item(), "grad_norm_rel": norm_rel,
+    bf16 = dtype == BF16
+    print(json.dumps({"path": f"train_step vs plain{' bf16' if bf16 else ''}",
+                      "loss": got["loss"].item(), "loss_plain": want["loss"].item(),
+                      "loss_rel": loss_rel, "grad_norm": got["grad_norm"].item(),
+                      "grad_norm_rel": norm_rel, "module_grad_norm_rel_max": max(module_rel.values()),
                       "params_far_frac": n_far / n_all, "params_max_diff": max_diff}), flush=True)
-    if not (loss_rel <= 1e-5 and norm_rel <= 1e-3 and n_far <= 0.01 * n_all
-            and max_diff <= 2 * lr + 1e-6):
-        raise AssertionError("the training step with kernels disagrees with the plain step")
+    if bf16:
+        ok = loss_rel <= 1e-2 and all(v <= 5e-2 for v in module_rel.values())
+    else:
+        ok = (loss_rel <= 1e-5 and norm_rel <= 1e-3 and n_far <= 0.01 * n_all
+              and max_diff <= 2 * lr + 1e-6)
+    if not ok:
+        raise AssertionError(f"the {'bf16 ' if bf16 else ''}training step with kernels disagrees "
+                             f"with the plain step: {module_rel}")
 
 
-def run_training(dev) -> dict:
-    """Phase 8's main path: headline, wide, grad_accum=4 and eval steps."""
+def run_training(dev, dtype=torch.float32, wide_steps: int = 10) -> dict:
+    """Phase 8's main path in ``dtype``: headline and wide steps, and in
+    float32 also grad_accum=4 and eval steps. Each step's time is also read
+    on the device's timeline (CUDA events between step starts), for a
+    median and a spread."""
     from ocrs_models_torch.models import RecognitionModel
     from ocrs_models_torch.training.state import create_train_state
     from ocrs_models_torch.training.steps import make_recognition_steps
 
     torch.manual_seed(SEED + 1)
-    model = RecognitionModel(n_classes=97).to(dev)
+    model = RecognitionModel(n_classes=97, dtype=dtype).to(dev)
     state = create_train_state(model, grad_clip_norm=4.0)
+    tag = " bf16" if dtype == BF16 else ""
     train_step, eval_step = make_recognition_steps(model)
     lr = 1e-3
     report = {}
@@ -714,12 +949,16 @@ def run_training(dev) -> dict:
         torch.cuda.synchronize()
         _zero_counts()
         losses = []
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for i in range(steps):
+            marks[i].record()
             state, metrics = step_fn(state, batch, lr)
             losses.append(metrics["loss"])
+        marks[-1].record()
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
+        step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
         counts = _counts()
         _expect(counts, per_step, steps, what)
         losses = [v.item() for v in losses]
@@ -729,16 +968,21 @@ def run_training(dev) -> dict:
             raise AssertionError(f"{what}: losses {losses}, preds {tuple(preds.shape)}")
         line = {"path": what, "batch": n, "width": w, "steps": steps,
                 "seconds": elapsed, "crops_per_s": n * steps / elapsed,
-                "ms_per_step": 1e3 * elapsed / steps, "losses": losses, "launches": counts}
+                "ms_per_step": 1e3 * elapsed / steps, "step_ms_median": float(np.median(step_ms)),
+                "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+                "losses": losses, "launches": counts}
         print(json.dumps(line), flush=True)
         return line
 
     head = rec_batch(256, 256, 24, dev)
-    line = timed(head, 10, "train_step headline 256x64x256")
+    line = timed(head, 10, f"train_step{tag} headline 256x64x256")
     if not line["losses"][-1] < line["losses"][0]:
         raise AssertionError(f"the loss did not fall on a fixed batch: {line['losses']}")
     report["headline"] = line
-    report["wide"] = timed(rec_batch(128, 1024, 48, dev, seed=1), 3, "train_step wide 128x64x1024")
+    report["wide"] = timed(rec_batch(128, 1024, 48, dev, seed=1), wide_steps,
+                           f"train_step{tag} wide 128x64x1024")
+    if dtype == BF16:
+        return report
     ga4_step, _ = make_recognition_steps(model, grad_accum=4)
     report["ga4"] = timed(head, 1, "train_step headline grad_accum=4", ga4_step,
                           {k: 4 * v for k, v in TRAIN_LAUNCHES.items()})
@@ -782,14 +1026,15 @@ def _rates(lines: list[str]) -> list[float]:
     return [float(ln.split()[1]) for ln in lines if ln.startswith("Throughput ")]
 
 
-def run_trainer(step_rate: float) -> dict[str, int]:
+def run_trainer(step_rates: dict) -> dict[str, dict[str, int]]:
     """Phase 9: the trainer CLI ``training/train_rec.py`` on synthetic
-    lines, in a temporary directory: (a) three epochs at the JAX defaults,
-    (b) a resume for one more epoch, (c) ``--validate-only``, (d) two
-    epochs at batch 20 and 128, with and without augmentation, for the
-    trainer's rate against the bare step's (``step_rate``, phase 8's wide
-    step at batch 128), then the host's share of it. Returns the launch
-    counts of (a)."""
+    lines, in a temporary directory: (a) three epochs at the JAX defaults
+    (bf16, as the JAX trainer's), (b) a resume for one more epoch, (c)
+    ``--validate-only``, (d) two epochs at batch 128 in bf16 with and
+    without augmentation and in float32 (``--no-bf16``) without, for the
+    trainer's rate against the bare step's (``step_rates``, phase 8's wide
+    step at batch 128 by dtype), then the host's share of it. Returns the
+    launch counts per epoch of (a) (bf16) and of (d)'s float32 run."""
     import math
     import os
     import tempfile
@@ -798,7 +1043,7 @@ def run_trainer(step_rate: float) -> dict[str, int]:
     steps = math.ceil(train_size / batch)
     val_batches = math.ceil(val_size / batch)
 
-    def expect(counts, epochs, what, train=True):
+    def expect(counts, epochs, what, train=True, steps=steps, val_batches=val_batches):
         want = {k: (TRAIN_LAUNCHES.get(k, 0) * steps if train else 0)
                 + EVAL_LAUNCHES.get(k, 0) * val_batches for k in counts}
         want = {k: v * epochs for k, v in want.items()}
@@ -822,7 +1067,8 @@ def run_trainer(step_rate: float) -> dict[str, int]:
             if "Model param count 2426913" not in lines:
                 raise AssertionError("train_rec: not the full-width CRNN")
             print(json.dumps({
-                "path": "train_rec synthetic 3 epochs", "batch": batch, "augment": True,
+                "path": "train_rec synthetic 3 epochs", "dtype": "bf16", "batch": batch,
+                "augment": True,
                 "seconds": seconds, "launches": counts, "crops_per_s": _rates(lines),
                 "train_loss": losses, "val_loss": [r["val_loss"] for r in records],
                 "train_cer": [r["train_accuracy"]["char_error_rate"] for r in records],
@@ -858,31 +1104,38 @@ def run_trainer(step_rate: float) -> dict[str, int]:
         finally:
             os.chdir(cwd)
 
-    # (d) The trainer's rate, host pipeline included: epoch 1 of two.
-    for n_images, batch_size, augment in ((512, 20, False), (2048, 128, False), (2048, 128, True)):
+    # (d) The trainer's rate, host pipeline included: epoch 1 of two, 2048
+    # lines (16 steps of 128) and 204 validation lines (2 batches) an epoch.
+    per_epoch = {"bf16": {k: v // 3 for k, v in launches.items()}}
+    n_images, batch_size = 2048, 128
+    for dtype, augment in (("bf16", False), ("f32", False), ("bf16", True)):
         with tempfile.TemporaryDirectory() as run_dir:
             os.chdir(run_dir)
             try:
                 lines, counts, seconds = _train_rec(
                     ["synthetic", "-", "--max-images", str(n_images), "--batch-size",
-                     str(batch_size), "--max-epochs", "2", "--augment" if augment else "--no-augment"])
+                     str(batch_size), "--max-epochs", "2", "--augment" if augment else "--no-augment",
+                     "--bf16" if dtype == "bf16" else "--no-bf16"])
                 records = _epoch_records()
             finally:
                 os.chdir(cwd)
+        expect(counts, 2, f"train_rec rate run ({dtype})", steps=16, val_batches=2)
+        if dtype == "f32":
+            per_epoch["f32"] = {k: v // 2 for k, v in counts.items()}
         rates = _rates(lines)
-        if len(rates) != 2 or len(records) != 2 or not all(v > 0 for k, v in counts.items()):
-            raise AssertionError(f"train_rec rate run: rates {rates}, counts {counts}")
-        line = {"path": "train_rec rate", "images": n_images, "batch": batch_size,
+        if len(rates) != 2 or len(records) != 2:
+            raise AssertionError(f"train_rec rate run: rates {rates}")
+        step_rate = step_rates[dtype]
+        line = {"path": "train_rec rate", "dtype": dtype, "images": n_images, "batch": batch_size,
                 "augment": augment, "crops_per_s": rates[1],
                 "epoch_seconds": records[1]["time"] - records[0]["time"],
                 "train_cer": [r["train_accuracy"]["char_error_rate"] for r in records],
                 "val_cer": [r["val_accuracy"]["char_error_rate"] for r in records],
-                "step_crops_per_s": step_rate if batch_size == 128 else None,
-                "share_of_step_rate": rates[1] / step_rate if batch_size == 128 else None,
-                "seconds": seconds}
+                "step_crops_per_s": step_rate, "share_of_step_rate": rates[1] / step_rate,
+                "seconds": seconds, "launches": counts}
         print(json.dumps(line), flush=True)
     _host_breakdown()
-    return launches
+    return per_epoch
 
 
 def _host_breakdown(n: int = 2048, batch: int = 128) -> None:
@@ -924,16 +1177,99 @@ def _host_breakdown(n: int = 2048, batch: int = 128) -> None:
     print(json.dumps(out), flush=True)
 
 
+def _serve(pipe, pages, crops) -> dict:
+    """Phases 5 and 6 for one pipeline: ``run_batch`` on the pages and
+    ``_recognize_crops`` on 128 crops of each bucket, each warm, with launch
+    counts zeroed just before and read just after. Serving launches only the
+    forward kernels, once (stage 1) and twice (the biGRU's two layers) for
+    each recognition chunk, counted as calls of the recognizer."""
+    from ocrs_models_torch.config import DEFAULT_ALPHABET
+
+    dtype = "bf16" if pipe.rec_model.dtype == BF16 else "f32"
+    chunks = 0
+    forward = pipe.rec_model.forward
+
+    def counted(x):
+        nonlocal chunks
+        chunks += 1
+        return forward(x)
+
+    out = {}
+    with mock.patch.object(pipe.rec_model, "forward", counted):
+        pipe.run_batch(pages, det_batch=DET_BATCH, rec_batch=REC_BATCH)  # warm-up
+        torch.cuda.synchronize()
+        _zero_counts()
+        chunks = 0
+        t0 = time.perf_counter()
+        results = pipe.run_batch(pages, det_batch=DET_BATCH, rec_batch=REC_BATCH)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = _counts()
+        n_lines = sum(len(p) for p in results)
+        print(json.dumps({"path": "run_batch", "dtype": dtype, "pages": N_PAGES, "lines": n_lines,
+                          "chunks": chunks, "seconds": elapsed, "pages_per_s": N_PAGES / elapsed,
+                          "launches": counts}), flush=True)
+        if len(results) != N_PAGES or any(not isinstance(ln.text, str) for p in results for ln in p):
+            raise AssertionError("run_batch returned a malformed result")
+        if any(ch not in DEFAULT_ALPHABET for p in results for ln in p for ch in ln.text):
+            raise AssertionError("run_batch produced characters outside the alphabet")
+        if any(not np.isfinite(ln.box).all() for p in results for ln in p):
+            raise AssertionError("run_batch produced non-finite line boxes")
+        if not chunks > 0:
+            raise AssertionError(f"run_batch recognized nothing (lines found: {n_lines})")
+        _expect(counts, {"stage1_fwd": 1, "gru_fwd": 2}, chunks, f"run_batch {dtype}")
+        out["serve_launches"], out["pages"] = counts, results
+
+        pipe._recognize_crops(crops, REC_BATCH)  # warm-up
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        texts = pipe._recognize_crops(crops, REC_BATCH)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    counts = _counts()
+    print(json.dumps({"path": "recognize_crops", "dtype": dtype, "crops": len(crops),
+                      "buckets": list(BUCKET_WIDTHS), "seconds": elapsed,
+                      "crops_per_s": len(crops) / elapsed, "launches": counts}), flush=True)
+    if len(texts) != len(crops):
+        raise AssertionError(f"recognize_crops: {len(texts)} texts for {len(crops)} crops")
+    _expect(counts, {"stage1_fwd": 1, "gru_fwd": 2}, len(BUCKET_WIDTHS), "recognize_crops")
+    out["texts"] = texts
+    return out
+
+
+def _agreement(pipe, pipe_bf16, served: dict, crops) -> None:
+    """How far bf16 serving agrees with float32 on the same weights (the
+    check ``tools/serve_bench.py`` makes for the JAX package): the share of
+    identical texts over the served crops and the run_batch lines, and of
+    identical per-step argmax on the widest bucket's chunk. Printed, not
+    gated: the weights are random."""
+    texts, texts_bf = served["f32"]["texts"], served["bf16"]["texts"]
+    lines = [(a.text, b.text) for pa, pb in zip(served["f32"]["pages"], served["bf16"]["pages"])
+             for a, b in zip(pa, pb)]
+    x = torch.from_numpy(np.stack([c[:, :, 0] for c in crops[-REC_BATCH:]]))[:, None]
+    with pipe._numerics():
+        ids = pipe.rec_model(x.to(pipe.device)).argmax(dim=-1)
+        ids_bf = pipe_bf16.rec_model(x.to(pipe.device)).argmax(dim=-1)
+    print(json.dumps({
+        "path": "serving bf16 vs f32", "crops": len(texts),
+        "identical_text_share": float(np.mean([a == b for a, b in zip(texts, texts_bf)])),
+        "run_batch_lines_compared": len(lines),
+        "run_batch_identical_text_share": float(np.mean([a == b for a, b in lines])) if lines else None,
+        "argmax_steps": ids.numel(),
+        "identical_argmax_share": (ids == ids_bf).float().mean().item()}), flush=True)
+
+
 def run(root: Path) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU to run on", file=sys.stderr)
         return 1
     sys.path.insert(0, str(root))
-    from ocrs_models_torch.config import DEFAULT_ALPHABET
     from ocrs_models_torch.geometry import native
     from ocrs_models_torch.ops import _build
     from ocrs_models_torch.pipeline import OcrPipeline
 
+    t_start = time.perf_counter()
     # Phase 1: the card.
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -954,50 +1290,36 @@ def run(root: Path) -> int:
     print(f"host geometry core: {native.backend()}", flush=True)
     from ocrs_models_torch.ops.gru import max_active_clusters
 
-    for n in (REC_BATCH, 256):  # the serving chunk and the training headline, H=256
-        print(f"biGRU clusters at N={n}, H=256: {json.dumps(max_active_clusters(n, 256))}",
-              flush=True)
+    for dtype in (torch.float32, BF16):
+        for n in (REC_BATCH, 256):  # the serving chunk and the training headline, H=256
+            print(f"biGRU clusters ({dtype}) at N={n}, H=256: "
+                  f"{json.dumps(max_active_clusters(n, 256, dtype=dtype))}", flush=True)
 
     gen = torch.Generator().manual_seed(SEED)
     dev = torch.device("cuda", 0)
 
-    # Phase 3: each kernel against its plain version.
+    # Phase 3: each forward kernel against its plain version, in both dtypes.
     kernels = [check_stage1(dev, gen), check_gru(dev, gen)]
+    kernels_bf16 = [check_stage1_bf16(dev, gen), check_gru_bf16(dev, gen)]
 
-    # Phase 4: full recognition forward.
-    pipe = OcrPipeline(device=dev, seed=SEED)
-    check_recognition(pipe, gen)
+    # Phase 4: full recognition forward, f32 and bf16 (the same weights).
+    pipes = {"f32": OcrPipeline(device=dev, seed=SEED),
+             "bf16": OcrPipeline(device=dev, seed=SEED, compute_dtype=BF16)}
+    for pipe in pipes.values():
+        check_recognition(pipe, gen)
 
-    # Phase 5: the main path.
+    # Phases 5 and 6: the main path, in both dtypes.
     rng = np.random.default_rng(SEED)
     pages = [
         synthetic_page(rng, int(rng.integers(1000, 1300)), int(rng.integers(760, 1000)))
         for _ in range(N_PAGES)
     ]
-    pipe.run_batch(pages, det_batch=DET_BATCH, rec_batch=REC_BATCH)  # warm-up
-    torch.cuda.synchronize()
-    _zero_counts()
-    t0 = time.perf_counter()
-    results = pipe.run_batch(pages, det_batch=DET_BATCH, rec_batch=REC_BATCH)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    counts = _counts()
-    n_lines = sum(len(p) for p in results)
-    print(json.dumps({"path": "run_batch", "pages": N_PAGES, "lines": n_lines,
-                      "seconds": elapsed, "pages_per_s": N_PAGES / elapsed,
-                      "launches": counts}), flush=True)
-    if len(results) != N_PAGES or any(not isinstance(ln.text, str) for p in results for ln in p):
-        raise AssertionError("run_batch returned a malformed result")
-    if any(ch not in DEFAULT_ALPHABET for p in results for ln in p for ch in ln.text):
-        raise AssertionError("run_batch produced characters outside the alphabet")
-    if any(not np.isfinite(ln.box).all() for p in results for ln in p):
-        raise AssertionError("run_batch produced non-finite line boxes")
-    for name, count in counts.items():
-        if (count > 0) != (name in ("stage1_fwd", "gru_fwd")):
-            raise AssertionError(f"run_batch launched {name} {count} times (lines found: {n_lines})")
-    serve_counts = counts
+    crops = [synthetic_crop(rng, w) for w in BUCKET_WIDTHS for _ in range(REC_BATCH)]
+    served = {dtype: _serve(pipe, pages, crops) for dtype, pipe in pipes.items()}
+    _agreement(pipes["f32"], pipes["bf16"], served, crops)
 
     # Detection on the card against the CPU, on two pages.
+    pipe = pipes["f32"]
     cpu = OcrPipeline(
         pipe.det_model.state_dict(), pipe.rec_model.state_dict(), device="cpu"
     )
@@ -1012,49 +1334,37 @@ def run(root: Path) -> int:
     print(f"detection [2,1,800,600] card vs CPU: max_abs_err {det_err:.3e}", flush=True)
     if not det_err <= 1e-4:
         raise AssertionError(f"detection probabilities disagree with the CPU: {det_err}")
-
-    # Phase 6: every recognition bucket.
-    crops = [synthetic_crop(rng, w) for w in BUCKET_WIDTHS for _ in range(REC_BATCH)]
-    pipe._recognize_crops(crops, REC_BATCH)  # warm-up
-    torch.cuda.synchronize()
-    _zero_counts()
-    t0 = time.perf_counter()
-    texts = pipe._recognize_crops(crops, REC_BATCH)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    bucket_counts = _counts()
-    print(json.dumps({"path": "recognize_crops", "crops": len(crops),
-                      "buckets": list(BUCKET_WIDTHS), "seconds": elapsed,
-                      "crops_per_s": len(crops) / elapsed, "launches": bucket_counts}),
-          flush=True)
-    if len(texts) != len(crops):
-        raise AssertionError(f"recognize_crops: {len(texts)} texts for {len(crops)} crops")
-    _expect(bucket_counts, {"stage1_fwd": 1, "gru_fwd": 2}, len(BUCKET_WIDTHS), "recognize_crops")
-    del pipe, cpu
+    del pipe, pipes, cpu
     torch.cuda.empty_cache()
 
     # Phase 7: each backward kernel against its plain version.
     kernels += [check_stage1_bwd(dev, gen), check_gru_bwd(dev, gen), *check_ctc(dev, gen)]
+    kernels_bf16 += [check_stage1_bwd_bf16(dev, gen), check_gru_bwd_bf16(dev, gen)]
 
-    # Phase 8: the training step.
-    check_train_step_vs_plain(dev)
-    train = run_training(dev)
-    head = train["headline"]
-    for k in kernels:
-        k["launches"] = head["launches"][k["name"]]
-        k["launches_per_step"] = head["launches"][k["name"]] // head["steps"]
-        if k["name"] in serve_counts:
-            k["serve_launches"] = serve_counts[k["name"]]
-        if not k["launches"] > 0:
-            raise AssertionError(f"the training step never launched {k['name']}")
+    # Phase 8: the training step, in both dtypes.
+    train = {}
+    for dtype, name in ((torch.float32, "f32"), (BF16, "bf16")):
+        check_train_step_vs_plain(dev, dtype)
+        train[name] = run_training(dev, dtype)
+    for rows, name in ((kernels, "f32"), (kernels_bf16, "bf16")):
+        head = train[name]["headline"]
+        for k in rows:
+            k.setdefault("dtype", name)
+            k["launches"] = head["launches"][k["name"]]
+            k["launches_per_step"] = head["launches"][k["name"]] // head["steps"]
+            if k["name"] in served[name]["serve_launches"]:
+                k["serve_launches"] = served[name]["serve_launches"][k["name"]]
+            if not k["launches"] > 0:
+                raise AssertionError(f"the {name} training step never launched {k['name']}")
 
     # Phase 9: the trainer CLI.
-    trainer_launches = run_trainer(train["wide"]["crops_per_s"])
-    for k in kernels:
-        k["trainer_launches"] = trainer_launches[k["name"]]
-        k["trainer_launches_per_epoch"] = k["trainer_launches"] // 3
+    trainer_launches = run_trainer({k: v["wide"]["crops_per_s"] for k, v in train.items()})
+    for rows, name in ((kernels, "f32"), (kernels_bf16, "bf16")):
+        for k in rows:
+            k["trainer_launches_per_epoch"] = trainer_launches[name][k["name"]]
 
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"smoke seconds {time.perf_counter() - t_start:.1f}", flush=True)
+    print(json.dumps({"kernels": kernels + kernels_bf16}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,4 +1,5 @@
-// Bidirectional GRU recurrence of one layer, backward, in float32.
+// Bidirectional GRU recurrence of one layer, backward, in float32 or
+// bfloat16.
 //
 // Replaces: the backward of the Pallas kernel `gru_recurrence4` in
 // ocrs_models_tpu/ops/pallas/gru_kernel4.py (`_bwd_call`, body
@@ -76,11 +77,26 @@
 // product stays on the f32 FMA pipes: its 16 or 20 rows do not fill the
 // 16-row tiles of `mma` at the cluster sizes that fit the card. H > 256
 // would need a cluster of more than 8 blocks; the wrapper raises for it.
+//
+// bf16 (`compute_dtype=jnp.bfloat16`): px, ys, dy are read and dpx written
+// in bf16; coef, dW, db stay f32. The rounding points are the Pallas
+// kernel's: h_prev is the bf16 ys (so `coef` recomputes the gates from the
+// rounded state, as the Pallas kernel does); the chain's product takes
+// bf16(dph) and the wrapper's bf16-rounded W_hh; dW sums h_prev^T bf16(dph)
+// and db the UNROUNDED dph, both in f32. So the chain also writes the f32
+// dph = [da_r, da_z, dhn] to scratch of the call ([2, T*N, 3H]), which `dw`
+// reads instead of dpx * r: dpx holds bf16(da_c), and bf16(bf16(da_c) r)
+// is not bf16(da_c r). With both operands bf16 values, the products of
+// `coef` and `dw` are exact in TF32, so each tile takes one `mma` instead
+// of three. At T=257, N=128, H=256 the bytes are px, ys, dy and dpx in
+// bf16 plus the dph scratch written and read in f32: 269.6 + 404 MB, 0.20
+// ms, still below the 1.16 ms of the products.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_io.cuh"
 #include "gru_cluster.cuh"
 
 namespace {
@@ -92,13 +108,8 @@ constexpr int kNC = 5;                 // coefficients per element
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
-__device__ __forceinline__ float4 ldg4(const float* p) {
-    return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float2 ldg2(const float* p) {
-    return __ldg(reinterpret_cast<const float2*>(p));
-}
+using io::ldg2;
+using io::ldg4;
 
 // Error-compensated TF32 products on the tensor cores ("3xTF32"): x is
 // split into hi, its upper 19 bits, and lo = x - hi (exact), of which the
@@ -133,6 +144,28 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)
     mma_tf32(c, a_hi, b_hi);
 }
 
+// The operands of a product whose inputs hold bf16 values (kExact) are
+// exact in TF32: no lo part, one `mma`. Otherwise the 3xTF32 split.
+template <bool kExact>
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+    if (kExact) {
+        hi = __float_as_uint(x);
+        lo = 0u;
+    } else {
+        split_tf32(x, hi, lo);
+    }
+}
+
+template <bool kExact>
+__device__ __forceinline__ void tf32_mma(float (&c)[4], const uint32_t (&a_hi)[4],
+                                         const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                         const uint32_t (&b_lo)[2]) {
+    if (kExact)
+        mma_tf32(c, a_hi, b_hi);
+    else
+        mma_3xtf32(c, a_hi, a_lo, b_hi, b_lo);
+}
+
 // ---------------------------------------------------------------------
 // (a) coefficients
 
@@ -147,7 +180,8 @@ struct CoefStage {
 };
 
 // Global loads of one k stage: 128 x 16 of h_prev and 16 x 96 of W_hh.
-__device__ __forceinline__ void coef_load(CoefStage& s, const float* __restrict__ ys,
+template <typename E>
+__device__ __forceinline__ void coef_load(CoefStage& s, const E* __restrict__ ys,
                                           const float* __restrict__ W, int k0, int m0, int u0,
                                           long long shift, int M, int H, int tid) {
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -180,12 +214,14 @@ __device__ __forceinline__ void coef_store(const CoefStage& s, float (*As)[kGAS]
 }
 
 // coef[dir][m][q][u], m = t * N + n, q: 0 z, 1 (1-z)(1-c^2), 2 (h_prev-c) z (1-z),
-// 3 r, 4 hn r (1-r). Requires H % 8 == 0.
+// 3 r, 4 hn r (1-r). Requires H % 8 == 0. E: the element type of px and ys.
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-gru_bwd_coef_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
-                    const float* __restrict__ ys_f, const float* __restrict__ ys_b,
+gru_bwd_coef_kernel(const E* __restrict__ px_f, const E* __restrict__ px_b,
+                    const E* __restrict__ ys_f, const E* __restrict__ ys_b,
                     const float* __restrict__ w_hh, const float* __restrict__ b_hh,
                     float* __restrict__ coef, int T, int N, int H) {
+    constexpr bool kBf16 = io::is_bf16<E>::value;
     // Strides 20 and 104: the fragment loads below hit 32 different banks.
     __shared__ __align__(16) float As[2][kGM][kGAS];
     __shared__ __align__(16) float Bs[2][kGK][kGBS];
@@ -200,7 +236,7 @@ gru_bwd_coef_kernel(const float* __restrict__ px_f, const float* __restrict__ px
     // thread ends up with all three gates of its elements.
     const int warp = tid / 32, gid = (tid % 32) / 4, tig = tid % 4;
     const int wm = warp % 4, wn = warp / 4;
-    const float* ys = dir == 0 ? ys_f : ys_b;
+    const E* ys = dir == 0 ? ys_f : ys_b;
     const long long shift = dir == 0 ? -(long long)N : (long long)N;
     const float* W = w_hh + (size_t)dir * H * H3;
 
@@ -226,20 +262,20 @@ gru_bwd_coef_kernel(const float* __restrict__ px_f, const float* __restrict__ px
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
                 const int r = wm * 32 + mt * 16 + gid;
-                split_tf32(As[buf][r][k8 + tig], a_hi[mt][0], a_lo[mt][0]);
-                split_tf32(As[buf][r + 8][k8 + tig], a_hi[mt][1], a_lo[mt][1]);
-                split_tf32(As[buf][r][k8 + tig + 4], a_hi[mt][2], a_lo[mt][2]);
-                split_tf32(As[buf][r + 8][k8 + tig + 4], a_hi[mt][3], a_lo[mt][3]);
+                tf32_split<kBf16>(As[buf][r][k8 + tig], a_hi[mt][0], a_lo[mt][0]);
+                tf32_split<kBf16>(As[buf][r + 8][k8 + tig], a_hi[mt][1], a_lo[mt][1]);
+                tf32_split<kBf16>(As[buf][r][k8 + tig + 4], a_hi[mt][2], a_lo[mt][2]);
+                tf32_split<kBf16>(As[buf][r + 8][k8 + tig + 4], a_hi[mt][3], a_lo[mt][3]);
             }
 #pragma unroll
             for (int nt = 0; nt < 6; ++nt) {
                 const int col = (nt / 2) * kBU + wn * 16 + (nt % 2) * 8 + gid;
                 uint32_t b_hi[2], b_lo[2];
-                split_tf32(Bs[buf][k8 + tig][col], b_hi[0], b_lo[0]);
-                split_tf32(Bs[buf][k8 + tig + 4][col], b_hi[1], b_lo[1]);
+                tf32_split<kBf16>(Bs[buf][k8 + tig][col], b_hi[0], b_lo[0]);
+                tf32_split<kBf16>(Bs[buf][k8 + tig + 4][col], b_hi[1], b_lo[1]);
 #pragma unroll
                 for (int mt = 0; mt < 2; ++mt)
-                    mma_3xtf32(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);
+                    tf32_mma<kBf16>(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);
             }
         }
         if (s + 1 < n_stages) coef_store(st, As[buf ^ 1], Bs[buf ^ 1], tid);
@@ -248,7 +284,7 @@ gru_bwd_coef_kernel(const float* __restrict__ px_f, const float* __restrict__ px
 
     // Epilogue: fragment (f / 2, f % 2) of tile (mt, ut) is row wm*32 + mt*16
     // + gid + 8 * (f / 2), unit wn*16 + ut*8 + 2*tig + f % 2.
-    const float* px = dir == 0 ? px_f : px_b;
+    const E* px = dir == 0 ? px_f : px_b;
 #pragma unroll
     for (int ut = 0; ut < 2; ++ut) {
         const int u = u0 + wn * 16 + ut * 8 + 2 * tig;
@@ -262,7 +298,7 @@ gru_bwd_coef_kernel(const float* __restrict__ px_f, const float* __restrict__ px
                 const int m = m0 + wm * 32 + mt * 16 + gid + 8 * half;
                 if (m >= M) continue;
                 const long long src = (long long)m + shift;
-                const float* p = px + (size_t)m * H3 + u;
+                const E* p = px + (size_t)m * H3 + u;
                 const float2 xr = ldg2(p), xz = ldg2(p + H), xn = ldg2(p + 2 * H);
                 const float2 hp =
                     (src >= 0 && src < M) ? ldg2(ys + src * H + u) : make_float2(0.f, 0.f);
@@ -310,11 +346,15 @@ size_t chain_smem(int rows, int n_tiles) {
 
 // R batch rows per block (a multiple of 4, at most 32). Requires H % 8 ==
 // 0 and a cluster of ceil(H / kBU) <= 8 blocks along x, equal to gridDim.x.
-template <int R>
+// E: the element type of dy and dpx. In bf16 the f32 dph goes to `dph`
+// [2][T*N][3H] for `dw` (unused in f32).
+template <int R, typename E>
 __global__ void __launch_bounds__(kChainThreads, 1)
-gru_bwd_chain_kernel(const float* __restrict__ dy_f, const float* __restrict__ dy_b,
+gru_bwd_chain_kernel(const E* __restrict__ dy_f, const E* __restrict__ dy_b,
                      const float* __restrict__ w_hh, const float* __restrict__ coef,
-                     float* __restrict__ dpx_f, float* __restrict__ dpx_b, int T, int N, int H) {
+                     E* __restrict__ dpx_f, E* __restrict__ dpx_b, float* __restrict__ dph,
+                     int T, int N, int H) {
+    constexpr bool kBf16 = io::is_bf16<E>::value;
     constexpr int kThreads = kChainThreads;
     constexpr int kPairs = R * (kBU / 2);  // elements come in pairs of units
     constexpr int kNE = (kPairs + kThreads - 1) / kThreads;
@@ -356,8 +396,8 @@ gru_bwd_chain_kernel(const float* __restrict__ dy_f, const float* __restrict__ d
             }
     }
 
-    const float* dy = dir == 0 ? dy_f : dy_b;
-    float* dpx = dir == 0 ? dpx_f : dpx_b;
+    const E* dy = dir == 0 ? dy_f : dy_b;
+    E* dpx = dir == 0 ? dpx_f : dpx_b;
     const float* cf = coef + (size_t)dir * M * kNC * H;
 
     // Elements of this thread: pairs e = tid + j * kThreads, row e / 16,
@@ -415,16 +455,28 @@ gru_bwd_chain_kernel(const float* __restrict__ dy_f, const float* __restrict__ d
             const float da_r0 = da_c0 * c[j][4].x, da_r1 = da_c1 * c[j][4].y;
             dhz[j] = make_float2(dht0 * c[j][0].x, dht1 * c[j][0].y);
             if (row < N && u < H) {
-                float* o = dpx + ((size_t)t * N + row) * H3 + u;
-                *reinterpret_cast<float2*>(o) = make_float2(da_r0, da_r1);
-                *reinterpret_cast<float2*>(o + H) = make_float2(da_z0, da_z1);
-                *reinterpret_cast<float2*>(o + 2 * H) = make_float2(da_c0, da_c1);
+                E* o = dpx + ((size_t)t * N + row) * H3 + u;
+                io::st2(o, da_r0, da_r1);
+                io::st2(o + H, da_z0, da_z1);
+                io::st2(o + 2 * H, da_c0, da_c1);
+                if (kBf16) {
+                    float* q = dph + ((size_t)dir * M + (size_t)t * N + row) * H3 + u;
+                    io::st2(q, da_r0, da_r1);
+                    io::st2(q + H, da_z0, da_z1);
+                    io::st2(q + 2 * H, dhn0, dhn1);
+                }
             }
             if (!last) {  // the last step's dh is not needed
                 float* d = ds + er * kDS + eu;
-                *reinterpret_cast<float2*>(d) = make_float2(da_r0, da_r1);
-                *reinterpret_cast<float2*>(d + kBU) = make_float2(da_z0, da_z1);
-                *reinterpret_cast<float2*>(d + 2 * kBU) = make_float2(dhn0, dhn1);
+                if (kBf16) {  // the product's operand is bf16(dph)
+                    io::st2(d, io::round_bf16(da_r0), io::round_bf16(da_r1));
+                    io::st2(d + kBU, io::round_bf16(da_z0), io::round_bf16(da_z1));
+                    io::st2(d + 2 * kBU, io::round_bf16(dhn0), io::round_bf16(dhn1));
+                } else {
+                    io::st2(d, da_r0, da_r1);
+                    io::st2(d + kBU, da_z0, da_z1);
+                    io::st2(d + 2 * kBU, dhn0, dhn1);
+                }
             }
         }
 
@@ -514,8 +566,12 @@ struct DwStage {
     float4 d[2];
 };
 
-__device__ __forceinline__ void dw_load(DwStage& s, const float* __restrict__ ys,
-                                        const float* __restrict__ dpx,
+// dph rows from `dsrc`: in f32 dpx with its n columns times r, in bf16 the
+// chain's f32 dph (kept unrounded here: db sums it so; the product rounds
+// it).
+template <typename E>
+__device__ __forceinline__ void dw_load(DwStage& s, const E* __restrict__ ys,
+                                        const float* __restrict__ dsrc,
                                         const float* __restrict__ cr, int r0, int r_end, int k0,
                                         int u0, long long shift, int M, int H, int tid) {
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -534,8 +590,8 @@ __device__ __forceinline__ void dw_load(DwStage& s, const float* __restrict__ ys
             const int u = u0 + 4 * (idx % (kBU / 4));
             float4 v = zero;
             if (m < r_end && u < H) {
-                v = ldg4(dpx + (size_t)m * H3 + g * H + u);
-                if (g == 2) {  // dph's n columns are da_c * r
+                v = ldg4(dsrc + (size_t)m * H3 + g * H + u);
+                if (!io::is_bf16<E>::value && g == 2) {  // dph's n columns are da_c * r
                     const float4 r = ldg4(cr + (size_t)m * kNC * H + u);
                     v = make_float4(v.x * r.x, v.y * r.y, v.z * r.z, v.w * r.w);
                 }
@@ -559,11 +615,15 @@ __device__ __forceinline__ void dw_store(const DwStage& s, float (*As)[kDAS],
 
 // dwp[split][dir][k][j] = sum over the split's rows m of h_prev[m][k] * dph[m][j];
 // dbp[split][dir][j] = sum of dph[m][j]. blockIdx.z = split * 2 + dir.
+// E: the element type of ys. dsrc_f, dsrc_b: dpx (f32) or the chain's dph
+// (bf16), per direction.
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-gru_bwd_dw_kernel(const float* __restrict__ ys_f, const float* __restrict__ ys_b,
-                  const float* __restrict__ dpx_f, const float* __restrict__ dpx_b,
+gru_bwd_dw_kernel(const E* __restrict__ ys_f, const E* __restrict__ ys_b,
+                  const float* __restrict__ dsrc_f, const float* __restrict__ dsrc_b,
                   const float* __restrict__ coef, float* __restrict__ dwp,
                   float* __restrict__ dbp, int rows_per_split, int T, int N, int H) {
+    constexpr bool kBf16 = io::is_bf16<E>::value;
     // Strides 136 and 104: the fragment loads below hit 32 different banks.
     __shared__ __align__(16) float As[2][kDR][kDAS];
     __shared__ __align__(16) float Ds[2][kDR][kDDS];
@@ -579,8 +639,8 @@ gru_bwd_dw_kernel(const float* __restrict__ ys_f, const float* __restrict__ ys_b
     // mma tiles; the contraction runs over the stage's 16 (t, n) rows.
     const int warp = tid / 32, gid = (tid % 32) / 4, tig = tid % 4;
     const int wk = warp % 4, wj = warp / 4;
-    const float* ys = dir == 0 ? ys_f : ys_b;
-    const float* dpx = dir == 0 ? dpx_f : dpx_b;
+    const E* ys = dir == 0 ? ys_f : ys_b;
+    const float* dsrc = dir == 0 ? dsrc_f : dsrc_b;
     const float* cr = coef + ((size_t)dir * M * kNC + 3) * H;  // r of row 0
     const long long shift = dir == 0 ? -(long long)N : (long long)N;
     const int r_beg = split * rows_per_split;
@@ -597,33 +657,38 @@ gru_bwd_dw_kernel(const float* __restrict__ ys_f, const float* __restrict__ ys_b
     float dbacc = 0.f;
 
     DwStage st;
-    dw_load(st, ys, dpx, cr, r_beg, r_end, k0, u0, shift, M, H, tid);
+    dw_load(st, ys, dsrc, cr, r_beg, r_end, k0, u0, shift, M, H, tid);
     dw_store(st, As[0], Ds[0], tid);
     __syncthreads();
     int buf = 0;
     for (int r0 = r_beg; r0 < r_end; r0 += kDR, buf ^= 1) {
         const bool more = r0 + kDR < r_end;
-        if (more) dw_load(st, ys, dpx, cr, r0 + kDR, r_end, k0, u0, shift, M, H, tid);
+        if (more) dw_load(st, ys, dsrc, cr, r0 + kDR, r_end, k0, u0, shift, M, H, tid);
 #pragma unroll
         for (int m8 = 0; m8 < kDR; m8 += 8) {
             uint32_t a_hi[2][4], a_lo[2][4];
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
                 const int k = wk * 32 + mt * 16 + gid;
-                split_tf32(As[buf][m8 + tig][k], a_hi[mt][0], a_lo[mt][0]);
-                split_tf32(As[buf][m8 + tig][k + 8], a_hi[mt][1], a_lo[mt][1]);
-                split_tf32(As[buf][m8 + tig + 4][k], a_hi[mt][2], a_lo[mt][2]);
-                split_tf32(As[buf][m8 + tig + 4][k + 8], a_hi[mt][3], a_lo[mt][3]);
+                tf32_split<kBf16>(As[buf][m8 + tig][k], a_hi[mt][0], a_lo[mt][0]);
+                tf32_split<kBf16>(As[buf][m8 + tig][k + 8], a_hi[mt][1], a_lo[mt][1]);
+                tf32_split<kBf16>(As[buf][m8 + tig + 4][k], a_hi[mt][2], a_lo[mt][2]);
+                tf32_split<kBf16>(As[buf][m8 + tig + 4][k + 8], a_hi[mt][3], a_lo[mt][3]);
             }
 #pragma unroll
             for (int nt = 0; nt < 6; ++nt) {
                 const int col = wj * 48 + nt * 8 + gid;
                 uint32_t b_hi[2], b_lo[2];
-                split_tf32(Ds[buf][m8 + tig][col], b_hi[0], b_lo[0]);
-                split_tf32(Ds[buf][m8 + tig + 4][col], b_hi[1], b_lo[1]);
+                float d0 = Ds[buf][m8 + tig][col], d1 = Ds[buf][m8 + tig + 4][col];
+                if (kBf16) {  // the product's operand is bf16(dph)
+                    d0 = io::round_bf16(d0);
+                    d1 = io::round_bf16(d1);
+                }
+                tf32_split<kBf16>(d0, b_hi[0], b_lo[0]);
+                tf32_split<kBf16>(d1, b_hi[1], b_lo[1]);
 #pragma unroll
                 for (int mt = 0; mt < 2; ++mt)
-                    mma_3xtf32(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);
+                    tf32_mma<kBf16>(acc[mt][nt], a_hi[mt], a_lo[mt], b_hi, b_lo);
             }
         }
         if (with_db) {
@@ -674,12 +739,71 @@ gru_bwd_dw_sum_kernel(const float* __restrict__ dwp, const float* __restrict__ d
     }
 }
 
+template <typename E>
 const void* chain_for(int rows) {
-    return rows == 16 ? (const void*)gru_bwd_chain_kernel<16>
-                      : (const void*)gru_bwd_chain_kernel<20>;
+    return rows == 16 ? (const void*)gru_bwd_chain_kernel<16, E>
+                      : (const void*)gru_bwd_chain_kernel<20, E>;
 }
 
-const Family kChain = {chain_for, chain_smem, kChainThreads};
+int reported_f32[kNumChoices][kMaxCluster + 1], reported_bf16[kNumChoices][kMaxCluster + 1];
+const Family kChain = {chain_for<float>, chain_smem, kChainThreads, reported_f32};
+const Family kChainBf16 = {chain_for<io::bf16>, chain_smem, kChainThreads, reported_bf16};
+
+// The four launches for element type E; `dph` is the bf16 path's scratch.
+template <typename E>
+int launch(const Family& chain, int device, const E* px_f, const E* px_b, const E* ys_f,
+           const E* ys_b, const E* dy_f, const E* dy_b, const float* w_hh, const float* b_hh,
+           E* dpx_f, E* dpx_b, float* coef, float* dph, float* dwp, float* dbp, float* dw,
+           float* db, int splits, int T, int N, int H, void* stream) {
+    constexpr bool kBf16 = io::is_bf16<E>::value;
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (T < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+    int rows = 0, max_active = 0;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    err = pick_rows(chain, N, H, &rows, &max_active);
+    if (err == cudaSuccess) err = configure(chain, rows, N, H, &cfg, &attr);
+    if (err != cudaSuccess) return (int)err;
+    cfg.stream = s;
+    const int M = T * N;
+    const int n_tiles = (H + kBU - 1) / kBU;
+
+    const dim3 coef_grid(n_tiles, (M + kGM - 1) / kGM, 2);
+    gru_bwd_coef_kernel<E><<<coef_grid, kThreads, 0, s>>>(px_f, px_b, ys_f, ys_b, w_hh, b_hh,
+                                                          coef, T, N, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    const float* coef_in = coef;
+    void* args[] = {&dy_f, &dy_b, &w_hh, &coef_in, &dpx_f, &dpx_b, &dph, &T, &N, &H};
+    err = cudaLaunchKernelExC(&cfg, chain.kernel(rows), args);
+    if (err != cudaSuccess) return (int)err;
+
+    int rows_per_split = (M + splits - 1) / splits;
+    rows_per_split = (rows_per_split + kDR - 1) / kDR * kDR;
+    const dim3 dw_grid(n_tiles, (H + kDK - 1) / kDK, 2 * splits);
+    const float* dsrc_f = kBf16 ? dph : reinterpret_cast<const float*>(dpx_f);
+    const float* dsrc_b = kBf16 ? dph + (size_t)M * 3 * H : reinterpret_cast<const float*>(dpx_b);
+    gru_bwd_dw_kernel<E><<<dw_grid, kThreads, 0, s>>>(ys_f, ys_b, dsrc_f, dsrc_b, coef, dwp, dbp,
+                                                      rows_per_split, T, N, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    const int n_dw = 2 * H * 3 * H, n_db = 2 * 3 * H;
+    gru_bwd_dw_sum_kernel<<<(n_dw + n_db + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        dwp, dbp, dw, db, splits, n_dw, n_db);
+    return (int)cudaGetLastError();
+}
+
+int max_clusters(const Family& chain, int device, int N, int H, int* rows_out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return -(int)err;
+    int max_active = 0;
+    err = pick_rows(chain, N, H, rows_out, &max_active);
+    return err == cudaSuccess ? max_active : -(int)err;
+}
 
 }  // namespace
 
@@ -695,43 +819,21 @@ int ocrs_gru_bwd(int device, const float* px_f, const float* px_b, const float* 
                  const float* b_hh, float* dpx_f, float* dpx_b, float* coef, float* dwp,
                  float* dbp, float* dw, float* db, int splits, int T, int N, int H,
                  void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    if (T < 1 || splits < 1) return (int)cudaErrorInvalidValue;
-    int rows = 0, max_active = 0;
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    err = pick_rows(kChain, N, H, &rows, &max_active);
-    if (err == cudaSuccess) err = configure(kChain, rows, N, H, &cfg, &attr);
-    if (err != cudaSuccess) return (int)err;
-    cfg.stream = s;
-    const int M = T * N;
-    const int n_tiles = (H + kBU - 1) / kBU;
+    return launch<float>(kChain, device, px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, dpx_f,
+                         dpx_b, coef, nullptr, dwp, dbp, dw, db, splits, T, N, H, stream);
+}
 
-    const dim3 coef_grid(n_tiles, (M + kGM - 1) / kGM, 2);
-    gru_bwd_coef_kernel<<<coef_grid, kThreads, 0, s>>>(px_f, px_b, ys_f, ys_b, w_hh, b_hh, coef,
-                                                       T, N, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-
-    const float* coef_in = coef;
-    void* args[] = {&dy_f, &dy_b, &w_hh, &coef_in, &dpx_f, &dpx_b, &T, &N, &H};
-    err = cudaLaunchKernelExC(&cfg, chain_for(rows), args);
-    if (err != cudaSuccess) return (int)err;
-
-    int rows_per_split = (M + splits - 1) / splits;
-    rows_per_split = (rows_per_split + kDR - 1) / kDR * kDR;
-    const dim3 dw_grid(n_tiles, (H + kDK - 1) / kDK, 2 * splits);
-    gru_bwd_dw_kernel<<<dw_grid, kThreads, 0, s>>>(ys_f, ys_b, dpx_f, dpx_b, coef, dwp, dbp,
-                                                   rows_per_split, T, N, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-
-    const int n_dw = 2 * H * 3 * H, n_db = 2 * 3 * H;
-    gru_bwd_dw_sum_kernel<<<(n_dw + n_db + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        dwp, dbp, dw, db, splits, n_dw, n_db);
-    return (int)cudaGetLastError();
+// The same with px, ys, dy, dpx bf16 (w_hh float32 holding bf16 values;
+// b_hh, coef, dw, db and the scratch float32), and one more scratch, dph
+// [2, T*N, 3H] float32.
+int ocrs_gru_bwd_bf16(int device, const io::bf16* px_f, const io::bf16* px_b,
+                      const io::bf16* ys_f, const io::bf16* ys_b, const io::bf16* dy_f,
+                      const io::bf16* dy_b, const float* w_hh, const float* b_hh,
+                      io::bf16* dpx_f, io::bf16* dpx_b, float* coef, float* dph, float* dwp,
+                      float* dbp, float* dw, float* db, int splits, int T, int N, int H,
+                      void* stream) {
+    return launch<io::bf16>(kChainBf16, device, px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
+                            dpx_f, dpx_b, coef, dph, dwp, dbp, dw, db, splits, T, N, H, stream);
 }
 
 // How many clusters of the chain's launch for (N, H) the device can hold
@@ -739,11 +841,12 @@ int ocrs_gru_bwd(int device, const float* px_f, const float* px_b, const float* 
 // per block that ocrs_gru_bwd picks for that shape. Returns the count, or
 // minus the CUDA error code.
 int ocrs_gru_bwd_max_clusters(int device, int N, int H, int* rows_out) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return -(int)err;
-    int max_active = 0;
-    err = pick_rows(kChain, N, H, rows_out, &max_active);
-    return err == cudaSuccess ? max_active : -(int)err;
+    return max_clusters(kChain, device, N, H, rows_out);
+}
+
+// The same for ocrs_gru_bwd_bf16's chain.
+int ocrs_gru_bwd_bf16_max_clusters(int device, int N, int H, int* rows_out) {
+    return max_clusters(kChainBf16, device, N, H, rows_out);
 }
 
 const char* ocrs_error_string(int code) {

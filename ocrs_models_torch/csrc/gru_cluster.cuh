@@ -64,11 +64,15 @@ __device__ __forceinline__ void st_peer_f2(const float* p, uint32_t rank, float 
 }
 
 // A kernel templated on the batch rows per block R: its instance and its
-// dynamic shared memory for each of kRowChoices, and its block size.
+// dynamic shared memory for each of kRowChoices, its block size, and where
+// pick_rows keeps the runtime's reports for it (zero-initialised storage of
+// its own: kernels of one family may hold other numbers of clusters than
+// another's).
 struct Family {
     const void* (*kernel)(int rows);
     size_t (*smem)(int rows, int n_tiles);
     int threads;
+    int (*reported)[kMaxCluster + 1];  // [kNumChoices][kMaxCluster + 1]
 };
 
 inline bool shape_ok(int N, int H) {
@@ -105,7 +109,7 @@ inline cudaError_t configure(const Family& f, int rows, int N, int H, cudaLaunch
 // answer depends on the shape and the card only. *max_active gets the
 // runtime's report for the chosen launch.
 inline cudaError_t pick_rows(const Family& f, int N, int H, int* rows, int* max_active) {
-    static int reported[kNumChoices][kMaxCluster + 1] = {};
+    int (*reported)[kMaxCluster + 1] = f.reported;
     if (!shape_ok(N, H)) return cudaErrorInvalidValue;
     const int n_tiles = (H + kBU - 1) / kBU;
     long best = -1;

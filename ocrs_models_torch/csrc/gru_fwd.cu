@@ -1,4 +1,4 @@
-// Bidirectional GRU recurrence of one layer, forward, in float32.
+// Bidirectional GRU recurrence of one layer, forward, in float32 or bfloat16.
 //
 // Replaces: the forward of the Pallas kernel `gru_recurrence4` in
 // ocrs_models_tpu/ops/pallas/gru_kernel4.py (`_fwd_call`, body
@@ -52,11 +52,24 @@
 // plain version, and an error-compensated 3xTF32 product was not tried.
 // H > 256 would need a cluster of more than 8 blocks; the wrapper raises
 // for it (every width the repo's models use is <= 256).
+//
+// bf16 (`compute_dtype=jnp.bfloat16`, the Pallas kernel's default): px is
+// read and ys written in bf16, and each step's product takes bf16(h) and
+// bf16(W_hh) with f32 sums, while the gate update takes the f32 h, as in
+// the Pallas kernel. So the blocks exchange bf16-ROUNDED h (as f32 values in
+// the same buffers, which the product reads), and each thread keeps the f32
+// state of its own elements in registers: the thread that finishes an
+// element is the same at every step (e = tid + j * kThreads). The wrapper
+// rounds W_hh to bf16 values; a product of two bf16 values is exact in
+// f32, so the FMA loop is the bf16 dot with f32 accumulation. At T=201,
+// N=128, H=256 the bytes halve (79 + 26 MB, 32 us); the chain of products
+// still bounds it.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_io.cuh"
 #include "gru_cluster.cuh"
 
 namespace {
@@ -84,12 +97,14 @@ size_t smem_bytes(int rows, int) {
 }
 
 // R batch rows per block (a multiple of 4, at most 32). Requires H % 8 == 0, H <= 256
-// and a cluster of ceil(H / kBU) blocks along x, equal to gridDim.x.
-template <int R>
+// and a cluster of ceil(H / kBU) blocks along x, equal to gridDim.x. E is
+// the element type of px and ys, float or bf16.
+template <int R, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_fwd_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
+gru_fwd_kernel(const E* __restrict__ px_f, const E* __restrict__ px_b,
                const float* __restrict__ w_hh, const float* __restrict__ b_hh,
-               float* __restrict__ ys_f, float* __restrict__ ys_b, int T, int N, int H) {
+               E* __restrict__ ys_f, E* __restrict__ ys_b, int T, int N, int H) {
+    constexpr bool kBf16 = io::is_bf16<E>::value;
     constexpr int kPairs = R * (kBU / 2);  // gate-math elements come in pairs of units
     constexpr int kNE = (kPairs + kThreads - 1) / kThreads;
     static_assert(R % 4 == 0 && kWarps * kKPT == kMaxCluster * kBU, "tile sizes");
@@ -122,13 +137,14 @@ gru_fwd_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
     for (int i = tid; i < 2 * R * HS; i += kThreads) hs[i] = 0.f;  // h_0 = 0
 
     const float* b = b_hh + dir * H3;
-    const float* px = dir == 0 ? px_f : px_b;
-    float* ys = dir == 0 ? ys_f : ys_b;
+    const E* px = dir == 0 ? px_f : px_b;
+    E* ys = dir == 0 ? ys_f : ys_b;
     const size_t px_step = (size_t)N * H3, ys_step = (size_t)N * H;
 
     // Gate-math elements of this thread: pairs e = tid + j * kThreads, row
-    // e / 16, units 2 * (e % 16) and the next.
-    float2 xg[kNE][3];
+    // e / 16, units 2 * (e % 16) and the next. In bf16, hf holds their f32
+    // state (the buffers hold it rounded).
+    float2 xg[kNE][3], hf[kNE];
     {
         const int t = dir == 0 ? 0 : T - 1;
 #pragma unroll
@@ -138,9 +154,9 @@ gru_fwd_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
             const bool ok = e < kPairs && row < N && u < H;
 #pragma unroll
             for (int g = 0; g < 3; ++g)
-                xg[j][g] = ok ? __ldg(reinterpret_cast<const float2*>(
-                                    px + t * px_step + (size_t)row * H3 + g * H + u))
+                xg[j][g] = ok ? io::ldg2(px + t * px_step + (size_t)row * H3 + g * H + u)
                               : make_float2(0.f, 0.f);
+            hf[j] = make_float2(0.f, 0.f);
         }
     }
 
@@ -215,7 +231,8 @@ gru_fwd_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
                     ph[g] = s;
                     bg[g] = __ldg(reinterpret_cast<const float2*>(b + g * H + u));
                 }
-                const float2 hp = *reinterpret_cast<const float2*>(cur + er * HS + u);
+                const float2 hp =
+                    kBf16 ? hf[j] : *reinterpret_cast<const float2*>(cur + er * HS + u);
                 const float r0 = sigmoid(xg[j][0].x + (ph[0].x + bg[0].x));
                 const float r1 = sigmoid(xg[j][0].y + (ph[0].y + bg[0].y));
                 const float z0 = sigmoid(xg[j][1].x + (ph[1].x + bg[1].x));
@@ -225,10 +242,14 @@ gru_fwd_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
                 const float hn0 = (1.f - z0) * c0 + z0 * hp.x;
                 const float hn1 = (1.f - z1) * c1 + z1 * hp.y;
                 const float* dst = nxt + er * HS + u;
-                for (uint32_t p = 0; p < n_peers; ++p) st_peer_f2(dst, p, hn0, hn1);
-                if (row < N)
-                    *reinterpret_cast<float2*>(ys + t * ys_step + (size_t)row * H + u) =
-                        make_float2(hn0, hn1);
+                if (kBf16) {
+                    hf[j] = make_float2(hn0, hn1);
+                    const float q0 = io::round_bf16(hn0), q1 = io::round_bf16(hn1);
+                    for (uint32_t p = 0; p < n_peers; ++p) st_peer_f2(dst, p, q0, q1);
+                } else {
+                    for (uint32_t p = 0; p < n_peers; ++p) st_peer_f2(dst, p, hn0, hn1);
+                }
+                if (row < N) io::st2(ys + t * ys_step + (size_t)row * H + u, hn0, hn1);
             }
         }
         cluster_arrive();
@@ -241,8 +262,7 @@ gru_fwd_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
                 if (e < kPairs && row < N && u < H) {
 #pragma unroll
                     for (int g = 0; g < 3; ++g)
-                        xg[j][g] = __ldg(reinterpret_cast<const float2*>(
-                            px + tn * px_step + (size_t)row * H3 + g * H + u));
+                        xg[j][g] = io::ldg2(px + tn * px_step + (size_t)row * H3 + g * H + u);
                 }
             }
         }
@@ -250,11 +270,33 @@ gru_fwd_kernel(const float* __restrict__ px_f, const float* __restrict__ px_b,
     }
 }
 
+template <typename E>
 const void* kernel_for(int rows) {
-    return rows == 16 ? (const void*)gru_fwd_kernel<16> : (const void*)gru_fwd_kernel<20>;
+    return rows == 16 ? (const void*)gru_fwd_kernel<16, E> : (const void*)gru_fwd_kernel<20, E>;
 }
 
-const Family kFamily = {kernel_for, smem_bytes, kThreads};
+int reported_f32[kNumChoices][kMaxCluster + 1], reported_bf16[kNumChoices][kMaxCluster + 1];
+const Family kFamily = {kernel_for<float>, smem_bytes, kThreads, reported_f32};
+const Family kFamilyBf16 = {kernel_for<io::bf16>, smem_bytes, kThreads, reported_bf16};
+
+template <typename E>
+int launch(const Family& family, int device, const E* px_f, const E* px_b, const float* w_hh,
+           const float* b_hh, E* ys_f, E* ys_b, int T, int N, int H, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (T < 1) return (int)cudaErrorInvalidValue;
+    int rows = 0, max_active = 0;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    err = pick_rows(family, N, H, &rows, &max_active);
+    if (err == cudaSuccess) err = configure(family, rows, N, H, &cfg, &attr);
+    if (err != cudaSuccess) return (int)err;
+    cfg.stream = (cudaStream_t)stream;
+    void* args[] = {&px_f, &px_b, &w_hh, &b_hh, &ys_f, &ys_b, &T, &N, &H};
+    err = cudaLaunchKernelExC(&cfg, family.kernel(rows), args);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -266,20 +308,15 @@ extern "C" {
 int ocrs_gru_fwd(int device, const float* px_f, const float* px_b, const float* w_hh,
                  const float* b_hh, float* ys_f, float* ys_b, int T, int N, int H,
                  void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    if (T < 1) return (int)cudaErrorInvalidValue;
-    int rows = 0, max_active = 0;
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    err = pick_rows(kFamily, N, H, &rows, &max_active);
-    if (err == cudaSuccess) err = configure(kFamily, rows, N, H, &cfg, &attr);
-    if (err != cudaSuccess) return (int)err;
-    cfg.stream = (cudaStream_t)stream;
-    void* args[] = {&px_f, &px_b, &w_hh, &b_hh, &ys_f, &ys_b, &T, &N, &H};
-    err = cudaLaunchKernelExC(&cfg, kernel_for(rows), args);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    return launch(kFamily, device, px_f, px_b, w_hh, b_hh, ys_f, ys_b, T, N, H, stream);
+}
+
+// The same with px and ys bf16 (w_hh float32 holding bf16 values, b_hh
+// float32).
+int ocrs_gru_fwd_bf16(int device, const io::bf16* px_f, const io::bf16* px_b,
+                      const float* w_hh, const float* b_hh, io::bf16* ys_f, io::bf16* ys_b,
+                      int T, int N, int H, void* stream) {
+    return launch(kFamilyBf16, device, px_f, px_b, w_hh, b_hh, ys_f, ys_b, T, N, H, stream);
 }
 
 // How many clusters of the launch for (N, H) the device can hold at once
@@ -291,6 +328,15 @@ int ocrs_gru_fwd_max_clusters(int device, int N, int H, int* rows_out) {
     if (err != cudaSuccess) return -(int)err;
     int max_active = 0;
     err = pick_rows(kFamily, N, H, rows_out, &max_active);
+    return err == cudaSuccess ? max_active : -(int)err;
+}
+
+// The same for ocrs_gru_fwd_bf16's launch.
+int ocrs_gru_fwd_bf16_max_clusters(int device, int N, int H, int* rows_out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return -(int)err;
+    int max_active = 0;
+    err = pick_rows(kFamilyBf16, N, H, rows_out, &max_active);
     return err == cudaSuccess ? max_active : -(int)err;
 }
 

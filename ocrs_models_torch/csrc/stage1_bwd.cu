@@ -1,5 +1,6 @@
 // Recognition stage 1, backward: the weight and bias gradients of
-// y = maxpool2x2(relu(conv3x3_pad1(x) + b)), 1 -> 32 channels, in float32.
+// y = maxpool2x2(relu(conv3x3_pad1(x) + b)), 1 -> 32 channels, in float32
+// or bfloat16.
 //
 // Replaces: the backward of the Pallas kernel `stage1_fused` in
 // ocrs_models_tpu/ops/pallas/stage1_kernel.py (`_bwd_call`, body
@@ -50,10 +51,21 @@
 //   partials and a fixed order across warps. No float atomics: reruns agree
 //   bit for bit.
 // Pooling floors odd sizes, like torch's MaxPool2d; any w is taken (the
-// loads are 4-byte, predicated at the edges).
+// loads are one element each, predicated at the edges).
+//
+// bf16 (`dt=jnp.bfloat16`): the same kernels read x and dy as bf16; the
+// wrapper rounds the taps and the bias to bf16 values, so the recomputed
+// pre-activations are those of the bf16 forward, and every product
+// dy * patch is exact in f32 (dy is already a bf16 value, the cotangent of
+// a bf16 output, so the Pallas kernel's cast of d4 to bf16 changes
+// nothing). Partials and dW10 stay f32; the tie-break and the gate are the
+// f32 version's. At N=128, H=64, W=1024 the bytes halve (16.8 + 134.2 MB,
+// 45 us) and the arithmetic (92 us) bounds it.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "bf16_io.cuh"
 
 namespace {
 
@@ -79,13 +91,13 @@ struct Cols {
 
 // `at`: the row's column 2j; `edge_at`: its outer column; `in`: the row is
 // inside the image. Outside, zeros (the convolution's padding).
-__device__ __forceinline__ RawRow load_row(const float* __restrict__ at,
-                                           const float* __restrict__ edge_at, bool in,
-                                           const Cols& c) {
+template <typename T>
+__device__ __forceinline__ RawRow load_row(const T* __restrict__ at, const T* __restrict__ edge_at,
+                                           bool in, const Cols& c) {
     RawRow r;
-    r.v0 = in && c.ok0 ? __ldg(at) : 0.f;
-    r.v1 = in && c.ok1 ? __ldg(at + 1) : 0.f;
-    r.edge = in && c.eok ? __ldg(edge_at) : 0.f;
+    r.v0 = in && c.ok0 ? io::ldg(at) : 0.f;
+    r.v1 = in && c.ok1 ? io::ldg(at + 1) : 0.f;
+    r.edge = in && c.eok ? io::ldg(edge_at) : 0.f;
     return r;
 }
 
@@ -163,9 +175,10 @@ __device__ __forceinline__ void accumulate(const float (&top)[2][4], const float
     }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-stage1_bwd_partial_kernel(const float* __restrict__ x, const float* __restrict__ w10,
-                          const float* __restrict__ dy, float* __restrict__ partial,
+stage1_bwd_partial_kernel(const T* __restrict__ x, const float* __restrict__ w10,
+                          const T* __restrict__ dy, float* __restrict__ partial,
                           int n, int h, int w) {
     const int lane = threadIdx.x & 31;
     const int c0 = (threadIdx.x >> 5) * kGroup;
@@ -207,9 +220,9 @@ stage1_bwd_partial_kernel(const float* __restrict__ x, const float* __restrict__
         c.eok = (lane == 0 && ecol >= 0) || (lane == 31 && ecol < w);
         // Input row 2 * ph0 - 1 at the lane's columns; pointers outside the
         // image are never read through.
-        const float* at = x + ((size_t)b * h + 2 * ph0) * w - w + col;
-        const float* edge_at = at + (ecol - col);
-        const float* dyr = dy + ((size_t)b * kC + c0) * plane + (size_t)ph0 * wp + pw;
+        const T* at = x + ((size_t)b * h + 2 * ph0) * w - w + col;
+        const T* edge_at = at + (ecol - col);
+        const T* dyr = dy + ((size_t)b * kC + c0) * plane + (size_t)ph0 * wp + pw;
 
         // The patch as two row pairs: going down a pooled row, the lower
         // pair becomes the upper one and only the new lower pair is loaded.
@@ -221,7 +234,7 @@ stage1_bwd_partial_kernel(const float* __restrict__ x, const float* __restrict__
         RawRow n2 = load_row(at, edge_at, true, c);
         RawRow n3 = load_row(at + w, edge_at + w, 2 * ph0 + 2 < h, c);
 #pragma unroll
-        for (int j = 0; j < kGroup; ++j) gn[j] = live ? __ldcs(dyr + j * plane) : 0.f;
+        for (int j = 0; j < kGroup; ++j) gn[j] = live ? io::ldcs(dyr + j * plane) : 0.f;
 
         for (int r = 0; r < rows; ++r) {
             expand_row(n2, lane, bot[0]);
@@ -235,7 +248,7 @@ stage1_bwd_partial_kernel(const float* __restrict__ x, const float* __restrict__
                 n2 = load_row(at, edge_at, true, c);
                 n3 = load_row(at + w, edge_at + w, 2 * (ph0 + r) + 4 < h, c);
 #pragma unroll
-                for (int j = 0; j < kGroup; ++j) gn[j] = live ? __ldcs(dyr + j * plane) : 0.f;
+                for (int j = 0; j < kGroup; ++j) gn[j] = live ? io::ldcs(dyr + j * plane) : 0.f;
             }
             accumulate(top, bot, g, ws[c0], acc);
 #pragma unroll
@@ -285,17 +298,40 @@ stage1_bwd_finish_kernel(const float* __restrict__ partial, float* __restrict__ 
 }
 
 // Blocks of the first pass: what the card holds at once, no more than items.
+template <typename T>
 int partial_blocks(int device, int n, int h, int w) {
     const long long total = (long long)n * ((w / 2 + kTile - 1) / kTile) * (h / 2);
     if (total <= 0) return 0;
     int sms = 0, per_sm = 0;
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stage1_bwd_partial_kernel, kThreads,
-                                                      0) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stage1_bwd_partial_kernel<T>,
+                                                      kThreads, 0) != cudaSuccess ||
         sms < 1 || per_sm < 1)
         return -1;
     const long long held = (long long)sms * per_sm;
     return (int)(held < total ? held : total);
+}
+
+template <typename T>
+int blocks(int device, int n, int h, int w) {
+    if (cudaSetDevice(device) != cudaSuccess) return -1;
+    return partial_blocks<T>(device, n, h, w);
+}
+
+template <typename T>
+int launch(int device, const T* x, const float* w10, const T* dy, float* partial, float* dw10,
+           int n, int h, int w, int n_part, void* stream) {
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (n_part < 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n_part > 0) {
+        stage1_bwd_partial_kernel<T><<<n_part, kThreads, 0, s>>>(x, w10, dy, partial, n, h, w);
+        const cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    stage1_bwd_finish_kernel<<<kC * kK / 32, 32 * kFinishWarps, 0, s>>>(partial, dw10, n_part);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -306,8 +342,7 @@ extern "C" {
 // on CUDA device `device`: the grid of its first pass. -1 if the card
 // cannot be asked.
 int ocrs_stage1_bwd_blocks(int device, int n, int h, int w) {
-    if (cudaSetDevice(device) != cudaSuccess) return -1;
-    return partial_blocks(device, n, h, w);
+    return blocks<float>(device, n, h, w);
 }
 
 // x [n, 1, h, w], w10 [32, 10] (taps + bias), dy [n, 32, h/2, w/2];
@@ -317,17 +352,19 @@ int ocrs_stage1_bwd_blocks(int device, int n, int h, int w) {
 // is `stream`. Returns cudaGetLastError().
 int ocrs_stage1_bwd(int device, const float* x, const float* w10, const float* dy,
                     float* partial, float* dw10, int n, int h, int w, int n_part, void* stream) {
-    const cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    if (n_part < 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (n_part > 0) {
-        stage1_bwd_partial_kernel<<<n_part, kThreads, 0, s>>>(x, w10, dy, partial, n, h, w);
-        const cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    stage1_bwd_finish_kernel<<<kC * kK / 32, 32 * kFinishWarps, 0, s>>>(partial, dw10, n_part);
-    return (int)cudaGetLastError();
+    return launch(device, x, w10, dy, partial, dw10, n, h, w, n_part, stream);
+}
+
+// The same for bf16 x and dy (w10 float32 holding bf16 values; partial and
+// dw10 float32), with the grid of ocrs_stage1_bwd_bf16_blocks.
+int ocrs_stage1_bwd_bf16_blocks(int device, int n, int h, int w) {
+    return blocks<io::bf16>(device, n, h, w);
+}
+
+int ocrs_stage1_bwd_bf16(int device, const io::bf16* x, const float* w10, const io::bf16* dy,
+                         float* partial, float* dw10, int n, int h, int w, int n_part,
+                         void* stream) {
+    return launch(device, x, w10, dy, partial, dw10, n, h, w, n_part, stream);
 }
 
 const char* ocrs_error_string(int code) {

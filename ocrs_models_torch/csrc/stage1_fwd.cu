@@ -1,5 +1,5 @@
 // Recognition stage 1, forward: y = maxpool2x2(relu(conv3x3_pad1(x) + b)),
-// 1 -> 32 channels, in float32.
+// 1 -> 32 channels, in float32 or bfloat16.
 //
 // Replaces: the forward of the Pallas kernel `stage1_fused` in
 // ocrs_models_tpu/ops/pallas/stage1_kernel.py (`_fwd_call`, body
@@ -24,9 +24,18 @@
 // coalesced and there is no relayout pass. K = 10 is far too small for the
 // tensor cores; the FMAs run on the CUDA cores. Pooling floors odd sizes,
 // like torch's MaxPool2d.
+//
+// bf16 (`dt=jnp.bfloat16`, the Pallas kernel's default): the same kernel
+// reads x as bf16 and writes y as bf16, rounded once from the f32 pooled
+// maximum; the wrapper rounds the taps and the bias to bf16 values, so the
+// f32 FMAs sum exact bf16 products as the Pallas kernel's bf16 dot does.
+// At N=128, H=64, W=800 the bytes halve (13.1 + 104.9 MB, 35 us), and the
+// arithmetic (60 us) bounds it.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "bf16_io.cuh"
 
 namespace {
 
@@ -34,9 +43,10 @@ constexpr int kC = 32;        // output channels
 constexpr int kK = 10;        // 9 taps (dy * 3 + dx) + bias
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-stage1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w10,
-                  float* __restrict__ y, int n, int h, int w) {
+stage1_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w10,
+                  T* __restrict__ y, int n, int h, int w) {
     __shared__ float ws[kC * kK];
     for (int i = threadIdx.x; i < kC * kK; i += blockDim.x) ws[i] = w10[i];
     __syncthreads();
@@ -50,7 +60,7 @@ stage1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w10,
     const int ph = (int)(rest % hp);
     const int b = (int)(rest / hp);
 
-    const float* xb = x + (size_t)b * h * w;
+    const T* xb = x + (size_t)b * h * w;
     const int y0 = 2 * ph - 1, x0 = 2 * pw - 1;
     float p[4][4];
 #pragma unroll
@@ -60,12 +70,12 @@ stage1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w10,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const int xx = x0 + j;
-            p[i][j] = (row_ok && xx >= 0 && xx < w) ? __ldg(xb + (size_t)yy * w + xx) : 0.f;
+            p[i][j] = (row_ok && xx >= 0 && xx < w) ? io::ldg(xb + (size_t)yy * w + xx) : 0.f;
         }
     }
 
     const size_t plane = (size_t)hp * wp;
-    float* yb = y + (size_t)b * kC * plane + (size_t)ph * wp + pw;
+    T* yb = y + (size_t)b * kC * plane + (size_t)ph * wp + pw;
 #pragma unroll 4
     for (int c = 0; c < kC; ++c) {
         const float* wc = ws + c * kK;
@@ -85,8 +95,21 @@ stage1_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w10,
                 m = fmaxf(m, s);
             }
         }
-        yb[c * plane] = fmaxf(m, 0.f);  // relu(max(.)) == max(relu(.))
+        io::st(yb + c * plane, fmaxf(m, 0.f));  // relu(max(.)) == max(relu(.))
     }
+}
+
+template <typename T>
+int launch(int device, const T* x, const float* w10, T* y, int n, int h, int w, void* stream) {
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const long long total = (long long)n * (h / 2) * (w / 2);
+    if (total > 0) {
+        const long long blocks = (total + kThreads - 1) / kThreads;
+        stage1_fwd_kernel<T><<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+            x, w10, y, n, h, w);
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -98,15 +121,13 @@ extern "C" {
 // cudaGetLastError().
 int ocrs_stage1_fwd(int device, const float* x, const float* w10, float* y, int n, int h,
                     int w, void* stream) {
-    const cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    const long long total = (long long)n * (h / 2) * (w / 2);
-    if (total > 0) {
-        const long long blocks = (total + kThreads - 1) / kThreads;
-        stage1_fwd_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-            x, w10, y, n, h, w);
-    }
-    return (int)cudaGetLastError();
+    return launch(device, x, w10, y, n, h, w, stream);
+}
+
+// The same with x and y bf16; w10 float32 holding bf16 values.
+int ocrs_stage1_fwd_bf16(int device, const io::bf16* x, const float* w10, io::bf16* y, int n,
+                         int h, int w, void* stream) {
+    return launch(device, x, w10, y, n, h, w, stream);
 }
 
 const char* ocrs_error_string(int code) {

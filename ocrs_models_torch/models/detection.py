@@ -9,6 +9,13 @@ stride-2 transpose conv trimmed to its skip's size, then a concat. Module
 names give the reference's state-dict keys (``in_conv.seq.0.seq.0.weight``,
 ``down.{i}.seq.0...``, ``up.{i}.up``, ``up.{i}.contract``,
 ``out_conv.0``), so reference checkpoints load with ``strict=True``.
+
+``DetectionModel(dtype=torch.bfloat16)`` is the JAX package's bf16 path:
+the page is cast to bf16 on entry, the convolutions run in bf16 (cuDNN's
+rounding points, which may differ from XLA's by one bf16 rounding), batch
+norm is :func:`batch_norm_lite`, and ``out_conv`` and the sigmoid run in
+float32. Parameters and batch-norm statistics stay float32. The blocks
+take the dtype of what comes in.
 """
 
 from __future__ import annotations
@@ -16,9 +23,36 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops import DTYPES
+
 DEPTH_SCALE = (8, 16, 32, 32, 64, 128, 256)
+
+
+def batch_norm_lite(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """``BatchNormLite`` (``ocrs_models_tpu/models/detection.py``) on a
+    bf16 ``x [N, C, H, W]`` with ``bn``'s parameters and buffers: float32
+    statistics of the bf16 activations (``E[x^2] - E[x]^2``), in training
+    the running statistics updated with ``bn.momentum`` and the unbiased
+    variance as ``nn.BatchNorm2d`` does, the scale and shift folded in
+    float32 and applied as ``x * inv + shift`` in ``x``'s dtype."""
+    if bn.training:
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        count = x.numel() // x.shape[1]
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1 - m).add_(m * mean)
+            bn.running_var.mul_(1 - m).add_(m * var * (count / max(count - 1, 1)))
+            bn.num_batches_tracked += 1
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    shift = bn.bias - mean * inv
+    return x * inv.to(x.dtype)[None, :, None, None] + shift.to(x.dtype)[None, :, None, None]
 
 
 class DepthwiseConv(nn.Module):
@@ -32,7 +66,11 @@ class DepthwiseConv(nn.Module):
         )
 
     def forward(self, x):
-        return self.seq(x)
+        if x.dtype == torch.float32:
+            return self.seq(x)
+        dw, pw, bn, _ = self.seq
+        x = F.conv2d(x, dw.weight.to(x.dtype), padding=1, groups=dw.groups)
+        return F.relu(batch_norm_lite(bn, F.conv2d(x, pw.weight.to(x.dtype))))
 
 
 class DoubleConv(nn.Module):
@@ -63,13 +101,19 @@ class Up(nn.Module):
         self.contract = DoubleConv(2 * cout, cout)
 
     def forward(self, x_up, x_skip):
-        up = self.up(x_up)[:, :, : x_skip.shape[2], : x_skip.shape[3]]
+        dt = x_up.dtype
+        up = F.conv_transpose2d(x_up, self.up.weight.to(dt), self.up.bias.to(dt), stride=2)
+        up = up[:, :, : x_skip.shape[2], : x_skip.shape[3]]
         return self.contract(torch.cat([up, x_skip], dim=1))
 
 
 class DetectionModel(nn.Module):
-    def __init__(self, depth_scale: Sequence[int] = DEPTH_SCALE, in_channels: int = 1):
+    def __init__(self, depth_scale: Sequence[int] = DEPTH_SCALE, in_channels: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in DTYPES:
+            raise ValueError(f"DetectionModel: dtype must be float32 or bfloat16, got {dtype}")
+        self.dtype = dtype
         ds = tuple(depth_scale)
         self.in_conv = DoubleConv(in_channels, ds[0])
         self.down = nn.ModuleList(Down(ds[i], ds[i + 1]) for i in range(len(ds) - 1))
@@ -77,8 +121,10 @@ class DetectionModel(nn.Module):
         self.out_conv = nn.Sequential(nn.Conv2d(ds[0], 1, 1), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """:param x: ``[N, 1, H, W]``. :return: ``[N, 1, H, W]`` probabilities."""
-        x = self.in_conv(x)
+        """:param x: ``[N, 1, H, W]``. :return: ``[N, 1, H, W]`` float32
+        probabilities."""
+        lowp = self.dtype == torch.bfloat16
+        x = self.in_conv(x.to(self.dtype) if lowp else x)
         skips = [x]
         for down in self.down:
             x = down(x)
@@ -86,4 +132,4 @@ class DetectionModel(nn.Module):
         out = skips[-1]
         for i in reversed(range(len(self.up))):
             out = self.up[i](out, skips[i])
-        return self.out_conv(out)
+        return self.out_conv(out.float() if lowp else out)

@@ -15,20 +15,36 @@ reference's ``nn.Sequential`` indices, so its state-dict keys (``conv.0``,
 unchanged; ``forward`` walks it by index and pools before the ReLU in
 stages 2-4 (equal, since max-pool commutes with the monotone ReLU, and the
 ReLU then touches 4x fewer values).
+
+``dtype=torch.bfloat16`` is the JAX package's bf16 path: the image is cast
+to bf16 on entry, stage 1 runs its bf16 kernel, convolutions 2-5 and the
+output layer run in bf16 (cuDNN's and cuBLAS's rounding points, which may
+differ from XLA's by one bf16 rounding), batch norm is
+:func:`~ocrs_models_torch.models.detection.batch_norm_lite`, and the
+log-softmax is float32. ``gru_dtype`` is the biGRU's compute dtype (None
+follows ``dtype``). Parameters and batch-norm statistics stay float32, and
+the state-dict keys are the same in both dtypes.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import BiGRU, stage1
+from ..ops import DTYPES, BiGRU, stage1
+from .detection import batch_norm_lite
 
 
 class RecognitionModel(nn.Module):
-    def __init__(self, n_classes: int, gru_hidden: int = 256, gru_layers: int = 2):
+    def __init__(self, n_classes: int, gru_hidden: int = 256, gru_layers: int = 2,
+                 dtype: torch.dtype = torch.float32, gru_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if dtype not in DTYPES:
+            raise ValueError(f"RecognitionModel: dtype must be float32 or bfloat16, got {dtype}")
+        self.dtype = dtype
         self.conv = nn.Sequential(
             nn.Conv2d(1, 32, 3, padding=1),                   # 0
             nn.ReLU(),                                        # 1
@@ -53,12 +69,15 @@ class RecognitionModel(nn.Module):
             nn.BatchNorm2d(128),                              # 20
             nn.AvgPool2d((4, 1)),                             # 21
         )
-        self.gru = BiGRU(128, gru_hidden, gru_layers)
+        self.gru = BiGRU(128, gru_hidden, gru_layers,
+                         compute_dtype=dtype if gru_dtype is None else gru_dtype)
         self.output = nn.Sequential(nn.Linear(2 * gru_hidden, n_classes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """:param x: ``[N, 1, 64, W]`` float32 in [-0.5, 0.5].
         :return: ``[N, W//4 + 1, n_classes]`` float32 log-probabilities."""
+        if self.dtype != torch.float32:
+            return self._forward_lowp(x)
         c = self.conv
         # Stage 1: 64 x W -> 32 x W/2 (fused kernel on CUDA).
         x = stage1(x.contiguous(), c[0].weight, c[0].bias)
@@ -76,3 +95,29 @@ class RecognitionModel(nn.Module):
         x = x.permute(0, 3, 1, 2).reshape(n, t, ch * h)  # channel-major features
         x = self.gru(x)
         return F.log_softmax(self.output(x).float(), dim=-1)
+
+    def _forward_lowp(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` in ``self.dtype``, with the same stages."""
+        c, dt = self.conv, self.dtype
+
+        def conv(i, x):
+            m = c[i]
+            bias = None if m.bias is None else m.bias.to(dt)
+            return F.conv2d(x, m.weight.to(dt), bias, padding=m.padding)
+
+        def bn(i, x):
+            return batch_norm_lite(c[i], x)
+
+        x = stage1(x.to(dt).contiguous(), c[0].weight, c[0].bias)
+        x = F.relu(F.max_pool2d(bn(4, conv(3, x)), 2))
+        x = F.relu(conv(7, x))
+        x = F.relu(F.max_pool2d(bn(10, conv(9, x)), (2, 1)))
+        x = F.relu(conv(13, x))
+        x = F.relu(F.max_pool2d(bn(16, conv(15, x)), (2, 1)))
+        x = F.avg_pool2d(bn(20, conv(19, x)), (4, 1))  # [N, 128, 1, T]
+        n, ch, h, t = x.shape
+        x = x.permute(0, 3, 1, 2).reshape(n, t, ch * h)
+        x = self.gru(x).to(dt)
+        out = self.output[0]
+        x = F.linear(x, out.weight.to(dt), out.bias.to(dt))
+        return F.log_softmax(x.float(), dim=-1)

@@ -1,3 +1,4 @@
+from ._build import DTYPES
 from .ctc import (
     ctc_alpha,
     ctc_alpha_chain_probe,
@@ -34,7 +35,7 @@ KERNELS = (stage1_fwd, stage1_bwd, gru_fwd, gru_bwd, ctc_alpha, ctc_beta)
 """Every kernel wrapper; each counts its launches in ``.launches``."""
 
 __all__ = [
-    "BiGRU", "KERNELS", "ctc_alpha", "ctc_alpha_chain_probe", "ctc_alpha_reference", "ctc_beta",
+    "BiGRU", "DTYPES", "KERNELS", "ctc_alpha", "ctc_alpha_chain_probe", "ctc_alpha_reference", "ctc_beta",
     "ctc_beta_chain_probe", "ctc_beta_reference", "ctc_loss", "ctc_loss_forward", "ctc_operands",
     "gru_bwd", "gru_bwd_chain_reference", "gru_bwd_coefficients_reference", "gru_bwd_dw_reference",
     "gru_bwd_phases_reference", "gru_bwd_reference", "gru_fwd", "gru_recurrence",

@@ -32,6 +32,11 @@ NVCC_FLAGS = [
 ]
 BUILD_TIMEOUT_S = 600
 
+DTYPES = (torch.float32, torch.bfloat16)
+"""Element types of the kernels' tensors (weights and sums stay float32)."""
+SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+"""Name suffix of each dtype's C entry, e.g. ``ocrs_gru_fwd_bf16``."""
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 

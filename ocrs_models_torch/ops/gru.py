@@ -18,6 +18,16 @@ of their own (:func:`gru_bwd_coefficients_reference`,
 by :func:`gru_bwd_phases_reference`. Gate order and parameter names follow torch's
 ``nn.GRU`` (r, z, n; ``n = tanh(xn + r * (W_hn h + b_hn))``), so its
 state dict loads into :class:`BiGRU` and back.
+
+The dtype of ``px`` is the compute dtype, as in ``gru_recurrence4``, whose
+io dtype follows it: float32, or bfloat16 with the Pallas kernel's rounding
+points. Forward: the carried state ``h`` is f32, each step's product is
+``bf16(h) @ bf16(W_hh)`` summed in f32 plus the f32 ``b_hh``, the gate math
+is f32 (``z * h`` with the f32 ``h``), and ``ys`` is rounded to bf16.
+Backward: ``h_prev`` is read back from the bf16 ``ys``, ``dy`` is bf16,
+``dh`` takes ``bf16(dph) @ bf16(W_hh)^T``, ``dW_hh`` sums ``h_prev^T
+bf16(dph)`` in f32, ``db_hh`` the unrounded ``dph``, and ``dpx`` is
+rounded to bf16. ``W_hh``, ``b_hh`` and their gradients stay float32.
 """
 
 from __future__ import annotations
@@ -31,24 +41,39 @@ from torch import nn
 from . import _build
 
 
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as float32, rounded to bf16 values first when ``dtype`` is
+    bf16: the operands of the Pallas kernel's bf16 products."""
+    return t.to(torch.bfloat16).float() if dtype == torch.bfloat16 else t
+
+
+def _widen(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 ``t`` as float32 (exact); any other ``t`` as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def gru_recurrence_reference(px_f, px_b, w_hh, b_hh):
     """Plain version of the recurrence of one bidirectional layer.
 
     :param px_f, px_b: ``[T, N, 3H]`` input projections per direction, both
-        in natural time order (the backward direction reads step ``T-1-i``).
-    :param w_hh: ``[2, H, 3H]`` recurrent weights laid out for ``h @ W``.
-    :param b_hh: ``[2, 3H]``.
-    :return: ``(ys_f, ys_b)``, each ``[T, N, H]`` in natural time order.
+        in natural time order (the backward direction reads step ``T-1-i``);
+        float32, or bfloat16 for bf16 compute.
+    :param w_hh: ``[2, H, 3H]`` float32 recurrent weights laid out for ``h @ W``.
+    :param b_hh: ``[2, 3H]`` float32.
+    :return: ``(ys_f, ys_b)``, each ``[T, N, H]`` in natural time order, in
+        ``px``'s dtype.
     """
     t_len, n, h3 = px_f.shape
     hid = h3 // 3
+    dt = px_f.dtype
     ys_f = px_f.new_empty((t_len, n, hid))
     ys_b = px_f.new_empty((t_len, n, hid))
-    h = px_f.new_zeros((2, n, hid))
+    h = _widen(px_f).new_zeros((2, n, hid))
+    w = _rounded(w_hh, dt)
     for i in range(t_len):
         tb = t_len - 1 - i
-        ph = torch.baddbmm(b_hh[:, None, :], h, w_hh)  # [2, N, 3H]
-        px_t = torch.stack([px_f[i], px_b[tb]])
+        ph = torch.baddbmm(b_hh[:, None, :], _rounded(h, dt), w)  # [2, N, 3H]
+        px_t = _widen(torch.stack([px_f[i], px_b[tb]]))
         xr, xz, xn = px_t.split(hid, dim=-1)
         hr, hz, hn = ph.split(hid, dim=-1)
         r = torch.sigmoid(xr + hr)
@@ -62,14 +87,16 @@ def gru_recurrence_reference(px_f, px_b, w_hh, b_hh):
 
 def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("gru_fwd")
-    fn = lib.ocrs_gru_fwd
-    if fn.argtypes is None:
+    if lib.ocrs_gru_fwd.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, p]
-        fn.restype = ctypes.c_int
-        lib.ocrs_gru_fwd_max_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
-        lib.ocrs_gru_fwd_max_clusters.restype = ctypes.c_int
+        for sfx in _build.SUFFIX.values():
+            fn = getattr(lib, f"ocrs_gru_fwd{sfx}")
+            fn.argtypes = [i, p, p, p, p, p, p, i, i, i, p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"ocrs_gru_fwd{sfx}_max_clusters")
+            fn.argtypes = [i, i, i, ctypes.POINTER(i)]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -86,9 +113,13 @@ def _check(name: str, tensors: dict, t_len: int, n: int, hid: int) -> None:
         "w_hh": (2, hid, h3), "b_hh": (2, h3),
     }
     dev = tensors["px_f"].device
+    io = tensors["px_f"].dtype
+    if io not in _build.DTYPES:
+        raise ValueError(f"{name}: px_f must be float32 or bfloat16, got {io}")
     for key, t in tensors.items():
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous float32 on {dev}")
+        want = torch.float32 if key in ("w_hh", "b_hh") else io
+        if t.device != dev or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous {want} on {dev}")
         if tuple(t.shape) != shapes[key]:
             raise ValueError(f"{name}: {key} shape {tuple(t.shape)} != {shapes[key]}")
     if hid % 8 or hid > MAX_HIDDEN:
@@ -98,8 +129,9 @@ def _check(name: str, tensors: dict, t_len: int, n: int, hid: int) -> None:
 def gru_fwd(px_f, px_b, w_hh, b_hh):
     """Forward kernel of one bidirectional layer's recurrence; same
     contract as :func:`gru_recurrence_reference`. A CUDA tensor goes
-    through ``gru_fwd.cu`` (one ctypes call, one launch for all T steps); a
-    CPU tensor through the plain version."""
+    through ``gru_fwd.cu``'s kernel of its dtype (one ctypes call, one
+    launch for all T steps; for bf16 also the rounding of ``W_hh`` to bf16
+    values); a CPU tensor through the plain version."""
     if px_f.device.type == "cpu":
         return gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
     if not px_f.is_cuda:
@@ -107,12 +139,13 @@ def gru_fwd(px_f, px_b, w_hh, b_hh):
     t_len, n, h3 = px_f.shape
     hid = h3 // 3
     _check("gru_fwd", {"px_f": px_f, "px_b": px_b, "w_hh": w_hh, "b_hh": b_hh}, t_len, n, hid)
-    ys_f = torch.empty((t_len, n, hid), device=px_f.device, dtype=torch.float32)
+    ys_f = torch.empty((t_len, n, hid), device=px_f.device, dtype=px_f.dtype)
     ys_b = torch.empty_like(ys_f)
+    w = _rounded(w_hh, px_f.dtype).contiguous()
     lib = _fwd_lib()
     p = _build.ptr
-    rc = lib.ocrs_gru_fwd(
-        px_f.device.index, p(px_f), p(px_b), p(w_hh), p(b_hh), p(ys_f), p(ys_b),
+    rc = getattr(lib, f"ocrs_gru_fwd{_build.SUFFIX[px_f.dtype]}")(
+        px_f.device.index, p(px_f), p(px_b), p(w), p(b_hh), p(ys_f), p(ys_b),
         t_len, n, hid, _build.stream_ptr(px_f.device),
     )
     _build.check(lib, rc, "gru_fwd")
@@ -126,10 +159,15 @@ gru_fwd.launches = 0
 def gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
     """Plain version of the backward: autograd of
     :func:`gru_recurrence_reference` (which recomputes the forward, so
-    ``ys_f`` and ``ys_b`` are not read).
+    ``ys_f`` and ``ys_b`` are not read). In bf16, whose rounding points
+    autograd does not take (``h_prev`` from the bf16 ``ys``, ``dph``
+    rounded for its products), :func:`gru_bwd_phases_reference`.
 
-    :return: ``(dpx_f, dpx_b [T, N, 3H], dw_hh [2, H, 3H], db_hh [2, 3H])``.
+    :return: ``(dpx_f, dpx_b [T, N, 3H]`` in ``px``'s dtype, ``dw_hh [2, H,
+        3H], db_hh [2, 3H])`` float32.
     """
+    if px_f.dtype == torch.bfloat16:
+        return gru_bwd_phases_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
     del ys_f, ys_b
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (px_f, px_b, w_hh, b_hh)]
@@ -141,7 +179,7 @@ def _h_prev(ys_f, ys_b):
     """``h_{t-1}`` in scan order for both directions, ``[2, T, N, H]``:
     ``ys_f[t-1]`` and ``ys_b[t+1]``, zero at each direction's first step."""
     zero = ys_f.new_zeros((1, *ys_f.shape[1:]))
-    return torch.stack([torch.cat([zero, ys_f[:-1]]), torch.cat([ys_b[1:], zero])])
+    return _widen(torch.stack([torch.cat([zero, ys_f[:-1]]), torch.cat([ys_b[1:], zero])]))
 
 
 def gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh):
@@ -149,11 +187,13 @@ def gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh):
     gates of every step at once (``ph = h_prev @ W_hh + b_hh`` over all
     ``T * N`` rows) and return what the chain needs per element,
     ``coef [2, T, N, 5, H]``: ``z``, ``(1-z)(1-c^2)``, ``(h_prev-c) z (1-z)``,
-    ``r``, ``hn r (1-r)``."""
+    ``r``, ``hn r (1-r)``, float32 in both dtypes (``h_prev`` is the
+    saved ``ys``, so bf16 ``ys`` give the bf16 product's operands)."""
     hid = ys_f.shape[-1]
     h_prev = _h_prev(ys_f, ys_b)
-    ph = torch.einsum("dtnk,dkj->dtnj", h_prev, w_hh) + b_hh[:, None, None, :]
-    xr, xz, xn = torch.stack([px_f, px_b]).split(hid, dim=-1)
+    w = _rounded(w_hh, ys_f.dtype)
+    ph = torch.einsum("dtnk,dkj->dtnj", h_prev, w) + b_hh[:, None, None, :]
+    xr, xz, xn = _widen(torch.stack([px_f, px_b])).split(hid, dim=-1)
     hr, hz, hn = ph.split(hid, dim=-1)
     r = torch.sigmoid(xr + hr)
     z = torch.sigmoid(xz + hz)
@@ -167,17 +207,21 @@ def gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh):
 def gru_bwd_chain_reference(coef, dy_f, dy_b, w_hh):
     """Plain version of the backward kernel's second phase, the chain of
     ``T`` dependent steps: ``dht = dh + dy[t]``, the gate gradients from
-    the coefficients, ``dh <- dht z + dph @ W_hh^T``. Returns
-    ``(dpx_f, dpx_b)``, each ``[T, N, 3H]``."""
+    the coefficients, ``dh <- dht z + dph @ W_hh^T`` (for bf16 ``dy``,
+    ``bf16(dph) @ bf16(W_hh)^T``). Returns ``(dpx_f, dpx_b)``, each ``[T,
+    N, 3H]`` in ``dy``'s dtype, and ``dph = [da_r, da_z, dhn]``, ``[2, T, N,
+    3H]`` float32 and unrounded."""
     t_len, n, hid = dy_f.shape
+    dt = dy_f.dtype
     dpx_f = dy_f.new_empty((t_len, n, 3 * hid))
     dpx_b = dy_f.new_empty((t_len, n, 3 * hid))
-    dh = dy_f.new_zeros((2, n, hid))
-    w_t = w_hh.transpose(1, 2)
+    dph = coef.new_empty((2, t_len, n, 3 * hid))
+    dh = coef.new_zeros((2, n, hid))
+    w_t = _rounded(w_hh, dt).transpose(1, 2)
     for step in range(t_len):
         tf, tb = t_len - 1 - step, step
         cz, ca, cb, cr, cc = torch.stack([coef[0, tf], coef[1, tb]]).unbind(dim=2)
-        dht = dh + torch.stack([dy_f[tf], dy_b[tb]])
+        dht = dh + _widen(torch.stack([dy_f[tf], dy_b[tb]]))
         da_c = dht * ca
         da_z = dht * cb
         dhn = da_c * cr
@@ -185,19 +229,18 @@ def gru_bwd_chain_reference(coef, dy_f, dy_b, w_hh):
         dpx = torch.cat([da_r, da_z, da_c], dim=-1)
         dpx_f[tf] = dpx[0]
         dpx_b[tb] = dpx[1]
-        dh = dht * cz + torch.bmm(torch.cat([da_r, da_z, dhn], dim=-1), w_t)
-    return dpx_f, dpx_b
+        d = torch.cat([da_r, da_z, dhn], dim=-1)
+        dph[0, tf], dph[1, tb] = d[0], d[1]
+        dh = dht * cz + torch.bmm(_rounded(d, dt), w_t)
+    return dpx_f, dpx_b, dph
 
 
-def gru_bwd_dw_reference(ys_f, ys_b, dpx_f, dpx_b, coef):
+def gru_bwd_dw_reference(ys_f, ys_b, dph):
     """Plain version of the backward kernel's third phase: ``dW_hh =
-    h_prev^T dph`` and ``db_hh = sum dph`` over all ``T * N`` rows, where
-    ``dph`` is ``dpx`` with its n columns multiplied by ``r``. Returns
-    ``(dw_hh [2, H, 3H], db_hh [2, 3H])``."""
-    hid = ys_f.shape[-1]
-    dpx = torch.stack([dpx_f, dpx_b])
-    dph = torch.cat([dpx[..., : 2 * hid], dpx[..., 2 * hid :] * coef[:, :, :, 3]], dim=-1)
-    dw = torch.einsum("dtnk,dtnj->dkj", _h_prev(ys_f, ys_b), dph)
+    h_prev^T dph`` (for bf16 ``ys``, ``h_prev^T bf16(dph)``) and ``db_hh =
+    sum dph`` (unrounded) over all ``T * N`` rows. Returns ``(dw_hh [2, H,
+    3H], db_hh [2, 3H])`` float32."""
+    dw = torch.einsum("dtnk,dtnj->dkj", _h_prev(ys_f, ys_b), _rounded(dph, ys_f.dtype))
     return dw, dph.sum(dim=(1, 2))
 
 
@@ -206,32 +249,37 @@ def gru_bwd_phases_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
     torch ops; same contract as :func:`gru_bwd_reference` (and it reads
     the saved ``ys_f``, ``ys_b``, as the kernel does)."""
     coef = gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh)
-    dpx_f, dpx_b = gru_bwd_chain_reference(coef, dy_f, dy_b, w_hh)
-    dw, db = gru_bwd_dw_reference(ys_f, ys_b, dpx_f, dpx_b, coef)
+    dpx_f, dpx_b, dph = gru_bwd_chain_reference(coef, dy_f, dy_b, w_hh)
+    dw, db = gru_bwd_dw_reference(ys_f, ys_b, dph)
     return dpx_f, dpx_b, dw, db
 
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("gru_bwd")
-    fn = lib.ocrs_gru_bwd
-    if fn.argtypes is None:
+    if lib.ocrs_gru_bwd.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [i] + [p] * 15 + [i, i, i, i, p]
-        fn.restype = ctypes.c_int
-        lib.ocrs_gru_bwd_max_clusters.argtypes = [i, i, i, ctypes.POINTER(i)]
-        lib.ocrs_gru_bwd_max_clusters.restype = ctypes.c_int
+        lib.ocrs_gru_bwd.argtypes = [i] + [p] * 15 + [i, i, i, i, p]
+        lib.ocrs_gru_bwd.restype = ctypes.c_int
+        lib.ocrs_gru_bwd_bf16.argtypes = [i] + [p] * 16 + [i, i, i, i, p]
+        lib.ocrs_gru_bwd_bf16.restype = ctypes.c_int
+        for sfx in _build.SUFFIX.values():
+            fn = getattr(lib, f"ocrs_gru_bwd{sfx}_max_clusters")
+            fn.argtypes = [i, i, i, ctypes.POINTER(i)]
+            fn.restype = ctypes.c_int
     return lib
 
 
-def max_active_clusters(n: int, hid: int, device: int = 0) -> dict:
-    """For batch ``n`` and hidden size ``hid``: the batch rows per block
-    that :func:`gru_fwd` and :func:`gru_bwd` pick, the clusters each then
-    launches, and how many of them the card can hold at once
+def max_active_clusters(n: int, hid: int, device: int = 0,
+                        dtype: torch.dtype = torch.float32) -> dict:
+    """For batch ``n``, hidden size ``hid`` and ``dtype``: the batch rows
+    per block that :func:`gru_fwd` and :func:`gru_bwd` pick, the clusters
+    each then launches, and how many of them the card can hold at once
     (``cudaOccupancyMaxActiveClusters``)."""
     out = {"cluster_size": -(-hid // 32)}
-    for name, lib, fn in (("gru_fwd", _fwd_lib(), "ocrs_gru_fwd_max_clusters"),
-                          ("gru_bwd", _bwd_lib(), "ocrs_gru_bwd_max_clusters")):
+    sfx = _build.SUFFIX[dtype]
+    for name, lib, fn in (("gru_fwd", _fwd_lib(), f"ocrs_gru_fwd{sfx}_max_clusters"),
+                          ("gru_bwd", _bwd_lib(), f"ocrs_gru_bwd{sfx}_max_clusters")):
         rows = ctypes.c_int(0)
         got = getattr(lib, fn)(device, n, hid, ctypes.byref(rows))
         if got < 0:
@@ -249,9 +297,12 @@ DW_SPLITS = 8
 def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
     """Backward kernel of one bidirectional layer's recurrence; same
     contract as :func:`gru_bwd_reference`. A CUDA tensor goes through
-    ``gru_bwd.cu`` (one ctypes call, four launches whatever ``T`` is: the
-    coefficients, the chain, the weight-gradient partials, their sum); a
-    CPU tensor through the plain version."""
+    ``gru_bwd.cu``'s kernels of its dtype (one ctypes call, four launches
+    whatever ``T`` is: the coefficients, the chain, the weight-gradient
+    partials, their sum; for bf16 also the rounding of ``W_hh`` to bf16
+    values, and the chain hands the unrounded ``dph`` to the weight
+    gradient through scratch of its own); a CPU tensor through the plain
+    version."""
     if px_f.device.type == "cpu":
         return gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
     if not px_f.is_cuda:
@@ -263,6 +314,7 @@ def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
         "w_hh": w_hh, "b_hh": b_hh,
     }, t_len, n, hid)
     dev = px_f.device
+    bf16 = px_f.dtype == torch.bfloat16
     splits = max(1, min(DW_SPLITS, t_len * n // 512))
     dpx_f = torch.empty_like(px_f)
     dpx_b = torch.empty_like(px_b)
@@ -273,11 +325,19 @@ def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
     db = torch.empty_like(b_hh)
     lib = _bwd_lib()
     p = _build.ptr
-    rc = lib.ocrs_gru_bwd(
-        dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(dy_f), p(dy_b), p(w_hh), p(b_hh),
-        p(dpx_f), p(dpx_b), p(coef), p(dwp), p(dbp), p(dw), p(db),
-        splits, t_len, n, hid, _build.stream_ptr(dev),
-    )
+    if bf16:
+        dph = torch.empty((2, t_len * n, h3), device=dev, dtype=torch.float32)
+        rc = lib.ocrs_gru_bwd_bf16(
+            dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(dy_f), p(dy_b),
+            p(_rounded(w_hh, px_f.dtype).contiguous()), p(b_hh), p(dpx_f), p(dpx_b), p(coef),
+            p(dph), p(dwp), p(dbp), p(dw), p(db), splits, t_len, n, hid, _build.stream_ptr(dev),
+        )
+    else:
+        rc = lib.ocrs_gru_bwd(
+            dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(dy_f), p(dy_b), p(w_hh), p(b_hh),
+            p(dpx_f), p(dpx_b), p(coef), p(dwp), p(dbp), p(dw), p(db),
+            splits, t_len, n, hid, _build.stream_ptr(dev),
+        )
     _build.check(lib, rc, "gru_bwd")
     gru_bwd.launches += 1
     return dpx_f, dpx_b, dw, db
@@ -317,12 +377,24 @@ def gru_recurrence(px_f, px_b, w_hh, b_hh):
 class BiGRU(nn.Module):
     """Stack of bidirectional GRU layers with ``nn.GRU(input_size, hidden,
     num_layers=layers, bidirectional=True, batch_first=True)`` semantics and
-    parameter names. Input ``[N, T, F]``, output ``[N, T, 2 * hidden]``."""
+    parameter names. Input ``[N, T, F]``, output ``[N, T, 2 * hidden]`` in
+    ``compute_dtype``.
 
-    def __init__(self, input_size: int, hidden: int, layers: int = 2):
+    ``compute_dtype`` bfloat16 is the JAX package's bf16 path
+    (``ops/gru.py``, backend ``pallas4``): the input projections take bf16
+    operands with f32 accumulation and are stored in bf16 (here one bf16
+    ``linear``, which also rounds ``b_ih`` to bf16 before the sum), the
+    recurrence runs in bf16 (see the module's docstring), and ``ys`` feeds
+    the next layer in bf16. Parameters stay float32."""
+
+    def __init__(self, input_size: int, hidden: int, layers: int = 2,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if compute_dtype not in _build.DTYPES:
+            raise ValueError(f"BiGRU: compute_dtype must be float32 or bfloat16, got {compute_dtype}")
         self.hidden = hidden
         self.layers = layers
+        self.compute_dtype = compute_dtype
         k = 1.0 / math.sqrt(hidden)
         for layer in range(layers):
             fin = input_size if layer == 0 else 2 * hidden
@@ -341,12 +413,23 @@ class BiGRU(nn.Module):
         return getattr(self, name)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
-        x = xs.transpose(0, 1)  # time-major [T, N, F] between layers
+        # bf16 compute casts to bf16; float32 compute widens a bf16 input
+        # (a bf16 model's features) and takes float32 (and the tests'
+        # float64) as they come.
+        lowp = self.compute_dtype == torch.bfloat16
+
+        def cast(t):
+            return t.to(torch.bfloat16) if lowp else t
+
+        x = (cast(xs) if lowp else _widen(xs)).transpose(0, 1)  # time-major [T, N, F]
         for layer in range(self.layers):
             f, b = f"l{layer}", f"l{layer}_reverse"
             # Hoisted input projections: one [T*N, F] x [F, 3H] matmul each.
-            px_f = torch.nn.functional.linear(x, self._p(f"weight_ih_{f}"), self._p(f"bias_ih_{f}"))
-            px_b = torch.nn.functional.linear(x, self._p(f"weight_ih_{b}"), self._p(f"bias_ih_{b}"))
+            px_f, px_b = (
+                torch.nn.functional.linear(x, cast(self._p(f"weight_ih_{d}")),
+                                           cast(self._p(f"bias_ih_{d}")))
+                for d in (f, b)
+            )
             w_hh = torch.stack([self._p(f"weight_hh_{f}").t(), self._p(f"weight_hh_{b}").t()])
             b_hh = torch.stack([self._p(f"bias_hh_{f}"), self._p(f"bias_hh_{b}")])
             ys_f, ys_b = gru_recurrence(

@@ -13,7 +13,10 @@ Usage::
 Numerics: the forwards run float32 convolutions with cuDNN's TF32 turned
 off (``torch.backends.cudnn.flags(allow_tf32=False)``) and leave matmul
 TF32 off (PyTorch's default), so the f32 outputs keep the reference's
-float32 parity contract.
+float32 parity contract. ``compute_dtype=torch.bfloat16`` is the serving
+fast path of the JAX package: both models compute in bf16 (parameters stay
+float32; detection's output layer and the recognizer's log-softmax are
+float32).
 """
 
 from __future__ import annotations
@@ -99,6 +102,7 @@ class OcrPipeline:
         """State dicts are in the reference's torch format (see
         :mod:`ocrs_models_torch.weights`); a model whose state dict is None
         keeps PyTorch's default initialisation, drawn from ``seed``.
+        ``compute_dtype``: ``torch.float32`` or ``torch.bfloat16``.
 
         ``device`` defaults to CUDA and raises without it; pass ``"cpu"``
         to run the plain PyTorch path."""
@@ -106,8 +110,9 @@ class OcrPipeline:
             raise NotImplementedError(f"use_layout_model=True {_NOT_IN_SLICE}")
         if mesh is not None:
             raise NotImplementedError(f"multi-GPU serving (mesh) {_NOT_IN_SLICE}")
-        if compute_dtype != torch.float32:
-            raise NotImplementedError(f"compute_dtype={compute_dtype} {_NOT_IN_SLICE}")
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(
+                f"compute_dtype must be torch.float32 or torch.bfloat16, got {compute_dtype}")
         self.device = resolve_device(device)
         self.alphabet = alphabet
         self.det_size = tuple(det_size or DET_SIZE)
@@ -118,8 +123,8 @@ class OcrPipeline:
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            det = DetectionModel()
-            rec = RecognitionModel(n_classes=len(alphabet) + 1)
+            det = DetectionModel(dtype=compute_dtype)
+            rec = RecognitionModel(n_classes=len(alphabet) + 1, dtype=compute_dtype)
         if det_state_dict is not None:
             det.load_state_dict(det_state_dict, strict=True)
         if rec_state_dict is not None:

@@ -2,7 +2,7 @@
 kernels on one GPU.
 
     python -m ocrs_models_torch.profile_kernels [--width 800] [--batch 128]
-        [--train-width 256] [--train-batch 256] [--only gru|stage1|ctc]
+        [--train-width 256] [--train-batch 256] [--only gru|stage1|ctc] [--bf16]
 
 Runs, under ``torch.profiler``, the recognition forward of one
 ``rec_batch`` chunk (random weights, seed 1234), the biGRU recurrence
@@ -18,7 +18,8 @@ span. ``--only gru`` runs the two recurrence sections alone, at
 ``--only ctc`` runs ``ctc_alpha`` and ``ctc_beta``, each alone at the
 training shapes given by ``--train-width`` and ``--train-batch`` (labels
 of 24 characters at width 256, else 48, in arrays 64 wide as the trainer
-pads them). Needs CUDA.
+pads them). ``--bf16`` runs the model, the step and the stage-1 and biGRU
+kernels in bfloat16 (the CTC kernels are float32 in both). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -155,12 +156,12 @@ def _profiled(fn, iters: int):
     return prof, wall, {k.__name__: k.launches / iters for k in KERNELS}
 
 
-def _stage1_sections(n: int, w: int, iters: int, dev, gen) -> None:
+def _stage1_sections(n: int, w: int, iters: int, dev, gen, dtype) -> None:
     """``stage1_fwd`` and ``stage1_bwd`` alone at the training shape."""
     weight = (torch.randn((32, 1, 3, 3), generator=gen) * 0.3).to(dev)
     bias = (torch.randn((32,), generator=gen) * 0.1).to(dev)
-    x = (torch.rand((n, 1, 64, w), generator=gen) - 0.5).to(dev)
-    dy = torch.randn((n, 32, 32, w // 2), generator=gen).to(dev)
+    x = (torch.rand((n, 1, 64, w), generator=gen) - 0.5).to(dev, dtype)
+    dy = torch.randn((n, 32, 32, w // 2), generator=gen).to(dev, dtype)
     for name, fn in (("stage1_fwd", lambda: stage1_fwd(x, weight, bias)),
                      ("stage1_bwd", lambda: stage1_bwd(x, weight, bias, dy))):
         prof, wall, launches = _profiled(fn, iters)
@@ -198,7 +199,9 @@ def main() -> None:
     ap.add_argument("--train-batch", type=int, default=256)
     ap.add_argument("--only", choices=["gru", "stage1", "ctc"], default=None,
                     help="run only the sections of these kernels")
+    ap.add_argument("--bf16", action="store_true", help="bfloat16 model, step and kernels")
     args = ap.parse_args()
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -206,10 +209,10 @@ def main() -> None:
     gen = torch.Generator().manual_seed(1234)
     torch.manual_seed(1234)
     if args.only == "stage1":
-        return _stage1_sections(args.train_batch, args.train_width, args.iters, dev, gen)
+        return _stage1_sections(args.train_batch, args.train_width, args.iters, dev, gen, dtype)
     if args.only == "ctc":
         return _ctc_sections(args.train_batch, args.train_width, args.iters, dev, gen)
-    model = RecognitionModel(n_classes=97).to(dev).eval().requires_grad_(False)
+    model = RecognitionModel(n_classes=97, dtype=dtype).to(dev).eval().requires_grad_(False)
     x = (torch.rand((args.batch, 1, 64, args.width), generator=gen) - 0.5).to(dev)
     flags = dict(enabled=True, benchmark=True, deterministic=False, allow_tf32=False)
     n, w = args.train_batch, args.train_width
@@ -219,8 +222,8 @@ def main() -> None:
             _report(f"recognition forward [{args.batch},1,64,{args.width}]", prof, wall, args.iters, launches)
 
         t, hid = args.width // 4 + 1, 256
-        px_f = torch.randn((t, args.batch, 3 * hid), generator=gen).to(dev)
-        px_b = torch.randn((t, args.batch, 3 * hid), generator=gen).to(dev)
+        px_f = torch.randn((t, args.batch, 3 * hid), generator=gen).to(dev, dtype)
+        px_b = torch.randn((t, args.batch, 3 * hid), generator=gen).to(dev, dtype)
         w_hh = ((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) / 16).to(dev)
         b_hh = torch.zeros((2, 3 * hid), device=dev)
         prof, wall, launches = _profiled(lambda: gru_fwd(px_f, px_b, w_hh, b_hh), args.iters)
@@ -228,15 +231,15 @@ def main() -> None:
 
         # The backward alone; its kernels are its phases.
         ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
-        dy_f = (torch.randn((t, args.batch, hid), generator=gen) * 0.1).to(dev)
-        dy_b = (torch.randn((t, args.batch, hid), generator=gen) * 0.1).to(dev)
+        dy_f = (torch.randn((t, args.batch, hid), generator=gen) * 0.1).to(dev, dtype)
+        dy_b = (torch.randn((t, args.batch, hid), generator=gen) * 0.1).to(dev, dtype)
         prof, wall, launches = _profiled(
             lambda: gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh), args.iters)
         _report(f"gru_bwd T={t} N={args.batch} H={hid}", prof, wall, args.iters, launches)
     if args.only is not None:
         return
 
-    # One training step (its own numerics: f32, TF32 off, cuDNN benchmark).
+    # One training step (its own numerics: TF32 off, cuDNN benchmark).
     rng = np.random.default_rng(0)
     text = np.zeros((n, 64), np.int64)
     text[:, :24] = rng.integers(1, 97, (n, 24))

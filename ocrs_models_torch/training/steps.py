@@ -9,12 +9,14 @@ batch statistics, as in the JAX package); the loss is
 ``image_width // downsample``, one less than the model's ``W//4 + 1``
 output steps, as the reference trainer does.
 
-The step runs eagerly on the model's device with float32 convolutions and
-matmuls kept out of TF32 (the JAX package's ``dtype=float32`` path) and
-cuDNN timing its algorithms once per shape (its heuristic picks slow FFT
-algorithms for these float32 convolutions). Stage 1, the biGRU recurrence
-and the CTC recursions run through the port's CUDA kernels, forward and
-backward, on a CUDA device.
+The step runs eagerly on the model's device in the model's dtype: float32
+convolutions and matmuls kept out of TF32 (the JAX package's
+``dtype=float32`` path), or a ``RecognitionModel(dtype=torch.bfloat16)``
+(its bf16 path); the log-probs, the CTC loss, the parameters, their
+gradients and Adam's state are float32 in both. cuDNN times its algorithms
+once per shape (its heuristic picks slow FFT algorithms for the float32
+convolutions). Stage 1, the biGRU recurrence and the CTC recursions run
+through the port's CUDA kernels, forward and backward, on a CUDA device.
 """
 
 from __future__ import annotations

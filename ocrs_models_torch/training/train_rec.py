@@ -14,9 +14,10 @@ Usage:
 
 Where the port differs from the JAX trainer:
 
-- It trains in float32: ``--bf16`` defaults to off (the JAX trainer's
-  default is on), and ``--bf16`` raises until bf16 training is ported
-  (ROADMAP.md, Queue 1 item 3).
+- ``--bf16`` (the default, as in the JAX trainer) trains
+  ``RecognitionModel(dtype=torch.bfloat16)``, whose biGRU computes in bf16
+  too, as the JAX trainer's does; ``--no-bf16`` trains in float32.
+  Parameters, Adam's state and checkpoints are float32 either way.
 - ``hiertext`` raises: it needs a JPEG decoder and a dataset download.
 - ``--num-devices`` other than 1 raises: multi-GPU training is ROADMAP.md,
   Queue 1 item 7.
@@ -135,15 +136,10 @@ def main(argv=None, device: str | torch.device = "cuda"):
         "about k times less activation memory at the same math)",
     )
     parser.add_argument(
-        "--bf16", default=False, action=BooleanOptionalAction,
-        help="bfloat16 compute (not ported yet: the port trains in float32)",
+        "--bf16", default=True, action=BooleanOptionalAction,
+        help="bfloat16 compute of the convolutions and the biGRU (parameters stay float32)",
     )
     args = parser.parse_args(argv)
-
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16: bf16 training is not ported yet (ROADMAP.md, Queue 1 item 3); "
-            "the port trains in float32 (--no-bf16, its default)")
     if args.num_devices not in (None, 1):
         raise NotImplementedError(
             f"--num-devices {args.num_devices}: multi-GPU training is not ported yet "
@@ -173,7 +169,8 @@ def main(argv=None, device: str | torch.device = "cuda"):
     mcfg = RecognitionModelConfig()
     torch.manual_seed(seed)
     model = RecognitionModel(
-        n_classes=mcfg.n_classes, gru_hidden=mcfg.gru_hidden, gru_layers=mcfg.gru_layers
+        n_classes=mcfg.n_classes, gru_hidden=mcfg.gru_hidden, gru_layers=mcfg.gru_layers,
+        dtype=torch.bfloat16 if args.bf16 else torch.float32,
     ).to(dev)
     state = create_train_state(model, grad_clip_norm=cfg.grad_clip_norm)
     n_params = sum(int(np.prod(p.shape)) for p in model.parameters())

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the
-recognition trainer, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, in float32
+and bfloat16, and the recognition trainer, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc``; without a GPU they skip. The
 file imports nothing of JAX, so it runs on a machine that has only the
@@ -453,9 +453,170 @@ def test_train_rec_trains_one_epoch_on_the_card(dev, tmp_path, monkeypatch, caps
     per_batch = {"stage1_fwd": 1, "gru_fwd": 2, "ctc_alpha": 1}
     assert counts == {k: 2 * per_step[k] + per_batch.get(k, 0) for k in per_step}
     assert state.step == 2 and next(state.model.parameters()).is_cuda
+    assert state.model.dtype == torch.bfloat16  # the trainer's default, as the JAX trainer's
     out = capsys.readouterr().out
     assert "Model param count 2426913" in out and "Epoch 0 validation loss" in out
     lines = (tmp_path / "text-recognition-metrics.jsonl").read_text().splitlines()
     (record,) = [r for r in map(json.loads, lines) if "epoch" in r]
     assert np.isfinite(record["train_loss"]) and np.isfinite(record["val_loss"])
     assert (tmp_path / "text-rec-checkpoint.pt").exists()
+
+
+# -------------------------------------------------------------------- bf16
+#
+# The bf16 kernels against their bf16 plain versions on the card, at the
+# trainer's and the server's shapes (N = 12, 20, 128, 256; T = 65 to 257),
+# odd widths, and reruns. Both sides hold the same rounding points; what
+# differs is the order of f32 sums, which may put a value on the other
+# side of a bf16 rounding.
+
+BF16 = torch.bfloat16
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference, in bf16 ulps of the larger magnitude."""
+    a, b = got.float(), want.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+# (128, 64, 800): the serving chunk; (256, 64, 256), (20, 64, 512), (12, 64,
+# 1024): the training step's and the trainer's; (3, 15, 13): odd sizes.
+@pytest.mark.parametrize("shape", [(128, 64, 800), (256, 64, 256), (20, 64, 512),
+                                   (12, 64, 1024), (3, 15, 13)])
+def test_stage1_bf16_kernel_matches_plain(dev, shape):
+    # At least 99% of the outputs equal, the rest within one bf16 ulp.
+    x, weight, bias, _ = _stage1_bwd_case(shape, dev, sum(shape) + 3)
+    x = x.to(BF16)
+    with _no_tf32():
+        want = stage1_reference(x, weight, bias)
+    before = stage1_fwd.launches
+    got = stage1_fwd(x, weight, bias)
+    again = stage1_fwd(x, weight, bias)
+    torch.cuda.synchronize()
+    assert stage1_fwd.launches == before + 2
+    assert got.dtype == BF16 and got.shape == want.shape and torch.equal(got, again)
+    assert (got == want).float().mean().item() >= 0.99
+    assert _bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(256, 64, 256), (128, 64, 1024), (20, 64, 512),
+                                   (12, 64, 768), (5, 64, 262), (3, 15, 13)])
+def test_stage1_bwd_bf16_kernel_matches_plain(dev, shape):
+    # dW, db float32 within 1e-3 of the largest entry, as in float32.
+    x, weight, bias, dy = _stage1_bwd_case(shape, dev, sum(shape) + 4)
+    x, dy = x.to(BF16), dy.to(BF16)
+    with _no_tf32():
+        want = stage1_bwd_reference(x, weight, bias, dy)
+    before = stage1_bwd.launches
+    got = stage1_bwd(x, weight, bias, dy)
+    again = stage1_bwd(x, weight, bias, dy)
+    torch.cuda.synchronize()
+    assert stage1_bwd.launches == before + 2
+    scale = max(t.abs().max().item() for t in want)
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-3 * scale + 1e-5)
+
+
+# (65, 256): the headline step; (257, 128): the wide step; (201, 128): the
+# serving chunk; (193, 20), (129, 12): the trainer's batches; (7, 259, 256),
+# (5, 3, 48), (1, 17, 8): more clusters than the card holds, ragged tiles.
+# Besides the bounds on the largest difference, the share of bf16 outputs
+# exactly equal to the plain version's: at these shapes 0.983-1.0 for ys
+# and 0.968-1.0 for dpx, where a kernel that exchanges the unrounded state
+# (forward) or multiplies the unrounded dph (backward chain) reads 0.877-
+# 0.914 and 0.866-0.892; and dW within 1e-3 of its max, read at most 6.2e-4,
+# where a `dw` phase that skips the rounding of dph reads 1.4e-3 to 1.8e-3
+# (my chip run on an H100, copies of the kernels with the rounding taken
+# out).
+GRU_BF16_SHAPES = [(65, 256, 256), (257, 128, 256), (201, 128, 256), (193, 20, 256),
+                   (129, 12, 256), (7, 259, 256), (5, 3, 48), (1, 17, 8)]
+
+
+@pytest.mark.parametrize("shape", GRU_BF16_SHAPES)
+def test_gru_bf16_kernel_matches_plain(dev, shape):
+    # ys within 2e-2 (a few bf16 ulps at 1: a rounding of h that flips
+    # feeds the next steps' products), and at least 95% of it equal.
+    t, n, h = shape
+    px_f, px_b, w_hh, b_hh, _, _ = _gru_case(t, n, h, dev, sum(shape) + 5)
+    px_f, px_b = px_f.to(BF16), px_b.to(BF16)
+    want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
+    before = gru_fwd.launches
+    got = gru_fwd(px_f, px_b, w_hh, b_hh)
+    again = gru_fwd(px_f, px_b, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert gru_fwd.launches == before + 2
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == BF16 and torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), rtol=0, atol=2e-2)
+        assert (a == c).float().mean().item() >= 0.95
+
+
+@pytest.mark.parametrize("shape", GRU_BF16_SHAPES)
+def test_gru_bwd_bf16_kernel_matches_plain(dev, shape):
+    # dpx (bf16) within 2e-2 and at least 95% of it equal, dW and db
+    # (float32) within 1e-3 of their largest entry; cotangents of order 0.1
+    # beyond 65 steps, as above.
+    t, n, h = shape
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(
+        t, n, h, dev, sum(shape) + 6, dy_scale=1.0 if t <= 65 else 0.1)
+    px_f, px_b, dy_f, dy_b = (v.to(BF16) for v in (px_f, px_b, dy_f, dy_b))
+    ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
+    args = (px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
+    want = gru_bwd_reference(*args)
+    before = gru_bwd.launches
+    got = gru_bwd(*args)
+    again = gru_bwd(*args)
+    torch.cuda.synchronize()
+    assert gru_bwd.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert got[0].dtype == got[1].dtype == BF16 and got[2].dtype == got[3].dtype == torch.float32
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=2e-2)
+        assert (a == b).float().mean().item() >= 0.95
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * b.abs().max().item() + 1e-5)
+
+
+def test_bf16_tensors_on_float32_only_paths_raise(dev):
+    # No wrapper casts: a bf16 CUDA tensor where a kernel takes float32
+    # only (the CTC recursions, the weights of stage 1 and the biGRU) or a
+    # dtype no kernel takes (float16) is refused, and nothing launches.
+    emit, skip, alpha0, lens, _ = _ctc_case(9, 3, 13, dev, 21)
+    x, weight, bias, dy = _stage1_bwd_case((2, 16, 16), dev, 22)
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(3, 4, 32, dev, 23)
+    before = {f.__name__: f.launches for f in (ctc_alpha, stage1_fwd, stage1_bwd, gru_fwd)}
+    with pytest.raises(ValueError, match="float32"):
+        ctc_alpha(emit.to(BF16), skip, alpha0, lens)
+    with pytest.raises(ValueError, match="float32"):
+        stage1_fwd(x.to(BF16), weight.to(BF16), bias)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        stage1_fwd(x.half(), weight, bias)
+    with pytest.raises(ValueError, match="bfloat16"):
+        stage1_bwd(x.to(BF16), weight, bias, dy)  # dy float32 beside a bf16 x
+    with pytest.raises(ValueError, match="float32"):
+        gru_fwd(px_f.to(BF16), px_b.to(BF16), w_hh.to(BF16), b_hh)
+    with pytest.raises(ValueError, match="bfloat16"):
+        gru_fwd(px_f.to(BF16), px_b, w_hh, b_hh)
+    assert before == {f.__name__: f.launches for f in (ctc_alpha, stage1_fwd, stage1_bwd, gru_fwd)}
+
+
+def test_recognition_bf16_on_card_matches_its_plain_versions(dev):
+    # The bf16 model with the kernels against the same model on the card
+    # with every kernel's plain version: log-probs within 5e-2.
+    from unittest import mock
+
+    torch.manual_seed(3)
+    model = RecognitionModel(n_classes=97, dtype=BF16).to(dev).eval()
+    x = (torch.rand((20, 1, 64, 512)) - 0.5).to(dev)
+    with torch.no_grad(), _no_tf32():
+        got = model(x)
+        with mock.patch("ocrs_models_torch.models.recognition.stage1", stage1_reference), \
+                mock.patch("ocrs_models_torch.ops.gru.gru_recurrence", gru_recurrence_reference):
+            want = model(x)
+    assert got.dtype == torch.float32 and got.shape == (20, 129, 97)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=5e-2)

@@ -170,10 +170,7 @@ def test_group_words_into_lines_matches_jax():
         assert [int(i) for i in gm] == [int(i) for i in wm]
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [{"use_layout_model": True}, {"mesh": object()}, {"compute_dtype": torch.bfloat16}],
-)
+@pytest.mark.parametrize("kwargs", [{"use_layout_model": True}, {"mesh": object()}])
 def test_options_outside_the_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         OcrPipeline(device="cpu", **kwargs)

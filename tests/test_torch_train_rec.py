@@ -137,7 +137,6 @@ def test_nan_loss_raises_the_jax_message(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,error,match", [
-    (["--bf16"], NotImplementedError, "Queue 1 item 3"),
     (["--num-devices", "2"], NotImplementedError, "Queue 1 item 7"),
     (["--export", "w.npz"], NotImplementedError, "Queue 1 item 8"),
     (["--export", "w.onnx"], NotImplementedError, "Queue 1 item 8"),
