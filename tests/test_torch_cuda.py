@@ -529,7 +529,7 @@ def test_stage1_bwd_bf16_kernel_matches_plain(dev, shape):
 # (forward) or multiplies the unrounded dph (backward chain) reads 0.877-
 # 0.914 and 0.866-0.892; and dW within 1e-3 of its max, read at most 6.2e-4,
 # where a `dw` phase that skips the rounding of dph reads 1.4e-3 to 1.8e-3
-# (my chip run on an H100, copies of the kernels with the rounding taken
+# (measured on one H100, with copies of the kernels with the rounding taken
 # out).
 GRU_BF16_SHAPES = [(65, 256, 256), (257, 128, 256), (201, 128, 256), (193, 20, 256),
                    (129, 12, 256), (7, 259, 256), (5, 3, 48), (1, 17, 8)]
