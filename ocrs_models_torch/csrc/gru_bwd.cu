@@ -88,9 +88,11 @@
 // reads instead of dpx * r: dpx holds bf16(da_c), and bf16(bf16(da_c) r)
 // is not bf16(da_c r). With both operands bf16 values, the products of
 // `coef` and `dw` are exact in TF32, so each tile takes one `mma` instead
-// of three. At T=257, N=128, H=256 the bytes are px, ys, dy and dpx in
-// bf16 plus the dph scratch written and read in f32: 269.6 + 404 MB, 0.20
-// ms, still below the 1.16 ms of the products.
+// of three. At T=257, N=128, H=256 the bytes the function must move are
+// px, ys, dy and dpx in bf16: 269.6 MB, 80 us, which bound it; the products
+// take 78 us at the bf16 tensor-core rate (989 TFLOP/s). This kernel also
+// writes and reads the dph scratch in f32 (404 MB, 0.12 ms) and runs the
+// chain's products as f32 FMAs (1.16 ms for all products at 67 TFLOP/s).
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -60,7 +60,8 @@
 // a bf16 output, so the Pallas kernel's cast of d4 to bf16 changes
 // nothing). Partials and dW10 stay f32; the tie-break and the gate are the
 // f32 version's. At N=128, H=64, W=1024 the bytes halve (16.8 + 134.2 MB,
-// 45 us) and the arithmetic (92 us) bounds it.
+// 45 us) and bound it: the products take 6 us at the bf16 tensor-core rate
+// (989 TFLOP/s). This kernel runs them as f32 FMAs, 92 us at 67 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <math.h>

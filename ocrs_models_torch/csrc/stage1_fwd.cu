@@ -29,8 +29,9 @@
 // reads x as bf16 and writes y as bf16, rounded once from the f32 pooled
 // maximum; the wrapper rounds the taps and the bias to bf16 values, so the
 // f32 FMAs sum exact bf16 products as the Pallas kernel's bf16 dot does.
-// At N=128, H=64, W=800 the bytes halve (13.1 + 104.9 MB, 35 us), and the
-// arithmetic (60 us) bounds it.
+// At N=128, H=64, W=800 the bytes halve (13.1 + 104.9 MB, 35 us) and bound
+// it: the 4.0 GFLOP take 4 us at the bf16 tensor-core rate (989 TFLOP/s).
+// This kernel runs them as f32 FMAs, 60 us at 67 TFLOP/s.
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -55,6 +55,11 @@ def batch_norm_lite(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     return x * inv.to(x.dtype)[None, :, None, None] + shift.to(x.dtype)[None, :, None, None]
 
 
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """:func:`batch_norm_lite` on a bf16 ``x``, ``bn`` itself on any other."""
+    return batch_norm_lite(bn, x) if x.dtype == torch.bfloat16 else bn(x)
+
+
 class DepthwiseConv(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -66,11 +71,9 @@ class DepthwiseConv(nn.Module):
         )
 
     def forward(self, x):
-        if x.dtype == torch.float32:
-            return self.seq(x)
         dw, pw, bn, _ = self.seq
         x = F.conv2d(x, dw.weight.to(x.dtype), padding=1, groups=dw.groups)
-        return F.relu(batch_norm_lite(bn, F.conv2d(x, pw.weight.to(x.dtype))))
+        return F.relu(batch_norm(bn, F.conv2d(x, pw.weight.to(x.dtype))))
 
 
 class DoubleConv(nn.Module):
@@ -123,8 +126,9 @@ class DetectionModel(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """:param x: ``[N, 1, H, W]``. :return: ``[N, 1, H, W]`` float32
         probabilities."""
-        lowp = self.dtype == torch.bfloat16
-        x = self.in_conv(x.to(self.dtype) if lowp else x)
+        if self.dtype == torch.bfloat16:
+            x = x.to(self.dtype)
+        x = self.in_conv(x)
         skips = [x]
         for down in self.down:
             x = down(x)
@@ -132,4 +136,4 @@ class DetectionModel(nn.Module):
         out = skips[-1]
         for i in reversed(range(len(self.up))):
             out = self.up[i](out, skips[i])
-        return self.out_conv(out.float() if lowp else out)
+        return self.out_conv(out.to(self.out_conv[0].weight.dtype))  # float32 in bf16

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import DTYPES, BiGRU, stage1
-from .detection import batch_norm_lite
+from .detection import batch_norm
 
 
 class RecognitionModel(nn.Module):
@@ -76,47 +76,33 @@ class RecognitionModel(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """:param x: ``[N, 1, 64, W]`` float32 in [-0.5, 0.5].
         :return: ``[N, W//4 + 1, n_classes]`` float32 log-probabilities."""
-        if self.dtype != torch.float32:
-            return self._forward_lowp(x)
         c = self.conv
+
+        def conv(i, x):  # weights in x's dtype (a no-op in float32)
+            m = c[i]
+            bias = None if m.bias is None else m.bias.to(x.dtype)
+            return F.conv2d(x, m.weight.to(x.dtype), bias, padding=m.padding)
+
+        def bn(i, x):
+            return batch_norm(c[i], x)
+
+        if self.dtype == torch.bfloat16:
+            x = x.to(self.dtype)
         # Stage 1: 64 x W -> 32 x W/2 (fused kernel on CUDA).
         x = stage1(x.contiguous(), c[0].weight, c[0].bias)
         # Stage 2: -> 16 x W/4; pool before ReLU.
-        x = F.relu(F.max_pool2d(c[4](c[3](x)), 2))
-        # Stage 3: -> 8 x W/4
-        x = F.relu(c[7](x))
-        x = F.relu(F.max_pool2d(c[10](c[9](x)), (2, 1)))
-        # Stage 4: -> 4 x W/4
-        x = F.relu(c[13](x))
-        x = F.relu(F.max_pool2d(c[16](c[15](x)), (2, 1)))
-        # Stage 5: 2x2 conv, pad 1 -> 5 x (W/4 + 1); average over height 4.
-        x = F.avg_pool2d(c[20](c[19](x)), (4, 1))  # [N, 128, 1, T]
-        n, ch, h, t = x.shape
-        x = x.permute(0, 3, 1, 2).reshape(n, t, ch * h)  # channel-major features
-        x = self.gru(x)
-        return F.log_softmax(self.output(x).float(), dim=-1)
-
-    def _forward_lowp(self, x: torch.Tensor) -> torch.Tensor:
-        """:meth:`forward` in ``self.dtype``, with the same stages."""
-        c, dt = self.conv, self.dtype
-
-        def conv(i, x):
-            m = c[i]
-            bias = None if m.bias is None else m.bias.to(dt)
-            return F.conv2d(x, m.weight.to(dt), bias, padding=m.padding)
-
-        def bn(i, x):
-            return batch_norm_lite(c[i], x)
-
-        x = stage1(x.to(dt).contiguous(), c[0].weight, c[0].bias)
         x = F.relu(F.max_pool2d(bn(4, conv(3, x)), 2))
+        # Stage 3: -> 8 x W/4
         x = F.relu(conv(7, x))
         x = F.relu(F.max_pool2d(bn(10, conv(9, x)), (2, 1)))
+        # Stage 4: -> 4 x W/4
         x = F.relu(conv(13, x))
         x = F.relu(F.max_pool2d(bn(16, conv(15, x)), (2, 1)))
+        # Stage 5: 2x2 conv, pad 1 -> 5 x (W/4 + 1); average over height 4.
         x = F.avg_pool2d(bn(20, conv(19, x)), (4, 1))  # [N, 128, 1, T]
         n, ch, h, t = x.shape
-        x = x.permute(0, 3, 1, 2).reshape(n, t, ch * h)
+        x = x.permute(0, 3, 1, 2).reshape(n, t, ch * h)  # channel-major features
+        dt = x.dtype
         x = self.gru(x).to(dt)
         out = self.output[0]
         x = F.linear(x, out.weight.to(dt), out.bias.to(dt))

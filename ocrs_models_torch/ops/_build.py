@@ -37,6 +37,13 @@ DTYPES = (torch.float32, torch.bfloat16)
 SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 """Name suffix of each dtype's C entry, e.g. ``ocrs_gru_fwd_bf16``."""
 
+
+def rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as float32, rounded to bf16 values first when ``dtype`` is
+    bf16: the operands of the Pallas kernels' bf16 products."""
+    return t.to(torch.bfloat16).float() if dtype == torch.bfloat16 else t
+
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -41,12 +41,6 @@ from torch import nn
 from . import _build
 
 
-def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t`` as float32, rounded to bf16 values first when ``dtype`` is
-    bf16: the operands of the Pallas kernel's bf16 products."""
-    return t.to(torch.bfloat16).float() if dtype == torch.bfloat16 else t
-
-
 def _widen(t: torch.Tensor) -> torch.Tensor:
     """A bf16 ``t`` as float32 (exact); any other ``t`` as it is."""
     return t.float() if t.dtype == torch.bfloat16 else t
@@ -69,10 +63,10 @@ def gru_recurrence_reference(px_f, px_b, w_hh, b_hh):
     ys_f = px_f.new_empty((t_len, n, hid))
     ys_b = px_f.new_empty((t_len, n, hid))
     h = _widen(px_f).new_zeros((2, n, hid))
-    w = _rounded(w_hh, dt)
+    w = _build.rounded(w_hh, dt)
     for i in range(t_len):
         tb = t_len - 1 - i
-        ph = torch.baddbmm(b_hh[:, None, :], _rounded(h, dt), w)  # [2, N, 3H]
+        ph = torch.baddbmm(b_hh[:, None, :], _build.rounded(h, dt), w)  # [2, N, 3H]
         px_t = _widen(torch.stack([px_f[i], px_b[tb]]))
         xr, xz, xn = px_t.split(hid, dim=-1)
         hr, hz, hn = ph.split(hid, dim=-1)
@@ -141,7 +135,7 @@ def gru_fwd(px_f, px_b, w_hh, b_hh):
     _check("gru_fwd", {"px_f": px_f, "px_b": px_b, "w_hh": w_hh, "b_hh": b_hh}, t_len, n, hid)
     ys_f = torch.empty((t_len, n, hid), device=px_f.device, dtype=px_f.dtype)
     ys_b = torch.empty_like(ys_f)
-    w = _rounded(w_hh, px_f.dtype).contiguous()
+    w = _build.rounded(w_hh, px_f.dtype).contiguous()
     lib = _fwd_lib()
     p = _build.ptr
     rc = getattr(lib, f"ocrs_gru_fwd{_build.SUFFIX[px_f.dtype]}")(
@@ -191,7 +185,7 @@ def gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh):
     saved ``ys``, so bf16 ``ys`` give the bf16 product's operands)."""
     hid = ys_f.shape[-1]
     h_prev = _h_prev(ys_f, ys_b)
-    w = _rounded(w_hh, ys_f.dtype)
+    w = _build.rounded(w_hh, ys_f.dtype)
     ph = torch.einsum("dtnk,dkj->dtnj", h_prev, w) + b_hh[:, None, None, :]
     xr, xz, xn = _widen(torch.stack([px_f, px_b])).split(hid, dim=-1)
     hr, hz, hn = ph.split(hid, dim=-1)
@@ -217,7 +211,7 @@ def gru_bwd_chain_reference(coef, dy_f, dy_b, w_hh):
     dpx_b = dy_f.new_empty((t_len, n, 3 * hid))
     dph = coef.new_empty((2, t_len, n, 3 * hid))
     dh = coef.new_zeros((2, n, hid))
-    w_t = _rounded(w_hh, dt).transpose(1, 2)
+    w_t = _build.rounded(w_hh, dt).transpose(1, 2)
     for step in range(t_len):
         tf, tb = t_len - 1 - step, step
         cz, ca, cb, cr, cc = torch.stack([coef[0, tf], coef[1, tb]]).unbind(dim=2)
@@ -231,7 +225,7 @@ def gru_bwd_chain_reference(coef, dy_f, dy_b, w_hh):
         dpx_b[tb] = dpx[1]
         d = torch.cat([da_r, da_z, dhn], dim=-1)
         dph[0, tf], dph[1, tb] = d[0], d[1]
-        dh = dht * cz + torch.bmm(_rounded(d, dt), w_t)
+        dh = dht * cz + torch.bmm(_build.rounded(d, dt), w_t)
     return dpx_f, dpx_b, dph
 
 
@@ -240,7 +234,7 @@ def gru_bwd_dw_reference(ys_f, ys_b, dph):
     h_prev^T dph`` (for bf16 ``ys``, ``h_prev^T bf16(dph)``) and ``db_hh =
     sum dph`` (unrounded) over all ``T * N`` rows. Returns ``(dw_hh [2, H,
     3H], db_hh [2, 3H])`` float32."""
-    dw = torch.einsum("dtnk,dtnj->dkj", _h_prev(ys_f, ys_b), _rounded(dph, ys_f.dtype))
+    dw = torch.einsum("dtnk,dtnj->dkj", _h_prev(ys_f, ys_b), _build.rounded(dph, ys_f.dtype))
     return dw, dph.sum(dim=(1, 2))
 
 
@@ -329,8 +323,9 @@ def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
         dph = torch.empty((2, t_len * n, h3), device=dev, dtype=torch.float32)
         rc = lib.ocrs_gru_bwd_bf16(
             dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(dy_f), p(dy_b),
-            p(_rounded(w_hh, px_f.dtype).contiguous()), p(b_hh), p(dpx_f), p(dpx_b), p(coef),
-            p(dph), p(dwp), p(dbp), p(dw), p(db), splits, t_len, n, hid, _build.stream_ptr(dev),
+            p(_build.rounded(w_hh, px_f.dtype).contiguous()), p(b_hh), p(dpx_f), p(dpx_b),
+            p(coef), p(dph), p(dwp), p(dbp), p(dw), p(db), splits, t_len, n, hid,
+            _build.stream_ptr(dev),
         )
     else:
         rc = lib.ocrs_gru_bwd(

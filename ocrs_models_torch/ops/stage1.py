@@ -30,17 +30,13 @@ from . import _build
 CHANNELS = 32
 
 
-def _bf16_exact(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to bf16, as float32."""
-    return t.to(torch.bfloat16).float()
-
-
 def stage1_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """Plain version: ``max_pool2d(relu(conv2d(x, weight, bias, padding=1)), 2)``;
     for a bf16 ``x``, in f32 from the bf16-rounded weight and bias, the
     result rounded to bf16."""
     if x.dtype == torch.bfloat16:
-        y = stage1_reference(x.float(), _bf16_exact(weight), _bf16_exact(bias))
+        y = stage1_reference(x.float(), _build.rounded(weight, x.dtype),
+                             _build.rounded(bias, x.dtype))
         return y.to(torch.bfloat16)
     return F.max_pool2d(F.relu(F.conv2d(x, weight, bias, padding=1)), 2)
 
@@ -73,7 +69,7 @@ def _w10(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.
     """``[32, 10]`` float32: the 9 taps (``dy * 3 + dx``) and the bias of
     each channel, rounded to bf16 values for a bf16 kernel."""
     w10 = torch.cat([weight.reshape(CHANNELS, 9), bias.reshape(CHANNELS, 1)], 1)
-    return (_bf16_exact(w10) if dtype == torch.bfloat16 else w10).contiguous()
+    return _build.rounded(w10, dtype).contiguous()
 
 
 def stage1_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -114,7 +110,8 @@ def stage1_bwd_reference(x, weight, bias, dy):
     ``dy * patch`` are then exact, as the Pallas kernel's bf16 dot takes
     them, and the sums f32."""
     if x.dtype == torch.bfloat16:
-        return stage1_bwd_reference(x.float(), _bf16_exact(weight), _bf16_exact(bias), dy.float())
+        return stage1_bwd_reference(x.float(), _build.rounded(weight, x.dtype),
+                                    _build.rounded(bias, x.dtype), dy.float())
     with torch.enable_grad():
         w = weight.detach().requires_grad_(True)
         b = bias.detach().requires_grad_(True)

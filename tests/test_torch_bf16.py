@@ -22,10 +22,20 @@ Tolerances, and why:
   are f32 sums of exact products on both sides, and a rounding point
   missed in the backward (``bf16(dph)`` in ``dh`` or ``dW``, ``bf16(W_hh)``
   in the recomputed gates) moves them by 6e-4 to 5e-3 of their max.
-- the model's log-probs: 5e-2; detection probabilities: 2e-2 (outside the
-  kernels cuDNN's and XLA's bf16 rounding points differ: XLA's CPU convs
-  round the product before adding the bias, detection's depthwise conv is
-  nine bf16 multiply-adds in JAX and one f32-accumulated conv here).
+- the model's log-probs: 1e-2 (read 4.0e-3); detection probabilities:
+  8e-3 (read 3.3e-3). Outside the kernels cuDNN's and XLA's bf16 rounding
+  points differ: XLA's CPU convs round the product before adding the
+  bias, detection's depthwise conv is nine bf16 multiply-adds in JAX and
+  one f32-accumulated conv here. Those limits alone cannot tell bf16 from
+  float32 compute: the float32 port differs from JAX's bf16 model by as
+  much (3.5e-3 and 2.1e-3). So each model test also holds the port's bf16
+  effect (its bf16 output less its float32 output) against JAX's (the
+  same on the JAX side): of the same size (the ratio of their RMS within
+  [0.5, 1.5]; read 0.96-1.03 for recognition, 0.72-0.75 for detection,
+  which rounds less in its depthwise conv) and pointing the same way
+  (their correlation at least 0.4 for recognition, read 0.56-0.70, and
+  0.2 for detection, read 0.33-0.47; chance gives about 0.02). A model
+  that ignored its dtype has no effect at all and fails.
 - one bf16 training step's loss: 1e-2 relative.
 - the trainer's epoch-0 loss against the JAX trainer's ``--bf16``: 1e-2
   relative. On the CPU the JAX CLI takes its XLA conv and scan GRU (its
@@ -102,6 +112,18 @@ def bf16_dots_in_f32(monkeypatch):
                       **kwargs)
 
     monkeypatch.setattr(jnp, "einsum", einsum_f32)
+
+
+def _assert_bf16_effect_matches(port_bf16, port_f32, jax_bf16, jax_f32, min_corr):
+    """The port's bf16 effect (``port_bf16 - port_f32``) against JAX's: the
+    ratio of their RMS within [0.5, 1.5], their correlation at least
+    ``min_corr`` (see the module docstring)."""
+    d_port = (port_bf16 - port_f32).ravel().astype(np.float64)
+    d_jax = (jax_bf16 - jax_f32).ravel().astype(np.float64)
+    ratio = np.linalg.norm(d_port) / np.linalg.norm(d_jax)
+    assert 0.5 <= ratio <= 1.5, ratio
+    corr = d_port @ d_jax / (np.linalg.norm(d_port) * np.linalg.norm(d_jax))
+    assert corr >= min_corr, corr
 
 
 def _within_one_ulp(got: np.ndarray, want: np.ndarray) -> np.ndarray:
@@ -272,19 +294,23 @@ def _jax_rec_bf16(hidden=32):
 
 @pytest.mark.parametrize("gru_dtype", [None, torch.float32], ids=["gru-bf16", "gru-f32"])
 def test_recognition_bf16_matches_jax(gru_dtype, bf16_dots_in_f32):
-    jax_model = JaxRecognition(n_classes=97, gru_hidden=32, dtype=jnp.bfloat16,
-                               gru_dtype=None if gru_dtype is None else jnp.float32,
-                               conv_backend="fused", gru_backend="pallas4")
+    kw = dict(n_classes=97, gru_hidden=32, conv_backend="fused", gru_backend="pallas4")
+    jax_model = JaxRecognition(dtype=jnp.bfloat16,
+                               gru_dtype=None if gru_dtype is None else jnp.float32, **kw)
     variables = random_variables(jax_model, (1, 64, 32, 1), seed=0)
     x = np.random.default_rng(0).uniform(-0.5, 0.5, (2, 64, 32, 1)).astype(np.float32)
     want = np.asarray(jax_model.apply(variables, jnp.asarray(x), train=False))
+    want_f32 = np.asarray(JaxRecognition(**kw).apply(variables, jnp.asarray(x), train=False))
     port = RecognitionModel(n_classes=97, gru_hidden=32, dtype=BF16, gru_dtype=gru_dtype).eval()
-    port.load_state_dict(recognition_state_dict_from_jax(variables), strict=True)
+    port_f32 = RecognitionModel(n_classes=97, gru_hidden=32).eval()
+    for m in (port, port_f32):
+        m.load_state_dict(recognition_state_dict_from_jax(variables), strict=True)
     assert port.gru.compute_dtype == (BF16 if gru_dtype is None else torch.float32)
     with torch.no_grad():
-        got = port(nhwc_to_nchw(x))
+        got, got_f32 = port(nhwc_to_nchw(x)), port_f32(nhwc_to_nchw(x)).numpy()
     assert got.dtype == torch.float32 and got.shape == want.shape == (2, 9, 97)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-2)
+    _assert_bf16_effect_matches(got.numpy(), got_f32, want, want_f32, min_corr=0.4)
 
 
 def test_recognition_bf16_keeps_float32_parameters_and_keys():
@@ -296,16 +322,21 @@ def test_recognition_bf16_keeps_float32_parameters_and_keys():
 
 
 def test_detection_bf16_matches_jax(bf16_dots_in_f32):
-    jax_model = JaxDetection(dtype=jnp.bfloat16)
     variables = random_variables(JaxDetection(), (1, 64, 64, 1), seed=2)
     x = np.random.default_rng(2).uniform(-0.5, 0.5, (2, 64, 64, 1)).astype(np.float32)
-    want = np.asarray(jax_model.apply(variables, jnp.asarray(x), train=False))
-    port = DetectionModel(dtype=BF16).eval()
-    port.load_state_dict(detection_state_dict_from_jax(variables), strict=True)
-    with torch.no_grad():
-        got = port(nhwc_to_nchw(x))
-    assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want, rtol=0, atol=2e-2)
+    want, want_f32 = (np.asarray(JaxDetection(dtype=dt).apply(variables, jnp.asarray(x),
+                                                              train=False))
+                      for dt in (jnp.bfloat16, jnp.float32))
+    got = {}
+    for dt in (BF16, torch.float32):
+        port = DetectionModel(dtype=dt).eval()
+        port.load_state_dict(detection_state_dict_from_jax(variables), strict=True)
+        with torch.no_grad():
+            got[dt] = port(nhwc_to_nchw(x))
+        assert got[dt].dtype == torch.float32
+    got_bf16, got_f32 = (got[dt].numpy().transpose(0, 2, 3, 1) for dt in (BF16, torch.float32))
+    np.testing.assert_allclose(got_bf16, want, rtol=0, atol=8e-3)
+    _assert_bf16_effect_matches(got_bf16, got_f32, want, want_f32, min_corr=0.2)
 
 
 @pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
