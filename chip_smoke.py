@@ -21,7 +21,10 @@ Phases (any failure exits non-zero, before the final line):
    variants at the same shapes against their bf16 plain versions: stage 1
    at least 99% equal and the rest within one bf16 ulp or 1e-5, ``ys``
    within 2e-2 and at least 95% equal; bounds take bf16 bytes and the
-   bf16 peak.
+   bf16 peak. The bf16 biGRU rows also give the rows per block, the
+   clusters launched and how many the card holds at once, and the device
+   time (``gru_bwd``'s by phase: ``coef``, ``chain``, ``dw_bf16``,
+   ``dw_sum``).
 4. Hold the full recognition forward (kernels) against the same model
    with the kernels' plain versions swapped in: log-probs at atol 1e-4,
    5e-2 for the bf16 model.
@@ -414,11 +417,13 @@ def check_gru_bf16(dev, gen) -> dict:
     kernel that exchanges the unrounded state reads 88%:
     tests/test_torch_cuda.py)."""
     from ocrs_models_torch.ops import gru_fwd, gru_recurrence_reference
+    from ocrs_models_torch.ops.gru import max_active_clusters
 
     hid = 256
     w_hh, b_hh = _gru_weights(gen, dev, hid)
     rows = []
     for t_len, n in ((201, REC_BATCH), (65, 256)):
+        clusters = max_active_clusters(n, hid, dtype=BF16)["gru_fwd"]
         px_f, px_b = (torch.randn((t_len, n, 3 * hid), generator=gen).to(dev).to(BF16)
                       for _ in range(2))
         with torch.inference_mode():
@@ -441,17 +446,22 @@ def check_gru_bf16(dev, gen) -> dict:
         n_bytes = 2 * (2 * t_len * n * 3 * hid + 2 * t_len * n * hid) + 4 * (2 * hid * 3 * hid
                                                                              + 2 * 3 * hid)
         bound_ms, bound_by = _bound(n_bytes, 2 * t_len * 2 * n * hid * 3 * hid, BF16_FLOPS_PER_S)
-        print(f"gru_fwd bf16 [T={t_len},N={n}]: {ms:.4f} ms, {1e3 * ms / t_len:.3f} us per step, "
-              f"{launches:g} device launches per call", flush=True)
+        device_ms = _device_ms(times, "gru_fwd")
+        print(f"gru_fwd bf16 [T={t_len},N={n}]: {ms:.4f} ms, device {_fmt(device_ms)} ms, "
+              f"{1e3 * ms / t_len:.3f} us per step, {launches:g} device launches per call, "
+              f"{clusters['rows_per_block']} rows per block, clusters {clusters['launched']} "
+              f"launched / {clusters['max_active']} max active", flush=True)
         rows.append({
             "name": "gru_fwd", "dtype": "bf16", "route": "cuda",
             "source": "ocrs_models_torch/csrc/gru_fwd.cu",
             "replaces": "ocrs_models_tpu/ops/pallas/gru_kernel4.py:139",
             "shape": f"px [{t_len},{n},{3 * hid}] x2 bf16, w_hh [2,{hid},{3 * hid}] f32",
             "max_abs_err": err, "equal_share": share, "ms": ms,
-            "device_ms": _device_ms(times, "gru_fwd_kernel"), "plain_ms": plain_ms,
+            "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "us_per_step": 1e3 * ms / t_len, "device_launches_per_call": launches,
+            "rows_per_block": clusters["rows_per_block"], "clusters": clusters["launched"],
+            "max_active_clusters": clusters["max_active"],
         })
     wide, head = rows
     return {**wide, "max_abs_err": max(wide["max_abs_err"], head["max_abs_err"]),
@@ -683,12 +693,14 @@ def check_gru_bwd_bf16(dev, gen) -> dict:
     largest entry (the bounds tests/test_torch_cuda.py gives its reasons
     for)."""
     from ocrs_models_torch.ops import gru_bwd, gru_bwd_reference, gru_fwd
+    from ocrs_models_torch.ops.gru import max_active_clusters
 
     hid = 256
     h3 = 3 * hid
     w_hh, b_hh = _gru_weights(gen, dev, hid)
     rows = []
     for t_len, n in ((257, 128), (65, 256)):
+        clusters = max_active_clusters(n, hid, dtype=BF16)["gru_bwd"]
         px_f, px_b = (torch.randn((t_len, n, h3), generator=gen).to(dev).to(BF16)
                       for _ in range(2))
         dy_f, dy_b = ((torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev).to(BF16)
@@ -717,10 +729,14 @@ def check_gru_bwd_bf16(dev, gen) -> dict:
         n_bytes = 2 * (2 * t_len * n * h3 * 2 + 2 * t_len * n * hid * 2) + 4 * (2 * 2 * hid * h3
                                                                                 + 2 * 2 * h3)
         bound_ms, bound_by = _bound(n_bytes, 2 * 3 * 2 * t_len * n * hid * h3, BF16_FLOPS_PER_S)
-        device_ms = _ms_sum(*(_device_ms(times, f"gru_bwd_{k}")
-                              for k in ("coef", "chain", "dw_kernel", "dw_sum")))
-        print(f"gru_bwd bf16 [T={t_len},N={n}]: {ms:.4f} ms, {1e3 * ms / t_len:.3f} us per step, "
-              f"{launches:g} device launches per call", flush=True)
+        phase_ms = {k: _device_ms(times, f"gru_bwd_{k}")
+                    for k in ("coef", "chain", "dw_bf16", "dw_sum")}
+        device_ms = _ms_sum(*phase_ms.values())
+        print(f"gru_bwd bf16 [T={t_len},N={n}]: {ms:.4f} ms, device {_fmt(device_ms)} ms ("
+              + ", ".join(f"{k} {_fmt(v)}" for k, v in phase_ms.items())
+              + f"), {1e3 * ms / t_len:.3f} us per step, {launches:g} device launches per call, "
+              f"{clusters['rows_per_block']} rows per block, clusters {clusters['launched']} "
+              f"launched / {clusters['max_active']} max active", flush=True)
         rows.append({
             "name": "gru_bwd", "dtype": "bf16", "route": "cuda",
             "source": "ocrs_models_torch/csrc/gru_bwd.cu",
@@ -730,7 +746,9 @@ def check_gru_bwd_bf16(dev, gen) -> dict:
             "max_abs_err_dw": err_dw, "equal_share": share, "ms": ms, "device_ms": device_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "us_per_step": 1e3 * ms / t_len,
-            "device_launches_per_call": launches,
+            "device_launches_per_call": launches, "phase_ms": phase_ms,
+            "rows_per_block": clusters["rows_per_block"], "clusters": clusters["launched"],
+            "max_active_clusters": clusters["max_active"],
         })
     wide, head = rows
     return {**wide, "max_abs_err": max(wide["max_abs_err"], head["max_abs_err"]),

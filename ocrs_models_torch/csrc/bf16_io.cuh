@@ -14,21 +14,7 @@ namespace io {
 
 typedef __nv_bfloat16 bf16;
 
-template <typename T>
-struct is_bf16 {
-    static constexpr bool value = false;
-};
-template <>
-struct is_bf16<bf16> {
-    static constexpr bool value = true;
-};
-
 __device__ __forceinline__ float widen(uint16_t bits) { return __uint_as_float((uint32_t)bits << 16); }
-
-// v rounded to the nearest bf16 value, as f32.
-__device__ __forceinline__ float round_bf16(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg(const bf16* p) {

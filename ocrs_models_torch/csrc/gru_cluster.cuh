@@ -1,17 +1,19 @@
 // What the two persistent biGRU kernels (gru_fwd.cu, gru_bwd.cu's chain)
-// share: the thread block cluster primitives, the cluster launch, and the
-// choice of batch rows per block.
+// share: the thread block cluster primitives, the bf16 tensor-core
+// fragments, the cluster launch, and the choice of batch rows per block.
 //
 // Both kernels run one cluster of ceil(H / 32) blocks per (tile of R batch
 // rows, direction). The card holds fewer clusters of 8 at once than its SM
 // count suggests: on an H100 SXM (132 SMs) cudaOccupancyMaxActiveClusters
 // reports 15, not 16, and a launch that needs more runs in rounds, each a
 // full pass over the T steps. So R is chosen per call from the batch size
-// and that report: N=128 takes R=20 (14 clusters, one round), not R=16 (16
+// and that report, with a cost model of each kernel family's own: the f32
+// kernels take R=20 at N=128 (14 clusters, one round), not R=16 (16
 // clusters, two rounds: twice the time, measured).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -19,8 +21,12 @@ namespace gru_cluster {
 
 constexpr int kBU = 32;                // hidden units per block
 constexpr int kMaxCluster = 8;         // portable cluster size
-constexpr int kRowChoices[] = {16, 20};
-constexpr int kNumChoices = 2;
+constexpr int kMaxChoices = 4;         // most row choices a family offers
+// Dynamic shared memory the bf16 kernels ask for at least: more than half
+// of an SM's 227 KB, so that two blocks never share an SM (a block whose
+// own needs are small would otherwise let the runtime stack clusters on
+// the same SMs, and the rounds that pick_rows counts would mean nothing).
+constexpr size_t kSoleBlockSmem = 120 * 1024;
 
 __device__ __forceinline__ uint32_t cluster_rank() {
     uint32_t r;
@@ -46,7 +52,7 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // The address `p` of this block's shared memory, in block `rank`'s.
-__device__ __forceinline__ uint32_t peer_address(const float* p, uint32_t rank) {
+__device__ __forceinline__ uint32_t peer_address(const void* p, uint32_t rank) {
     const uint32_t local = (uint32_t)__cvta_generic_to_shared(p);
     uint32_t remote;
     asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
@@ -63,16 +69,115 @@ __device__ __forceinline__ void st_peer_f2(const float* p, uint32_t rank, float 
                  :: "r"(peer_address(p, rank)), "f"(x), "f"(y) : "memory");
 }
 
-// A kernel templated on the batch rows per block R: its instance and its
-// dynamic shared memory for each of kRowChoices, its block size, and where
-// pick_rows keeps the runtime's reports for it (zero-initialised storage of
-// its own: kernels of one family may hold other numbers of clusters than
-// another's).
+// ---------------------------------------------------------------------
+// bf16 tensor-core fragments (mma.sync m16n8k16, f32 accumulation). With
+// gid = lane / 4 and tig = lane % 4 a thread holds, as pairs of bf16 in one
+// 32-bit register (the lower k or column in the lower half):
+//   A [16 x 16]: a0 (gid, 2tig..), a1 (gid+8, 2tig..), a2 (gid, 2tig+8..),
+//                a3 (gid+8, 2tig+8..)  (row, k);
+//   B [16 x 8]:  b0 (2tig.., gid), b1 (2tig+8.., gid)  (k, column);
+//   C [16 x 8]:  c0, c1 (gid, 2tig and 2tig+1), c2, c3 (gid+8, the same).
+
+// The bf16 values nearest to lo and hi as one register, lo in the lower half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float lo_bf16(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float hi_bf16(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; register i gets matrix i in the A/B layout
+// above (`trans`: each matrix transposed, for operands whose contraction
+// runs along memory rows).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a b, one warp.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------
+// mbarriers and bulk copies between the blocks of a cluster (the bf16
+// kernels' exchange): a block writes what a peer needs into its own shared
+// memory, one thread copies it with `cp.async.bulk` into the peer's, and
+// the copy's bytes complete a phase of the peer's mbarrier, on which the
+// peer waits. No cluster barrier in the step.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+
+// Makes the mbarrier inits visible to the cluster (a cluster barrier follows).
+__device__ __forceinline__ void fence_mbar_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// This thread's arrival on `bar`, which then also waits for `bytes` of copies.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of `bar` with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// Orders this thread's shared-memory writes before later bulk copies of them.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from `src` in this block's shared memory to
+// the address of `dst` in block `rank`'s, completing on that block's
+// mbarrier at the address of `bar`.
+__device__ __forceinline__ void bulk_to_peer(const void* dst, const void* src, uint32_t bytes,
+                                             const uint64_t* bar, uint32_t rank) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        :: "r"(peer_address(dst, rank)), "r"(smem_u32(src)), "r"(bytes),
+           "r"(peer_address(bar, rank))
+        : "memory");
+}
+
+// A kernel templated on the batch rows per block R: its instance, dynamic
+// shared memory and block size for each of its row choices, the choices,
+// the fixed cost of a step in rows for pick_rows, and where pick_rows
+// keeps the runtime's reports for it (zero-initialised storage of its own:
+// kernels of one family may hold other numbers of clusters than another's).
 struct Family {
     const void* (*kernel)(int rows);
     size_t (*smem)(int rows, int n_tiles);
-    int threads;
-    int (*reported)[kMaxCluster + 1];  // [kNumChoices][kMaxCluster + 1]
+    int (*threads)(int rows);
+    const int* row_choices;
+    int n_choices;
+    int step_cost;
+    int (*reported)[kMaxCluster + 1];  // [kMaxChoices][kMaxCluster + 1]
 };
 
 inline bool shape_ok(int N, int H) {
@@ -92,7 +197,7 @@ inline cudaError_t configure(const Family& f, int rows, int N, int H, cudaLaunch
     if (err != cudaSuccess) return err;
     *cfg = cudaLaunchConfig_t{};
     cfg->gridDim = dim3(n_tiles, (N + rows - 1) / rows, 2);
-    cfg->blockDim = dim3(f.threads, 1, 1);
+    cfg->blockDim = dim3(f.threads(rows), 1, 1);
     cfg->dynamicSmemBytes = smem;
     attr->id = cudaLaunchAttributeClusterDimension;
     attr->val.clusterDim.x = n_tiles;
@@ -103,18 +208,24 @@ inline cudaError_t configure(const Family& f, int rows, int N, int H, cudaLaunch
     return cudaSuccess;
 }
 
+inline bool offers(const Family& f, int rows) {
+    for (int c = 0; c < f.n_choices; ++c)
+        if (f.row_choices[c] == rows) return true;
+    return false;
+}
+
 // Rows per block for batch N: the choice with the least rounds * (fixed
-// cost of a step + rows), where a step's fixed cost (barriers, gate math,
-// exchange) weighs about as much as 14 rows of products (measured). The
-// answer depends on the shape and the card only. *max_active gets the
-// runtime's report for the chosen launch.
+// cost of a step + rows), where the fixed cost of a step (barriers, gate
+// math, exchange) is the family's `step_cost`, in rows of products
+// (measured for each family). The answer depends on the shape and the card
+// only. *max_active gets the runtime's report for the chosen launch.
 inline cudaError_t pick_rows(const Family& f, int N, int H, int* rows, int* max_active) {
     int (*reported)[kMaxCluster + 1] = f.reported;
     if (!shape_ok(N, H)) return cudaErrorInvalidValue;
     const int n_tiles = (H + kBU - 1) / kBU;
     long best = -1;
-    for (int c = 0; c < kNumChoices; ++c) {
-        const int r = kRowChoices[c];
+    for (int c = 0; c < f.n_choices; ++c) {
+        const int r = f.row_choices[c];
         if (reported[c][n_tiles] == 0) {
             cudaLaunchConfig_t cfg;
             cudaLaunchAttribute attr;
@@ -127,7 +238,7 @@ inline cudaError_t pick_rows(const Family& f, int N, int H, int* rows, int* max_
         }
         const int cap = reported[c][n_tiles];
         const int clusters = 2 * ((N + r - 1) / r);
-        const long cost = (long)((clusters + cap - 1) / cap) * (14 + r);
+        const long cost = (long)((clusters + cap - 1) / cap) * (f.step_cost + r);
         if (best < 0 || cost < best) {
             best = cost;
             *rows = r;

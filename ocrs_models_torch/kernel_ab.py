@@ -1,0 +1,400 @@
+"""Time builds of one kernel source against each other in one process.
+
+    python -m ocrs_models_torch.kernel_ab [--kernel ctc_alpha|gru_fwd_bf16|gru_bwd_bf16]
+        [--source NAME=PATH ...] [--rounds 2] [--cold]
+
+Each ``--source`` is a version of the kernel's source (``csrc/ctc_alpha.cu``,
+or ``csrc/gru_fwd.cu`` / ``csrc/gru_bwd.cu`` for the bf16 biGRU entries;
+the current one, named ``new``, when none is given; another commit's copy
+for an A/B, with the headers it includes beside it). Each is compiled by
+``nvcc`` with the flags of ``ops/_build.py`` into ``build/ab/``, loaded with
+``ctypes`` and called through its C entry. At every case the sources run in
+turns, forward then backward (A B, B A) for ``--rounds`` rounds, and the
+script prints one JSON line per case with each source's device time per
+call (``torch.profiler``: the kernel alone, and for ``gru_bwd_bf16`` also by
+phase: ``coef``, ``chain``, ``dw``, ``dw_sum``), its events time over a loop
+of calls, whether its outputs equal the first source's bit for bit, and
+how far they are from the plain version's.
+
+``ctc_alpha`` (its C entry ``ocrs_ctc_alpha``; a source that exports
+``ocrs_ctc_alpha_probe`` also gets its chain alone, ``chain_ms``), cases
+(N, T, S): the five of ``chip_smoke.py`` phase 7 (``ragged``, ``headline``,
+``headline_padded``, ``wide``, ``wide_padded``), and more that take them
+apart: ``wide_padded`` operands with ``ragged`` lengths and the reverse,
+``wide_padded`` at N=120, 112, 96, 16 and 1 (a call's 34 MB of emissions
+and states shrunk step by step), and ``headline_padded`` at N=128 (one
+block on an SM, where N=256 puts two on most).
+
+``gru_fwd_bf16`` and ``gru_bwd_bf16`` (C entries ``ocrs_gru_fwd_bf16`` and
+``ocrs_gru_bwd_bf16``; the backward's two scratch layouts, the parent's f32
+``dph`` and the current bf16 ``dhn`` with per-tile ``db`` partials, both fit
+the buffers given), cases (T, N) at H=256: the smoke's two shapes each
+(forward 201 x 128 and 65 x 256, backward 257 x 128 and 65 x 256), and the
+trainer's batches 20 and 12 at T=129. A source that exports
+``ocrs_gru_{fwd,bwd}_bf16_rows`` is also timed at each of its row choices
+(``rows_ms``), with the rows it picks by itself in ``rows``.
+
+``--cold`` writes a 256 MB buffer before each call so that no input is
+left in the 50 MB L2 cache. Needs CUDA and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .ops import _build
+from .ops.ctc import ctc_alpha_reference, ctc_operands
+from .ops.gru import DW_SPLITS, MIN_ROWS, gru_bwd_phases_reference, gru_recurrence_reference
+from .profile_kernels import device_records
+
+AB_DIR = _build.BUILD_DIR.parent / "ab"
+SEED = 1234
+GRU_ROWS = (16, 32, 48, 64)
+P, I = ctypes.c_void_p, ctypes.c_int
+
+
+def _load(kernel: str, name: str, src: Path) -> ctypes.CDLL:
+    AB_DIR.mkdir(parents=True, exist_ok=True)
+    lib = AB_DIR / f"lib{kernel}_{name}.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC_DIR}", "-o", str(lib), str(src)]
+    subprocess.run(cmd, check=True, capture_output=True, timeout=_build.BUILD_TIMEOUT_S)
+    dll = ctypes.CDLL(str(lib))
+    dll.ocrs_error_string.argtypes = [I]
+    dll.ocrs_error_string.restype = ctypes.c_char_p
+    SPECS[kernel]["bind"](dll)
+    return dll
+
+
+def _bind(fn, argtypes) -> None:
+    fn.argtypes = argtypes
+    fn.restype = I
+
+
+# ------------------------------------------------------------------ ctc_alpha
+
+def _bind_ctc(dll) -> None:
+    _bind(dll.ocrs_ctc_alpha, [I, P, P, P, P, P, I, I, I, I, P])
+    if hasattr(dll, "ocrs_ctc_alpha_probe"):
+        _bind(dll.ocrs_ctc_alpha_probe, [I, I, I, P, P])
+
+
+def _ctc_operands(dev, gen, n, t_len, label_width, label_len, input_len, repeats=False):
+    """``(emit, skip, alpha0, lens)`` of random log-probs over 97 classes
+    and labels of the given lengths in arrays ``label_width`` wide."""
+    rng = np.random.default_rng(SEED)
+    labels = np.zeros((n, label_width), np.int64)
+    for i, ll in enumerate(label_len):
+        labels[i, :ll] = rng.integers(1, 97, ll)
+    if repeats:
+        labels[1, :6] = [5, 5, 5, 7, 7, 9]
+    log_probs = torch.log_softmax(torch.randn((n, t_len, 97), generator=gen), -1).to(dev)
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(dev)  # noqa: E731
+    return ctc_operands(log_probs, as_t(labels), as_t(input_len), as_t(label_len))
+
+
+def _ctc_cases(dev) -> dict:
+    gen = torch.Generator().manual_seed(SEED)
+    n, t_len = 128, 257
+    rng = np.random.default_rng(SEED)
+    label_len = rng.integers(6, 49, n)
+    label_len[0], label_len[2] = 0, 40  # an empty label, and one that cannot fit
+    input_len = rng.integers(160, t_len, n)
+    input_len[2] = 20
+    out = {"ragged": _ctc_operands(dev, gen, n, t_len, 64, label_len, input_len, repeats=True)}
+    for what, n_b, width, chars in (("headline", 256, 256, 24), ("wide", 128, 1024, 48)):
+        for label_width, key in ((chars, what), (64, f"{what}_padded")):
+            out[key] = _ctc_operands(dev, gen, n_b, width // 4 + 1, label_width,
+                                     np.full(n_b, chars), np.full(n_b, width // 4))
+    ragged, padded = out["ragged"], out["wide_padded"]
+    out["wide_padded_data+ragged_lens"] = (*padded[:3], ragged[3])
+    out["ragged_data+full_lens"] = (*ragged[:3], padded[3])
+    for n_small in (120, 112, 96, 16, 1):
+        out[f"wide_padded_n{n_small}"] = tuple(t[:n_small].contiguous() for t in padded)
+    out["headline_padded_n128"] = tuple(t[:128].contiguous() for t in out["headline_padded"])
+    return out
+
+
+def _ctc_outputs(ops) -> dict:
+    return {"alpha": torch.empty(ops[0].shape, device=ops[0].device)}
+
+
+def _ctc_call(dll, ops, out, rows=0) -> None:
+    emit, skip, alpha0, lens = ops
+    n, t_len, s = emit.shape
+    ptrs = (_build.ptr(t) for t in (emit, skip, alpha0, lens, out["alpha"]))
+    rc = dll.ocrs_ctc_alpha(emit.device.index, *ptrs, n, t_len, s, 0, _build.stream_ptr(emit.device))
+    _build.check(dll, rc, "ctc_alpha")
+
+
+def _ctc_compare(ops, out) -> dict:
+    return {"max_abs_err": (out["alpha"] - ctc_alpha_reference(*ops)).abs().max().item()}
+
+
+def _ctc_extra(dll, ops, line, k) -> None:
+    """The chain alone, of the longest sample."""
+    line["max_len"] = int(ops[3].clamp(1, ops[0].shape[1]).max())
+    if hasattr(dll, "ocrs_ctc_alpha_probe"):
+        dev = ops[0].device
+        probe = torch.zeros(3, device=dev, dtype=torch.int64)
+        rc = dll.ocrs_ctc_alpha_probe(dev.index, line["max_len"], ops[0].shape[2],
+                                      _build.ptr(probe), _build.stream_ptr(dev))
+        _build.check(dll, rc, "ctc_alpha_probe")
+        cycles, ns, _ = probe.tolist()
+        line.setdefault("chain_ms", {})[k] = ns / 1e6
+        line.setdefault("chain_cycles_per_step", {})[k] = cycles / max(line["max_len"] - 1, 1)
+
+
+# ------------------------------------------------------------------ biGRU, bf16
+
+def _bind_gru_fwd(dll) -> None:
+    _bind(dll.ocrs_gru_fwd_bf16, [I, P, P, P, P, P, P, I, I, I, P])
+    _bind(dll.ocrs_gru_fwd_bf16_max_clusters, [I, I, I, ctypes.POINTER(I)])
+    if hasattr(dll, "ocrs_gru_fwd_bf16_rows"):
+        _bind(dll.ocrs_gru_fwd_bf16_rows, [I, P, P, P, P, P, P, I, I, I, I, P])
+
+
+def _bind_gru_bwd(dll) -> None:
+    _bind(dll.ocrs_gru_bwd_bf16, [I] + [P] * 16 + [I, I, I, I, P])
+    _bind(dll.ocrs_gru_bwd_bf16_max_clusters, [I, I, I, ctypes.POINTER(I)])
+    if hasattr(dll, "ocrs_gru_bwd_bf16_rows"):
+        _bind(dll.ocrs_gru_bwd_bf16_rows, [I] + [P] * 16 + [I, I, I, I, I, P])
+
+
+def _gru_case(dev, gen, t_len, n, hid=256) -> tuple:
+    """bf16 ``px_f, px_b, ys_f, ys_b, dy_f, dy_b`` and f32 ``w_hh`` (bf16
+    values) and ``b_hh``; ``ys`` from the plain forward."""
+    k = 1.0 / hid**0.5
+    bf = torch.bfloat16
+    px = [torch.randn((t_len, n, 3 * hid), generator=gen).to(dev, bf) for _ in range(2)]
+    w_hh = ((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
+    w_hh = _build.rounded(w_hh, bf).contiguous()
+    b_hh = ((torch.rand((2, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
+    dy = [(torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev, bf) for _ in range(2)]
+    ys = gru_recurrence_reference(*px, w_hh, b_hh)
+    return (*px, *ys, *dy, w_hh, b_hh)
+
+
+def _gru_cases(shapes):
+    def cases(dev) -> dict:
+        gen = torch.Generator().manual_seed(SEED)
+        return {f"T{t}_N{n}": _gru_case(dev, gen, t, n) for t, n in shapes}
+    return cases
+
+
+def _gru_fwd_outputs(ops) -> dict:
+    return {"ys_f": torch.empty_like(ops[2]), "ys_b": torch.empty_like(ops[3])}
+
+
+def _gru_fwd_call(dll, ops, out, rows=0) -> None:
+    px_f, px_b, _, _, _, _, w_hh, b_hh = ops
+    t_len, n, h3 = px_f.shape
+    ptrs = [_build.ptr(t) for t in (px_f, px_b, w_hh, b_hh, out["ys_f"], out["ys_b"])]
+    stream = _build.stream_ptr(px_f.device)
+    if rows:
+        rc = dll.ocrs_gru_fwd_bf16_rows(px_f.device.index, *ptrs, t_len, n, h3 // 3, rows, stream)
+    else:
+        rc = dll.ocrs_gru_fwd_bf16(px_f.device.index, *ptrs, t_len, n, h3 // 3, stream)
+    _build.check(dll, rc, "gru_fwd_bf16")
+
+
+def _gru_fwd_compare(ops, out) -> dict:
+    want = gru_recurrence_reference(ops[0], ops[1], ops[6], ops[7])
+    got = (out["ys_f"], out["ys_b"])
+    return _bf16_errs(got, want)
+
+
+def _bf16_errs(got, want) -> dict:
+    return {"max_abs_err": max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want)),
+            "equal_share": sum(int((a == b).sum()) for a, b in zip(got, want))
+            / sum(a.numel() for a in got)}
+
+
+def _splits(t_len: int, n: int) -> int:
+    return max(1, min(DW_SPLITS, t_len * n // 512))  # as ops.gru.gru_bwd
+
+
+def _gru_bwd_outputs(ops) -> dict:
+    px_f, _, _, _, _, _, w_hh, b_hh = ops
+    t_len, n, h3 = px_f.shape
+    hid, dev, f32 = h3 // 3, px_f.device, torch.float32
+    splits = _splits(t_len, n)
+    return {
+        "dpx_f": torch.empty_like(px_f), "dpx_b": torch.empty_like(px_f),
+        "coef": torch.empty((2, t_len * n, 5, hid), device=dev, dtype=f32),
+        # The parent's f32 dph [2, T*N, 3H], or the current bf16 dhn [2, T*N, H].
+        "dph": torch.empty((2, t_len * n, h3), device=dev, dtype=f32),
+        "dwp": torch.empty((splits, 2, hid, h3), device=dev, dtype=f32),
+        "dbp": torch.empty((max(splits, -(-n // MIN_ROWS)), 2, h3), device=dev, dtype=f32),
+        "dw": torch.empty_like(w_hh), "db": torch.empty_like(b_hh),
+    }
+
+
+def _gru_bwd_call(dll, ops, out, rows=0) -> None:
+    px_f = ops[0]
+    t_len, n, h3 = px_f.shape
+    keys = ("dpx_f", "dpx_b", "coef", "dph", "dwp", "dbp", "dw", "db")
+    ptrs = [_build.ptr(t) for t in ops] + [_build.ptr(out[k]) for k in keys]
+    dims = (_splits(t_len, n), t_len, n, h3 // 3)
+    stream = _build.stream_ptr(px_f.device)
+    if rows:
+        rc = dll.ocrs_gru_bwd_bf16_rows(px_f.device.index, *ptrs, *dims, rows, stream)
+    else:
+        rc = dll.ocrs_gru_bwd_bf16(px_f.device.index, *ptrs, *dims, stream)
+    _build.check(dll, rc, "gru_bwd_bf16")
+
+
+def _gru_bwd_compare(ops, out) -> dict:
+    want = gru_bwd_phases_reference(*ops)
+    errs = _bf16_errs((out["dpx_f"], out["dpx_b"]), want[:2])
+    scale = max(t.abs().max().item() for t in want[2:])
+    errs["dw_db_err_of_max"] = max((out[k] - w).abs().max().item()
+                                   for k, w in zip(("dw", "db"), want[2:])) / scale
+    return errs
+
+
+def _gru_extra(kernel: str):
+    def extra(dll, ops, line, k) -> None:
+        rows = ctypes.c_int(0)
+        n, hid = ops[0].shape[1], ops[0].shape[2] // 3
+        cap = getattr(dll, f"ocrs_{kernel}_max_clusters")(ops[0].device.index, n, hid,
+                                                          ctypes.byref(rows))
+        line.setdefault("rows", {})[k] = {"rows": rows.value, "launched": 2 * -(-n // rows.value),
+                                          "max_active": cap}
+    return extra
+
+
+def _gru_bwd_phase(name: str) -> str:
+    for part in ("dw_sum", "coef", "chain"):
+        if part in name:
+            return part
+    return "dw"
+
+
+SPECS = {
+    "ctc_alpha": {"source": "ctc_alpha.cu", "bind": _bind_ctc, "cases": _ctc_cases,
+                  "outputs": _ctc_outputs, "call": _ctc_call, "compare": _ctc_compare,
+                  "extra": _ctc_extra, "match": "ctc_alpha", "phase": None, "rows_entry": None},
+    "gru_fwd_bf16": {"source": "gru_fwd.cu", "bind": _bind_gru_fwd,
+                     "cases": _gru_cases(((201, 128), (65, 256), (129, 20), (129, 12))),
+                     "outputs": _gru_fwd_outputs, "call": _gru_fwd_call,
+                     "compare": _gru_fwd_compare, "extra": _gru_extra("gru_fwd_bf16"),
+                     "match": "gru_fwd", "phase": None, "rows_entry": "ocrs_gru_fwd_bf16_rows"},
+    "gru_bwd_bf16": {"source": "gru_bwd.cu", "bind": _bind_gru_bwd,
+                     "cases": _gru_cases(((257, 128), (65, 256), (129, 20), (129, 12))),
+                     "outputs": _gru_bwd_outputs, "call": _gru_bwd_call,
+                     "compare": _gru_bwd_compare, "extra": _gru_extra("gru_bwd_bf16"),
+                     "match": "gru_bwd", "phase": _gru_bwd_phase,
+                     "rows_entry": "ocrs_gru_bwd_bf16_rows"},
+}
+
+
+def _device_ms(fn, before, match: str, phase=None, calls: int = 5) -> tuple[float, dict]:
+    """The profiler's device time of one call of the kernel, all its
+    launches (the mean over the records each launch name delivered; a
+    window with none is profiled again, up to three times), and by phase
+    name; ``before()`` runs ahead of each call."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                before()
+                fn()
+            torch.cuda.synchronize()
+        found = {name: sum(v) / len(v) for name, v in device_records(prof).items() if match in name}
+        if found:
+            break
+    phases: dict[str, float] = {}
+    if phase is not None:
+        for name, ms in found.items():
+            phases[phase(name)] = phases.get(phase(name), 0.0) + ms
+    return sum(found.values()), phases
+
+
+def _events_ms(fn, before, iters: int = 20) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        before()
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _equal(a: dict, b: dict) -> bool:
+    # The backward's scratch differs between its layouts; its outputs must not.
+    keys = [k for k in a if k not in ("coef", "dph", "dwp", "dbp")]
+    return all(torch.equal(a[k], b[k]) for k in keys)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--kernel", choices=sorted(SPECS), default="ctc_alpha")
+    ap.add_argument("--source", action="append", default=[],
+                    help="NAME=PATH of a version of the kernel's source to build (repeatable)")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--cold", action="store_true", help="flush the L2 cache before each call")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA device")
+    spec = SPECS[args.kernel]
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    current = str(_build.CSRC_DIR / spec["source"])
+    specs = [s.split("=", 1) for s in args.source] or [["new", current]]
+    libs = {name: _load(args.kernel, name, Path(path)) for name, path in specs}
+    names = list(libs)
+    order = [*names, *reversed(names)] * args.rounds
+    scratch = torch.empty(64 << 20, device=dev)  # 256 MB, five times the L2 cache
+    before = (lambda: scratch.fill_(1.0)) if args.cold else (lambda: None)
+    timed = lambda fn: (*_device_ms(fn, before, spec["match"], spec["phase"]),  # noqa: E731
+                        _events_ms(fn, before))
+    for case, ops in spec["cases"](dev).items():
+        outs = {k: spec["outputs"](ops) for k in names}
+        for k in names:
+            spec["call"](libs[k], ops, outs[k])
+        torch.cuda.synchronize()
+        line = {"kernel": args.kernel, "case": case, "shape": list(ops[0].shape),
+                "cold": args.cold, "equal_first": {k: _equal(outs[k], outs[names[0]]) for k in names},
+                "check": {k: spec["compare"](ops, outs[k]) for k in names},
+                "device_ms": {k: [] for k in names}, "events_ms": {k: [] for k in names}}
+        for k in order:
+            device_ms, phases, events_ms = timed(lambda k=k: spec["call"](libs[k], ops, outs[k]))
+            line["device_ms"][k].append(device_ms)
+            line["events_ms"][k].append(events_ms)
+            if phases:
+                line.setdefault("phase_ms", {k: [] for k in names})[k].append(phases)
+        for k in names:
+            spec["extra"](libs[k], ops, line, k)
+            if spec["rows_entry"] and hasattr(libs[k], spec["rows_entry"]):
+                line.setdefault("rows_ms", {})[k] = {
+                    r: timed(lambda r=r: spec["call"](libs[k], ops, outs[k], rows=r))[0]
+                    for r in GRU_ROWS if _offers(spec, libs[k], ops, outs[k], r)}
+        print(json.dumps(line), flush=True)
+
+
+def _offers(spec, dll, ops, out, rows: int) -> bool:
+    """Whether the source takes ``rows`` rows per block (it refuses a
+    choice it does not offer with an invalid-argument error)."""
+    try:
+        spec["call"](dll, ops, out, rows=rows)
+    except RuntimeError:
+        return False
+    return True
+
+
+if __name__ == "__main__":
+    main()

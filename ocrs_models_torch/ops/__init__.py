@@ -13,8 +13,10 @@ from .ctc import (
 from .gru import (
     BiGRU,
     gru_bwd,
+    gru_bwd_chain_bf16_reference,
     gru_bwd_chain_reference,
     gru_bwd_coefficients_reference,
+    gru_bwd_dw_bf16_reference,
     gru_bwd_dw_reference,
     gru_bwd_phases_reference,
     gru_bwd_reference,
@@ -37,7 +39,8 @@ KERNELS = (stage1_fwd, stage1_bwd, gru_fwd, gru_bwd, ctc_alpha, ctc_beta)
 __all__ = [
     "BiGRU", "DTYPES", "KERNELS", "ctc_alpha", "ctc_alpha_chain_probe", "ctc_alpha_reference", "ctc_beta",
     "ctc_beta_chain_probe", "ctc_beta_reference", "ctc_loss", "ctc_loss_forward", "ctc_operands",
-    "gru_bwd", "gru_bwd_chain_reference", "gru_bwd_coefficients_reference", "gru_bwd_dw_reference",
+    "gru_bwd", "gru_bwd_chain_bf16_reference", "gru_bwd_chain_reference",
+    "gru_bwd_coefficients_reference", "gru_bwd_dw_bf16_reference", "gru_bwd_dw_reference",
     "gru_bwd_phases_reference", "gru_bwd_reference", "gru_fwd", "gru_recurrence",
     "gru_recurrence_reference", "stage1", "stage1_bwd", "stage1_bwd_grid", "stage1_bwd_reference",
     "stage1_fwd", "stage1_reference",

@@ -10,12 +10,15 @@ recurrence; only ``h @ W_hh`` and the gate math run step by step, in
 Both kernels keep their slice of ``W_hh`` in registers for all steps and
 loop over time inside one launch; the blocks that share a batch tile form
 a thread block cluster and exchange the state through each other's shared
-memory. On CPU tensors both wrappers run their plain versions
-(:func:`gru_recurrence_reference`, a Python loop of torch ops, and
-autograd of it). The backward kernel's three phases have plain versions
-of their own (:func:`gru_bwd_coefficients_reference`,
-:func:`gru_bwd_chain_reference`, :func:`gru_bwd_dw_reference`), composed
-by :func:`gru_bwd_phases_reference`. Gate order and parameter names follow torch's
+memory. In bf16 their products run on the tensor cores. On CPU tensors
+both wrappers run their plain versions (:func:`gru_recurrence_reference`,
+a Python loop of torch ops, and autograd of it). The backward kernel's
+three phases have plain versions of their own
+(:func:`gru_bwd_coefficients_reference`, :func:`gru_bwd_chain_reference`,
+:func:`gru_bwd_dw_reference`; in bf16 the chain hands ``dw`` only
+``bf16(dhn)`` and sums ``db`` itself, :func:`gru_bwd_chain_bf16_reference`
+and :func:`gru_bwd_dw_bf16_reference`), composed by
+:func:`gru_bwd_phases_reference`. Gate order and parameter names follow torch's
 ``nn.GRU`` (r, z, n; ``n = tanh(xn + r * (W_hn h + b_hn))``), so its
 state dict loads into :class:`BiGRU` and back.
 
@@ -28,6 +31,8 @@ Backward: ``h_prev`` is read back from the bf16 ``ys``, ``dy`` is bf16,
 ``dh`` takes ``bf16(dph) @ bf16(W_hh)^T``, ``dW_hh`` sums ``h_prev^T
 bf16(dph)`` in f32, ``db_hh`` the unrounded ``dph``, and ``dpx`` is
 rounded to bf16. ``W_hh``, ``b_hh`` and their gradients stay float32.
+Since ``dpx = bf16([da_r, da_z, da_c])`` and ``dph = [da_r, da_z, dhn]``,
+``bf16(dph)`` is ``dpx``'s first ``2H`` columns beside ``bf16(dhn)``.
 """
 
 from __future__ import annotations
@@ -229,6 +234,25 @@ def gru_bwd_chain_reference(coef, dy_f, dy_b, w_hh):
     return dpx_f, dpx_b, dph
 
 
+def gru_bwd_chain_bf16_reference(coef, dy_f, dy_b, w_hh):
+    """The chain as the bf16 kernel splits it: :func:`gru_bwd_chain_reference`
+    (bf16 ``dy``), but what it hands on is ``bf16(dhn)``, ``[2, T, N, H]``,
+    and ``db_hh = sum dph`` over all steps and rows, summed before any
+    rounding. Returns ``(dpx_f, dpx_b, dhn, db_hh [2, 3H] float32)``."""
+    dpx_f, dpx_b, dph = gru_bwd_chain_reference(coef, dy_f, dy_b, w_hh)
+    hid = dy_f.shape[-1]
+    return dpx_f, dpx_b, dph[..., 2 * hid:].to(torch.bfloat16), dph.sum(dim=(1, 2))
+
+
+def gru_bwd_dw_bf16_reference(ys_f, ys_b, dpx_f, dpx_b, dhn):
+    """``dW_hh = h_prev^T bf16(dph)`` from what the bf16 chain hands on:
+    ``bf16(dph)`` is ``[dpx[..., :2H], dhn]``. Returns ``dw_hh [2, H, 3H]``
+    float32."""
+    hid = ys_f.shape[-1]
+    d = torch.cat([torch.stack([dpx_f, dpx_b])[..., : 2 * hid], dhn], dim=-1).float()
+    return torch.einsum("dtnk,dtnj->dkj", _h_prev(ys_f, ys_b), d)
+
+
 def gru_bwd_dw_reference(ys_f, ys_b, dph):
     """Plain version of the backward kernel's third phase: ``dW_hh =
     h_prev^T dph`` (for bf16 ``ys``, ``h_prev^T bf16(dph)``) and ``db_hh =
@@ -243,6 +267,9 @@ def gru_bwd_phases_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
     torch ops; same contract as :func:`gru_bwd_reference` (and it reads
     the saved ``ys_f``, ``ys_b``, as the kernel does)."""
     coef = gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh)
+    if px_f.dtype == torch.bfloat16:
+        dpx_f, dpx_b, dhn, db = gru_bwd_chain_bf16_reference(coef, dy_f, dy_b, w_hh)
+        return dpx_f, dpx_b, gru_bwd_dw_bf16_reference(ys_f, ys_b, dpx_f, dpx_b, dhn), db
     dpx_f, dpx_b, dph = gru_bwd_chain_reference(coef, dy_f, dy_b, w_hh)
     dw, db = gru_bwd_dw_reference(ys_f, ys_b, dph)
     return dpx_f, dpx_b, dw, db
@@ -286,17 +313,21 @@ def max_active_clusters(n: int, hid: int, device: int = 0,
 DW_SPLITS = 8
 """Most ranges of rows in the dW reduction; each range needs a partial
 ``[2, H, 3H]``."""
+MIN_ROWS = 16
+"""Fewest batch rows per block the bf16 chain picks: it writes one ``db``
+partial per batch tile."""
 
 
-def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
+def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out: dict | None = None):
     """Backward kernel of one bidirectional layer's recurrence; same
     contract as :func:`gru_bwd_reference`. A CUDA tensor goes through
     ``gru_bwd.cu``'s kernels of its dtype (one ctypes call, four launches
     whatever ``T`` is: the coefficients, the chain, the weight-gradient
     partials, their sum; for bf16 also the rounding of ``W_hh`` to bf16
-    values, and the chain hands the unrounded ``dph`` to the weight
-    gradient through scratch of its own); a CPU tensor through the plain
-    version."""
+    values, and the chain hands the weight gradient ``bf16(dhn)`` through
+    scratch of its own and sums ``db`` itself); a CPU tensor through the
+    plain version. A dict ``scratch_out`` gets the bf16 chain's ``dhn``
+    (``[2, T, N, H]``), for tests of that phase."""
     if px_f.device.type == "cpu":
         return gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
     if not px_f.is_cuda:
@@ -314,19 +345,23 @@ def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
     dpx_b = torch.empty_like(px_b)
     coef = torch.empty((2, t_len * n, 5, hid), device=dev, dtype=torch.float32)
     dwp = torch.empty((splits, 2, hid, h3), device=dev, dtype=torch.float32)
-    dbp = torch.empty((splits, 2, h3), device=dev, dtype=torch.float32)
+    # db partials: per dW split (f32), per batch tile of the chain (bf16).
+    parts = max(splits, -(-n // MIN_ROWS)) if bf16 else splits
+    dbp = torch.empty((parts, 2, h3), device=dev, dtype=torch.float32)
     dw = torch.empty_like(w_hh)
     db = torch.empty_like(b_hh)
     lib = _bwd_lib()
     p = _build.ptr
     if bf16:
-        dph = torch.empty((2, t_len * n, h3), device=dev, dtype=torch.float32)
+        dhn = torch.empty((2, t_len, n, hid), device=dev, dtype=torch.bfloat16)
         rc = lib.ocrs_gru_bwd_bf16(
             dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(dy_f), p(dy_b),
             p(_build.rounded(w_hh, px_f.dtype).contiguous()), p(b_hh), p(dpx_f), p(dpx_b),
-            p(coef), p(dph), p(dwp), p(dbp), p(dw), p(db), splits, t_len, n, hid,
+            p(coef), p(dhn), p(dwp), p(dbp), p(dw), p(db), splits, t_len, n, hid,
             _build.stream_ptr(dev),
         )
+        if scratch_out is not None:
+            scratch_out["dhn"] = dhn
     else:
         rc = lib.ocrs_gru_bwd(
             dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(dy_f), p(dy_b), p(w_hh), p(b_hh),

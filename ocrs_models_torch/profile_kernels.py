@@ -74,9 +74,12 @@ def device_launches(prof) -> int:
     return sum(1 for e in prof.events() if e.name in _LAUNCH_CALLS)
 
 
-# Name parts of the hand-written kernels (``csrc/*.cu``), by phase.
+# Name parts of the hand-written kernels (``csrc/*.cu``), by phase; a
+# kernel counts under the first part its name holds (``gru_bwd_dw_sum``
+# before ``gru_bwd_dw``, which is ``gru_bwd_dw_kernel`` in f32 and
+# ``gru_bwd_dw_bf16_kernel`` in bf16).
 OWN_KERNELS = ("stage1_fwd", "stage1_bwd_partial", "stage1_bwd_finish", "gru_fwd", "gru_bwd_coef",
-               "gru_bwd_chain", "gru_bwd_dw", "ctc_alpha", "ctc_beta")
+               "gru_bwd_chain", "gru_bwd_dw_sum", "gru_bwd_dw", "ctc_alpha", "ctc_beta")
 _WRAPPER = re.compile(r"\b(" + "|".join(k.__name__ for k in KERNELS) + r")_")
 
 

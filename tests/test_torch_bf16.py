@@ -63,6 +63,11 @@ from ocrs_models_torch.data.resize import resize
 from ocrs_models_torch.models import DetectionModel, RecognitionModel
 from ocrs_models_torch.ops import (
     BiGRU,
+    gru_bwd_chain_bf16_reference,
+    gru_bwd_chain_reference,
+    gru_bwd_coefficients_reference,
+    gru_bwd_dw_bf16_reference,
+    gru_bwd_dw_reference,
     gru_bwd_phases_reference,
     gru_bwd_reference,
     gru_recurrence,
@@ -232,6 +237,75 @@ def test_gru_matches_pallas_bf16(t):
     np.testing.assert_allclose(_np(got[1]), dpb, rtol=0, atol=2e-2)
     np.testing.assert_allclose(_np(got[2]), dw, rtol=0, atol=1e-4 * np.abs(dw).max())
     np.testing.assert_allclose(_np(got[3]), db, rtol=0, atol=1e-4 * np.abs(db).max())
+
+
+def _bf16_chain_case(t, seed):
+    """The bf16 operands of ``_gru_case`` on both sides, the port's ``ys``,
+    the plain chain's ``(dpx_f, dpx_b, dph)`` and the Pallas VJP's grads."""
+    px_f, px_b, w, b, dy = _gru_case(t, seed=seed)
+    _, jax_grads = _jax_gru_bf16(px_f, px_b, w, b, dy)
+    pf, pb = (torch.from_numpy(_jnp32(jnp.asarray(p, jnp.bfloat16))).to(BF16) for p in (px_f, px_b))
+    dyt = [torch.from_numpy(_jnp32(jnp.asarray(d, jnp.bfloat16))).to(BF16) for d in dy]
+    wt, bt = torch.from_numpy(w), torch.from_numpy(b)
+    ys = gru_recurrence_reference(pf, pb, wt, bt)
+    coef = gru_bwd_coefficients_reference(pf, pb, *ys, wt, bt)
+    return (pf, pb, dyt, wt, bt, ys, coef), gru_bwd_chain_reference(coef, *dyt, wt), jax_grads
+
+
+@pytest.mark.parametrize("t", [1, 5, 12])
+def test_gru_bf16_dpx_holds_the_rounded_dph(t):
+    # The identities the bf16 backward kernel's phase split rests on: dpx's
+    # r and z columns are bf16(dph)'s bit for bit, so the chain hands `dw`
+    # only bf16(dhn); and db sums the unrounded dph.
+    (_, _, dyt, wt, _, _, coef), (dpx_f, dpx_b, dph), _ = _bf16_chain_case(t, 30 + t)
+    h2 = 2 * dyt[0].shape[-1]
+    assert torch.equal(torch.stack([dpx_f, dpx_b])[..., :h2], dph[..., :h2].to(BF16))
+    s_f, s_b, dhn, db = gru_bwd_chain_bf16_reference(coef, *dyt, wt)
+    assert torch.equal(s_f, dpx_f) and torch.equal(s_b, dpx_b)
+    assert dhn.dtype == BF16 and torch.equal(dhn, dph[..., h2:].to(BF16))
+    assert db.dtype == torch.float32 and torch.equal(db, dph.sum(dim=(1, 2)))
+
+
+@pytest.mark.parametrize("t", [1, 5, 12])
+def test_gru_bf16_dw_is_the_same_from_rounded_dph(t):
+    # gru_bwd_dw_reference rounds dph for bf16 ys, so the f32 dph and
+    # bf16(dph) give the same dW, and so does dW from [dpx's r, z columns,
+    # bf16(dhn)], what the bf16 chain hands on.
+    (_, _, dyt, wt, _, ys, coef), (dpx_f, dpx_b, dph), _ = _bf16_chain_case(t, 40 + t)
+    dw, _ = gru_bwd_dw_reference(*ys, dph)
+    dw_rounded, _ = gru_bwd_dw_reference(*ys, dph.to(BF16).float())
+    _, _, dhn, _ = gru_bwd_chain_bf16_reference(coef, *dyt, wt)
+    assert torch.equal(dw, dw_rounded)
+    torch.testing.assert_close(gru_bwd_dw_bf16_reference(*ys, dpx_f, dpx_b, dhn), dw,
+                               rtol=0, atol=1e-6 * dw.abs().max().item())
+
+
+@pytest.mark.parametrize("t", [5, 12])
+def test_gru_bf16_db_from_rounded_dph_misses_pallas(t):
+    # db summed after rounding dph to bf16 is not the Pallas VJP's db: it
+    # misses the 1e-4-of-max bound of test_gru_matches_pallas_bf16, and by
+    # several times the unrounded sum's own distance (which comes from ys
+    # roundings that flip), so a kernel that summed db from bf16(dph) would
+    # fail the tests.
+    _, (_, _, dph), (_, _, _, db) = _bf16_chain_case(t, 50 + t)
+    tol = 1e-4 * np.abs(db).max()
+    unrounded = np.abs(_np(dph.sum(dim=(1, 2))) - db).max()
+    rounded = np.abs(_np(dph.to(BF16).float().sum(dim=(1, 2))) - db).max()
+    assert rounded > tol and rounded > 4 * unrounded
+
+
+@pytest.mark.parametrize("t", [1, 5, 12])
+def test_gru_bf16_chain_split_matches_pallas(t):
+    # The bf16 phase split (the chain's bf16(dhn) and db, then dW from dpx
+    # and dhn) against the Pallas VJP, at the tolerances of
+    # test_gru_matches_pallas_bf16.
+    (_, _, dyt, wt, _, ys, coef), _, (dpf, dpb, dw, db) = _bf16_chain_case(t, 60 + t)
+    dpx_f, dpx_b, dhn, db_got = gru_bwd_chain_bf16_reference(coef, *dyt, wt)
+    dw_got = gru_bwd_dw_bf16_reference(*ys, dpx_f, dpx_b, dhn)
+    np.testing.assert_allclose(_np(dpx_f), dpf, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(_np(dpx_b), dpb, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(_np(dw_got), dw, rtol=0, atol=1e-4 * np.abs(dw).max())
+    np.testing.assert_allclose(_np(db_got), db, rtol=0, atol=1e-4 * np.abs(db).max())
 
 
 def test_gru_recurrence_function_routes_bf16_gradients():

@@ -24,6 +24,8 @@ from ocrs_models_torch.ops import (
     ctc_beta,
     ctc_beta_reference,
     gru_bwd,
+    gru_bwd_chain_bf16_reference,
+    gru_bwd_coefficients_reference,
     gru_bwd_phases_reference,
     gru_bwd_reference,
     gru_fwd,
@@ -530,9 +532,11 @@ def test_stage1_bwd_bf16_kernel_matches_plain(dev, shape):
 # 0.914 and 0.866-0.892; and dW within 1e-3 of its max, read at most 6.2e-4,
 # where a `dw` phase that skips the rounding of dph reads 1.4e-3 to 1.8e-3
 # (measured on one H100, with copies of the kernels with the rounding taken
-# out).
+# out). N=37, 65, 255: batch tiles ragged for every row choice of the
+# tensor-core kernels (16, 32, 48, 64 rows per block).
 GRU_BF16_SHAPES = [(65, 256, 256), (257, 128, 256), (201, 128, 256), (193, 20, 256),
-                   (129, 12, 256), (7, 259, 256), (5, 3, 48), (1, 17, 8)]
+                   (129, 12, 256), (7, 259, 256), (5, 3, 48), (1, 17, 8), (65, 37, 256),
+                   (65, 65, 256), (65, 255, 256)]
 
 
 @pytest.mark.parametrize("shape", GRU_BF16_SHAPES)
@@ -579,6 +583,38 @@ def test_gru_bwd_bf16_kernel_matches_plain(dev, shape):
         assert (a == b).float().mean().item() >= 0.95
     for a, b in zip(got[2:], want[2:]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * b.abs().max().item() + 1e-5)
+
+
+def test_gru_bf16_kernels_run_the_headline_batch_in_one_round(dev):
+    # N=256, H=256 (the headline step): the bf16 kernels pick enough rows
+    # per block that their clusters all fit on the card at once.
+    from ocrs_models_torch.ops.gru import max_active_clusters
+
+    got = max_active_clusters(256, 256, dtype=BF16)
+    for name in ("gru_fwd", "gru_bwd"):
+        assert got[name]["rows_per_block"] in (16, 32, 48, 64)
+        assert 0 < got[name]["launched"] <= got[name]["max_active"], got
+
+
+@pytest.mark.parametrize("shape", [(65, 256, 256), (33, 37, 256), (5, 3, 48)])
+def test_gru_bwd_bf16_chain_matches_its_plain_version(dev, shape):
+    # The chain's own outputs: bf16(dhn), which it hands to `dw`, within
+    # 2e-2 and at least 95% equal, as dpx; db, which it sums from the
+    # unrounded dph, within 1e-3 of its largest entry.
+    t, n, h = shape
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, sum(shape) + 7)
+    px_f, px_b, dy_f, dy_b = (v.to(BF16) for v in (px_f, px_b, dy_f, dy_b))
+    ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
+    coef = gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh)
+    _, _, dhn_want, db_want = gru_bwd_chain_bf16_reference(coef, dy_f, dy_b, w_hh)
+    scratch = {}
+    _, _, _, db = gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out=scratch)
+    torch.cuda.synchronize()
+    dhn = scratch["dhn"]
+    assert dhn.dtype == BF16 and dhn.shape == dhn_want.shape == (2, t, n, h)
+    torch.testing.assert_close(dhn.float(), dhn_want.float(), rtol=0, atol=2e-2)
+    assert (dhn == dhn_want).float().mean().item() >= 0.95
+    torch.testing.assert_close(db, db_want, rtol=0, atol=1e-3 * db_want.abs().max().item())
 
 
 def test_bf16_tensors_on_float32_only_paths_raise(dev):
