@@ -17,7 +17,9 @@ Phases (any failure exits non-zero, before the final line):
    H=256 (atol 1e-4: error accumulates over 201 steps). Time kernel, plain
    version and the library yardstick (F.conv2d + relu + max_pool2d; cuDNN
    nn.GRU) with CUDA events; for the biGRU kernels also the time per step
-   and the device launches of one call (torch.profiler). Then the bf16
+   and the device launches of one call (torch.profiler), for stage 1 its
+   device time, both times' shares of its bound and its device launches
+   per call, which must be 1 (no weight cast or copy). Then the bf16
    variants at the same shapes against their bf16 plain versions: stage 1
    at least 99% equal and the rest within one bf16 ulp or 1e-5, ``ys``
    within 2e-2 and at least 95% equal; bounds take bf16 bytes and the
@@ -40,8 +42,9 @@ Phases (any failure exits non-zero, before the final line):
    and a bf16 pipeline on the same weights and print their agreement.
 7. Hold each backward kernel against its plain version at the training
    step's largest shapes: stage-1 backward at x [256,1,64,256] and
-   [128,1,64,1024] (with the device time of its two passes, its device
-   launches per call and the grid it chose); the biGRU backward at T=65,
+   [128,1,64,1024] (with the device time of its two passes, their share of
+   its bound, its device launches per call, which must be 2, and the grid
+   it chose); the biGRU backward at T=65,
    N=256 and T=257, N=128, H=256; the CTC alpha and beta recursions at
    T=257, N=128, S=129 with ragged lengths, repeated labels, an empty
    label and an infeasible row, and at the training step's two shapes
@@ -264,18 +267,36 @@ def check_stage1(dev, gen) -> dict:
         library_ms = _cuda_time_ms(
             lambda: F.max_pool2d(F.relu(F.conv2d(x, weight, bias, padding=1)), 2), iters=50
         )
+    launches, times, _ = _device_profile(lambda: stage1(x, weight, bias))
+    device_ms = _device_ms(times, "stage1_fwd_kernel")
     n, _, h, w = x.shape
     n_bytes = x.numel() * 4 + 32 * 10 * 4 + n * 32 * (h // 2) * (w // 2) * 4
     n_flops = n * 32 * h * w * 19  # 9 FMAs + bias per conv output
     bound_ms, bound_by = _bound(n_bytes, n_flops)
+    _stage1_line("stage1_fwd", f"[{n},1,{h},{w}]", ms, device_ms, bound_ms, launches, 1)
     return {
         "name": "stage1_fwd", "route": "cuda",
         "source": "ocrs_models_torch/csrc/stage1_fwd.cu",
         "replaces": "ocrs_models_tpu/ops/pallas/stage1_kernel.py:201",
         "shape": f"x [{n},1,{h},{w}] f32 -> [{n},32,{h // 2},{w // 2}]",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "device_launches_per_call": launches,
     }
+
+
+def _stage1_line(name: str, shape: str, ms: float, device_ms: float | None, bound_ms: float,
+                 launches: float, want_launches: int, extra: str = "") -> None:
+    """Print a stage-1 kernel's times, their shares of its bound and its
+    device launches per call; fail unless the wrapper put exactly
+    ``want_launches`` kernels on the device (no weight cast or copy)."""
+    dev = "not measured" if device_ms is None else \
+        f"{device_ms:.4f} ms ({100 * bound_ms / device_ms:.0f}%)"
+    print(f"{name} {shape}: {ms:.4f} ms ({100 * bound_ms / ms:.0f}% of its bound "
+          f"{bound_ms:.4f}), on the device {dev}{extra}, {launches:g} device launches per call",
+          flush=True)
+    if launches != want_launches:
+        raise AssertionError(f"{name}: {launches:g} device launches per call, not {want_launches}")
 
 
 def _gru_weights(gen, dev, hid=256):
@@ -392,11 +413,12 @@ def check_stage1_bf16(dev, gen) -> dict:
         plain_ms = _cuda_time_ms(lambda: stage1_reference(x, weight, bias), iters=50)
         library_ms = _cuda_time_ms(
             lambda: F.max_pool2d(F.relu(F.conv2d(x, wb, bb, padding=1)), 2), iters=50)
-    device_ms = _device_ms(_device_profile(lambda: stage1_fwd(x, weight, bias))[1],
-                           "stage1_fwd_kernel")
+    launches, times, _ = _device_profile(lambda: stage1_fwd(x, weight, bias))
+    device_ms = _device_ms(times, "stage1_fwd_kernel")
     n, _, h, w = x.shape
     bound_ms, bound_by = _bound(2 * x.numel() + 4 * 32 * 10 + 2 * n * 32 * (h // 2) * (w // 2),
                                 n * 32 * h * w * 19, BF16_FLOPS_PER_S)
+    _stage1_line("stage1_fwd bf16", f"[{n},1,{h},{w}]", ms, device_ms, bound_ms, launches, 1)
     return {
         "name": "stage1_fwd", "dtype": "bf16", "route": "cuda",
         "source": "ocrs_models_torch/csrc/stage1_fwd.cu",
@@ -405,7 +427,7 @@ def check_stage1_bf16(dev, gen) -> dict:
         "max_abs_err": err, "equal_share": share, "max_ulps": ulps,
         "max_abs_err_beyond_one_ulp": beyond, "ms": ms,
         "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "library_ms": library_ms, "device_launches_per_call": launches,
     }
 
 
@@ -541,9 +563,9 @@ def check_stage1_bwd(dev, gen) -> dict:
         n_bytes = 4 * (x.numel() + dy.numel() + 2 * 32 * 10)
         n_flops = 2 * n * 32 * 32 * (w // 2) * (4 * 9 + 10)
         bound_ms, bound_by = _bound(n_bytes, n_flops)
-        print(f"stage1_bwd [{n},1,64,{w}]: {ms:.4f} ms ({100 * bound_ms / ms:.0f}% of its bound), "
-              f"on the device {_fmt(first)} + {_fmt(second)} ms (second pass), {launches:g} device "
-              f"launches per call, grid {grid} x 256 threads", flush=True)
+        _stage1_line("stage1_bwd", f"[{n},1,64,{w}]", ms, _ms_sum(first, second), bound_ms,
+                     launches, 2, f" ({_fmt(second)} ms the second pass), grid {grid} x 256 "
+                     "threads")
         out[w] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                       bound_ms=bound_ms, bound_by=bound_by, device_ms=_ms_sum(first, second),
                       second_pass_ms=second, device_launches_per_call=launches, grid=grid,
@@ -665,9 +687,9 @@ def check_stage1_bwd_bf16(dev, gen) -> dict:
         bound_ms, bound_by = _bound(n_bytes, 2 * n * 32 * 32 * (w // 2) * (4 * 9 + 10),
                                     BF16_FLOPS_PER_S)
         grid = stage1_bwd_grid(dev, n, 64, w, BF16)
-        print(f"stage1_bwd bf16 [{n},1,64,{w}]: {ms:.4f} ms ({100 * bound_ms / ms:.0f}% of its "
-              f"bound), on the device {_fmt(first)} + {_fmt(second)} ms, {launches:g} device "
-              f"launches per call, grid {grid} x 256 threads", flush=True)
+        _stage1_line("stage1_bwd bf16", f"[{n},1,64,{w}]", ms, _ms_sum(first, second), bound_ms,
+                     launches, 2, f" ({_fmt(second)} ms the second pass), grid {grid} x 256 "
+                     "threads")
         rows.append({
             "name": "stage1_bwd", "dtype": "bf16", "route": "cuda",
             "source": "ocrs_models_torch/csrc/stage1_bwd.cu",

@@ -1,7 +1,7 @@
 """Time builds of one kernel source against each other in one process.
 
-    python -m ocrs_models_torch.kernel_ab [--kernel ctc_alpha|gru_fwd_bf16|gru_bwd_bf16]
-        [--source NAME=PATH ...] [--rounds 2] [--cold]
+    python -m ocrs_models_torch.kernel_ab [--kernel ctc_alpha|gru_fwd_bf16|gru_bwd_bf16|
+        stage1_fwd_bf16|stage1_bwd_bf16] [--source NAME=PATH ...] [--rounds 2] [--cold]
 
 Each ``--source`` is a version of the kernel's source (``csrc/ctc_alpha.cu``,
 or ``csrc/gru_fwd.cu`` / ``csrc/gru_bwd.cu`` for the bf16 biGRU entries;
@@ -34,6 +34,17 @@ trainer's batches 20 and 12 at T=129. A source that exports
 ``ocrs_gru_{fwd,bwd}_bf16_rows`` is also timed at each of its row choices
 (``rows_ms``), with the rows it picks by itself in ``rows``.
 
+``stage1_fwd_bf16`` and ``stage1_bwd_bf16`` (C entries ``ocrs_stage1_fwd_bf16``
+and ``ocrs_stage1_bwd_bf16``; a source that exports
+``ocrs_stage1_takes_weight_and_bias`` takes weight [32, 9] and bias [32]
+and gives dW and db, an older one a [32, 10] array each way), cases
+``N{n}_W{w}`` at H=64: the smoke's shapes (forward [128, 256] and [128,
+800], backward [128, 1024] and [256, 256]), the trainer's batches 20 and 12
+at W = 256, 512, 768, 1024, and the serving buckets W = 256, 512, 768, 800
+at N = 128. Each line also carries ``f32_sha``, a digest of each source's
+f32 entry's outputs on the same inputs (equal digests: the f32 kernel
+unchanged, bit for bit), and for the backward its grid.
+
 ``--cold`` writes a 256 MB buffer before each call so that no input is
 left in the 50 MB L2 cache. Needs CUDA and ``nvcc``.
 """
@@ -42,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 from pathlib import Path
@@ -53,6 +65,7 @@ from torch.profiler import ProfilerActivity, profile
 from .ops import _build
 from .ops.ctc import ctc_alpha_reference, ctc_operands
 from .ops.gru import DW_SPLITS, MIN_ROWS, gru_bwd_phases_reference, gru_recurrence_reference
+from .ops.stage1 import stage1_bwd_reference, stage1_reference
 from .profile_kernels import device_records
 
 AB_DIR = _build.BUILD_DIR.parent / "ab"
@@ -134,7 +147,7 @@ def _ctc_call(dll, ops, out, rows=0) -> None:
     _build.check(dll, rc, "ctc_alpha")
 
 
-def _ctc_compare(ops, out) -> dict:
+def _ctc_compare(ops, out, dll=None) -> dict:
     return {"max_abs_err": (out["alpha"] - ctc_alpha_reference(*ops)).abs().max().item()}
 
 
@@ -205,7 +218,7 @@ def _gru_fwd_call(dll, ops, out, rows=0) -> None:
     _build.check(dll, rc, "gru_fwd_bf16")
 
 
-def _gru_fwd_compare(ops, out) -> dict:
+def _gru_fwd_compare(ops, out, dll=None) -> dict:
     want = gru_recurrence_reference(ops[0], ops[1], ops[6], ops[7])
     got = (out["ys_f"], out["ys_b"])
     return _bf16_errs(got, want)
@@ -251,7 +264,7 @@ def _gru_bwd_call(dll, ops, out, rows=0) -> None:
     _build.check(dll, rc, "gru_bwd_bf16")
 
 
-def _gru_bwd_compare(ops, out) -> dict:
+def _gru_bwd_compare(ops, out, dll=None) -> dict:
     want = gru_bwd_phases_reference(*ops)
     errs = _bf16_errs((out["dpx_f"], out["dpx_b"]), want[:2])
     scale = max(t.abs().max().item() for t in want[2:])
@@ -278,6 +291,138 @@ def _gru_bwd_phase(name: str) -> str:
     return "dw"
 
 
+# ------------------------------------------------------------------ stage 1, bf16
+
+def _bind_stage1_fwd(dll) -> None:
+    split = hasattr(dll, "ocrs_stage1_takes_weight_and_bias")
+    for fn in (dll.ocrs_stage1_fwd, dll.ocrs_stage1_fwd_bf16):
+        _bind(fn, [I, P, P, P, P, I, I, I, P] if split else [I, P, P, P, I, I, I, P])
+
+
+def _bind_stage1_bwd(dll) -> None:
+    split = hasattr(dll, "ocrs_stage1_takes_weight_and_bias")
+    for sfx in ("", "_bf16"):
+        _bind(getattr(dll, f"ocrs_stage1_bwd{sfx}"),
+              [I] + [P] * (7 if split else 5) + [I, I, I, I, P])
+        _bind(getattr(dll, f"ocrs_stage1_bwd{sfx}_blocks"), [I, I, I, I])
+
+
+def _stage1_cases(shapes):
+    def cases(dev) -> dict:
+        gen = torch.Generator().manual_seed(SEED)
+        weight = (torch.randn((32, 1, 3, 3), generator=gen) * 0.3).to(dev)
+        bias = (torch.randn((32,), generator=gen) * 0.1).to(dev)
+        # The [32, 10] taps and bias of a source that takes them so: rounded
+        # to bf16 values for its bf16 entry, as they are for its f32 one.
+        w10 = torch.cat([weight.reshape(32, 9), bias[:, None]], 1).contiguous()
+        w10_bf16 = _build.rounded(w10, torch.bfloat16).contiguous()
+        out = {}
+        for n, w in shapes:
+            x = (torch.rand((n, 1, 64, w), generator=gen) - 0.5).to(dev, torch.bfloat16)
+            dy = torch.randn((n, 32, 32, w // 2), generator=gen).to(dev, torch.bfloat16)
+            out[f"N{n}_W{w}"] = (x, weight, bias, dy, w10_bf16, w10)
+        return out
+    return cases
+
+
+def _weights(dll, ops) -> list:
+    x, weight, bias, _, w10_bf16, w10 = ops
+    if hasattr(dll, "ocrs_stage1_takes_weight_and_bias"):
+        return [_build.ptr(weight), _build.ptr(bias)]
+    return [_build.ptr(w10 if x.dtype == torch.float32 else w10_bf16)]
+
+
+def _stage1_fwd_outputs(ops) -> dict:
+    n, _, h, w = ops[0].shape
+    return {"y": torch.empty((n, 32, h // 2, w // 2), device=ops[0].device, dtype=ops[0].dtype)}
+
+
+def _stage1_fwd_call(dll, ops, out, rows=0) -> None:
+    x = ops[0]
+    n, _, h, w = x.shape
+    entry = dll.ocrs_stage1_fwd if x.dtype == torch.float32 else dll.ocrs_stage1_fwd_bf16
+    rc = entry(x.device.index, _build.ptr(x), *_weights(dll, ops), _build.ptr(out["y"]), n, h, w,
+               _build.stream_ptr(x.device))
+    _build.check(dll, rc, "stage1_fwd_bf16")
+
+
+def _stage1_fwd_compare(ops, out, dll=None) -> dict:
+    """Besides the largest difference and the share equal, the largest
+    difference in bf16 ulps of the larger magnitude."""
+    got, want = out["y"].float(), stage1_reference(*ops[:3]).float()
+    errs = _bf16_errs((got,), (want,))
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    errs["max_ulps"] = ((got - want).abs() / ulp).max().item()
+    return errs
+
+
+def _stage1_bwd_outputs(ops) -> dict:
+    dev, f32 = ops[0].device, torch.float32
+    # dw10 for a source that gives the gradients as one [32, 10] array.
+    return {"partial": torch.empty((4096, 320), device=dev, dtype=f32),
+            "dw": torch.empty((32, 1, 3, 3), device=dev, dtype=f32),
+            "db": torch.empty((32,), device=dev, dtype=f32),
+            "dw10": torch.empty((32, 10), device=dev, dtype=f32)}
+
+
+def _stage1_bwd_call(dll, ops, out, rows=0) -> None:
+    x, dy = ops[0], ops[3]
+    n, _, h, w = x.shape
+    sfx = "" if x.dtype == torch.float32 else "_bf16"
+    n_part = getattr(dll, f"ocrs_stage1_bwd{sfx}_blocks")(x.device.index, n, h, w)
+    if not 0 <= n_part <= out["partial"].shape[0]:
+        raise RuntimeError(f"stage1_bwd_bf16: grid {n_part}")
+    grads = ([out["dw"], out["db"]] if hasattr(dll, "ocrs_stage1_takes_weight_and_bias")
+             else [out["dw10"]])
+    entry = getattr(dll, f"ocrs_stage1_bwd{sfx}")
+    rc = entry(x.device.index, _build.ptr(x), *_weights(dll, ops), _build.ptr(dy),
+               _build.ptr(out["partial"]), *(_build.ptr(g) for g in grads), n, h, w, n_part,
+               _build.stream_ptr(x.device))
+    _build.check(dll, rc, "stage1_bwd_bf16")
+
+
+def _stage1_grads(dll, out) -> tuple:
+    if hasattr(dll, "ocrs_stage1_takes_weight_and_bias"):
+        return out["dw"].reshape(32, 9), out["db"]
+    return out["dw10"][:, :9], out["dw10"][:, 9]
+
+
+def _stage1_bwd_compare(ops, out, dll) -> dict:
+    want = stage1_bwd_reference(*ops[:4])
+    got = _stage1_grads(dll, out)
+    scale = max(t.abs().max().item() for t in want)
+    return {"dw_db_err_of_max": max((g.reshape(-1) - w_.reshape(-1)).abs().max().item()
+                                    for g, w_ in zip(got, want)) / scale}
+
+
+def _stage1_extra(kernel: str):
+    """The bwd grid, and a digest of the f32 entry's outputs on the same
+    inputs widened to f32 (``f32_sha``: equal digests, equal bits)."""
+    def extra(dll, ops, line, k) -> None:
+        f32 = (ops[0].float(), *ops[1:3], ops[3].float(), *ops[4:])
+        outs = SPECS[kernel]["outputs"](f32)
+        SPECS[kernel]["call"](dll, f32, outs)
+        torch.cuda.synchronize()
+        got = (outs["y"],) if kernel == "stage1_fwd_bf16" else _stage1_grads(dll, outs)
+        digest = hashlib.sha256(b"".join(t.contiguous().cpu().numpy().tobytes() for t in got))
+        line.setdefault("f32_sha", {})[k] = digest.hexdigest()[:16]
+        if kernel == "stage1_bwd_bf16":
+            n, _, h, w = ops[0].shape
+            line.setdefault("grid", {})[k] = dll.ocrs_stage1_bwd_bf16_blocks(
+                ops[0].device.index, n, h, w)
+    return extra
+
+
+def _stage1_shapes(serving: bool) -> tuple:
+    """The smoke's shapes, the trainer's batches 20 and 12 at W = 256 to
+    1024, and the serving buckets at N = 128."""
+    smoke = ((128, 256), (128, 800)) if serving else ((128, 1024), (256, 256))
+    trainer = tuple((n, w) for n in (20, 12) for w in (256, 512, 768, 1024))
+    buckets = tuple((128, w) for w in (256, 512, 768, 800))
+    return tuple(dict.fromkeys(smoke + trainer + buckets))
+
+
 SPECS = {
     "ctc_alpha": {"source": "ctc_alpha.cu", "bind": _bind_ctc, "cases": _ctc_cases,
                   "outputs": _ctc_outputs, "call": _ctc_call, "compare": _ctc_compare,
@@ -293,6 +438,17 @@ SPECS = {
                      "compare": _gru_bwd_compare, "extra": _gru_extra("gru_bwd_bf16"),
                      "match": "gru_bwd", "phase": _gru_bwd_phase,
                      "rows_entry": "ocrs_gru_bwd_bf16_rows"},
+    "stage1_fwd_bf16": {"source": "stage1_fwd.cu", "bind": _bind_stage1_fwd,
+                        "cases": _stage1_cases(_stage1_shapes(serving=True)),
+                        "outputs": _stage1_fwd_outputs, "call": _stage1_fwd_call,
+                        "compare": _stage1_fwd_compare, "extra": _stage1_extra("stage1_fwd_bf16"),
+                        "match": "stage1_fwd", "phase": None, "rows_entry": None},
+    "stage1_bwd_bf16": {"source": "stage1_bwd.cu", "bind": _bind_stage1_bwd,
+                        "cases": _stage1_cases(_stage1_shapes(serving=False)),
+                        "outputs": _stage1_bwd_outputs, "call": _stage1_bwd_call,
+                        "compare": _stage1_bwd_compare, "extra": _stage1_extra("stage1_bwd_bf16"),
+                        "match": "stage1_bwd", "phase": lambda name: "finish" if "finish" in name
+                        else "partial", "rows_entry": None, "grads": _stage1_grads},
 }
 
 
@@ -332,10 +488,14 @@ def _events_ms(fn, before, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _equal(a: dict, b: dict) -> bool:
+def _equal(spec: dict, a: tuple, b: tuple) -> bool:
+    """Whether two sources' outputs, each ``(dll, outputs)``, agree bit for
+    bit (for the stage-1 backward: its gradients, in either layout)."""
+    if "grads" in spec:
+        return all(torch.equal(x, y) for x, y in zip(spec["grads"](*a), spec["grads"](*b)))
     # The backward's scratch differs between its layouts; its outputs must not.
-    keys = [k for k in a if k not in ("coef", "dph", "dwp", "dbp")]
-    return all(torch.equal(a[k], b[k]) for k in keys)
+    keys = [k for k in a[1] if k not in ("coef", "dph", "dwp", "dbp")]
+    return all(torch.equal(a[1][k], b[1][k]) for k in keys)
 
 
 def main() -> None:
@@ -368,8 +528,10 @@ def main() -> None:
             spec["call"](libs[k], ops, outs[k])
         torch.cuda.synchronize()
         line = {"kernel": args.kernel, "case": case, "shape": list(ops[0].shape),
-                "cold": args.cold, "equal_first": {k: _equal(outs[k], outs[names[0]]) for k in names},
-                "check": {k: spec["compare"](ops, outs[k]) for k in names},
+                "cold": args.cold,
+                "equal_first": {k: _equal(spec, (libs[k], outs[k]), (libs[names[0]], outs[names[0]]))
+                                for k in names},
+                "check": {k: spec["compare"](ops, outs[k], libs[k]) for k in names},
                 "device_ms": {k: [] for k in names}, "events_ms": {k: [] for k in names}}
         for k in order:
             device_ms, phases, events_ms = timed(lambda k=k: spec["call"](libs[k], ops, outs[k]))

@@ -48,7 +48,7 @@ def _fwd_lib() -> ctypes.CDLL:
         i = ctypes.c_int
         for sfx in _build.SUFFIX.values():
             fn = getattr(lib, f"ocrs_stage1_fwd{sfx}")
-            fn.argtypes = [i, p, p, p, i, i, i, p]
+            fn.argtypes = [i, p, p, p, p, i, i, i, p]
             fn.restype = ctypes.c_int
     return lib
 
@@ -57,19 +57,12 @@ def _check(name: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor)
     if x.dtype not in _build.DTYPES:
         raise ValueError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
     for key, t in (("weight", weight), ("bias", bias)):
-        if t.device != x.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be float32 on {x.device}")
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous float32 on {x.device}")
     if x.dim() != 4 or x.shape[1] != 1 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous [N, 1, H, W], got {tuple(x.shape)}")
     if weight.shape != (CHANNELS, 1, 3, 3) or bias.shape != (CHANNELS,):
         raise ValueError(f"{name}: weight must be [32, 1, 3, 3] and bias [32]")
-
-
-def _w10(weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``[32, 10]`` float32: the 9 taps (``dy * 3 + dx``) and the bias of
-    each channel, rounded to bf16 values for a bf16 kernel."""
-    w10 = torch.cat([weight.reshape(CHANNELS, 9), bias.reshape(CHANNELS, 1)], 1)
-    return _build.rounded(w10, dtype).contiguous()
 
 
 def stage1_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -87,11 +80,10 @@ def stage1_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> tor
     _check("stage1_fwd", x, weight, bias)
     n, _, h, w = x.shape
     y = torch.empty((n, CHANNELS, h // 2, w // 2), device=x.device, dtype=x.dtype)
-    w10 = _w10(weight.detach(), bias.detach(), x.dtype)
     lib = _fwd_lib()
+    p = _build.ptr
     rc = getattr(lib, f"ocrs_stage1_fwd{_build.SUFFIX[x.dtype]}")(
-        x.device.index, _build.ptr(x), _build.ptr(w10), _build.ptr(y), n, h, w,
-        _build.stream_ptr(x.device),
+        x.device.index, p(x), p(weight), p(bias), p(y), n, h, w, _build.stream_ptr(x.device),
     )
     _build.check(lib, rc, "stage1_fwd")
     stage1_fwd.launches += 1
@@ -126,7 +118,7 @@ def _bwd_lib() -> ctypes.CDLL:
         i = ctypes.c_int
         for sfx in _build.SUFFIX.values():
             fn = getattr(lib, f"ocrs_stage1_bwd{sfx}")
-            fn.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
+            fn.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, p]
             fn.restype = ctypes.c_int
             blocks = getattr(lib, f"ocrs_stage1_bwd{sfx}_blocks")
             blocks.argtypes = [i, i, i, i]
@@ -168,15 +160,16 @@ def stage1_bwd(x, weight, bias, dy):
     lib = _bwd_lib()
     n_part = stage1_bwd_grid(x.device, n, h, w, x.dtype)
     partial = torch.empty((max(n_part, 1), CHANNELS * 10), device=x.device, dtype=torch.float32)
-    dw10 = torch.empty((CHANNELS, 10), device=x.device, dtype=torch.float32)
+    dw = torch.empty((CHANNELS, 1, 3, 3), device=x.device, dtype=torch.float32)
+    db = torch.empty((CHANNELS,), device=x.device, dtype=torch.float32)
     p = _build.ptr
     rc = getattr(lib, f"ocrs_stage1_bwd{_build.SUFFIX[x.dtype]}")(
-        x.device.index, p(x), p(_w10(weight.detach(), bias.detach(), x.dtype)), p(dy), p(partial),
-        p(dw10), n, h, w, n_part, _build.stream_ptr(x.device),
+        x.device.index, p(x), p(weight), p(bias), p(dy), p(partial), p(dw), p(db), n, h, w,
+        n_part, _build.stream_ptr(x.device),
     )
     _build.check(lib, rc, "stage1_bwd")
     stage1_bwd.launches += 1
-    return dw10[:, :9].reshape(CHANNELS, 1, 3, 3), dw10[:, 9].contiguous()
+    return dw, db
 
 
 stage1_bwd.launches = 0

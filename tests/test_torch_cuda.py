@@ -234,16 +234,18 @@ def test_stage1_bwd_kernel_matches_plain(dev, shape):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * scale + 1e-5)
 
 
-def test_stage1_bwd_kernel_ties_take_the_first_window_position(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage1_bwd_kernel_ties_take_the_first_window_position(dev, dtype):
     # A zero image: every window holds four equal pre-activations (the
     # bias). Channels with bias > 0 send dy to position (0, 0) only;
-    # channels with bias <= 0 get no gradient.
-    x = torch.zeros((2, 1, 8, 8), device=dev)
+    # channels with bias <= 0 get no gradient. (In bf16 the bias is rounded
+    # first; no entry of linspace(-1, 1, 32) rounds to 0.)
+    x = torch.zeros((2, 1, 8, 8), device=dev, dtype=dtype)
     weight = torch.randn((32, 1, 3, 3), device=dev)
     bias = torch.linspace(-1, 1, 32, device=dev)
-    dy = torch.rand((2, 32, 4, 4), device=dev)
+    dy = torch.rand((2, 32, 4, 4), device=dev).to(dtype)
     dw, db = stage1_bwd(x, weight, bias, dy)
-    torch.testing.assert_close(db, torch.where(bias > 0, dy.sum((0, 2, 3)), 0.0))
+    torch.testing.assert_close(db, torch.where(bias > 0, dy.float().sum((0, 2, 3)), 0.0))
     assert (dw == 0).all()
     want = stage1_bwd_reference(x, weight, bias, dy)
     torch.testing.assert_close(db, want[1])
@@ -394,9 +396,12 @@ def test_ctc_beta_and_stage1_bwd_on_two_streams_do_not_disturb_each_other(dev):
         alpha_cases.append((emit, skip, alpha0, lens))
         ctc_cases.append((emit, skip, alphas, *_beta_operands(alphas, d), lens))
         s1_cases.append(_stage1_bwd_case(shape, dev, seed))
+    # ... and a bf16 stage1_bwd beside them (another kernel, its own scratch).
+    s1_bf16 = [(x.to(BF16), w, b, dy.to(BF16)) for x, w, b, dy in s1_cases]
 
     def run(i):
-        return (ctc_alpha(*alpha_cases[i]), *ctc_beta(*ctc_cases[i]), *stage1_bwd(*s1_cases[i]))
+        return (ctc_alpha(*alpha_cases[i]), *ctc_beta(*ctc_cases[i]), *stage1_bwd(*s1_cases[i]),
+                *stage1_bwd(*s1_bf16[i]))
 
     alone = [run(0), run(1)]
     torch.cuda.synchronize()
@@ -484,9 +489,16 @@ def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 # (128, 64, 800): the serving chunk; (256, 64, 256), (20, 64, 512), (12, 64,
-# 1024): the training step's and the trainer's; (3, 15, 13): odd sizes.
-@pytest.mark.parametrize("shape", [(128, 64, 800), (256, 64, 256), (20, 64, 512),
-                                   (12, 64, 1024), (3, 15, 13)])
+# 1024): the training step's and the trainer's; (3, 15, 13): odd sizes; the
+# float32 test's shapes; widths that do not fill the 64-column tiles or
+# whose pooled width is no multiple of 8 (250, 1000, 33: rows not 16-byte
+# aligned), N = 1, and H = 62 (a tile of 4 pooled rows cut short).
+STAGE1_BF16_SHAPES = [(128, 64, 800), (256, 64, 256), (20, 64, 512), (12, 64, 1024), (3, 15, 13),
+                      (32, 64, 256), (32, 64, 800), (1, 2, 2), (4, 64, 250), (4, 64, 1000),
+                      (2, 64, 33), (1, 64, 256), (6, 62, 256)]
+
+
+@pytest.mark.parametrize("shape", STAGE1_BF16_SHAPES)
 def test_stage1_bf16_kernel_matches_plain(dev, shape):
     # At least 99% of the outputs equal, the rest within one bf16 ulp.
     x, weight, bias, _ = _stage1_bwd_case(shape, dev, sum(shape) + 3)
@@ -504,7 +516,9 @@ def test_stage1_bf16_kernel_matches_plain(dev, shape):
 
 
 @pytest.mark.parametrize("shape", [(256, 64, 256), (128, 64, 1024), (20, 64, 512),
-                                   (12, 64, 768), (5, 64, 262), (3, 15, 13)])
+                                   (12, 64, 768), (5, 64, 262), (3, 15, 13), (32, 64, 256),
+                                   (2, 16, 200), (1, 2, 2), (7, 33, 131), (4, 64, 250),
+                                   (4, 64, 1000), (2, 64, 33), (1, 64, 256), (6, 62, 256)])
 def test_stage1_bwd_bf16_kernel_matches_plain(dev, shape):
     # dW, db float32 within 1e-3 of the largest entry, as in float32.
     x, weight, bias, dy = _stage1_bwd_case(shape, dev, sum(shape) + 4)
@@ -520,6 +534,28 @@ def test_stage1_bwd_bf16_kernel_matches_plain(dev, shape):
     for a, b, c in zip(got, again, want):
         assert a.dtype == torch.float32 and torch.equal(a, b)
         torch.testing.assert_close(a, c, rtol=0, atol=1e-3 * scale + 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage1_wrappers_put_one_and_two_kernels_on_the_device(dev, dtype):
+    # The wrappers pass weight and bias to the kernels as they are: the
+    # forward is one device launch, the backward two (the partial sums and
+    # the pass that adds them into dW and db), in both dtypes.
+    from torch.profiler import ProfilerActivity, profile
+
+    from ocrs_models_torch.profile_kernels import device_launches
+
+    x, weight, bias, dy = _stage1_bwd_case((8, 64, 256), dev, 31)
+    x, dy = x.to(dtype), dy.to(dtype)
+    for fn, want in ((lambda: stage1_fwd(x, weight, bias), 1),
+                     (lambda: stage1_bwd(x, weight, bias, dy), 2)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        assert device_launches(prof) == 3 * want
 
 
 # (65, 256): the headline step; (257, 128): the wide step; (201, 128): the

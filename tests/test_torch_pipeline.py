@@ -3,6 +3,8 @@ random weights and pages: detection probabilities and masks, word quads,
 line grouping, greedy decode, the PIL-free resize, and the texts of
 ``run_batch`` and ``__call__``."""
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ from ocrs_models_tpu.data import SyntheticDetection
 from ocrs_models_tpu.data.augment import resize as pil_resize
 from ocrs_models_tpu.geometry import expand_quads as jax_expand_quads
 from ocrs_models_tpu.geometry import extract_cc_quads as jax_extract_cc_quads
+from ocrs_models_tpu.geometry import native as jax_native
 from ocrs_models_tpu.geometry.components import connected_components as jax_cc
 from ocrs_models_tpu.models import DetectionModel as JaxDetection
 from ocrs_models_tpu.models import RecognitionModel as JaxRecognition
@@ -59,7 +62,33 @@ def test_detection_probabilities_and_masks_match(setup):
     np.testing.assert_array_equal(port._det_masks(x), packed_want)
 
 
-def test_quads_identical_given_mask(setup):
+@pytest.fixture(params=["numpy", "native"])
+def geometry_backend(request, monkeypatch):
+    """Both packages' geometry on one backend: their numpy versions, or
+    their C++ cores. The two round some quad coordinates one ulp apart, so
+    a comparison across backends is not a comparison of the ports. The
+    JAX package compiles its library in place, so a process that loaded it
+    while another process was writing it has fallen back to numpy; the
+    native case loads it again, once the file is whole."""
+    if request.param == "numpy":
+        for mod in (jax_native, native):
+            monkeypatch.setattr(mod, "_lib", None)
+            monkeypatch.setattr(mod, "_load_failed", True)
+        return request.param
+    if native.get_lib() is None:
+        pytest.skip("no C++ toolchain: the port's geometry core cannot be built here")
+    monkeypatch.delenv("OCRS_TPU_NO_NATIVE", raising=False)
+    deadline = time.monotonic() + 120
+    while True:
+        monkeypatch.setattr(jax_native, "_load_failed", False)
+        if jax_native.get_lib() is not None:
+            return request.param
+        if time.monotonic() > deadline:
+            pytest.skip("the JAX package's geometry core did not load")
+        time.sleep(0.5)
+
+
+def test_quads_identical_given_mask(setup, geometry_backend):
     jax_pipe, _, images = setup
     packed = np.asarray(jax_pipe._det_mask(jax_pipe._det_vars, jnp.asarray(_det_inputs(images))))
     n_quads = 0
