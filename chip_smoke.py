@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, recognition training step and
-recognition trainer on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving path, recognition training step,
+recognition trainer and layout model (served and trained) on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -76,6 +77,29 @@ Phases (any failure exits non-zero, before the final line):
    crops/s beside phase 8's wide step rate of the same dtype; then the host's work alone at batch 128 (the
    loader's rate at two threads and one, ms per line drawn, per batch
    collated and per batch scored).
+
+10. The layout model in serving (``OcrPipeline(use_layout_model=True)``,
+    float32 with TF32 off, the full-width ``LayoutModel(return_probs=True)``
+    from a fixed seed, its ``classify`` bias shifted so that a quarter of
+    the words are predicted line starts and a quarter line ends): 16 ``SyntheticDocLayout`` pages' word quads
+    (hundreds of words each, some past the model's 500) through
+    ``_group_lines_layout_batch``, one ``[16, 500, 4]`` forward, on the card
+    and on the CPU (probabilities within 1e-4, the line groupings equal);
+    the forward's time (CUDA events, device time); ``run_batch`` with the
+    layout model on phase 5's pages (counts zeroed just before, read just
+    after: every recognition chunk launches its kernels) and its pages/s.
+11. Layout training (``training.steps.make_layout_steps``, plain PyTorch
+    products: the JAX layout model reaches no Pallas kernel): one step on
+    the card against the CPU from the same weights, f32, dropout 0 (loss
+    1e-5 relative, gradient norms 1e-4); ``grad_accum=4`` against one step
+    at batch 64 (loss 1e-5); 10 timed steps in bf16 and in f32 at batch 64 x
+    500 words (median [min, max] by CUDA events, pages/s; the loss must
+    fall; no port kernel launches); then the trainer CLI
+    (``training/train_layout.py``) on ``synthetic-doc`` at its defaults
+    (bf16, batch 64) cut to 32 pages: three epochs, a resume for one more
+    with the Adam step restored, ``--validate-only``, ``--export
+    layout.pt``, and ``eval_layout`` on a ``write_corpus`` page, whose PNG
+    must decode with ``zlib``.
 
 Prints the nvidia-smi line, throughput lines, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1115,22 +1139,21 @@ def run_training(dev, dtype=torch.float32, wide_steps: int = 10) -> dict:
     return report
 
 
-def _train_rec(argv: list[str]) -> tuple[list[str], dict, float]:
-    """``train_rec.main(argv)`` in the working directory with the launch
-    counts zeroed just before; returns its printed lines, the counts read
-    just after, and its seconds."""
+def _cli(module, argv: list[str]) -> tuple[list[str], object, dict, float]:
+    """``module.main(argv)`` (a trainer or evaluation CLI) in the working
+    directory with the launch counts zeroed just before; returns its
+    printed lines, its result, the counts read just after, and its
+    seconds."""
     import contextlib
     import io
-
-    from ocrs_models_torch.training import train_rec
 
     out = io.StringIO()
     _zero_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        train_rec.main(argv)
+        result = module.main(argv)
     torch.cuda.synchronize()
-    return out.getvalue().splitlines(), _counts(), time.perf_counter() - t0
+    return out.getvalue().splitlines(), result, _counts(), time.perf_counter() - t0
 
 
 def _epoch_records() -> list[dict]:
@@ -1156,6 +1179,8 @@ def run_trainer(step_rates: dict) -> dict[str, dict[str, int]]:
     import os
     import tempfile
 
+    from ocrs_models_torch.training import train_rec
+
     train_size, val_size, batch = 512, 64, 20
     steps = math.ceil(train_size / batch)
     val_batches = math.ceil(val_size / batch)
@@ -1172,7 +1197,7 @@ def run_trainer(step_rates: dict) -> dict[str, dict[str, int]]:
         os.chdir(run_dir)
         try:
             # (a) Three epochs: 512 augmented lines, 64 validation lines, batch 20.
-            lines, counts, seconds = _train_rec(["synthetic", "-", "--max-epochs", "3"])
+            lines, _, counts, seconds = _cli(train_rec, ["synthetic", "-", "--max-epochs", "3"])
             expect(counts, 3, "train_rec 3 epochs")
             records = _epoch_records()
             losses = [r["train_loss"] for r in records]
@@ -1198,8 +1223,8 @@ def run_trainer(step_rates: dict) -> dict[str, dict[str, int]]:
             if (ckpt["epoch"], ckpt["step"], adam_steps) != (3, 3 * steps, {3.0 * steps}):
                 raise AssertionError(f"checkpoint: epoch {ckpt['epoch']}, step {ckpt['step']}, "
                                      f"Adam steps {adam_steps}; expected 3, {3 * steps}")
-            lines, counts, seconds = _train_rec(
-                ["synthetic", "-", "--checkpoint", "text-rec-checkpoint.pt", "--max-epochs", "4"])
+            lines, _, counts, seconds = _cli(train_rec, [
+                "synthetic", "-", "--checkpoint", "text-rec-checkpoint.pt", "--max-epochs", "4"])
             expect(counts, 1, "train_rec resumed")
             records = _epoch_records()
             ckpt = torch.load("text-rec-checkpoint.pt", map_location="cpu", weights_only=True)
@@ -1211,8 +1236,8 @@ def run_trainer(step_rates: dict) -> dict[str, dict[str, int]]:
                               "val_cer": records[3]["val_accuracy"]["char_error_rate"]}), flush=True)
 
             # (c) Validation alone from the checkpoint.
-            lines, counts, _ = _train_rec(
-                ["synthetic", "-", "--checkpoint", "text-rec-checkpoint.pt", "--validate-only"])
+            lines, _, counts, _ = _cli(train_rec, [
+                "synthetic", "-", "--checkpoint", "text-rec-checkpoint.pt", "--validate-only"])
             expect(counts, 1, "train_rec --validate-only", train=False)
             (line,) = [ln for ln in lines if ln.startswith("Validation loss")]
             if not np.isfinite(float(line.split()[2])):
@@ -1229,8 +1254,8 @@ def run_trainer(step_rates: dict) -> dict[str, dict[str, int]]:
         with tempfile.TemporaryDirectory() as run_dir:
             os.chdir(run_dir)
             try:
-                lines, counts, seconds = _train_rec(
-                    ["synthetic", "-", "--max-images", str(n_images), "--batch-size",
+                lines, _, counts, seconds = _cli(
+                    train_rec, ["synthetic", "-", "--max-images", str(n_images), "--batch-size",
                      str(batch_size), "--max-epochs", "2", "--augment" if augment else "--no-augment",
                      "--bf16" if dtype == "bf16" else "--no-bf16"])
                 records = _epoch_records()
@@ -1294,12 +1319,13 @@ def _host_breakdown(n: int = 2048, batch: int = 128) -> None:
     print(json.dumps(out), flush=True)
 
 
-def _serve(pipe, pages, crops) -> dict:
-    """Phases 5 and 6 for one pipeline: ``run_batch`` on the pages and
-    ``_recognize_crops`` on 128 crops of each bucket, each warm, with launch
-    counts zeroed just before and read just after. Serving launches only the
-    forward kernels, once (stage 1) and twice (the biGRU's two layers) for
-    each recognition chunk, counted as calls of the recognizer."""
+def _run_batch(pipe, pages, path: str) -> tuple[list, dict, int, float]:
+    """``run_batch`` on the pages, warm, with launch counts zeroed just
+    before and read just after: each recognition chunk (a call of the
+    recognizer, counted here) launches ``stage1_fwd`` once and ``gru_fwd``
+    twice (the biGRU's two layers), and nothing else launches. Prints the
+    pages/s and checks the result's form; returns the result, the counts,
+    the chunks and the seconds."""
     from ocrs_models_torch.config import DEFAULT_ALPHABET
 
     dtype = "bf16" if pipe.rec_model.dtype == BF16 else "f32"
@@ -1311,7 +1337,6 @@ def _serve(pipe, pages, crops) -> dict:
         chunks += 1
         return forward(x)
 
-    out = {}
     with mock.patch.object(pipe.rec_model, "forward", counted):
         pipe.run_batch(pages, det_batch=DET_BATCH, rec_batch=REC_BATCH)  # warm-up
         torch.cuda.synchronize()
@@ -1321,29 +1346,40 @@ def _serve(pipe, pages, crops) -> dict:
         results = pipe.run_batch(pages, det_batch=DET_BATCH, rec_batch=REC_BATCH)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        counts = _counts()
-        n_lines = sum(len(p) for p in results)
-        print(json.dumps({"path": "run_batch", "dtype": dtype, "pages": N_PAGES, "lines": n_lines,
-                          "chunks": chunks, "seconds": elapsed, "pages_per_s": N_PAGES / elapsed,
-                          "launches": counts}), flush=True)
-        if len(results) != N_PAGES or any(not isinstance(ln.text, str) for p in results for ln in p):
-            raise AssertionError("run_batch returned a malformed result")
-        if any(ch not in DEFAULT_ALPHABET for p in results for ln in p for ch in ln.text):
-            raise AssertionError("run_batch produced characters outside the alphabet")
-        if any(not np.isfinite(ln.box).all() for p in results for ln in p):
-            raise AssertionError("run_batch produced non-finite line boxes")
-        if not chunks > 0:
-            raise AssertionError(f"run_batch recognized nothing (lines found: {n_lines})")
-        _expect(counts, {"stage1_fwd": 1, "gru_fwd": 2}, chunks, f"run_batch {dtype}")
-        out["serve_launches"], out["pages"] = counts, results
+    counts = _counts()
+    n_lines = sum(len(p) for p in results)
+    print(json.dumps({"path": path, "dtype": dtype, "pages": len(pages), "lines": n_lines,
+                      "chunks": chunks, "seconds": elapsed, "pages_per_s": len(pages) / elapsed,
+                      "launches": counts}), flush=True)
+    if len(results) != len(pages) or any(not isinstance(ln.text, str) for p in results for ln in p):
+        raise AssertionError(f"{path} returned a malformed result")
+    if any(ch not in DEFAULT_ALPHABET for p in results for ln in p for ch in ln.text):
+        raise AssertionError(f"{path} produced characters outside the alphabet")
+    if any(not np.isfinite(ln.box).all() for p in results for ln in p):
+        raise AssertionError(f"{path} produced non-finite line boxes")
+    if not chunks > 0:
+        raise AssertionError(f"{path} recognized nothing (lines found: {n_lines})")
+    _expect(counts, {"stage1_fwd": 1, "gru_fwd": 2}, chunks, f"{path} {dtype}")
+    return results, counts, chunks, elapsed
 
-        pipe._recognize_crops(crops, REC_BATCH)  # warm-up
-        torch.cuda.synchronize()
-        _zero_counts()
-        t0 = time.perf_counter()
-        texts = pipe._recognize_crops(crops, REC_BATCH)
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
+
+def _serve(pipe, pages, crops) -> dict:
+    """Phases 5 and 6 for one pipeline: ``run_batch`` on the pages and
+    ``_recognize_crops`` on 128 crops of each bucket, each warm, with launch
+    counts zeroed just before and read just after. Serving launches only the
+    forward kernels, once (stage 1) and twice (the biGRU's two layers) for
+    each recognition chunk, counted as calls of the recognizer."""
+    dtype = "bf16" if pipe.rec_model.dtype == BF16 else "f32"
+    out = {}
+    results, counts, _, _ = _run_batch(pipe, pages, "run_batch")
+    out["serve_launches"], out["pages"] = counts, results
+    pipe._recognize_crops(crops, REC_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    texts = pipe._recognize_crops(crops, REC_BATCH)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
     counts = _counts()
     print(json.dumps({"path": "recognize_crops", "dtype": dtype, "crops": len(crops),
                       "buckets": list(BUCKET_WIDTHS), "seconds": elapsed,
@@ -1375,6 +1411,342 @@ def _agreement(pipe, pipe_bf16, served: dict, crops) -> None:
         "run_batch_identical_text_share": float(np.mean([a == b for a, b in lines])) if lines else None,
         "argmax_steps": ids.numel(),
         "identical_argmax_share": (ids == ids_bf).float().mean().item()}), flush=True)
+
+
+# ------------------------------------------------------------- layout (10, 11)
+
+LAYOUT_PAGES = 16  # phase 10: pages through one [16, 500, 4] forward
+LAYOUT_WORDS = 500  # the pipeline's layout_pad_words and the trainer's n_words
+LAYOUT_BATCH = 64  # the layout trainer's batch
+LAYOUT_STEPS = 10  # timed steps a dtype
+LAYOUT_CPU_BATCH = 8  # pages of the step held against the CPU
+LAYOUT_TRAIN_IMAGES = 32  # phase 11's trainer: one step (32 pages) an epoch, 32 validation pages
+LAYOUT_SHARE = 0.25  # phase 10: the share of words predicted line starts, and line ends
+LAYOUT_PARAMS = 4739074
+
+
+def _doc_quads(n_pages: int, seed: int) -> list[np.ndarray]:
+    """Word quads (``[W, 4, 2]``) of ``SyntheticDocLayout`` pages, all of
+    each page's words (hundreds; some pages more than the model's 500)."""
+    from ocrs_models_torch.data.layout_synth import SyntheticDocLayout
+
+    ds = SyntheticDocLayout(size=n_pages, n_words=4000, seed=seed, normalize_coords=False)
+    out = []
+    for i in range(n_pages):
+        b = ds[i][0]
+        b = b[b[:, 2] > b[:, 0]].astype(np.float64)
+        out.append(np.stack([b[:, [0, 1]], b[:, [2, 1]], b[:, [2, 3]], b[:, [0, 3]]], axis=1))
+    return out
+
+
+def _layout_state_dict() -> dict:
+    """The full-width ``LayoutModel(return_probs=True)``'s weights, drawn
+    from ``SEED`` (PyTorch's initialisation)."""
+    from ocrs_models_torch.models import LayoutModel
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        return LayoutModel(return_probs=True).state_dict()
+
+
+def _widest_gap(values: torch.Tensor, q: float) -> torch.Tensor:
+    """The middle of the widest gap between neighbouring ``values`` within
+    two percentiles of their ``q`` quantile: a threshold there leaves every
+    value as far from it as the data allow."""
+    v = torch.sort(values).values
+    lo, hi = int(len(v) * (q - 0.02)), int(len(v) * (q + 0.02))
+    i = lo + int(torch.argmax(v[lo + 1 : hi + 1] - v[lo:hi]))
+    return (v[i] + v[i + 1]) / 2
+
+
+def check_layout_serving(dev, pages) -> dict:
+    """Phase 10: the layout model in serving, float32 with TF32 off. The
+    pages' word quads go through ``_group_lines_layout_batch`` (one
+    ``[16, 500, 4]`` forward) on the card and on the CPU: probabilities
+    within 1e-4 and the line groupings equal; where a word's probability
+    lies within 1e-4 of the 0.5 threshold, a last bit may flip its
+    decision, so the groupings must then agree outside that band. Random
+    weights predict nearly every word a line start and a line end, so
+    that every line holds one word: ``classify``'s bias is shifted so that
+    about a quarter of the words are predicted starts and a quarter ends,
+    with the threshold in the widest gap between the words' logits there.
+    Then
+    ``run_batch`` with the layout model on phase 5's pages (every
+    recognition chunk launches its kernels), and the forward's time."""
+    from ocrs_models_torch.pipeline import OcrPipeline
+
+    sd = _layout_state_dict()
+    pipe = OcrPipeline(layout_state_dict=sd, use_layout_model=True, device=dev, seed=SEED)
+    quads = _doc_quads(LAYOUT_PAGES, SEED)
+    padded, info = pipe._layout_inputs(quads)
+    x_cpu = torch.from_numpy(padded)
+    x = x_cpu.to(dev)
+    words = torch.zeros(padded.shape[:2], dtype=torch.bool)
+    for p, (_, _, k) in enumerate(info):
+        words[p, :k] = True
+    pipe.layout_model.return_probs = False
+    with pipe._numerics():
+        logits = pipe.layout_model(x).cpu()[words]
+    pipe.layout_model.return_probs = True
+    shift = torch.stack([_widest_gap(logits[:, c], 1.0 - LAYOUT_SHARE) for c in range(2)])
+    sd["classify.bias"] -= shift
+    with torch.no_grad():
+        pipe.layout_model.classify.bias.copy_(sd["classify.bias"])
+    cpu = OcrPipeline(layout_state_dict=sd, use_layout_model=True, device="cpu", seed=SEED)
+    with pipe._numerics():
+        p_gpu = pipe.layout_model(x).cpu()
+    with cpu._numerics():
+        p_cpu = cpu.layout_model(x_cpu)
+    err = (p_gpu - p_cpu).abs().max().item()
+    near = ((p_cpu - 0.5).abs() <= 1e-4) & words[..., None]
+    flips = ((p_gpu >= 0.5) != (p_cpu >= 0.5)) & words[..., None]
+    lines_gpu = pipe._group_lines_layout_batch(quads)
+    lines_cpu = cpu._group_lines_layout_batch(quads)
+    same = [[m for _, m in p] for p in lines_gpu] == [[m for _, m in p] for p in lines_cpu]
+    n_words = sum(len(q) for q in quads)
+    print(json.dumps({
+        "path": "layout grouping card vs CPU", "shape": list(padded.shape), "words": n_words,
+        "overflow_words": n_words - int(words.sum()), "lines": sum(len(p) for p in lines_gpu),
+        "max_abs_err": err, "start_share": (p_cpu[..., 0][words] >= 0.5).float().mean().item(),
+        "end_share": (p_cpu[..., 1][words] >= 0.5).float().mean().item(),
+        "threshold_margin": (p_cpu - 0.5).abs()[words[..., None].expand_as(p_cpu)].min().item(),
+        "decisions_flipped": int(flips.sum()), "groupings_equal": same}), flush=True)
+    if not err <= 1e-4:
+        raise AssertionError(f"layout probabilities disagree with the CPU: {err}")
+    if (flips & ~near).any() or (not same and not near.any()):
+        raise AssertionError("layout line groupings on the card differ from the CPU's")
+
+    # The forward alone, as run_batch calls it.
+    def forward():
+        with pipe._numerics():
+            pipe.layout_model(x)
+
+    ms = _cuda_time_ms(forward, iters=20)
+    launches, times, records = _device_profile(forward)
+    device_ms = (sum(times[k] * records[k] for k in times) / PROFILE_CALLS) if times else None
+    print(json.dumps({"path": "layout forward f32", "shape": list(padded.shape), "ms": ms,
+                      "device_ms": device_ms, "device_launches_per_call": launches}), flush=True)
+
+    results, counts, chunks, seconds = _run_batch(pipe, pages, "run_batch layout")
+    with_layout = sum(len(p) for p in results)
+    return {"forward_ms": ms, "forward_device_ms": device_ms, "pages_per_s": len(pages) / seconds,
+            "launches": counts, "lines": with_layout}
+
+
+def _layout_batch(n: int, seed: int, dev) -> dict:
+    from ocrs_models_torch.data import SyntheticLayout, collate_layout
+    from ocrs_models_torch.data.loader import to_device
+
+    ds = SyntheticLayout(size=n, n_words=LAYOUT_WORDS, seed=seed)
+    batch = collate_layout([ds[i] for i in range(n)])
+    del batch["n_valid"]
+    return to_device(batch, dev)
+
+
+def _layout_model(dtype=torch.float32, dropout=True):
+    from ocrs_models_torch.models import LayoutModel
+    from ocrs_models_torch.models.layout import Dropout
+
+    torch.manual_seed(SEED + 2)
+    model = LayoutModel(dtype=dtype)
+    if not dropout:
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    return model
+
+
+def check_layout_step(dev) -> None:
+    """Phase 11 (a): one ``make_layout_steps`` step on the card against the
+    same step on the CPU from the same weights, f32 with TF32 off and
+    dropout at 0 (8 pages of 500 words): loss within 1e-5 relative, each
+    module's gradient norm within 1e-4. Then ``grad_accum=4`` at batch 64
+    against one step from the same weights: loss within 1e-5 relative."""
+    import copy
+
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import make_layout_steps
+
+    model = _layout_model(dropout=False)
+    batch = _layout_batch(LAYOUT_CPU_BATCH, SEED, torch.device("cpu"))
+    out = []
+    for device in (torch.device("cpu"), dev):
+        m = copy.deepcopy(model).to(device)
+        train, _ = make_layout_steps(m)
+        out.append(train(create_train_state(m), batch, 3e-4)[1])
+    cpu, card = out
+    loss_rel = abs(card["loss"].item() / cpu["loss"].item() - 1)
+    norm_rel = {k: abs(v.item() / cpu["grad_norms"][k].item() - 1)
+                for k, v in card["grad_norms"].items()}
+    norm_rel["all"] = abs(card["grad_norm"].item() / cpu["grad_norm"].item() - 1)
+
+    batch = _layout_batch(LAYOUT_BATCH, SEED + 1, dev)
+    losses = []
+    for grad_accum in (1, 4):
+        m = copy.deepcopy(model).to(dev)
+        train, _ = make_layout_steps(m, grad_accum=grad_accum)
+        losses.append(train(create_train_state(m), batch, 3e-4)[1]["loss"].item())
+    ga_rel = abs(losses[1] / losses[0] - 1)
+    print(json.dumps({"path": "layout step card vs CPU", "batch": LAYOUT_CPU_BATCH,
+                      "loss": card["loss"].item(), "loss_cpu": cpu["loss"].item(),
+                      "loss_rel": loss_rel, "grad_norm_rel_max": max(norm_rel.values()),
+                      "grad_accum4_loss_rel": ga_rel}), flush=True)
+    if not (loss_rel <= 1e-5 and all(v <= 1e-4 for v in norm_rel.values())):
+        raise AssertionError(f"the layout step on the card disagrees with the CPU: {norm_rel}")
+    if not ga_rel <= 1e-5:
+        raise AssertionError(f"layout grad_accum=4 loss {losses[1]} vs one step {losses[0]}")
+
+
+def run_layout_training(dev, dtype) -> dict:
+    """Phase 11 (b): the layout step at batch 64 x 500 words as the trainer
+    runs it (dropout on, lr 3e-4): one warm-up step, then timed steps on a
+    fixed batch, whose loss must fall; each step on the device's timeline
+    (CUDA events between step starts) and pages/s on the host clock. The
+    layout step launches none of the port's kernels."""
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import make_layout_steps
+
+    model = _layout_model(dtype).to(dev)
+    state = create_train_state(model)
+    train, _ = make_layout_steps(model)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = _layout_batch(LAYOUT_BATCH, SEED + 1, dev)
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = train(state, batch, 3e-4, gen)
+    torch.cuda.synchronize()
+    _zero_counts()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(LAYOUT_STEPS + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(LAYOUT_STEPS):
+        marks[i].record()
+        state, metrics = train(state, batch, 3e-4, gen)
+        losses.append(metrics["loss"])
+    marks[-1].record()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = _counts()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [v.item() for v in losses]
+    tag = "bf16" if dtype == BF16 else "f32"
+    line = {"path": f"layout train_step {tag} {LAYOUT_BATCH}x{LAYOUT_WORDS}",
+            "steps": LAYOUT_STEPS, "seconds": elapsed,
+            "pages_per_s": LAYOUT_BATCH * LAYOUT_STEPS / elapsed,
+            "ms_per_step": 1e3 * elapsed / LAYOUT_STEPS,
+            "step_ms_median": float(np.median(step_ms)), "step_ms_min": min(step_ms),
+            "step_ms_max": max(step_ms), "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "losses": losses, "launches": counts}
+    print(json.dumps(line), flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"layout {tag} step: the loss did not fall: {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"the layout step launched the port's kernels: {counts}")
+    return line
+
+
+def _png_size(path: str) -> tuple[int, int]:
+    """Decode an RGB PNG's IDAT with ``zlib`` and check its size; returns
+    ``(width, height)``."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    width, height = struct.unpack(">II", data[16:24])
+    pos, idat = 8, b""
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    if len(zlib.decompress(idat)) != height * (1 + 3 * width):
+        raise AssertionError(f"{path}: the image data does not decode to {width}x{height} RGB")
+    return width, height
+
+
+def run_layout_trainer() -> dict:
+    """Phase 11 (c): the layout trainer CLI in a temporary directory, at its
+    defaults (bf16, batch 64, 500 words) on ``synthetic-doc`` cut to 32
+    pages (one step an epoch, 32 validation pages; drawing a page takes
+    over 0.1 s of Python, which bounds this phase): three epochs (every
+    loss finite, epoch 2's train loss below epoch 0's, a checkpoint, three
+    metrics records); a resume for one more epoch with the Adam step
+    restored; ``--validate-only``; ``--export layout.pt``; then
+    ``eval_layout`` on a page written by ``write_corpus``, whose PNG must
+    decode."""
+    import math
+    import os
+    import tempfile
+
+    from ocrs_models_torch.data.layout_synth import write_corpus
+    from ocrs_models_torch.training import eval_layout, train_layout
+
+    data = ["synthetic-doc", "--max-images", str(LAYOUT_TRAIN_IMAGES)]
+    steps = math.ceil(LAYOUT_TRAIN_IMAGES / LAYOUT_BATCH)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as run_dir:
+        os.chdir(run_dir)
+        try:
+            lines, state, _, seconds = _cli(train_layout, [*data, "--max-epochs", "3"])
+            records = [json.loads(r) for r in
+                       Path("text-layout-metrics.jsonl").read_text().splitlines()]
+            epochs = [r for r in records if "epoch" in r]
+            losses = [r["train_loss"] for r in epochs]
+            if [r["epoch"] for r in epochs] != [0, 1, 2] or not all(
+                    np.isfinite([v for r in epochs for v in (r["train_loss"], r["val_loss"])])):
+                raise AssertionError(f"train_layout: epoch records {epochs}")
+            if not losses[2] < losses[0]:
+                raise AssertionError(f"train_layout: the train loss did not fall: {losses}")
+            if f"Model param count {LAYOUT_PARAMS}" not in lines or state.model.dtype != BF16:
+                raise AssertionError("train_layout: not the full-width bf16 layout model")
+            print(json.dumps({"path": "train_layout synthetic-doc 3 epochs", "dtype": "bf16",
+                              "batch": LAYOUT_BATCH, "pages": LAYOUT_TRAIN_IMAGES,
+                              "seconds": seconds, "train_loss": losses,
+                              "val_loss": [r["val_loss"] for r in epochs],
+                              "lr": [r["lr"] for r in epochs],
+                              "val_accuracy": epochs[-1]["val_accuracy"]}), flush=True)
+
+            ckpt = torch.load("text-layout-checkpoint.pt", map_location="cpu", weights_only=True)
+            epoch = ckpt["epoch"]
+            adam = {float(v["step"]) for v in ckpt["optimizer_state"]["state"].values()}
+            if ckpt["step"] != steps * epoch or adam != {float(steps * epoch)} or epoch < 1:
+                raise AssertionError(f"checkpoint: epoch {epoch}, step {ckpt['step']}, Adam {adam}")
+            lines, state, _, seconds = _cli(train_layout, [
+                *data, "--checkpoint", "text-layout-checkpoint.pt", "--max-epochs", str(epoch + 1)])
+            records = [json.loads(r) for r in
+                       Path("text-layout-metrics.jsonl").read_text().splitlines()]
+            last = [r for r in records if "epoch" in r][-1]
+            adam_step = float(state.optimizer.adam.state_dict()["state"][0]["step"])
+            if (state.step, adam_step, last["epoch"]) != (steps * (epoch + 1),
+                                                          float(steps * (epoch + 1)), epoch):
+                raise AssertionError(f"resume: step {state.step}, Adam {adam_step}, "
+                                     f"epoch {last['epoch']}; from epoch {epoch}")
+            print(json.dumps({"path": f"train_layout resumed, epoch {epoch}", "seconds": seconds,
+                              "train_loss": last["train_loss"], "val_loss": last["val_loss"]}),
+                  flush=True)
+
+            lines, _, _, _ = _cli(train_layout, [*data, "--checkpoint", "text-layout-checkpoint.pt",
+                                                 "--validate-only"])
+            (line,) = [ln for ln in lines if "val stats" in ln]
+            _cli(train_layout, [*data, "--checkpoint", "text-layout-checkpoint.pt",
+                                "--export", "layout.pt"])
+            exported = torch.load("layout.pt", map_location="cpu", weights_only=True)
+            n_exported = sum(v.numel() for v in exported["model_state"].values())
+            if n_exported != LAYOUT_PARAMS or exported["optimizer_state"] != {}:
+                raise AssertionError(f"--export layout.pt: {n_exported} parameters")
+
+            write_corpus("pages", 1, seed=SEED)
+            lines, _, _, seconds = _cli(eval_layout, ["pages/page-00000.json", "page.png",
+                                                      "--checkpoint", "layout.pt",
+                                                      "--colors", "labels"])
+            width, height = _png_size("page.png")
+            print(json.dumps({"path": "train_layout --validate-only, --export, eval_layout",
+                              "val_line": line, "eval_line": lines[-1] if lines else "",
+                              "png": [width, height], "eval_seconds": seconds}), flush=True)
+        finally:
+            os.chdir(cwd)
+    return {"epochs": len(epochs)}
 
 
 def run(root: Path) -> int:
@@ -1479,6 +1851,28 @@ def run(root: Path) -> int:
     for rows, name in ((kernels, "f32"), (kernels_bf16, "bf16")):
         for k in rows:
             k["trainer_launches_per_epoch"] = trainer_launches[name][k["name"]]
+
+    # Phase 10: the layout model in serving (phase 5's pages).
+    t0 = time.perf_counter()
+    layout = check_layout_serving(dev, pages)
+    torch.cuda.empty_cache()
+    print(f"phase 10 seconds {time.perf_counter() - t0:.1f}", flush=True)
+
+    # Phase 11: layout training: the step against the CPU, timed steps in
+    # both dtypes, the trainer CLI and eval_layout.
+    t0 = time.perf_counter()
+    check_layout_step(dev)
+    layout_steps = {name: run_layout_training(dev, dtype)
+                    for dtype, name in ((BF16, "bf16"), (torch.float32, "f32"))}
+    print(f"phase 11 steps seconds {time.perf_counter() - t0:.1f}", flush=True)
+    run_layout_trainer()
+    print(f"phase 11 seconds {time.perf_counter() - t0:.1f}", flush=True)
+    print(json.dumps({"path": "layout summary", "forward_ms_16x500": layout["forward_ms"],
+                      "forward_device_ms_16x500": layout["forward_device_ms"],
+                      "run_batch_layout_pages_per_s": layout["pages_per_s"],
+                      **{f"step_{k}_median_ms": v["step_ms_median"] for k, v in layout_steps.items()},
+                      **{f"step_{k}_pages_per_s": v["pages_per_s"] for k, v in layout_steps.items()}}),
+          flush=True)
 
     print(f"smoke seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels + kernels_bf16}), flush=True)

@@ -1,5 +1,5 @@
-"""Constants and configuration of the serving path and the recognition
-trainer (counterpart of ``ocrs_models_tpu/config.py``)."""
+"""Constants and configuration of the serving path, the recognition trainer
+and the layout trainer (counterpart of ``ocrs_models_tpu/config.py``)."""
 
 from __future__ import annotations
 
@@ -52,6 +52,32 @@ class RecognitionTrainConfig:
     # number of distinct shapes the kernels and cuDNN see.
     width_step: int = 256
     checkpoint_name: str = "text-rec-checkpoint"
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutModelConfig:
+    """Transformer word-layout model: 6 post-LN layers over sinusoidal
+    encodings of the word boxes' coordinates."""
+
+    n_features: int = 4
+    d_model: int = 256
+    n_layers: int = 6
+    n_heads: int = 4
+    d_feedforward: int = 1024
+    n_classes: int = 2
+    pos_embedding: str = "sin"  # "sin" | "mlp"
+
+
+@dataclasses.dataclass(frozen=True)
+class LayoutTrainConfig:
+    batch_size: int = 64
+    learning_rate: float = 3e-4
+    warmup_epochs: int = 50
+    n_words: int = 500
+    pos_weight: float = 10.0
+    max_jitter: int = 10
+    seed: int = 1234
+    checkpoint_name: str = "text-layout-checkpoint"
 
 
 def round_up(val: int, unit: int) -> int:

@@ -1,5 +1,11 @@
-from .collate import collate_recognition
+from .collate import collate_layout, collate_recognition
 from .loader import DataLoader
-from .synthetic import SyntheticRecognition
+from .synthetic import SyntheticLayout, SyntheticRecognition
 
-__all__ = ["DataLoader", "SyntheticRecognition", "collate_recognition"]
+__all__ = [
+    "DataLoader",
+    "SyntheticLayout",
+    "SyntheticRecognition",
+    "collate_layout",
+    "collate_recognition",
+]

@@ -1,5 +1,5 @@
-"""Recognition batch collation (the port's copy of
-``ocrs_models_tpu/data/collate.py``'s recognition part).
+"""Recognition and layout batch collation (the port's copy of those parts
+of ``ocrs_models_tpu/data/collate.py``).
 
 Widths bucket up to multiples of ``width_step``; CTC-incompatible samples
 are kept but masked with ``sample_weight`` 0, and the batch pads to a
@@ -71,3 +71,16 @@ def collate_recognition(
         "image_width": image_width,
         "sample_weight": weight,
     }
+
+
+def collate_layout(samples: list[tuple], batch_multiple: int = 1) -> dict:
+    """Collate ``(boxes [W, 4], labels [W, 2])`` tuples, already padded to a
+    fixed word count by the dataset. The batch pads to a multiple of
+    ``batch_multiple`` by repeating the last sample, with weight 0."""
+    n = round_up(len(samples), batch_multiple)
+    last = len(samples) - 1
+    boxes = np.stack([samples[min(i, last)][0] for i in range(n)]).astype(np.float32)
+    labels = np.stack([samples[min(i, last)][1] for i in range(n)]).astype(np.float32)
+    weight = np.zeros((n,), np.float32)
+    weight[: len(samples)] = 1.0
+    return {"boxes": boxes, "labels": labels, "sample_weight": weight, "n_valid": len(samples)}

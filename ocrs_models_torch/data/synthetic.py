@@ -1,5 +1,6 @@
-"""Synthetic text-line dataset (the port's copy of ``SyntheticRecognition``
-in ``ocrs_models_tpu/data/synthetic.py``), drawn without PIL.
+"""Synthetic datasets (the port's copies of ``SyntheticRecognition`` and
+``SyntheticLayout`` in ``ocrs_models_tpu/data/synthetic.py``), drawn
+without PIL.
 
 Sample ``idx`` draws its text from ``default_rng(seed * 100_003 + idx)``
 out of the JAX dataset's pool (digits, letters, the space and four more
@@ -65,3 +66,48 @@ class SyntheticRecognition:
                 new_w = min(800, max(10, int(h * aspect)))
                 arr = resize(arr, (h, new_w))
         return {"image": arr.astype(np.float32), "text": encode_text(text, self.alphabet)}
+
+
+class SyntheticLayout:
+    """Random word-box layouts ``(boxes [n_words, 4], labels [n_words, 2])``,
+    zero-padded, with line-start/line-end labels from the vertical overlap
+    of neighbouring words. Sample ``idx`` draws from
+    ``default_rng(seed * 100_003 + idx)``, as the JAX dataset does."""
+
+    def __init__(self, size: int = 128, n_words: int = 500, seed: int = 0):
+        self.size = size
+        self.n_words = n_words
+        self.seed = seed
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed * 100_003 + idx)
+        boxes = []
+        y = float(rng.uniform(10, 60))
+        while y < 900 and len(boxes) < self.n_words:
+            line_h = float(rng.uniform(12, 24))
+            x = float(rng.uniform(10, 60))
+            for _ in range(int(rng.integers(1, 12))):
+                word_w = float(rng.uniform(20, 90))
+                if x + word_w > 980:
+                    break
+                boxes.append([x, y, x + word_w, y + line_h])
+                x += word_w + float(rng.uniform(4, 14))
+            y += line_h + float(rng.uniform(4, 20))
+
+        def overlap(a, b) -> bool:
+            return a[1] < b[3] and b[1] < a[3]
+
+        labels = [
+            [float(i == 0 or not overlap(boxes[i - 1], boxes[i])),
+             float(i == len(boxes) - 1 or not overlap(boxes[i], boxes[i + 1]))]
+            for i in range(len(boxes))
+        ]
+        out_boxes = np.zeros((self.n_words, 4), dtype=np.float32)
+        out_labels = np.zeros((self.n_words, 2), dtype=np.float32)
+        k = min(len(boxes), self.n_words)
+        out_boxes[:k] = np.asarray(boxes, dtype=np.float32)[:k]
+        out_labels[:k] = np.asarray(labels, dtype=np.float32)[:k]
+        return out_boxes, out_labels

@@ -1,4 +1,5 @@
 from .detection import DetectionModel
+from .layout import LayoutModel
 from .recognition import RecognitionModel
 
-__all__ = ["DetectionModel", "RecognitionModel"]
+__all__ = ["DetectionModel", "LayoutModel", "RecognitionModel"]

@@ -1,8 +1,8 @@
 """Profile the port's recognition forward, its training step and its
-kernels on one GPU.
+kernels, and the layout model, on one GPU.
 
     python -m ocrs_models_torch.profile_kernels [--width 800] [--batch 128]
-        [--train-width 256] [--train-batch 256] [--only gru|stage1|ctc] [--bf16]
+        [--train-width 256] [--train-batch 256] [--only gru|stage1|ctc|layout] [--bf16]
 
 Runs, under ``torch.profiler``, the recognition forward of one
 ``rec_batch`` chunk (random weights, seed 1234), the biGRU recurrence
@@ -18,8 +18,12 @@ span. ``--only gru`` runs the two recurrence sections alone, at
 ``--only ctc`` runs ``ctc_alpha`` and ``ctc_beta``, each alone at the
 training shapes given by ``--train-width`` and ``--train-batch`` (labels
 of 24 characters at width 256, else 48, in arrays 64 wide as the trainer
-pads them). ``--bf16`` runs the model, the step and the stage-1 and biGRU
-kernels in bfloat16 (the CTC kernels are float32 in both). Needs CUDA.
+pads them). ``--only layout`` runs the layout model's forward at
+``[16, 500, 4]`` (float32, as ``OcrPipeline`` serves it) and one layout
+training step at 64 pages of 500 words (dropout on, lr 3e-4); the layout
+model reaches none of the port's kernels. ``--bf16`` runs the model, the
+step and the stage-1 and biGRU kernels in bfloat16 (the CTC kernels are
+float32 in both; the layout forward stays float32). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -193,6 +197,27 @@ def _ctc_sections(n: int, w: int, iters: int, dev, gen) -> None:
         _report(f"{name} emit [{n},{t_len},{emit.shape[2]}]", prof, wall, iters, launches)
 
 
+def _layout_sections(iters: int, dev, dtype) -> None:
+    """The layout model's served forward and its training step."""
+    from .data import SyntheticLayout, collate_layout
+    from .models import LayoutModel
+    from .training.steps import make_layout_steps, numerics
+
+    ds = SyntheticLayout(size=64, n_words=500, seed=1234)
+    batch = collate_layout([ds[i] for i in range(64)])
+    batch = {k: torch.from_numpy(batch[k]).to(dev) for k in ("boxes", "labels", "sample_weight")}
+    model = LayoutModel(return_probs=True).to(dev).eval().requires_grad_(False)
+    with torch.inference_mode(), numerics():
+        prof, wall, launches = _profiled(lambda: model(batch["boxes"][:16]), iters)
+    _report("layout forward f32 [16,500,4]", prof, wall, iters, launches)
+    model = LayoutModel(dtype=dtype).to(dev)
+    state = create_train_state(model)
+    train_step, _ = make_layout_steps(model)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    prof, wall, launches = _profiled(lambda: train_step(state, batch, 3e-4, gen), iters)
+    _report(f"layout train step {str(dtype)[6:]} [64,500,4]", prof, wall, iters, launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--width", type=int, default=800)
@@ -200,7 +225,7 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--train-width", type=int, default=256)
     ap.add_argument("--train-batch", type=int, default=256)
-    ap.add_argument("--only", choices=["gru", "stage1", "ctc"], default=None,
+    ap.add_argument("--only", choices=["gru", "stage1", "ctc", "layout"], default=None,
                     help="run only the sections of these kernels")
     ap.add_argument("--bf16", action="store_true", help="bfloat16 model, step and kernels")
     args = ap.parse_args()
@@ -215,6 +240,8 @@ def main() -> None:
         return _stage1_sections(args.train_batch, args.train_width, args.iters, dev, gen, dtype)
     if args.only == "ctc":
         return _ctc_sections(args.train_batch, args.train_width, args.iters, dev, gen)
+    if args.only == "layout":
+        return _layout_sections(args.iters, dev, dtype)
     model = RecognitionModel(n_classes=97, dtype=dtype).to(dev).eval().requires_grad_(False)
     x = (torch.rand((args.batch, 1, 64, args.width), generator=gen) - 0.5).to(dev)
     flags = dict(enabled=True, benchmark=True, deterministic=False, allow_tf32=False)

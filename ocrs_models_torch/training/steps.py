@@ -1,15 +1,15 @@
-"""Train and eval steps for the CRNN recognizer.
+"""Train and eval steps for the CRNN recognizer and the layout transformer.
 
-Counterpart of ``make_recognition_steps`` in
-``ocrs_models_tpu/training/steps.py``, with its contract: the learning rate
-is an argument of each step; batches may carry padding rows that
-``sample_weight`` zeroes out of the loss (they still enter the batch-norm
-batch statistics, as in the JAX package); the loss is
+Counterpart of ``make_recognition_steps`` and ``make_layout_steps`` in
+``ocrs_models_tpu/training/steps.py``, with their contract. The learning
+rate is an argument of each step; recognition batches may carry padding
+rows that ``sample_weight`` zeroes out of the loss (they still enter the
+batch-norm batch statistics, as in the JAX package); the loss is
 ``sum(nll / max(len, 1) * w) / max(sum(w), 1)`` with CTC input lengths
 ``image_width // downsample``, one less than the model's ``W//4 + 1``
 output steps, as the reference trainer does.
 
-The step runs eagerly on the model's device in the model's dtype: float32
+The recognition step runs eagerly on the model's device in the model's dtype: float32
 convolutions and matmuls kept out of TF32 (the JAX package's
 ``dtype=float32`` path), or a ``RecognitionModel(dtype=torch.bfloat16)``
 (its bf16 path); the log-probs, the CTC loss, the parameters, their
@@ -17,6 +17,8 @@ gradients and Adam's state are float32 in both. cuDNN times its algorithms
 once per shape (its heuristic picks slow FFT algorithms for the float32
 convolutions). Stage 1, the biGRU recurrence and the CTC recursions run
 through the port's CUDA kernels, forward and backward, on a CUDA device.
+The layout step runs plain PyTorch products (the JAX layout model reaches
+no Pallas kernel) in the model's dtype, with TF32 off for float32.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from torch import nn
 
 from ..ops.ctc import ctc_loss_forward
+from ..ops.losses import weighted_bce_with_logits
 from .state import TrainState, global_norm
 
 
@@ -172,5 +175,124 @@ def make_recognition_steps(
             model.train(was_training)
         return {"loss": num / torch.clamp(den, min=1.0),
                 "preds": log_probs.argmax(dim=-1).to(torch.int32)}
+
+    return train_step, eval_step
+
+
+# --------------------------------- layout --------------------------------
+
+
+def layout_module_names(model: nn.Module) -> dict[str, str]:
+    """Each parameter's top-level module under the JAX package's names:
+    ``encode.layers.{i}.*`` -> ``layer_{i}``, ``embed.0.*`` / ``embed.2.*``
+    -> ``embed0`` / ``embed1``, ``classify.*`` -> ``classify``."""
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "encode":
+            out[name] = f"layer_{parts[2]}"
+        elif parts[0] == "embed":
+            out[name] = f"embed{int(parts[1]) // 2}"
+        else:
+            out[name] = parts[0]
+    return out
+
+
+def _layout_to_device(batch: dict, dev: torch.device) -> dict:
+    out = {}
+    for key in ("boxes", "labels", "sample_weight"):
+        if key in batch:
+            v = batch[key]
+            v = torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
+            out[key] = v.to(dev).float().contiguous()
+    return out
+
+
+def make_layout_steps(model: nn.Module, pos_weight: float = 10.0, grad_accum: int = 1):
+    """Build ``(train_step, eval_step)`` for the layout transformer.
+
+    Batch fields (numpy arrays or tensors): ``boxes`` ``[N, W, 4]``,
+    ``labels`` ``[N, W, 2]``, optional ``sample_weight`` ``[N]``. Padded
+    words carry zero boxes and labels and take part in the loss, as in the
+    reference; rows of weight 0 (batch padding) do not.
+
+    ``train_step(state, batch, lr, generator=None) -> (state, metrics)``
+    updates ``state`` in place; dropout draws from ``generator`` (on the
+    model's device). Metrics are 0-d tensors ``loss`` and ``grad_norm``, a
+    dict ``grad_norms`` keyed by the JAX module names (``layer_0`` ...,
+    ``classify``) and ``probs`` ``[N, W, 2]``. There is no gradient clip.
+    ``eval_step(state, batch) -> {"loss", "probs"}`` runs without dropout.
+
+    ``grad_accum=k`` splits the batch into ``k`` microbatches with the JAX
+    package's strided split (microbatch ``i`` takes samples ``i, i+k,
+    ...``), weights each microbatch's loss and gradient by its valid count,
+    draws each microbatch's dropout in turn from ``generator`` and makes one
+    update; the loss is an element mean and the encoder keeps no batch
+    statistics, so without dropout this is the full batch's step.
+    """
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    names = layout_module_names(model)
+
+    def device() -> torch.device:
+        return next(model.parameters()).device
+
+    def loss_fn(batch: dict, generator=None):
+        logits = model(batch["boxes"], generator)
+        loss = weighted_bce_with_logits(logits, batch["labels"], pos_weight,
+                                        batch.get("sample_weight"))
+        return loss, logits
+
+    def train_step(state: TrainState, batch: dict, lr: float,
+                   generator: torch.Generator | None = None):
+        batch = _layout_to_device(batch, device())
+        n = batch["boxes"].shape[0]
+        if n % grad_accum:
+            raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
+        model.train()
+        state.optimizer.zero_grad()
+        with numerics():
+            if grad_accum == 1:
+                loss, logits = loss_fn(batch, generator)
+                loss.backward()
+                loss = loss.detach()
+                probs = torch.sigmoid(logits.detach())
+            else:
+                loss = den = 0.0
+                probs = torch.empty(batch["labels"].shape, device=batch["labels"].device)
+                for i in range(grad_accum):
+                    mb = {k: v[i::grad_accum] for k, v in batch.items()}
+                    mb_den = (mb["sample_weight"].sum() if "sample_weight" in mb
+                              else torch.tensor(float(n // grad_accum), device=probs.device))
+                    mb_loss, logits = loss_fn(mb, generator)
+                    (mb_loss * mb_den).backward()
+                    loss = loss + mb_loss.detach() * mb_den
+                    den = den + mb_den
+                    probs[i::grad_accum] = torch.sigmoid(logits.detach())
+                den = torch.clamp(den, min=1.0)
+                loss = loss / den
+            grads: dict[str, list] = {}
+            for name, p in model.named_parameters():
+                if p.grad is not None:
+                    if grad_accum > 1:
+                        p.grad.div_(den)
+                    grads.setdefault(names[name], []).append(p.grad)
+            grad_norms = {k: global_norm(v) for k, v in grads.items()}
+            grad_norm = state.optimizer.step(lr)
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": grad_norm, "grad_norms": grad_norms,
+                       "probs": probs}
+
+    def eval_step(state: TrainState, batch: dict):
+        del state
+        batch = _layout_to_device(batch, device())
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad(), numerics():
+                loss, logits = loss_fn(batch)
+        finally:
+            model.train(was_training)
+        return {"loss": loss, "probs": torch.sigmoid(logits)}
 
     return train_step, eval_step

@@ -5,14 +5,16 @@ in their own layouts; the port's modules use the reference's torch
 state-dict keys and layouts. These functions map one onto the other (the
 port's own copy of the mapping, taking nested dicts of anything
 ``np.asarray`` accepts) and return state dicts of CPU tensors that load
-into :class:`~ocrs_models_torch.models.RecognitionModel` and
-:class:`~ocrs_models_torch.models.DetectionModel` with ``strict=True``.
+into :class:`~ocrs_models_torch.models.RecognitionModel`,
+:class:`~ocrs_models_torch.models.DetectionModel` and
+:class:`~ocrs_models_torch.models.LayoutModel` with ``strict=True``.
 State dicts in the reference's ``.pt`` format load unchanged.
 
 Layouts: flax HWIO conv ``[kh, kw, I/g, O]`` -> torch ``[O, I/g, kh, kw]``;
 flax transpose conv (``transpose_kernel=True``) ``[kh, kw, O, I]`` -> torch
 ``[I, O, kh, kw]``; dense ``[I, O]`` -> ``[O, I]``; GRU ``[F, 3H]`` ->
-``[3H, F]``; batch norm scale/bias/mean/var -> weight/bias/running_*.
+``[3H, F]``; batch norm scale/bias/mean/var -> weight/bias/running_*;
+layer norm scale/bias -> weight/bias.
 """
 
 from __future__ import annotations
@@ -104,4 +106,33 @@ def recognition_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, t
     for key, value in bigru_state_dict_from_jax(p["gru"]).items():
         out[f"gru.{key}"] = value
     _dense(p["output"], "output.0", out)
+    return out
+
+
+def _layer_norm(p: Mapping[str, Any], key: str, out: dict) -> None:
+    out[f"{key}.weight"] = _t(p["scale"])
+    out[f"{key}.bias"] = _t(p["bias"])
+
+
+def layout_state_dict_from_jax(
+    variables: Mapping[str, Any], n_layers: int = 6, pos_embedding: str = "sin"
+) -> dict[str, torch.Tensor]:
+    """JAX ``LayoutModel`` variables -> the port's layout state dict (the
+    reference's keys): ``qkv_kernel [d, 3d]`` -> ``in_proj_weight [3d, d]``,
+    dense ``[I, O]`` -> ``[O, I]``, LayerNorm scale/bias -> weight/bias."""
+    p = variables["params"]
+    out: dict = {}
+    if pos_embedding == "mlp":
+        _dense(p["embed0"], "embed.0", out)
+        _dense(p["embed1"], "embed.2", out)
+    for i in range(n_layers):
+        lp, key = p[f"layer_{i}"], f"encode.layers.{i}"
+        out[f"{key}.self_attn.in_proj_weight"] = _t(np.asarray(lp["qkv_kernel"]).T)
+        out[f"{key}.self_attn.in_proj_bias"] = _t(lp["qkv_bias"])
+        _dense(lp["out_proj"], f"{key}.self_attn.out_proj", out)
+        _dense(lp["linear1"], f"{key}.linear1", out)
+        _dense(lp["linear2"], f"{key}.linear2", out)
+        _layer_norm(lp["norm1"], f"{key}.norm1", out)
+        _layer_norm(lp["norm2"], f"{key}.norm2", out)
+    _dense(p["classify"], "classify", out)
     return out

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, in float32
-and bfloat16, and the recognition trainer, on the card.
+and bfloat16, the recognition trainer, and the layout model, step and
+trainer against the CPU, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc``; without a GPU they skip. The
 file imports nothing of JAX, so it runs on a machine that has only the
@@ -15,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from ocrs_models_torch.models import RecognitionModel
+from ocrs_models_torch.data import SyntheticLayout, collate_layout
+from ocrs_models_torch.data.layout_synth import SyntheticDocLayout
+from ocrs_models_torch.models import LayoutModel, RecognitionModel
+from ocrs_models_torch.models.layout import Dropout
 from ocrs_models_torch.ops import (
     BiGRU,
     ctc_alpha,
@@ -36,8 +40,10 @@ from ocrs_models_torch.ops import (
     stage1_reference,
 )
 from ocrs_models_torch.ops.ctc import NEG_INF
+from ocrs_models_torch.pipeline import OcrPipeline
+from ocrs_models_torch.training import train_layout
 from ocrs_models_torch.training.state import create_train_state
-from ocrs_models_torch.training.steps import make_recognition_steps
+from ocrs_models_torch.training.steps import make_layout_steps, make_recognition_steps, numerics
 
 pytestmark = pytest.mark.cuda
 
@@ -692,3 +698,82 @@ def test_recognition_bf16_on_card_matches_its_plain_versions(dev):
     assert got.dtype == torch.float32 and got.shape == (20, 129, 97)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=5e-2)
+
+
+
+# ------------------------------------------------------------------ layout
+# The layout model runs plain PyTorch products (the JAX layout model reaches
+# no Pallas kernel); these hold the card against the CPU on the same weights.
+
+
+def _layout_model(dtype=torch.float32, seed=0, **kwargs) -> LayoutModel:
+    torch.manual_seed(seed)
+    return LayoutModel(dtype=dtype, **kwargs)
+
+
+def _layout_boxes(n_pages=4, n_words=500, seed=0) -> torch.Tensor:
+    ds = SyntheticLayout(size=n_pages, n_words=n_words, seed=seed)
+    return torch.from_numpy(np.stack([ds[i][0] for i in range(n_pages)]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_layout_forward_on_the_card_matches_the_cpu(dev, dtype):
+    # Full width: f32 (TF32 off) probabilities within 1e-4 of the CPU's;
+    # bf16 within 2e-2 (the same rounding points, cuBLAS's f32 sums in
+    # another order).
+    model = _layout_model(dtype, return_probs=True).eval()
+    boxes = _layout_boxes()
+    with torch.no_grad(), numerics():
+        want = model(boxes)
+        got = copy.deepcopy(model).to(dev)(boxes.to(dev)).cpu()
+    assert got.shape == (4, 500, 2) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_layout_train_step_on_the_card_matches_the_cpu(dev):
+    # One f32 step from the same weights, dropout at 0: loss 1e-5 relative,
+    # gradient norms 1e-4.
+    model = _layout_model()
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    ds = SyntheticLayout(size=6, n_words=500, seed=1)
+    batch = collate_layout([ds[i] for i in range(6)], batch_multiple=4)
+    out = []
+    for device in (torch.device("cpu"), dev):
+        m = copy.deepcopy(model).to(device)
+        train, _ = make_layout_steps(m)
+        out.append(train(create_train_state(m), batch, 1e-3)[1])
+    cpu, card = out
+    torch.testing.assert_close(card["loss"].cpu(), cpu["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(card["grad_norm"].cpu(), cpu["grad_norm"], rtol=1e-4, atol=0)
+    for k, v in cpu["grad_norms"].items():
+        torch.testing.assert_close(card["grad_norms"][k].cpu(), v, rtol=1e-4, atol=0)
+
+
+def test_layout_grouping_on_the_card_matches_the_cpu(dev):
+    ds = SyntheticDocLayout(size=4, n_words=700, seed=3, normalize_coords=False)
+    page_quads = []
+    for i in range(4):
+        b = ds[i][0]
+        b = b[b[:, 2] > b[:, 0]].astype(np.float64)
+        page_quads.append(np.stack([b[:, [0, 1]], b[:, [2, 1]], b[:, [2, 3]], b[:, [0, 3]]], 1))
+    sd = _layout_model().state_dict()
+    lines = [OcrPipeline(layout_state_dict=sd, use_layout_model=True,
+                         device=d)._group_lines_layout_batch(page_quads) for d in ("cpu", dev)]
+    assert sum(len(p) for p in lines[0]) > 0
+    assert [[m for _, m in p] for p in lines[1]] == [[m for _, m in p] for p in lines[0]]
+
+
+def test_train_layout_cli_on_the_card(dev, tmp_path, monkeypatch):
+    # Two bf16 epochs on 16 document pages: finite losses, a checkpoint.
+    monkeypatch.chdir(tmp_path)
+    state = train_layout.main(["synthetic-doc", "--max-images", "16", "--batch-size", "8",
+                               "--max-epochs", "2"])
+    assert state.step == 4 and state.model.dtype == BF16
+    records = [json.loads(line) for line in
+               (tmp_path / "text-layout-metrics.jsonl").read_text().splitlines()]
+    losses = [r[k] for r in records if "epoch" in r for k in ("train_loss", "val_loss")]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert (tmp_path / "text-layout-checkpoint.pt").exists()

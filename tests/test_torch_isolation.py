@@ -56,6 +56,20 @@ def test_pipeline_without_cuda_raises():
         OcrPipeline()
 
 
+def test_layout_entry_points_without_cuda_raise(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from ocrs_models_torch.training import eval_layout, train_layout
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_layout.main(["synthetic", "--max-epochs", "0"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_layout.main(["page.json", "out.png", "--checkpoint", "layout.pt"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OcrPipeline(use_layout_model=True, layout_state_dict={})
+
+
 def test_cpu_tensors_use_plain_versions_and_count_no_launch():
     for kernel in KERNELS:
         kernel.launches = 0

@@ -199,7 +199,13 @@ def test_group_words_into_lines_matches_jax():
         assert [int(i) for i in gm] == [int(i) for i in wm]
 
 
-@pytest.mark.parametrize("kwargs", [{"use_layout_model": True}, {"mesh": object()}])
-def test_options_outside_the_slice_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("case", [
+    pytest.param(({"use_layout_model": True}, ValueError, "layout_state_dict"), id="kwargs0"),
+    pytest.param(({"mesh": object()}, NotImplementedError, "ROADMAP.md"), id="kwargs1"),
+])
+def test_options_outside_the_slice_raise(case):
+    # The layout model is served since it was ported, and then needs its
+    # weights, as in the JAX package; multi-GPU serving is still to port.
+    kwargs, error, match = case
+    with pytest.raises(error, match=match):
         OcrPipeline(device="cpu", **kwargs)

@@ -6,10 +6,15 @@ JAX package and the PyTorch port, so the two run on the same numbers.
 
 from __future__ import annotations
 
+import types
+
+import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+import ocrs_models_tpu.models.layout as jax_layout
 
 
 def random_variables(model, sample_shape, seed: int):
@@ -47,3 +52,43 @@ def random_variables(model, sample_shape, seed: int):
 
 def nhwc_to_nchw(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x).transpose(0, 3, 1, 2)))
+
+
+def layout_variables(model, seed: int):
+    """``random_variables`` for a flax ``LayoutModel``, with each layer's
+    ``qkv_kernel`` drawn at the scale of a dense kernel (N(0, 1/d)), so
+    that attention is far from uniform."""
+    variables = random_variables(model, (1, 8, 4), seed)
+    rng = np.random.default_rng(seed + 1000)
+    for name, lp in variables["params"].items():
+        if name.startswith("layer_"):
+            shape = lp["qkv_kernel"].shape
+            lp["qkv_kernel"] = rng.normal(0.0, 1.0 / np.sqrt(shape[0]), shape).astype(np.float32)
+    return variables
+
+
+def patch_jax_dropout(monkeypatch):
+    """Dropout at rate 0 in ``ocrs_models_tpu.models.layout`` for the
+    test's duration, through that module's ``nn`` name: flax's ``Dropout``
+    and the JAX package stay as they are. Dropout's random stream cannot be
+    matched across the two packages, so the training parity tests take it
+    out on both sides."""
+    dropout = flax_nn.Dropout
+
+    def no_dropout(rate, deterministic=None, **kwargs):
+        return dropout(0.0, deterministic=True, **kwargs)
+
+    patched = types.SimpleNamespace(**{k: getattr(flax_nn, k) for k in dir(flax_nn)
+                                       if not k.startswith("__")})
+    patched.Dropout = no_dropout
+    monkeypatch.setattr(jax_layout, "nn", patched)
+
+
+def no_port_dropout(model: torch.nn.Module) -> torch.nn.Module:
+    """Dropout at p=0 in the port's layout model (its ``Dropout`` modules)."""
+    from ocrs_models_torch.models.layout import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model
