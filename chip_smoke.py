@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, recognition training step,
-recognition trainer and layout model (served and trained) on one NVIDIA GPU
-and check them.
+recognition trainer, layout model (served and trained) and detection
+training on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -100,6 +100,25 @@ Phases (any failure exits non-zero, before the final line):
     with the Adam step restored, ``--validate-only``, ``--export
     layout.pt``, and ``eval_layout`` on a ``write_corpus`` page, whose PNG
     must decode with ``zlib``.
+
+12. Detection training (``training.steps.make_detection_steps``: cuDNN
+    convolutions and plain PyTorch ops, the JAX detector reaches no Pallas
+    kernel) at the trainer's shape, ``[4, 1, 800, 600]`` synthetic pages
+    from ``SyntheticDetection``, the full-width U-Net (622,122 parameters)
+    from a fixed seed: one step on the card against the CPU from the same
+    weights in each dtype (f32: loss 1e-4 relative, grad norm 1e-3, module
+    norms 2e-2; bf16: 1e-2, 1e-1, 2.5e-1; parameters within ``2 * lr``);
+    ``grad_accum=4`` against its four microbatches one by one (loss 1e-5,
+    grad norm 1e-4); 10 timed steps in bf16 and f32 (median [min, max] by
+    CUDA events, pages/s, peak memory, device launches and busy time; the
+    loss must fall; no port kernel launches); the balanced BCE alone,
+    forward and backward, with no host sync (ms, device ms, launches).
+13. The detection trainer CLI (``training/train_detection.py``) at its
+    defaults (bf16, batch 4, 800x600, augmented) on 16 synthetic pages:
+    three epochs, a resume for one more with the Adam step restored,
+    ``--validate-only``, and ``eval_detection`` on a 1000x750 page saved
+    as PNG (its four PNGs decoded at their sizes); the host ms per page of
+    drawing a page and of each augmentation branch.
 
 Prints the nvidia-smi line, throughput lines, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1644,27 +1663,6 @@ def run_layout_training(dev, dtype) -> dict:
     return line
 
 
-def _png_size(path: str) -> tuple[int, int]:
-    """Decode an RGB PNG's IDAT with ``zlib`` and check its size; returns
-    ``(width, height)``."""
-    import struct
-    import zlib
-
-    data = Path(path).read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path} is not a PNG")
-    width, height = struct.unpack(">II", data[16:24])
-    pos, idat = 8, b""
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        if data[pos + 4:pos + 8] == b"IDAT":
-            idat += data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-    if len(zlib.decompress(idat)) != height * (1 + 3 * width):
-        raise AssertionError(f"{path}: the image data does not decode to {width}x{height} RGB")
-    return width, height
-
-
 def run_layout_trainer() -> dict:
     """Phase 11 (c): the layout trainer CLI in a temporary directory, at its
     defaults (bf16, batch 64, 500 words) on ``synthetic-doc`` cut to 32
@@ -1681,6 +1679,7 @@ def run_layout_trainer() -> dict:
 
     from ocrs_models_torch.data.layout_synth import write_corpus
     from ocrs_models_torch.training import eval_layout, train_layout
+    from ocrs_models_torch.utils.render import read_png
 
     data = ["synthetic-doc", "--max-images", str(LAYOUT_TRAIN_IMAGES)]
     steps = math.ceil(LAYOUT_TRAIN_IMAGES / LAYOUT_BATCH)
@@ -1740,13 +1739,322 @@ def run_layout_trainer() -> dict:
             lines, _, _, seconds = _cli(eval_layout, ["pages/page-00000.json", "page.png",
                                                       "--checkpoint", "layout.pt",
                                                       "--colors", "labels"])
-            width, height = _png_size("page.png")
+            height, width, _ = read_png("page.png").shape
             print(json.dumps({"path": "train_layout --validate-only, --export, eval_layout",
                               "val_line": line, "eval_line": lines[-1] if lines else "",
                               "png": [width, height], "eval_seconds": seconds}), flush=True)
         finally:
             os.chdir(cwd)
     return {"epochs": len(epochs)}
+
+
+# ---------------------------------------------------------- detection (12, 13)
+
+DET_TRAIN_BATCH = 4  # the detection trainer's batch
+DET_TRAIN_SIZE = (800, 600)  # its mask (height, width)
+DET_STEPS = 10  # timed steps a dtype
+DET_TRAIN_IMAGES = 16  # phase 13's trainer: 4 steps an epoch, 10 validation pages
+DET_PARAMS = 622122
+DET_LR = 1e-3
+
+
+def _records_ms(times: dict, records: dict, calls: int) -> float | None:
+    """Device ms per call: every delivered record's time over the calls (a
+    lower bound where the profiler drops records); None without records."""
+    if not times:
+        return None
+    return sum(times[k] * records[k] for k in times) / calls
+
+
+def _det_batch(n: int, seed: int) -> dict:
+    """``n`` synthetic pages at the trainer's size, collated (numpy)."""
+    from ocrs_models_torch.data import SyntheticDetection, collate_detection
+
+    ds = SyntheticDetection(size=n, page_size=DET_TRAIN_SIZE, seed=seed)
+    batch = collate_detection([ds[i] for i in range(n)])
+    return {k: batch[k] for k in ("image", "mask", "sample_weight")}
+
+
+def _det_model(dtype=torch.float32):
+    from ocrs_models_torch.models import DetectionModel
+
+    torch.manual_seed(SEED + 3)
+    return DetectionModel(dtype=dtype)
+
+
+def check_detection_step(dev) -> None:
+    """Phase 12 (a): one ``make_detection_steps`` step on the card against
+    the same step on the CPU from the same weights, at ``[4, 1, 800, 600]``
+    in each dtype: loss, grad norm, each module's grad norm and the updated
+    parameters (f32 without TF32: loss 1e-4 relative, grad norm 1e-3,
+    module norms 2e-2 (a max-pool window whose candidates tie within the
+    float noise routes its gradient to the other one), parameters within
+    ``2 * lr`` (Adam's first step is about ``+-lr`` an entry); bf16: loss
+    1e-2, grad norm 1e-1, module norms 2.5e-1, parameters within ``2 *
+    lr``). Then ``grad_accum=4`` on the card against its four microbatches
+    run one by one through the model and the balanced BCE from the same
+    weights (in training, batch norm normalises each microbatch by its
+    own statistics, and each microbatch has its own pools): loss 1e-5
+    relative, grad norm 1e-4."""
+    import copy
+
+    from ocrs_models_torch.ops.losses import balanced_cross_entropy_loss
+    from ocrs_models_torch.training.state import create_train_state, global_norm
+    from ocrs_models_torch.training.steps import make_detection_steps, numerics
+
+    batch = _det_batch(DET_TRAIN_BATCH, SEED)
+    limits = {"f32": (1e-4, 1e-3, 2e-2), "bf16": (1e-2, 1e-1, 2.5e-1)}
+    for dtype, name in ((torch.float32, "f32"), (BF16, "bf16")):
+        model = _det_model(dtype)
+        out = []
+        t0 = time.perf_counter()
+        for device in (torch.device("cpu"), dev):
+            m = copy.deepcopy(model).to(device)
+            train, _ = make_detection_steps(m)
+            _, metrics = train(create_train_state(m), batch, DET_LR)
+            out.append((metrics, {k: v.float().cpu() for k, v in m.state_dict().items()}))
+        (cpu, cpu_sd), (card, card_sd) = out
+        loss_rel = abs(card["loss"].item() / cpu["loss"].item() - 1)
+        norm_rel = abs(card["grad_norm"].item() / cpu["grad_norm"].item() - 1)
+        module_rel = {k: abs(v.item() / cpu["grad_norms"][k].item() - 1)
+                      for k, v in card["grad_norms"].items()}
+        param_diff = max(float((card_sd[k] - v).abs().max()) for k, v in cpu_sd.items()
+                         if not k.endswith(("running_mean", "running_var", "num_batches_tracked")))
+        max_loss, max_norm, max_module = limits[name]
+        print(json.dumps({"path": f"detection step {name} card vs CPU",
+                          "shape": [DET_TRAIN_BATCH, 1, *DET_TRAIN_SIZE],
+                          "loss": card["loss"].item(), "loss_cpu": cpu["loss"].item(),
+                          "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                          "module_norm_rel_max": max(module_rel.values()),
+                          "param_max_diff": param_diff,
+                          "limits": {"loss_rel": max_loss, "grad_norm_rel": max_norm,
+                                     "module_norm_rel": max_module, "param": 2 * DET_LR},
+                          "seconds": time.perf_counter() - t0}), flush=True)
+        if not (loss_rel <= max_loss and norm_rel <= max_norm
+                and max(module_rel.values()) <= max_module and param_diff <= 2 * DET_LR + 1e-6):
+            raise AssertionError(f"the {name} detection step on the card disagrees with the CPU: "
+                                 f"{loss_rel}, {norm_rel}, {module_rel}, {param_diff}")
+
+    model = _det_model().to(dev)
+    parts = []
+    with numerics():
+        for i in range(4):
+            m = copy.deepcopy(model).train()
+            mb = {k: torch.from_numpy(v[i::4]).to(dev) for k, v in batch.items()}
+            loss = balanced_cross_entropy_loss(m(mb["image"]), mb["mask"], mb["sample_weight"])
+            loss.backward()
+            parts.append((loss.detach(), [p.grad for p in m.parameters()]))
+    want_loss = sum(loss for loss, _ in parts) / 4
+    want_norm = global_norm([sum(g) / 4 for g in zip(*(grads for _, grads in parts))])
+    train, _ = make_detection_steps(model, grad_accum=4)
+    _, metrics = train(create_train_state(model), batch, DET_LR)
+    loss_rel = abs(metrics["loss"].item() / want_loss.item() - 1)
+    norm_rel = abs(metrics["grad_norm"].item() / want_norm.item() - 1)
+    print(json.dumps({"path": "detection grad_accum=4 vs its microbatches", "loss_rel": loss_rel,
+                      "grad_norm_rel": norm_rel}), flush=True)
+    if not (loss_rel <= 1e-5 and norm_rel <= 1e-4):
+        raise AssertionError(f"detection grad_accum=4: loss {loss_rel}, grad norm {norm_rel}")
+
+
+def run_detection_training(dev, dtype) -> dict:
+    """Phase 12 (b): the detection step at ``[4, 1, 800, 600]`` as the
+    trainer runs it (lr 1e-3): one warm-up step, then timed steps on a fixed
+    batch, whose loss must fall; each step on the device's timeline (CUDA
+    events between step starts), pages/s on the host clock, peak memory,
+    and the kernels, copies and sets one step puts on the device
+    (``torch.profiler``). The detector launches none of the port's
+    kernels."""
+    from ocrs_models_torch.data.loader import to_device
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import make_detection_steps
+
+    model = _det_model(dtype).to(dev)
+    state = create_train_state(model)
+    train, _ = make_detection_steps(model)
+    batch = to_device(_det_batch(DET_TRAIN_BATCH, SEED + 1), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = train(state, batch, DET_LR)
+    torch.cuda.synchronize()
+    _zero_counts()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(DET_STEPS + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(DET_STEPS):
+        marks[i].record()
+        state, metrics = train(state, batch, DET_LR)
+        losses.append(metrics["loss"])
+    marks[-1].record()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = _counts()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [v.item() for v in losses]
+    launches, times, records = _device_profile(lambda: train(state, batch, DET_LR), calls=2)
+    tag = "bf16" if dtype == BF16 else "f32"
+    line = {"path": f"detection train_step {tag} {DET_TRAIN_BATCH}x{DET_TRAIN_SIZE[0]}x"
+                    f"{DET_TRAIN_SIZE[1]}",
+            "steps": DET_STEPS, "seconds": elapsed,
+            "pages_per_s": DET_TRAIN_BATCH * DET_STEPS / elapsed,
+            "ms_per_step": 1e3 * elapsed / DET_STEPS,
+            "step_ms_median": float(np.median(step_ms)), "step_ms_min": min(step_ms),
+            "step_ms_max": max(step_ms), "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "device_launches_per_step": launches,
+            "device_busy_ms_per_step": _records_ms(times, records, 2),
+            "losses": losses, "launches": counts}
+    print(json.dumps(line), flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"detection {tag} step: the loss did not fall: {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"the detection step launched the port's kernels: {counts}")
+    return line
+
+
+def time_balanced_loss(dev) -> dict:
+    """Phase 12 (c): the balanced BCE alone at ``[4, 1, 800, 600]``, forward
+    and backward: ms by CUDA events, its device time and the kernels,
+    copies and sets it puts on the device (``torch.profiler``), and no
+    host sync: it runs under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from ocrs_models_torch.ops.losses import balanced_cross_entropy_loss
+
+    batch = _det_batch(DET_TRAIN_BATCH, SEED)
+    mask = torch.from_numpy(batch["mask"]).to(dev)
+    weight = torch.from_numpy(batch["sample_weight"]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pred = torch.rand(mask.shape, device=dev, generator=gen).requires_grad_()
+
+    def call():
+        loss = balanced_cross_entropy_loss(pred, mask, weight)
+        loss.backward()
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms = _cuda_time_ms(call, iters=10)
+    launches, times, records = _device_profile(call, calls=5)
+    n = mask.numel()
+    line = {"path": "balanced BCE forward+backward", "shape": list(mask.shape), "ms": ms,
+            "device_ms": _records_ms(times, records, 5),
+            "device_launches_per_call": launches,
+            # The least traffic: pred and mask read, d pred written (f32).
+            "bound_ms": _bound(3 * 4 * n, 0)[0]}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def _data_host_ms(n: int = 8) -> dict:
+    """Host ms per 800x600 page: drawing a synthetic page with its mask,
+    and the trainer's augmentation (each of its four branches, and the
+    resize alone)."""
+    from ocrs_models_torch.data import SyntheticDetection
+    from ocrs_models_torch.data import augment
+
+    ds = SyntheticDetection(size=n, page_size=DET_TRAIN_SIZE, seed=SEED)
+    t0 = time.perf_counter()
+    pages = [ds[i] for i in range(n)]
+    out = {"page_ms": 1e3 * (time.perf_counter() - t0) / n}
+    for branch in ("_color_jitter", "_affine", "_perspective", "_random_crop"):
+        t0 = time.perf_counter()
+        for i, page in enumerate(pages):
+            imgs = getattr(augment, branch)(np.random.default_rng(i), [page["image"], page["mask"]])
+            augment.resize(imgs[0], DET_TRAIN_SIZE), augment.resize(imgs[1], DET_TRAIN_SIZE)
+        out[f"{branch.strip('_')}_ms"] = 1e3 * (time.perf_counter() - t0) / n
+    return out
+
+
+def run_detection_trainer() -> dict:
+    """Phase 13: the detection trainer CLI in a temporary directory at its
+    defaults (bf16, batch 4, 800x600, augmented) on ``synthetic`` cut to
+    16 pages (4 steps an epoch, 10 validation pages): three epochs (every
+    loss finite, epoch 2's train loss below epoch 0's, a checkpoint, three
+    metrics records); a resume for one more epoch with the Adam step
+    restored; ``--validate-only``; then ``eval_detection`` on a synthetic
+    page of 1000x750 saved as PNG, whose four PNGs must decode at their
+    sizes (input and probabilities at 800x600, regions and words at the
+    page's). Prints the host ms per page of the data."""
+    import os
+    import tempfile
+
+    from ocrs_models_torch.data import SyntheticDetection
+    from ocrs_models_torch.training import eval_detection, train_detection
+    from ocrs_models_torch.utils.render import read_png, write_png
+
+    data = ["synthetic", "-", "--max-images", str(DET_TRAIN_IMAGES)]
+    steps = DET_TRAIN_IMAGES // DET_TRAIN_BATCH
+    host = _data_host_ms()
+    print(json.dumps({"path": "detection data host ms per 800x600 page", **host}), flush=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as run_dir:
+        os.chdir(run_dir)
+        try:
+            lines, state, counts, seconds = _cli(train_detection, [*data, "--max-epochs", "3"])
+            records = [json.loads(r) for r in
+                       Path("text-detection-metrics.jsonl").read_text().splitlines()]
+            epochs = [r for r in records if "epoch" in r]
+            losses = [r["train_loss"] for r in epochs]
+            if [r["epoch"] for r in epochs] != [0, 1, 2] or not all(
+                    np.isfinite([v for r in epochs for v in (r["train_loss"], r["val_loss"])])):
+                raise AssertionError(f"train_detection: epoch records {epochs}")
+            if not losses[2] < losses[0]:
+                raise AssertionError(f"train_detection: the train loss did not fall: {losses}")
+            if f"Model param count: {DET_PARAMS}" not in lines or state.model.dtype != BF16:
+                raise AssertionError("train_detection: not the full-width bf16 detection model")
+            if any(counts.values()):
+                raise AssertionError(f"train_detection launched the port's kernels: {counts}")
+            print(json.dumps({"path": "train_detection synthetic 3 epochs", "dtype": "bf16",
+                              "batch": DET_TRAIN_BATCH, "pages": DET_TRAIN_IMAGES,
+                              "seconds": seconds, "train_loss": losses,
+                              "val_loss": [r["val_loss"] for r in epochs],
+                              "val_metrics": epochs[-1]["val_metrics"]}), flush=True)
+
+            ckpt = torch.load("text-detection-checkpoint.pt", map_location="cpu",
+                              weights_only=True)
+            epoch = ckpt["epoch"]
+            adam = {float(v["step"]) for v in ckpt["optimizer_state"]["state"].values()}
+            if ckpt["step"] != steps * epoch or adam != {float(steps * epoch)} or epoch < 1:
+                raise AssertionError(f"checkpoint: epoch {epoch}, step {ckpt['step']}, Adam {adam}")
+            lines, state, _, seconds = _cli(train_detection, [
+                *data, "--checkpoint", "text-detection-checkpoint.pt",
+                "--max-epochs", str(epoch + 1)])
+            records = [json.loads(r) for r in
+                       Path("text-detection-metrics.jsonl").read_text().splitlines()]
+            last = [r for r in records if "epoch" in r][-1]
+            adam_step = float(state.optimizer.adam.state_dict()["state"][0]["step"])
+            if (state.step, adam_step, last["epoch"]) != (steps * (epoch + 1),
+                                                          float(steps * (epoch + 1)), epoch):
+                raise AssertionError(f"resume: step {state.step}, Adam {adam_step}, "
+                                     f"epoch {last['epoch']}; from epoch {epoch}")
+            print(json.dumps({"path": f"train_detection resumed, epoch {epoch}",
+                              "seconds": seconds, "train_loss": last["train_loss"],
+                              "val_loss": last["val_loss"]}), flush=True)
+
+            lines, _, _, _ = _cli(train_detection, [
+                *data, "--checkpoint", "text-detection-checkpoint.pt", "--validate-only"])
+            val = [ln for ln in lines if ln.startswith(("Validation loss", "Validation metrics"))]
+            if len(val) != 2:
+                raise AssertionError(f"--validate-only printed {lines}")
+
+            page = SyntheticDetection(size=1, page_size=(1000, 750), seed=SEED)[0]["image"]
+            write_png("page.png", ((page[..., 0] + 0.5) * 255).round().astype(np.uint8))
+            lines, _, _, seconds = _cli(eval_detection, ["text-detection-checkpoint.pt",
+                                                         "page.png", "out"])
+            sizes = {}
+            for part, want in (("input", DET_TRAIN_SIZE), ("text-probs", DET_TRAIN_SIZE),
+                               ("text-regions", (1000, 750)), ("text-words", (1000, 750))):
+                img = read_png(f"out-{part}.png")
+                sizes[part] = list(img.shape)
+                if img.shape[:2] != want:
+                    raise AssertionError(f"eval_detection {part}: {img.shape}, expected {want}")
+            print(json.dumps({"path": "train_detection --validate-only, eval_detection",
+                              "val_lines": val, "eval_line": lines[-1] if lines else "",
+                              "png_shapes": sizes, "eval_seconds": seconds}), flush=True)
+        finally:
+            os.chdir(cwd)
+    return {"epochs": len(epochs), **host}
 
 
 def run(root: Path) -> int:
@@ -1873,6 +2181,28 @@ def run(root: Path) -> int:
                       **{f"step_{k}_median_ms": v["step_ms_median"] for k, v in layout_steps.items()},
                       **{f"step_{k}_pages_per_s": v["pages_per_s"] for k, v in layout_steps.items()}}),
           flush=True)
+
+    # Phase 12: the detection step at [4, 1, 800, 600]: against the CPU in
+    # both dtypes, grad_accum=4, timed steps, the balanced BCE alone.
+    t0 = time.perf_counter()
+    check_detection_step(dev)
+    det_steps = {name: run_detection_training(dev, dtype)
+                 for dtype, name in ((BF16, "bf16"), (torch.float32, "f32"))}
+    det_loss = time_balanced_loss(dev)
+    torch.cuda.empty_cache()
+    print(f"phase 12 seconds {time.perf_counter() - t0:.1f}", flush=True)
+
+    # Phase 13: the detection trainer CLI and eval_detection.
+    t0 = time.perf_counter()
+    det_host = run_detection_trainer()
+    print(f"phase 13 seconds {time.perf_counter() - t0:.1f}", flush=True)
+    print(json.dumps({"path": "detection summary",
+                      **{f"step_{k}_median_ms": v["step_ms_median"] for k, v in det_steps.items()},
+                      **{f"step_{k}_pages_per_s": v["pages_per_s"] for k, v in det_steps.items()},
+                      **{f"step_{k}_peak_mib": v["peak_mib"] for k, v in det_steps.items()},
+                      "balanced_bce_ms": det_loss["ms"],
+                      "balanced_bce_launches": det_loss["device_launches_per_call"],
+                      "page_ms": det_host["page_ms"]}), flush=True)
 
     print(f"smoke seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels + kernels_bf16}), flush=True)

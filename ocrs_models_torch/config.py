@@ -1,9 +1,10 @@
-"""Constants and configuration of the serving path, the recognition trainer
-and the layout trainer (counterpart of ``ocrs_models_tpu/config.py``)."""
+"""Constants and configuration of the serving path and the three trainers
+(counterpart of ``ocrs_models_tpu/config.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 DEFAULT_ALPHABET = (
     " 0123456789!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~"
@@ -19,6 +20,30 @@ quads are expanded by the same distance at inference."""
 
 DET_SIZE = (800, 600)
 """Detection input (height, width): the U-Net's training mask size."""
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectionModelConfig:
+    """U-Net text detector: depthwise-separable blocks at these widths."""
+
+    depth_scale: Sequence[int] = (8, 16, 32, 32, 64, 128, 256)
+    in_channels: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectionTrainConfig:
+    mask_height: int = 800
+    mask_width: int = 600  # 0.75 of the height
+    batch_size: int = 4
+    learning_rate: float = 1e-3
+    seed: int = 1234
+    early_stop_epochs: int = 3
+    shrink_distance: float = SHRINK_DISTANCE
+    checkpoint_name: str = "text-detection-checkpoint"
+
+    @property
+    def mask_size(self) -> tuple[int, int]:
+        return (self.mask_height, self.mask_width)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,13 @@
-from .collate import collate_layout, collate_recognition
+from .collate import collate_detection, collate_layout, collate_recognition
 from .loader import DataLoader
-from .synthetic import SyntheticLayout, SyntheticRecognition
+from .synthetic import SyntheticDetection, SyntheticLayout, SyntheticRecognition
 
 __all__ = [
     "DataLoader",
+    "SyntheticDetection",
     "SyntheticLayout",
     "SyntheticRecognition",
+    "collate_detection",
     "collate_layout",
     "collate_recognition",
 ]

@@ -1,11 +1,11 @@
-"""Recognition and layout batch collation (the port's copy of those parts
-of ``ocrs_models_tpu/data/collate.py``).
+"""Batch collation of the three tasks (the port's copy of
+``ocrs_models_tpu/data/collate.py``).
 
 Widths bucket up to multiples of ``width_step``; CTC-incompatible samples
 are kept but masked with ``sample_weight`` 0, and the batch pads to a
 multiple of ``batch_multiple`` with zero-weight rows, as in the JAX
 package. The one difference is the image layout: NCHW ``[N, 1, H, W]``,
-the port's model input.
+the port's model input (detection masks too).
 """
 
 from __future__ import annotations
@@ -71,6 +71,29 @@ def collate_recognition(
         "image_width": image_width,
         "sample_weight": weight,
     }
+
+
+def collate_detection(samples: list[dict], batch_multiple: int = 1) -> dict:
+    """Collate fixed-size detection samples.
+
+    Each sample: ``{"image": [H, W, 1], "mask": [H, W, 1]}`` (the JAX
+    package's sample layout) and an optional ``"path"``. Returns ``image``
+    and ``mask`` ``[N, 1, H, W]`` float32 (NCHW), ``sample_weight`` ``[N]``,
+    ``n_valid`` and, where a sample has one, ``path``. Rows padding the
+    batch to ``batch_multiple`` repeat the last sample with weight 0.
+    """
+    n = round_up(len(samples), batch_multiple)
+    last = len(samples) - 1
+    rows = [samples[min(i, last)] for i in range(n)]
+    image = np.stack([r["image"][..., 0] for r in rows])[:, None].astype(np.float32)
+    mask = np.stack([r["mask"][..., 0] for r in rows])[:, None].astype(np.float32)
+    weight = np.zeros((n,), np.float32)
+    weight[: len(samples)] = 1.0
+    batch = {"image": image, "mask": mask, "sample_weight": weight, "n_valid": len(samples)}
+    paths = [s.get("path") for s in samples]
+    if any(p is not None for p in paths):
+        batch["path"] = paths
+    return batch
 
 
 def collate_layout(samples: list[tuple], batch_multiple: int = 1) -> dict:

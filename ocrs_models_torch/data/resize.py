@@ -1,4 +1,5 @@
-"""Image resize in numpy that reproduces PIL's ``Image.BILINEAR`` on mode "F".
+"""Image resize in numpy that reproduces PIL's ``Image.BILINEAR`` and
+``Image.NEAREST`` on mode "F".
 
 PIL's bilinear resample is a triangle filter whose support widens with
 the downscale factor, so it antialiases when shrinking. It runs as two
@@ -7,6 +8,7 @@ sequential float64 sum over at most ``2 * ceil(support) + 1`` input taps,
 stored as float32. This module computes the same taps and weights as PIL's
 ``precompute_coeffs`` (``Resample.c``) and accumulates them in the same
 order, so the result matches PIL to float32 rounding without needing PIL.
+PIL's nearest resize is its scaling affine map (:func:`scale_nearest`).
 """
 
 from __future__ import annotations
@@ -49,11 +51,35 @@ def _resample_rows(img: np.ndarray, out_size: int) -> np.ndarray:
     return acc.astype(np.float32)
 
 
-def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """Resize an ``[H, W, 1]`` float image to ``size = (height, width)``."""
+def scale_nearest(src: np.ndarray, size: tuple[int, int], a: float, c: float, e: float,
+                   f: float, fill: float) -> np.ndarray:
+    """Pillow's ``ImagingScaleAffine``: the input column of output column
+    ``x`` is ``int`` of ``c + a/2`` plus ``a`` added ``x`` times in double
+    (a running sum, as in C), and likewise the rows."""
+    h, w = src.shape
+    out_w, out_h = size
+
+    def positions(start: float, step: float, n: int) -> np.ndarray:
+        pos = np.cumsum(np.concatenate([[start], np.full(n - 1, step)])) if n else np.zeros(0)
+        return np.where(pos < 0.0, -1, np.clip(pos, -1, 1 << 30)).astype(np.int64)
+
+    x = positions(c + a * 0.5, a, out_w)[None, :]
+    y = positions(f + e * 0.5, e, out_h)[:, None]
+    inside = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+    return np.where(inside, src[np.clip(y, 0, h - 1), np.clip(x, 0, w - 1)], fill).astype(
+        np.float32)
+
+
+def resize(img: np.ndarray, size: tuple[int, int], nearest: bool = False) -> np.ndarray:
+    """Resize an ``[H, W, 1]`` float image to ``size = (height, width)``,
+    bilinear or (``nearest=True``) by nearest neighbour."""
     h, w = size
     if img.shape[:2] == (h, w):  # identity: no resample
         return np.ascontiguousarray(img, dtype=np.float32)
+    if nearest:
+        src = np.asarray(img, dtype=np.float32)[..., 0]
+        a, e = src.shape[1] / w, src.shape[0] / h
+        return scale_nearest(src, (w, h), a, 0.0, e, 0.0, 0.0)[..., None]
     out = np.asarray(img, dtype=np.float32)[..., 0]
     if out.shape[1] != w:  # horizontal pass first, as PIL does
         out = _resample_rows(out.T, w).T

@@ -1,6 +1,6 @@
-"""Synthetic datasets (the port's copies of ``SyntheticRecognition`` and
-``SyntheticLayout`` in ``ocrs_models_tpu/data/synthetic.py``), drawn
-without PIL.
+"""Synthetic datasets (the port's copies of ``SyntheticRecognition``,
+``SyntheticDetection`` and ``SyntheticLayout`` in
+``ocrs_models_tpu/data/synthetic.py``), drawn without PIL.
 
 Sample ``idx`` draws its text from ``default_rng(seed * 100_003 + idx)``
 out of the JAX dataset's pool (digits, letters, the space and four more
@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..config import DEFAULT_ALPHABET
+from ..config import DEFAULT_ALPHABET, SHRINK_DISTANCE
+from ..geometry import generate_mask
 from ..utils.text import encode_text
 from .glyphs import render_line
 from .resize import resize
@@ -66,6 +67,60 @@ class SyntheticRecognition:
                 new_w = min(800, max(10, int(h * aspect)))
                 arr = resize(arr, (h, new_w))
         return {"image": arr.astype(np.float32), "text": encode_text(text, self.alphabet)}
+
+
+class SyntheticDetection:
+    """Random pages of word-like dark boxes on a noisy light ground ->
+    ``{"image": [H, W, 1], "mask": [H, W, 1], "path"}``, float32; the mask
+    fills each box shrunk by ``shrink_dist``. Sample ``idx`` draws from
+    ``default_rng(seed * 100_003 + idx)`` in the JAX dataset's order."""
+
+    def __init__(
+        self,
+        size: int = 64,
+        page_size: tuple[int, int] = (800, 600),
+        seed: int = 0,
+        transform=None,
+        shrink_dist: float = SHRINK_DISTANCE,
+    ):
+        self.size = size
+        self.page_size = page_size  # (H, W)
+        self.seed = seed
+        self.transform = transform
+        self.shrink_dist = shrink_dist
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, idx: int) -> dict:
+        rng = np.random.default_rng(self.seed * 100_003 + idx)
+        h, w = self.page_size
+        img = np.full((h, w), 235, dtype=np.float32)
+        img += rng.normal(0, 4, size=img.shape)
+        polys = []
+        y = 30.0
+        for _ in range(int(rng.integers(3, 10))):
+            line_h = float(rng.uniform(14, 40))
+            if y + line_h > h - 20:
+                break
+            x = 30.0
+            for _ in range(int(rng.integers(2, 8))):
+                word_w = float(rng.uniform(25, 110))
+                if x + word_w > w - 20:
+                    break
+                polys.append([(x, y), (x + word_w, y), (x + word_w, y + line_h), (x, y + line_h)])
+                img[int(y) : int(y + line_h), int(x) : int(x + word_w)] -= rng.uniform(120, 200)
+                x += word_w + float(rng.uniform(8, 25))
+            y += line_h + float(rng.uniform(8, 30))
+
+        image = (np.clip(img, 0, 255) / 255.0 - 0.5).astype(np.float32)[..., None]
+        mask = generate_mask(w, h, polys, shrink_dist=self.shrink_dist)[..., None]
+        if self.transform is not None:
+            if getattr(self.transform, "accepts_index", False):
+                image, mask = self.transform(image, mask, idx=idx)
+            else:
+                image, mask = self.transform(image, mask)
+        return {"image": image, "mask": mask, "path": f"synthetic://{idx}"}
 
 
 class SyntheticLayout:

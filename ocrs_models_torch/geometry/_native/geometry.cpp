@@ -1,9 +1,10 @@
-// Host geometry core of the serving path's postprocess: 8-connected
-// component labeling, minimum-area rotated rectangles and mitre polygon
-// offsets (the first-party replacements for cv2.findContours/minAreaRect
-// and the GEOS parallel offset). Loaded through ctypes by ../native.py,
-// which builds it with g++ at first use; ../components.py and
-// ../polygon.py hold the numpy versions of the same functions.
+// Host geometry core of the serving postprocess and the detection masks:
+// 8-connected component labeling, minimum-area rotated rectangles, mitre
+// polygon offsets, Pillow-exact polygon fill and convex clip areas (the
+// first-party replacements for cv2.findContours/minAreaRect, PIL.ImageDraw
+// and the GEOS offsets and areas). Loaded through ctypes by ../native.py,
+// which builds it with g++ at first use; ../components.py, ../polygon.py
+// and ../raster.py hold the numpy versions of the same functions.
 //
 // Build: g++ -O3 -ffp-contract=off -shared -fPIC -std=c++17 -o libgeometry.so geometry.cpp
 
@@ -255,6 +256,174 @@ int polygon_offset(const double* poly_in, int n_in, double dist, double* out) {
     }
     std::memcpy(out, rflat.data(), sizeof(double) * 2 * n);
     return n;
+}
+
+
+// ------------------------------------------------------ scanline raster
+// Fill a polygon into a uint8 [h, w] mask, matching PIL ImageDraw.polygon
+// bit-for-bit (see ../raster.py for the rule). All crossing math is
+// float32 like Pillow's C; vertices are truncated to int like Pillow's
+// binding.
+namespace pilfill {
+
+struct Edge {
+    int x0, y0;
+    int ymin, ymax;
+    float dx;
+};
+
+static inline int round_up_half(float f) {
+    return (f >= 0.0f) ? (int)std::floor(f + 0.5f) : -(int)std::floor(std::fabs(f) + 0.5f);
+}
+static inline int round_down_half(float f) {
+    return (f >= 0.0f) ? (int)std::ceil(f - 0.5f) : -(int)std::ceil(std::fabs(f) - 0.5f);
+}
+static inline float cross_at(const Edge& e, int y) {
+    float prod = (float)(y - e.y0) * e.dx;  // keep two float32 roundings
+    return prod + (float)e.x0;              // (no FMA; built with -ffp-contract=off)
+}
+static inline void hline(uint8_t* out, int h, int w, int x0, int y, int x1) {
+    // Pillow's hline: no swap — reversed spans draw nothing.
+    if (y < 0 || y >= h || x0 > x1 || x1 < 0 || x0 >= w) return;
+    x0 = std::max(x0, 0);
+    x1 = std::min(x1, w - 1);
+    std::memset(out + (size_t)y * w + x0, 1, (size_t)(x1 - x0 + 1));
+}
+
+}  // namespace pilfill
+
+void fill_polygon(const double* poly, int n, int h, int w, uint8_t* out) {
+    using namespace pilfill;
+    if (n < 2) return;
+    std::vector<Edge> edges;
+    edges.reserve(n);
+    int gymin = h - 1, gymax = 0;
+    for (int i = 0; i < n; i++) {
+        int j = (i + 1) % n;
+        int x0 = (int)poly[2 * i], y0 = (int)poly[2 * i + 1];
+        int x1 = (int)poly[2 * j], y1 = (int)poly[2 * j + 1];
+        gymin = std::min(gymin, std::min(y0, y1));
+        gymax = std::max(gymax, std::max(y0, y1));
+        if (y0 == y1) {
+            hline(out, h, w, std::min(x0, x1), y0, std::max(x0, x1));
+            continue;
+        }
+        Edge e;
+        e.x0 = x0;
+        e.y0 = y0;
+        e.ymin = std::min(y0, y1);
+        e.ymax = std::max(y0, y1);
+        e.dx = (float)(x1 - x0) / (float)(y1 - y0);
+        edges.push_back(e);
+    }
+    if (edges.empty()) return;
+    gymin = std::max(gymin, 0);
+    gymax = std::min(gymax, h);
+
+    std::vector<float> xx(edges.size() * 2);
+    for (int y = gymin; y <= gymax; y++) {
+        int j = 0;
+        for (size_t i = 0; i < edges.size(); i++) {
+            const Edge& cur = edges[i];
+            if (!(y >= cur.ymin && y <= cur.ymax)) continue;
+            xx[j++] = cross_at(cur, y);
+            if (y == cur.ymax && y < gymax) {
+                // Edge ends here: duplicate the crossing to keep parity.
+                xx[j] = xx[j - 1];
+                j++;
+            } else if (cur.dx != 0.0f && j % 2 == 0 &&
+                       std::roundf(xx[j - 1]) == xx[j - 1]) {
+                // Connect discontiguous corners.
+                for (size_t k = 0; k < i; k++) {
+                    const Edge& other = edges[k];
+                    if ((cur.dx > 0 && other.dx <= 0) ||
+                        (cur.dx < 0 && other.dx >= 0)) {
+                        continue;
+                    }
+                    if (!((y == cur.ymin || y == cur.ymax) &&
+                          (y == other.ymin || y == other.ymax))) {
+                        continue;
+                    }
+                    if (xx[j - 1] == cross_at(other, y)) {
+                        int offset = (y == gymax) ? -1 : 1;
+                        float a = cross_at(cur, y + offset);
+                        float b = cross_at(other, y + offset);
+                        float v;
+                        bool widens;
+                        if (y == cur.ymax) {
+                            if (cur.dx > 0) {
+                                v = std::max(a, b) + 1.0f;
+                                widens = v < xx[j - 1];
+                            } else {
+                                v = std::min(a, b) - 1.0f;
+                                widens = v > xx[j - 1];
+                            }
+                        } else {
+                            if (cur.dx > 0) {
+                                v = std::min(a, b) - 1.0f;
+                                widens = v > xx[j - 1];
+                            } else {
+                                v = std::max(a, b) + 1.0f;
+                                widens = v < xx[j - 1];
+                            }
+                        }
+                        if (widens && (int)k < j) xx[k] = v;
+                        break;
+                    }
+                }
+            }
+        }
+        std::sort(xx.begin(), xx.begin() + j);
+        for (int s = 0; s + 1 < j; s += 2) {
+            hline(out, h, w, round_up_half(xx[s]), y, round_down_half(xx[s + 1]));
+        }
+    }
+}
+
+// -------------------------------------------------- convex clip area
+// Area of intersection of polygon a (na verts) clipped by CONVEX polygon b.
+double convex_clip_area(const double* a, int na, const double* b, int nb) {
+    std::vector<Pt> subject(na), clip(nb);
+    for (int i = 0; i < na; i++) subject[i] = {a[2 * i], a[2 * i + 1]};
+    for (int i = 0; i < nb; i++) clip[i] = {b[2 * i], b[2 * i + 1]};
+    if (polygon_area_signed(a, na) < 0) std::reverse(subject.begin(), subject.end());
+    if (polygon_area_signed(b, nb) < 0) std::reverse(clip.begin(), clip.end());
+
+    std::vector<Pt> output = subject;
+    for (int i = 0; i < (int)clip.size() && !output.empty(); i++) {
+        Pt A = clip[i], B = clip[(i + 1) % clip.size()];
+        double ex = B.x - A.x, ey = B.y - A.y;
+        std::vector<Pt> input;
+        input.swap(output);
+        int m = (int)input.size();
+        for (int k = 0; k < m; k++) {
+            const Pt &cur = input[k], &nxt = input[(k + 1) % m];
+            double cin = ex * (cur.y - A.y) - ey * (cur.x - A.x);
+            double nin = ex * (nxt.y - A.y) - ey * (nxt.x - A.x);
+            bool c_in = cin >= -1e-9, n_in = nin >= -1e-9;
+            auto isect = [&]() {
+                double dx = nxt.x - cur.x, dy = nxt.y - cur.y;
+                double denom = ex * dy - ey * dx;
+                if (std::fabs(denom) < 1e-15) return nxt;
+                double t = (ex * (A.y - cur.y) - ey * (A.x - cur.x)) / denom;
+                return Pt{cur.x + t * dx, cur.y + t * dy};
+            };
+            if (c_in) {
+                output.push_back(cur);
+                if (!n_in) output.push_back(isect());
+            } else if (n_in) {
+                output.push_back(isect());
+            }
+        }
+    }
+    if (output.size() < 3) return 0.0;
+    double area = 0.0;
+    int m = (int)output.size();
+    for (int i = 0; i < m; i++) {
+        int j = (i + 1) % m;
+        area += output[i].x * output[j].y - output[j].x * output[i].y;
+    }
+    return std::fabs(0.5 * area);
 }
 
 }  // extern "C"

@@ -2,9 +2,9 @@
 
 The library is compiled with ``g++`` into ``build/native/`` at first use
 (and again when the source is newer). Where no C++ toolchain is present,
-:func:`available` is False and the callers in ``components.py`` and
-``polygon.py`` run their numpy versions; :func:`backend` names which one
-runs.
+:func:`available` is False and the callers in ``components.py``,
+``polygon.py`` and ``raster.py`` run their numpy versions; :func:`backend`
+names which one runs.
 """
 
 from __future__ import annotations
@@ -69,6 +69,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.min_area_rect.restype = None
         lib.polygon_offset.argtypes = [f64p, ctypes.c_int, ctypes.c_double, f64p]
         lib.polygon_offset.restype = ctypes.c_int
+        lib.fill_polygon.argtypes = [f64p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p]
+        lib.fill_polygon.restype = None
+        lib.convex_clip_area.argtypes = [f64p, ctypes.c_int, f64p, ctypes.c_int]
+        lib.convex_clip_area.restype = ctypes.c_double
         _lib = lib
         return _lib
 
@@ -106,3 +110,19 @@ def polygon_offset(poly: np.ndarray, dist: float) -> np.ndarray:
     out = np.empty((len(p), 2), dtype=np.float64)
     n = lib.polygon_offset(p, len(p), float(dist), out)
     return out[:n]
+
+
+def fill_polygon(poly: np.ndarray, h: int, w: int, out: np.ndarray) -> None:
+    """Fill ``poly`` into the C-contiguous uint8 ``[h, w]`` mask ``out``
+    (Pillow's rule)."""
+    lib = get_lib()
+    p = np.ascontiguousarray(poly, dtype=np.float64).reshape(-1, 2)
+    lib.fill_polygon(p, len(p), h, w, out)
+
+
+def convex_clip_area(a: np.ndarray, b: np.ndarray) -> float:
+    """Area of polygon ``a`` clipped by the convex polygon ``b``."""
+    lib = get_lib()
+    aa = np.ascontiguousarray(a, dtype=np.float64).reshape(-1, 2)
+    bb = np.ascontiguousarray(b, dtype=np.float64).reshape(-1, 2)
+    return float(lib.convex_clip_area(aa, len(aa), bb, len(bb)))

@@ -1,5 +1,6 @@
-"""Polygon primitives the serving postprocess needs: hulls, min-area
-rectangles and mitre offsets (counterpart of the matching functions of
+"""Polygon primitives of the serving postprocess and the detection
+trainer: hulls, min-area rectangles, mitre offsets (expansion of word
+quads, shrinking of mask polygons) and convex clip areas (counterpart of
 ``ocrs_models_tpu/geometry/polygon.py``).
 
 Each public function uses the C++ core (:mod:`.native`) when it is
@@ -138,3 +139,115 @@ def expand_quads(quads: np.ndarray, dist: float) -> np.ndarray:
     if len(quads) == 0:
         return quads.reshape(0, 4, 2)
     return np.stack([expand_quad(q, dist) for q in quads])
+
+
+def _segments_intersect(p1, p2, p3, p4) -> bool:
+    def orient(a, b, c):
+        v = (b[0] - a[0]) * (c[1] - a[1]) - (b[1] - a[1]) * (c[0] - a[0])
+        if v > _EPS:
+            return 1
+        if v < -_EPS:
+            return -1
+        return 0
+
+    o1, o2 = orient(p1, p2, p3), orient(p1, p2, p4)
+    o3, o4 = orient(p3, p4, p1), orient(p3, p4, p2)
+    return o1 != o2 and o3 != o4
+
+
+def _ring_is_simple(poly: np.ndarray) -> bool:
+    """True if no two non-adjacent edges of the ring intersect."""
+    p = np.asarray(poly, dtype=np.float64)
+    n = len(p)
+    if n < 3:
+        return False
+    b = np.roll(p, -1, axis=0)
+    for i in range(n):
+        for j in range(i + 1, n):
+            if (j + 1) % n == i or (i + 1) % n == j:
+                continue
+            if _segments_intersect(p[i], b[i], p[j], b[j]):
+                return False
+    return True
+
+
+def shrink_polygon_numpy(poly, dist: float) -> list[tuple[float, float]]:
+    """Move every edge of a polygon inward by ``dist`` (mitre joins).
+
+    Empty when the polygon does not survive the shrink, as the GEOS
+    parallel offset of the reference splits it: the offset ring flips
+    orientation, does not lose area, or intersects itself."""
+    p = np.asarray(poly, dtype=np.float64)
+    orig_area = polygon_area(p)
+    out = offset_ring_numpy(p, dist)
+    if len(out) < 3:
+        return []
+    new_area = polygon_area(out)
+    if new_area * orig_area <= 0 or abs(new_area) >= abs(orig_area):
+        return []
+    if not _ring_is_simple(out):
+        return []
+    return [(float(x), float(y)) for x, y in out]
+
+
+def shrink_polygon(poly, dist: float) -> list[tuple[float, float]]:
+    if native.available():
+        out = native.polygon_offset(np.asarray(poly, dtype=np.float64), dist)
+        return [(float(x), float(y)) for x, y in out]
+    return shrink_polygon_numpy(poly, dist)
+
+
+def _clip_convex(subject: np.ndarray, clip: np.ndarray) -> np.ndarray:
+    """Sutherland-Hodgman clip of polygon ``subject`` by convex ``clip``."""
+    clip = np.asarray(clip, dtype=np.float64)
+    if polygon_area(clip) < 0:
+        clip = clip[::-1]
+    output = list(np.asarray(subject, dtype=np.float64))
+    n = len(clip)
+    for i in range(n):
+        if not output:
+            return np.zeros((0, 2))
+        a, b = clip[i], clip[(i + 1) % n]
+        ex, ey = b[0] - a[0], b[1] - a[1]
+
+        def inside(p):
+            return ex * (p[1] - a[1]) - ey * (p[0] - a[0]) >= -_EPS
+
+        def intersect(p, q):
+            dx, dy = q[0] - p[0], q[1] - p[1]
+            denom = ex * dy - ey * dx
+            if abs(denom) < 1e-15:
+                return q
+            t = (ex * (a[1] - p[1]) - ey * (a[0] - p[0])) / denom
+            return np.array([p[0] + t * dx, p[1] + t * dy])
+
+        new_output = []
+        m = len(output)
+        for j in range(m):
+            cur, nxt = output[j], output[(j + 1) % m]
+            cur_in, nxt_in = inside(cur), inside(nxt)
+            if cur_in:
+                new_output.append(cur)
+                if not nxt_in:
+                    new_output.append(intersect(cur, nxt))
+            elif nxt_in:
+                new_output.append(intersect(cur, nxt))
+        output = new_output
+    return np.array(output) if output else np.zeros((0, 2))
+
+
+def convex_intersection_area_numpy(a: np.ndarray, b: np.ndarray) -> float:
+    """Area of the intersection of two convex polygons."""
+    a = np.asarray(a, dtype=np.float64)
+    if polygon_area(a) < 0:
+        a = a[::-1]
+    inter = _clip_convex(a, np.asarray(b, dtype=np.float64))
+    if len(inter) < 3:
+        return 0.0
+    return abs(polygon_area(inter))
+
+
+def convex_intersection_area(a: np.ndarray, b: np.ndarray) -> float:
+    if native.available():
+        return native.convex_clip_area(a, b)
+    return convex_intersection_area_numpy(a, b)

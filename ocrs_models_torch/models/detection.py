@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import DTYPES
+from .init import flax_init_
 
 DEPTH_SCALE = (8, 16, 32, 32, 64, 128, 256)
 
@@ -122,6 +123,7 @@ class DetectionModel(nn.Module):
         self.down = nn.ModuleList(Down(ds[i], ds[i + 1]) for i in range(len(ds) - 1))
         self.up = nn.ModuleList(Up(ds[i + 1], ds[i]) for i in range(len(ds) - 1))
         self.out_conv = nn.Sequential(nn.Conv2d(ds[0], 1, 1), nn.Sigmoid())
+        flax_init_(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """:param x: ``[N, 1, H, W]``. :return: ``[N, 1, H, W]`` float32

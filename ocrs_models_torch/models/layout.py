@@ -42,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .init import flax_init_
+
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -177,6 +179,7 @@ class LayoutModel(nn.Module):
             [EncoderLayer(d_model, n_heads, d_ff, dtype=dtype) for _ in range(n_layers)]
         )
         self.classify = nn.Linear(d_model, n_classes)
+        flax_init_(self)
 
     def forward(self, boxes: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """:param boxes: ``[N, W, 4]`` float word boxes (left, top, right,

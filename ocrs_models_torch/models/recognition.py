@@ -36,6 +36,7 @@ from torch import nn
 
 from ..ops import DTYPES, BiGRU, stage1
 from .detection import batch_norm
+from .init import flax_init_
 
 
 class RecognitionModel(nn.Module):
@@ -72,6 +73,7 @@ class RecognitionModel(nn.Module):
         self.gru = BiGRU(128, gru_hidden, gru_layers,
                          compute_dtype=dtype if gru_dtype is None else gru_dtype)
         self.output = nn.Sequential(nn.Linear(2 * gru_hidden, n_classes))
+        flax_init_(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """:param x: ``[N, 1, 64, W]`` float32 in [-0.5, 0.5].

@@ -1,8 +1,9 @@
 """Profile the port's recognition forward, its training step and its
-kernels, and the layout model, on one GPU.
+kernels, the layout model and the detection step, on one GPU.
 
     python -m ocrs_models_torch.profile_kernels [--width 800] [--batch 128]
-        [--train-width 256] [--train-batch 256] [--only gru|stage1|ctc|layout] [--bf16]
+        [--train-width 256] [--train-batch 256]
+        [--only gru|stage1|ctc|layout|detection] [--bf16]
 
 Runs, under ``torch.profiler``, the recognition forward of one
 ``rec_batch`` chunk (random weights, seed 1234), the biGRU recurrence
@@ -21,9 +22,13 @@ of 24 characters at width 256, else 48, in arrays 64 wide as the trainer
 pads them). ``--only layout`` runs the layout model's forward at
 ``[16, 500, 4]`` (float32, as ``OcrPipeline`` serves it) and one layout
 training step at 64 pages of 500 words (dropout on, lr 3e-4); the layout
-model reaches none of the port's kernels. ``--bf16`` runs the model, the
+model reaches none of the port's kernels. ``--only detection`` runs one
+detection training step at the trainer's shape, 4 synthetic pages of
+800x600 (lr 1e-3), and the balanced BCE alone (forward and backward) on
+its masks; the detector reaches none of the port's kernels. ``--bf16`` runs the model, the
 step and the stage-1 and biGRU kernels in bfloat16 (the CTC kernels are
-float32 in both; the layout forward stays float32). Needs CUDA.
+float32 in both; the layout forward and the balanced BCE stay float32).
+Needs CUDA.
 """
 
 from __future__ import annotations
@@ -218,6 +223,31 @@ def _layout_sections(iters: int, dev, dtype) -> None:
     _report(f"layout train step {str(dtype)[6:]} [64,500,4]", prof, wall, iters, launches)
 
 
+def _detection_sections(iters: int, dev, dtype) -> None:
+    """One detection training step at ``[4, 1, 800, 600]``, and the
+    balanced BCE alone on its masks."""
+    from .data import SyntheticDetection, collate_detection
+    from .models import DetectionModel
+    from .ops.losses import balanced_cross_entropy_loss
+    from .training.steps import make_detection_steps
+
+    ds = SyntheticDetection(size=4, page_size=(800, 600), seed=1234)
+    batch = collate_detection([ds[i] for i in range(4)])
+    batch = {k: torch.from_numpy(batch[k]).to(dev) for k in ("image", "mask", "sample_weight")}
+    model = DetectionModel(dtype=dtype).to(dev)
+    state = create_train_state(model)
+    train_step, _ = make_detection_steps(model)
+    prof, wall, launches = _profiled(lambda: train_step(state, batch, 1e-3), iters)
+    _report(f"detection train step {str(dtype)[6:]} [4,1,800,600]", prof, wall, iters, launches)
+    pred = torch.rand(batch["mask"].shape, device=dev).requires_grad_()
+
+    def loss_call():
+        balanced_cross_entropy_loss(pred, batch["mask"], batch["sample_weight"]).backward()
+
+    prof, wall, launches = _profiled(loss_call, iters)
+    _report("balanced BCE forward+backward [4,1,800,600]", prof, wall, iters, launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--width", type=int, default=800)
@@ -225,7 +255,8 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--train-width", type=int, default=256)
     ap.add_argument("--train-batch", type=int, default=256)
-    ap.add_argument("--only", choices=["gru", "stage1", "ctc", "layout"], default=None,
+    ap.add_argument("--only", choices=["gru", "stage1", "ctc", "layout", "detection"],
+                    default=None,
                     help="run only the sections of these kernels")
     ap.add_argument("--bf16", action="store_true", help="bfloat16 model, step and kernels")
     args = ap.parse_args()
@@ -242,6 +273,8 @@ def main() -> None:
         return _ctc_sections(args.train_batch, args.train_width, args.iters, dev, gen)
     if args.only == "layout":
         return _layout_sections(args.iters, dev, dtype)
+    if args.only == "detection":
+        return _detection_sections(args.iters, dev, dtype)
     model = RecognitionModel(n_classes=97, dtype=dtype).to(dev).eval().requires_grad_(False)
     x = (torch.rand((args.batch, 1, 64, args.width), generator=gen) - 0.5).to(dev)
     flags = dict(enabled=True, benchmark=True, deterministic=False, allow_tf32=False)

@@ -1,7 +1,9 @@
-"""Train and eval steps for the CRNN recognizer and the layout transformer.
+"""Train and eval steps for the CRNN recognizer, the U-Net detector and the
+layout transformer.
 
-Counterpart of ``make_recognition_steps`` and ``make_layout_steps`` in
-``ocrs_models_tpu/training/steps.py``, with their contract. The learning
+Counterpart of ``make_recognition_steps``, ``make_detection_steps`` and
+``make_layout_steps`` in ``ocrs_models_tpu/training/steps.py``, with their
+contract. The learning
 rate is an argument of each step; recognition batches may carry padding
 rows that ``sample_weight`` zeroes out of the loss (they still enter the
 batch-norm batch statistics, as in the JAX package); the loss is
@@ -17,8 +19,10 @@ gradients and Adam's state are float32 in both. cuDNN times its algorithms
 once per shape (its heuristic picks slow FFT algorithms for the float32
 convolutions). Stage 1, the biGRU recurrence and the CTC recursions run
 through the port's CUDA kernels, forward and backward, on a CUDA device.
-The layout step runs plain PyTorch products (the JAX layout model reaches
-no Pallas kernel) in the model's dtype, with TF32 off for float32.
+The detection and layout steps run cuDNN convolutions, plain PyTorch
+products and the balanced BCE on the device (the JAX detector and layout
+model reach no Pallas kernel) in the model's dtype, with TF32 off for
+float32.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 from torch import nn
 
 from ..ops.ctc import ctc_loss_forward
-from ..ops.losses import weighted_bce_with_logits
+from ..ops.losses import balanced_cross_entropy_loss, weighted_bce_with_logits
 from .state import TrainState, global_norm
 
 
@@ -179,6 +183,119 @@ def make_recognition_steps(
     return train_step, eval_step
 
 
+# ------------------------------- detection -------------------------------
+
+
+def detection_module_names(model: nn.Module) -> dict[str, str]:
+    """Each parameter's top-level module under the JAX package's names:
+    ``down.{i}.*`` -> ``down_{i}``, ``up.{i}.*`` -> ``up_{i}``, ``in_conv.*``
+    and ``out_conv.*`` as they are."""
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        out[name] = f"{parts[0]}_{parts[1]}" if parts[0] in ("down", "up") else parts[0]
+    return out
+
+
+def _tensors_to_device(batch: dict, keys: tuple[str, ...], dev: torch.device) -> dict:
+    out = {}
+    for key in keys:
+        if key in batch:
+            v = batch[key]
+            v = torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
+            out[key] = v.to(dev).float().contiguous()
+    return out
+
+
+def make_detection_steps(model: nn.Module, grad_accum: int = 1):
+    """Build ``(train_step, eval_step)`` for the U-Net detector.
+
+    Batch fields (numpy arrays or tensors): ``image`` and ``mask`` ``[N, 1,
+    H, W]`` float, NCHW (the JAX package takes NHWC), optional
+    ``sample_weight`` ``[N]``: rows of weight 0 (batch padding) give no
+    pixels to the balanced BCE's pools (they still enter the batch-norm
+    statistics, as in the JAX package).
+
+    ``train_step(state, batch, lr) -> (state, metrics)`` updates ``state``
+    in place; metrics are 0-d tensors ``loss`` and ``grad_norm``, a dict
+    ``grad_norms`` keyed by the JAX module names (``in_conv``, ``down_0``
+    ... ``up_5``, ``out_conv``) and ``pred`` ``[N, 1, H, W]`` float32
+    probabilities, all on the device. There is no gradient clip.
+    ``eval_step(state, batch) -> {"loss", "pred"}`` uses the running
+    batch-norm statistics.
+
+    ``grad_accum=k`` splits the batch into ``k`` microbatches with the JAX
+    package's strided split (microbatch ``i`` takes samples ``i, i+k,
+    ...``), runs them in sequence (batch norm sees each microbatch and its
+    running statistics update k times), weights each microbatch's loss and
+    gradient by its valid count and makes one update. The balanced BCE's
+    pools are each microbatch's own.
+    """
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    names = detection_module_names(model)
+    keys = ("image", "mask", "sample_weight")
+
+    def device() -> torch.device:
+        return next(model.parameters()).device
+
+    def loss_fn(batch: dict):
+        pred = model(batch["image"])
+        return balanced_cross_entropy_loss(pred, batch["mask"], batch.get("sample_weight")), pred
+
+    def train_step(state: TrainState, batch: dict, lr: float):
+        batch = _tensors_to_device(batch, keys, device())
+        n = batch["image"].shape[0]
+        if n % grad_accum:
+            raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
+        model.train()
+        state.optimizer.zero_grad()
+        with numerics():
+            if grad_accum == 1:
+                loss, pred = loss_fn(batch)
+                loss.backward()
+                loss, pred = loss.detach(), pred.detach()
+            else:
+                loss = den = 0.0
+                pred = torch.empty_like(batch["mask"])
+                for i in range(grad_accum):
+                    mb = {k: v[i::grad_accum] for k, v in batch.items()}
+                    mb_den = (mb["sample_weight"].sum() if "sample_weight" in mb
+                              else torch.tensor(float(n // grad_accum), device=pred.device))
+                    mb_loss, mb_pred = loss_fn(mb)
+                    (mb_loss * mb_den).backward()
+                    loss = loss + mb_loss.detach() * mb_den
+                    den = den + mb_den
+                    pred[i::grad_accum] = mb_pred.detach()
+                den = torch.clamp(den, min=1.0)
+                loss = loss / den
+            grads: dict[str, list] = {}
+            for name, p in model.named_parameters():
+                if p.grad is not None:
+                    if grad_accum > 1:
+                        p.grad.div_(den)
+                    grads.setdefault(names[name], []).append(p.grad)
+            grad_norms = {k: global_norm(v) for k, v in grads.items()}
+            grad_norm = state.optimizer.step(lr)
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": grad_norm, "grad_norms": grad_norms,
+                       "pred": pred}
+
+    def eval_step(state: TrainState, batch: dict):
+        del state
+        batch = _tensors_to_device(batch, keys, device())
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad(), numerics():
+                loss, pred = loss_fn(batch)
+        finally:
+            model.train(was_training)
+        return {"loss": loss, "pred": pred}
+
+    return train_step, eval_step
+
+
 # --------------------------------- layout --------------------------------
 
 
@@ -195,16 +312,6 @@ def layout_module_names(model: nn.Module) -> dict[str, str]:
             out[name] = f"embed{int(parts[1]) // 2}"
         else:
             out[name] = parts[0]
-    return out
-
-
-def _layout_to_device(batch: dict, dev: torch.device) -> dict:
-    out = {}
-    for key in ("boxes", "labels", "sample_weight"):
-        if key in batch:
-            v = batch[key]
-            v = torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
-            out[key] = v.to(dev).float().contiguous()
     return out
 
 
@@ -245,7 +352,7 @@ def make_layout_steps(model: nn.Module, pos_weight: float = 10.0, grad_accum: in
 
     def train_step(state: TrainState, batch: dict, lr: float,
                    generator: torch.Generator | None = None):
-        batch = _layout_to_device(batch, device())
+        batch = _tensors_to_device(batch, ("boxes", "labels", "sample_weight"), device())
         n = batch["boxes"].shape[0]
         if n % grad_accum:
             raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
@@ -285,7 +392,7 @@ def make_layout_steps(model: nn.Module, pos_weight: float = 10.0, grad_accum: in
 
     def eval_step(state: TrainState, batch: dict):
         del state
-        batch = _layout_to_device(batch, device())
+        batch = _tensors_to_device(batch, ("boxes", "labels", "sample_weight"), device())
         was_training = model.training
         model.eval()
         try:

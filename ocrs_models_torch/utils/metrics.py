@@ -1,6 +1,7 @@
-"""Accuracy statistics of recognition and layout (the port's copy of
-``RecognitionAccuracyStats``, ``f1_score``, ``precision_recall`` and
-``LayoutAccuracyStats`` in ``ocrs_models_tpu/utils/metrics.py``)."""
+"""Accuracy statistics of the three tasks (the port's copy of
+``ocrs_models_tpu/utils/metrics.py``): the recognizer's character error
+rate, the layout model's line-start and line-end precision and recall, and
+the means of the detector's box-match metrics."""
 
 from __future__ import annotations
 
@@ -86,3 +87,15 @@ class LayoutAccuracyStats:
             f"{s['line_start_recall']:.3f} line end prec/recall "
             f"{s['line_end_precision']:.3f}/{s['line_end_recall']:.3f}"
         )
+
+
+def get_metric_means(metrics_dicts: list[dict]) -> dict:
+    """Mean of each key over a list of metric dicts (a missing key counts 0)."""
+    if not metrics_dicts:
+        return {}
+    keys = set(k for md in metrics_dicts for k in md)
+    return {k: float(np.mean([md.get(k, 0.0) for md in metrics_dicts])) for k in keys}
+
+
+def format_metrics(metrics: dict) -> dict:
+    return {k: f"{v:.3f}" for k, v in metrics.items()}

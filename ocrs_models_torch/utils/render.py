@@ -1,22 +1,32 @@
-"""Debug rendering of word boxes, without PIL (the port's copy of
-``draw_word_boxes`` in ``ocrs_models_tpu/utils/render.py``).
+"""Debug rendering without PIL (the port's copy of
+``ocrs_models_tpu/utils/render.py``): greyscale pages, word quads and
+labelled word boxes as numpy arrays, written as 8-bit PNGs through ``zlib``
+and ``struct``, and read back by :func:`read_png`.
 
-The image is drawn in numpy with Pillow's rules for
-``ImageDraw.rectangle(box, outline=color, width=2)`` (corners truncated to
-integers; two horizontal rows at each edge, inclusive of both ends; the
-sides' columns drawn between them, Bresenham-style, excluding the end
-point; everything clipped to the image) and written as an 8-bit RGB PNG
-through ``zlib`` and ``struct``. The rest of the JAX module (``draw_quads``,
-``to_pil_grey``) is ROADMAP.md, Queue 1 item 9.
+Drawing follows Pillow's rules:
+
+- ``ImageDraw.rectangle(box, outline=color, width=2)``: corners truncated
+  to integers; two horizontal rows at each edge, inclusive of both ends;
+  the sides' columns drawn between them, Bresenham-style, excluding the
+  end point; everything clipped to the image.
+- ``ImageDraw.line((start, end), fill=color, width=2)``: end points
+  truncated to integers; the segment becomes the quadrilateral whose
+  corners Pillow's ``ImagingDrawWideLine`` computes, filled with Pillow's
+  polygon rule (``geometry.raster.fill_polygon``); a zero-length segment
+  is one point.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 from typing import Optional
 
 import numpy as np
+
+from ..geometry.raster import fill_polygon
+from .image import untransform_image
 
 # PIL's ImageColor values of the colour names the JAX function uses.
 COLORS = {
@@ -27,12 +37,13 @@ COLORS = {
 }
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an ``[H, W, 3]`` uint8 image as an 8-bit RGB PNG (filter 0 on
-    every row, one IDAT chunk)."""
-    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
-    h, w, _ = rgb.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write an ``[H, W, 3]`` (RGB) or ``[H, W]`` (greyscale) uint8 image as
+    an 8-bit PNG (filter 0 on every row, one IDAT chunk)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    channels = 1 if img.ndim == 2 else 3
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * channels)], axis=1)
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
@@ -40,9 +51,132 @@ def write_png(path: str, rgb: np.ndarray) -> None:
 
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if channels == 1 else 2,
+                                           0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
         f.write(chunk(b"IEND", b""))
+
+
+_CHANNELS = {0: 1, 2: 3}  # PNG colour types read: greyscale, RGB
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit, non-interlaced greyscale or RGB PNG: ``[H, W]`` or
+    ``[H, W, 3]`` uint8. Anything else raises ``ValueError``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _CHANNELS or interlace != 0:
+        raise ValueError(
+            f"{path}: bit depth {depth}, colour type {color}, interlace {interlace}: only "
+            "8-bit non-interlaced greyscale (0) or RGB (2) PNGs are read; convert it, or "
+            "save the page as .npy")
+    bpp = _CHANNELS[color]
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.int32)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        kind, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if kind == 0:
+            row = line
+        elif kind == 1:  # Sub: each byte adds the byte bpp to its left
+            row = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
+        elif kind == 2:  # Up
+            row = (line + prev) & 0xFF
+        elif kind in (3, 4):  # Average, Paeth: left to right, on Python ints
+            cur, up = [0] * bpp + line.tolist(), [0] * bpp + prev.tolist()
+            for x in range(bpp, stride + bpp):
+                a, b = cur[x - bpp], up[x]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[x - bpp]
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[x] = (cur[x] + pred) & 0xFF
+            row = np.array(cur[bpp:], np.int32)
+        else:
+            raise ValueError(f"{path}: unknown PNG row filter {kind}")
+        out[y] = prev = row
+    img = out.astype(np.uint8)
+    return img if bpp == 1 else img.reshape(h, w, 3)
+
+
+def to_grey(img: np.ndarray) -> np.ndarray:
+    """``[H, W, 1]`` or ``[H, W]`` float image in [-0.5, 0.5], or uint8 ->
+    ``[H, W]`` uint8 (``to_pil_grey``'s pixels)."""
+    arr = np.asarray(img)
+    if arr.ndim == 3:
+        arr = arr[..., 0]
+    return arr if arr.dtype == np.uint8 else untransform_image(arr)
+
+
+def draw_line(img: np.ndarray, start, end, color, width: int = 2) -> None:
+    """Pillow's ``ImageDraw.line((start, end), fill=color, width=width)``
+    on an ``[H, W, 3]`` uint8 image, for ``width > 1``."""
+    h, w, _ = img.shape
+    x0, y0 = int(start[0]), int(start[1])
+    x1, y1 = int(end[0]), int(end[1])
+    dx, dy = x1 - x0, y1 - y0
+    if dx == 0 and dy == 0:
+        if 0 <= x0 < w and 0 <= y0 < h:
+            img[y0, x0] = color
+        return
+    big = math.hypot(dx, dy)
+    small = (width - 1) / 2.0
+    ratio_max = _round_up(small) / big
+    ratio_min = _round_down(small) / big
+    dxmin, dxmax = _round_down(ratio_min * dy), _round_down(ratio_max * dy)
+    dymin, dymax = _round_down(ratio_min * dx), _round_down(ratio_max * dx)
+    corners = np.array([(x0 - dxmin, y0 + dymax), (x1 - dxmin, y1 + dymax),
+                        (x1 + dxmax, y1 - dymin), (x0 + dxmax, y0 - dymin)])
+    # Fill within the corners' box, clipped to the image and widened by the
+    # edges' run per row (how far Pillow's corner rule may reach past a
+    # vertex): integer shifts leave the fill rule's arithmetic as it is.
+    reach = abs(dx) + 2
+    ox, oy = max(int(corners[:, 0].min()) - reach, 0), max(int(corners[:, 1].min()) - 1, 0)
+    bw = min(int(corners[:, 0].max()) + reach + 1, w) - ox
+    bh = min(int(corners[:, 1].max()) + 2, h) - oy
+    if bw <= 0 or bh <= 0:
+        return
+    mask = fill_polygon(bw, bh, corners - (ox, oy))
+    img[oy : oy + bh, ox : ox + bw][mask.astype(bool)] = color
+
+
+def _round_up(f: float) -> int:  # Pillow's ROUND_UP: half away from zero
+    return int(math.floor(f + 0.5)) if f >= 0 else -int(math.floor(abs(f) + 0.5))
+
+
+def _round_down(f: float) -> int:  # Pillow's ROUND_DOWN: half toward zero
+    return int(math.ceil(f - 0.5)) if f >= 0 else -int(math.ceil(abs(f) - 0.5))
+
+
+def draw_quads(img: np.ndarray, quads: np.ndarray) -> np.ndarray:
+    """RGB copy of the greyscale ``img`` with each quad's outline drawn in
+    red, width 2 (``draw_quads``'s pixels)."""
+    grey = to_grey(img)
+    out = np.repeat(grey[..., None], 3, axis=-1)
+    for quad in np.asarray(quads).reshape(-1, 4, 2):
+        verts = [(float(x), float(y)) for x, y in quad]
+        for i, start in enumerate(verts):
+            draw_line(out, start, verts[(i + 1) % len(verts)], COLORS["red"], width=2)
+    return out
 
 
 def _hline(img: np.ndarray, x0: int, y: int, x1: int, color) -> None:

@@ -85,7 +85,7 @@ from ocrs_models_torch.weights import (
     recognition_state_dict_from_jax,
 )
 from test_torch_train_steps import CLIP, LR, _batches, _jax_state
-from torch_port_common import nhwc_to_nchw, random_variables
+from torch_port_common import nhwc_to_nchw, patch_bf16_dots_in_f32, random_variables
 
 BF16 = torch.bfloat16
 
@@ -100,23 +100,11 @@ def _jnp32(a) -> np.ndarray:
 
 @pytest.fixture
 def bf16_dots_in_f32(monkeypatch):
-    """This CPU's XLA runtime has no bf16 x bf16 -> f32 dot (``DotThunk``),
-    which the JAX package's bf16 detection (the pointwise convs) and its
-    ``pallas4`` biGRU input projections ask for through ``jnp.einsum(...,
-    preferred_element_type=jnp.float32)``. For the test's duration such an
-    einsum takes its bf16 operands as float32: the same function, since a
-    product of two bf16 values is exact in f32 and the sum is f32 either
-    way. The JAX package itself is not changed."""
-    einsum = jnp.einsum
-
-    def einsum_f32(subscripts, *operands, preferred_element_type=None, **kwargs):
-        if preferred_element_type == jnp.float32:
-            operands = [o.astype(jnp.float32) if getattr(o, "dtype", None) == jnp.bfloat16 else o
-                        for o in operands]
-        return einsum(subscripts, *operands, preferred_element_type=preferred_element_type,
-                      **kwargs)
-
-    monkeypatch.setattr(jnp, "einsum", einsum_f32)
+    """``patch_bf16_dots_in_f32``: this CPU's XLA runtime has no bf16 x
+    bf16 -> f32 dot, which the JAX package's bf16 detection and its
+    ``pallas4`` biGRU input projections ask for; the einsums take their
+    bf16 operands as float32 for the test's duration (the same function)."""
+    patch_bf16_dots_in_f32(monkeypatch)
 
 
 def _assert_bf16_effect_matches(port_bf16, port_f32, jax_bf16, jax_f32, min_corr):

@@ -3,8 +3,6 @@ random weights and pages: detection probabilities and masks, word quads,
 line grouping, greedy decode, the PIL-free resize, and the texts of
 ``run_batch`` and ``__call__``."""
 
-import time
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +14,6 @@ from ocrs_models_tpu.data import SyntheticDetection
 from ocrs_models_tpu.data.augment import resize as pil_resize
 from ocrs_models_tpu.geometry import expand_quads as jax_expand_quads
 from ocrs_models_tpu.geometry import extract_cc_quads as jax_extract_cc_quads
-from ocrs_models_tpu.geometry import native as jax_native
 from ocrs_models_tpu.geometry.components import connected_components as jax_cc
 from ocrs_models_tpu.models import DetectionModel as JaxDetection
 from ocrs_models_tpu.models import RecognitionModel as JaxRecognition
@@ -29,7 +26,7 @@ from ocrs_models_torch.geometry.components import connected_components_numpy
 from ocrs_models_torch.geometry.polygon import min_area_rect_numpy, offset_ring_numpy
 from ocrs_models_torch.pipeline import OcrPipeline, group_words_into_lines
 from ocrs_models_torch.utils.text import ctc_greedy_decode_batch
-from torch_port_common import random_variables
+from torch_port_common import random_variables, use_geometry_backend
 
 DET_SIZE = (128, 96)
 
@@ -66,26 +63,9 @@ def test_detection_probabilities_and_masks_match(setup):
 def geometry_backend(request, monkeypatch):
     """Both packages' geometry on one backend: their numpy versions, or
     their C++ cores. The two round some quad coordinates one ulp apart, so
-    a comparison across backends is not a comparison of the ports. The
-    JAX package compiles its library in place, so a process that loaded it
-    while another process was writing it has fallen back to numpy; the
-    native case loads it again, once the file is whole."""
-    if request.param == "numpy":
-        for mod in (jax_native, native):
-            monkeypatch.setattr(mod, "_lib", None)
-            monkeypatch.setattr(mod, "_load_failed", True)
-        return request.param
-    if native.get_lib() is None:
-        pytest.skip("no C++ toolchain: the port's geometry core cannot be built here")
-    monkeypatch.delenv("OCRS_TPU_NO_NATIVE", raising=False)
-    deadline = time.monotonic() + 120
-    while True:
-        monkeypatch.setattr(jax_native, "_load_failed", False)
-        if jax_native.get_lib() is not None:
-            return request.param
-        if time.monotonic() > deadline:
-            pytest.skip("the JAX package's geometry core did not load")
-        time.sleep(0.5)
+    a comparison across backends is not a comparison of the ports."""
+    use_geometry_backend(request.param, monkeypatch)
+    return request.param
 
 
 def test_quads_identical_given_mask(setup, geometry_backend):

@@ -92,3 +92,54 @@ def no_port_dropout(model: torch.nn.Module) -> torch.nn.Module:
         if isinstance(m, Dropout):
             m.p = 0.0
     return model
+
+
+def patch_bf16_dots_in_f32(monkeypatch):
+    """This CPU's XLA runtime has no bf16 x bf16 -> f32 dot (``DotThunk``),
+    which the JAX package's bf16 detection (the pointwise convs) asks for
+    through ``jnp.einsum(..., preferred_element_type=jnp.float32)``. For the
+    test's duration such an einsum takes its bf16 operands as float32: the
+    same function, since a product of two bf16 values is exact in f32 and
+    the sum is f32 either way. The JAX package itself is not changed."""
+    einsum = jnp.einsum
+
+    def einsum_f32(subscripts, *operands, preferred_element_type=None, **kwargs):
+        if preferred_element_type == jnp.float32:
+            operands = [o.astype(jnp.float32) if getattr(o, "dtype", None) == jnp.bfloat16 else o
+                        for o in operands]
+        return einsum(subscripts, *operands, preferred_element_type=preferred_element_type,
+                      **kwargs)
+
+    monkeypatch.setattr(jnp, "einsum", einsum_f32)
+
+
+def use_geometry_backend(name: str, monkeypatch) -> None:
+    """Both packages' host geometry on one backend for the test's duration:
+    ``"numpy"`` (their numpy versions) or ``"native"`` (their C++ cores;
+    skips where no C++ toolchain builds them). The JAX package compiles its
+    library in place, so a process that loaded it while another process was
+    writing it has fallen back to numpy; the native case loads it again,
+    once the file is whole."""
+    import time
+
+    import pytest
+
+    from ocrs_models_tpu.geometry import native as jax_native
+    from ocrs_models_torch.geometry import native
+
+    if name == "numpy":
+        for mod in (jax_native, native):
+            monkeypatch.setattr(mod, "_lib", None)
+            monkeypatch.setattr(mod, "_load_failed", True)
+        return
+    if native.get_lib() is None:
+        pytest.skip("no C++ toolchain: the port's geometry core cannot be built here")
+    monkeypatch.delenv("OCRS_TPU_NO_NATIVE", raising=False)
+    deadline = time.monotonic() + 120
+    while True:
+        monkeypatch.setattr(jax_native, "_load_failed", False)
+        if jax_native.get_lib() is not None:
+            return
+        if time.monotonic() > deadline:
+            pytest.skip("the JAX package's geometry core did not load")
+        time.sleep(0.5)
