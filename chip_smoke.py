@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, recognition training step,
-recognition trainer, layout model (served and trained) and detection
-training on one NVIDIA GPU and check them.
+recognition trainer, layout model (served and trained), detection
+training and the ONNX and ``.npz`` export on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -120,6 +121,25 @@ Phases (any failure exits non-zero, before the final line):
     as PNG (its four PNGs decoded at their sizes); the host ms per page of
     drawing a page and of each augmentation branch.
 
+14. Export: each trainer (``train_rec``, ``train_layout``,
+    ``train_detection``) with ``--checkpoint`` of phase 9's, 11's and 13's
+    checkpoint and ``--export`` to ``.onnx`` and ``.npz``. Each graph passes
+    the spec checker and the parser, with the reference's inputs and
+    outputs (``image [batch,1,800,600] -> mask``, ``line_image
+    [batch,1,64,seq] -> chars [out_seq,batch,97]``, ``word_boxes
+    [batch,box,4] -> preds [batch,box,2]``), and the port's numpy evaluator
+    on the host agrees with the float32 forward on the card (TF32 off) from
+    the same checkpoint: one synthetic 800x600 page (2e-4), line crops at
+    ``[8,1,64,256]`` and ``[3,1,64,96]`` (2e-4, at least 99.9% of the
+    argmaxes equal; the forward launches ``stage1_fwd`` once and
+    ``gru_fwd`` twice), ``[2,500,4]`` word boxes (5e-4). Each ``.npz``
+    maps back through ``weights.*_state_dict_from_jax`` into a fresh model,
+    strictly, every tensor equal to the checkpoint's but
+    ``num_batches_tracked``. Then ``python -m ocrs_models_torch.export
+    convert recognition`` on phase 9's checkpoint must write the trainer's
+    graph byte for byte. One ``{"path": "export", ...}`` line per model
+    (bytes, nodes, export and evaluation seconds, largest error).
+
 Prints the nvidia-smi line, throughput lines, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -127,8 +147,11 @@ line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -1185,14 +1208,15 @@ def _rates(lines: list[str]) -> list[float]:
     return [float(ln.split()[1]) for ln in lines if ln.startswith("Throughput ")]
 
 
-def run_trainer(step_rates: dict) -> dict[str, dict[str, int]]:
+def run_trainer(step_rates: dict, keep: Path) -> dict[str, dict[str, int]]:
     """Phase 9: the trainer CLI ``training/train_rec.py`` on synthetic
     lines, in a temporary directory: (a) three epochs at the JAX defaults
     (bf16, as the JAX trainer's), (b) a resume for one more epoch, (c)
     ``--validate-only``, (d) two epochs at batch 128 in bf16 with and
     without augmentation and in float32 (``--no-bf16``) without, for the
     trainer's rate against the bare step's (``step_rates``, phase 8's wide
-    step at batch 128 by dtype), then the host's share of it. Returns the
+    step at batch 128 by dtype), then the host's share of it. Copies (a)
+    and (b)'s checkpoint to ``keep / "rec.pt"`` for phase 14. Returns the
     launch counts per epoch of (a) (bf16) and of (d)'s float32 run."""
     import math
     import os
@@ -1262,6 +1286,7 @@ def run_trainer(step_rates: dict) -> dict[str, dict[str, int]]:
             if not np.isfinite(float(line.split()[2])):
                 raise AssertionError(f"--validate-only: {line}")
             print(json.dumps({"path": "train_rec --validate-only", "line": line}), flush=True)
+            shutil.copy("text-rec-checkpoint.pt", keep / "rec.pt")
         finally:
             os.chdir(cwd)
 
@@ -1663,7 +1688,7 @@ def run_layout_training(dev, dtype) -> dict:
     return line
 
 
-def run_layout_trainer() -> dict:
+def run_layout_trainer(keep: Path) -> dict:
     """Phase 11 (c): the layout trainer CLI in a temporary directory, at its
     defaults (bf16, batch 64, 500 words) on ``synthetic-doc`` cut to 32
     pages (one step an epoch, 32 validation pages; drawing a page takes
@@ -1672,7 +1697,7 @@ def run_layout_trainer() -> dict:
     metrics records); a resume for one more epoch with the Adam step
     restored; ``--validate-only``; ``--export layout.pt``; then
     ``eval_layout`` on a page written by ``write_corpus``, whose PNG must
-    decode."""
+    decode. Copies the checkpoint to ``keep / "layout.pt"`` for phase 14."""
     import math
     import os
     import tempfile
@@ -1731,6 +1756,7 @@ def run_layout_trainer() -> dict:
             _cli(train_layout, [*data, "--checkpoint", "text-layout-checkpoint.pt",
                                 "--export", "layout.pt"])
             exported = torch.load("layout.pt", map_location="cpu", weights_only=True)
+            shutil.copy("text-layout-checkpoint.pt", keep / "layout.pt")
             n_exported = sum(v.numel() for v in exported["model_state"].values())
             if n_exported != LAYOUT_PARAMS or exported["optimizer_state"] != {}:
                 raise AssertionError(f"--export layout.pt: {n_exported} parameters")
@@ -1966,7 +1992,7 @@ def _data_host_ms(n: int = 8) -> dict:
     return out
 
 
-def run_detection_trainer() -> dict:
+def run_detection_trainer(keep: Path) -> dict:
     """Phase 13: the detection trainer CLI in a temporary directory at its
     defaults (bf16, batch 4, 800x600, augmented) on ``synthetic`` cut to
     16 pages (4 steps an epoch, 10 validation pages): three epochs (every
@@ -1975,7 +2001,8 @@ def run_detection_trainer() -> dict:
     restored; ``--validate-only``; then ``eval_detection`` on a synthetic
     page of 1000x750 saved as PNG, whose four PNGs must decode at their
     sizes (input and probabilities at 800x600, regions and words at the
-    page's). Prints the host ms per page of the data."""
+    page's). Prints the host ms per page of the data. Copies the checkpoint
+    to ``keep / "det.pt"`` for phase 14."""
     import os
     import tempfile
 
@@ -2037,6 +2064,7 @@ def run_detection_trainer() -> dict:
             val = [ln for ln in lines if ln.startswith(("Validation loss", "Validation metrics"))]
             if len(val) != 2:
                 raise AssertionError(f"--validate-only printed {lines}")
+            shutil.copy("text-detection-checkpoint.pt", keep / "det.pt")
 
             page = SyntheticDetection(size=1, page_size=(1000, 750), seed=SEED)[0]["image"]
             write_png("page.png", ((page[..., 0] + 0.5) * 255).round().astype(np.uint8))
@@ -2057,10 +2085,138 @@ def run_detection_trainer() -> dict:
     return {"epochs": len(epochs), **host}
 
 
+# ------------------------------------------------------------- export (14)
+
+EXPORT_ATOL = {"detection": 2e-4, "recognition": 2e-4, "layout": 5e-4}  # tests/test_torch_export.py
+EXPORT_ARGMAX_EQUAL = 0.999  # the recognizer's share of equal argmaxes
+EXPORT_REC_SHAPES = ((8, 256), (3, 96))  # (batch, width): both dynamic axes, two W//4+1
+EXPORT_LAYOUT_PAGES = 2
+
+
+def _export_cases() -> list[tuple]:
+    """(model, trainer, its data arguments, checkpoint, input, output)."""
+    from ocrs_models_torch.training import train_detection, train_layout, train_rec
+
+    return [
+        ("recognition", train_rec, ["synthetic", "-"], "rec.pt",
+         ("line_image", ["batch", 1, 64, "seq"]), ("chars", ["out_seq", "batch", 97])),
+        ("layout", train_layout, ["synthetic-doc", "--max-images", str(LAYOUT_TRAIN_IMAGES)],
+         "layout.pt", ("word_boxes", ["batch", "box", 4]), ("preds", ["batch", "box", 2])),
+        ("detection", train_detection, ["synthetic", "-", "--max-images", str(DET_TRAIN_IMAGES)],
+         "det.pt", ("image", ["batch", 1, *DET_TRAIN_SIZE]), ("mask", ["batch", 1, *DET_TRAIN_SIZE])),
+    ]
+
+
+def _export_inputs(model: str) -> list[np.ndarray]:
+    """The inputs each exported graph is evaluated on: one 800x600 page;
+    line crops at two batches and widths; 500 word boxes on two pages."""
+    rng = np.random.default_rng(SEED + 14)
+    if model == "detection":
+        return [synthetic_page(rng, *DET_TRAIN_SIZE)[None, None, :, :, 0]]
+    if model == "recognition":
+        return [np.stack([synthetic_crop(rng, w)[None, :, :, 0] for _ in range(n)])
+                for n, w in EXPORT_REC_SHAPES]
+    from ocrs_models_torch.data import SyntheticLayout
+
+    ds = SyntheticLayout(size=EXPORT_LAYOUT_PAGES, n_words=LAYOUT_WORDS, seed=SEED + 14)
+    return [np.stack([ds[i][0] for i in range(EXPORT_LAYOUT_PAGES)]).astype(np.float32)]
+
+
+def run_export(dev, keep: Path) -> None:
+    """Phase 14: each trainer's ``--checkpoint <phase 9/11/13's checkpoint>
+    --export`` to ``.onnx`` and ``.npz``; each graph checked, parsed, its
+    inputs and outputs the reference's, and run by the port's numpy
+    evaluator on the host against the float32 forward on the card (TF32
+    off) from the same checkpoint; each ``.npz`` mapped back through
+    ``weights.*_state_dict_from_jax`` into a fresh model, strictly, every
+    tensor equal to the checkpoint's but ``num_batches_tracked``; then one
+    ``python -m ocrs_models_torch.export convert``, whose graph must equal
+    the trainer's."""
+    from ocrs_models_torch import weights
+    from ocrs_models_torch.export import __main__ as convert_cli
+    from ocrs_models_torch.export.onnx_check import check_bytes
+    from ocrs_models_torch.export.onnx_eval import run_graph
+    from ocrs_models_torch.training.export_utils import read_npz
+    from ocrs_models_torch.training.steps import numerics
+
+    cwd = os.getcwd()
+    os.chdir(keep)
+    try:
+        for model, trainer, data, ckpt, (in_name, in_dims), (out_name, out_dims) in _export_cases():
+            seconds = {}
+            for ext in ("onnx", "npz"):
+                lines, result, counts, seconds[ext] = _cli(
+                    trainer, [*data, "--checkpoint", ckpt, "--export", f"{model}.{ext}"])
+                if result is not None or any(counts.values()):
+                    raise AssertionError(f"{model} --export {ext}: {result}, launches {counts}")
+            parsed = check_bytes(Path(f"{model}.onnx").read_bytes())
+            if (parsed.graph.inputs, parsed.graph.outputs) != ([(in_name, in_dims)],
+                                                               [(out_name, out_dims)]):
+                raise AssertionError(f"{model}.onnx: inputs {parsed.graph.inputs}, "
+                                     f"outputs {parsed.graph.outputs}")
+
+            sd = torch.load(ckpt, map_location="cpu", weights_only=True)["model_state"]
+            net = convert_cli.default_model(model)
+            net.load_state_dict(sd, strict=True)
+            net = net.to(dev).eval()
+            err, eval_seconds, equal, shapes = 0.0, 0.0, [], []
+            for x in _export_inputs(model):
+                _zero_counts()
+                with torch.no_grad(), numerics():
+                    want = net(torch.from_numpy(x).to(dev)).cpu().numpy()
+                counts = _counts()
+                if model == "recognition":
+                    _expect(counts, EVAL_LAUNCHES | {"ctc_alpha": 0}, 1, "recognizer forward")
+                    want = want.transpose(1, 0, 2)  # [N, T, C] -> the graph's [T, N, C]
+                t0 = time.perf_counter()
+                got = run_graph(parsed, {in_name: x})[out_name]
+                eval_seconds += time.perf_counter() - t0
+                if got.shape != want.shape or not np.isfinite(got).all():
+                    raise AssertionError(f"{model}: graph {got.shape}, forward {want.shape}")
+                err = max(err, float(np.abs(got - want).max()))
+                shapes.append(list(x.shape))
+                if model == "recognition":
+                    equal.append(float((got.argmax(-1) == want.argmax(-1)).mean()))
+            if not err <= EXPORT_ATOL[model] or not all(e >= EXPORT_ARGMAX_EQUAL for e in equal):
+                raise AssertionError(f"{model}.onnx vs the card's forward: max_abs_err {err}, "
+                                     f"argmax equal {equal}")
+
+            to_port = getattr(weights, f"{model}_state_dict_from_jax")
+            fresh = convert_cli.default_model(model)
+            fresh.load_state_dict(to_port(read_npz(f"{model}.npz")), strict=True)
+            for key, value in sd.items():
+                if not key.endswith("num_batches_tracked") and not torch.equal(
+                        fresh.state_dict()[key], value):
+                    raise AssertionError(f"{model}.npz round trip: {key} differs")
+            print(json.dumps({
+                "path": "export", "model": model, "onnx_bytes": Path(f"{model}.onnx").stat().st_size,
+                "npz_bytes": Path(f"{model}.npz").stat().st_size, "nodes": len(parsed.graph.nodes),
+                "export_seconds": seconds, "eval_seconds": eval_seconds, "inputs": shapes,
+                "max_abs_err": err, "atol": EXPORT_ATOL[model],
+                **({"argmax_equal": equal} if equal else {})}), flush=True)
+            del net, fresh
+            torch.cuda.empty_cache()
+
+        _, rc, _, seconds = _cli(convert_cli, ["convert", "recognition", "rec.pt", "convert.onnx"])
+        if rc != 0 or Path("convert.onnx").read_bytes() != Path("recognition.onnx").read_bytes():
+            raise AssertionError("convert recognition rec.pt: not the trainer's graph")
+        print(json.dumps({"path": "export convert", "model": "recognition", "seconds": seconds,
+                          "onnx_bytes": Path("convert.onnx").stat().st_size}), flush=True)
+    finally:
+        os.chdir(cwd)
+
+
 def run(root: Path) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU to run on", file=sys.stderr)
         return 1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_checkpoints_") as keep:
+        return run_phases(root, Path(keep))
+
+
+def run_phases(root: Path, keep: Path) -> int:
+    """Phases 1-14; the trainer phases leave their checkpoints in ``keep``
+    for phase 14."""
     sys.path.insert(0, str(root))
     from ocrs_models_torch.geometry import native
     from ocrs_models_torch.ops import _build
@@ -2155,7 +2311,7 @@ def run(root: Path) -> int:
                 raise AssertionError(f"the {name} training step never launched {k['name']}")
 
     # Phase 9: the trainer CLI.
-    trainer_launches = run_trainer({k: v["wide"]["crops_per_s"] for k, v in train.items()})
+    trainer_launches = run_trainer({k: v["wide"]["crops_per_s"] for k, v in train.items()}, keep)
     for rows, name in ((kernels, "f32"), (kernels_bf16, "bf16")):
         for k in rows:
             k["trainer_launches_per_epoch"] = trainer_launches[name][k["name"]]
@@ -2173,7 +2329,7 @@ def run(root: Path) -> int:
     layout_steps = {name: run_layout_training(dev, dtype)
                     for dtype, name in ((BF16, "bf16"), (torch.float32, "f32"))}
     print(f"phase 11 steps seconds {time.perf_counter() - t0:.1f}", flush=True)
-    run_layout_trainer()
+    run_layout_trainer(keep)
     print(f"phase 11 seconds {time.perf_counter() - t0:.1f}", flush=True)
     print(json.dumps({"path": "layout summary", "forward_ms_16x500": layout["forward_ms"],
                       "forward_device_ms_16x500": layout["forward_device_ms"],
@@ -2194,7 +2350,7 @@ def run(root: Path) -> int:
 
     # Phase 13: the detection trainer CLI and eval_detection.
     t0 = time.perf_counter()
-    det_host = run_detection_trainer()
+    det_host = run_detection_trainer(keep)
     print(f"phase 13 seconds {time.perf_counter() - t0:.1f}", flush=True)
     print(json.dumps({"path": "detection summary",
                       **{f"step_{k}_median_ms": v["step_ms_median"] for k, v in det_steps.items()},
@@ -2203,6 +2359,11 @@ def run(root: Path) -> int:
                       "balanced_bce_ms": det_loss["ms"],
                       "balanced_bce_launches": det_loss["device_launches_per_call"],
                       "page_ms": det_host["page_ms"]}), flush=True)
+
+    # Phase 14: ONNX and .npz export of the three trained models.
+    t0 = time.perf_counter()
+    run_export(dev, keep)
+    print(f"phase 14 seconds {time.perf_counter() - t0:.1f}", flush=True)
 
     print(f"smoke seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels + kernels_bf16}), flush=True)

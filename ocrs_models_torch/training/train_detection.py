@@ -16,14 +16,16 @@ Where the port differs from the JAX trainer:
 - ``--bf16`` (the default, as in the JAX trainer) trains
   ``DetectionModel(dtype=torch.bfloat16)``; ``--no-bf16`` trains in
   float32. Parameters, Adam's state and checkpoints are float32 either way.
-- ``hiertext`` and ``ddi`` raise: their readers are ROADMAP.md, Queue 1
-  item 5. ``--num-devices`` other than 1 raises: multi-GPU training is
-  Queue 1 item 3.
+- ``hiertext`` and ``ddi`` raise: their readers are ROADMAP.md, Queue 1,
+  the HierText and DDI-100 readers. ``--num-devices`` other than 1 raises:
+  multi-GPU training is ROADMAP.md, Queue 1, multi-GPU data parallelism.
 - Checkpoints are reference-format ``.pt`` files,
   ``text-detection-checkpoint.pt`` in the working directory, whose
   ``epoch`` is the next epoch to run; ``--checkpoint`` also takes the JAX
   trainer's ``--export x.pt``.
 - ``--debug-images`` writes its PNGs through ``zlib`` (no PIL).
+- ``--export x.onnx`` builds the graph at 800x600 whatever ``--mask-height``
+  is, as the JAX trainer does.
 - ``main(argv, device="cuda")`` runs on the GPU and raises without one;
   tests pass ``device="cpu"``.
 """
@@ -128,7 +130,7 @@ def main(argv=None, device: str | torch.device = "cuda"):
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--checkpoint", type=str)
     parser.add_argument("--debug-images", action="store_true")
-    parser.add_argument("--export", type=str)
+    parser.add_argument("--export", type=str, help="Export weights (.npz, .pt or .onnx)")
     parser.add_argument("--max-epochs", type=int)
     parser.add_argument("--max-images", type=int)
     parser.add_argument("--validate-only", action="store_true")
@@ -148,11 +150,11 @@ def main(argv=None, device: str | torch.device = "cuda"):
     if args.dataset_type != "synthetic":
         raise NotImplementedError(
             f"dataset {args.dataset_type!r}: the HierText and DDI-100 readers are not ported "
-            "yet (ROADMAP.md, Queue 1 item 5); use 'synthetic'")
+            "yet (ROADMAP.md, Queue 1: the HierText and DDI-100 readers); use 'synthetic'")
     if args.num_devices not in (None, 1):
         raise NotImplementedError(
             f"--num-devices {args.num_devices}: multi-GPU training is not ported yet "
-            "(ROADMAP.md, Queue 1 item 3)")
+            "(ROADMAP.md, Queue 1: multi-GPU data parallelism)")
 
     cfg = DetectionTrainConfig()
     if args.mask_height:

@@ -18,7 +18,7 @@ Where the port differs from the JAX trainer:
   ``LayoutModel(dtype=torch.bfloat16)``; ``--no-bf16`` trains in float32.
   Parameters, Adam's state and checkpoints are float32 either way.
 - ``--num-devices`` other than 1 raises: multi-GPU training is ROADMAP.md,
-  Queue 1 item 7.
+  Queue 1, multi-GPU data parallelism.
 - Checkpoints are reference-format ``.pt`` files,
   ``text-layout-checkpoint.pt`` in the working directory, whose ``epoch``
   is the next epoch to run; ``--checkpoint`` also takes the JAX trainer's
@@ -109,7 +109,7 @@ def main(argv=None, device: str | torch.device = "cuda"):
         "'synthetic-doc' (structured-document generator)",
     )
     parser.add_argument("--checkpoint", type=str, help="Checkpoint (.pt) to load")
-    parser.add_argument("--export", type=str, help="Export weights (.pt)")
+    parser.add_argument("--export", type=str, help="Export weights (.npz, .pt or .onnx)")
     parser.add_argument("--max-epochs", type=int)
     parser.add_argument("--max-images", type=int)
     parser.add_argument("--validate-only", action="store_true")
@@ -127,7 +127,7 @@ def main(argv=None, device: str | torch.device = "cuda"):
     if args.num_devices not in (None, 1):
         raise NotImplementedError(
             f"--num-devices {args.num_devices}: multi-GPU training is not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
+            "(ROADMAP.md, Queue 1: multi-GPU data parallelism)")
     dev = resolve_device(device)
 
     cfg = LayoutTrainConfig()

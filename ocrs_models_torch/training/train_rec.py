@@ -20,7 +20,7 @@ Where the port differs from the JAX trainer:
   Parameters, Adam's state and checkpoints are float32 either way.
 - ``hiertext`` raises: it needs a JPEG decoder and a dataset download.
 - ``--num-devices`` other than 1 raises: multi-GPU training is ROADMAP.md,
-  Queue 1 item 7.
+  Queue 1, multi-GPU data parallelism.
 - Checkpoints are reference-format ``.pt`` files,
   ``text-rec-checkpoint.pt`` in the working directory; ``--checkpoint``
   also takes the JAX trainer's ``--export x.pt``.
@@ -117,7 +117,7 @@ def main(argv=None, device: str | torch.device = "cuda"):
     )
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--checkpoint", type=str, help="Checkpoint (.pt) to load")
-    parser.add_argument("--export", type=str, help="Export weights (.pt)")
+    parser.add_argument("--export", type=str, help="Export weights (.npz, .pt or .onnx)")
     parser.add_argument("--lr", type=float, help="Initial learning rate")
     parser.add_argument(
         "--plateau-patience",
@@ -143,7 +143,7 @@ def main(argv=None, device: str | torch.device = "cuda"):
     if args.num_devices not in (None, 1):
         raise NotImplementedError(
             f"--num-devices {args.num_devices}: multi-GPU training is not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
+            "(ROADMAP.md, Queue 1: multi-GPU data parallelism)")
     if args.dataset_type == "hiertext":
         raise NotImplementedError(
             "hiertext: the HierText dataset needs a JPEG decoder and a dataset download, "

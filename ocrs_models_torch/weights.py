@@ -8,7 +8,9 @@ port's own copy of the mapping, taking nested dicts of anything
 into :class:`~ocrs_models_torch.models.RecognitionModel`,
 :class:`~ocrs_models_torch.models.DetectionModel` and
 :class:`~ocrs_models_torch.models.LayoutModel` with ``strict=True``.
-State dicts in the reference's ``.pt`` format load unchanged.
+State dicts in the reference's ``.pt`` format load unchanged. The
+``jax_variables_from_*_state_dict`` functions map back the other way, for
+the ``.npz`` export.
 
 Layouts: flax HWIO conv ``[kh, kw, I/g, O]`` -> torch ``[O, I/g, kh, kw]``;
 flax transpose conv (``transpose_kernel=True``) ``[kh, kw, O, I]`` -> torch
@@ -136,3 +138,111 @@ def layout_state_dict_from_jax(
         _layer_norm(lp["norm2"], f"{key}.norm2", out)
     _dense(p["classify"], "classify", out)
     return out
+
+
+# ------------------------------------------------------------- the inverse
+# The port's state dicts -> the JAX package's variable trees (the port's
+# copy of ``ocrs_models_tpu/export/torch_import.py``), for the ``.npz``
+# export: ``{"params": ..., "batch_stats": ...}`` with the flax module and
+# leaf names, C-contiguous float32 numpy leaves. ``num_batches_tracked``
+# has no flax counterpart and is dropped.
+
+
+def _np(v, perm: tuple[int, ...] | None = None) -> np.ndarray:
+    """``v`` as a C-contiguous float32 array, axes permuted by ``perm``."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    v = np.asarray(v, dtype=np.float32)
+    return np.ascontiguousarray(v if perm is None else v.transpose(perm))
+
+
+def _conv_to_jax(sd: Mapping[str, Any], key: str, bias: bool = True) -> dict:
+    # conv [O, I/g, kh, kw] -> HWIO; transpose conv [I, O, kh, kw] ->
+    # [kh, kw, O, I] (flax transpose_kernel=True): the same permutation.
+    out = {"kernel": _np(sd[f"{key}.weight"], (2, 3, 1, 0))}
+    if bias:
+        out["bias"] = _np(sd[f"{key}.bias"])
+    return out
+
+
+def _dense_to_jax(sd: Mapping[str, Any], key: str) -> dict:
+    return {"kernel": _np(sd[f"{key}.weight"], (1, 0)), "bias": _np(sd[f"{key}.bias"])}
+
+
+def _bn_to_jax(sd: Mapping[str, Any], key: str) -> tuple[dict, dict]:
+    params = {"scale": _np(sd[f"{key}.weight"]), "bias": _np(sd[f"{key}.bias"])}
+    return params, {"mean": _np(sd[f"{key}.running_mean"]), "var": _np(sd[f"{key}.running_var"])}
+
+
+def _double_conv_to_jax(sd: Mapping[str, Any], key: str) -> tuple[dict, dict]:
+    params, stats = {}, {}
+    for i, name in enumerate(("conv0", "conv1")):
+        k = f"{key}.seq.{i}"
+        bn_p, bn_s = _bn_to_jax(sd, f"{k}.seq.2")
+        params[name] = {
+            "dw_kernel": _np(sd[f"{k}.seq.0.weight"], (2, 3, 1, 0)),
+            "pw_kernel": _np(_np(sd[f"{k}.seq.1.weight"])[:, :, 0, 0], (1, 0)),
+            "bn": bn_p,
+        }
+        stats[name] = {"bn": bn_s}
+    return params, stats
+
+
+def jax_variables_from_detection_state_dict(sd: Mapping[str, Any], n_levels: int = 6) -> dict:
+    """The port's detection state dict -> JAX ``DetectionModel`` variables."""
+    params: dict = {}
+    stats: dict = {}
+    params["in_conv"], stats["in_conv"] = _double_conv_to_jax(sd, "in_conv")
+    for i in range(n_levels):
+        params[f"down_{i}"], stats[f"down_{i}"] = _double_conv_to_jax(sd, f"down.{i}.seq.0")
+        up_p, up_s = _double_conv_to_jax(sd, f"up.{i}.contract")
+        params[f"up_{i}"] = {"up": _conv_to_jax(sd, f"up.{i}.up"), "contract": up_p}
+        stats[f"up_{i}"] = {"contract": up_s}
+    params["out_conv"] = _conv_to_jax(sd, "out_conv.0")
+    return {"params": params, "batch_stats": stats}
+
+
+def jax_variables_from_recognition_state_dict(sd: Mapping[str, Any], gru_layers: int = 2) -> dict:
+    """The port's recognition state dict -> JAX ``RecognitionModel`` variables."""
+    params: dict = {}
+    stats: dict = {}
+    for name, (key, bias) in _REC_CONVS.items():
+        params[name] = _conv_to_jax(sd, key, bias=bias)
+    for name, key in _REC_BNS.items():
+        params[name], stats[name] = _bn_to_jax(sd, key)
+    gru: dict = {}
+    for layer in range(gru_layers):
+        lp = {}
+        for direction, sfx in (("fwd", ""), ("bwd", "_reverse")):
+            lp[f"w_ih_{direction}"] = _np(sd[f"gru.weight_ih_l{layer}{sfx}"], (1, 0))
+            lp[f"w_hh_{direction}"] = _np(sd[f"gru.weight_hh_l{layer}{sfx}"], (1, 0))
+            lp[f"b_ih_{direction}"] = _np(sd[f"gru.bias_ih_l{layer}{sfx}"])
+            lp[f"b_hh_{direction}"] = _np(sd[f"gru.bias_hh_l{layer}{sfx}"])
+        gru[f"layer_{layer}"] = lp
+    params["gru"] = gru
+    params["output"] = _dense_to_jax(sd, "output.0")
+    return {"params": params, "batch_stats": stats}
+
+
+def jax_variables_from_layout_state_dict(
+    sd: Mapping[str, Any], n_layers: int = 6, pos_embedding: str = "sin"
+) -> dict:
+    """The port's layout state dict -> JAX ``LayoutModel`` variables (no
+    ``batch_stats``: the layout model has none)."""
+    params: dict = {}
+    if pos_embedding == "mlp":
+        params["embed0"] = _dense_to_jax(sd, "embed.0")
+        params["embed1"] = _dense_to_jax(sd, "embed.2")
+    for i in range(n_layers):
+        key = f"encode.layers.{i}"
+        params[f"layer_{i}"] = {
+            "qkv_kernel": _np(sd[f"{key}.self_attn.in_proj_weight"], (1, 0)),
+            "qkv_bias": _np(sd[f"{key}.self_attn.in_proj_bias"]),
+            "out_proj": _dense_to_jax(sd, f"{key}.self_attn.out_proj"),
+            "linear1": _dense_to_jax(sd, f"{key}.linear1"),
+            "linear2": _dense_to_jax(sd, f"{key}.linear2"),
+            "norm1": {"scale": _np(sd[f"{key}.norm1.weight"]), "bias": _np(sd[f"{key}.norm1.bias"])},
+            "norm2": {"scale": _np(sd[f"{key}.norm2.weight"]), "bias": _np(sd[f"{key}.norm2.bias"])},
+        }
+    params["classify"] = _dense_to_jax(sd, "classify")
+    return {"params": params}

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, in float32
 and bfloat16, the recognition trainer, the layout model, step and trainer,
-and detection training (step, balanced BCE, trainer and inference CLIs)
-against the CPU, on the card.
+detection training (step, balanced BCE, trainer and inference CLIs)
+against the CPU, and the ONNX export of models on the card against their
+forward, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc``; without a GPU they skip. The
 file imports nothing of JAX, so it runs on a machine that has only the
@@ -24,6 +25,9 @@ from ocrs_models_torch.data import (
     collate_layout,
 )
 from ocrs_models_torch.data.layout_synth import SyntheticDocLayout
+from ocrs_models_torch.export.onnx_check import check_model
+from ocrs_models_torch.export.onnx_eval import run_graph
+from ocrs_models_torch.export.onnx_proto import parse_model
 from ocrs_models_torch.models import DetectionModel, LayoutModel, RecognitionModel
 from ocrs_models_torch.models import layout as layout_module
 from ocrs_models_torch.models.layout import Dropout
@@ -50,6 +54,7 @@ from ocrs_models_torch.ops.ctc import NEG_INF
 from ocrs_models_torch.ops.losses import balanced_cross_entropy_loss
 from ocrs_models_torch.pipeline import OcrPipeline
 from ocrs_models_torch.training import eval_detection, train_detection, train_layout
+from ocrs_models_torch.training.export_utils import export_weights
 from ocrs_models_torch.training.state import create_train_state
 from ocrs_models_torch.training.steps import (
     make_detection_steps,
@@ -879,3 +884,41 @@ def test_train_detection_and_eval_detection_on_the_card(dev, tmp_path, monkeypat
     for part, shape in (("input", (800, 600)), ("text-probs", (800, 600)),
                         ("text-regions", (300, 260)), ("text-words", (300, 260, 3))):
         assert read_png(str(tmp_path / f"out-{part}.png")).shape[:len(shape)] == shape, part
+
+
+# ------------------------------------------------------------------- export
+
+EXPORT_CASES = {
+    # kind: (model, input name, input, output name, atol)
+    "detection": (lambda: DetectionModel(), "image", (2, 1, 128, 96), "mask", 2e-4),
+    "recognition": (lambda: RecognitionModel(n_classes=97), "line_image", (3, 1, 64, 96),
+                    "chars", 2e-4),
+    "layout": (lambda: LayoutModel(), "word_boxes", (2, 40, 4), "preds", 5e-4),
+}
+
+
+@pytest.mark.parametrize("kind", EXPORT_CASES)
+def test_export_of_a_model_on_the_card_matches_its_forward(dev, kind, tmp_path):
+    # A model living on the card exports through export_weights; the numpy
+    # evaluator on the host agrees with the card's float32 forward (TF32
+    # off) within the CPU tests' bounds (tests/test_torch_export.py). The
+    # recognizer's forward runs stage1_fwd and gru_fwd.
+    make, name, shape, out, atol = EXPORT_CASES[kind]
+    torch.manual_seed(0)
+    model = make().to(dev).eval()
+    kwargs = {"height": shape[2], "width": shape[3]} if kind == "detection" else {}
+    export_weights(create_train_state(model), str(tmp_path / "m.onnx"), kind, **kwargs)
+    graph = parse_model((tmp_path / "m.onnx").read_bytes())
+    check_model(graph)
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(shape, generator=g)
+    x = x * 500 if kind == "layout" else x - 0.5
+    launches = stage1_fwd.launches, gru_fwd.launches
+    with torch.no_grad(), numerics():
+        want = model(x.to(dev)).cpu().numpy()
+    if kind == "recognition":
+        assert (stage1_fwd.launches - launches[0], gru_fwd.launches - launches[1]) == (1, 2)
+        want = want.transpose(1, 0, 2)  # [N, T, C] -> the graph's [T, N, C]
+    got = run_graph(graph, {name: x.numpy()})[out]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)

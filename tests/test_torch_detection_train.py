@@ -83,7 +83,7 @@ from ocrs_models_torch.training import eval_detection, train_detection
 from ocrs_models_torch.training.state import create_train_state
 from ocrs_models_torch.training.steps import detection_module_names, make_detection_steps
 from ocrs_models_torch.weights import detection_state_dict_from_jax
-from torch_port_common import patch_bf16_dots_in_f32, random_variables
+from torch_port_common import assert_export_equals_jax, patch_bf16_dots_in_f32, random_variables
 
 DEPTH = (4, 8, 16, 32, 40, 48, 64)  # both of the JAX model's layouts, at small widths
 SIZE = (128, 96)
@@ -486,6 +486,19 @@ def test_debug_images_are_written(tmp_path, monkeypatch):
         for part in ("input", "pred_mask", "mask"):
             with Image.open(tmp_path / f"{stem}_{part}.png") as img:
                 assert img.mode == "L" and img.size == (144, 192)
+
+
+@pytest.mark.parametrize("ext", ["onnx", "npz"])
+def test_export_onnx_and_npz_equal_the_jax_package(jax_init, tmp_path, monkeypatch, ext):
+    """The JAX trainer's weights (from ``--mask-height 192``) exported by the
+    port's trainer: the graph at 800x600 whatever the mask height, as the
+    JAX trainer builds it."""
+    monkeypatch.chdir(tmp_path)
+    assert train_detection.main(["synthetic", "-", "--checkpoint", str(jax_init),
+                                 "--export", f"x.{ext}", *CLI], device="cpu") is None
+    assert [p.name for p in tmp_path.iterdir()] == [f"x.{ext}"]
+    assert_export_equals_jax(tmp_path / f"x.{ext}", "detection",
+                             torch.load(jax_init, weights_only=True)["model_state"])
 
 
 @pytest.mark.parametrize("argv,error", [

@@ -65,7 +65,12 @@ from ocrs_models_torch.training.state import create_train_state
 from ocrs_models_torch.training.steps import layout_module_names, make_layout_steps
 from ocrs_models_torch.utils.render import draw_word_boxes, write_png
 from ocrs_models_torch.weights import layout_state_dict_from_jax
-from torch_port_common import layout_variables, no_port_dropout, patch_jax_dropout
+from torch_port_common import (
+    assert_export_equals_jax,
+    layout_variables,
+    no_port_dropout,
+    patch_jax_dropout,
+)
 
 SMALL = dict(d_model=32, n_layers=2, n_heads=2, d_ff=64)
 LR = 1e-3
@@ -317,6 +322,16 @@ def test_export_of_jax_weights_equals_the_jax_export(jax_init, tmp_path, monkeyp
     assert got["model_state"].keys() == want["model_state"].keys()
     for key, value in want["model_state"].items():
         assert torch.equal(got["model_state"][key], value), key
+
+
+@pytest.mark.parametrize("ext", ["onnx", "npz"])
+def test_export_onnx_and_npz_equal_the_jax_package(jax_init, tmp_path, monkeypatch, ext):
+    monkeypatch.chdir(tmp_path)
+    assert train_layout.main(["synthetic", "--checkpoint", str(jax_init), "--export", f"x.{ext}"],
+                             device="cpu") is None
+    assert [p.name for p in tmp_path.iterdir()] == [f"x.{ext}"]
+    assert_export_equals_jax(tmp_path / f"x.{ext}", "layout",
+                             torch.load(jax_init, weights_only=True)["model_state"])
 
 
 @pytest.mark.parametrize("flag,dtype", [([], torch.bfloat16), (["--bf16"], torch.bfloat16),

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from ocrs_models_tpu.training import train_rec as jax_train_rec
+from ocrs_models_torch.export.onnx_check import check_bytes
 from ocrs_models_torch.training import train_rec
 
 SMALL = ["--max-images", "8", "--batch-size", "8", "--max-epochs", "1", "--no-augment"]
@@ -137,9 +138,7 @@ def test_nan_loss_raises_the_jax_message(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,error,match", [
-    (["--num-devices", "2"], NotImplementedError, "Queue 1 item 7"),
-    (["--export", "w.npz"], NotImplementedError, "Queue 1 item 8"),
-    (["--export", "w.onnx"], NotImplementedError, "Queue 1 item 8"),
+    (["--num-devices", "2"], NotImplementedError, "Queue 1: multi-GPU data parallelism"),
     (["--export", "w.txt"], ValueError, "use .npz, .pt or .onnx"),
     (["--checkpoint", "missing.pt"], FileNotFoundError, "missing.pt"),
 ])
@@ -148,6 +147,26 @@ def test_refusals(tmp_path, monkeypatch, args, error, match):
     with pytest.raises(error, match=re.escape(match)):
         train_rec.main(["synthetic", "-", *args], device="cpu")
     assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("ext", ["npz", "onnx"])
+def test_export_writes_npz_and_onnx(tmp_path, monkeypatch, ext):
+    """``--export`` writes the file and nothing else; the trainer's fresh
+    model (seeded) exported as ``.pt`` too gives the weights to check."""
+    monkeypatch.chdir(tmp_path)
+    assert train_rec.main(["synthetic", "-", "--export", f"w.{ext}"], device="cpu") is None
+    assert train_rec.main(["synthetic", "-", "--export", "w.pt"], device="cpu") is None
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted([f"w.{ext}", "w.pt"])
+    sd = torch.load("w.pt", weights_only=True)["model_state"]
+    if ext == "onnx":
+        model = check_bytes((tmp_path / "w.onnx").read_bytes())
+        assert model.graph.inputs == [("line_image", ["batch", 1, 64, "seq"])]
+        assert model.graph.outputs == [("chars", ["out_seq", "batch", 97])]
+    else:
+        flat = np.load("w.npz")
+        gru = flat["params/gru/layer_1/w_hh_bwd"]
+        assert len(flat.files) == 44 and torch.equal(
+            torch.from_numpy(gru.T), sd["gru.weight_hh_l1_reverse"])
 
 
 def test_hiertext_is_refused(tmp_path):

@@ -19,8 +19,9 @@ from ocrs_models_tpu.utils.metrics import RecognitionAccuracyStats as JaxStats
 from ocrs_models_tpu.utils.profiling import Throughput as JaxThroughput
 from ocrs_models_torch import config
 from ocrs_models_torch.data.loader import DataLoader, device_prefetch, to_device
+from ocrs_models_torch.export.onnx_check import check_bytes
 from ocrs_models_torch.models import RecognitionModel
-from ocrs_models_torch.training.export_utils import export_weights
+from ocrs_models_torch.training.export_utils import export_weights, read_npz
 from ocrs_models_torch.training.state import create_train_state
 from ocrs_models_torch.training.steps import make_recognition_steps
 from ocrs_models_torch.utils import text
@@ -28,6 +29,7 @@ from ocrs_models_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from ocrs_models_torch.utils.logging import MetricsLogger
 from ocrs_models_torch.utils.metrics import RecognitionAccuracyStats
 from ocrs_models_torch.utils.profiling import Throughput
+from ocrs_models_torch.weights import recognition_state_dict_from_jax
 
 ALPHABET = config.DEFAULT_ALPHABET
 
@@ -246,8 +248,6 @@ def test_checkpoint_with_empty_optimizer_state_loads_weights_and_a_fresh_adam(tm
 
 
 @pytest.mark.parametrize("name,error,match", [
-    ("w.npz", NotImplementedError, "Queue 1 item 8"),
-    ("w.onnx", NotImplementedError, "Queue 1 item 8"),
     ("w.bin", ValueError, r"use \.npz, \.pt or \.onnx"),
 ])
 def test_export_refuses_formats_not_ported(tmp_path, name, error, match):
@@ -255,3 +255,21 @@ def test_export_refuses_formats_not_ported(tmp_path, name, error, match):
     with pytest.raises(error, match=match):
         export_weights(state, str(tmp_path / name))
     assert not (tmp_path / name).exists()
+
+
+@pytest.mark.parametrize("name", ["w.npz", "w.onnx"])
+def test_export_writes_npz_and_onnx(tmp_path, name):
+    """A narrow recognizer (H=16): the ``.onnx`` graph takes its hidden size
+    from the model and passes the checker; the ``.npz`` maps back to the
+    state dict, every tensor equal but ``num_batches_tracked``."""
+    model = RecognitionModel(n_classes=97, gru_hidden=16)
+    export_weights(create_train_state(model), str(tmp_path / name))
+    if name.endswith(".onnx"):
+        graph = check_bytes((tmp_path / name).read_bytes()).graph
+        gru = [n for n in graph.nodes if n.op_type == "GRU"]
+        assert [n.attrs["hidden_size"] for n in gru] == [16, 16]
+        return
+    sd = recognition_state_dict_from_jax(read_npz(tmp_path / name))
+    for key, value in model.state_dict().items():
+        if not key.endswith("num_batches_tracked"):
+            assert torch.equal(sd[key], value), key

@@ -143,3 +143,37 @@ def use_geometry_backend(name: str, monkeypatch) -> None:
         if time.monotonic() > deadline:
             pytest.skip("the JAX package's geometry core did not load")
         time.sleep(0.5)
+
+
+def assert_export_equals_jax(path, model: str, sd) -> None:
+    """A port trainer's ``--export`` file (``.onnx`` or ``.npz``) equals
+    what the JAX package writes from the reference state dict ``sd``: the
+    GraphProto byte for byte (JAX's builder at its defaults, detection at
+    800x600) and passing the port's checker, or the archive's keys in order
+    with bit-equal arrays (JAX's ``import_*_state_dict`` flattened as its
+    ``export_weights`` flattens)."""
+    from pathlib import Path
+
+    from ocrs_models_tpu.export import onnx_graph as jax_graph
+    from ocrs_models_tpu.export import torch_import
+    from ocrs_models_tpu.training.export_utils import _flatten as jax_flatten
+    from ocrs_models_torch.export.onnx_check import check_bytes
+    from ocrs_models_torch.export.onnx_proto import _parse_fields
+
+    path = Path(path)
+    sd = {k: v.numpy() for k, v in sd.items()}
+    if path.suffix == ".onnx":
+        data = path.read_bytes()
+        check_bytes(data)
+        want = getattr(jax_graph, f"build_{model}_onnx")(sd)
+        graph = {f: v for f, _, v in _parse_fields(data)}[7]
+        assert graph == {f: v for f, _, v in _parse_fields(want)}[7]
+        return
+    variables = getattr(torch_import, f"import_{model}_state_dict")(sd)
+    want = jax_flatten(variables["params"], "params/")
+    if variables.get("batch_stats"):
+        want.update(jax_flatten(variables["batch_stats"], "batch_stats/"))
+    got = np.load(path)
+    assert got.files == list(want)
+    for key, value in want.items():
+        assert got[key].dtype == value.dtype and got[key].tobytes() == value.tobytes(), key
