@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, recognition training step,
 recognition trainer, layout model (served and trained), detection
-training and the ONNX and ``.npz`` export on one NVIDIA GPU and check
-them.
+training, the ONNX and ``.npz`` export and the data-parallel paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -139,6 +139,31 @@ Phases (any failure exits non-zero, before the final line):
     convert recognition`` on phase 9's checkpoint must write the trainer's
     graph byte for byte. One ``{"path": "export", ...}`` line per model
     (bytes, nodes, export and evaluation seconds, largest error).
+
+15. Data parallelism (``ocrs_models_torch.parallel``) on the one card:
+    (a) in a spawned one-rank NCCL process group, the recognition step's
+    collective path (``force_shard_map=True``) against the plain step at
+    ``[256, 1, 64, 256]`` in f32 and bf16, 3 steps under deterministic
+    algorithms with losses, parameters and running statistics bit-equal,
+    then 10 timed steps of each in turns (median [min, max]), the device
+    launches a step of each and the bytes all-reduced; detection at ``[4,
+    1, 800, 600]`` and layout at 64 x 500 words through their mesh paths
+    against their plain steps (f32, one step: loss 1e-4 and 1e-6 relative,
+    grad norm 1e-3 and 1e-5); (b) two ``gloo`` ranks sharing the card, two
+    steps each: the recognizer on 64 rows a rank against a one-process
+    emulation of its per-shard step (two halves through forward and
+    backward, summed, running statistics averaged; phase 8's f32 bounds),
+    the detector on 2 pages a rank against the one-process step on all 4
+    (phase 12's f32 bounds), both ranks' replicas bit-identical after two
+    steps, all six kernels launched inside the ranks, host ms a step
+    (gloo copies through the host: not a speed figure); (c) every kernel
+    row's C entry leaves the thread's current device as it found it (one
+    step in each dtype through guarded wrappers), and ``run_batch`` over
+    ``create_mesh()`` (every visible card) and over the card twice (two
+    replicas, each batch in halves) equal to one device's, with pages/s;
+    (d) ``torchrun --standalone --nproc-per-node 1 -m
+    ocrs_models_torch.training.train_rec`` for one epoch of one step (20
+    lines, f32; the env-driven join, NCCL): rank 0's checkpoint written.
 
 Prints the nvidia-smi line, throughput lines, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2206,6 +2231,385 @@ def run_export(dev, keep: Path) -> None:
         os.chdir(cwd)
 
 
+# ---------------------------------------------------------------- phase 15
+
+DP_STEPS = 3  # phase 15 (a): steps held bit for bit against the plain step
+DP_TIMED = 10  # phase 15 (a): timed steps of each path (two turns of 5)
+DP_REC_ROWS = 64  # phase 15 (b): recognition rows a rank
+DP_DET_PAGES = 2  # phase 15 (b): detection pages a rank
+REC_PARAMS = 2426913
+REC_BN_STATS = 2 * (64 + 128 + 128 + 128)  # running means and variances
+KERNEL_ROWS = {("stage1_fwd", "f32"), ("stage1_bwd", "f32"), ("gru_fwd", "f32"),
+               ("gru_bwd", "f32"), ("ctc_alpha", "f32"), ("ctc_beta", "f32"),
+               ("stage1_fwd", "bf16"), ("stage1_bwd", "bf16"), ("gru_fwd", "bf16"),
+               ("gru_bwd", "bf16")}
+
+
+def _rec_model(dev, dtype=torch.float32):
+    from ocrs_models_torch.models import RecognitionModel
+
+    torch.manual_seed(SEED + 5)
+    return RecognitionModel(n_classes=97, dtype=dtype).to(dev)
+
+
+def _digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _step_ms(step, state, batch, lr, steps: int) -> list[float]:
+    """The device time of each of ``steps`` steps (CUDA events between step
+    starts), after one warm-up step."""
+    step(state, batch, lr)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    for i in range(steps):
+        marks[i].record()
+        step(state, batch, lr)
+    marks[-1].record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
+def _spread(ms: list[float]) -> dict:
+    return {"median": float(np.median(ms)), "min": min(ms), "max": max(ms)}
+
+
+def _world1_rank(rank: int, world: int, device) -> dict:
+    """Phase 15 (a), in the one rank of an NCCL process group: each
+    model's step through its collective path against its plain step, from
+    the same weights on the same batch. The recognizer (``force_shard_map``)
+    at ``[256, 1, 64, 256]`` in both dtypes, ``DP_STEPS`` steps under
+    deterministic algorithms (cuDNN's default choices are not bit-stable
+    from run to run): losses, parameters and running statistics bit-equal;
+    then ``DP_TIMED`` timed steps of each in turns (plain, collective,
+    collective, plain) at the default settings, and the device launches of
+    one step of each. Detection at ``[4, 1, 800, 600]`` and layout at 64 x
+    500 words, f32, one step each: within the bounds of phases 12 and 11."""
+    import copy
+
+    import torch.distributed as dist
+
+    from ocrs_models_torch.parallel import create_mesh
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import (
+        make_detection_steps,
+        make_layout_steps,
+        make_recognition_steps,
+    )
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # cuBLAS's deterministic mode
+    mesh = create_mesh()
+    out = {"backend": dist.get_backend(), "mesh_size": mesh.size, "device": str(device)}
+    lr = 1e-3
+    batch = rec_batch(256, 256, 24, device)
+    for dtype, name in ((torch.float32, "f32"), (BF16, "bf16")):
+        models = {"plain": _rec_model(device, dtype)}
+        models["collective"] = copy.deepcopy(models["plain"])
+        runs = {}
+        for key, kw in (("plain", {}), ("collective", {"mesh": mesh, "force_shard_map": True})):
+            runs[key] = (create_train_state(models[key], grad_clip_norm=4.0),
+                         make_recognition_steps(models[key], **kw)[0])
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            losses = {k: [step(st, batch, lr)[1]["loss"].item() for _ in range(DP_STEPS)]
+                      for k, (st, step) in runs.items()}
+        finally:
+            torch.use_deterministic_algorithms(False)
+        sd = {k: m.state_dict() for k, m in models.items()}
+        equal = (losses["plain"] == losses["collective"]
+                 and all(torch.equal(sd["plain"][k], sd["collective"][k]) for k in sd["plain"]))
+        if not equal:
+            raise AssertionError(f"world-1 {name} collective step differs from the plain step: "
+                                 f"losses {losses}")
+        ms = {"plain": [], "collective": []}
+        for key in ("plain", "collective", "collective", "plain"):
+            st, step = runs[key]
+            ms[key] += _step_ms(step, st, batch, lr, DP_TIMED // 2)
+        launches = {k: _device_profile(lambda: step(st, batch, lr), calls=3)[0]
+                    for k, (st, step) in runs.items()}
+        out[f"rec_{name}"] = {
+            "bit_equal_steps": DP_STEPS, "losses": losses["plain"],
+            "plain_ms": _spread(ms["plain"]), "collective_ms": _spread(ms["collective"]),
+            "launches_per_step": launches,
+            "extra_launches_per_step": launches["collective"] - launches["plain"],
+            "allreduce_bytes": [4 * (2 + REC_PARAMS), 4 * REC_BN_STATS]}
+
+    def pair(make_model, make_steps, batch, bounds):
+        models = {"plain": make_model().to(device)}
+        models["mesh"] = copy.deepcopy(models["plain"])
+        res = {}
+        for key, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+            st = create_train_state(models[key])
+            step = make_steps(models[key], **kw)[0]
+            res[key] = step(st, batch, lr)[1]
+            res[key + "_ms"] = _spread(_step_ms(step, st, batch, lr, 3))
+        loss_rel = abs(res["mesh"]["loss"].item() / res["plain"]["loss"].item() - 1)
+        norm_rel = abs(res["mesh"]["grad_norm"].item() / res["plain"]["grad_norm"].item() - 1)
+        if not (loss_rel <= bounds[0] and norm_rel <= bounds[1]):
+            raise AssertionError(f"world-1 mesh step: loss {loss_rel}, grad norm {norm_rel}")
+        return {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                "loss_equal": res["mesh"]["loss"].item() == res["plain"]["loss"].item(),
+                "plain_ms": res["plain_ms"], "mesh_ms": res["mesh_ms"]}
+
+    from ocrs_models_torch.data.loader import to_device
+
+    out["detection_f32"] = pair(_det_model, make_detection_steps,
+                                to_device(_det_batch(DET_TRAIN_BATCH, SEED), device), (1e-4, 1e-3))
+    out["layout_f32"] = pair(lambda: _layout_model(dropout=False), make_layout_steps,
+                             _layout_batch(LAYOUT_BATCH, SEED, device), (1e-6, 1e-5))
+    return out
+
+
+def _gloo_rank(rank: int, world: int, device) -> dict:
+    """Phase 15 (b), in one of two ``gloo`` ranks sharing the card: two
+    steps of the recognizer (f32, ``DP_REC_ROWS`` rows a rank of a
+    ``[128, 1, 64, 256]`` batch) and of the detector (f32,
+    ``DP_DET_PAGES`` pages a rank of ``[4, 1, 800, 600]``), each rank on its
+    contiguous half. Returns the first step's metrics (rank 0 also the
+    weights after it), each step's host ms, the digests after the second
+    step and the kernel launches of the recognizer's two steps."""
+    from ocrs_models_torch.parallel import create_mesh, replicate_tree
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import make_detection_steps, make_recognition_steps
+
+    mesh = create_mesh(devices=[device])
+    out = {}
+    lr = 1e-3
+    rec = rec_batch(2 * DP_REC_ROWS, 256, 24, device)
+    det = {k: torch.from_numpy(v).to(device) for k, v in _det_batch(4, SEED).items()}
+    cases = (
+        ("rec", lambda: _rec_model(device), make_recognition_steps, 4.0, rec, DP_REC_ROWS),
+        ("det", lambda: _det_model().to(device), make_detection_steps, None, det, DP_DET_PAGES),
+    )
+    for name, make_model, make_steps, clip, batch, per in cases:
+        local = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+        model = make_model()
+        replicate_tree(model, mesh)
+        state = create_train_state(model, grad_clip_norm=clip)
+        step = make_steps(model, mesh=mesh)[0]
+        _zero_counts()
+        ms = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = step(state, local, lr)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if i == 0:
+                out[name] = {"loss": metrics["loss"].item(),
+                             "grad_norm": metrics["grad_norm"].item(),
+                             "grad_norms": {k: v.item() for k, v in metrics["grad_norms"].items()}}
+                if rank == 0:
+                    out[name]["state"] = {k: v.cpu() for k, v in model.state_dict().items()}
+        out[name].update(ms=ms, digest=_digest(model), launches=_counts())
+    return out
+
+
+def _emulate_shards(dev, batch, halves: int, lr: float):
+    """The recognizer's collective step on one process: each half of
+    ``batch`` through the model and the CTC loss on its own (its own
+    batch-norm statistics), the loss sums and gradients added, the running
+    statistics averaged, then the division, clip and Adam of the step."""
+    from ocrs_models_torch.ops import ctc_loss_forward
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import numerics
+
+    model = _rec_model(dev)
+    state = create_train_state(model, grad_clip_norm=4.0)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    start = [(m.running_mean.clone(), m.running_var.clone()) for m in bns]
+    stats = [[torch.zeros_like(a), torch.zeros_like(b)] for a, b in start]
+    model.train()
+    state.optimizer.zero_grad()
+    num = den = 0.0
+    per = batch["image"].shape[0] // halves
+    with numerics():
+        for h in range(halves):
+            part = {k: v[h * per:(h + 1) * per] for k, v in batch.items()}
+            for m, (a, b) in zip(bns, start):
+                m.running_mean.copy_(a)
+                m.running_var.copy_(b)
+            nll = ctc_loss_forward(model(part["image"]), part["text"],
+                                   part["image_width"] // 4, part["text_len"])
+            w = part["sample_weight"]
+            h_num = torch.sum(nll / part["text_len"].clamp(min=1) * w)
+            h_num.backward()
+            num, den = num + h_num.detach(), den + torch.sum(w)
+            for acc, m in zip(stats, bns):
+                acc[0] += m.running_mean / halves
+                acc[1] += m.running_var / halves
+        with torch.no_grad():
+            for m, (a, b) in zip(bns, stats):
+                m.running_mean.copy_(a)
+                m.running_var.copy_(b)
+        den = torch.clamp(den, min=1.0)
+        for p in model.parameters():
+            p.grad.div_(den)
+        norm = state.optimizer.step(lr)
+    return (num / den).item(), norm.item(), model.state_dict()
+
+
+def run_data_parallel(dev, pages, root: Path) -> dict:
+    """Phase 15: the data-parallel paths on the one card (NCCL refuses two
+    ranks on one card, so real multi-GPU speed is not measured here)."""
+    from ocrs_models_torch import ops
+    from ocrs_models_torch.parallel import create_mesh, spawn
+    from ocrs_models_torch.pipeline import OcrPipeline
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import make_detection_steps, make_recognition_steps
+
+    report = {}
+    # (a) NCCL at world size 1.
+    t0 = time.perf_counter()
+    (w1,) = spawn(_world1_rank, 1, dev, timeout=600)
+    for key in ("rec_f32", "rec_bf16", "detection_f32", "layout_f32"):
+        print(json.dumps({"path": f"data parallel world-1 {key}", "backend": w1["backend"],
+                          **w1[key]}), flush=True)
+    report["world1"] = w1
+    print(f"phase 15a seconds {time.perf_counter() - t0:.1f}", flush=True)
+
+    # (b) Two gloo ranks sharing the card.
+    t0 = time.perf_counter()
+    ranks = spawn(_gloo_rank, 2, dev, share_device=True, timeout=600)
+    lr = 1e-3
+    rec = rec_batch(2 * DP_REC_ROWS, 256, 24, dev)
+    loss, norm, want_sd = _emulate_shards(dev, rec, 2, lr)
+    got = ranks[0]["rec"]
+    diffs = [(got["state"][k].to(dev).float() - v.float()).abs() for k, v in want_sd.items()
+             if not k.endswith("num_batches_tracked")]
+    n_far = sum(int((d > 1e-5).sum()) for d in diffs)
+    n_all = sum(d.numel() for d in diffs)
+    rec_line = {"path": "data parallel gloo 2 ranks recognition f32 2x64x[1,64,256]",
+                "loss": got["loss"], "loss_emulated": loss,
+                "loss_rel": abs(got["loss"] / loss - 1),
+                "grad_norm_rel": abs(got["grad_norm"] / norm - 1),
+                "params_far_frac": n_far / n_all,
+                "params_max_diff": max(float(d.max()) for d in diffs),
+                "host_ms_per_step": [r["rec"]["ms"] for r in ranks],
+                "launches_rank0": ranks[0]["rec"]["launches"]}
+    print(json.dumps(rec_line), flush=True)
+    if not (rec_line["loss_rel"] <= 1e-5 and rec_line["grad_norm_rel"] <= 1e-3
+            and n_far <= 0.01 * n_all and rec_line["params_max_diff"] <= 2 * lr + 1e-6):
+        raise AssertionError("2-rank recognition step disagrees with its per-shard emulation")
+
+    det_model = _det_model().to(dev)
+    state = create_train_state(det_model)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in _det_batch(4, SEED).items()}
+    _, want = make_detection_steps(det_model)[0](state, batch, lr)
+    got = ranks[0]["det"]
+    module_rel = max(abs(got["grad_norms"][k] / v.item() - 1)
+                     for k, v in want["grad_norms"].items())
+    max_diff = max(float((got["state"][k].to(dev) - v).abs().max())
+                   for k, v in det_model.state_dict().items()
+                   if not k.endswith(("running_mean", "running_var", "num_batches_tracked")))
+    det_line = {"path": "data parallel gloo 2 ranks detection f32 2x2x[1,800,600]",
+                "loss": got["loss"], "loss_one_process": want["loss"].item(),
+                "loss_rel": abs(got["loss"] / want["loss"].item() - 1),
+                "grad_norm_rel": abs(got["grad_norm"] / want["grad_norm"].item() - 1),
+                "module_grad_norm_rel_max": module_rel, "params_max_diff": max_diff,
+                "host_ms_per_step": [r["det"]["ms"] for r in ranks]}
+    print(json.dumps(det_line), flush=True)
+    if not (det_line["loss_rel"] <= 1e-4 and det_line["grad_norm_rel"] <= 1e-3
+            and module_rel <= 2e-2 and max_diff <= 2 * lr + 1e-6):
+        raise AssertionError("2-rank detection step disagrees with the one-process step")
+    for name in ("rec", "det"):
+        if ranks[0][name]["digest"] != ranks[1][name]["digest"]:
+            raise AssertionError(f"2-rank {name}: the replicas differ after two steps")
+    for r in ranks:
+        if not all(r["rec"]["launches"][k] > 0 for k in r["rec"]["launches"]):
+            raise AssertionError(f"a kernel did not launch in a rank: {r['rec']['launches']}")
+    report["gloo"] = {"rec": rec_line, "det": det_line}
+    print(f"phase 15b seconds {time.perf_counter() - t0:.1f}", flush=True)
+
+    # (c) Serving over a mesh of the visible cards, against one card; and
+    # every kernel row's C entry leaves the thread's device as it was.
+    t0 = time.perf_counter()
+    rows = set()
+
+    def guarded(fn):
+        def call(*args, **kwargs):
+            before = torch.cuda.current_device()
+            result = fn(*args, **kwargs)
+            if torch.cuda.current_device() != before:
+                raise AssertionError(f"{fn.__name__} moved the thread's device")
+            rows.add((fn.__name__, "bf16" if args[0].dtype == BF16 else "f32"))
+            return result
+        call.launches = 0  # the wrapper counts through its module's name, now this
+        return call
+
+    patches = [mock.patch(f"ocrs_models_torch.ops.{mod}.{k.__name__}", guarded(k))
+               for mod, k in (("stage1", ops.stage1_fwd), ("stage1", ops.stage1_bwd),
+                              ("gru", ops.gru_fwd), ("gru", ops.gru_bwd),
+                              ("ctc", ops.ctc_alpha), ("ctc", ops.ctc_beta))]
+    for p in patches:
+        p.start()
+    try:
+        for dtype in (torch.float32, BF16):
+            model = _rec_model(dev, dtype)
+            step = make_recognition_steps(model)[0]
+            step(create_train_state(model), rec_batch(16, 256, 8, dev), lr)
+        torch.cuda.synchronize()
+    finally:
+        for p in patches:
+            p.stop()
+    if rows != KERNEL_ROWS:
+        raise AssertionError(f"kernel rows checked {sorted(rows)}")
+    # create_mesh(): every visible card (one here); and the card twice, two
+    # replicas each serving half of every batch, to run the sharding.
+    mesh = create_mesh()
+    pipes = {"plain": OcrPipeline(device=dev, seed=SEED),
+             "mesh": OcrPipeline(device=dev, seed=SEED, mesh=mesh),
+             "mesh_card_twice": OcrPipeline(device=dev, seed=SEED,
+                                            mesh=create_mesh(devices=[dev, dev]))}
+    served = {}
+    for name in ("plain", "mesh", "mesh_card_twice", "mesh_card_twice", "mesh", "plain"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = pipes[name].run_batch(pages, det_batch=DET_BATCH, rec_batch=REC_BATCH)
+        torch.cuda.synchronize()
+        served.setdefault(name, []).append((out, len(pages) / (time.perf_counter() - t1)))
+    texts = {k: [[ln.text for ln in page] for page in v[-1][0]] for k, v in served.items()}
+    if not texts["mesh"] == texts["mesh_card_twice"] == texts["plain"]:
+        raise AssertionError("mesh serving differs from one device")
+    serve_line = {"path": "data parallel serving OcrPipeline(mesh=create_mesh())",
+                  "mesh_devices": [str(d) for d in mesh.devices], "pages": len(pages),
+                  "pages_per_s": {k: [r for _, r in v] for k, v in served.items()},
+                  "lines": sum(len(p) for p in texts["mesh"]),
+                  "kernel_rows_device_restored": len(rows)}
+    print(json.dumps(serve_line), flush=True)
+    report["serving"] = serve_line
+    print(f"phase 15c seconds {time.perf_counter() - t0:.1f}", flush=True)
+
+    # (d) The recognition trainer under torchrun, one rank (NCCL through env://).
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_torchrun_") as tmp:
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (str(root), os.environ.get("PYTHONPATH")) if p)}
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", "-m", "ocrs_models_torch.training.train_rec",
+               "synthetic", "-", "--max-images", "20", "--max-epochs", "1", "--no-bf16",
+               "--no-augment"]
+        done = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        if done.returncode != 0:
+            raise AssertionError(f"torchrun train_rec failed:\n{done.stdout[-3000:]}\n"
+                                 f"{done.stderr[-3000:]}")
+        config = json.loads(Path(tmp, "text-recognition-metrics.jsonl").read_text()
+                            .splitlines()[0])
+        ckpt = torch.load(Path(tmp, "text-rec-checkpoint.pt"), weights_only=True)
+        if ckpt["epoch"] != 1 or ckpt["step"] != 1 or config["mesh_devices"] != 1:
+            raise AssertionError(f"torchrun train_rec: epoch {ckpt['epoch']}, config {config}")
+    print(json.dumps({"path": "data parallel torchrun --nproc-per-node 1 train_rec",
+                      "seconds": time.perf_counter() - t0, "checkpoint_epoch": ckpt["epoch"],
+                      "step": ckpt["step"]}), flush=True)
+    print(f"phase 15d seconds {time.perf_counter() - t0:.1f}", flush=True)
+    return report
+
+
 def run(root: Path) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU to run on", file=sys.stderr)
@@ -2215,7 +2619,7 @@ def run(root: Path) -> int:
 
 
 def run_phases(root: Path, keep: Path) -> int:
-    """Phases 1-14; the trainer phases leave their checkpoints in ``keep``
+    """Phases 1-15; the trainer phases leave their checkpoints in ``keep``
     for phase 14."""
     sys.path.insert(0, str(root))
     from ocrs_models_torch.geometry import native
@@ -2364,6 +2768,12 @@ def run_phases(root: Path, keep: Path) -> int:
     t0 = time.perf_counter()
     run_export(dev, keep)
     print(f"phase 14 seconds {time.perf_counter() - t0:.1f}", flush=True)
+
+    # Phase 15: data parallelism: NCCL at world size 1, two gloo ranks on
+    # the card, serving over a mesh, the trainer under torchrun.
+    t0 = time.perf_counter()
+    run_data_parallel(dev, pages, root)
+    print(f"phase 15 seconds {time.perf_counter() - t0:.1f}", flush=True)
 
     print(f"smoke seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels + kernels_bf16}), flush=True)

@@ -57,6 +57,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device_guard.cuh"
 #include "ctc_step.cuh"
 
 namespace {
@@ -231,6 +232,7 @@ int ocrs_ctc_beta(int device, const float* emit, const float* skip, const float*
                   float* dalpha0, int n, int T, int S, void* stream) {
     if (S < 1 || S > 1024 || T < 1 || (long long)T * S > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
+    const RestoreDevice restore_device;
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n == 0) return (int)cudaGetLastError();
@@ -246,6 +248,7 @@ int ocrs_ctc_beta(int device, const float* emit, const float* skip, const float*
 int ocrs_ctc_beta_probe(int device, int T, int S, long long* out, void* stream) {
     if (S < 1 || S > 1024 || T < 1 || (long long)T * S > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
+    const RestoreDevice restore_device;
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     return (int)launch<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,

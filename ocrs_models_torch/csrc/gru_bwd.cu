@@ -116,6 +116,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "bf16_io.cuh"
 #include "gru_cluster.cuh"
 
@@ -1328,6 +1329,7 @@ int launch_f32(int device, const float* px_f, const float* px_b, const float* ys
                const float* b_hh, float* dpx_f, float* dpx_b, float* coef, float* dwp,
                float* dbp, float* dw, float* db, int splits, int T, int N, int H, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
+    const RestoreDevice restore_device;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (T < 1 || splits < 1) return (int)cudaErrorInvalidValue;
@@ -1369,6 +1371,7 @@ int launch_bf16(int device, const io::bf16* px_f, const io::bf16* px_b, const io
                 float* coef, io::bf16* dhn, float* dwp, float* dbp, float* dw, float* db,
                 int splits, int T, int N, int H, int rows, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
+    const RestoreDevice restore_device;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (T < 1 || splits < 1) return (int)cudaErrorInvalidValue;
@@ -1403,6 +1406,7 @@ int launch_bf16(int device, const io::bf16* px_f, const io::bf16* px_b, const io
 }
 
 int max_clusters(const Family& chain, int device, int N, int H, int* rows_out) {
+    const RestoreDevice restore_device;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return -(int)err;
     int max_active = 0;

@@ -94,6 +94,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "bf16_io.cuh"
 #include "gru_cluster.cuh"
 
@@ -513,6 +514,7 @@ const Family kFamilyBf16 = {bf::kernel_for, bf::smem_bytes, bf::threads, bf::kRo
 template <typename E>
 int launch(const Family& family, int device, const E* px_f, const E* px_b, const float* w_hh,
            const float* b_hh, E* ys_f, E* ys_b, int T, int N, int H, int rows, void* stream) {
+    const RestoreDevice restore_device;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (T < 1) return (int)cudaErrorInvalidValue;
@@ -531,6 +533,7 @@ int launch(const Family& family, int device, const E* px_f, const E* px_b, const
 }
 
 int max_clusters(const Family& family, int device, int N, int H, int* rows_out) {
+    const RestoreDevice restore_device;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return -(int)err;
     int max_active = 0;

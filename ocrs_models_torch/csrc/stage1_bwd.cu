@@ -93,6 +93,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device_guard.cuh"
 #include "bf16_io.cuh"
 #include "stage1_tile.cuh"
 
@@ -540,6 +541,7 @@ stage1_bwd_finish_kernel(const float* __restrict__ partial, float* __restrict__ 
 // Blocks of a first pass: what the card holds at once, no more than items.
 template <typename Kernel>
 int partial_blocks(int device, Kernel kernel, long long items, size_t smem = 0) {
+    const RestoreDevice restore_device;
     if (cudaSetDevice(device) != cudaSuccess || items < 0) return -1;
     if (items == 0) return 0;
     int sms = 0, per_sm = 0;
@@ -607,6 +609,7 @@ int ocrs_stage1_bwd_blocks(int device, int n, int h, int w) {
 int ocrs_stage1_bwd(int device, const float* x, const float* weight, const float* bias,
                     const float* dy, float* partial, float* dw, float* db, int n, int h, int w,
                     int n_part, void* stream) {
+    const RestoreDevice restore_device;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n_part < 0) return (int)cudaErrorInvalidValue;
@@ -623,6 +626,7 @@ int ocrs_stage1_bwd(int device, const float* x, const float* weight, const float
 // The same for bf16 x and dy (weight, bias, partial, dw and db float32),
 // with the grid of ocrs_stage1_bwd_bf16_blocks.
 int ocrs_stage1_bwd_bf16_blocks(int device, int n, int h, int w) {
+    const RestoreDevice restore_device;
     if (cudaSetDevice(device) != cudaSuccess || allow_bf16_smem(device) != cudaSuccess)
         return -1;
     return partial_blocks(device, bf::stage1_bwd_partial_mma_kernel, items_bf16(n, h, w),
@@ -632,6 +636,7 @@ int ocrs_stage1_bwd_bf16_blocks(int device, int n, int h, int w) {
 int ocrs_stage1_bwd_bf16(int device, const io::bf16* x, const float* weight, const float* bias,
                          const io::bf16* dy, float* partial, float* dw, float* db, int n, int h,
                          int w, int n_part, void* stream) {
+    const RestoreDevice restore_device;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n_part < 0) return (int)cudaErrorInvalidValue;

@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "device_guard.cuh"
 #include "bf16_io.cuh"
 #include "stage1_tile.cuh"
 
@@ -388,6 +389,7 @@ int ocrs_stage1_takes_weight_and_bias(void) { return 1; }
 // Returns cudaGetLastError().
 int ocrs_stage1_fwd(int device, const float* x, const float* weight, const float* bias,
                     float* y, int n, int h, int w, void* stream) {
+    const RestoreDevice restore_device;
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     return (int)launch_f32(x, weight, bias, y, n, h, w, (cudaStream_t)stream);
@@ -397,6 +399,7 @@ int ocrs_stage1_fwd(int device, const float* x, const float* weight, const float
 // the kernel).
 int ocrs_stage1_fwd_bf16(int device, const io::bf16* x, const float* weight, const float* bias,
                          io::bf16* y, int n, int h, int w, void* stream) {
+    const RestoreDevice restore_device;
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     return (int)launch_bf16(device, reinterpret_cast<const uint16_t*>(x), weight, bias,

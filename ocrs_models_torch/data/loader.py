@@ -6,8 +6,14 @@ fetch samples ahead of the training loop and assemble collated batches into
 a bounded queue. The shuffle order of epoch ``e`` is
 ``default_rng(seed + e)``, and the index space is sliced
 ``process_index::process_count`` so that each process of a multi-process
-run reads a disjoint subset. :func:`device_prefetch` then copies batches to
-the device from pinned host memory, ahead of the step that uses them.
+run reads a disjoint subset. Every process then runs the same number of
+steps, whatever the subsets' sizes (a collective step of one rank with no
+partner would hang them all): without ``drop_last`` a process that runs
+out of samples gets batches of padding rows (``collate_fn`` of one sample,
+its ``sample_weight`` set to 0 and any ``n_valid`` to 0), with
+``drop_last`` every process stops where the shortest one does.
+:func:`device_prefetch` then copies batches to the device from pinned host
+memory, ahead of the step that uses them.
 """
 
 from __future__ import annotations
@@ -48,6 +54,8 @@ class DataLoader:
         self.epoch = 0
 
     def _batch_indices(self) -> list[np.ndarray]:
+        """This process's batches of sample indices; an empty array stands
+        for a batch of padding rows."""
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
@@ -55,7 +63,22 @@ class DataLoader:
         batches = [order[i : i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        if self.process_count > 1:
+            n, procs, b = len(self.dataset), self.process_count, self.batch_size
+            most, fewest = -(-n // procs), n // procs  # samples of the first and last process
+            steps = fewest // b if self.drop_last else -(-most // b)
+            empty = np.zeros((0,), order.dtype)
+            batches = batches[:steps] + [empty] * (steps - len(batches))
         return batches
+
+    def _collate(self, pool, idx_batch: np.ndarray) -> dict:
+        if len(idx_batch):
+            return self.collate_fn(list(pool.map(lambda i: self.dataset[int(i)], idx_batch)))
+        batch = self.collate_fn([self.dataset[0]])
+        batch["sample_weight"] = np.zeros_like(batch["sample_weight"])
+        if "n_valid" in batch:
+            batch["n_valid"] = 0
+        return batch
 
     def __len__(self) -> int:
         return len(self._batch_indices())
@@ -87,8 +110,7 @@ class DataLoader:
                     for idx_batch in batches:
                         if stop.is_set():
                             return
-                        samples = list(pool.map(lambda i: self.dataset[int(i)], idx_batch))
-                        if not put_or_stop(self.collate_fn(samples)):
+                        if not put_or_stop(self._collate(pool, idx_batch)):
                             return
                 put_or_stop(None)
             except Exception as e:  # surface worker errors to the consumer

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import DTYPES
+from ..parallel.mesh import psum_differentiable
 from .init import flax_init_
 
 DEPTH_SCALE = (8, 16, 32, 32, 64, 128, 256)
@@ -56,8 +57,39 @@ def batch_norm_lite(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     return x * inv.to(x.dtype)[None, :, None, None] + shift.to(x.dtype)[None, :, None, None]
 
 
-def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """:func:`batch_norm_lite` on a bf16 ``x``, ``bn`` itself on any other."""
+def batch_norm_global(bn: nn.BatchNorm2d, x: torch.Tensor, group) -> torch.Tensor:
+    """``BatchNormLite`` in training over a batch whose slices ``x [n, C,
+    H, W]`` lie on the ranks of ``group``, in either dtype: the per-channel
+    float32 ``[sum x, sum x^2, count]`` of every rank added by
+    :func:`psum_differentiable` (whose backward carries ``sum dy`` and
+    ``sum dy * x`` across the ranks), the global mean and the one-pass
+    variance ``E[x^2] - E[x]^2``, the running statistics updated as
+    :func:`batch_norm_lite` does with the global count, and ``x * inv +
+    shift`` in ``x``'s dtype. Every rank normalises with the statistics of
+    the whole batch, as GSPMD does over a sharded batch."""
+    xf = x.float()
+    local = torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                         xf.new_full((x.shape[1],), float(x.numel() // x.shape[1]))])
+    sums = psum_differentiable(local, group)
+    count = sums[2].detach()
+    mean = sums[0] / count
+    var = sums[1] / count - mean * mean
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(m * mean)
+        bn.running_var.mul_(1 - m).add_(m * var * (count / torch.clamp(count - 1, min=1)))
+        bn.num_batches_tracked += 1
+    inv = torch.rsqrt(var + bn.eps) * bn.weight
+    shift = bn.bias - mean * inv
+    return x * inv.to(x.dtype)[None, :, None, None] + shift.to(x.dtype)[None, :, None, None]
+
+
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """:func:`batch_norm_lite` on a bf16 ``x``, ``bn`` itself on any other;
+    in training over a process-group ``mesh`` (``parallel.Mesh``),
+    :func:`batch_norm_global`."""
+    if mesh is not None and mesh.group is not None and bn.training:
+        return batch_norm_global(bn, x, mesh.group)
     return batch_norm_lite(bn, x) if x.dtype == torch.bfloat16 else bn(x)
 
 
@@ -71,10 +103,10 @@ class DepthwiseConv(nn.Module):
             nn.ReLU(),
         )
 
-    def forward(self, x):
+    def forward(self, x, mesh=None):
         dw, pw, bn, _ = self.seq
         x = F.conv2d(x, dw.weight.to(x.dtype), padding=1, groups=dw.groups)
-        return F.relu(batch_norm(bn, F.conv2d(x, pw.weight.to(x.dtype))))
+        return F.relu(batch_norm(bn, F.conv2d(x, pw.weight.to(x.dtype)), mesh))
 
 
 class DoubleConv(nn.Module):
@@ -82,8 +114,8 @@ class DoubleConv(nn.Module):
         super().__init__()
         self.seq = nn.Sequential(DepthwiseConv(cin, cout), DepthwiseConv(cout, cout))
 
-    def forward(self, x):
-        return self.seq(x)
+    def forward(self, x, mesh=None):
+        return self.seq[1](self.seq[0](x, mesh), mesh)
 
 
 class Down(nn.Module):
@@ -91,8 +123,8 @@ class Down(nn.Module):
         super().__init__()
         self.seq = nn.Sequential(DoubleConv(cin, cout), nn.MaxPool2d(2))
 
-    def forward(self, x):
-        return self.seq(x)
+    def forward(self, x, mesh=None):
+        return self.seq[1](self.seq[0](x, mesh))
 
 
 class Up(nn.Module):
@@ -104,11 +136,11 @@ class Up(nn.Module):
         self.up = nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=0)
         self.contract = DoubleConv(2 * cout, cout)
 
-    def forward(self, x_up, x_skip):
+    def forward(self, x_up, x_skip, mesh=None):
         dt = x_up.dtype
         up = F.conv_transpose2d(x_up, self.up.weight.to(dt), self.up.bias.to(dt), stride=2)
         up = up[:, :, : x_skip.shape[2], : x_skip.shape[3]]
-        return self.contract(torch.cat([up, x_skip], dim=1))
+        return self.contract(torch.cat([up, x_skip], dim=1), mesh)
 
 
 class DetectionModel(nn.Module):
@@ -125,17 +157,20 @@ class DetectionModel(nn.Module):
         self.out_conv = nn.Sequential(nn.Conv2d(ds[0], 1, 1), nn.Sigmoid())
         flax_init_(self)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """:param x: ``[N, 1, H, W]``. :return: ``[N, 1, H, W]`` float32
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """:param x: ``[N, 1, H, W]``. :param mesh: in training, a
+        process-group ``parallel.Mesh`` whose ranks each hold a slice of the
+        batch: batch norm then takes the statistics of the whole batch
+        (:func:`batch_norm_global`). :return: ``[N, 1, H, W]`` float32
         probabilities."""
         if self.dtype == torch.bfloat16:
             x = x.to(self.dtype)
-        x = self.in_conv(x)
+        x = self.in_conv(x, mesh)
         skips = [x]
         for down in self.down:
-            x = down(x)
+            x = down(x, mesh)
             skips.append(x)
         out = skips[-1]
         for i in reversed(range(len(self.up))):
-            out = self.up[i](out, skips[i])
+            out = self.up[i](out, skips[i], mesh)
         return self.out_conv(out.to(self.out_conv[0].weight.dtype))  # float32 in bf16

@@ -37,6 +37,7 @@ from .data.resize import resize
 from .device import resolve_device
 from .geometry import expand_quads, extract_cc_quads
 from .models import DetectionModel, LayoutModel, RecognitionModel
+from .parallel import Mesh, replicate_tree
 from .training.steps import numerics
 from .utils.text import ctc_greedy_decode_batch, decode_text
 from .weights import (
@@ -45,7 +46,6 @@ from .weights import (
     recognition_state_dict_from_jax,
 )
 
-_NOT_IN_SLICE = "is not ported yet; see ROADMAP.md, Queue 1"
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.packbits order: MSB first
 
 
@@ -160,15 +160,27 @@ class OcrPipeline:
         become lines of their own.
 
         ``device`` defaults to CUDA and raises without it; pass ``"cpu"``
-        to run the plain PyTorch path."""
+        to run the plain PyTorch path.
+
+        ``mesh``: a ``parallel.Mesh`` of several devices in this process
+        (``create_mesh()``: every visible GPU) for data-parallel serving, in
+        place of ``device``: one replica of each model on each device, and
+        every serving batch (detection sub-batches, recognition chunks, the
+        layout forward) split into contiguous shards, one a device, when
+        its rows divide the mesh (else it runs on the first device, as in
+        the JAX package); the results are gathered in order and equal the
+        single-device path's."""
         if use_layout_model and layout_state_dict is None:
             raise ValueError("use_layout_model=True requires layout_state_dict")
-        if mesh is not None:
-            raise NotImplementedError(f"multi-GPU serving (mesh) {_NOT_IN_SLICE}")
+        if mesh is not None and mesh.group is not None:
+            raise ValueError("OcrPipeline: a serving mesh is the devices of one process; this "
+                             "mesh spans a process group")
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(
                 f"compute_dtype must be torch.float32 or torch.bfloat16, got {compute_dtype}")
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in (mesh.devices if mesh else [device])]
+        self.mesh = Mesh(tuple(self.devices), len(self.devices))
+        self.device = self.devices[0]
         self.alphabet = alphabet
         self.det_size = tuple(det_size or DET_SIZE)
         self.rec_height = rec_height
@@ -186,14 +198,17 @@ class OcrPipeline:
             det.load_state_dict(det_state_dict, strict=True)
         if rec_state_dict is not None:
             rec.load_state_dict(rec_state_dict, strict=True)
-        self.det_model = det.to(self.device).eval().requires_grad_(False)
-        self.rec_model = rec.to(self.device).eval().requires_grad_(False)
-        self._bit_weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=self.device)
+        self._det = replicate_tree(det.eval().requires_grad_(False), self.mesh)
+        self._rec = replicate_tree(rec.eval().requires_grad_(False), self.mesh)
+        self.det_model, self.rec_model = self._det[0], self._rec[0]
+        self._bit_weights = [torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=d)
+                             for d in self.devices]
         self.layout_model = None
         if layout_state_dict is not None:
             layout = LayoutModel(return_probs=True)
             layout.load_state_dict(layout_state_dict, strict=True)
-            self.layout_model = layout.to(self.device).eval().requires_grad_(False)
+            self._layout = replicate_tree(layout.eval().requires_grad_(False), self.mesh)
+            self.layout_model = self._layout[0]
 
     @classmethod
     def from_jax_variables(
@@ -244,19 +259,30 @@ class OcrPipeline:
 
     # ------------------------------------------------------------- stages
 
+    def _shards(self, n: int) -> list[tuple[int, slice]]:
+        """``(device index, rows)`` of a batch of ``n`` rows: one contiguous
+        shard a device of the mesh when ``n`` divides it, else every row on
+        the first device."""
+        k = len(self.devices)
+        if k > 1 and n % k == 0:
+            per = n // k
+            return [(i, slice(i * per, (i + 1) * per)) for i in range(k)]
+        return [(0, slice(0, n))]
+
     def _det_masks(self, batch: np.ndarray) -> np.ndarray:
         """``[B, H, W, 1]`` pages -> ``[B, H, ceil(W/8)]`` packed binary
-        masks. Forward, threshold and bit-packing run on the device, so
+        masks. Forward, threshold and bit-packing run on the device(s), so
         only W/8 bytes per row come back to the host."""
-        x = torch.from_numpy(np.ascontiguousarray(batch[..., 0])).to(self.device)[:, None]
+        out = []
         with self._numerics():
-            bits = self.det_model(x)[:, 0] > self.threshold  # [B, H, W]
-            b, h, w = bits.shape
-            bits = torch.nn.functional.pad(bits, (0, (-w) % 8))
-            packed = (bits.view(b, h, -1, 8).to(torch.uint8) * self._bit_weights).sum(
-                dim=-1, dtype=torch.uint8
-            )
-        return packed.cpu().numpy()
+            for i, rows in self._shards(len(batch)):
+                x = torch.from_numpy(np.ascontiguousarray(batch[rows, ..., 0]))
+                bits = self._det[i](x.to(self.devices[i])[:, None])[:, 0] > self.threshold
+                b, h, w = bits.shape
+                bits = torch.nn.functional.pad(bits, (0, (-w) % 8))
+                out.append((bits.view(b, h, -1, 8).to(torch.uint8) * self._bit_weights[i]).sum(
+                    dim=-1, dtype=torch.uint8))
+        return np.concatenate([packed.cpu().numpy() for packed in out])
 
     def _page_quads(self, images: list[np.ndarray], det_batch: int) -> list[np.ndarray]:
         """Word quads of each page, in the page's own pixel scale. Detection
@@ -346,7 +372,9 @@ class OcrPipeline:
         if all(page is None for page in pages):
             return [[] for _ in pages]
         with self._numerics():
-            probs = self.layout_model(torch.from_numpy(padded).to(self.device)).cpu().numpy()
+            out = [self._layout[i](torch.from_numpy(padded[rows]).to(self.devices[i]))
+                   for i, rows in self._shards(len(padded))]
+        probs = np.concatenate([p.cpu().numpy() for p in out])
         page_lines = []
         for p, page in enumerate(pages):
             if page is None:
@@ -446,13 +474,15 @@ class OcrPipeline:
                     wi = min(crops[i].shape[1], bucket)
                     batch[row, :, :wi] = crops[i][:, :wi, 0]
                     lens[row] = wi // 4  # the model emits wi // 4 + 1 steps
-                x = torch.from_numpy(batch).to(self.device)[:, None]
+                out = []
                 with self._numerics():
-                    ids = self.rec_model(x).argmax(dim=-1)
-                    decoded, dec_lens = ctc_greedy_decode_batch(
-                        ids, torch.from_numpy(lens).to(self.device)
-                    )
-                decoded, dec_lens = decoded.cpu().numpy(), dec_lens.cpu().numpy()
+                    for d, part in self._shards(step):
+                        dev = self.devices[d]
+                        ids = self._rec[d](torch.from_numpy(batch[part]).to(dev)[:, None])
+                        out.append(ctc_greedy_decode_batch(
+                            ids.argmax(dim=-1), torch.from_numpy(lens[part]).to(dev)))
+                decoded = np.concatenate([o[0].cpu().numpy() for o in out])
+                dec_lens = np.concatenate([o[1].cpu().numpy() for o in out])
                 for row, i in enumerate(rows):
                     texts[i] = decode_text(decoded[row, : dec_lens[row]], self.alphabet)
         return texts

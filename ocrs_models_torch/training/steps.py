@@ -35,6 +35,7 @@ from torch import nn
 
 from ..ops.ctc import ctc_loss_forward
 from ..ops.losses import balanced_cross_entropy_loss, weighted_bce_with_logits
+from ..parallel.mesh import all_reduce, pmean, psum
 from .state import TrainState, global_norm
 
 
@@ -79,6 +80,27 @@ def _to_device(batch: dict, dev: torch.device) -> dict:
     return out
 
 
+def _training_group(mesh):
+    """The process group of a training ``mesh``: one process per device
+    (a mesh of several devices in one process serves, it does not train)."""
+    if mesh.group is None and mesh.size > 1:
+        raise ValueError(f"training on a mesh of {mesh.size} devices needs one process per "
+                         "device (parallel.spawn or torchrun); this mesh has no process group")
+    return mesh.group
+
+
+def _psum_with_grads(model: nn.Module, scalars: list, group) -> list:
+    """Sum ``scalars`` (0-d float32 tensors) and every parameter's gradient
+    across ``group`` in ONE all-reduce; the summed gradients replace
+    ``.grad`` (a missing one counts as 0). Returns the summed scalars."""
+    params = list(model.parameters())
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    out = psum([t.reshape(1) for t in scalars] + grads, group)
+    for p, g in zip(params, out[len(scalars):]):
+        p.grad = g
+    return [t[0] for t in out[:len(scalars)]]
+
+
 def make_recognition_steps(
     model: nn.Module,
     downsample: int = 4,
@@ -107,17 +129,24 @@ def make_recognition_steps(
     running statistics update k times), sums the loss terms and gradients,
     and makes one update; ``preds`` come back in the batch's order.
 
-    ``mesh`` and ``force_shard_map`` (the JAX package's multi-device step)
-    are not ported: multi-GPU data parallelism is in ROADMAP.md, Queue 1.
+    With a ``mesh`` (``parallel.Mesh``) of size > 1, or ``mesh`` and
+    ``force_shard_map=True``, this is the JAX package's ``shard_map`` step:
+    each rank runs its own rows (its ``grad_accum`` microbatches too) with
+    batch norm over its own rows, then ONE all-reduce sums ``[num, den,
+    gradients]`` across the ranks before the division by ``den``, the
+    norms, the clip and Adam, and one more averages the batch-norm running
+    statistics; ``eval_step`` sums ``num`` and ``den``; ``preds`` stay the
+    rank's own. On a mesh without a process group (one process) the
+    collectives are the identity, and the step is the plain one bit for
+    bit.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if mesh is not None or force_shard_map:
-        raise NotImplementedError(
-            "make_recognition_steps: the multi-device step (mesh, shard_map) is not ported; "
-            "multi-GPU data parallelism is ROADMAP.md, Queue 1"
-        )
+    use_collectives = mesh is not None and (mesh.size > 1 or force_shard_map)
+    group = _training_group(mesh) if use_collectives else None
     names = module_names(model)
+    bn_stats = [t for m in model.modules() if isinstance(m, nn.BatchNorm2d)
+                for t in (m.running_mean, m.running_var)]
 
     def device() -> torch.device:
         return next(model.parameters()).device
@@ -147,6 +176,10 @@ def make_recognition_steps(
                 num = num + mb_num.detach()
                 den = den + mb_den
                 preds.append(log_probs.detach().argmax(dim=-1).to(torch.int32))
+            if use_collectives:
+                num, den = _psum_with_grads(model, [num, den], group)
+                for t, mean in zip(bn_stats, pmean(bn_stats, group)):
+                    t.copy_(mean)
             den = torch.clamp(den, min=1.0)
             grads: dict[str, list] = {}
             for name, p in model.named_parameters():
@@ -175,6 +208,8 @@ def make_recognition_steps(
         try:
             with torch.no_grad(), numerics():
                 num, den, log_probs = local_parts(batch)
+                if use_collectives:
+                    num, den = psum([num, den], group)
         finally:
             model.train(was_training)
         return {"loss": num / torch.clamp(den, min=1.0),
@@ -207,7 +242,76 @@ def _tensors_to_device(batch: dict, keys: tuple[str, ...], dev: torch.device) ->
     return out
 
 
-def make_detection_steps(model: nn.Module, grad_accum: int = 1):
+def _weighted_train_step(model: nn.Module, names: dict, state: TrainState, batch: dict,
+                         lr: float, loss_fn, out_fn, n: int, grad_accum: int, group):
+    """One update of the detection or layout step: ``loss_fn(mb) -> (loss,
+    output)`` over ``grad_accum`` strided microbatches, each microbatch's
+    loss and gradient weighted by its valid count (the sum of its
+    ``sample_weight``, else its row count) and the sums divided by theirs;
+    with a process ``group``, ``loss_fn`` returns this rank's share of the
+    loss over every rank's rows, the valid counts are summed across the
+    ranks and so are the loss and the gradients (one all-reduce). Returns
+    ``(loss, output_fn(output) in the batch's order, grad_norm,
+    grad_norms)``."""
+    model.train()
+    state.optimizer.zero_grad()
+    with numerics():
+        if grad_accum == 1:
+            loss, out = loss_fn(batch)
+            loss.backward()
+            loss, out = loss.detach(), out_fn(out.detach())
+        else:
+            if "sample_weight" in batch:
+                w = batch["sample_weight"]
+                dens = torch.stack([w[i::grad_accum].sum() for i in range(grad_accum)])
+            else:
+                dens = torch.full((grad_accum,), float(n // grad_accum),
+                                  device=next(model.parameters()).device)
+            dens = all_reduce(dens, group)
+            loss = 0.0
+            out = None
+            for i in range(grad_accum):
+                mb = {k: v[i::grad_accum] for k, v in batch.items()}
+                mb_loss, mb_out = loss_fn(mb)
+                (mb_loss * dens[i]).backward()
+                loss = loss + mb_loss.detach() * dens[i]
+                mb_out = out_fn(mb_out.detach())
+                if out is None:
+                    out = mb_out.new_empty((n,) + mb_out.shape[1:], dtype=torch.float32)
+                out[i::grad_accum] = mb_out
+        if group is not None:
+            (loss,) = _psum_with_grads(model, [loss], group)
+        if grad_accum > 1:
+            den = torch.clamp(dens.sum(), min=1.0)
+            loss = loss / den
+        grads: dict[str, list] = {}
+        for name, p in model.named_parameters():
+            if p.grad is not None:
+                if grad_accum > 1:
+                    p.grad.div_(den)
+                grads.setdefault(names[name], []).append(p.grad)
+        grad_norms = {k: global_norm(v) for k, v in grads.items()}
+        grad_norm = state.optimizer.step(lr)
+    state.step += 1
+    return loss, out, grad_norm, grad_norms
+
+
+def _eval(model: nn.Module, loss_fn, group):
+    """``loss_fn()`` in eval mode without gradients, the mode restored
+    after; with a process ``group`` the loss shares summed across it."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad(), numerics():
+            loss, out = loss_fn()
+            if group is not None:
+                (loss,) = psum([loss], group)
+    finally:
+        model.train(was_training)
+    return loss, out
+
+
+def make_detection_steps(model: nn.Module, grad_accum: int = 1, mesh=None):
     """Build ``(train_step, eval_step)`` for the U-Net detector.
 
     Batch fields (numpy arrays or tensors): ``image`` and ``mask`` ``[N, 1,
@@ -230,9 +334,18 @@ def make_detection_steps(model: nn.Module, grad_accum: int = 1):
     running statistics update k times), weights each microbatch's loss and
     gradient by its valid count and makes one update. The balanced BCE's
     pools are each microbatch's own.
+
+    ``mesh``: a ``parallel.Mesh`` whose process group's ranks each pass
+    their slice of the batch; the step is then the JAX step's over the
+    whole sharded batch (GSPMD): batch norm with the whole batch's
+    statistics, the balanced BCE over every rank's pixels, the gradients
+    summed, and a rank's microbatch ``i`` with the others' microbatches
+    ``i`` is the JAX step's microbatch ``i``. ``pred`` stays the rank's
+    own. A mesh without a process group (one process) is the plain step.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    group = _training_group(mesh) if mesh is not None else None
     names = detection_module_names(model)
     keys = ("image", "mask", "sample_weight")
 
@@ -240,57 +353,24 @@ def make_detection_steps(model: nn.Module, grad_accum: int = 1):
         return next(model.parameters()).device
 
     def loss_fn(batch: dict):
-        pred = model(batch["image"])
-        return balanced_cross_entropy_loss(pred, batch["mask"], batch.get("sample_weight")), pred
+        pred = model(batch["image"], mesh)
+        loss = balanced_cross_entropy_loss(pred, batch["mask"], batch.get("sample_weight"), group)
+        return loss, pred
 
     def train_step(state: TrainState, batch: dict, lr: float):
         batch = _tensors_to_device(batch, keys, device())
         n = batch["image"].shape[0]
         if n % grad_accum:
             raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
-        model.train()
-        state.optimizer.zero_grad()
-        with numerics():
-            if grad_accum == 1:
-                loss, pred = loss_fn(batch)
-                loss.backward()
-                loss, pred = loss.detach(), pred.detach()
-            else:
-                loss = den = 0.0
-                pred = torch.empty_like(batch["mask"])
-                for i in range(grad_accum):
-                    mb = {k: v[i::grad_accum] for k, v in batch.items()}
-                    mb_den = (mb["sample_weight"].sum() if "sample_weight" in mb
-                              else torch.tensor(float(n // grad_accum), device=pred.device))
-                    mb_loss, mb_pred = loss_fn(mb)
-                    (mb_loss * mb_den).backward()
-                    loss = loss + mb_loss.detach() * mb_den
-                    den = den + mb_den
-                    pred[i::grad_accum] = mb_pred.detach()
-                den = torch.clamp(den, min=1.0)
-                loss = loss / den
-            grads: dict[str, list] = {}
-            for name, p in model.named_parameters():
-                if p.grad is not None:
-                    if grad_accum > 1:
-                        p.grad.div_(den)
-                    grads.setdefault(names[name], []).append(p.grad)
-            grad_norms = {k: global_norm(v) for k, v in grads.items()}
-            grad_norm = state.optimizer.step(lr)
-        state.step += 1
+        loss, pred, grad_norm, grad_norms = _weighted_train_step(
+            model, names, state, batch, lr, loss_fn, lambda p: p, n, grad_accum, group)
         return state, {"loss": loss, "grad_norm": grad_norm, "grad_norms": grad_norms,
                        "pred": pred}
 
     def eval_step(state: TrainState, batch: dict):
         del state
         batch = _tensors_to_device(batch, keys, device())
-        was_training = model.training
-        model.eval()
-        try:
-            with torch.no_grad(), numerics():
-                loss, pred = loss_fn(batch)
-        finally:
-            model.train(was_training)
+        loss, pred = _eval(model, lambda: loss_fn(batch), group)
         return {"loss": loss, "pred": pred}
 
     return train_step, eval_step
@@ -315,7 +395,8 @@ def layout_module_names(model: nn.Module) -> dict[str, str]:
     return out
 
 
-def make_layout_steps(model: nn.Module, pos_weight: float = 10.0, grad_accum: int = 1):
+def make_layout_steps(model: nn.Module, pos_weight: float = 10.0, grad_accum: int = 1,
+                      mesh=None):
     """Build ``(train_step, eval_step)`` for the layout transformer.
 
     Batch fields (numpy arrays or tensors): ``boxes`` ``[N, W, 4]``,
@@ -336,10 +417,20 @@ def make_layout_steps(model: nn.Module, pos_weight: float = 10.0, grad_accum: in
     draws each microbatch's dropout in turn from ``generator`` and makes one
     update; the loss is an element mean and the encoder keeps no batch
     statistics, so without dropout this is the full batch's step.
+
+    ``mesh``: a ``parallel.Mesh`` whose process group's ranks each pass
+    their slice of the batch; the step is then the JAX step's over the
+    whole sharded batch: the weighted BCE's sum and count over every rank's
+    rows and the gradients summed. Each rank draws its dropout from its own
+    ``generator`` (seed it per rank: one seed on every rank would repeat
+    one mask). A mesh without a process group (one process) is the plain
+    step.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    group = _training_group(mesh) if mesh is not None else None
     names = layout_module_names(model)
+    keys = ("boxes", "labels", "sample_weight")
 
     def device() -> torch.device:
         return next(model.parameters()).device
@@ -347,59 +438,25 @@ def make_layout_steps(model: nn.Module, pos_weight: float = 10.0, grad_accum: in
     def loss_fn(batch: dict, generator=None):
         logits = model(batch["boxes"], generator)
         loss = weighted_bce_with_logits(logits, batch["labels"], pos_weight,
-                                        batch.get("sample_weight"))
+                                        batch.get("sample_weight"), group)
         return loss, logits
 
     def train_step(state: TrainState, batch: dict, lr: float,
                    generator: torch.Generator | None = None):
-        batch = _tensors_to_device(batch, ("boxes", "labels", "sample_weight"), device())
+        batch = _tensors_to_device(batch, keys, device())
         n = batch["boxes"].shape[0]
         if n % grad_accum:
             raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
-        model.train()
-        state.optimizer.zero_grad()
-        with numerics():
-            if grad_accum == 1:
-                loss, logits = loss_fn(batch, generator)
-                loss.backward()
-                loss = loss.detach()
-                probs = torch.sigmoid(logits.detach())
-            else:
-                loss = den = 0.0
-                probs = torch.empty(batch["labels"].shape, device=batch["labels"].device)
-                for i in range(grad_accum):
-                    mb = {k: v[i::grad_accum] for k, v in batch.items()}
-                    mb_den = (mb["sample_weight"].sum() if "sample_weight" in mb
-                              else torch.tensor(float(n // grad_accum), device=probs.device))
-                    mb_loss, logits = loss_fn(mb, generator)
-                    (mb_loss * mb_den).backward()
-                    loss = loss + mb_loss.detach() * mb_den
-                    den = den + mb_den
-                    probs[i::grad_accum] = torch.sigmoid(logits.detach())
-                den = torch.clamp(den, min=1.0)
-                loss = loss / den
-            grads: dict[str, list] = {}
-            for name, p in model.named_parameters():
-                if p.grad is not None:
-                    if grad_accum > 1:
-                        p.grad.div_(den)
-                    grads.setdefault(names[name], []).append(p.grad)
-            grad_norms = {k: global_norm(v) for k, v in grads.items()}
-            grad_norm = state.optimizer.step(lr)
-        state.step += 1
+        loss, probs, grad_norm, grad_norms = _weighted_train_step(
+            model, names, state, batch, lr, lambda mb: loss_fn(mb, generator), torch.sigmoid,
+            n, grad_accum, group)
         return state, {"loss": loss, "grad_norm": grad_norm, "grad_norms": grad_norms,
                        "probs": probs}
 
     def eval_step(state: TrainState, batch: dict):
         del state
-        batch = _tensors_to_device(batch, ("boxes", "labels", "sample_weight"), device())
-        was_training = model.training
-        model.eval()
-        try:
-            with torch.no_grad(), numerics():
-                loss, logits = loss_fn(batch)
-        finally:
-            model.train(was_training)
+        batch = _tensors_to_device(batch, keys, device())
+        loss, logits = _eval(model, lambda: loss_fn(batch), group)
         return {"loss": loss, "probs": torch.sigmoid(logits)}
 
     return train_step, eval_step

@@ -17,8 +17,15 @@ Where the port differs from the JAX trainer:
   ``DetectionModel(dtype=torch.bfloat16)``; ``--no-bf16`` trains in
   float32. Parameters, Adam's state and checkpoints are float32 either way.
 - ``hiertext`` and ``ddi`` raise: their readers are ROADMAP.md, Queue 1,
-  the HierText and DDI-100 readers. ``--num-devices`` other than 1 raises:
-  multi-GPU training is ROADMAP.md, Queue 1, multi-GPU data parallelism.
+  the HierText and DDI-100 readers.
+- ``--num-devices N`` (N > 1) trains on N GPUs of one host, one process
+  each (NCCL; ``gloo`` when ``main`` is given ``device="cpu"``), as the JAX
+  trainer does over a sharded batch: each rank's rows ``rank::N`` of the
+  epoch's order in batches of ``--batch-size // N``, batch norm with the
+  statistics of every rank's pages, the balanced BCE over every rank's
+  pixels, the gradients and the validation's box-match sums all-reduced;
+  rank 0 prints and writes. ``torchrun --nproc-per-node N -m
+  ocrs_models_torch.training.train_detection ...`` does the same.
 - Checkpoints are reference-format ``.pt`` files,
   ``text-detection-checkpoint.pt`` in the working directory, whose
   ``epoch`` is the next epoch to run; ``--checkpoint`` also takes the JAX
@@ -42,14 +49,15 @@ from ..config import DetectionModelConfig, DetectionTrainConfig
 from ..data import DataLoader, SyntheticDetection, collate_detection
 from ..data.augment import DetectionAugment
 from ..data.loader import device_prefetch
-from ..device import resolve_device
 from ..geometry import box_match_metrics, extract_cc_quads
 from ..models import DetectionModel
+from ..parallel import replicate_tree
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.image import untransform_image
 from ..utils.logging import MetricsLogger
-from ..utils.metrics import format_metrics, get_metric_means
+from ..utils.metrics import format_metrics
 from ..utils.render import write_png
+from .ranks import Ranks, check_batch, should_spawn, spawn_trainer
 from .state import create_train_state
 from .steps import make_detection_steps
 
@@ -76,7 +84,8 @@ def _batches(loader, device):
     return device_prefetch(batches, device, depth=2)
 
 
-def run_train_epoch(loader, state, train_step, lr, device, debug_images=False):
+def run_train_epoch(loader, state, train_step, lr, device, debug_images=False, ranks=None):
+    ranks = ranks or Ranks(device)
     total_loss, n_batches = 0.0, 0
     last_metrics = None
     for batch, on_device in _batches(loader, device):
@@ -88,11 +97,11 @@ def run_train_epoch(loader, state, train_step, lr, device, debug_images=False):
         total_loss += loss
         n_batches += 1
         last_metrics = metrics
-        if debug_images and n_batches == 1 and n_valid:
+        if debug_images and n_batches == 1 and n_valid and ranks.writer:
             save_debug_images("train-sample", batch["image"][0, 0],
                               metrics["pred"][0, 0].float().cpu().numpy(), batch["mask"][0, 0])
-        print(f"  batch loss {loss:.4f} sec/img {sec_per_img:.3f}", end="\r")
-    print()
+        ranks.print(f"  batch loss {loss:.4f} sec/img {sec_per_img:.3f}", end="\r")
+    ranks.print()
     epoch_stats = {}
     if last_metrics is not None:
         epoch_stats = {
@@ -102,7 +111,10 @@ def run_train_epoch(loader, state, train_step, lr, device, debug_images=False):
     return state, total_loss / max(n_batches, 1), epoch_stats
 
 
-def run_eval_epoch(loader, state, eval_step, device, debug_images=False):
+def run_eval_epoch(loader, state, eval_step, device, debug_images=False, ranks=None):
+    """The mean loss over ``loader``'s batches and the mean box-match
+    metrics over its pages (over several ``ranks``, every rank's pages)."""
+    ranks = ranks or Ranks(device)
     total_loss, n_batches = 0.0, 0
     metrics_list = []
     for batch, on_device in _batches(loader, device):
@@ -116,9 +128,9 @@ def run_eval_epoch(loader, state, eval_step, device, debug_images=False):
             pred_quads = extract_cc_quads(binarize_mask(preds[i]))
             target_quads = extract_cc_quads(binarize_mask(targets[i]))
             metrics_list.append(box_match_metrics(pred_quads, target_quads))
-        if debug_images and n_valid:
+        if debug_images and n_valid and ranks.writer:
             save_debug_images("test-sample", batch["image"][0, 0], preds[0], targets[0])
-    return total_loss / max(n_batches, 1), get_metric_means(metrics_list)
+    return total_loss / max(n_batches, 1), ranks.means(metrics_list)
 
 
 def main(argv=None, device: str | torch.device = "cuda"):
@@ -151,10 +163,6 @@ def main(argv=None, device: str | torch.device = "cuda"):
         raise NotImplementedError(
             f"dataset {args.dataset_type!r}: the HierText and DDI-100 readers are not ported "
             "yet (ROADMAP.md, Queue 1: the HierText and DDI-100 readers); use 'synthetic'")
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError(
-            f"--num-devices {args.num_devices}: multi-GPU training is not ported yet "
-            "(ROADMAP.md, Queue 1: multi-GPU data parallelism)")
 
     cfg = DetectionTrainConfig()
     if args.mask_height:
@@ -165,8 +173,16 @@ def main(argv=None, device: str | torch.device = "cuda"):
     if min(cfg.mask_height, cfg.mask_width) < 128:
         parser.exit(1, f"--mask-height {cfg.mask_height} gives mask {cfg.mask_size}; both dims "
                        "must be >= 128 to survive the U-Net's 6 pooling levels\n")
-    dev = resolve_device(device)
     batch_size = args.batch_size or cfg.batch_size
+    if should_spawn(args.num_devices):
+        check_batch(batch_size, args.num_devices)
+        spawn_trainer("train_detection", argv, device, args.num_devices)
+        return None
+    ranks = Ranks.join(device)
+    dev = ranks.device
+    if args.num_devices not in (None, ranks.world):
+        raise ValueError(f"--num-devices {args.num_devices} in a job of {ranks.world} ranks")
+    check_batch(batch_size, ranks.world)
     seed = cfg.seed
 
     transform = DetectionAugment(cfg.mask_size, augment=args.augment, seed=seed)
@@ -182,11 +198,12 @@ def main(argv=None, device: str | torch.device = "cuda"):
         # so any --batch-size is valid.
         return collate_detection(samples, batch_multiple=args.grad_accum)
 
-    train_loader = DataLoader(train_ds, batch_size, collate, shuffle=True, seed=seed,
-                              num_threads=2)
-    val_loader = DataLoader(val_ds, batch_size, collate)
-    print(f"Training dataset: images {len(train_ds)} in {len(train_loader)} batches")
-    print(f"Validation dataset: images {len(val_ds)} in {len(val_loader)} batches")
+    shard = {"process_index": ranks.rank, "process_count": ranks.world}
+    train_loader = DataLoader(train_ds, batch_size // ranks.world, collate, shuffle=True,
+                              seed=seed, num_threads=2, **shard)
+    val_loader = DataLoader(val_ds, batch_size // ranks.world, collate, **shard)
+    ranks.print(f"Training dataset: images {len(train_ds)} in {len(train_loader)} batches")
+    ranks.print(f"Validation dataset: images {len(val_ds)} in {len(val_loader)} batches")
 
     mcfg = DetectionModelConfig()
     torch.manual_seed(seed)
@@ -194,56 +211,61 @@ def main(argv=None, device: str | torch.device = "cuda"):
                            dtype=torch.bfloat16 if args.bf16 else torch.float32).to(dev)
     state = create_train_state(model)
     n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
-    print(f"Model param count: {n_params}")
+    ranks.print(f"Model param count: {n_params}")
 
     epoch = 0
     if args.checkpoint:
         state, epoch = load_checkpoint(args.checkpoint, state)
+    if ranks.mesh is not None:
+        replicate_tree(model, ranks.mesh)
 
     if args.export:
         from .export_utils import export_weights
 
-        export_weights(state, args.export, model="detection", epoch=epoch)
+        if ranks.writer:
+            export_weights(state, args.export, model="detection", epoch=epoch)
+        ranks.barrier()
         return None
 
-    train_step, eval_step = make_detection_steps(model, grad_accum=args.grad_accum)
+    train_step, eval_step = make_detection_steps(model, grad_accum=args.grad_accum,
+                                                 mesh=ranks.mesh)
+    epoch_kw = {"debug_images": args.debug_images, "ranks": ranks}
 
     if args.validate_only:
         if not args.checkpoint:
             parser.exit(1, "--validate-only requires --checkpoint\n")
-        val_loss, val_metrics = run_eval_epoch(val_loader, state, eval_step, dev,
-                                               debug_images=args.debug_images)
-        print(f"Validation loss {val_loss:.4f}")
-        print("Validation metrics:", format_metrics(val_metrics))
+        val_loss, val_metrics = run_eval_epoch(val_loader, state, eval_step, dev, **epoch_kw)
+        ranks.print(f"Validation loss {val_loss:.4f}")
+        ranks.print("Validation metrics:", format_metrics(val_metrics))
         return state
 
-    logger = MetricsLogger(
-        "text-detection",
-        config={"batch_size": batch_size, "dataset_size": len(train_ds), "model_params": n_params,
-                "seed": seed, "mesh_devices": 1},
-    )
+    config = {"batch_size": batch_size, "dataset_size": len(train_ds), "model_params": n_params,
+              "seed": seed, "mesh_devices": ranks.world}
+    logger = MetricsLogger("text-detection", config=config) if ranks.writer else None
     lr = args.lr or cfg.learning_rate
     min_train_loss = 1.0
     epochs_without_improvement = 0
     while args.max_epochs is None or epoch < args.max_epochs:
         state, train_loss, train_stats = run_train_epoch(
-            train_loader, state, train_step, lr, dev, debug_images=args.debug_images)
-        val_loss, val_metrics = run_eval_epoch(val_loader, state, eval_step, dev,
-                                               debug_images=args.debug_images)
-        print(f"Epoch {epoch} train loss {train_loss:.4f} validation loss {val_loss:.4f}")
-        print(f"Epoch {epoch} validation metrics:", format_metrics(val_metrics))
-        logger.log({"train_loss": train_loss, "val_loss": val_loss, "val_metrics": val_metrics,
-                    **train_stats}, step=epoch)
+            train_loader, state, train_step, lr, dev, **epoch_kw)
+        val_loss, val_metrics = run_eval_epoch(val_loader, state, eval_step, dev, **epoch_kw)
+        ranks.print(f"Epoch {epoch} train loss {train_loss:.4f} validation loss {val_loss:.4f}")
+        ranks.print(f"Epoch {epoch} validation metrics:", format_metrics(val_metrics))
+        if ranks.writer:
+            logger.log({"train_loss": train_loss, "val_loss": val_loss,
+                        "val_metrics": val_metrics, **train_stats}, step=epoch)
         epoch += 1
         if train_loss < min_train_loss:
             min_train_loss = train_loss
             epochs_without_improvement = 0
-            save_checkpoint(f"{cfg.checkpoint_name}.pt", state, epoch)
+            if ranks.writer:
+                save_checkpoint(f"{cfg.checkpoint_name}.pt", state, epoch)
         else:
             epochs_without_improvement += 1
+        ranks.barrier()
         if epochs_without_improvement > cfg.early_stop_epochs:
-            print(f"Stopping after {epochs_without_improvement} epochs "
-                  "without train loss improvement")
+            ranks.print(f"Stopping after {epochs_without_improvement} epochs "
+                        "without train loss improvement")
             break
     return state
 

@@ -17,8 +17,14 @@ Where the port differs from the JAX trainer:
 - ``--bf16`` (the default, as in the JAX trainer) trains
   ``LayoutModel(dtype=torch.bfloat16)``; ``--no-bf16`` trains in float32.
   Parameters, Adam's state and checkpoints are float32 either way.
-- ``--num-devices`` other than 1 raises: multi-GPU training is ROADMAP.md,
-  Queue 1, multi-GPU data parallelism.
+- ``--num-devices N`` (N > 1) trains on N GPUs of one host, one process
+  each (NCCL; ``gloo`` when ``main`` is given ``device="cpu"``), as the JAX
+  trainer does over a sharded batch: each rank's rows ``rank::N`` of the
+  epoch's order in batches of ``--batch-size // N``, the weighted BCE's
+  sums and the gradients all-reduced, the precision and recall counts of
+  each batch summed; each rank draws dropout from its own generator (seed
+  + rank); rank 0 prints and writes. ``torchrun --nproc-per-node N -m
+  ocrs_models_torch.training.train_layout ...`` does the same.
 - Checkpoints are reference-format ``.pt`` files,
   ``text-layout-checkpoint.pt`` in the working directory, whose ``epoch``
   is the next epoch to run; ``--checkpoint`` also takes the JAX trainer's
@@ -39,19 +45,22 @@ import torch
 from ..config import LayoutModelConfig, LayoutTrainConfig
 from ..data import DataLoader, SyntheticLayout, collate_layout
 from ..data.loader import device_prefetch
-from ..device import resolve_device
 from ..models import LayoutModel
+from ..parallel import replicate_tree
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger
-from ..utils.metrics import LayoutAccuracyStats
+from ..utils.metrics import LayoutAccuracyStats, layout_counts
+from .ranks import Ranks, check_batch, should_spawn, spawn_trainer
 from .schedules import LinearWarmup
 from .state import create_train_state
 from .steps import make_layout_steps
 
 
-def run_epoch(loader, state, step_fn, device, lr=None, generator=None, train=True):
+def run_epoch(loader, state, step_fn, device, lr=None, generator=None, train=True, ranks=None):
     """One pass over ``loader``; returns ``(state, mean loss, stats)`` when
-    training, else ``(mean loss, stats)``."""
+    training, else ``(mean loss, stats)``. Over several ``ranks`` each
+    batch's precision and recall counts are summed across them."""
+    ranks = ranks or Ranks(device)
     stats = LayoutAccuracyStats()
     total_loss, n_batches = 0.0, 0
     for batch, on_device in device_prefetch(iter(loader), device, depth=2):
@@ -62,7 +71,8 @@ def run_epoch(loader, state, step_fn, device, lr=None, generator=None, train=Tru
             metrics = step_fn(state, on_device)
         total_loss += float(metrics["loss"])
         n_batches += 1
-        stats.update(metrics["probs"][:n_valid].cpu().numpy(), batch["labels"][:n_valid])
+        stats.update_counts(ranks.sum(
+            layout_counts(metrics["probs"][:n_valid].cpu().numpy(), batch["labels"][:n_valid])))
     mean_loss = total_loss / max(n_batches, 1)
     if train:
         return state, mean_loss, stats
@@ -124,14 +134,17 @@ def main(argv=None, device: str | torch.device = "cuda"):
         help="bfloat16 encoder matmuls (norms/softmax stay fp32)",
     )
     args = parser.parse_args(argv)
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError(
-            f"--num-devices {args.num_devices}: multi-GPU training is not ported yet "
-            "(ROADMAP.md, Queue 1: multi-GPU data parallelism)")
-    dev = resolve_device(device)
-
     cfg = LayoutTrainConfig()
     batch_size = args.batch_size or cfg.batch_size
+    if should_spawn(args.num_devices):
+        check_batch(batch_size, args.num_devices)
+        spawn_trainer("train_layout", argv, device, args.num_devices)
+        return None
+    ranks = Ranks.join(device)
+    dev = ranks.device
+    if args.num_devices not in (None, ranks.world):
+        raise ValueError(f"--num-devices {args.num_devices} in a job of {ranks.world} ranks")
+    check_batch(batch_size, ranks.world)
     seed = cfg.seed
     train_ds, val_ds = datasets(args.data_dir, args.max_images, cfg)
 
@@ -140,8 +153,11 @@ def main(argv=None, device: str | torch.device = "cuda"):
         # so any --batch-size is valid.
         return collate_layout(samples, batch_multiple=args.grad_accum)
 
-    train_loader = DataLoader(train_ds, batch_size, collate, shuffle=True, seed=seed)
-    val_loader = DataLoader(val_ds, batch_size, collate, shuffle=True, seed=seed)
+    shard = {"process_index": ranks.rank, "process_count": ranks.world}
+    train_loader = DataLoader(train_ds, batch_size // ranks.world, collate, shuffle=True,
+                              seed=seed, **shard)
+    val_loader = DataLoader(val_ds, batch_size // ranks.world, collate, shuffle=True, seed=seed,
+                            **shard)
 
     mcfg = LayoutModelConfig()
     torch.manual_seed(seed)
@@ -152,65 +168,68 @@ def main(argv=None, device: str | torch.device = "cuda"):
     ).to(dev)
     state = create_train_state(model)
     n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
-    print(f"Model param count {n_params}")
+    ranks.print(f"Model param count {n_params}")
 
     epoch = 0
     if args.checkpoint:
         state, epoch = load_checkpoint(args.checkpoint, state)
+    if ranks.mesh is not None:
+        replicate_tree(model, ranks.mesh)
 
     if args.export:
         from .export_utils import export_weights
 
-        export_weights(state, args.export, model="layout", epoch=epoch)
+        if ranks.writer:
+            export_weights(state, args.export, model="layout", epoch=epoch)
+        ranks.barrier()
         return None
 
     train_step, eval_step = make_layout_steps(
-        model, pos_weight=cfg.pos_weight, grad_accum=args.grad_accum
+        model, pos_weight=cfg.pos_weight, grad_accum=args.grad_accum, mesh=ranks.mesh
     )
 
     if args.validate_only:
-        _, val_stats = run_epoch(val_loader, state, eval_step, dev, train=False)
-        print(f"Epoch {epoch} val stats: {val_stats.summary()}")
+        _, val_stats = run_epoch(val_loader, state, eval_step, dev, train=False, ranks=ranks)
+        ranks.print(f"Epoch {epoch} val stats: {val_stats.summary()}")
         return state
 
-    logger = MetricsLogger(
-        "text-layout",
-        config={
-            "dataset_size": len(train_ds),
-            "model_params": n_params,
-            "seed": seed,
-            "mesh_devices": 1,
-        },
-    )
+    config = {"dataset_size": len(train_ds), "model_params": n_params, "seed": seed,
+              "mesh_devices": ranks.world}
+    logger = MetricsLogger("text-layout", config=config) if ranks.writer else None
     warmup = LinearWarmup(cfg.learning_rate, cfg.warmup_epochs)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = torch.Generator(device=dev).manual_seed(seed + ranks.rank)
     best_val_loss = float("inf")
 
     while args.max_epochs is None or epoch < args.max_epochs:
         lr = warmup.at_epoch(epoch)
         state, train_loss, train_stats = run_epoch(
-            train_loader, state, train_step, dev, lr=lr, generator=generator, train=True
+            train_loader, state, train_step, dev, lr=lr, generator=generator, train=True,
+            ranks=ranks,
         )
-        val_loss, val_stats = run_epoch(val_loader, state, eval_step, dev, train=False)
+        val_loss, val_stats = run_epoch(val_loader, state, eval_step, dev, train=False,
+                                        ranks=ranks)
 
-        print(f"Epoch {epoch} train loss {train_loss} val loss {val_loss}")
-        print(f"Epoch {epoch} train stats: {train_stats.summary()}")
-        print(f"Epoch {epoch} val stats: {val_stats.summary()}")
-        print(f"Epoch {epoch} lr {lr}")
-        logger.log(
-            {
-                "lr": lr,
-                "train_loss": train_loss,
-                "train_accuracy": train_stats.stats_dict(),
-                "val_loss": val_loss,
-                "val_accuracy": val_stats.stats_dict(),
-            },
-            step=epoch,
-        )
+        ranks.print(f"Epoch {epoch} train loss {train_loss} val loss {val_loss}")
+        ranks.print(f"Epoch {epoch} train stats: {train_stats.summary()}")
+        ranks.print(f"Epoch {epoch} val stats: {val_stats.summary()}")
+        ranks.print(f"Epoch {epoch} lr {lr}")
+        if ranks.writer:
+            logger.log(
+                {
+                    "lr": lr,
+                    "train_loss": train_loss,
+                    "train_accuracy": train_stats.stats_dict(),
+                    "val_loss": val_loss,
+                    "val_accuracy": val_stats.stats_dict(),
+                },
+                step=epoch,
+            )
         epoch += 1
         if val_loss < best_val_loss:
             best_val_loss = val_loss
-            save_checkpoint(f"{cfg.checkpoint_name}.pt", state, epoch)
+            if ranks.writer:
+                save_checkpoint(f"{cfg.checkpoint_name}.pt", state, epoch)
+        ranks.barrier()
     return state
 
 

@@ -19,8 +19,15 @@ Where the port differs from the JAX trainer:
   too, as the JAX trainer's does; ``--no-bf16`` trains in float32.
   Parameters, Adam's state and checkpoints are float32 either way.
 - ``hiertext`` raises: it needs a JPEG decoder and a dataset download.
-- ``--num-devices`` other than 1 raises: multi-GPU training is ROADMAP.md,
-  Queue 1, multi-GPU data parallelism.
+- ``--num-devices N`` (N > 1) trains on N GPUs of one host, one process
+  each (NCCL; ``gloo`` when ``main`` is given ``device="cpu"``), with the
+  JAX trainer's ``shard_map`` step: each rank's rows ``rank::N`` of the
+  epoch's order in batches of ``--batch-size // N`` (the ranks' rows of
+  step ``j`` are the JAX trainer's global batch ``j``), the sums of the
+  loss and the gradients all-reduced; rank 0 prints, writes the
+  checkpoint, the metrics and ``--export``. ``torchrun --nproc-per-node N
+  -m ocrs_models_torch.training.train_rec ...`` does the same, one rank a
+  process it starts.
 - Checkpoints are reference-format ``.pt`` files,
   ``text-rec-checkpoint.pt`` in the working directory; ``--checkpoint``
   also takes the JAX trainer's ``--export x.pt``.
@@ -40,13 +47,14 @@ from ..config import DEFAULT_ALPHABET, RecognitionModelConfig, RecognitionTrainC
 from ..data import DataLoader, SyntheticRecognition, collate_recognition
 from ..data.augment import RecognitionAugment
 from ..data.loader import device_prefetch
-from ..device import resolve_device
 from ..models import RecognitionModel
+from ..parallel import replicate_tree
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger
 from ..utils.metrics import RecognitionAccuracyStats
 from ..utils.profiling import Throughput
 from ..utils.text import ctc_greedy_decode_text, decode_text
+from .ranks import Ranks, check_batch, should_spawn, spawn_trainer
 from .schedules import ReduceLROnPlateau
 from .state import create_train_state
 from .steps import make_recognition_steps
@@ -62,11 +70,14 @@ def preview_predictions(batch, preds, alphabet: str, tag: str, limit: int = 10):
         print(f'Sample {tag} prediction "{pred}" target "{target}"')
 
 
-def run_epoch(loader, state, step_fn, alphabet, device, lr=None, train=True):
+def run_epoch(loader, state, step_fn, alphabet, device, lr=None, train=True, ranks=None):
     """One pass over ``loader``; returns ``(state, mean loss, stats)`` when
-    training, else ``(mean loss, stats)``."""
+    training, else ``(mean loss, stats)``. Over several ``ranks`` the
+    character counts and the crops behind the throughput are summed across
+    them, and rank 0 alone prints."""
+    ranks = ranks or Ranks(device)
     stats = RecognitionAccuracyStats(alphabet)
-    throughput = Throughput(warmup=1)
+    throughput = Throughput(warmup=1, n_chips=ranks.world)
     total_loss = 0.0
     total_grad_norm = 0.0
     n_batches = 0
@@ -89,18 +100,21 @@ def run_epoch(loader, state, step_fn, alphabet, device, lr=None, train=True):
             preds[valid],
             (batch["image_width"] // 4)[valid],
         )
-        if batch_idx == 0:
+        if batch_idx == 0 and ranks.writer:
             preview_predictions(batch, preds, alphabet, "train" if train else "test")
         total_loss += loss
         if train:
             total_grad_norm += float(metrics["grad_norm"])
         n_batches += 1
-        throughput.update(int(valid.sum()))
+        (n_valid,) = ranks.sum([valid.sum()])
+        throughput.update(int(n_valid))
+    stats.char_errors, stats.total_chars = (int(v) for v in ranks.sum(
+        [stats.char_errors, stats.total_chars]))
     mean_loss = total_loss / max(n_batches, 1)
     if train:
-        print(f"Mean grad norm {total_grad_norm / max(n_batches, 1):.3f}")
+        ranks.print(f"Mean grad norm {total_grad_norm / max(n_batches, 1):.3f}")
         if throughput.updates > throughput.warmup:
-            print(f"Throughput {throughput.last_rate:.0f} crops/sec/chip")
+            ranks.print(f"Throughput {throughput.last_rate:.0f} crops/sec/chip")
         return state, mean_loss, stats
     return mean_loss, stats
 
@@ -140,18 +154,21 @@ def main(argv=None, device: str | torch.device = "cuda"):
         help="bfloat16 compute of the convolutions and the biGRU (parameters stay float32)",
     )
     args = parser.parse_args(argv)
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError(
-            f"--num-devices {args.num_devices}: multi-GPU training is not ported yet "
-            "(ROADMAP.md, Queue 1: multi-GPU data parallelism)")
     if args.dataset_type == "hiertext":
         raise NotImplementedError(
             "hiertext: the HierText dataset needs a JPEG decoder and a dataset download, "
             "neither of which the port has; use 'synthetic'")
-    dev = resolve_device(device)
-
     cfg = RecognitionTrainConfig()
     batch_size = args.batch_size or cfg.batch_size
+    if should_spawn(args.num_devices):
+        check_batch(batch_size, args.num_devices)
+        spawn_trainer("train_rec", argv, device, args.num_devices, build_kernels=True)
+        return None
+    ranks = Ranks.join(device, build_kernels=True)
+    dev = ranks.device
+    if args.num_devices not in (None, ranks.world):
+        raise ValueError(f"--num-devices {args.num_devices} in a job of {ranks.world} ranks")
+    check_batch(batch_size, ranks.world)
     seed = cfg.seed
 
     augment = RecognitionAugment(seed=seed) if args.augment else None
@@ -163,8 +180,11 @@ def main(argv=None, device: str | torch.device = "cuda"):
         return collate_recognition(samples, width_step=cfg.width_step,
                                    batch_multiple=args.grad_accum, max_width=cfg.max_width)
 
-    train_loader = DataLoader(train_ds, batch_size, collate, shuffle=True, seed=seed, num_threads=2)
-    val_loader = DataLoader(val_ds, batch_size, collate, shuffle=True, seed=seed)
+    shard = {"process_index": ranks.rank, "process_count": ranks.world}
+    train_loader = DataLoader(train_ds, batch_size // ranks.world, collate, shuffle=True,
+                              seed=seed, num_threads=2, **shard)
+    val_loader = DataLoader(val_ds, batch_size // ranks.world, collate, shuffle=True, seed=seed,
+                            **shard)
 
     mcfg = RecognitionModelConfig()
     torch.manual_seed(seed)
@@ -174,74 +194,76 @@ def main(argv=None, device: str | torch.device = "cuda"):
     ).to(dev)
     state = create_train_state(model, grad_clip_norm=cfg.grad_clip_norm)
     n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
-    print(f"Model param count {n_params}")
+    ranks.print(f"Model param count {n_params}")
 
     epoch = 0
     if args.checkpoint:
         state, epoch = load_checkpoint(args.checkpoint, state)
+    if ranks.mesh is not None:
+        replicate_tree(model, ranks.mesh)
 
     if args.export:
         from .export_utils import export_weights
 
-        export_weights(state, args.export, model="recognition", epoch=epoch)
+        if ranks.writer:
+            export_weights(state, args.export, model="recognition", epoch=epoch)
+        ranks.barrier()
         return None
 
     # Collation pads every batch to a multiple of grad_accum (zero-weight
     # rows), so any --batch-size is valid.
-    train_step, eval_step = make_recognition_steps(model, grad_accum=args.grad_accum)
+    train_step, eval_step = make_recognition_steps(model, mesh=ranks.mesh,
+                                                   grad_accum=args.grad_accum)
+
+    def epoch_of(loader, step_fn, **kw):
+        return run_epoch(loader, state, step_fn, DEFAULT_ALPHABET, dev, ranks=ranks, **kw)
 
     if args.validate_only:
-        val_loss, val_stats = run_epoch(
-            val_loader, state, eval_step, DEFAULT_ALPHABET, dev, train=False
-        )
-        print(f"Validation loss {val_loss} char error rate {val_stats.char_error_rate()}")
+        val_loss, val_stats = epoch_of(val_loader, eval_step, train=False)
+        ranks.print(f"Validation loss {val_loss} char error rate {val_stats.char_error_rate()}")
         return state
 
     initial_lr = args.lr or cfg.learning_rate
     scheduler = ReduceLROnPlateau(
         initial_lr, factor=cfg.plateau_factor, patience=args.plateau_patience
     )
-    logger = MetricsLogger(
-        "text-recognition",
-        config={
-            "batch_size": batch_size,
-            "dataset_size": len(train_ds),
-            "model_params": n_params,
-            "seed": seed,
-            "mesh_devices": 1,
-        },
-    )
+    config = {
+        "batch_size": batch_size,
+        "dataset_size": len(train_ds),
+        "model_params": n_params,
+        "seed": seed,
+        "mesh_devices": ranks.world,
+    }
+    logger = MetricsLogger("text-recognition", config=config) if ranks.writer else None
 
     lr = initial_lr
     while args.max_epochs is None or epoch < args.max_epochs:
-        state, train_loss, train_stats = run_epoch(
-            train_loader, state, train_step, DEFAULT_ALPHABET, dev, lr=lr, train=True
-        )
-        print(
+        state, train_loss, train_stats = epoch_of(train_loader, train_step, lr=lr, train=True)
+        ranks.print(
             f"Epoch {epoch} train loss {train_loss} "
             f"char error rate {train_stats.char_error_rate()}"
         )
-        val_loss, val_stats = run_epoch(
-            val_loader, state, eval_step, DEFAULT_ALPHABET, dev, train=False
-        )
-        print(
+        val_loss, val_stats = epoch_of(val_loader, eval_step, train=False)
+        ranks.print(
             f"Epoch {epoch} validation loss {val_loss} "
             f"char error rate {val_stats.char_error_rate()}"
         )
         lr = scheduler.step(val_loss)
-        print(f"Current learning rate [{lr}]")
+        ranks.print(f"Current learning rate [{lr}]")
 
-        logger.log(
-            {
-                "train_loss": train_loss,
-                "train_accuracy": train_stats.stats_dict(),
-                "val_loss": val_loss,
-                "val_accuracy": val_stats.stats_dict(),
-            },
-            step=epoch,
-        )
         epoch += 1
-        save_checkpoint(f"{cfg.checkpoint_name}.pt", state, epoch)
+        if ranks.writer:
+            logger.log(
+                {
+                    "train_loss": train_loss,
+                    "train_accuracy": train_stats.stats_dict(),
+                    "val_loss": val_loss,
+                    "val_accuracy": val_stats.stats_dict(),
+                },
+                step=epoch - 1,
+            )
+            save_checkpoint(f"{cfg.checkpoint_name}.pt", state, epoch)
+        ranks.barrier()
     return state
 
 

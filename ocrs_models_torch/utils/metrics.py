@@ -55,6 +55,19 @@ def precision_recall(preds: np.ndarray, targets: np.ndarray) -> tuple[float, flo
     return precision, recall
 
 
+def layout_counts(probs, targets, threshold: float = 0.5) -> np.ndarray:
+    """``[true, predicted, target]`` line starts, then the same for line
+    ends, of a batch of ``[..., 2]`` probabilities and targets: what
+    :func:`precision_recall` divides."""
+    probs = np.asarray(probs)
+    targets = np.asarray(targets)
+    out = []
+    for c in (0, 1):
+        pred, tgt = probs[..., c] >= threshold, targets[..., c] > 0.5
+        out += [np.logical_and(pred, tgt).sum(), pred.sum(), tgt.sum()]
+    return np.asarray(out, np.int64)
+
+
 class LayoutAccuracyStats:
     """Line-start and line-end precision and recall, averaged over the
     batches given to :meth:`update`."""
@@ -64,12 +77,15 @@ class LayoutAccuracyStats:
         self.updates = 0
 
     def update(self, probs, targets, threshold: float = 0.5) -> None:
-        probs = np.asarray(probs)
-        targets = np.asarray(targets)
+        self.update_counts(layout_counts(probs, targets, threshold))
+
+    def update_counts(self, counts) -> None:
+        """One batch from its :func:`layout_counts` (summed across the
+        ranks that each hold a slice of it)."""
+        tp_s, pred_s, tgt_s, tp_e, pred_e, tgt_e = (float(c) for c in counts)
         self.updates += 1
-        ls = precision_recall(probs[..., 0] >= threshold, targets[..., 0] > 0.5)
-        le = precision_recall(probs[..., 1] >= threshold, targets[..., 1] > 0.5)
-        self.totals += np.array([*ls, *le])
+        self.totals += np.array([tp_s / pred_s if pred_s else 0.0, tp_s / tgt_s if tgt_s else 0.0,
+                                 tp_e / pred_e if pred_e else 0.0, tp_e / tgt_e if tgt_e else 0.0])
 
     def stats_dict(self) -> dict:
         t = self.totals / max(self.updates, 1)

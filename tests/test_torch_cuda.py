@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, in float32
 and bfloat16, the recognition trainer, the layout model, step and trainer,
 detection training (step, balanced BCE, trainer and inference CLIs)
-against the CPU, and the ONNX export of models on the card against their
-forward, on the card.
+against the CPU, the ONNX export of models on the card against their
+forward, and the recognition step's collective path on a one-rank NCCL
+group against its plain step, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc``; without a GPU they skip. The
 file imports nothing of JAX, so it runs on a machine that has only the
@@ -922,3 +923,14 @@ def test_export_of_a_model_on_the_card_matches_its_forward(dev, kind, tmp_path):
     got = run_graph(graph, {name: x.numpy()})[out]
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+def test_world1_nccl_recognition_step_equals_the_plain_step(dev, tmp_path):
+    # A one-rank NCCL process group (a spawned process): the collective
+    # recognition step bit-equal to the plain one (tests/torch_parallel_workers.py).
+    from ocrs_models_torch.parallel import spawn
+    from torch_parallel_workers import world1_recognition_rank
+
+    (r,) = spawn(world1_recognition_rank, 1, dev, timeout=600, store_dir=str(tmp_path))
+    assert r["backend"] == "nccl" and r["mesh_size"] == 1
+    assert r["equal"], r["losses"]

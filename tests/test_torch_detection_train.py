@@ -504,7 +504,7 @@ def test_export_onnx_and_npz_equal_the_jax_package(jax_init, tmp_path, monkeypat
 @pytest.mark.parametrize("argv,error", [
     (["hiertext", "data"], NotImplementedError),
     (["ddi", "data"], NotImplementedError),
-    (["synthetic", "-", "--num-devices", "2"], NotImplementedError),
+    (["ddi", "data", "--num-devices", "2"], NotImplementedError),
     (["synthetic", "-", "--mask-height", "160"], SystemExit),
     (["synthetic", "-", "--validate-only"], SystemExit),
 ])

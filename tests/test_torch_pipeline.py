@@ -17,6 +17,7 @@ from ocrs_models_tpu.geometry import extract_cc_quads as jax_extract_cc_quads
 from ocrs_models_tpu.geometry.components import connected_components as jax_cc
 from ocrs_models_tpu.models import DetectionModel as JaxDetection
 from ocrs_models_tpu.models import RecognitionModel as JaxRecognition
+from ocrs_models_tpu.parallel import create_mesh as jax_create_mesh
 from ocrs_models_tpu.pipeline import OcrPipeline as JaxPipeline
 from ocrs_models_tpu.pipeline import group_words_into_lines as jax_group
 from ocrs_models_tpu.utils.text import ctc_greedy_decode_batch as jax_decode
@@ -24,6 +25,7 @@ from ocrs_models_torch.data.resize import resize
 from ocrs_models_torch.geometry import expand_quads, extract_cc_quads, native
 from ocrs_models_torch.geometry.components import connected_components_numpy
 from ocrs_models_torch.geometry.polygon import min_area_rect_numpy, offset_ring_numpy
+from ocrs_models_torch.parallel import Mesh, create_mesh
 from ocrs_models_torch.pipeline import OcrPipeline, group_words_into_lines
 from ocrs_models_torch.utils.text import ctc_greedy_decode_batch
 from torch_port_common import random_variables, use_geometry_backend
@@ -127,6 +129,41 @@ def test_call_matches_jax(setup):
     _assert_pages_equal(port(images[2]), jax_pipe(images[2]))
 
 
+@pytest.fixture
+def two_torch_threads():
+    """XLA's CPU threads and torch's contend in one process (the port's
+    CPU forwards run 20x slower beside JAX at torch's default thread
+    count); two threads for the test's duration."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_run_batch_on_a_mesh_matches_one_device_and_jax(setup, two_torch_threads):
+    """Serving over a 2-device mesh (both on the CPU here: one replica of
+    each model a device, every batch that divides split in two) against
+    the single-device path and the JAX pipeline over a 2-device mesh, as
+    ``tests/test_pipeline.py`` holds the JAX mesh pipeline."""
+    jax_pipe, port, images = setup
+    det_sd, rec_sd = port.det_model.state_dict(), port.rec_model.state_dict()
+    meshed = OcrPipeline(det_sd, rec_sd, det_size=DET_SIZE, device="cpu",
+                         mesh=create_mesh(devices=["cpu", "cpu"]))
+    assert meshed._shards(4) == [(0, slice(0, 2)), (1, slice(2, 4))]
+    assert meshed._shards(3) == [(0, slice(0, 3))]
+    jax_meshed = JaxPipeline(jax_pipe._det_vars, jax_pipe._rec_vars, det_size=DET_SIZE,
+                             mesh=jax_create_mesh(2))
+    got = meshed.run_batch(images, det_batch=2, rec_batch=4)
+    assert any(line.text for page in got for line in page)
+    for want in (port.run_batch(images, det_batch=2, rec_batch=4),
+                 jax_meshed.run_batch(images, det_batch=2, rec_batch=4)):
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            _assert_pages_equal(g, w)
+    boxes = [np.array([10.0, 10.0, 150.0, 40.0]), np.array([20.0, 50.0, 120.0, 80.0])]
+    assert meshed.recognize_lines(images[0], boxes) == port.recognize_lines(images[0], boxes)
+
+
 def test_recognize_lines_degenerate_box_gives_empty_text(setup):
     jax_pipe, port, images = setup
     boxes = [np.array([10.0, 10.0, 150.0, 40.0]), np.array([5.0, 5.0, 6.0, 30.0])]
@@ -181,11 +218,13 @@ def test_group_words_into_lines_matches_jax():
 
 @pytest.mark.parametrize("case", [
     pytest.param(({"use_layout_model": True}, ValueError, "layout_state_dict"), id="kwargs0"),
-    pytest.param(({"mesh": object()}, NotImplementedError, "ROADMAP.md"), id="kwargs1"),
+    pytest.param(({"mesh": Mesh((torch.device("cpu"),), 2, group=object())}, ValueError,
+                  "process group"), id="kwargs1"),
 ])
 def test_options_outside_the_slice_raise(case):
     # The layout model is served since it was ported, and then needs its
-    # weights, as in the JAX package; multi-GPU serving is still to port.
+    # weights, as in the JAX package; a serving mesh is the devices of one
+    # process (a process group's mesh trains).
     kwargs, error, match = case
     with pytest.raises(error, match=match):
         OcrPipeline(device="cpu", **kwargs)

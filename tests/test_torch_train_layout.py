@@ -344,9 +344,13 @@ def test_bf16_flag_picks_the_model_dtype(tmp_path, monkeypatch, flag, dtype):
 
 
 def test_trainer_refuses_several_devices(tmp_path, monkeypatch):
+    # Several devices train (tests/test_torch_parallel_cli.py), each rank
+    # taking --batch-size // N rows a step: a batch the ranks do not divide
+    # is refused before any rank starts.
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_layout.main(["synthetic", "--num-devices", "2"], device="cpu")
+    with pytest.raises(ValueError, match="--batch-size 64 is not a multiple of the 3 ranks"):
+        train_layout.main(["synthetic", "--num-devices", "3"], device="cpu")
+    assert list(tmp_path.iterdir()) == []
 
 
 # -------------------------------------------------------------- eval_layout

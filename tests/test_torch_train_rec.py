@@ -138,7 +138,7 @@ def test_nan_loss_raises_the_jax_message(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("args,error,match", [
-    (["--num-devices", "2"], NotImplementedError, "Queue 1: multi-GPU data parallelism"),
+    (["--num-devices", "3"], ValueError, "--batch-size 20 is not a multiple of the 3 ranks"),
     (["--export", "w.txt"], ValueError, "use .npz, .pt or .onnx"),
     (["--checkpoint", "missing.pt"], FileNotFoundError, "missing.pt"),
 ])

@@ -43,6 +43,7 @@ from ocrs_models_tpu.training.state import make_optimizer as jax_make_optimizer
 from ocrs_models_tpu.training.steps import make_recognition_steps as jax_make_steps
 from ocrs_models_torch.data.collate import collate_recognition, ctc_input_and_target_compatible
 from ocrs_models_torch.models import RecognitionModel
+from ocrs_models_torch.parallel import create_mesh
 from ocrs_models_torch.training import schedules
 from ocrs_models_torch.ops import ctc_loss_forward
 from ocrs_models_torch.training.state import create_train_state, make_optimizer
@@ -250,9 +251,14 @@ def test_grad_norm_keys_follow_jax_module_names():
 
 
 def test_multi_device_step_is_not_ported():
+    # The multi-device step is ported (tests/test_torch_parallel_steps.py);
+    # what stays refused: force_shard_map without a mesh is the plain step,
+    # as in the JAX package, a mesh of several devices without a process
+    # group cannot train, and grad_accum must be positive.
     port = RecognitionModel(n_classes=97, gru_hidden=HIDDEN)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        make_recognition_steps(port, force_shard_map=True)
+    make_recognition_steps(port, force_shard_map=True)
+    with pytest.raises(ValueError, match="one process per device"):
+        make_recognition_steps(port, mesh=create_mesh(devices=["cpu", "cpu"]))
     with pytest.raises(ValueError, match="grad_accum"):
         make_recognition_steps(port, grad_accum=0)
 
