@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving path, recognition training step,
 recognition trainer, layout model (served and trained), detection
-training, the ONNX and ``.npz`` export and the data-parallel paths on one
-NVIDIA GPU and check them.
+training, the ONNX and ``.npz`` export, the data-parallel paths, the
+real-data readers and the layout model's tensor parallelism on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -164,6 +165,24 @@ Phases (any failure exits non-zero, before the final line):
     (d) ``torchrun --standalone --nproc-per-node 1 -m
     ocrs_models_torch.training.train_rec`` for one epoch of one step (20
     lines, f32; the env-driven join, NCCL): rank 0's checkpoint written.
+16. The real-data path on the committed toy roots (``tests/data``),
+    copied to a temporary directory: (a) every fixture decoded by
+    ``data.imageio.read_grey`` on the host, the SHA-256 of its greyscale
+    bytes equal to the committed digest of Pillow's decode, and the
+    decoder's ms per megapixel on a 2 MP page and on the toy pages; (b)
+    ``train_rec hiertext`` (bf16, batch 4) for an epoch and a resumed
+    second: launch counts exact (all six kernels), losses finite, the
+    second epoch reading the crop cache the first wrote and writing
+    nothing; (c) ``train_detection hiertext`` and ``ddi``, one epoch each
+    at 800x600 (finite losses, no port kernel), pages/s and host ms per
+    page decoded; (d) ``eval_detection`` on a JPEG page; (e) the preview
+    CLI for ``hiertext``, ``hiertext-rec`` and ``ddi``; (f) the layout
+    model's tensor-parallel step on two ``gloo`` ranks sharing the card
+    (1 x 2 data x model mesh, 8 pages of 500 words, dropout on) against
+    the plain step from the same weights and dropout stream: loss rtol
+    1e-5, parameters rtol 1e-3 / atol 5e-5 but where the plain gradient
+    is flat (within 1e-6 of 0: within 2 lr), the gathered state's keys
+    and shapes the plain model's.
 
 Prints the nvidia-smi line, throughput lines, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2610,6 +2629,315 @@ def run_data_parallel(dev, pages, root: Path) -> dict:
     return report
 
 
+# ---------------------------------------------------------------- phase 16
+
+TOY_DATA = Path("tests") / "data"  # under the checkout's root
+TP_BATCH = 8  # phase 16 (f): layout pages (500 words each) in the tensor-parallel step
+TP_LR = 1e-3
+TP_GRAD_TOL = 1e-3  # phase 16 (f): each gradient's rtol, and its atol as a share of its max
+
+
+def _copy_toy(root: Path, name: str, dest: Path) -> str:
+    """A fresh copy of the committed toy root ``name`` (the readers write
+    their JSONL and crop cache beside it)."""
+    shutil.copytree(root / TOY_DATA / name, dest / name)
+    return str(dest / name)
+
+
+def check_decoder(root: Path) -> dict:
+    """Phase 16 (a): every committed fixture decoded by ``read_grey`` on
+    this machine's host, its greyscale bytes' SHA-256 against the digests
+    of Pillow's decode (made where Pillow is installed); then ms per
+    megapixel, median of 10, on the 2 MP page and on the 8 toy HierText
+    pages."""
+    import hashlib
+    import statistics
+
+    from ocrs_models_torch.data.imageio import decode_jpeg_grey, read_grey
+
+    digests = json.loads((root / TOY_DATA / "torch_toy_digests.json").read_text())
+    for name, want in digests.items():
+        got = read_grey(str(root / TOY_DATA / name))
+        if (hashlib.sha256(got.tobytes()).hexdigest() != want["sha256"]
+                or list(got.shape) != want["shape"]):
+            raise AssertionError(f"decode of {name} differs from Pillow's")
+    out = {"path": "decode", "files_equal_to_pillow": len(digests)}
+    for label, paths in (("2mp_page", [root / TOY_DATA / "torch_decode_page.jpg"]),
+                         ("toy_pages", sorted((root / TOY_DATA / "torch_hiertext_toy").rglob(
+                             "*.jpg")))):
+        datas = [p.read_bytes() for p in paths]
+        mp = sum(decode_jpeg_grey(d).size for d in datas) / 1e6
+        runs = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            for d in datas:
+                decode_jpeg_grey(d)
+            runs.append(1e3 * (time.perf_counter() - t0))
+        out[f"{label}_megapixels"] = mp
+        out[f"{label}_ms_per_mp"] = statistics.median(runs) / mp
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _snapshot(directory: Path) -> dict:
+    return {str(p): p.stat().st_mtime_ns for p in directory.rglob("*") if p.is_file()}
+
+
+def run_real_rec(root: Path, work: Path) -> dict:
+    """Phase 16 (b): ``train_rec hiertext`` on the toy root, bf16 (the
+    default), batch 4: epoch 1, then a resume for epoch 2. Every launch
+    count exact, all six kernels launched, every loss finite, and epoch 2
+    reads the crop cache epoch 1 wrote and writes no file in it."""
+    import math
+
+    from ocrs_models_torch.data.hiertext import HierTextRecognition
+    from ocrs_models_torch.training import train_rec
+
+    ht = _copy_toy(root, "torch_hiertext_toy", work)
+    batch = 4
+    args = ["hiertext", ht, "--batch-size", str(batch)]
+    lines, _, counts, seconds = _cli(train_rec, [*args, "--max-epochs", "1"])
+    n_train = len(HierTextRecognition(ht, train=True))
+    n_val = len(HierTextRecognition(ht, train=False))
+    steps, val_batches = math.ceil(n_train / batch), math.ceil(n_val / batch)
+    want = {k: TRAIN_LAUNCHES.get(k, 0) * steps + EVAL_LAUNCHES.get(k, 0) * val_batches
+            for k in counts}
+    if counts != want or not all(counts.values()):
+        raise AssertionError(f"train_rec hiertext: launches {counts}, expected {want}")
+    caches = sorted(Path(ht).glob("*-lines-cache"))
+    cache = {}
+    for c in caches:
+        cache.update(_snapshot(c))
+    if len(cache) != n_train + n_val:
+        raise AssertionError(f"crop cache holds {len(cache)} files, expected {n_train + n_val}")
+    lines2, _, counts2, seconds2 = _cli(train_rec, [
+        *args, "--checkpoint", "text-rec-checkpoint.pt", "--max-epochs", "2"])
+    after = {}
+    for c in caches:
+        after.update(_snapshot(c))
+    if after != cache:
+        raise AssertionError("epoch 2 wrote into the crop cache")
+    if counts2 != want:
+        raise AssertionError(f"train_rec hiertext epoch 2: launches {counts2}, expected {want}")
+    records = _epoch_records()
+    losses = [v for r in records for v in (r["train_loss"], r["val_loss"])]
+    if [r["epoch"] for r in records] != [0, 1] or not np.isfinite(losses).all():
+        raise AssertionError(f"train_rec hiertext: records {records}")
+    out = {"path": "train_rec hiertext toy 2 epochs", "dtype": "bf16", "batch": batch,
+           "train_lines": n_train, "val_lines": n_val, "launches_per_epoch": counts,
+           "epoch_seconds": [seconds, seconds2],
+           "lines_per_s": [(n_train + n_val) / seconds, (n_train + n_val) / seconds2],
+           "crops_per_s": _rates(lines + lines2),
+           "train_loss": [r["train_loss"] for r in records],
+           "val_loss": [r["val_loss"] for r in records],
+           "cache_files": len(cache)}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def run_real_detection(root: Path, work: Path, keep: Path) -> dict:
+    """Phase 16 (c)-(e): ``train_detection hiertext`` and ``ddi`` for one
+    epoch each at 800x600 (bf16, batch 4, augmented; finite losses, no port
+    kernel launched), host ms per page decoded and per sample built;
+    ``eval_detection`` on a JPEG page with phase 13's checkpoint (``keep /
+    "det.pt"``; one epoch on the toy pages need not beat the trainer's
+    initial best loss of 1.0, below which it writes one); the preview CLI
+    for ``hiertext``, ``hiertext-rec`` and ``ddi``."""
+    from ocrs_models_torch.data import __main__ as preview
+    from ocrs_models_torch.data.ddi100 import DDI100
+    from ocrs_models_torch.data.hiertext import HierTextDetection
+    from ocrs_models_torch.data.imageio import read_grey
+    from ocrs_models_torch.training import eval_detection, train_detection
+    from ocrs_models_torch.utils.render import read_png
+
+    roots = {"hiertext": _copy_toy(root, "torch_hiertext_toy", work / "det"),
+             "ddi": _copy_toy(root, "torch_ddi_toy", work / "det")}
+    readers = {"hiertext": HierTextDetection, "ddi": DDI100}
+    report = {}
+    for name, data in roots.items():
+        ds = readers[name](data, train=True)
+        n_train = len(ds)
+        t0 = time.perf_counter()
+        paths = [ds[i]["path"] for i in range(n_train)]  # decode, mask (no augmentation)
+        sample_ms = 1e3 * (time.perf_counter() - t0) / n_train
+        t0 = time.perf_counter()
+        for path in paths:
+            read_grey(path)
+        decode_ms = 1e3 * (time.perf_counter() - t0) / n_train
+        lines, state, counts, seconds = _cli(train_detection, [name, data, "--max-epochs", "1"])
+        records = [json.loads(r) for r in
+                   Path("text-detection-metrics.jsonl").read_text().splitlines()]
+        (epoch,) = [r for r in records if "epoch" in r][-1:]
+        if not np.isfinite([epoch["train_loss"], epoch["val_loss"]]).all():
+            raise AssertionError(f"train_detection {name}: {epoch}")
+        if any(counts.values()) or state.model.dtype != BF16:
+            raise AssertionError(f"train_detection {name}: launches {counts}")
+        report[name] = {"path": f"train_detection {name} toy 1 epoch", "dtype": "bf16",
+                        "train_pages": n_train, "seconds": seconds,
+                        "pages_per_s": n_train / seconds, "decode_ms_per_page": decode_ms,
+                        "sample_ms_per_page": sample_ms, "train_loss": epoch["train_loss"],
+                        "val_loss": epoch["val_loss"]}
+        print(json.dumps(report[name]), flush=True)
+
+    # (d) eval_detection on a JPEG page.
+    page = Path(roots["hiertext"]) / "train" / "t4.jpg"
+    height, width = read_grey(str(page)).shape
+    lines, _, counts, seconds = _cli(eval_detection, [str(keep / "det.pt"), str(page), "jpeg"])
+    for part, want in (("input", DET_TRAIN_SIZE), ("text-probs", DET_TRAIN_SIZE),
+                       ("text-regions", (height, width)), ("text-words", (height, width))):
+        shape = read_png(f"jpeg-{part}.png").shape[:2]
+        if shape != tuple(want):
+            raise AssertionError(f"eval_detection on a JPEG: {part} {shape}, expected {want}")
+    print(json.dumps({"path": "eval_detection jpeg page", "page": [height, width],
+                      "seconds": seconds, "line": lines[-1] if lines else ""}), flush=True)
+
+    # (e) The preview CLI.
+    written = {}
+    for kind, data in (("hiertext", roots["hiertext"]), ("hiertext-rec", roots["hiertext"]),
+                       ("ddi", roots["ddi"])):
+        out_dir = work / f"preview-{kind}"
+        _cli(preview, [kind, data, str(out_dir), "--max-images", "4"])
+        names = sorted(p.name for p in out_dir.iterdir())
+        prefix = "rec-" if kind == "hiertext-rec" else "det-"
+        if not names or not all(n.startswith(prefix) and n.endswith(".png") for n in names):
+            raise AssertionError(f"preview {kind}: {names}")
+        for n in names:
+            read_png(str(out_dir / n))
+        written[kind] = names
+    print(json.dumps({"path": "preview cli", "files": written}), flush=True)
+    return report
+
+
+def _tp_rank(rank: int, world: int, device, state_dict: dict) -> dict:
+    """Phase 16 (f), in one of two ``gloo`` ranks sharing the card: the
+    full-width layout model split over a 1 x 2 data x model mesh, one step
+    on ``TP_BATCH`` pages with dropout drawn from a generator seeded alike
+    on both ranks; returns the metrics, the gathered gradients and state,
+    this rank's shard shapes and the step's host ms."""
+    from ocrs_models_torch.parallel import (
+        create_mesh_2d,
+        gather_layout_state,
+        shard_layout_model,
+    )
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import make_layout_steps
+
+    mesh = create_mesh_2d(1, 2, devices=[device])
+    model = _layout_model().to(device)
+    model.load_state_dict(state_dict)
+    shard_layout_model(model, mesh)
+    state = create_train_state(model)
+    step = make_layout_steps(model, mesh=mesh)[0]
+    batch = _layout_batch(TP_BATCH, SEED, device)
+    gen = torch.Generator(device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch, TP_LR, gen)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return {"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
+            "state": gather_layout_state(model, mesh), "ms": ms,
+            "grads": gather_layout_state(model, mesh, {k: p.grad for k, p in
+                                                       model.named_parameters()}),
+            "shards": {k: list(v.shape) for k, v in model.state_dict().items()}}
+
+
+def check_layout_tp(dev) -> dict:
+    """Phase 16 (f): the tensor-parallel layout step on two ``gloo`` ranks
+    sharing the card (dp=1, mp=2) against the plain step in this process,
+    from the same weights and dropout stream: loss rtol 1e-5, grad norm
+    rtol 1e-4, the gathered state's keys and shapes those of the
+    one-process model, and
+
+    - every gradient entry (gathered, before Adam) within rtol
+      ``TP_GRAD_TOL`` and an atol of ``TP_GRAD_TOL`` times its tensor's
+      largest gradient: the two steps sum in different orders, and the
+      float noise that leaves in an entry scales with the terms summed,
+      not with the entry;
+    - every parameter after the step within rtol 1e-3 / atol 5e-5 beyond
+      what Adam makes of that gradient difference. Adam's first step
+      moves an entry by ``lr * g / (|g| + 1e-8)``: a gradient of float
+      noise about 0 (the k projection's bias, 0 in exact arithmetic) or
+      one near 1e-8 turns a difference within the gradient's tolerance
+      into a step up to 2 lr apart. The line counts the entries where
+      that term exceeds the tolerance.
+    """
+    from ocrs_models_torch.parallel import spawn
+    from ocrs_models_torch.training.state import create_train_state
+    from ocrs_models_torch.training.steps import make_layout_steps
+
+    model = _layout_model().to(dev)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    ranks = spawn(_tp_rank, 2, dev, args=(init,), share_device=True, timeout=600)
+    state = create_train_state(model)
+    step = make_layout_steps(model)[0]
+    _, want = step(state, _layout_batch(TP_BATCH, SEED, dev), TP_LR,
+                   torch.Generator(dev).manual_seed(SEED))
+    plain = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    line = {"path": "layout tensor parallel gloo 1x2 f32", "pages": TP_BATCH,
+            "loss": [r["loss"] for r in ranks], "loss_plain": want["loss"].item(),
+            "grad_norm": [r["grad_norm"] for r in ranks], "grad_norm_plain":
+            want["grad_norm"].item(), "host_ms": [r["ms"] for r in ranks],
+            "qkv_shard": ranks[0]["shards"]["encode.layers.0.self_attn.in_proj_weight"]}
+    for r in ranks:
+        if abs(r["loss"] / line["loss_plain"] - 1) > 1e-5:
+            raise AssertionError(f"layout TP loss {r['loss']} vs plain {line['loss_plain']}")
+        if abs(r["grad_norm"] / line["grad_norm_plain"] - 1) > 1e-4:
+            raise AssertionError(f"layout TP grad norm {r['grad_norm']} vs plain "
+                                 f"{line['grad_norm_plain']}")
+        got = r["state"]
+        if {k: list(v.shape) for k, v in got.items()} != {k: list(v.shape)
+                                                          for k, v in plain.items()}:
+            raise AssertionError("layout TP: the gathered state's keys or shapes differ")
+        grads_far = far = adam_noise = 0
+        grad_ratio = max_diff = 0.0
+        for k, v in plain.items():
+            g, g_tp = grads[k], r["grads"][k]
+            g_diff = (g_tp - g).abs()
+            scale = g.abs().max().clamp_min(1e-30)
+            grad_ratio = max(grad_ratio, (g_diff.max() / scale).item())
+            grads_far += int((g_diff > TP_GRAD_TOL * (g.abs() + scale)).sum())
+            diff = (got[k].float() - v.float()).abs()
+            max_diff = max(max_diff, diff.max().item())
+            tol = 5e-5 + 1e-3 * v.float().abs()
+            adam = TP_LR * (g_tp / (g_tp.abs() + 1e-8) - g / (g.abs() + 1e-8)).abs()
+            adam_noise += int((adam > tol).sum())
+            far += int((diff > tol + adam).sum())
+        line.update(grads_max_diff_of_max=grad_ratio, grads_beyond_tolerance=grads_far,
+                    params_max_diff=max_diff, params_beyond_tolerance=far,
+                    params_moved_by_gradient_noise=adam_noise)
+        if grads_far:
+            raise AssertionError(f"layout TP: {grads_far} gradient entries beyond rtol "
+                                 f"{TP_GRAD_TOL} / atol {TP_GRAD_TOL} of their tensor's max")
+        if far:
+            raise AssertionError(f"layout TP: {far} parameters beyond rtol 1e-3 / atol 5e-5 "
+                                 "and Adam's share of the gradients' difference")
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def run_real_data(root: Path, dev, keep: Path) -> None:
+    """Phase 16: the real-data readers and layout tensor parallelism."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_real_") as tmp:
+        work = Path(tmp)
+        cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            t0 = time.perf_counter()
+            check_decoder(root)
+            run_real_rec(root, work)
+            print(f"phase 16b seconds {time.perf_counter() - t0:.1f}", flush=True)
+            t0 = time.perf_counter()
+            run_real_detection(root, work, keep)
+            print(f"phase 16e seconds {time.perf_counter() - t0:.1f}", flush=True)
+        finally:
+            os.chdir(cwd)
+    t0 = time.perf_counter()
+    check_layout_tp(dev)
+    print(f"phase 16f seconds {time.perf_counter() - t0:.1f}", flush=True)
+
+
 def run(root: Path) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU to run on", file=sys.stderr)
@@ -2619,7 +2947,7 @@ def run(root: Path) -> int:
 
 
 def run_phases(root: Path, keep: Path) -> int:
-    """Phases 1-15; the trainer phases leave their checkpoints in ``keep``
+    """Phases 1-16; the trainer phases leave their checkpoints in ``keep``
     for phase 14."""
     sys.path.insert(0, str(root))
     from ocrs_models_torch.geometry import native
@@ -2774,6 +3102,12 @@ def run_phases(root: Path, keep: Path) -> int:
     t0 = time.perf_counter()
     run_data_parallel(dev, pages, root)
     print(f"phase 15 seconds {time.perf_counter() - t0:.1f}", flush=True)
+
+    # Phase 16: the real-data path on the toy roots (decoder, the trainers,
+    # eval_detection, the preview CLI) and layout tensor parallelism.
+    t0 = time.perf_counter()
+    run_real_data(root, dev, keep)
+    print(f"phase 16 seconds {time.perf_counter() - t0:.1f}", flush=True)
 
     print(f"smoke seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels + kernels_bf16}), flush=True)

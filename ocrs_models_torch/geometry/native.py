@@ -10,71 +10,44 @@ names which one runs.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from ..utils.native import load_library
+
 _SRC = Path(__file__).resolve().parent / "_native" / "geometry.cpp"
-_LIB_PATH = Path(__file__).resolve().parents[2] / "build" / "native" / "libgeometry.so"
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 
 
-def _build() -> bool:
-    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
-    try:
-        subprocess.run(
-            # No fused multiply-add, so results round like the numpy twins.
-            ["g++", "-O3", "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17",
-             "-o", str(tmp), str(_SRC)],
-            check=True,
-            capture_output=True,
-            timeout=240,
-        )
-    except (subprocess.SubprocessError, OSError):
-        return False
-    os.replace(tmp, _LIB_PATH)
-    return True
+def _bind(lib: ctypes.CDLL) -> None:
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    lib.cc_label.argtypes = [u8p, ctypes.c_int, ctypes.c_int, i32p]
+    lib.cc_label.restype = ctypes.c_int
+    lib.min_area_rect.argtypes = [f64p, ctypes.c_int, f64p]
+    lib.min_area_rect.restype = None
+    lib.polygon_offset.argtypes = [f64p, ctypes.c_int, ctypes.c_double, f64p]
+    lib.polygon_offset.restype = ctypes.c_int
+    lib.fill_polygon.argtypes = [f64p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p]
+    lib.fill_polygon.restype = None
+    lib.convex_clip_area.argtypes = [f64p, ctypes.c_int, f64p, ctypes.c_int]
+    lib.convex_clip_area.restype = ctypes.c_double
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
     """Load (building if needed) the native library, or None."""
-    global _lib, _load_failed
-    if _lib is not None or _load_failed:
-        return _lib
-    with _lock:
-        if _lib is not None or _load_failed:
-            return _lib
-        stale = not _LIB_PATH.exists() or _LIB_PATH.stat().st_mtime < _SRC.stat().st_mtime
-        if stale and not _build():
-            _load_failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(str(_LIB_PATH))
-        except OSError:
-            _load_failed = True
-            return None
-        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-        lib.cc_label.argtypes = [u8p, ctypes.c_int, ctypes.c_int, i32p]
-        lib.cc_label.restype = ctypes.c_int
-        lib.min_area_rect.argtypes = [f64p, ctypes.c_int, f64p]
-        lib.min_area_rect.restype = None
-        lib.polygon_offset.argtypes = [f64p, ctypes.c_int, ctypes.c_double, f64p]
-        lib.polygon_offset.restype = ctypes.c_int
-        lib.fill_polygon.argtypes = [f64p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p]
-        lib.fill_polygon.restype = None
-        lib.convex_clip_area.argtypes = [f64p, ctypes.c_int, f64p, ctypes.c_int]
-        lib.convex_clip_area.restype = ctypes.c_double
-        _lib = lib
-        return _lib
+    global _load_failed
+    if _load_failed:
+        return None
+    try:
+        # No fused multiply-add, so results round like the numpy twins.
+        return load_library(_SRC, "geometry", _bind, ["-ffp-contract=off"])
+    except (RuntimeError, OSError):
+        _load_failed = True
+        return None
 
 
 def available() -> bool:

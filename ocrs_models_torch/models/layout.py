@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import copy_to_model, reduce_from_model
 from .init import flax_init_
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -82,11 +83,19 @@ class Dropout(nn.Module):
     def extra_repr(self) -> str:
         return f"p={self.p}"
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                part: tuple[int, int] = (0, 1)) -> torch.Tensor:
+        """``part`` ``(i, parts)``: ``x`` is slice ``i`` of ``parts`` equal
+        slices of an activation along its last axis; the mask is drawn for
+        the whole activation and sliced alike."""
         if not self.training or self.p == 0.0:
             return x
         keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        i, parts = part
+        width = x.shape[-1]
+        keep = torch.rand((*x.shape[:-1], width * parts), generator=generator,
+                          device=x.device) < keep_prob
+        keep = keep[..., i * width:(i + 1) * width]
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -105,7 +114,13 @@ class SelfAttention(nn.Module):
 class EncoderLayer(nn.Module):
     """Post-LN encoder layer: self-attention -> add & norm -> FF (ReLU) ->
     add & norm, with dropout after ``out_proj``, after the ReLU and after
-    ``linear2``."""
+    ``linear2``.
+
+    Under tensor parallelism (``parallel.tp.shard_layout_model``) the layer
+    holds ``n_heads / tp_size`` heads of q, k and v and ``d_ff / tp_size``
+    FF units, and ``tp_group`` (its model group) sums the partial products
+    of ``out_proj`` and ``linear2`` before their biases; the defaults (no
+    group, one part) are the whole layer."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.1,
                  dtype: torch.dtype = torch.float32):
@@ -118,24 +133,33 @@ class EncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.dropout = Dropout(dropout)  # applied three times, each a fresh draw
+        self.tp_group, self.tp_rank, self.tp_size = None, 0, 1
+
+    def _row_dense(self, x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+        """``dense`` of a row-parallel layer: the partial products summed
+        over the model group, then the bias."""
+        product = torch.matmul(x.to(self.dtype), layer.weight.to(self.dtype).t())
+        return reduce_from_model(product, self.tp_group) + layer.bias.to(self.dtype)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """:param x: ``[N, W, d]`` float32 (the residual stream)."""
         n, w, d = x.shape
-        h, dt = self.n_heads, self.dtype
-        dh = d // h
+        dt, group = self.dtype, self.tp_group
+        h, dh = self.n_heads // self.tp_size, d // self.n_heads
         attn = self.self_attn
-        qkv = torch.matmul(x.to(dt), attn.in_proj_weight.to(dt).t()) + attn.in_proj_bias.to(dt)
-        q, k, v = (t.reshape(n, w, h, dh).transpose(1, 2) for t in qkv.split(d, dim=-1))
+        xin = copy_to_model(x, group).to(dt)
+        qkv = torch.matmul(xin, attn.in_proj_weight.to(dt).t()) + attn.in_proj_bias.to(dt)
+        q, k, v = (t.reshape(n, w, h, dh).transpose(1, 2) for t in qkv.split(h * dh, dim=-1))
         # bf16 products are exact in float32, so the f32 product is the
         # f32-accumulated bf16 product.
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(dh)
         probs = torch.softmax(scores, dim=-1)
-        ctx = torch.matmul(probs.to(dt), v).transpose(1, 2).reshape(n, w, d)
-        ctx = self.dropout(dense(ctx, attn.out_proj, dt), generator)
+        ctx = torch.matmul(probs.to(dt), v).transpose(1, 2).reshape(n, w, h * dh)
+        ctx = self.dropout(self._row_dense(ctx, attn.out_proj), generator)
         x = F.layer_norm(x + ctx.float(), (d,), self.norm1.weight, self.norm1.bias, 1e-5)
-        ff = self.dropout(F.relu(dense(x, self.linear1, dt)), generator)
-        ff = self.dropout(dense(ff, self.linear2, dt), generator)
+        ff = F.relu(dense(copy_to_model(x, group), self.linear1, dt))
+        ff = self.dropout(ff, generator, (self.tp_rank, self.tp_size))
+        ff = self.dropout(self._row_dense(ff, self.linear2), generator)
         return F.layer_norm(x + ff.float(), (d,), self.norm2.weight, self.norm2.bias, 1e-5)
 
 

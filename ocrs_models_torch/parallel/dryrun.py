@@ -9,7 +9,10 @@ Each rank takes its contiguous shard of each global batch (``shard_batch``):
 the recognizer's collective step with ``grad_accum=2`` (each rank's two
 microbatches, then one all-reduce), the detector's and the layout model's
 global steps. Every loss must be finite and every rank's models
-bit-identical after the step. Then the trained detector and recognizer
+bit-identical after the step. With an even ``world``, the layout step
+runs again tensor parallel on a ``world/2`` x 2 data x model mesh
+(``layout_tp``): its loss must lie within 1e-3 of the data-parallel
+step's (both without dropout), as in the JAX dry run. Then the trained detector and recognizer
 serve two pages over a mesh of ``world`` devices in one process (``world``
 CPU devices with ``--device cpu``), and the pages must equal those of one
 device. Prints one JSON line and exits non-zero on any failure.
@@ -76,15 +79,53 @@ def _rank(rank: int, world: int, device: torch.device) -> dict:
         collate_detection([dds[i] for i in range(world)], batch_multiple=world), 1e-3)
 
     lay = LayoutModel().to(device)
+    replicate_tree(lay, mesh)
+    lay_init = {k: v.clone() for k, v in lay.state_dict().items()}
     lds = SyntheticLayout(size=world, n_words=32)
-    run("layout", lay, make_layout_steps,
-        collate_layout([lds[i] for i in range(world)], batch_multiple=world), 3e-4)
+    lbatch = collate_layout([lds[i] for i in range(world)], batch_multiple=world)
+    run("layout", lay, make_layout_steps, lbatch, 3e-4)
+
+    if world % 2 == 0:  # the layout step again, tensor parallel on a (world/2) x 2 mesh
+        out["layout_tp"] = _layout_tp(device, mesh, lay_init, lbatch, world)
 
     if rank == 0:
         out["det_state"] = {k: v.cpu() for k, v in det.state_dict().items()}
         out["rec_state"] = {k: v.cpu() for k, v in rec.state_dict().items()}
         out["pages"] = [np.asarray(dds[i]["image"]) for i in range(min(2, world))]
     return out
+
+
+def _layout_tp(device, mesh, init: dict, batch: dict, world: int) -> dict:
+    """One layout step on the data mesh and one on a ``world/2 x 2`` data x
+    model mesh (``parallel/tp.py``), from the same weights, dropout off in
+    both (the two meshes split the rows differently, so their masks could
+    not match); their losses, the TP step's gathered state's shapes."""
+    from ..models import LayoutModel
+    from ..models.layout import Dropout
+    from ..training.state import create_train_state
+    from ..training.steps import make_layout_steps
+    from .mesh import create_mesh_2d, shard_batch
+    from .tp import gather_layout_state, shard_layout_model
+
+    def fresh() -> LayoutModel:
+        model = LayoutModel().to(device)
+        model.load_state_dict(init)
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        return model
+
+    losses = {}
+    mesh2 = create_mesh_2d(world // 2, 2, devices=[device])
+    for name, m, model in (("dp", mesh, fresh()),
+                           ("tp", mesh2, shard_layout_model(fresh(), mesh2))):
+        state = create_train_state(model)
+        train, _ = make_layout_steps(model, mesh=m)
+        _, metrics = train(state, shard_batch(batch, m)[0], 3e-4)
+        losses[name] = float(metrics["loss"])
+    shapes = {k: tuple(v.shape) for k, v in gather_layout_state(model, mesh2).items()}
+    return {"dp_loss": losses["dp"], "tp_loss": losses["tp"], "mesh": [world // 2, 2],
+            "gathered_shapes_equal": shapes == {k: tuple(v.shape) for k, v in init.items()}}
 
 
 def _texts(pages) -> list[list[str]]:
@@ -107,6 +148,15 @@ def dryrun(world: int, device: str = "cuda") -> dict:
         if len({r[f"{name}_digest"] for r in ranks}) != 1:
             raise AssertionError(f"{name}: the ranks' models differ after one step")
         summary[f"{name}_loss"] = losses[0]
+    if world % 2 == 0:
+        tp = ranks[0]["layout_tp"]
+        if not np.isfinite(tp["tp_loss"]) or not tp["gathered_shapes_equal"]:
+            raise AssertionError(f"layout_tp: {tp}")
+        # The JAX dry run's check: within 1e-3 of the data-parallel step's loss.
+        if abs(tp["tp_loss"] - tp["dp_loss"]) >= 1e-3 * max(abs(tp["dp_loss"]), 1.0):
+            raise AssertionError(f"tensor-parallel layout loss {tp['tp_loss']} diverges from "
+                                 f"the data-parallel step's {tp['dp_loss']}")
+        summary["layout_tp"] = tp
 
     first = ranks[0]
     mesh = create_mesh(devices=[dev] * world) if dev.type == "cpu" else create_mesh(world)

@@ -1,5 +1,8 @@
-"""Data-parallel mesh, batch sharding and collectives (the port's
-counterpart of ``ocrs_models_tpu/parallel/mesh.py``).
+"""Meshes, batch sharding and collectives (the port's counterpart of
+``ocrs_models_tpu/parallel/mesh.py``): the data-parallel mesh, and the
+data x model mesh of the layout model's tensor parallelism
+(:class:`Mesh2D`, :func:`layout_tp_spec`; the sharding itself is
+``parallel/tp.py``).
 
 The JAX package lays one mesh over every chip and lets GSPMD (or
 ``shard_map``) insert the collectives. Here a :class:`Mesh` is either
@@ -97,6 +100,8 @@ def shard_batch(batch: dict, mesh: Mesh) -> list[dict]:
     process's shard is its rank's). Only the numpy arrays and tensors of
     ``batch`` are sharded (their leading dimensions must all be ``n``,
     divisible by ``mesh.size``); other entries are left out."""
+    if isinstance(mesh, Mesh2D):  # the shards of the data axis; model ranks share theirs
+        mesh = Mesh(mesh.devices, mesh.dp, mesh.data_group)
     arrays = {k: v for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
     sizes = {v.shape[0] for v in arrays.values()}
     if len(sizes) != 1:
@@ -116,6 +121,99 @@ def shard_batch(batch: dict, mesh: Mesh) -> list[dict]:
             shard[k] = t.to(dev).contiguous()
         shards.append(shard)
     return shards
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A data x model mesh over a process group, one device per process:
+    ``dp`` data shards of every batch, each held by ``mp`` ranks that split
+    the model (tensor parallelism). Rank ``r`` sits at ``(r // mp, r %
+    mp)``, as ``create_mesh_2d`` lays the JAX package's devices out.
+    ``data_group`` joins the ranks of one model index (gradients and loss
+    sums), ``model_group`` the ranks of one data index (the model's
+    collectives); a group of one rank is None. ``group`` is the whole
+    process group (None in one process)."""
+
+    devices: tuple[torch.device, ...]
+    dp: int
+    mp: int
+    group: Optional[object] = None
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
+    axes: tuple[str, str] = ("data", "model")
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.mp
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.group is None else dist.get_rank(self.group)
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's data shard (its row of the mesh)."""
+        return self.rank // self.mp
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's part of the model (its column of the mesh)."""
+        return self.rank % self.mp
+
+
+def create_mesh_2d(dp: int, mp: int, devices: Optional[Sequence] = None,
+                   axes: tuple[str, str] = ("data", "model")) -> Mesh2D:
+    """A ``dp`` x ``mp`` mesh over the initialised process group, whose
+    world size must be ``dp * mp`` (or over this process alone when both
+    are 1 and no group is initialised). Every rank builds every subgroup
+    with ``torch.distributed.new_group`` in the same order (each data
+    group, then each model group), as the call requires; ``devices``
+    defaults to this rank's device."""
+    if dp < 1 or mp < 1:
+        raise ValueError(f"create_mesh_2d: dp={dp} and mp={mp} must be >= 1")
+    grouped = dist.is_available() and dist.is_initialized()
+    if not grouped:
+        if dp * mp != 1:
+            raise ValueError(f"create_mesh_2d({dp}, {mp}) needs a process group of {dp * mp} "
+                             "ranks (parallel.spawn or torchrun)")
+        if devices is None:
+            raise ValueError("create_mesh_2d: pass devices=[...] outside a process group")
+        return Mesh2D(tuple(torch.device(d) for d in devices), 1, 1, axes=axes)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != dp * mp:
+        raise ValueError(f"create_mesh_2d: {dp} x {mp} mesh in a process group of {world} ranks")
+    devs = (_rank_device(),) if devices is None else tuple(torch.device(d) for d in devices)
+    data_group = model_group = None
+    if dp > 1:
+        for j in range(mp):
+            g = dist.new_group([i * mp + j for i in range(dp)])
+            if rank % mp == j:
+                data_group = g
+    if mp > 1:
+        for i in range(dp):
+            g = dist.new_group([i * mp + j for j in range(mp)])
+            if rank // mp == i:
+                model_group = g
+    return Mesh2D(devs, dp, mp, dist.group.WORLD, data_group, model_group, axes)
+
+
+def layout_tp_spec(name: str) -> str:
+    """How tensor parallelism splits the layout model's parameter ``name``
+    (a ``state_dict`` key): ``"column"`` (the output rows of the QKV
+    projection and ``linear1``, weight and bias: each model rank holds its
+    heads of q, k and v and its slice of the feed-forward units), ``"row"``
+    (the input columns of ``out_proj.weight`` and ``linear2.weight``,
+    whose partial products are summed across the model group), or
+    ``"replicated"`` (everything else, the row-parallel biases included:
+    they are added once, after the sum). The counterpart of
+    ``layout_tp_spec`` in the JAX package, which splits QKV's columns into
+    contiguous halves where this splits by heads."""
+    parts = name.split(".")
+    if parts[-1] in ("in_proj_weight", "in_proj_bias") or parts[-2:-1] == ["linear1"]:
+        return "column"
+    if parts[-2:] in (["out_proj", "weight"], ["linear2", "weight"]):
+        return "row"
+    return "replicated"
 
 
 def replicate_tree(module: nn.Module, mesh: Mesh) -> list[nn.Module]:
@@ -192,3 +290,41 @@ def psum_differentiable(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     return _PsumDifferentiable.apply(x, group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's input to a column-parallel product: the identity;
+    backward, the gradient summed over ``group``. The identity for
+    ``group`` None."""
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's output of a row-parallel product: ``x`` summed over
+    ``group``; backward, the identity. The identity for ``group`` None."""
+    return x if group is None else _ReduceFromModel.apply(x, group)

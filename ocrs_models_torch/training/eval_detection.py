@@ -12,10 +12,10 @@ Usage:
     python -m ocrs_models_torch.training.eval_detection \\
         text-detection-checkpoint.pt page.png out
 
-The JAX CLI reads its page with PIL; this one reads an 8-bit greyscale or
-RGB PNG (non-interlaced) or a ``.npy`` array of pixel values in 0-255
-(``[H, W]``, ``[H, W, 1]`` or ``[H, W, 3]``), and converts RGB to grey as
-PIL's ``convert("L")`` does. ``model`` takes the port's checkpoints and the
+The JAX CLI reads its page with PIL; this one reads a JPEG or an 8-bit PNG
+through ``data.imageio.read_grey`` (the pixels of PIL's ``convert("L")``)
+or a ``.npy`` array of pixel values in 0-255 (``[H, W]``, ``[H, W, 1]`` or
+``[H, W, 3]``, RGB converted to grey as PIL's ``convert("L")`` does). ``model`` takes the port's checkpoints and the
 JAX trainer's ``--export x.pt``. ``main(argv, device="cuda")`` runs on the
 GPU and raises without one; tests pass ``device="cpu"``.
 """
@@ -30,23 +30,24 @@ import numpy as np
 import torch
 
 from ..config import SHRINK_DISTANCE, DetectionTrainConfig
+from ..data.imageio import read_grey, rgb_to_grey
 from ..data.resize import resize
 from ..device import resolve_device
 from ..geometry import expand_quads, extract_cc_quads
 from ..models import DetectionModel
-from ..utils.render import draw_quads, read_png, to_grey, write_png
+from ..utils.render import draw_quads, to_grey, write_png
 from .steps import numerics
 
 
 def read_grey_page(path: str) -> np.ndarray:
     """A page as ``[H, W]`` float32 grey values in 0-255."""
-    arr = np.load(path) if path.endswith(".npy") else read_png(path)
+    if not path.endswith(".npy"):
+        return read_grey(path).astype(np.float32)
+    arr = np.load(path)
     if arr.ndim == 3 and arr.shape[-1] == 1:
         arr = arr[..., 0]
     if arr.ndim == 3 and arr.shape[-1] == 3:
-        # PIL's convert("L"): ITU-R 601-2 luma in 16-bit fixed point.
-        rgb = arr.astype(np.int64)
-        arr = (rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16
+        arr = rgb_to_grey(arr)  # PIL's convert("L")
     if arr.ndim != 2:
         raise ValueError(f"{path}: expected a greyscale or RGB page, got shape {arr.shape}")
     return arr.astype(np.float32)
@@ -55,7 +56,7 @@ def read_grey_page(path: str) -> np.ndarray:
 def main(argv=None, device: str | torch.device = "cuda"):
     parser = ArgumentParser(description="Run text detection on one image.")
     parser.add_argument("model", help="Checkpoint (.pt)")
-    parser.add_argument("image", help="Page: PNG or .npy")
+    parser.add_argument("image", help="Page: JPEG, PNG or .npy")
     parser.add_argument("out_basename")
     args = parser.parse_args(argv)
     dev = resolve_device(device)

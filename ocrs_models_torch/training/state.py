@@ -39,15 +39,18 @@ class Optimizer:
             p.grad = None
 
     @torch.no_grad()
-    def step(self, lr: float) -> torch.Tensor:
+    def step(self, lr: float, norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Clip the gradients in ``.grad`` (a missing one counts as 0),
         take one Adam step of size ``lr`` and return the global norm of
-        the gradients before clipping."""
+        the gradients before clipping. ``norm``: that norm where this
+        process holds only part of the gradients (tensor parallelism),
+        else the norm of ``.grad``."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        if norm is None:
+            norm = global_norm(grads)
         if self.grad_clip_norm is not None:
             keep = norm < self.grad_clip_norm
             for g in grads:

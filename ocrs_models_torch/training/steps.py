@@ -35,7 +35,8 @@ from torch import nn
 
 from ..ops.ctc import ctc_loss_forward
 from ..ops.losses import balanced_cross_entropy_loss, weighted_bce_with_logits
-from ..parallel.mesh import all_reduce, pmean, psum
+from ..parallel.mesh import Mesh2D, all_reduce, pmean, psum
+from ..parallel.tp import is_sharded, tp_grad_norms
 from .state import TrainState, global_norm
 
 
@@ -243,16 +244,18 @@ def _tensors_to_device(batch: dict, keys: tuple[str, ...], dev: torch.device) ->
 
 
 def _weighted_train_step(model: nn.Module, names: dict, state: TrainState, batch: dict,
-                         lr: float, loss_fn, out_fn, n: int, grad_accum: int, group):
+                         lr: float, loss_fn, out_fn, n: int, grad_accum: int, group,
+                         norms=None):
     """One update of the detection or layout step: ``loss_fn(mb) -> (loss,
     output)`` over ``grad_accum`` strided microbatches, each microbatch's
     loss and gradient weighted by its valid count (the sum of its
     ``sample_weight``, else its row count) and the sums divided by theirs;
     with a process ``group``, ``loss_fn`` returns this rank's share of the
     loss over every rank's rows, the valid counts are summed across the
-    ranks and so are the loss and the gradients (one all-reduce). Returns
-    ``(loss, output_fn(output) in the batch's order, grad_norm,
-    grad_norms)``."""
+    ranks and so are the loss and the gradients (one all-reduce).
+    ``norms(model) -> (grad_norm, grad_norms)`` replaces the norms of this
+    process's gradients (tensor parallelism). Returns ``(loss,
+    output_fn(output) in the batch's order, grad_norm, grad_norms)``."""
     model.train()
     state.optimizer.zero_grad()
     with numerics():
@@ -290,8 +293,12 @@ def _weighted_train_step(model: nn.Module, names: dict, state: TrainState, batch
                 if grad_accum > 1:
                     p.grad.div_(den)
                 grads.setdefault(names[name], []).append(p.grad)
-        grad_norms = {k: global_norm(v) for k, v in grads.items()}
-        grad_norm = state.optimizer.step(lr)
+        if norms is None:
+            grad_norms = {k: global_norm(v) for k, v in grads.items()}
+            grad_norm = state.optimizer.step(lr)
+        else:
+            grad_norm, grad_norms = norms(model)
+            state.optimizer.step(lr, grad_norm)
     state.step += 1
     return loss, out, grad_norm, grad_norms
 
@@ -425,11 +432,29 @@ def make_layout_steps(model: nn.Module, pos_weight: float = 10.0, grad_accum: in
     ``generator`` (seed it per rank: one seed on every rank would repeat
     one mask). A mesh without a process group (one process) is the plain
     step.
+
+    A ``parallel.Mesh2D`` (data x model) runs the tensor-parallel step of
+    the JAX package's ``layout_tp_state_shardings``: ``model`` split by
+    ``parallel.tp.shard_layout_model`` over the mesh (before its train
+    state is built), each data shard's rows passed to the ``mp`` ranks
+    that hold it, the loss sums and gradients summed over the data group,
+    the norms (and a clip by the global norm) those of the unsharded
+    gradients. Seed ``generator`` per
+    data shard, alike in a model group (its ranks must drop the same
+    replicated units).
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    group = _training_group(mesh) if mesh is not None else None
     names = layout_module_names(model)
+    norms = None
+    if isinstance(mesh, Mesh2D):
+        if mesh.mp > 1 and not is_sharded(model):
+            raise ValueError("a data x model mesh needs the model split by "
+                             "parallel.tp.shard_layout_model first")
+        group = mesh.data_group
+        norms = lambda m: tp_grad_norms(m, names, mesh.model_group)  # noqa: E731
+    else:
+        group = _training_group(mesh) if mesh is not None else None
     keys = ("boxes", "labels", "sample_weight")
 
     def device() -> torch.device:
@@ -449,7 +474,7 @@ def make_layout_steps(model: nn.Module, pos_weight: float = 10.0, grad_accum: in
             raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
         loss, probs, grad_norm, grad_norms = _weighted_train_step(
             model, names, state, batch, lr, lambda mb: loss_fn(mb, generator), torch.sigmoid,
-            n, grad_accum, group)
+            n, grad_accum, group, norms)
         return state, {"loss": loss, "grad_norm": grad_norm, "grad_norms": grad_norms,
                        "probs": probs}
 

@@ -1,7 +1,7 @@
 """Text detection trainer CLI (the port's counterpart of
 ``ocrs_models_tpu/training/train_detection.py``).
 
-Synthetic pages at 800x600, the balanced BCE, Adam (1e-3, no clip),
+HierText, DDI-100 or synthetic pages at 800x600, the balanced BCE, Adam (1e-3, no clip),
 box-match metrics of the word quads every validation epoch, a checkpoint
 when the train loss improves, an early stop after 3 epochs without
 improvement, optional debug images. The detector runs cuDNN convolutions
@@ -10,14 +10,16 @@ kernel.
 
 Usage:
     python -m ocrs_models_torch.training.train_detection synthetic - --max-epochs 2
+    python -m ocrs_models_torch.training.train_detection hiertext /data/hiertext --max-epochs 2
+    python -m ocrs_models_torch.training.train_detection ddi /data/ddi100 --max-epochs 2
 
 Where the port differs from the JAX trainer:
 
 - ``--bf16`` (the default, as in the JAX trainer) trains
   ``DetectionModel(dtype=torch.bfloat16)``; ``--no-bf16`` trains in
   float32. Parameters, Adam's state and checkpoints are float32 either way.
-- ``hiertext`` and ``ddi`` raise: their readers are ROADMAP.md, Queue 1,
-  the HierText and DDI-100 readers.
+- ``hiertext`` and ``ddi`` read their pages with the port's own JPEG
+  decoder and PNG reader (``data/imageio.py``, no PIL).
 - ``--num-devices N`` (N > 1) trains on N GPUs of one host, one process
   each (NCCL; ``gloo`` when ``main`` is given ``device="cpu"``), as the JAX
   trainer does over a sharded batch: each rank's rows ``rank::N`` of the
@@ -159,10 +161,6 @@ def main(argv=None, device: str | torch.device = "cuda"):
     parser.add_argument("--mask-height", type=int, default=None,
                         help="Training mask height (width = 0.75 * height)")
     args = parser.parse_args(argv)
-    if args.dataset_type != "synthetic":
-        raise NotImplementedError(
-            f"dataset {args.dataset_type!r}: the HierText and DDI-100 readers are not ported "
-            "yet (ROADMAP.md, Queue 1: the HierText and DDI-100 readers); use 'synthetic'")
 
     cfg = DetectionTrainConfig()
     if args.mask_height:
@@ -174,6 +172,24 @@ def main(argv=None, device: str | torch.device = "cuda"):
         parser.exit(1, f"--mask-height {cfg.mask_height} gives mask {cfg.mask_size}; both dims "
                        "must be >= 128 to survive the U-Net's 6 pooling levels\n")
     batch_size = args.batch_size or cfg.batch_size
+    seed = cfg.seed
+    # The datasets first: a missing root raises here, and a spawning parent
+    # converts the ground truth once, before its ranks read it.
+    transform = DetectionAugment(cfg.mask_size, augment=args.augment, seed=seed)
+    val_transform = DetectionAugment(cfg.mask_size, augment=False)
+    val_max = max(10, int(args.max_images * 0.1)) if args.max_images else None
+    if args.dataset_type in ("hiertext", "ddi"):
+        if args.dataset_type == "hiertext":
+            from ..data.hiertext import HierTextDetection as DS
+        else:
+            from ..data.ddi100 import DDI100 as DS
+        train_ds = DS(args.data_dir, train=True, transform=transform, max_images=args.max_images)
+        val_ds = DS(args.data_dir, train=False, transform=val_transform, max_images=val_max)
+    else:
+        train_ds = SyntheticDetection(size=args.max_images or 64, page_size=cfg.mask_size,
+                                      seed=seed, transform=transform)
+        val_ds = SyntheticDetection(size=val_max or 8, page_size=cfg.mask_size, seed=seed + 1,
+                                    transform=val_transform)
     if should_spawn(args.num_devices):
         check_batch(batch_size, args.num_devices)
         spawn_trainer("train_detection", argv, device, args.num_devices)
@@ -183,15 +199,6 @@ def main(argv=None, device: str | torch.device = "cuda"):
     if args.num_devices not in (None, ranks.world):
         raise ValueError(f"--num-devices {args.num_devices} in a job of {ranks.world} ranks")
     check_batch(batch_size, ranks.world)
-    seed = cfg.seed
-
-    transform = DetectionAugment(cfg.mask_size, augment=args.augment, seed=seed)
-    val_transform = DetectionAugment(cfg.mask_size, augment=False)
-    val_max = max(10, int(args.max_images * 0.1)) if args.max_images else None
-    train_ds = SyntheticDetection(size=args.max_images or 64, page_size=cfg.mask_size,
-                                  seed=seed, transform=transform)
-    val_ds = SyntheticDetection(size=val_max or 8, page_size=cfg.mask_size, seed=seed + 1,
-                                transform=val_transform)
 
     def collate(samples):
         # Pads every batch to a multiple of grad_accum (zero-weight rows),

@@ -1,16 +1,18 @@
 """Text recognition trainer CLI (the port's counterpart of
 ``ocrs_models_tpu/training/train_rec.py``).
 
-The synthetic line dataset, CTC loss with ``W//4`` input lengths, Adam
-(1e-3) with reduce-on-plateau, global-norm clip 4.0, per-epoch CER,
-sample-prediction previews, a checkpoint and a JSONL metrics record every
-epoch, and the NaN-loss guard, on one GPU: each train step runs the
+HierText line crops or the synthetic line dataset, CTC loss with ``W//4``
+input lengths, Adam (1e-3) with reduce-on-plateau, global-norm clip 4.0,
+per-epoch CER, sample-prediction previews, a checkpoint and a JSONL
+metrics record every epoch, and the NaN-loss guard, on one GPU: each
+train step runs the
 port's six CUDA kernels (stage 1 forward and backward, the biGRU
 recurrence forward and backward for each of the two layers, the CTC alpha
 and beta recursions), each validation batch the three forward ones.
 
 Usage:
     python -m ocrs_models_torch.training.train_rec synthetic - --max-epochs 2
+    python -m ocrs_models_torch.training.train_rec hiertext /data/hiertext --max-epochs 2
 
 Where the port differs from the JAX trainer:
 
@@ -18,7 +20,10 @@ Where the port differs from the JAX trainer:
   ``RecognitionModel(dtype=torch.bfloat16)``, whose biGRU computes in bf16
   too, as the JAX trainer's does; ``--no-bf16`` trains in float32.
   Parameters, Adam's state and checkpoints are float32 either way.
-- ``hiertext`` raises: it needs a JPEG decoder and a dataset download.
+- ``hiertext`` reads the pages with the port's own JPEG decoder
+  (``data/imageio.py``, no PIL) and caches the line crops as the JAX
+  trainer does (``{split}-lines-cache/`` under the dataset's root, shared
+  with the JAX package).
 - ``--num-devices N`` (N > 1) trains on N GPUs of one host, one process
   each (NCCL; ``gloo`` when ``main`` is given ``device="cpu"``), with the
   JAX trainer's ``shard_map`` step: each rank's rows ``rank::N`` of the
@@ -154,12 +159,23 @@ def main(argv=None, device: str | torch.device = "cuda"):
         help="bfloat16 compute of the convolutions and the biGRU (parameters stay float32)",
     )
     args = parser.parse_args(argv)
-    if args.dataset_type == "hiertext":
-        raise NotImplementedError(
-            "hiertext: the HierText dataset needs a JPEG decoder and a dataset download, "
-            "neither of which the port has; use 'synthetic'")
     cfg = RecognitionTrainConfig()
     batch_size = args.batch_size or cfg.batch_size
+    seed = cfg.seed
+    # The datasets first: a missing root raises here, and a spawning parent
+    # converts the ground truth once, before its ranks read it.
+    augment = RecognitionAugment(seed=seed) if args.augment else None
+    val_max = max(10, int(args.max_images * 0.1)) if args.max_images else None
+    if args.dataset_type == "hiertext":
+        from ..data.hiertext import HierTextRecognition
+
+        train_ds = HierTextRecognition(args.data_dir, train=True, max_images=args.max_images,
+                                       transform=augment)
+        val_ds = HierTextRecognition(args.data_dir, train=False, max_images=val_max)
+    else:
+        train_ds = SyntheticRecognition(size=args.max_images or 512, seed=seed,
+                                        transform=augment)
+        val_ds = SyntheticRecognition(size=val_max or 64, seed=seed + 1)
     if should_spawn(args.num_devices):
         check_batch(batch_size, args.num_devices)
         spawn_trainer("train_rec", argv, device, args.num_devices, build_kernels=True)
@@ -169,12 +185,6 @@ def main(argv=None, device: str | torch.device = "cuda"):
     if args.num_devices not in (None, ranks.world):
         raise ValueError(f"--num-devices {args.num_devices} in a job of {ranks.world} ranks")
     check_batch(batch_size, ranks.world)
-    seed = cfg.seed
-
-    augment = RecognitionAugment(seed=seed) if args.augment else None
-    val_max = max(10, int(args.max_images * 0.1)) if args.max_images else None
-    train_ds = SyntheticRecognition(size=args.max_images or 512, seed=seed, transform=augment)
-    val_ds = SyntheticRecognition(size=val_max or 64, seed=seed + 1)
 
     def collate(samples):
         return collate_recognition(samples, width_step=cfg.width_step,

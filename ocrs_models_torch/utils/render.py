@@ -57,65 +57,16 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
-_CHANNELS = {0: 1, 2: 3}  # PNG colour types read: greyscale, RGB
-
-
 def read_png(path: str) -> np.ndarray:
-    """Read an 8-bit, non-interlaced greyscale or RGB PNG: ``[H, W]`` or
-    ``[H, W, 3]`` uint8. Anything else raises ``ValueError``."""
+    """Read a non-interlaced PNG of 8-bit samples, or of 1, 2 or 4-bit
+    greyscale or palette samples: ``[H, W]`` uint8 for greyscale (scaled to
+    0-255), ``[H, W, C]`` for RGB (3), palette (3: the palette's colours),
+    LA (2) and RGBA (4). Anything else raises ``ValueError``. The reader is
+    ``data.imageio.decode_png``."""
+    from ..data.imageio import decode_png
+
     with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = 8, None, []
-    while pos + 8 <= len(data):
-        (length,) = struct.unpack(">I", data[pos : pos + 4])
-        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        pos += 12 + length
-    if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
-        raise ValueError(
-            f"{path}: bit depth {depth}, colour type {color}, interlace {interlace}: only "
-            "8-bit non-interlaced greyscale (0) or RGB (2) PNGs are read; convert it, or "
-            "save the page as .npy")
-    bpp = _CHANNELS[color]
-    stride = w * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.int32)
-    prev = np.zeros(stride, np.int32)
-    for y in range(h):
-        kind, line = raw[y, 0], raw[y, 1:].astype(np.int32)
-        if kind == 0:
-            row = line
-        elif kind == 1:  # Sub: each byte adds the byte bpp to its left
-            row = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
-        elif kind == 2:  # Up
-            row = (line + prev) & 0xFF
-        elif kind in (3, 4):  # Average, Paeth: left to right, on Python ints
-            cur, up = [0] * bpp + line.tolist(), [0] * bpp + prev.tolist()
-            for x in range(bpp, stride + bpp):
-                a, b = cur[x - bpp], up[x]
-                if kind == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = up[x - bpp]
-                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                    pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-                cur[x] = (cur[x] + pred) & 0xFF
-            row = np.array(cur[bpp:], np.int32)
-        else:
-            raise ValueError(f"{path}: unknown PNG row filter {kind}")
-        out[y] = prev = row
-    img = out.astype(np.uint8)
-    return img if bpp == 1 else img.reshape(h, w, 3)
+        return decode_png(f.read(), path)
 
 
 def to_grey(img: np.ndarray) -> np.ndarray:

@@ -347,7 +347,6 @@ def test_png_reader_refuses_other_formats(tmp_path):
     import struct
     import zlib
 
-    Image.fromarray(np.zeros((4, 4, 4), np.uint8), "RGBA").save(tmp_path / "rgba.png")
     Image.fromarray(np.zeros((4, 4), np.uint16)).save(tmp_path / "deep.png")
     # Interlaced: a valid greyscale PNG with its IHDR's interlace flag set.
     Image.new("L", (9, 9)).save(tmp_path / "plain.png")
@@ -355,6 +354,13 @@ def test_png_reader_refuses_other_formats(tmp_path):
     data[28] = 1
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
     (tmp_path / "interlaced.png").write_bytes(bytes(data))
+    # RGBA is read (since the real-data readers); at 16 bits a sample it
+    # is not: an RGBA PNG with its IHDR's bit depth set to 16.
+    Image.fromarray(np.zeros((4, 4, 4), np.uint8), "RGBA").save(tmp_path / "rgba8.png")
+    data = bytearray((tmp_path / "rgba8.png").read_bytes())
+    data[24] = 16
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
+    (tmp_path / "rgba.png").write_bytes(bytes(data))
     (tmp_path / "text.png").write_text("not a png")
     for name in ("rgba", "deep", "interlaced", "text"):
         with pytest.raises(ValueError, match="PNG"):

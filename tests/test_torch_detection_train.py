@@ -502,9 +502,9 @@ def test_export_onnx_and_npz_equal_the_jax_package(jax_init, tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["hiertext", "data"], NotImplementedError),
-    (["ddi", "data"], NotImplementedError),
-    (["ddi", "data", "--num-devices", "2"], NotImplementedError),
+    (["hiertext", "data"], FileNotFoundError),
+    (["ddi", "data"], FileNotFoundError),
+    (["ddi", "data", "--num-devices", "2"], FileNotFoundError),
     (["synthetic", "-", "--mask-height", "160"], SystemExit),
     (["synthetic", "-", "--validate-only"], SystemExit),
 ])
@@ -512,8 +512,9 @@ def test_trainer_refusals(tmp_path, monkeypatch, argv, error):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(error) as info:
         train_detection.main(argv, device="cpu")
-    if error is NotImplementedError:
-        assert "ROADMAP.md" in str(info.value)
+    if error is FileNotFoundError:  # a missing dataset root, named before any rank starts
+        assert "data/" in str(info.value)
+        assert list(tmp_path.iterdir()) == []
     else:
         assert info.value.code == 1
 

@@ -347,7 +347,7 @@ def test_layout_grouping_overflow_words_become_lines():
     pipe = OcrPipeline(device="cpu", use_layout_model=True,
                        layout_state_dict=LayoutModel(return_probs=True).state_dict(),
                        layout_pad_words=4)
-    pipe.layout_model = _AllStarts()
+    pipe._layout = [_AllStarts()]  # the replica that serves, on the one device
     quads = np.stack([np.array([[i * 20, 0], [i * 20 + 10, 0], [i * 20 + 10, 10], [i * 20, 10]],
                                np.float32) for i in range(6)])
     lines = pipe.group_lines_with_layout_model(quads)

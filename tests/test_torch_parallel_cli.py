@@ -190,3 +190,6 @@ def test_dryrun_on_two_cpu_ranks():
         torch.set_num_threads(threads)
     assert summary["world"] == 2 and summary["served_lines"] > 0
     assert all(np.isfinite(summary[f"{k}_loss"]) for k in ("rec", "det", "layout"))
+    tp = summary["layout_tp"]  # the tensor-parallel leg on a 1 x 2 data x model mesh
+    assert tp["mesh"] == [1, 2] and tp["gathered_shapes_equal"]
+    assert abs(tp["tp_loss"] - tp["dp_loss"]) < 1e-3 * max(abs(tp["dp_loss"]), 1.0)

@@ -170,7 +170,9 @@ def test_export_writes_npz_and_onnx(tmp_path, monkeypatch, ext):
 
 
 def test_hiertext_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="JPEG decoder"):
+    # Without its dataset: a missing root is named (the toy-root runs are
+    # in test_torch_realdata.py).
+    with pytest.raises(FileNotFoundError, match=str(tmp_path / "train")):
         train_rec.main(["hiertext", str(tmp_path)], device="cpu")
     with pytest.raises(SystemExit):  # argparse refuses an unknown dataset type
         train_rec.main(["coco", "-"], device="cpu")

@@ -131,7 +131,7 @@ def run_trainer(rank, world, device, module: str, argv: list, dropout: bool = Tr
     import importlib
 
     if not dropout:
-        Dropout.forward = lambda self, x, generator=None: x
+        Dropout.forward = lambda self, x, generator=None, part=(0, 1): x
     trainer = importlib.import_module(f"ocrs_models_torch.training.{module}")
     state = trainer.main(argv, device=device)
     return {"digest": digest(state.model), "step": state.step,
@@ -171,3 +171,50 @@ def world1_recognition_rank(rank, world, device) -> dict:
     return {"backend": dist.get_backend(), "mesh_size": mesh.size, "losses": losses,
             "equal": losses[0] == losses[1] and all(torch.equal(sds[0][k], sds[1][k])
                                                     for k in sds[0])}
+
+
+def run_layout_tp(rank, world, device, dp: int, mp: int, model_kwargs: dict, state_dict: dict,
+                  batch: dict, steps: int, lr: float, dropout_seed=None,
+                  grad_clip_norm=None) -> dict:
+    """``steps`` tensor-parallel layout steps on a ``dp`` x ``mp`` mesh from
+    ``state_dict``: this rank's data shard of the global ``batch``, the
+    model split over its model group, Adam after a clip to
+    ``grad_clip_norm`` if given. Dropout off unless ``dropout_seed``
+    (then each data shard draws from ``dropout_seed + data rank``, alike
+    in its model group). Returns each step's metrics, the gathered full
+    state before the first step (the shard -> gather round trip), after
+    the first and after the last, and the shards' shapes."""
+    from ocrs_models_torch.parallel import (
+        create_mesh_2d,
+        gather_layout_state,
+        replicate_tree,
+        shard_layout_model,
+    )
+
+    mesh = create_mesh_2d(dp, mp, devices=[device])
+    model = LayoutModel(**model_kwargs)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()}, strict=True)
+    model.to(device)
+    if dropout_seed is None:
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    replicate_tree(model, mesh)
+    shard_layout_model(model, mesh)
+    out = {"rank": rank, "data_rank": mesh.data_rank, "model_rank": mesh.model_rank,
+           "shapes": {k: tuple(v.shape) for k, v in model.state_dict().items()},
+           "round_trip": {k: v.numpy() for k, v in gather_layout_state(model, mesh).items()},
+           "metrics": []}
+    state = create_train_state(model, grad_clip_norm)
+    train, _ = make_layout_steps(model, mesh=mesh)
+    local = shard_batch(batch, mesh)[0]
+    gen = None
+    if dropout_seed is not None:
+        gen = torch.Generator(device).manual_seed(dropout_seed + mesh.data_rank)
+    for i in range(steps):
+        state, m = train(state, local, lr, gen)
+        out["metrics"].append(_numpy(m))
+        if i == 0:
+            out["first"] = {k: v.numpy() for k, v in gather_layout_state(model, mesh).items()}
+    out["last"] = {k: v.numpy() for k, v in gather_layout_state(model, mesh).items()}
+    return out

@@ -128,8 +128,8 @@ def use_geometry_backend(name: str, monkeypatch) -> None:
     from ocrs_models_torch.geometry import native
 
     if name == "numpy":
+        monkeypatch.setattr(jax_native, "_lib", None)
         for mod in (jax_native, native):
-            monkeypatch.setattr(mod, "_lib", None)
             monkeypatch.setattr(mod, "_load_failed", True)
         return
     if native.get_lib() is None:
