@@ -2,8 +2,9 @@
 """Drive the PyTorch port's serving path, recognition training step,
 recognition trainer, layout model (served and trained), detection
 training, the ONNX and ``.npz`` export, the data-parallel paths, the
-real-data readers and the layout model's tensor parallelism on one NVIDIA
-GPU and check them.
+real-data readers, the layout model's tensor parallelism, and the
+on-device components, preprocessing and beam search on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -183,6 +184,21 @@ Phases (any failure exits non-zero, before the final line):
     1e-5, parameters rtol 1e-3 / atol 5e-5 but where the plain gradient
     is flat (within 1e-6 of 0: within 2 lr), the gathered state's keys
     and shapes the plain model's.
+17. Device-side geometry and preprocessing: (a)
+    ``connected_components_device`` and ``component_bounds_device`` on
+    two batches of 4 masks at 800 x 600 (the detection trainer's target
+    masks, and the pipeline's thresholded detector output of phase 5's
+    pages): each page's labels a bijection with the host core's
+    components, the boxes the host components' boxes in ascending label
+    order with ``max_components`` above and below the count (overflow:
+    slot K-1 holds the largest label's box); propagation steps and the
+    median ms of 5 calls (CUDA events) of each function, of one step and
+    of one test for the fixed point; (b) ``prepare_line_crops`` on 128
+    uint8 crops of 96 x 700 and ``photometric_augment`` with draws from a
+    CPU generator, on the card against the CPU within 1e-5, timed; (c)
+    ``ctc_beam_search_decode`` (beam 10) on the recognizer's log-probs of
+    phase 5's 128 crops of width 256: host ms a crop and the share equal
+    to the greedy decode (printed, not gated).
 
 Prints the nvidia-smi line, throughput lines, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -2938,6 +2954,192 @@ def run_real_data(root: Path, dev, keep: Path) -> None:
     print(f"phase 16f seconds {time.perf_counter() - t0:.1f}", flush=True)
 
 
+# ---------------------------------------------------------------- phase 17
+
+CC_PAGES = 4  # phase 17 (a): masks a batch, at the detector's 800 x 600
+TIMED_CALLS = 5  # phase 17: timed calls a function (their median)
+LINE_CROPS = 128  # phase 17 (b): uint8 line crops cut from phase 5's pages
+LINE_CROP_SIZE = (96, 700)  # their height and width (resized to 64 x 467)
+BEAM_WIDTH = 10  # phase 17 (c), ctc_beam_search_decode's default
+
+
+def _median_ms(fn, calls: int = TIMED_CALLS) -> float:
+    """The median of ``calls`` calls' times by CUDA events, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _host_boxes(labels: np.ndarray) -> np.ndarray:
+    """``[n, 4]`` inclusive ``(x0, y0, x1, y1)`` of the host core's labels
+    ``1..n``, in label order."""
+    ys, xs = np.nonzero(labels)
+    lab = labels[ys, xs]
+    order = np.argsort(lab, kind="stable")
+    lab, ys, xs = lab[order], ys[order], xs[order]
+    starts = np.flatnonzero(np.r_[True, lab[1:] != lab[:-1]])
+    return np.stack([np.minimum.reduceat(xs, starts), np.minimum.reduceat(ys, starts),
+                     np.maximum.reduceat(xs, starts), np.maximum.reduceat(ys, starts)], axis=1)
+
+
+def _expected_bounds(boxes: list[np.ndarray], k: int) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX package's slots for ``boxes`` in ascending-label order: the
+    first K, or with more than K the K-1 first and the last."""
+    out = np.zeros((len(boxes), k, 4), np.int32)
+    valid = np.zeros((len(boxes), k), bool)
+    for i, b in enumerate(boxes):
+        kept = b if len(b) <= k else np.concatenate([b[: k - 1], b[-1:]])
+        out[i, : len(kept)] = kept
+        valid[i, : len(kept)] = True
+    return out, valid
+
+
+def check_components(name: str, masks: np.ndarray, dev) -> dict:
+    """Phase 17 (a) on one batch of ``[N, 800, 600]`` masks: the device's
+    labels partition each page as the host C++ core does (a bijection of
+    labels, the same background), the boxes are the host components'
+    boxes in ascending device-label order under ``max_components`` above
+    and below the component count, and both are timed."""
+    from ocrs_models_torch.geometry import connected_components
+    from ocrs_models_torch.geometry import device as geo
+
+    steps = 0
+    propagate = geo._propagate
+
+    def counted(*args):
+        nonlocal steps
+        steps += 1
+        return propagate(*args)
+
+    fg = torch.from_numpy(masks).to(dev)
+    with mock.patch.object(geo, "_propagate", counted):
+        labels = geo.connected_components_device(fg, device=dev)
+    torch.cuda.synchronize()
+    found = labels.cpu().numpy()
+    boxes, counts = [], []
+    for i, mask in enumerate(masks):
+        host, n = connected_components(mask.astype(np.uint8))
+        on = mask > 0
+        if not np.array_equal(found[i] > 0, on):
+            raise AssertionError(f"components {name} page {i}: labels off the mask")
+        pairs = np.unique(np.stack([found[i][on], host[on]]), axis=1)  # by device label
+        if not pairs.shape[1] == n == len(np.unique(found[i][on])):
+            raise AssertionError(f"components {name} page {i}: {pairs.shape[1]} label pairs, "
+                                 f"{n} host components: not a bijection")
+        boxes.append(_host_boxes(host)[pairs[1] - 1] if n else np.zeros((0, 4), np.int64))
+        counts.append(n)
+    ks = sorted({max(counts) + 1, max(1, max(counts) // 2)})
+    for k in ks:
+        got, valid = geo.component_bounds_device(labels, k, device=dev)
+        want, want_valid = _expected_bounds(boxes, k)
+        if not (np.array_equal(valid.cpu().numpy(), want_valid)
+                and np.array_equal(got.cpu().numpy(), want)):
+            raise AssertionError(f"components {name}: boxes at max_components={k} differ from "
+                                 "the host components' boxes")
+    # One propagation step and one test for the fixed point, which
+    # CHECK_EVERY weighs against each other.
+    state, fg4 = labels[:, None].float(), fg[:, None] != 0
+    same = state.clone()
+    line = {"path": "components", "masks": name, "pages": len(masks),
+            "shape": list(masks.shape[1:]), "components": counts, "max_components": ks,
+            "overflowing_pages": [sum(c > k for c in counts) for k in ks],
+            "propagation_steps": steps, "check_every": geo.CHECK_EVERY,
+            "step_ms": _median_ms(lambda: geo._propagate(state, fg4)),
+            "fixed_point_test_ms": _median_ms(lambda: torch.equal(state, same)),
+            "cc_ms": _median_ms(lambda: geo.connected_components_device(fg, device=dev)),
+            "bounds_ms": _median_ms(lambda: geo.component_bounds_device(labels, ks[-1],
+                                                                         device=dev))}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def check_preprocessing(pages, dev) -> dict:
+    """Phase 17 (b): ``prepare_line_crops`` on uint8 line crops cut from
+    the pages, then ``photometric_augment`` with draws from a CPU generator
+    (the same draws on both devices), each on the card against the CPU
+    within 1e-5, and timed."""
+    from ocrs_models_torch.data import device_pipeline as pre
+
+    rng = np.random.default_rng(SEED)
+    h, w = LINE_CROP_SIZE
+    crops = np.empty((LINE_CROPS, 1, h, w), np.uint8)
+    for i in range(LINE_CROPS):
+        page = pages[i % len(pages)][..., 0]
+        y, x = (int(rng.integers(0, page.shape[0] - h)), int(rng.integers(0, page.shape[1] - w)))
+        crops[i, 0] = np.round((page[y : y + h, x : x + w] + 0.5) * 255)
+    x_cpu = torch.from_numpy(crops)
+    x_dev = x_cpu.to(dev)
+    lines = pre.prepare_line_crops(x_dev, 64, 800, device=dev)
+    lines_cpu = pre.prepare_line_crops(x_cpu, 64, 800, device="cpu")
+
+    def jitter(x, device):
+        return pre.photometric_augment(x, torch.Generator().manual_seed(SEED), device=device)
+
+    out = {"path": "preprocessing", "crops": list(crops.shape), "lines": list(lines.shape),
+           "line_crops_max_abs_err": (lines.cpu() - lines_cpu).abs().max().item(),
+           "photometric_max_abs_err": (jitter(lines, dev).cpu()
+                                       - jitter(lines_cpu, "cpu")).abs().max().item(),
+           "line_crops_ms": _median_ms(lambda: pre.prepare_line_crops(x_dev, 64, 800,
+                                                                      device=dev)),
+           "photometric_ms": _median_ms(lambda: jitter(lines, dev))}
+    print(json.dumps(out), flush=True)
+    for key in ("line_crops_max_abs_err", "photometric_max_abs_err"):
+        if not out[key] <= 1e-5:
+            raise AssertionError(f"preprocessing: {key} {out[key]} beyond 1e-5")
+    return out
+
+
+def run_beam_search(pipe, crops) -> dict:
+    """Phase 17 (c): ``ctc_beam_search_decode`` on the recognizer's
+    log-probs of phase 5's 256-wide crops, beside the greedy decode of the
+    same log-probs (numbers, not a check: the weights are random)."""
+    from ocrs_models_torch.utils.text import ctc_beam_search_decode, ctc_greedy_decode_text
+
+    chunk = [c for c in crops if c.shape[1] == BUCKET_WIDTHS[0]][:REC_BATCH]
+    x = torch.from_numpy(np.stack([c[:, :, 0] for c in chunk]))[:, None]
+    with pipe._numerics():
+        log_probs = pipe.rec_model(x.to(pipe.device)).cpu().numpy()
+    steps = chunk[0].shape[1] // 4  # the pipeline's CTC length of a crop
+    t0 = time.perf_counter()
+    beams = [ctc_beam_search_decode(lp[:steps], pipe.alphabet, BEAM_WIDTH) for lp in log_probs]
+    host_s = time.perf_counter() - t0
+    greedy = [ctc_greedy_decode_text(lp[:steps].argmax(-1), pipe.alphabet) for lp in log_probs]
+    out = {"path": "beam search", "crops": len(chunk), "steps": steps, "classes":
+           log_probs.shape[-1], "beam_width": BEAM_WIDTH,
+           "host_ms_per_crop": host_s / len(chunk) * 1e3,
+           "identical_to_greedy_share": float(np.mean([a == b for a, b in zip(beams, greedy)]))}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def run_device_ops(dev, pages, crops) -> dict:
+    """Phase 17: on-device connected components and bounds (the detection
+    trainer's target masks and the pipeline's thresholded detector output
+    of phase 5's pages), device-side preprocessing, CTC beam search."""
+    from ocrs_models_torch.config import DET_SIZE
+    from ocrs_models_torch.data import SyntheticDetection
+    from ocrs_models_torch.data.resize import resize
+    from ocrs_models_torch.pipeline import OcrPipeline
+
+    targets = SyntheticDetection(size=CC_PAGES, page_size=DET_SIZE, seed=SEED)
+    masks = {"targets": np.stack([targets[i]["mask"][..., 0] > 0.5 for i in range(CC_PAGES)])}
+    pipe = OcrPipeline(device=dev, seed=SEED)  # phase 5's float32 pipeline
+    det_in = np.stack([resize(p, pipe.det_size) for p in pages[:CC_PAGES]])
+    packed = pipe._det_masks(det_in)
+    masks["detector"] = np.unpackbits(packed, axis=-1)[..., : pipe.det_size[1]].astype(bool)
+    out = {name: check_components(name, m, dev) for name, m in masks.items()}
+    out["preprocessing"] = check_preprocessing(pages, dev)
+    out["beam search"] = run_beam_search(pipe, crops)
+    return out
+
+
 def run(root: Path) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU to run on", file=sys.stderr)
@@ -2947,7 +3149,7 @@ def run(root: Path) -> int:
 
 
 def run_phases(root: Path, keep: Path) -> int:
-    """Phases 1-16; the trainer phases leave their checkpoints in ``keep``
+    """Phases 1-17; the trainer phases leave their checkpoints in ``keep``
     for phase 14."""
     sys.path.insert(0, str(root))
     from ocrs_models_torch.geometry import native
@@ -3108,6 +3310,12 @@ def run_phases(root: Path, keep: Path) -> int:
     t0 = time.perf_counter()
     run_real_data(root, dev, keep)
     print(f"phase 16 seconds {time.perf_counter() - t0:.1f}", flush=True)
+
+    # Phase 17: connected components and bounds on the card, device-side
+    # preprocessing, CTC beam search.
+    t0 = time.perf_counter()
+    run_device_ops(dev, pages, crops)
+    print(f"phase 17 seconds {time.perf_counter() - t0:.1f}", flush=True)
 
     print(f"smoke seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels + kernels_bf16}), flush=True)

@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 DEFAULT_ALPHABET = (
     " 0123456789!\"#$%&'()*+,-./:;<=>?@[\\]^_`{|}~"
@@ -28,6 +28,7 @@ class DetectionModelConfig:
 
     depth_scale: Sequence[int] = (8, 16, 32, 32, 64, 128, 256)
     in_channels: int = 1
+    n_masks: int = 1  # output masks: the model emits one
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +104,34 @@ class LayoutTrainConfig:
     max_jitter: int = 10
     seed: int = 1234
     checkpoint_name: str = "text-layout-checkpoint"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Data-parallel mesh: the axis name of
+    :func:`ocrs_models_torch.parallel.create_mesh` and its device count."""
+
+    data_axis: str = "data"
+    num_devices: Optional[int] = None  # None => every visible device
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The model, mesh and trainer configurations in one tree."""
+
+    detection: DetectionModelConfig = dataclasses.field(default_factory=DetectionModelConfig)
+    recognition: RecognitionModelConfig = dataclasses.field(
+        default_factory=RecognitionModelConfig
+    )
+    layout: LayoutModelConfig = dataclasses.field(default_factory=LayoutModelConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    detection_train: DetectionTrainConfig = dataclasses.field(
+        default_factory=DetectionTrainConfig
+    )
+    recognition_train: RecognitionTrainConfig = dataclasses.field(
+        default_factory=RecognitionTrainConfig
+    )
+    layout_train: LayoutTrainConfig = dataclasses.field(default_factory=LayoutTrainConfig)
 
 
 def round_up(val: int, unit: int) -> int:

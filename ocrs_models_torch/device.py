@@ -23,3 +23,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise RuntimeError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def as_device_tensor(x, device: str | torch.device = "cuda") -> torch.Tensor:
+    """``x`` (a tensor or array) as a tensor on the resolved ``device``."""
+    return torch.as_tensor(x).to(resolve_device(device))

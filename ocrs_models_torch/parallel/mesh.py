@@ -32,6 +32,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..config import MeshConfig
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -60,7 +62,7 @@ def _rank_device() -> torch.device:
 
 
 def create_mesh(num_devices: Optional[int] = None,
-                devices: Optional[Sequence] = None, axis: str = "data") -> Mesh:
+                devices: Optional[Sequence] = None, axis: str = MeshConfig.data_axis) -> Mesh:
     """A 1-D data mesh.
 
     In a process of an initialised process group the mesh spans the group:

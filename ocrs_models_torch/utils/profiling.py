@@ -1,11 +1,35 @@
-"""Throughput counter (the port's copy of ``Throughput`` in
-``ocrs_models_tpu/utils/profiling.py``). The port's tracer is
+"""Profiling and throughput instrumentation (counterpart of
+``ocrs_models_tpu/utils/profiling.py``): a ``torch.profiler`` trace for
+TensorBoard and a ``Throughput`` counter of items/sec/chip with warm-up
+exclusion. The port's per-kernel breakdown is
 :mod:`ocrs_models_torch.profile_kernels`."""
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Optional
+from typing import Iterator, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str]) -> Iterator[None]:
+    """Trace the host and, where there is one, the CUDA device into
+    ``logdir`` (a ``*.pt.trace.json`` that TensorBoard's profiler plugin and
+    Perfetto read), written when the block ends. No-op when ``logdir`` is
+    falsy."""
+    if not logdir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(str(logdir)),
+    ):
+        yield
 
 
 class Throughput:
@@ -34,3 +58,9 @@ class Throughput:
         elapsed = now - self._started
         if elapsed > 0:
             self.last_rate = self.items / elapsed / self.n_chips
+
+    def items_per_sec_per_chip(self) -> float:
+        return self.last_rate
+
+    def summary(self) -> str:
+        return f"{self.last_rate:.0f} items/sec/chip"

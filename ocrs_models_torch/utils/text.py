@@ -4,7 +4,8 @@ Class index 0 is the CTC blank; class ``i > 0`` is ``alphabet[i - 1]``;
 characters outside the alphabet encode as ``unknown_char``.
 :func:`ctc_greedy_decode_batch` runs on the device in plain torch ops, so a
 recognition chunk costs one small integer fetch instead of a ``[N, T, C]``
-log-prob round trip.
+log-prob round trip. :func:`ctc_beam_search_decode` is a prefix beam search
+on the host, for one sequence.
 """
 
 from __future__ import annotations
@@ -89,3 +90,61 @@ def ctc_greedy_decode_batch(
     decoded = class_ids.new_zeros((n, t + 1))
     decoded.scatter_(1, dest, torch.where(keep, class_ids, 0))
     return decoded[:, :t], keep.sum(dim=1)
+
+
+def ctc_beam_search_decode(log_probs, alphabet: str, beam_width: int = 10) -> str:
+    """CTC prefix beam search over per-step log-probabilities, on the host
+    (the JAX package's, operation for operation, so ties break alike).
+
+    :param log_probs: ``[T, C]`` log-probabilities (numpy array or tensor on
+        any device), class 0 = blank.
+    :param beam_width: number of prefixes kept per step.
+    :return: the most probable label string.
+    """
+    if isinstance(log_probs, torch.Tensor):
+        log_probs = log_probs.detach().cpu().numpy()
+    log_probs = np.asarray(log_probs)
+    t_len, n_classes = log_probs.shape
+    NEG = -1e30
+
+    def logsum(a, b):
+        if a <= NEG:
+            return b
+        if b <= NEG:
+            return a
+        m = max(a, b)
+        return m + np.log(np.exp(a - m) + np.exp(b - m))
+
+    # prefix tuple -> (log p ending in blank, log p ending in non-blank)
+    beams: dict[tuple, tuple[float, float]] = {(): (0.0, NEG)}
+    for t in range(t_len):
+        lp = log_probs[t]
+        # Blank and the top classes of this step are the only extensions.
+        top = np.argpartition(-lp, min(beam_width, n_classes - 1))[: beam_width + 1]
+        candidates = set(int(c) for c in top) | {0}
+        new_beams: dict[tuple, tuple[float, float]] = {}
+
+        def add(prefix, pb, pnb):
+            opb, opnb = new_beams.get(prefix, (NEG, NEG))
+            new_beams[prefix] = (logsum(opb, pb), logsum(opnb, pnb))
+
+        for prefix, (pb, pnb) in beams.items():
+            total = logsum(pb, pnb)
+            for c in candidates:
+                p = float(lp[c])
+                if c == 0:
+                    add(prefix, total + p, NEG)
+                    continue
+                last = prefix[-1] if prefix else None
+                if c == last:
+                    # A repeat extends only the blank-ended path; the
+                    # non-blank-ended one collapses into the same prefix.
+                    add(prefix + (c,), NEG, pb + p)
+                    add(prefix, NEG, pnb + p)
+                else:
+                    add(prefix + (c,), NEG, total + p)
+        beams = dict(
+            sorted(new_beams.items(), key=lambda kv: logsum(*kv[1]), reverse=True)[:beam_width]
+        )
+    best = max(beams.items(), key=lambda kv: logsum(*kv[1]))[0]
+    return "".join(alphabet[c - 1] for c in best)

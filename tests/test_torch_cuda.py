@@ -2,8 +2,9 @@
 and bfloat16, the recognition trainer, the layout model, step and trainer,
 detection training (step, balanced BCE, trainer and inference CLIs)
 against the CPU, the ONNX export of models on the card against their
-forward, and the recognition step's collective path on a one-rank NCCL
-group against its plain step, on the card.
+forward, the recognition step's collective path on a one-rank NCCL
+group against its plain step, and the device components, bounds, resize
+and line crops against the CPU, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc``; without a GPU they skip. The
 file imports nothing of JAX, so it runs on a machine that has only the
@@ -25,10 +26,15 @@ from ocrs_models_torch.data import (
     collate_detection,
     collate_layout,
 )
+from ocrs_models_torch.data import device_pipeline as pre
 from ocrs_models_torch.data.layout_synth import SyntheticDocLayout
 from ocrs_models_torch.export.onnx_check import check_model
 from ocrs_models_torch.export.onnx_eval import run_graph
 from ocrs_models_torch.export.onnx_proto import parse_model
+from ocrs_models_torch.geometry.device import (
+    component_bounds_device,
+    connected_components_device,
+)
 from ocrs_models_torch.models import DetectionModel, LayoutModel, RecognitionModel
 from ocrs_models_torch.models import layout as layout_module
 from ocrs_models_torch.models.layout import Dropout
@@ -934,3 +940,50 @@ def test_world1_nccl_recognition_step_equals_the_plain_step(dev, tmp_path):
     (r,) = spawn(world1_recognition_rank, 1, dev, timeout=600, store_dir=str(tmp_path))
     assert r["backend"] == "nccl" and r["mesh_size"] == 1
     assert r["equal"], r["losses"]
+
+
+# ------------------------------------------ components and preprocessing
+
+def _mask_batch(kind):
+    if kind == "random-64x96":
+        return np.random.default_rng(0).uniform(size=(3, 64, 96)) < 0.55
+    pages = SyntheticDetection(size=2, page_size=(800, 600), seed=3)
+    return np.stack([pages[i]["mask"][..., 0] > 0.5 for i in range(2)])
+
+
+@pytest.mark.parametrize("kind", ["random-64x96", "targets-800x600"])
+def test_connected_components_and_bounds_on_card_equal_cpu(dev, kind):
+    masks = _mask_batch(kind)
+    want = connected_components_device(masks, device="cpu")
+    got = connected_components_device(masks, device=dev)
+    assert got.device == dev and torch.equal(got.cpu(), want)
+    counts = [len(torch.unique(m[m > 0])) for m in want]
+    for k in (1, 4, max(counts) + 1):
+        boxes, valid = component_bounds_device(got, k, device=dev)
+        want_boxes, want_valid = component_bounds_device(want, k, device="cpu")
+        assert torch.equal(valid.cpu(), want_valid) and torch.equal(boxes.cpu(), want_boxes)
+    assert max(counts) > 4
+
+
+@pytest.mark.parametrize("case", [(150, 600, 64, 256), (100, 30, 64, 19), (37, 411, 64, 710)])
+def test_batch_resize_on_card_matches_cpu(dev, case):
+    h, w, out_h, out_w = case
+    x = torch.rand((4, 1, h, w), generator=torch.Generator().manual_seed(h)) - 0.5
+    got = pre.batch_resize(x, out_h, out_w, device=dev)
+    assert got.device == dev
+    torch.testing.assert_close(got.cpu(), pre.batch_resize(x, out_h, out_w, device="cpu"),
+                               rtol=0, atol=1e-5)
+
+
+def test_line_crops_and_photometric_on_card_match_cpu(dev):
+    crops = torch.randint(0, 256, (16, 1, 96, 700), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(0))
+    want = pre.prepare_line_crops(crops, 64, 800, device="cpu")
+    got = pre.prepare_line_crops(crops, 64, 800, device=dev)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    # Draws from a CPU generator: the same jitter on both devices.
+    jit = pre.photometric_augment(got, torch.Generator().manual_seed(1), device=dev)
+    jit_cpu = pre.photometric_augment(want, torch.Generator().manual_seed(1), device="cpu")
+    torch.testing.assert_close(jit.cpu(), jit_cpu, rtol=0, atol=1e-5)
+    on_card = pre.photometric_augment(got, torch.Generator(dev).manual_seed(1), device=dev)
+    assert on_card.device == dev and -0.5 <= on_card.min() <= on_card.max() <= 0.5
