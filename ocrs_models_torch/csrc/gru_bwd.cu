@@ -75,8 +75,11 @@
 // version) at about 1.5 times the speed of an f32 FMA loop with the same
 // tiles (measured on an H100 80GB HBM3). The chain's
 // product stays on the f32 FMA pipes: its 16 or 20 rows do not fill the
-// 16-row tiles of `mma` at the cluster sizes that fit the card. H > 256
-// would need a cluster of more than 8 blocks; the wrapper raises for it.
+// 16-row tiles of `mma` at the cluster sizes that fit the card. The chain
+// takes H % 8 == 0 up to 256 (a cluster of at most 8 blocks); for every
+// other width the wrapper runs gru_wide.cu's chain between this file's
+// (a), (c) and (d), which take any H % 8 == 0 (`ocrs_gru_bwd_coef`,
+// `ocrs_gru_bwd_dw` and their bf16 entries).
 //
 // bf16 (`compute_dtype=jnp.bfloat16`) has kernels of its own, in namespace
 // `bf`, with every product on the tensor cores (`mma.sync.m16n8k16` bf16,
@@ -1323,6 +1326,60 @@ int rows_per_split(int M, int splits, int stage) {
     return (r + stage - 1) / stage * stage;
 }
 
+// The phases outside the chain, which any H % 8 == 0 takes (gru_wide.cu's
+// chain runs between them for the widths the cluster chain does not take).
+// (a) the coefficients.
+cudaError_t coef_f32(const float* px_f, const float* px_b, const float* ys_f, const float* ys_b,
+                     const float* w_hh, const float* b_hh, float* coef, int T, int N, int H,
+                     cudaStream_t s) {
+    const dim3 coef_grid((H + kBU - 1) / kBU, (T * N + kGM - 1) / kGM, 2);
+    gru_bwd_coef_kernel<<<coef_grid, kThreads, 0, s>>>(px_f, px_b, ys_f, ys_b, w_hh, b_hh, coef,
+                                                       T, N, H);
+    return cudaGetLastError();
+}
+
+// (c) and (d): dW and db from dpx and coef.
+cudaError_t dw_f32(const float* ys_f, const float* ys_b, const float* dpx_f, const float* dpx_b,
+                   const float* coef, float* dwp, float* dbp, float* dw, float* db, int splits,
+                   int T, int N, int H, cudaStream_t s) {
+    const dim3 dw_grid((H + kBU - 1) / kBU, (H + kDK - 1) / kDK, 2 * splits);
+    gru_bwd_dw_kernel<<<dw_grid, kThreads, 0, s>>>(ys_f, ys_b, dpx_f, dpx_b, coef, dwp, dbp,
+                                                   rows_per_split(T * N, splits, kDR), T, N, H);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int n_dw = 2 * H * 3 * H, n_db = 2 * 3 * H;
+    gru_bwd_dw_sum_kernel<<<(n_dw + n_db + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        dwp, dbp, dw, db, splits, splits, n_dw, n_db);
+    return cudaGetLastError();
+}
+
+// bf16 (a).
+cudaError_t coef_bf16(const io::bf16* px_f, const io::bf16* px_b, const io::bf16* ys_f,
+                      const io::bf16* ys_b, const float* w_hh, const float* b_hh, float* coef,
+                      int T, int N, int H, cudaStream_t s) {
+    const dim3 coef_grid((H + kBU - 1) / kBU, (T * N + kGM - 1) / kGM, 2);
+    bf::gru_bwd_coef_bf16_kernel<<<coef_grid, kThreads, 0, s>>>(px_f, px_b, ys_f, ys_b, w_hh,
+                                                                b_hh, coef, T, N, H);
+    return cudaGetLastError();
+}
+
+// bf16 (c) and (d): dW from dpx and the chain's dhn, db from its
+// `db_parts` partials.
+cudaError_t dw_bf16(const io::bf16* ys_f, const io::bf16* ys_b, const io::bf16* dpx_f,
+                    const io::bf16* dpx_b, const io::bf16* dhn, float* dwp, const float* dbp,
+                    int db_parts, float* dw, float* db, int splits, int T, int N, int H,
+                    cudaStream_t s) {
+    const dim3 dw_grid((H + kBU - 1) / kBU, (H + kDK - 1) / kDK, 2 * splits);
+    bf::gru_bwd_dw_bf16_kernel<<<dw_grid, kThreads, 0, s>>>(
+        ys_f, ys_b, dpx_f, dpx_b, dhn, dwp, rows_per_split(T * N, splits, bf::kWR), T, N, H);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int n_dw = 2 * H * 3 * H, n_db = 2 * 3 * H;
+    gru_bwd_dw_sum_kernel<<<(n_dw + n_db + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        dwp, dbp, dw, db, splits, db_parts, n_dw, n_db);
+    return cudaGetLastError();
+}
+
 // The four f32 launches.
 int launch_f32(int device, const float* px_f, const float* px_b, const float* ys_f,
                const float* ys_b, const float* dy_f, const float* dy_b, const float* w_hh,
@@ -1338,13 +1395,8 @@ int launch_f32(int device, const float* px_f, const float* px_b, const float* ys
     cudaLaunchAttribute attr;
     err = chain_config(kChain, &rows, N, H, &cfg, &attr, s);
     if (err != cudaSuccess) return (int)err;
-    const int M = T * N;
-    const int n_tiles = (H + kBU - 1) / kBU;
 
-    const dim3 coef_grid(n_tiles, (M + kGM - 1) / kGM, 2);
-    gru_bwd_coef_kernel<<<coef_grid, kThreads, 0, s>>>(px_f, px_b, ys_f, ys_b, w_hh, b_hh, coef,
-                                                       T, N, H);
-    err = cudaGetLastError();
+    err = coef_f32(px_f, px_b, ys_f, ys_b, w_hh, b_hh, coef, T, N, H, s);
     if (err != cudaSuccess) return (int)err;
 
     const float* coef_in = coef;
@@ -1352,16 +1404,7 @@ int launch_f32(int device, const float* px_f, const float* px_b, const float* ys
     err = cudaLaunchKernelExC(&cfg, kChain.kernel(rows), args);
     if (err != cudaSuccess) return (int)err;
 
-    const dim3 dw_grid(n_tiles, (H + kDK - 1) / kDK, 2 * splits);
-    gru_bwd_dw_kernel<<<dw_grid, kThreads, 0, s>>>(ys_f, ys_b, dpx_f, dpx_b, coef, dwp, dbp,
-                                                   rows_per_split(M, splits, kDR), T, N, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-
-    const int n_dw = 2 * H * 3 * H, n_db = 2 * 3 * H;
-    gru_bwd_dw_sum_kernel<<<(n_dw + n_db + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        dwp, dbp, dw, db, splits, splits, n_dw, n_db);
-    return (int)cudaGetLastError();
+    return (int)dw_f32(ys_f, ys_b, dpx_f, dpx_b, coef, dwp, dbp, dw, db, splits, T, N, H, s);
 }
 
 // The four bf16 launches; `rows` as for chain_config.
@@ -1379,13 +1422,8 @@ int launch_bf16(int device, const io::bf16* px_f, const io::bf16* px_b, const io
     cudaLaunchAttribute attr;
     err = chain_config(kChainBf16, &rows, N, H, &cfg, &attr, s);
     if (err != cudaSuccess) return (int)err;
-    const int M = T * N;
-    const int n_tiles = (H + kBU - 1) / kBU;
 
-    const dim3 coef_grid(n_tiles, (M + kGM - 1) / kGM, 2);
-    bf::gru_bwd_coef_bf16_kernel<<<coef_grid, kThreads, 0, s>>>(px_f, px_b, ys_f, ys_b, w_hh,
-                                                                b_hh, coef, T, N, H);
-    err = cudaGetLastError();
+    err = coef_bf16(px_f, px_b, ys_f, ys_b, w_hh, b_hh, coef, T, N, H, s);
     if (err != cudaSuccess) return (int)err;
 
     const float* coef_in = coef;
@@ -1393,16 +1431,16 @@ int launch_bf16(int device, const io::bf16* px_f, const io::bf16* px_b, const io
     err = cudaLaunchKernelExC(&cfg, kChainBf16.kernel(rows), args);
     if (err != cudaSuccess) return (int)err;
 
-    const dim3 dw_grid(n_tiles, (H + kDK - 1) / kDK, 2 * splits);
-    bf::gru_bwd_dw_bf16_kernel<<<dw_grid, kThreads, 0, s>>>(
-        ys_f, ys_b, dpx_f, dpx_b, dhn, dwp, rows_per_split(M, splits, bf::kWR), T, N, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    return (int)dw_bf16(ys_f, ys_b, dpx_f, dpx_b, dhn, dwp, dbp, (N + rows - 1) / rows, dw, db,
+                        splits, T, N, H, s);
+}
 
-    const int n_dw = 2 * H * 3 * H, n_db = 2 * 3 * H;
-    gru_bwd_dw_sum_kernel<<<(n_dw + n_db + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        dwp, dbp, dw, db, splits, (N + rows - 1) / rows, n_dw, n_db);
-    return (int)cudaGetLastError();
+// Checks and selects the device for a phase entry.
+cudaError_t phase_setup(int device, int T, int N, int H, int splits) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    return T >= 1 && N >= 1 && H >= 8 && H % 8 == 0 && splits >= 1 ? cudaSuccess
+                                                                      : cudaErrorInvalidValue;
 }
 
 int max_clusters(const Family& chain, int device, int N, int H, int* rows_out) {
@@ -1457,6 +1495,57 @@ int ocrs_gru_bwd_bf16_rows(int device, const io::bf16* px_f, const io::bf16* px_
     if (rows < 1) return (int)cudaErrorInvalidValue;
     return launch_bf16(device, px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, dpx_f, dpx_b,
                        coef, dhn, dwp, dbp, dw, db, splits, T, N, H, rows, stream);
+}
+
+// The phases around the chain alone, for any H % 8 == 0 (gru_wide.cu's
+// chain runs between them where H > 256): the coefficients, one launch,
+// coef [2, T*N, 5, H] float32 as above ...
+int ocrs_gru_bwd_coef(int device, const float* px_f, const float* px_b, const float* ys_f,
+                      const float* ys_b, const float* w_hh, const float* b_hh, float* coef,
+                      int T, int N, int H, void* stream) {
+    const RestoreDevice restore_device;
+    cudaError_t err = phase_setup(device, T, N, H, 1);
+    if (err == cudaSuccess)
+        err = coef_f32(px_f, px_b, ys_f, ys_b, w_hh, b_hh, coef, T, N, H, (cudaStream_t)stream);
+    return (int)err;
+}
+
+int ocrs_gru_bwd_coef_bf16(int device, const io::bf16* px_f, const io::bf16* px_b,
+                           const io::bf16* ys_f, const io::bf16* ys_b, const float* w_hh,
+                           const float* b_hh, float* coef, int T, int N, int H, void* stream) {
+    const RestoreDevice restore_device;
+    cudaError_t err = phase_setup(device, T, N, H, 1);
+    if (err == cudaSuccess)
+        err = coef_bf16(px_f, px_b, ys_f, ys_b, w_hh, b_hh, coef, T, N, H, (cudaStream_t)stream);
+    return (int)err;
+}
+
+// ... and dW, db from the chain's dpx (and coef's r), two launches, with
+// the scratch of ocrs_gru_bwd ...
+int ocrs_gru_bwd_dw(int device, const float* ys_f, const float* ys_b, const float* dpx_f,
+                    const float* dpx_b, const float* coef, float* dwp, float* dbp, float* dw,
+                    float* db, int splits, int T, int N, int H, void* stream) {
+    const RestoreDevice restore_device;
+    cudaError_t err = phase_setup(device, T, N, H, splits);
+    if (err == cudaSuccess)
+        err = dw_f32(ys_f, ys_b, dpx_f, dpx_b, coef, dwp, dbp, dw, db, splits, T, N, H,
+                     (cudaStream_t)stream);
+    return (int)err;
+}
+
+// ... in bf16 from dpx and the chain's dhn [2, T*N, H] bf16, and db from
+// its `db_parts` partials dbp [db_parts, 2, 3H].
+int ocrs_gru_bwd_dw_bf16(int device, const io::bf16* ys_f, const io::bf16* ys_b,
+                         const io::bf16* dpx_f, const io::bf16* dpx_b, const io::bf16* dhn,
+                         float* dwp, const float* dbp, int db_parts, float* dw, float* db,
+                         int splits, int T, int N, int H, void* stream) {
+    const RestoreDevice restore_device;
+    cudaError_t err = phase_setup(device, T, N, H, splits);
+    if (err == cudaSuccess && db_parts < 1) err = cudaErrorInvalidValue;
+    if (err == cudaSuccess)
+        err = dw_bf16(ys_f, ys_b, dpx_f, dpx_b, dhn, dwp, dbp, db_parts, dw, db, splits, T, N, H,
+                      (cudaStream_t)stream);
+    return (int)err;
 }
 
 // How many clusters of the chain's launch for (N, H) the device can hold

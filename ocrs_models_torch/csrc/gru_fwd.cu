@@ -50,8 +50,9 @@
 // The products stay on the f32 FMA pipes: plain TF32 tensor-core products
 // over a 200-step recurrence do not meet the 1e-4 tolerance against the
 // plain version, and an error-compensated 3xTF32 product was not tried.
-// H > 256 would need a cluster of more than 8 blocks; the wrapper raises
-// for it (every width the repo's models use is <= 256).
+// H > 256 would need a cluster of more than 8 blocks: the wrapper sends
+// every width this kernel does not take (H > 256 or H % 8 != 0) to
+// gru_wide.cu, one launch per step.
 //
 // bf16 (`compute_dtype=jnp.bfloat16`, the Pallas kernel's default) has a
 // kernel of its own, `gru_fwd_bf16_kernel`, with the Pallas kernel's

@@ -68,15 +68,15 @@ from .ops.gru import DW_SPLITS, MIN_ROWS, gru_bwd_phases_reference, gru_recurren
 from .ops.stage1 import stage1_bwd_reference, stage1_reference
 from .profile_kernels import device_records
 
-AB_DIR = _build.BUILD_DIR.parent / "ab"
 SEED = 1234
 GRU_ROWS = (16, 32, 48, 64)
 P, I = ctypes.c_void_p, ctypes.c_int
 
 
 def _load(kernel: str, name: str, src: Path) -> ctypes.CDLL:
-    AB_DIR.mkdir(parents=True, exist_ok=True)
-    lib = AB_DIR / f"lib{kernel}_{name}.so"
+    ab_dir = _build.build_dir().parent / "ab"
+    ab_dir.mkdir(parents=True, exist_ok=True)
+    lib = ab_dir / f"lib{kernel}_{name}.so"
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC_DIR}", "-o", str(lib), str(src)]
     subprocess.run(cmd, check=True, capture_output=True, timeout=_build.BUILD_TIMEOUT_S)
     dll = ctypes.CDLL(str(lib))

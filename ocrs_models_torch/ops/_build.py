@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, ``build/kernels/lib<name>.so``,
-and loaded with ``ctypes``. Sources are built at first use, one ``nvcc``
+shared library with a plain C interface, ``build/kernels/lib<name>.so``
+(``build/`` is ``utils.native.build_root()``: the checkout's, or the
+override or cache directory of an installed package), and loaded with ``ctypes``. Sources are built at first use, one ``nvcc``
 per source, all started together; a library newer than its source is
 reused. Nothing here runs at import time, so the CPU tests import the
 package on machines without ``nvcc``.
@@ -23,8 +24,9 @@ from pathlib import Path
 
 import torch
 
+from ..utils.native import build_root
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -53,13 +55,18 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
+def build_dir() -> Path:
+    """Where the kernels' libraries and compiler logs go."""
+    return build_root() / "kernels"
+
+
 def lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}.so"
+    return build_dir() / f"lib{name}.so"
 
 
 def log_path(name: str) -> Path:
     """Where the compiler's output (``-Xptxas -v``: registers, spills) goes."""
-    return BUILD_DIR / f"{name}.log"
+    return build_dir() / f"{name}.log"
 
 
 def _nvcc() -> str:
@@ -88,10 +95,11 @@ def build() -> dict[str, Path]:
     todo = [n for n in names if _stale(n)]
     if todo:
         nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out_dir = build_dir()
+        out_dir.mkdir(parents=True, exist_ok=True)
         procs = {}
         for name in todo:
-            tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+            tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
             log = open(log_path(name), "w")
             procs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log, tmp)

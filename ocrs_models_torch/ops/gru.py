@@ -10,7 +10,13 @@ recurrence; only ``h @ W_hh`` and the gate math run step by step, in
 Both kernels keep their slice of ``W_hh`` in registers for all steps and
 loop over time inside one launch; the blocks that share a batch tile form
 a thread block cluster and exchange the state through each other's shared
-memory. In bf16 their products run on the tensor cores. On CPU tensors
+memory. In bf16 their products run on the tensor cores. A cluster holds
+at most 8 blocks of 32 units, so these kernels take ``H % 8 == 0`` and
+``H <= 256`` (:func:`gru_route`: "cluster"); every other width, as the
+Pallas kernel takes any, goes to :func:`gru_wide_fwd` and
+:func:`gru_wide_bwd` (``csrc/gru_wide.cu``: one launch per step, the
+state in device memory between launches; the backward's phases around
+its chain are ``gru_bwd.cu``'s). On CPU tensors
 both wrappers run their plain versions (:func:`gru_recurrence_reference`,
 a Python loop of torch ops, and autograd of it). The backward kernel's
 three phases have plain versions of their own
@@ -41,6 +47,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import _build
@@ -100,8 +107,48 @@ def _fwd_lib() -> ctypes.CDLL:
 
 
 MAX_HIDDEN = 256
-"""Widest hidden size the kernels take: a cluster of ``H / 32`` blocks,
-at most 8."""
+"""Widest hidden size of the cluster route (``gru_fwd.cu``, ``gru_bwd.cu``:
+a cluster of ``H / 32`` blocks, at most 8); wider layers take the wide
+route (:func:`gru_route`)."""
+
+
+def gru_route(hid: int) -> str:
+    """Which kernels run a layer of hidden size ``hid`` on the card:
+    ``"cluster"`` (``gru_fwd.cu``, ``gru_bwd.cu``) for ``H % 8 == 0`` and
+    ``8 <= H <= MAX_HIDDEN``, ``"wide"`` (``gru_wide.cu``) for every other
+    ``H >= 1``."""
+    if hid < 1:
+        raise ValueError(f"gru_route: the hidden size must be at least 1, got {hid}")
+    return "cluster" if hid % 8 == 0 and hid <= MAX_HIDDEN else "wide"
+
+
+# The wide kernels take H % 8 == 0; another width is zero-padded to the
+# next multiple of 8 first, and the padding sliced off the results. This
+# is exact: a padded unit has px = 0, its W_hh row and columns 0 and b_hh
+# 0, so r = z = 1/2 and c = tanh(0) = 0, and from h = 0 its state stays 0;
+# its W_hh row is 0, so it feeds no real unit in either direction. In the
+# backward its dy is 0 and dh gets nothing through its W_hh row, so dht
+# stays 0; then its dpx, dph, dW and db entries are 0, and real units see
+# only zero terms from it.
+
+
+def _pad_gates(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t [..., 3H]`` with ``pad`` zero columns after each gate's ``H``."""
+    return F.pad(t.unflatten(-1, (3, -1)), (0, pad)).flatten(-2)
+
+
+def _unpad_gates(t: torch.Tensor, hid: int) -> torch.Tensor:
+    return t.unflatten(-1, (3, -1))[..., :hid].flatten(-2).contiguous()
+
+
+def _pad_w(w_hh: torch.Tensor, pad: int) -> torch.Tensor:
+    """``w_hh [2, H, 3H]`` as ``[2, H + pad, 3(H + pad)]``, zero-padded."""
+    return F.pad(_pad_gates(w_hh, pad), (0, 0, 0, pad))
+
+
+WIDE_ROWS = 32
+"""Batch rows per block of the wide kernels; the bf16 chain writes one
+``db`` partial per tile of them."""
 
 
 def _check(name: str, tensors: dict, t_len: int, n: int, hid: int) -> None:
@@ -121,23 +168,34 @@ def _check(name: str, tensors: dict, t_len: int, n: int, hid: int) -> None:
             raise ValueError(f"{name}: {key} must be contiguous {want} on {dev}")
         if tuple(t.shape) != shapes[key]:
             raise ValueError(f"{name}: {key} shape {tuple(t.shape)} != {shapes[key]}")
-    if hid % 8 or hid > MAX_HIDDEN:
-        raise ValueError(f"{name}: the kernel needs H % 8 == 0 and H <= {MAX_HIDDEN}, got H={hid}")
+
+
+def _cuda_sizes(name: str, tensors: dict) -> tuple[int, int, int]:
+    """``(T, N, H)`` of a call on CUDA tensors, checked (:func:`_check`);
+    raises for a device that is neither the CPU nor CUDA."""
+    px_f = tensors["px_f"]
+    if not px_f.is_cuda:
+        raise RuntimeError(f"{name}: unsupported device {px_f.device}")
+    if px_f.dim() != 3 or px_f.shape[-1] % 3:
+        raise ValueError(f"{name}: px_f must be [T, N, 3H], got {tuple(px_f.shape)}")
+    t_len, n, h3 = px_f.shape
+    _check(name, tensors, t_len, n, h3 // 3)
+    return t_len, n, h3 // 3
 
 
 def gru_fwd(px_f, px_b, w_hh, b_hh):
     """Forward kernel of one bidirectional layer's recurrence; same
     contract as :func:`gru_recurrence_reference`. A CUDA tensor goes
-    through ``gru_fwd.cu``'s kernel of its dtype (one ctypes call, one
-    launch for all T steps; for bf16 also the rounding of ``W_hh`` to bf16
-    values); a CPU tensor through the plain version."""
+    through ``gru_fwd.cu``'s kernel of its dtype where :func:`gru_route`
+    says "cluster" (one ctypes call, one launch for all T steps; for bf16
+    also the rounding of ``W_hh`` to bf16 values), else through
+    :func:`gru_wide_fwd`; a CPU tensor through the plain version."""
     if px_f.device.type == "cpu":
         return gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
-    if not px_f.is_cuda:
-        raise RuntimeError(f"gru_fwd: unsupported device {px_f.device}")
-    t_len, n, h3 = px_f.shape
-    hid = h3 // 3
-    _check("gru_fwd", {"px_f": px_f, "px_b": px_b, "w_hh": w_hh, "b_hh": b_hh}, t_len, n, hid)
+    t_len, n, hid = _cuda_sizes("gru_fwd", {"px_f": px_f, "px_b": px_b, "w_hh": w_hh,
+                                            "b_hh": b_hh})
+    if gru_route(hid) == "wide":
+        return gru_wide_fwd(px_f, px_b, w_hh, b_hh)
     ys_f = torch.empty((t_len, n, hid), device=px_f.device, dtype=px_f.dtype)
     ys_b = torch.empty_like(ys_f)
     w = _build.rounded(w_hh, px_f.dtype).contiguous()
@@ -153,6 +211,58 @@ def gru_fwd(px_f, px_b, w_hh, b_hh):
 
 
 gru_fwd.launches = 0
+
+
+def _wide_lib() -> ctypes.CDLL:
+    lib = _build.load("gru_wide")
+    if lib.ocrs_gru_wide_fwd.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        for sfx in _build.SUFFIX.values():
+            fn = getattr(lib, f"ocrs_gru_wide_fwd{sfx}")
+            fn.argtypes = [i] + [p] * 7 + [i, i, i, p]
+            fn.restype = ctypes.c_int
+        lib.ocrs_gru_wide_chain.argtypes = [i] + [p] * 8 + [i, i, i, p]
+        lib.ocrs_gru_wide_chain.restype = ctypes.c_int
+        lib.ocrs_gru_wide_chain_bf16.argtypes = [i] + [p] * 10 + [i, i, i, p]
+        lib.ocrs_gru_wide_chain_bf16.restype = ctypes.c_int
+    return lib
+
+
+def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
+    """The forward on the wide route, for any hidden size; same contract
+    as :func:`gru_recurrence_reference`. A CUDA tensor goes through
+    ``gru_wide.cu``'s forward of its dtype: one ctypes call, T launches
+    (one a step), the f32 state in scratch of the call's own, ``[2, 2, N,
+    H]``; for bf16 also the rounding of ``W_hh`` to bf16 values; a width
+    that is not a multiple of 8 zero-padded first (exact, see
+    :func:`_pad_gates`). A CPU tensor goes through the plain version."""
+    if px_f.device.type == "cpu":
+        return gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
+    t_len, n, hid = _cuda_sizes("gru_wide_fwd", {"px_f": px_f, "px_b": px_b, "w_hh": w_hh,
+                                                 "b_hh": b_hh})
+    pad = -hid % 8
+    if pad:
+        ys_f, ys_b = gru_wide_fwd(_pad_gates(px_f, pad), _pad_gates(px_b, pad),
+                                  _pad_w(w_hh, pad), _pad_gates(b_hh, pad))
+        return ys_f[..., :hid].contiguous(), ys_b[..., :hid].contiguous()
+    dev = px_f.device
+    ys_f = torch.empty((t_len, n, hid), device=dev, dtype=px_f.dtype)
+    ys_b = torch.empty_like(ys_f)
+    hs = torch.empty((2, 2, n, hid), device=dev, dtype=torch.float32)
+    w = _build.rounded(w_hh, px_f.dtype).contiguous()
+    lib = _wide_lib()
+    p = _build.ptr
+    rc = getattr(lib, f"ocrs_gru_wide_fwd{_build.SUFFIX[px_f.dtype]}")(
+        dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(hs), p(ys_f), p(ys_b), t_len, n, hid,
+        _build.stream_ptr(dev),
+    )
+    _build.check(lib, rc, "gru_wide_fwd")
+    gru_wide_fwd.launches += 1
+    return ys_f, ys_b
+
+
+gru_wide_fwd.launches = 0
 
 
 def gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
@@ -285,6 +395,14 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.ocrs_gru_bwd_bf16.argtypes = [i] + [p] * 16 + [i, i, i, i, p]
         lib.ocrs_gru_bwd_bf16.restype = ctypes.c_int
         for sfx in _build.SUFFIX.values():
+            fn = getattr(lib, f"ocrs_gru_bwd_coef{sfx}")
+            fn.argtypes = [i] + [p] * 7 + [i, i, i, p]
+            fn.restype = ctypes.c_int
+        lib.ocrs_gru_bwd_dw.argtypes = [i] + [p] * 9 + [i, i, i, i, p]
+        lib.ocrs_gru_bwd_dw.restype = ctypes.c_int
+        lib.ocrs_gru_bwd_dw_bf16.argtypes = [i] + [p] * 7 + [i, p, p, i, i, i, i, p]
+        lib.ocrs_gru_bwd_dw_bf16.restype = ctypes.c_int
+        for sfx in _build.SUFFIX.values():
             fn = getattr(lib, f"ocrs_gru_bwd{sfx}_max_clusters")
             fn.argtypes = [i, i, i, ctypes.POINTER(i)]
             fn.restype = ctypes.c_int
@@ -327,20 +445,20 @@ def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out: dict | 
     values, and the chain hands the weight gradient ``bf16(dhn)`` through
     scratch of its own and sums ``db`` itself); a CPU tensor through the
     plain version. A dict ``scratch_out`` gets the bf16 chain's ``dhn``
-    (``[2, T, N, H]``), for tests of that phase."""
+    (``[2, T, N, H]``), for tests of that phase. Where :func:`gru_route`
+    says "wide", the call is :func:`gru_wide_bwd`'s."""
     if px_f.device.type == "cpu":
         return gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
-    if not px_f.is_cuda:
-        raise RuntimeError(f"gru_bwd: unsupported device {px_f.device}")
-    t_len, n, h3 = px_f.shape
-    hid = h3 // 3
-    _check("gru_bwd", {
+    t_len, n, hid = _cuda_sizes("gru_bwd", {
         "px_f": px_f, "px_b": px_b, "ys_f": ys_f, "ys_b": ys_b, "dy_f": dy_f, "dy_b": dy_b,
         "w_hh": w_hh, "b_hh": b_hh,
-    }, t_len, n, hid)
+    })
+    if gru_route(hid) == "wide":
+        return gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out)
+    h3 = 3 * hid
     dev = px_f.device
     bf16 = px_f.dtype == torch.bfloat16
-    splits = max(1, min(DW_SPLITS, t_len * n // 512))
+    splits = _dw_splits(t_len, n)
     dpx_f = torch.empty_like(px_f)
     dpx_b = torch.empty_like(px_b)
     coef = torch.empty((2, t_len * n, 5, hid), device=dev, dtype=torch.float32)
@@ -374,6 +492,95 @@ def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out: dict | 
 
 
 gru_bwd.launches = 0
+
+
+def _dw_splits(t_len: int, n: int) -> int:
+    """Ranges of rows in the dW reduction: enough that every SM works."""
+    return max(1, min(DW_SPLITS, t_len * n // 512))
+
+
+def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
+                 scratch_out: dict | None = None):
+    """The backward on the wide route, for any hidden size; same contract
+    as :func:`gru_bwd_reference`. A CUDA tensor goes through ``gru_bwd.cu``'s
+    coefficients (one launch), ``gru_wide.cu``'s chain (T launches, one a
+    step, its state in scratch of the call's own; bf16 also writes
+    ``bf16(dhn)`` and ``db``'s partials), then ``gru_bwd.cu``'s dW
+    reduction and sum (two launches): T + 3 launches in three ctypes
+    calls, plus the copy of ``W_hh^T`` and, for bf16, the rounding of
+    ``W_hh``. A width that is not a multiple of 8 is zero-padded first
+    (exact, see :func:`_pad_gates`). A CPU tensor goes through the plain
+    version; ``scratch_out`` as for :func:`gru_bwd`."""
+    if px_f.device.type == "cpu":
+        return gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
+    t_len, n, hid = _cuda_sizes("gru_wide_bwd", {
+        "px_f": px_f, "px_b": px_b, "ys_f": ys_f, "ys_b": ys_b, "dy_f": dy_f, "dy_b": dy_b,
+        "w_hh": w_hh, "b_hh": b_hh,
+    })
+    pad = -hid % 8
+    if pad:
+        grads = gru_wide_bwd(
+            _pad_gates(px_f, pad), _pad_gates(px_b, pad), *(F.pad(t, (0, pad)) for t in
+                                                           (ys_f, ys_b, dy_f, dy_b)),
+            _pad_w(w_hh, pad), _pad_gates(b_hh, pad), scratch_out)
+        if scratch_out is not None and "dhn" in scratch_out:
+            scratch_out["dhn"] = scratch_out["dhn"][..., :hid].contiguous()
+        dpx_f, dpx_b, dw, db = grads
+        return (_unpad_gates(dpx_f, hid), _unpad_gates(dpx_b, hid),
+                _unpad_gates(dw[:, :hid], hid), _unpad_gates(db, hid))
+    h3 = 3 * hid
+    dev = px_f.device
+    dt = px_f.dtype
+    bf16 = dt == torch.bfloat16
+    sfx = _build.SUFFIX[dt]
+    stream = _build.stream_ptr(dev)
+    p = _build.ptr
+    w = _build.rounded(w_hh, dt).contiguous()
+    bwd, wide = _bwd_lib(), _wide_lib()
+
+    coef = torch.empty((2, t_len * n, 5, hid), device=dev, dtype=torch.float32)
+    rc = getattr(bwd, f"ocrs_gru_bwd_coef{sfx}")(
+        dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w), p(b_hh), p(coef), t_len, n, hid,
+        stream)
+    _build.check(bwd, rc, "gru_wide_bwd (coef)")
+
+    dpx_f = torch.empty_like(px_f)
+    dpx_b = torch.empty_like(px_b)
+    w_t = w.transpose(1, 2).contiguous()
+    dph = torch.empty((2, 2, n, h3), device=dev, dtype=torch.float32)
+    carry = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
+    splits = _dw_splits(t_len, n)
+    dwp = torch.empty((splits, 2, hid, h3), device=dev, dtype=torch.float32)
+    dw = torch.empty_like(w_hh)
+    db = torch.empty_like(b_hh)
+    if bf16:
+        tiles = -(-n // WIDE_ROWS)
+        dhn = torch.empty((2, t_len, n, hid), device=dev, dtype=torch.bfloat16)
+        dbp = torch.empty((tiles, 2, h3), device=dev, dtype=torch.float32)
+        rc = wide.ocrs_gru_wide_chain_bf16(
+            dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f), p(dpx_b),
+            p(dhn), p(dbp), t_len, n, hid, stream)
+        _build.check(wide, rc, "gru_wide_bwd (chain)")
+        rc = bwd.ocrs_gru_bwd_dw_bf16(
+            dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(dhn), p(dwp), p(dbp), tiles,
+            p(dw), p(db), splits, t_len, n, hid, stream)
+        if scratch_out is not None:
+            scratch_out["dhn"] = dhn
+    else:
+        rc = wide.ocrs_gru_wide_chain(
+            dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f), p(dpx_b),
+            t_len, n, hid, stream)
+        _build.check(wide, rc, "gru_wide_bwd (chain)")
+        dbp = torch.empty((splits, 2, h3), device=dev, dtype=torch.float32)
+        rc = bwd.ocrs_gru_bwd_dw(
+            dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(coef), p(dwp), p(dbp), p(dw),
+            p(db), splits, t_len, n, hid, stream)
+    _build.check(bwd, rc, "gru_wide_bwd (dw)")
+    gru_wide_bwd.launches += 1
+    return dpx_f, dpx_b, dw, db
+
+
+gru_wide_bwd.launches = 0
 
 
 class GRURecurrenceFunction(torch.autograd.Function):

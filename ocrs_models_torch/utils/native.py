@@ -1,7 +1,8 @@
 """Build and load the port's host C++ cores (``geometry/_native``,
 ``data/_native``): each is compiled with ``g++`` into ``build/native/`` at
 first use, and again when its source is newer, then loaded through ctypes
-once per process."""
+once per process. :func:`build_root` says where ``build/`` is, for these
+and for the CUDA kernels (``ops/_build.py``)."""
 
 from __future__ import annotations
 
@@ -12,14 +13,32 @@ import threading
 from pathlib import Path
 from typing import Callable, Sequence
 
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+BUILD_ENV = "OCRS_TORCH_BUILD_DIR"
+_PACKAGE_PARENT = Path(__file__).resolve().parents[2]
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
+def build_root() -> Path:
+    """The directory the port builds its libraries into, read at each
+    build: ``$OCRS_TORCH_BUILD_DIR`` when set; else ``build/`` beside the
+    package (in a checkout, its git-ignored ``build/``) when that can be
+    written; else ``ocrs_models_torch/`` in the user's cache directory
+    (``$XDG_CACHE_HOME``, else ``~/.cache``), as for a package installed
+    where it cannot write."""
+    override = os.environ.get(BUILD_ENV)
+    if override:
+        return Path(override)
+    beside = _PACKAGE_PARENT / "build"
+    if os.access(beside if beside.exists() else _PACKAGE_PARENT, os.W_OK):
+        return beside
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "ocrs_models_torch"
+
+
 def load_library(src: Path, name: str, bind: Callable[[ctypes.CDLL], None],
                  flags: Sequence[str] = ()) -> ctypes.CDLL:
-    """``build/native/lib{name}.so``, compiled from ``src`` (``g++ -O3`` and
+    """``lib{name}.so`` in :func:`build_root`'s ``native/``, compiled from ``src`` (``g++ -O3`` and
     ``flags``) if it is missing or older than ``src``, loaded, and passed
     to ``bind`` to set its functions' signatures. Raises ``RuntimeError``
     naming ``src`` when the build fails, ``OSError`` when the load does."""
@@ -29,7 +48,7 @@ def load_library(src: Path, name: str, bind: Callable[[ctypes.CDLL], None],
     with _lock:
         if name in _loaded:
             return _loaded[name]
-        path = BUILD_DIR / f"lib{name}.so"
+        path = build_root() / "native" / f"lib{name}.so"
         if not path.exists() or path.stat().st_mtime < src.stat().st_mtime:
             path.parent.mkdir(parents=True, exist_ok=True)
             # A per-process name and an atomic rename: concurrent workers

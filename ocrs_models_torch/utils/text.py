@@ -102,7 +102,11 @@ def ctc_beam_search_decode(log_probs, alphabet: str, beam_width: int = 10) -> st
     :return: the most probable label string.
     """
     if isinstance(log_probs, torch.Tensor):
-        log_probs = log_probs.detach().cpu().numpy()
+        # numpy has no bfloat16: widen it (exactly) to float32 first.
+        log_probs = log_probs.detach().cpu()
+        if log_probs.dtype == torch.bfloat16:
+            log_probs = log_probs.float()
+        log_probs = log_probs.numpy()
     log_probs = np.asarray(log_probs)
     t_len, n_classes = log_probs.shape
     NEG = -1e30

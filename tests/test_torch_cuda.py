@@ -52,6 +52,9 @@ from ocrs_models_torch.ops import (
     gru_bwd_reference,
     gru_fwd,
     gru_recurrence_reference,
+    gru_route,
+    gru_wide_bwd,
+    gru_wide_fwd,
     stage1_bwd,
     stage1_bwd_reference,
     stage1_fwd,
@@ -169,13 +172,108 @@ def test_gru_kernels_on_two_streams_do_not_disturb_each_other(dev):
             assert torch.equal(a, b)
 
 
-def test_gru_kernels_refuse_a_hidden_size_beyond_one_cluster(dev):
-    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(2, 4, 264, dev, 13)
-    with pytest.raises(ValueError, match="H <= 256"):
-        gru_fwd(px_f, px_b, w_hh, b_hh)
-    ys = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
-    with pytest.raises(ValueError, match="H <= 256"):
-        gru_bwd(px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
+# The wide route (gru_wide.cu, one launch a step; gru_bwd.cu's coef and dW
+# phases around its chain): H=12 (padded to 16), 264 (9 unit tiles, the
+# last ragged), 512 at N=259 (ragged batch tile) and at the wide training
+# step's T=257, N=128, and 1024. Tolerances those of the cluster rows, but
+# for the share of bf16 dpx equal to the plain version's at T=257, H=512:
+# 93%, not 95%. There two float32 summation orders alone disagree on 4-5%
+# of dpx's bf16 roundings: the plain version with float64 products reads
+# 95.5-95.9% equal to the float32 plain version, the kernel 95.0-95.1%, and
+# a chain that multiplies the unrounded dph 86.5% (measured on one H100 by
+# tests/torch_fixtures/wide_gru_equal_share.py).
+WIDE_SHAPES = [(5, 3, 12), (33, 40, 264), (7, 259, 512), (3, 4, 1024), (257, 128, 512)]
+
+
+def _wide_calls(fn, *args):
+    """Two calls of ``fn`` through the routing wrapper: their results, and
+    the launches each route counted."""
+    counts = lambda: (gru_fwd.launches, gru_bwd.launches, gru_wide_fwd.launches,  # noqa: E731
+                      gru_wide_bwd.launches)
+    before = counts()
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    return got, again, tuple(a - b for a, b in zip(counts(), before))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_gru_wide_route_matches_plain(dev, shape, dtype):
+    t, n, h = shape
+    assert gru_route(h) == "wide"
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(
+        t, n, h, dev, sum(shape) + 8, dy_scale=1.0 if t <= 65 else 0.1)
+    px_f, px_b, dy_f, dy_b = (v.to(dtype) for v in (px_f, px_b, dy_f, dy_b))
+    got, again, launched = _wide_calls(gru_fwd, px_f, px_b, w_hh, b_hh)
+    assert launched == (0, 0, 2, 0)
+    want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == (t, n, h) and torch.equal(a, b)
+        if dtype == BF16:
+            torch.testing.assert_close(a.float(), c.float(), rtol=0, atol=2e-2)
+            assert (a == c).float().mean().item() >= 0.95
+        else:
+            torch.testing.assert_close(a, c, rtol=0, atol=1e-4)
+    args = (px_f, px_b, *got, dy_f, dy_b, w_hh, b_hh)
+    got, again, launched = _wide_calls(gru_bwd, *args)
+    assert launched == (0, 0, 0, 2)
+    want = gru_bwd_reference(*args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)  # no atomics: bit-identical reruns
+    assert got[0].dtype == dtype and got[2].dtype == got[3].dtype == torch.float32
+    for a, b in zip(got[:2], want[:2]):
+        if dtype == BF16:
+            torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=2e-2)
+            assert (a == b).float().mean().item() >= (0.93 if t * h >= 257 * 512 else 0.95)
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    scale = 1e-3 if dtype == BF16 else 1e-4
+    for a, b in zip(got[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=scale * b.abs().max().item() + 1e-5)
+
+
+def test_gru_wide_bf16_chain_hands_on_its_plain_versions_dhn(dev):
+    # What the bf16 wide chain hands gru_bwd.cu's dW phase, bf16(dhn),
+    # against the chain's plain version, as the cluster chain's test holds it.
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(33, 40, 264, dev, 14)
+    px_f, px_b, dy_f, dy_b = (v.to(BF16) for v in (px_f, px_b, dy_f, dy_b))
+    ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
+    coef = gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh)
+    _, _, dhn_want, db_want = gru_bwd_chain_bf16_reference(coef, dy_f, dy_b, w_hh)
+    scratch = {}
+    _, _, _, db = gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out=scratch)
+    torch.cuda.synchronize()
+    dhn = scratch["dhn"]
+    assert dhn.dtype == BF16 and dhn.shape == dhn_want.shape == (2, 33, 40, 264)
+    torch.testing.assert_close(dhn.float(), dhn_want.float(), rtol=0, atol=2e-2)
+    assert (dhn == dhn_want).float().mean().item() >= 0.95
+    torch.testing.assert_close(db, db_want, rtol=0, atol=1e-3 * db_want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gru_wide_kernels_on_two_streams_do_not_disturb_each_other(dev, dtype):
+    # As the cluster kernels' test: each call's state and scratch are its
+    # own, so two calls in flight at once give what each gives alone.
+    cases = []
+    for t, n, seed in ((33, 72, 15), (20, 100, 16)):
+        px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, 512, dev, seed)
+        cases.append((px_f.to(dtype), px_b.to(dtype), w_hh, b_hh, dy_f.to(dtype), dy_b.to(dtype)))
+    alone = []
+    for px_f, px_b, w_hh, b_hh, dy_f, dy_b in cases:
+        ys = gru_fwd(px_f, px_b, w_hh, b_hh)
+        alone.append((ys, gru_bwd(px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    together = [None, None]
+    for _ in range(3):  # interleave the launches of the two streams
+        for i, (px_f, px_b, w_hh, b_hh, dy_f, dy_b) in enumerate(cases):
+            with torch.cuda.stream(streams[i]):
+                ys = gru_fwd(px_f, px_b, w_hh, b_hh)
+                together[i] = (ys, gru_bwd(px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh))
+    torch.cuda.synchronize()
+    for (ys_a, grads_a), (ys_t, grads_t) in zip(alone, together):
+        for a, b in zip((*ys_a, *grads_a), (*ys_t, *grads_t)):
+            assert torch.equal(a, b)
 
 
 def test_bigru_matches_cudnn_gru(dev):
@@ -490,7 +588,8 @@ def test_train_rec_trains_one_epoch_on_the_card(dev, tmp_path, monkeypatch, caps
     per_step = {"stage1_fwd": 1, "stage1_bwd": 1, "gru_fwd": 2, "gru_bwd": 2, "ctc_alpha": 1,
                 "ctc_beta": 1}
     per_batch = {"stage1_fwd": 1, "gru_fwd": 2, "ctc_alpha": 1}
-    assert counts == {k: 2 * per_step[k] + per_batch.get(k, 0) for k in per_step}
+    assert counts == {k: 2 * per_step.get(k, 0) + per_batch.get(k, 0) for k in counts}
+    assert counts["gru_wide_fwd"] == counts["gru_wide_bwd"] == 0  # H=256: the cluster route
     assert state.step == 2 and next(state.model.parameters()).is_cuda
     assert state.model.dtype == torch.bfloat16  # the trainer's default, as the JAX trainer's
     out = capsys.readouterr().out

@@ -207,6 +207,17 @@ def test_beam_search_equals_jax_on_random_log_probs(n_classes, beam):
                                                                           beam)
 
 
+def test_beam_search_decodes_a_bf16_tensor_as_jax_its_bf16_array():
+    # numpy has no bfloat16: the port widens a bf16 tensor to float32
+    # (exactly); JAX's function reads its bf16 array through ml_dtypes.
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=(10, 5)) * 2
+    lp = logits - np.log(np.exp(logits).sum(axis=1, keepdims=True))
+    want = jax_beam(jnp.asarray(lp, jnp.bfloat16), "abcd")
+    assert want == "badadab"
+    assert ctc_beam_search_decode(torch.from_numpy(lp).to(torch.bfloat16), "abcd") == want
+
+
 # ------------------------------------------------------ config and profiling
 
 def test_config_and_mesh_config_equal_jax():

@@ -318,6 +318,22 @@ def test_onnx_graph_bytes_equal_jax(case, tmp_path):
     assert (m.ir_version, m.opset) == (8, 16)
 
 
+def test_recognition_onnx_takes_the_models_gru_width(tmp_path):
+    # export_weights reads the biGRU's width from the model
+    # (export_utils.builder_kwargs): at gru_hidden=100 its graph is the
+    # JAX builder's at hidden=100 byte for byte, with hidden_size 100.
+    variables = random_variables(jax_models.RecognitionModel(n_classes=97, gru_hidden=100),
+                                 (1, 64, 64, 1), 5)
+    model = RecognitionModel(n_classes=97, gru_hidden=100)
+    model.load_state_dict(weights.recognition_state_dict_from_jax(variables), strict=True)
+    export_weights(create_train_state(model), str(tmp_path / "port.onnx"), "recognition")
+    port = (tmp_path / "port.onnx").read_bytes()
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    _assert_same_model_bytes(port, jax_graph.build_recognition_onnx(sd, hidden=100))
+    grus = [n for n in port_proto.parse_model(port).graph.nodes if n.op_type == "GRU"]
+    assert len(grus) == 2 and all(n.attrs["hidden_size"] == 100 for n in grus)
+
+
 # ------------------------------------------------------------------- numerics
 
 

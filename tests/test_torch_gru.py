@@ -1,6 +1,10 @@
 """Port's biGRU recurrence and ``BiGRU`` module vs the JAX package's
 ``gru_recurrence4`` (Pallas, interpret mode on CPU), its ``BiGRU`` on both
-backends, and torch's own ``nn.GRU``, on the same numpy inputs."""
+backends, and torch's own ``nn.GRU``, on the same numpy inputs; at the
+shipped kind of width (H=16: the cluster route on the card) and at the
+wide route's (H=12, not a multiple of 8; H=264, above 256); the route and
+the wide route's zero padding; and the recognition weights' strict load
+at other widths."""
 
 import jax
 import jax.numpy as jnp
@@ -8,30 +12,45 @@ import numpy as np
 import pytest
 import torch
 
+from ocrs_models_tpu.models import RecognitionModel as JaxRecognition
 from ocrs_models_tpu.ops.gru import BiGRU as JaxBiGRU
 from ocrs_models_tpu.ops.pallas.gru_kernel4 import gru_recurrence4
+from ocrs_models_torch.models import RecognitionModel
 from ocrs_models_torch.ops import (
     BiGRU,
     gru_bwd_phases_reference,
     gru_bwd_reference,
     gru_recurrence,
     gru_recurrence_reference,
+    gru_route,
 )
-from ocrs_models_torch.weights import bigru_state_dict_from_jax
+from ocrs_models_torch.ops.gru import MAX_HIDDEN, _pad_gates, _pad_w, _unpad_gates
+from ocrs_models_torch.weights import bigru_state_dict_from_jax, recognition_state_dict_from_jax
+from torch_port_common import random_variables
+
+# (T, H) cases: H=16 as before (their ids kept), H=12 and H=264 on the
+# wide route; T=7 at H=264 is left out (the Pallas kernel in interpret
+# mode is the slow side there).
+WIDTH_CASES = [(1, 16), (7, 16), (33, 16), (1, 12), (7, 12), (33, 12), (1, 264), (33, 264)]
+WIDTH_IDS = ["1", "7", "33", "1-h12", "7-h12", "33-h12", "1-h264", "33-h264"]
 
 
 def _case(t, n=8, h=16, seed=0):
+    # W_hh's scale falls as 1/sqrt(H), 0.3 at H=16, as nn.GRU's init
+    # does, so that every width's recurrence is as well conditioned: at 0.3
+    # and H=264 it is chaotic, and two float32 summation orders, 1e-7 apart
+    # at the first step, end 5e-3 apart after 33 steps.
     rng = np.random.default_rng(seed)
     px_f = rng.normal(size=(t, n, 3 * h)).astype(np.float32)
     px_b = rng.normal(size=(t, n, 3 * h)).astype(np.float32)
-    w = (rng.normal(size=(2, h, 3 * h)) * 0.3).astype(np.float32)
+    w = (rng.normal(size=(2, h, 3 * h)) * 0.3 * (16 / h) ** 0.5).astype(np.float32)
     b = (rng.normal(size=(2, 3 * h)) * 0.1).astype(np.float32)
     return px_f, px_b, w, b
 
 
-@pytest.mark.parametrize("t", [1, 7, 33])
-def test_recurrence_matches_pallas(t):
-    args = _case(t)
+@pytest.mark.parametrize("t,h", WIDTH_CASES, ids=WIDTH_IDS)
+def test_recurrence_matches_pallas(t, h):
+    args = _case(t, h=h)
     want_f, want_b = gru_recurrence4(*map(jnp.asarray, args), jnp.float32, True)
     got_f, got_b = gru_recurrence(*map(torch.from_numpy, args))
     np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), rtol=0, atol=1e-5)
@@ -53,13 +72,16 @@ def _port_bigru(params, feat=12, hidden=16, layers=2):
     return m
 
 
-@pytest.mark.parametrize("backend", ["scan", "pallas4"])
-def test_bigru_matches_jax(backend):
-    mod, params, xs = _jax_bigru(backend)
+@pytest.mark.parametrize(
+    "backend,hidden", [("scan", 16), ("pallas4", 16), ("scan", 12), ("pallas4", 12),
+                       ("scan", 264), ("pallas4", 264)],
+    ids=["scan", "pallas4", "scan-h12", "pallas4-h12", "scan-h264", "pallas4-h264"])
+def test_bigru_matches_jax(backend, hidden):
+    mod, params, xs = _jax_bigru(backend, hidden=hidden)
     want = np.asarray(mod.apply({"params": params}, jnp.asarray(xs)))
     with torch.no_grad():
-        got = _port_bigru(params)(torch.from_numpy(xs)).numpy()
-    assert got.shape == want.shape == (3, 9, 32)
+        got = _port_bigru(params, hidden=hidden)(torch.from_numpy(xs)).numpy()
+    assert got.shape == want.shape == (3, 9, 2 * hidden)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
@@ -74,15 +96,15 @@ def test_bigru_matches_nn_gru():
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("t", [1, 7, 33])
-def test_recurrence_gradients_match_pallas_vjp(t):
+@pytest.mark.parametrize("t,h", WIDTH_CASES, ids=WIDTH_IDS)
+def test_recurrence_gradients_match_pallas_vjp(t, h):
     # The port's backward on CPU (autograd of the plain recurrence, the
-    # twin of gru_bwd.cu) against gru_recurrence4's Pallas backward in
-    # interpret mode. Tolerance atol 1e-5: float32, cotangents of order 1
-    # summed over up to 33 steps.
-    args = _case(t, seed=4)
+    # twin of gru_bwd.cu and of gru_wide.cu's route) against
+    # gru_recurrence4's Pallas backward in interpret mode. Tolerance atol
+    # 1e-5: float32, cotangents of order 1 summed over up to 33 steps.
+    args = _case(t, h=h, seed=4)
     rng = np.random.default_rng(5)
-    dys = [rng.normal(size=(t, 8, 16)).astype(np.float32) for _ in range(2)]
+    dys = [rng.normal(size=(t, 8, h)).astype(np.float32) for _ in range(2)]
     _, vjp = jax.vjp(lambda *a: gru_recurrence4(*a, jnp.float32, True), *map(jnp.asarray, args))
     want = vjp(tuple(map(jnp.asarray, dys)))
     ins = [torch.from_numpy(a).requires_grad_(True) for a in args]
@@ -130,3 +152,101 @@ def test_backward_phases_match_autograd_at_ragged_shapes(t, n, h):
     want = gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w, b)
     for name, g, a in zip(("dpx_f", "dpx_b", "dw_hh", "db_hh"), got, want):
         torch.testing.assert_close(g, a, rtol=0, atol=1e-12, msg=name)
+
+
+# ------------------------------------------------------------ the wide route
+
+
+def test_gru_route():
+    # The cluster kernels' domain exactly (gru_cluster.cuh, shape_ok): H a
+    # multiple of 8 from 8 to 256; every other width is wide.
+    assert MAX_HIDDEN == 256
+    assert [gru_route(h) for h in (8, 16, 48, 128, 248, 256)] == ["cluster"] * 6
+    assert [gru_route(h) for h in (1, 4, 12, 100, 255, 257, 264, 512, 1024)] == ["wide"] * 9
+    with pytest.raises(ValueError, match="at least 1"):
+        gru_route(0)
+
+
+@pytest.mark.parametrize("h", [1, 12, 100])
+def test_zero_padded_recurrence_equals_the_unpadded_one(h):
+    # The wide wrappers pad H to the next multiple of 8 (zero px, W_hh rows
+    # and columns, b_hh): the padded units stay 0 and feed nothing, so the
+    # padded recurrence, forward and backward, sliced back, is the
+    # unpadded one. In float64, so that only a difference in the algebra
+    # would show: atol 1e-12 (the padded products add exact zero terms).
+    pad = -h % 8
+    rng = np.random.default_rng(h)
+    t, n = 6, 5
+    px_f, px_b = (torch.from_numpy(rng.normal(size=(t, n, 3 * h))) for _ in range(2))
+    w = torch.from_numpy(rng.normal(size=(2, h, 3 * h)) * 0.3)
+    b = torch.from_numpy(rng.normal(size=(2, 3 * h)) * 0.1)
+    dy_f, dy_b = (torch.from_numpy(rng.normal(size=(t, n, h))) for _ in range(2))
+    padded = (_pad_gates(px_f, pad), _pad_gates(px_b, pad), _pad_w(w, pad), _pad_gates(b, pad))
+    assert padded[2].shape == (2, h + pad, 3 * (h + pad))
+    ys = gru_recurrence_reference(px_f, px_b, w, b)
+    ys_p = gru_recurrence_reference(*padded)
+    for a, b_ in zip(ys, ys_p):
+        assert torch.equal(b_[..., h:], torch.zeros_like(b_[..., h:]))
+        torch.testing.assert_close(b_[..., :h], a, rtol=0, atol=1e-12)
+    want = gru_bwd_reference(px_f, px_b, *ys, dy_f, dy_b, w, b)
+    dys_p = [torch.nn.functional.pad(d, (0, pad)) for d in (dy_f, dy_b)]
+    got = gru_bwd_reference(*padded[:2], *ys_p, *dys_p, *padded[2:])
+    got = (_unpad_gates(got[0], h), _unpad_gates(got[1], h), _unpad_gates(got[2][:, :h], h),
+           _unpad_gates(got[3], h))
+    for name, g, a in zip(("dpx_f", "dpx_b", "dw_hh", "db_hh"), got, want):
+        assert g.shape == a.shape, name
+        torch.testing.assert_close(g, a, rtol=0, atol=1e-12, msg=name)
+
+
+@pytest.mark.parametrize("h", [12, 264])
+def test_recurrence_matches_pallas_bf16_at_wide_widths(h):
+    # bf16 compute (the Pallas kernel's default) at the wide route's
+    # widths, against gru_recurrence4(..., jnp.bfloat16, True) in interpret
+    # mode on the same bf16 inputs. Tolerances: ys 1e-2 and dpx 2e-2, as
+    # tests/test_torch_bf16.py states them at H=32 (a rounding of h that
+    # flips feeds the next steps); dW and db 1e-3 of their largest entry,
+    # the bound the card's bf16 rows use (chip_smoke.py): at H=264 some of
+    # dph's 125k bf16 roundings flip between the two sides' products, and a
+    # flip moves a dW entry by one bf16 ulp of dph times h_prev (read here:
+    # 1.7e-3 against a largest entry of 3.0, 5.8e-4 of it; H=32 stays
+    # within 1e-4).
+    t = 5
+    px_f, px_b, w, b = _case(t, n=5, h=h, seed=h)
+    rng = np.random.default_rng(h + 1)
+    dys = [rng.normal(size=(t, 5, h)).astype(np.float32) for _ in range(2)]
+    pxs = [jnp.asarray(p, jnp.bfloat16) for p in (px_f, px_b)]
+    ys_j, vjp = jax.vjp(lambda pf, pb, ww, bb: gru_recurrence4(pf, pb, ww, bb, jnp.bfloat16, True),
+                        *pxs, jnp.asarray(w), jnp.asarray(b))
+    grads_j = vjp(tuple(jnp.asarray(d, jnp.bfloat16) for d in dys))
+
+    def port(x):  # a bf16 JAX array as the same bf16 tensor
+        return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+    wt, bt = torch.from_numpy(w), torch.from_numpy(b)
+    ys = gru_recurrence(port(pxs[0]), port(pxs[1]), wt, bt)
+    for got, want in zip(ys, ys_j):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=0,
+                                   atol=1e-2)
+    got = gru_bwd_reference(port(pxs[0]), port(pxs[1]), *ys,
+                            *(port(jnp.asarray(d, jnp.bfloat16)) for d in dys), wt, bt)
+    for i, (g, j) in enumerate(zip(got, grads_j)):
+        j = np.asarray(j, np.float32)
+        atol = 2e-2 if i < 2 else 1e-3 * np.abs(j).max()
+        np.testing.assert_allclose(g.float().numpy(), j, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("hidden", [100, 512])
+def test_recognition_weights_load_strictly_at_other_gru_widths(hidden):
+    # recognition_state_dict_from_jax (and bigru_state_dict_from_jax in it)
+    # maps a JAX model of any gru_hidden into RecognitionModel(gru_hidden=
+    # ...) with a strict load, every tensor equal.
+    variables = random_variables(JaxRecognition(n_classes=97, gru_hidden=hidden), (1, 64, 64, 1),
+                                 hidden)
+    sd = recognition_state_dict_from_jax(variables)
+    model = RecognitionModel(n_classes=97, gru_hidden=hidden)
+    model.load_state_dict(sd, strict=True)
+    assert model.gru.hidden == hidden
+    assert tuple(model.gru.weight_hh_l1_reverse.shape) == (3 * hidden, hidden)
+    for key, value in model.state_dict().items():
+        assert torch.equal(value, sd[key]), key

@@ -79,11 +79,11 @@ def _batches(seed=0):
     return jax_batch, port_batch
 
 
-def _models(seed=0):
-    jax_model = JaxRecognition(n_classes=97, gru_hidden=HIDDEN, conv_backend="fused",
+def _models(seed=0, hidden=HIDDEN):
+    jax_model = JaxRecognition(n_classes=97, gru_hidden=hidden, conv_backend="fused",
                                gru_backend="pallas4")
     variables = random_variables(jax_model, (1, 64, 64, 1), seed)
-    port = RecognitionModel(n_classes=97, gru_hidden=HIDDEN)
+    port = RecognitionModel(n_classes=97, gru_hidden=hidden)
     port.load_state_dict(recognition_state_dict_from_jax(variables), strict=True)
     return jax_model, variables, port
 
@@ -96,9 +96,9 @@ def _jax_state(variables):
                          opt_state=tx.init(params), tx=tx)
 
 
-def _run(steps, grad_accum, seed=0):
+def _run(steps, grad_accum, seed=0, hidden=HIDDEN):
     jax_batch, port_batch = _batches(seed)
-    jax_model, variables, port = _models(seed)
+    jax_model, variables, port = _models(seed, hidden)
     jax_state = _jax_state(variables)
     jax_train, _ = jax_make_steps(jax_model, grad_accum=grad_accum)
     state = create_train_state(port, grad_clip_norm=CLIP)
@@ -141,7 +141,25 @@ def _port_state_dict(jax_state):
 
 @pytest.mark.parametrize("steps,grad_accum", [(1, 1), (3, 1), (1, 4), (3, 4)])
 def test_train_step_matches_jax(steps, grad_accum):
-    jax_state, jax_metrics, state, port_metrics = _run(steps, grad_accum)
+    _assert_steps_match(*_run(steps, grad_accum), steps)
+
+
+def test_gru_hidden_100_forward_and_step_match_jax():
+    # A biGRU width the cluster kernels do not take (H % 8 != 0: the wide
+    # route on the card), from JAX's variables through a strict load: the
+    # inference forward's log-probs within 1e-5, then one training step
+    # with the first step's bounds above.
+    jax_model, variables, port = _models(2, hidden=100)
+    jax_batch, port_batch = _batches(2)
+    want = jax_model.apply(jax.tree_util.tree_map(jnp.asarray, variables),
+                           jnp.asarray(jax_batch["image"]), train=False)
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(port_batch["image"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    _assert_steps_match(*_run(1, 1, seed=2, hidden=100), 1)
+
+
+def _assert_steps_match(jax_state, jax_metrics, state, port_metrics, steps):
     for i, (jm, pm) in enumerate(zip(jax_metrics, port_metrics)):
         first = i == 0
         np.testing.assert_allclose(pm["loss"].item(), jm["loss"], rtol=1e-5 if first else 1e-3)
