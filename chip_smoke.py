@@ -200,15 +200,21 @@ Phases (any failure exits non-zero, before the final line):
     ``ctc_beam_search_decode`` (beam 10) on the recognizer's log-probs of
     phase 5's 128 crops of width 256: host ms a crop and the share equal
     to the greedy decode (printed, not gated).
-18. The biGRU's wide route (``csrc/gru_wide.cu``, one launch a step;
-    ``gru_bwd.cu``'s ``coef`` and ``dw`` around its chain), which takes
-    every width the cluster kernels do not (``ops.gru.gru_route``): (a)
-    ``gru_fwd`` and ``gru_bwd`` at T=257, N=128 and H in {100, 264, 512},
-    in f32 and bf16, against the plain versions with the cluster rows'
-    tolerances (bf16 ``dpx`` at H=512: 93% equal, not 95%; see
-    ``_wide_min_equal``), the route and launch counts asserted, reruns
-    bit-identical, timed at H=512 beside the plain versions, cuDNN's
-    ``nn.GRU`` and the bound; (b) the shipped CRNN with ``gru_hidden=512``:
+18. The biGRU's wide route (``csrc/gru_wide.cu``; ``gru_bwd.cu``'s ``coef``
+    and ``dw`` around its chain), which takes every width the cluster
+    kernels do not (``ops.gru.gru_route``): up to 512 after padding its
+    persistent form, one launch for all T steps in clusters of up to 16
+    blocks; above, one launch a step. (a) ``gru_fwd`` and ``gru_bwd`` at
+    T=257, N=128 and H in {100, 264, 512}, in f32 and bf16, against the
+    plain versions with the cluster rows' tolerances (bf16 ``dpx`` at
+    H=512: 93% equal, not 95%; see ``_wide_min_equal``), the route, the
+    wrapper counts and the device launches a call asserted (one recurrence
+    kernel a forward, the chain and ``coef``, ``dw``, ``dw_sum`` a
+    backward, and in bf16 W_hh's two casts), reruns bit-identical, timed
+    at H=512 beside the plain versions, cuDNN's ``nn.GRU`` and the bound,
+    with the rows per block and the clusters launched and held at once;
+    the per-step form the same way at H=1024, T=9 (not timed); (b) the
+    shipped CRNN with ``gru_hidden=512``:
     3 steps against the plain step in each dtype (phase 8's tolerances for
     the first step, the CPU parity test's for later ones), then 10 timed
     steps at the headline and wide shapes (median [min, max], peak MiB,
@@ -3189,6 +3195,7 @@ WIDE_HIDDEN = 512  # phase 18: the recognizer's biGRU width on the wide route
 WIDE_CHECK_HIDDEN = (100, 264, WIDE_HIDDEN)  # phase 18 (a): held against the plain versions
 WIDE_T = 257  # phase 18 (a): the wide training bucket's steps (1024 // 4 + 1), at N=128
 WIDE_STEPS = 3  # phase 18 (b): steps held against the plain step
+STEPWISE_SHAPE = (9, REC_BATCH, 1024)  # phase 18 (a): (T, N, H) of the per-step form's check
 
 
 def _wide_min_equal(hid: int) -> float:
@@ -3196,21 +3203,57 @@ def _wide_min_equal(hid: int) -> float:
     as for the cluster rows, 93% at H=512. There (T=257, N=128) two float32
     summation orders alone disagree on 4-5% of bf16 roundings: the plain
     version with float64 products reads 95.5-95.9% equal to the float32
-    plain version, the kernel 95.0-95.1%, and a chain that multiplies the
-    unrounded dph 86.5% (``tests/torch_fixtures/wide_gru_equal_share.py``)."""
+    plain version, the per-step kernels 95.0-95.1%, and a chain that
+    multiplies the unrounded dph 86.5%
+    (``tests/torch_fixtures/wide_gru_equal_share.py``); the persistent
+    kernels read 94.9-95.0% (this phase)."""
     return 0.95 if hid <= 264 else 0.93
 
 
 def _wide_device_ms(times: dict, t_len: int, backward: bool) -> float | None:
     """Device ms of one wide-route call from the profiler's mean record by
-    kernel: the step kernel's times T (one launch a step), and for the
-    backward ``gru_bwd.cu``'s ``coef``, ``dw`` and ``dw_sum`` once each."""
+    kernel, each times its launches a call: the recurrence kernel once in
+    the persistent form (``gru_wide_fwd_kernel``, ``gru_wide_bwd_chain_kernel``
+    and their bf16 twins), T times in the per-step form (``*_step_kernel``),
+    and for the backward ``gru_bwd.cu``'s ``coef``, ``dw`` and ``dw_sum``
+    once each."""
     if not times:
         return None
-    if not backward:
-        return _device_ms(times, "gru_wide_fwd_step") * t_len
-    return (_device_ms(times, "gru_wide_bwd_chain_step") * t_len + _device_ms(times, "gru_bwd_coef")
-            + _device_ms(times, "gru_bwd_dw"))
+    part = "gru_wide_bwd_chain" if backward else "gru_wide_fwd"
+    found = {name: ms for name, ms in times.items() if part in name}
+    if not found:
+        raise AssertionError(f"no kernel named *{part}* ran on the device: {sorted(times)}")
+    ms = sum(v * (t_len if "_step_kernel" in name else 1) for name, v in found.items())
+    if backward:
+        ms += _device_ms(times, "gru_bwd_coef") + _device_ms(times, "gru_bwd_dw")
+    return ms
+
+
+def _wide_launches(t_len: int, backward: bool, bf16: bool, persistent: bool) -> int:
+    """Device launches of one wide-route call at a width that needs no
+    padding: the recurrence kernel (T in the per-step form), ``coef``,
+    ``dw``, ``dw_sum`` and (per step) the copy of W_hh^T for the backward,
+    and W_hh's two casts in bf16."""
+    chain = 1 if persistent else t_len
+    return (chain + 3 + (0 if persistent else 1) if backward else chain) + (2 if bf16 else 0)
+
+
+def _launch_calls(fn, calls: int = 2) -> tuple[float, float]:
+    """Device launches of one ``fn()``, and of them the cluster launches
+    (``cudaLaunchKernelExC``), counted from the profiler's host events
+    (exact, unlike its device records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ocrs_models_torch.profile_kernels import device_launches
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cluster = sum(1 for e in prof.events() if e.name == "cudaLaunchKernelExC")
+    return device_launches(prof) / calls, cluster / calls
 
 
 def _wide_call(fn, args, name: str):
@@ -3224,15 +3267,76 @@ def _wide_call(fn, args, name: str):
     return out
 
 
+def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) -> dict:
+    """``gru_fwd`` and ``gru_bwd`` on the wide route at (T, N, H) against
+    the plain versions (phase 18 (a)'s tolerances), reruns bit-identical,
+    and the device launches of a call of each; raises on a miss. Returns
+    the widths' entries of the kernels rows and the inputs."""
+    from ocrs_models_torch.ops import gru_bwd, gru_bwd_reference, gru_fwd, gru_recurrence_reference
+    from ocrs_models_torch.ops.gru import MAX_WIDE_HIDDEN
+
+    bf16 = dtype == BF16
+    persistent = hid + -hid % 8 <= MAX_WIDE_HIDDEN
+    w_hh, b_hh = _gru_weights(gen, dev, hid)
+    px_f, px_b = (torch.randn((t_len, n, 3 * hid), generator=gen).to(dev).to(dtype)
+                  for _ in range(2))
+    dy_f, dy_b = ((torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev).to(dtype)
+                  for _ in range(2))
+    ys = _wide_call(gru_fwd, (px_f, px_b, w_hh, b_hh), "gru_wide_fwd")
+    again = gru_fwd(px_f, px_b, w_hh, b_hh)
+    want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
+    args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
+    grads = _wide_call(gru_bwd, args, "gru_wide_bwd")
+    grads_again = gru_bwd(*args)
+    want_grads = gru_bwd_reference(*args)
+    torch.cuda.synchronize()
+    what = f"{tag} [T={t_len},N={n},H={hid}]"
+    if not all(torch.equal(a, b) for a, b in zip((*ys, *grads), (*again, *grads_again))):
+        raise AssertionError(f"the wide route is not deterministic at {what}")
+    err_ys = _err(ys, want)
+    err_dpx, err_dw = _err(grads[:2], want_grads[:2]), _err(grads[2:], want_grads[2:])
+    scale = max(t.abs().max().item() for t in want_grads[2:])
+    share_ys = _equal_share(ys, want)
+    share_dpx = _equal_share(grads[:2], want_grads[:2])
+    launches, cluster = zip(*(_launch_calls(fn) for fn in
+                              (lambda: gru_fwd(px_f, px_b, w_hh, b_hh), lambda: gru_bwd(*args))))
+    # Where the wrapper pads H to a multiple of 8, its pads and slices add
+    # launches of their own: the total is held only where it does not.
+    expected = [_wide_launches(t_len, b, bf16, persistent) for b in (False, True)]
+    print(f"gru wide {what} ({'persistent' if persistent else 'per step'}): ys max_abs_err "
+          f"{err_ys:.3e} (equal {share_ys:.4f}); dpx {err_dpx:.3e} (equal {share_dpx:.4f}), dW/db "
+          f"{err_dw:.3e} (max {scale:.3e}); device launches a call {launches[0]:g} forward, "
+          f"{launches[1]:g} backward, of them cluster launches {cluster[0]:g}, {cluster[1]:g}",
+          flush=True)
+    if bf16:
+        ok = (ys[0].dtype == BF16 and err_ys <= 2e-2 and err_dpx <= 2e-2
+              and min(share_ys, share_dpx) >= _wide_min_equal(hid) and err_dw <= 1e-3 * scale)
+    else:
+        ok = err_ys <= 1e-4 and err_dpx <= 1e-3 and err_dw <= 1e-4 * scale
+    if not ok:
+        raise AssertionError(f"the wide route disagrees with the plain versions at {what}")
+    if list(cluster) != [float(persistent)] * 2 or (hid % 8 == 0 and list(launches) != expected):
+        raise AssertionError(f"the wide route at {what}: {launches} device launches a forward "
+                             f"and a backward call ({cluster} cluster launches), not {expected} "
+                             f"({[int(persistent)] * 2})")
+    return {"fwd": {"max_abs_err": err_ys, "equal_share": share_ys},
+            "bwd": {"max_abs_err_dpx": err_dpx, "max_abs_err_dw": err_dw, "dw_max": scale,
+                    "equal_share": share_dpx},
+            "inputs": (px_f, px_b, w_hh, b_hh, args)}
+
+
 def check_gru_wide(dev, gen) -> list[dict]:
     """Phase 18 (a): the biGRU kernels on the wide route (``gru_wide.cu``
     and ``gru_bwd.cu``'s phases around its chain), through ``gru_fwd`` and
     ``gru_bwd``, against the plain versions at T=257, N=128 and H in
-    WIDE_CHECK_HIDDEN, in both dtypes, with the cluster rows' tolerances:
-    f32 ys 1e-4, dpx 1e-3, dW and db 1e-4 of their largest entry; bf16 ys
-    and dpx 2e-2 and ``_wide_min_equal`` of them equal, dW and db 1e-3 of
-    their largest entry. Reruns bit-identical. Timed at H=512 against the
-    plain versions and cuDNN's ``nn.GRU``. Returns the kernels line's rows."""
+    WIDE_CHECK_HIDDEN (the persistent form), in both dtypes, with the
+    cluster rows' tolerances: f32 ys 1e-4, dpx 1e-3, dW and db 1e-4 of
+    their largest entry; bf16 ys and dpx 2e-2 and ``_wide_min_equal`` of
+    them equal, dW and db 1e-3 of their largest entry. Reruns
+    bit-identical, device launches a call asserted. Timed at H=512 against
+    the plain versions and cuDNN's ``nn.GRU``, with the launch's rows per
+    block and clusters. The per-step form is held the same way at
+    STEPWISE_SHAPE. Returns the kernels line's rows."""
     from ocrs_models_torch.ops import (
         gru_bwd,
         gru_bwd_reference,
@@ -3240,6 +3344,7 @@ def check_gru_wide(dev, gen) -> list[dict]:
         gru_recurrence_reference,
         gru_route,
     )
+    from ocrs_models_torch.ops.gru import wide_max_active_clusters
 
     t_len, n = WIDE_T, REC_BATCH
     rows = []
@@ -3249,48 +3354,17 @@ def check_gru_wide(dev, gen) -> list[dict]:
         bwd = {"name": "gru_wide_bwd", "dtype": tag, "widths": {}}
         for hid in WIDE_CHECK_HIDDEN:
             if gru_route(hid) != "wide":
-                raise AssertionError(f"H={hid} does not take the wide route")
-            h3 = 3 * hid
-            w_hh, b_hh = _gru_weights(gen, dev, hid)
-            px_f, px_b = (torch.randn((t_len, n, h3), generator=gen).to(dev).to(dtype)
-                          for _ in range(2))
-            dy_f, dy_b = ((torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev).to(dtype)
-                          for _ in range(2))
-            ys = _wide_call(gru_fwd, (px_f, px_b, w_hh, b_hh), "gru_wide_fwd")
-            again = gru_fwd(px_f, px_b, w_hh, b_hh)
-            want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
-            args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
-            grads = _wide_call(gru_bwd, args, "gru_wide_bwd")
-            grads_again = gru_bwd(*args)
-            want_grads = gru_bwd_reference(*args)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip((*ys, *grads), (*again, *grads_again))):
-                raise AssertionError(f"the wide route is not deterministic at H={hid} ({tag})")
-            err_ys = _err(ys, want)
-            err_dpx, err_dw = _err(grads[:2], want_grads[:2]), _err(grads[2:], want_grads[2:])
-            scale = max(t.abs().max().item() for t in want_grads[2:])
-            share_ys = _equal_share(ys, want)
-            share_dpx = _equal_share(grads[:2], want_grads[:2])
-            print(f"gru wide {tag} [T={t_len},N={n},H={hid}]: ys max_abs_err {err_ys:.3e} "
-                  f"(equal {share_ys:.4f}); dpx {err_dpx:.3e} (equal {share_dpx:.4f}), dW/db "
-                  f"{err_dw:.3e} (max {scale:.3e})", flush=True)
-            if bf16:
-                ok = (ys[0].dtype == BF16 and err_ys <= 2e-2 and err_dpx <= 2e-2
-                      and min(share_ys, share_dpx) >= _wide_min_equal(hid)
-                      and err_dw <= 1e-3 * scale)
-            else:
-                ok = err_ys <= 1e-4 and err_dpx <= 1e-3 and err_dw <= 1e-4 * scale
-            if not ok:
-                raise AssertionError(f"the wide route disagrees with the plain versions at "
-                                     f"H={hid} ({tag})")
-            fwd["widths"][hid] = {"max_abs_err": err_ys, "equal_share": share_ys}
-            bwd["widths"][hid] = {"max_abs_err_dpx": err_dpx, "max_abs_err_dw": err_dw,
-                                  "dw_max": scale, "equal_share": share_dpx}
+                raise AssertionError(f"H={hid} does not take the wide route's persistent form")
+            got = _check_wide_case(dev, gen, t_len, n, hid, dtype, tag)
+            fwd["widths"][hid], bwd["widths"][hid] = got["fwd"], got["bwd"]
+        px_f, px_b, w_hh, b_hh, args = got.pop("inputs")
         # Timed at the last width checked, WIDE_HIDDEN.
+        h3 = 3 * hid
         size = 2 if bf16 else 4
         weights = 4 * (2 * hid * h3 + 2 * h3)
         io_bytes = size * (2 * t_len * n * h3 + 2 * t_len * n * hid)  # px and ys (dy, dpx)
         flops = 2 * t_len * 2 * n * hid * h3  # one [N,H] x [H,3H] product a step and direction
+        clusters = wide_max_active_clusters(n, hid, dtype=dtype)
         for row, kernel, plain, backward in (
             (fwd, lambda: gru_fwd(px_f, px_b, w_hh, b_hh),
              lambda: gru_recurrence_reference(px_f, px_b, w_hh, b_hh), False),
@@ -3307,6 +3381,7 @@ def check_gru_wide(dev, gen) -> list[dict]:
                                         flops * (3 if backward else 1),
                                         BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
             device_ms = _wide_device_ms(times, t_len, backward)
+            launch = clusters[row["name"]]
             row.update({
                 "route": "cuda", "source": "ocrs_models_torch/csrc/gru_wide.cu",
                 "replaces": "ocrs_models_tpu/ops/pallas/gru_kernel4.py:"
@@ -3316,7 +3391,9 @@ def check_gru_wide(dev, gen) -> list[dict]:
                                    for w in row["widths"].values()),
                 "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms, "us_per_step": 1e3 * ms / t_len,
-                "device_launches_per_call": launches,
+                "device_launches_per_call": launches, "cluster_size": clusters["cluster_size"],
+                "rows_per_block": launch["rows_per_block"],
+                "clusters_launched": launch["launched"], "max_active_clusters": launch["max_active"],
             })
             if backward:  # the phases around the wide chain
                 row["also"] = "ocrs_models_torch/csrc/gru_bwd.cu (coef, dw, dw_sum)"
@@ -3324,10 +3401,17 @@ def check_gru_wide(dev, gen) -> list[dict]:
                 row["equal_share"] = min(w["equal_share"] for w in row["widths"].values())
             print(f"{row['name']} {tag} [T={t_len},N={n},H={hid}]: {ms:.4f} ms, device "
                   f"{_fmt(device_ms)} ms, {row['us_per_step']:.3f} us per step, {launches:g} "
-                  f"device launches per call; plain {plain_ms:.3f} ms, cuDNN {library_ms:.3f} "
-                  f"ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+                  f"device launches per call; rows per block {launch['rows_per_block']}, "
+                  f"clusters of {clusters['cluster_size']}: {launch['launched']} launched, "
+                  f"{launch['max_active']} max active; plain {plain_ms:.3f} ms, cuDNN "
+                  f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
             rows.append(row)
-        del px_f, px_b, dy_f, dy_b, ys, again, grads, grads_again, want, want_grads, args
+        del px_f, px_b, w_hh, b_hh, args, got
+        # The per-step form (widths above 512), held the same way.
+        t_s, n_s, h_s = STEPWISE_SHAPE
+        if gru_route(h_s) != "stepwise":
+            raise AssertionError(f"H={h_s} does not take the wide route's per-step form")
+        _check_wide_case(dev, gen, t_s, n_s, h_s, dtype, tag)
         torch.cuda.empty_cache()
     return rows
 

@@ -79,7 +79,9 @@
 // takes H % 8 == 0 up to 256 (a cluster of at most 8 blocks); for every
 // other width the wrapper runs gru_wide.cu's chain between this file's
 // (a), (c) and (d), which take any H % 8 == 0 (`ocrs_gru_bwd_coef`,
-// `ocrs_gru_bwd_dw` and their bf16 entries).
+// `ocrs_gru_bwd_dw` and their bf16 entries): its persistent chain, this
+// design in clusters of up to 16 blocks, up to H = 512 after padding, and
+// its chain of one launch a step above.
 //
 // bf16 (`compute_dtype=jnp.bfloat16`) has kernels of its own, in namespace
 // `bf`, with every product on the tensor cores (`mma.sync.m16n8k16` bf16,
@@ -1304,10 +1306,11 @@ const void* chain_for(int rows) {
 int chain_threads(int) { return kChainThreads; }
 
 constexpr int kRowsF32[] = {16, 20};
-int reported_f32[kMaxChoices][kMaxCluster + 1], reported_bf16[kMaxChoices][kMaxCluster + 1];
-const Family kChain = {chain_for, chain_smem, chain_threads, kRowsF32, 2, 14, reported_f32};
+int reported_f32[kMaxChoices * (kMaxCluster + 1)], reported_bf16[kMaxChoices * (kMaxCluster + 1)];
+const Family kChain = {chain_for, chain_smem, chain_threads, kRowsF32, 2, 14, kMaxCluster,
+                       reported_f32};
 const Family kChainBf16 = {bf::chain_for, bf::chain_smem, bf::chain_threads, bf::kRows, 3,
-                           kBf16StepCost, reported_bf16};
+                           kBf16StepCost, kMaxCluster, reported_bf16};
 
 // The chain's launch: `rows` > 0 forces that many batch rows per block
 // (one of the family's choices), 0 lets pick_rows choose.

@@ -1,16 +1,20 @@
-// What the two persistent biGRU kernels (gru_fwd.cu, gru_bwd.cu's chain)
-// share: the thread block cluster primitives, the cluster launch, and the
-// choice of batch rows per block (the bf16 tensor-core helpers come from
-// mma_bf16.cuh).
+// What the persistent biGRU kernels (gru_fwd.cu, gru_bwd.cu's chain, and
+// gru_wide.cu's persistent forward and chain) share: the thread block
+// cluster primitives, the cluster launch, and the choice of batch rows per
+// block (the bf16 tensor-core helpers come from mma_bf16.cuh).
 //
-// Both kernels run one cluster of ceil(H / 32) blocks per (tile of R batch
-// rows, direction). The card holds fewer clusters of 8 at once than its SM
-// count suggests: on an H100 SXM (132 SMs) cudaOccupancyMaxActiveClusters
-// reports 15, not 16, and a launch that needs more runs in rounds, each a
-// full pass over the T steps. So R is chosen per call from the batch size
-// and that report, with a cost model of each kernel family's own: the f32
-// kernels take R=20 at N=128 (14 clusters, one round), not R=16 (16
-// clusters, two rounds: twice the time, measured).
+// Every such kernel runs one cluster of ceil(H / 32) blocks per (tile of R
+// batch rows, direction). A family of kernels has its own largest cluster:
+// 8 blocks (the portable limit) for gru_fwd.cu and gru_bwd.cu, which take
+// H <= 256; 16 (non-portable, allowed per kernel at launch) for
+// gru_wide.cu's, which take H <= 512. The card holds fewer clusters at once
+// than its SM count suggests: on an H100 SXM (132 SMs)
+// cudaOccupancyMaxActiveClusters reports 15 clusters of 8, not 16, and a
+// launch that needs more runs in rounds, each a full pass over the T
+// steps. So R is chosen per call from the batch size and that report, with
+// a cost model of each kernel family's own: the f32 kernels take R=20 at
+// N=128 (14 clusters, one round), not R=16 (16 clusters, two rounds: twice
+// the time, measured).
 
 #pragma once
 
@@ -25,7 +29,8 @@ namespace gru_cluster {
 using namespace tc;
 
 constexpr int kBU = 32;                // hidden units per block
-constexpr int kMaxCluster = 8;         // portable cluster size
+constexpr int kMaxCluster = 8;         // portable cluster size (gru_fwd.cu, gru_bwd.cu)
+constexpr int kMaxWideCluster = 16;    // non-portable cluster size (gru_wide.cu)
 constexpr int kMaxChoices = 4;         // most row choices a family offers
 // Dynamic shared memory the bf16 kernels ask for at least: more than half
 // of an SM's 227 KB, so that two blocks never share an SM (a block whose
@@ -127,9 +132,10 @@ __device__ __forceinline__ void bulk_to_peer(const void* dst, const void* src, u
 
 // A kernel templated on the batch rows per block R: its instance, dynamic
 // shared memory and block size for each of its row choices, the choices,
-// the fixed cost of a step in rows for pick_rows, and where pick_rows
-// keeps the runtime's reports for it (zero-initialised storage of its own:
-// kernels of one family may hold other numbers of clusters than another's).
+// the fixed cost of a step in rows for pick_rows, its largest cluster, and
+// where pick_rows keeps the runtime's reports for it (zero-initialised
+// storage of its own, [kMaxChoices][max_cluster + 1]: kernels of one family
+// may hold other numbers of clusters than another's).
 struct Family {
     const void* (*kernel)(int rows);
     size_t (*smem)(int rows, int n_tiles);
@@ -137,11 +143,12 @@ struct Family {
     const int* row_choices;
     int n_choices;
     int step_cost;
-    int (*reported)[kMaxCluster + 1];  // [kMaxChoices][kMaxCluster + 1]
+    int max_cluster;
+    int* reported;
 };
 
-inline bool shape_ok(int N, int H) {
-    return H % 8 == 0 && H >= 8 && (H + kBU - 1) / kBU <= kMaxCluster && N >= 1;
+inline bool shape_ok(const Family& f, int N, int H) {
+    return H % 8 == 0 && H >= 8 && (H + kBU - 1) / kBU <= f.max_cluster && N >= 1;
 }
 
 // The launch of `f` with `rows` rows per block: grid (unit tiles, batch
@@ -149,11 +156,14 @@ inline bool shape_ok(int N, int H) {
 // long as `cfg`.
 inline cudaError_t configure(const Family& f, int rows, int N, int H, cudaLaunchConfig_t* cfg,
                              cudaLaunchAttribute* attr) {
-    if (!shape_ok(N, H)) return cudaErrorInvalidValue;
+    if (!shape_ok(f, N, H)) return cudaErrorInvalidValue;
     const int n_tiles = (H + kBU - 1) / kBU;
     const size_t smem = f.smem(rows, n_tiles);
     cudaError_t err = cudaFuncSetAttribute(f.kernel(rows),
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess && n_tiles > kMaxCluster)
+        err = cudaFuncSetAttribute(f.kernel(rows),
+                                   cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     *cfg = cudaLaunchConfig_t{};
     cfg->gridDim = dim3(n_tiles, (N + rows - 1) / rows, 2);
@@ -180,13 +190,13 @@ inline bool offers(const Family& f, int rows) {
 // (measured for each family). The answer depends on the shape and the card
 // only. *max_active gets the runtime's report for the chosen launch.
 inline cudaError_t pick_rows(const Family& f, int N, int H, int* rows, int* max_active) {
-    int (*reported)[kMaxCluster + 1] = f.reported;
-    if (!shape_ok(N, H)) return cudaErrorInvalidValue;
+    if (!shape_ok(f, N, H)) return cudaErrorInvalidValue;
     const int n_tiles = (H + kBU - 1) / kBU;
     long best = -1;
     for (int c = 0; c < f.n_choices; ++c) {
         const int r = f.row_choices[c];
-        if (reported[c][n_tiles] == 0) {
+        int& cached = f.reported[c * (f.max_cluster + 1) + n_tiles];
+        if (cached == 0) {
             cudaLaunchConfig_t cfg;
             cudaLaunchAttribute attr;
             int n = 0;
@@ -194,15 +204,15 @@ inline cudaError_t pick_rows(const Family& f, int N, int H, int* rows, int* max_
             if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, f.kernel(r), &cfg);
             if (err != cudaSuccess) return err;
             if (n < 1) return cudaErrorLaunchOutOfResources;
-            reported[c][n_tiles] = n;
+            cached = n;
         }
-        const int cap = reported[c][n_tiles];
+        const int cap = cached;
         const int clusters = 2 * ((N + r - 1) / r);
         const long cost = (long)((clusters + cap - 1) / cap) * (f.step_cost + r);
         if (best < 0 || cost < best) {
             best = cost;
             *rows = r;
-            *max_active = reported[c][n_tiles];
+            *max_active = cap;
         }
     }
     return cudaSuccess;

@@ -52,7 +52,9 @@
 // plain version, and an error-compensated 3xTF32 product was not tried.
 // H > 256 would need a cluster of more than 8 blocks: the wrapper sends
 // every width this kernel does not take (H > 256 or H % 8 != 0) to
-// gru_wide.cu, one launch per step.
+// gru_wide.cu, whose persistent kernels run this design in clusters of up
+// to 16 blocks (H <= 512 after padding), and whose per-step kernels take
+// the widths above.
 //
 // bf16 (`compute_dtype=jnp.bfloat16`, the Pallas kernel's default) has a
 // kernel of its own, `gru_fwd_bf16_kernel`, with the Pallas kernel's
@@ -505,10 +507,11 @@ const void* kernel_for(int rows) {
 int threads_f32(int) { return kThreads; }
 
 constexpr int kRowsF32[] = {16, 20};
-int reported_f32[kMaxChoices][kMaxCluster + 1], reported_bf16[kMaxChoices][kMaxCluster + 1];
-const Family kFamily = {kernel_for, smem_bytes, threads_f32, kRowsF32, 2, 14, reported_f32};
+int reported_f32[kMaxChoices * (kMaxCluster + 1)], reported_bf16[kMaxChoices * (kMaxCluster + 1)];
+const Family kFamily = {kernel_for, smem_bytes, threads_f32, kRowsF32, 2, 14, kMaxCluster,
+                        reported_f32};
 const Family kFamilyBf16 = {bf::kernel_for, bf::smem_bytes, bf::threads, bf::kRows, 4,
-                            kBf16StepCost, reported_bf16};
+                            kBf16StepCost, kMaxCluster, reported_bf16};
 
 // `rows` > 0 forces that many batch rows per block (one of the family's
 // choices); 0 lets pick_rows choose.

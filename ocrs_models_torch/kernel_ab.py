@@ -1,7 +1,8 @@
 """Time builds of one kernel source against each other in one process.
 
     python -m ocrs_models_torch.kernel_ab [--kernel ctc_alpha|gru_fwd_bf16|gru_bwd_bf16|
-        stage1_fwd_bf16|stage1_bwd_bf16] [--source NAME=PATH ...] [--rounds 2] [--cold]
+        stage1_fwd_bf16|stage1_bwd_bf16|gru_wide_fwd|gru_wide_chain] [--source NAME=PATH ...]
+        [--rounds 2] [--cold]
 
 Each ``--source`` is a version of the kernel's source (``csrc/ctc_alpha.cu``,
 or ``csrc/gru_fwd.cu`` / ``csrc/gru_bwd.cu`` for the bf16 biGRU entries;
@@ -45,6 +46,18 @@ at N = 128. Each line also carries ``f32_sha``, a digest of each source's
 f32 entry's outputs on the same inputs (equal digests: the f32 kernel
 unchanged, bit for bit), and for the backward its grid.
 
+``gru_wide_fwd`` and ``gru_wide_chain`` (``csrc/gru_wide.cu``): the wide
+route's two forms against each other, its persistent entries
+(``ocrs_gru_wide_fwd[_bf16]``, ``ocrs_gru_wide_chain[_bf16]``) and its per-step
+ones (``ocrs_gru_wide_fwd_stepwise[_bf16]``, ``ocrs_gru_wide_chain_stepwise[_bf16]``,
+which take any H % 8 == 0), at T=257, N=128, H=512 in f32 and bf16, and at
+H=264 and 320: one case per (shape, dtype, form), each form's device time
+the sum over its kernels of the mean record times the kernel's launches a
+call (T for a per-step kernel). The chain's inputs are the plain versions'
+coefficients of a plain forward; its outputs are held against the plain
+chain. A source that exports ``ocrs_gru_wide_fwd_max_clusters`` also gets
+its rows per block and clusters (``rows``).
+
 ``--cold`` writes a 256 MB buffer before each call so that no input is
 left in the 50 MB L2 cache. Needs CUDA and ``nvcc``.
 """
@@ -64,7 +77,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from .ops import _build
 from .ops.ctc import ctc_alpha_reference, ctc_operands
-from .ops.gru import DW_SPLITS, MIN_ROWS, gru_bwd_phases_reference, gru_recurrence_reference
+from .ops.gru import (
+    DW_SPLITS,
+    MIN_ROWS,
+    gru_bwd_chain_bf16_reference,
+    gru_bwd_chain_reference,
+    gru_bwd_coefficients_reference,
+    gru_bwd_phases_reference,
+    gru_recurrence_reference,
+)
 from .ops.stage1 import stage1_bwd_reference, stage1_reference
 from .profile_kernels import device_records
 
@@ -291,6 +312,145 @@ def _gru_bwd_phase(name: str) -> str:
     return "dw"
 
 
+# ------------------------------------------------------------------ biGRU, wide route
+
+def _bind_gru_wide(dll) -> None:
+    for sfx in ("", "_bf16"):
+        _bind(getattr(dll, f"ocrs_gru_wide_fwd{sfx}"), [I] + [P] * 6 + [I, I, I, P])
+        _bind(getattr(dll, f"ocrs_gru_wide_fwd_stepwise{sfx}"), [I] + [P] * 7 + [I, I, I, P])
+        for kind in ("fwd", "chain"):
+            _bind(getattr(dll, f"ocrs_gru_wide_{kind}{sfx}_max_clusters"),
+                  [I, I, I, ctypes.POINTER(I)])
+    _bind(dll.ocrs_gru_wide_chain, [I] + [P] * 6 + [I, I, I, P])
+    _bind(dll.ocrs_gru_wide_chain_bf16, [I] + [P] * 8 + [I, I, I, I, P])
+    _bind(dll.ocrs_gru_wide_chain_stepwise, [I] + [P] * 8 + [I, I, I, P])
+    _bind(dll.ocrs_gru_wide_chain_stepwise_bf16, [I] + [P] * 10 + [I, I, I, P])
+    _bind(dll.ocrs_gru_wide_stepwise_rows, [])
+
+
+WIDE_SHAPES = ((257, 128, 512), (257, 128, 264), (257, 128, 320))
+WIDE_FORMS = ("persistent", "stepwise")
+
+
+def _gru_wide_cases(dev) -> dict:
+    """``(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, coef, form)`` per
+    (shape, dtype, form): w_hh rounded to bf16 values for bf16, ys from the
+    plain forward, coef [2, T*N, 5, H] the plain coefficients."""
+    gen = torch.Generator().manual_seed(SEED)
+    out = {}
+    for t_len, n, hid in WIDE_SHAPES:
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            k = 1.0 / hid**0.5
+            px = [torch.randn((t_len, n, 3 * hid), generator=gen).to(dev, dt) for _ in range(2)]
+            w_hh = _build.rounded(((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) * k)
+                                  .to(dev), dt).contiguous()
+            b_hh = ((torch.rand((2, 3 * hid), generator=gen) * 2 - 1) * k).to(dev)
+            dy = [(torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev, dt) for _ in range(2)]
+            ys = gru_recurrence_reference(*px, w_hh, b_hh)
+            coef = gru_bwd_coefficients_reference(*px, *ys, w_hh, b_hh).reshape(
+                2, t_len * n, 5, hid).contiguous()
+            for form in WIDE_FORMS:
+                out[f"T{t_len}_N{n}_H{hid}_{tag}_{form}"] = (*px, *ys, *dy, w_hh, b_hh, coef, form)
+    return out
+
+
+def _sfx(ops) -> str:
+    return "_bf16" if ops[0].dtype == torch.bfloat16 else ""
+
+
+def _gru_wide_fwd_outputs(ops) -> dict:
+    t_len, n, h3 = ops[0].shape
+    return {"ys_f": torch.empty_like(ops[2]), "ys_b": torch.empty_like(ops[3]),
+            "hs": torch.empty((2, 2, n, h3 // 3), device=ops[0].device)}
+
+
+def _gru_wide_fwd_call(dll, ops, out, rows=0) -> None:
+    px_f, px_b, w_hh, b_hh, form = ops[0], ops[1], ops[6], ops[7], ops[-1]
+    t_len, n, h3 = px_f.shape
+    ptr = _build.ptr
+    dev, stream = px_f.device, _build.stream_ptr(px_f.device)
+    if form == "persistent":
+        rc = getattr(dll, f"ocrs_gru_wide_fwd{_sfx(ops)}")(
+            dev.index, ptr(px_f), ptr(px_b), ptr(w_hh), ptr(b_hh), ptr(out["ys_f"]),
+            ptr(out["ys_b"]), t_len, n, h3 // 3, stream)
+    else:
+        rc = getattr(dll, f"ocrs_gru_wide_fwd_stepwise{_sfx(ops)}")(
+            dev.index, ptr(px_f), ptr(px_b), ptr(w_hh), ptr(b_hh), ptr(out["hs"]),
+            ptr(out["ys_f"]), ptr(out["ys_b"]), t_len, n, h3 // 3, stream)
+    _build.check(dll, rc, f"gru_wide_fwd ({form})")
+
+
+def _gru_wide_fwd_compare(ops, out, dll=None) -> dict:
+    want = gru_recurrence_reference(ops[0], ops[1], ops[6], ops[7])
+    return _bf16_errs((out["ys_f"], out["ys_b"]), want)
+
+
+def _gru_wide_chain_outputs(ops) -> dict:
+    px_f, w_hh = ops[0], ops[6]
+    t_len, n, h3 = px_f.shape
+    hid, dev, f32 = h3 // 3, px_f.device, torch.float32
+    out = {"dpx_f": torch.empty_like(px_f), "dpx_b": torch.empty_like(px_f),
+           "w_t": w_hh.transpose(1, 2).contiguous(),
+           "dph": torch.empty((2, 2, n, h3), device=dev, dtype=f32),
+           "carry": torch.empty((2, n, hid), device=dev, dtype=f32)}
+    if px_f.dtype == torch.bfloat16:  # bf16(dhn) and db's partials, one per tile of >= 16 rows
+        out["dhn"] = torch.empty((2, t_len * n, hid), device=dev, dtype=torch.bfloat16)
+        out["dbp"] = torch.empty((-(-n // 16), 2, h3), device=dev, dtype=f32)
+    return out
+
+
+def _gru_wide_chain_call(dll, ops, out, rows=0) -> None:
+    dy_f, dy_b, w_hh, coef, form = ops[4], ops[5], ops[6], ops[8], ops[-1]
+    t_len, n, hid = dy_f.shape
+    ptr = _build.ptr
+    dev, stream = dy_f.device, _build.stream_ptr(dy_f.device)
+    bf16 = dy_f.dtype == torch.bfloat16
+    extra = [ptr(out["dhn"]), ptr(out["dbp"])] if bf16 else []
+    if form == "persistent":
+        parts = [out["dbp"].shape[0]] if bf16 else []
+        rc = getattr(dll, f"ocrs_gru_wide_chain{_sfx(ops)}")(
+            dev.index, ptr(dy_f), ptr(dy_b), ptr(w_hh), ptr(coef), ptr(out["dpx_f"]),
+            ptr(out["dpx_b"]), *extra, *parts, t_len, n, hid, stream)
+    else:
+        rc = getattr(dll, f"ocrs_gru_wide_chain_stepwise{_sfx(ops)}")(
+            dev.index, ptr(dy_f), ptr(dy_b), ptr(out["w_t"]), ptr(coef), ptr(out["dph"]),
+            ptr(out["carry"]), ptr(out["dpx_f"]), ptr(out["dpx_b"]), *extra, t_len, n, hid,
+            stream)
+    _build.check(dll, rc, f"gru_wide_chain ({form})")
+
+
+def _gru_wide_chain_compare(ops, out, dll=None) -> dict:
+    dy_f, dy_b, w_hh, coef = ops[4], ops[5], ops[6], ops[8]
+    t_len, n, hid = dy_f.shape
+    coef = coef.reshape(2, t_len, n, 5, hid)
+    if dy_f.dtype == torch.bfloat16:
+        dpx_f, dpx_b, dhn, _ = gru_bwd_chain_bf16_reference(coef, dy_f, dy_b, w_hh)
+        errs = _bf16_errs((out["dpx_f"], out["dpx_b"]), (dpx_f, dpx_b))
+        errs["dhn_equal_share"] = _bf16_errs((out["dhn"].reshape(dhn.shape),), (dhn,))["equal_share"]
+        return errs
+    dpx_f, dpx_b, _ = gru_bwd_chain_reference(coef, dy_f, dy_b, w_hh)
+    return _bf16_errs((out["dpx_f"], out["dpx_b"]), (dpx_f, dpx_b))
+
+
+def _gru_wide_extra(kind: str):
+    def extra(dll, ops, line, k) -> None:
+        if ops[-1] != "persistent":
+            line.setdefault("rows", {})[k] = {"rows": dll.ocrs_gru_wide_stepwise_rows()}
+            return
+        rows = ctypes.c_int(0)
+        t_len, n, h3 = ops[0].shape
+        cap = getattr(dll, f"ocrs_gru_wide_{kind}{_sfx(ops)}_max_clusters")(
+            ops[0].device.index, n, h3 // 3, ctypes.byref(rows))
+        line.setdefault("rows", {})[k] = {"rows": rows.value, "launched": 2 * -(-n // rows.value),
+                                          "max_active": cap}
+    return extra
+
+
+def _wide_launches(name: str, ops) -> int:
+    """Launches a call of the wide kernel ``name``: T for a per-step one."""
+    return ops[0].shape[0] if "_step_kernel" in name else 1
+
+
 # ------------------------------------------------------------------ stage 1, bf16
 
 def _bind_stage1_fwd(dll) -> None:
@@ -449,14 +609,25 @@ SPECS = {
                         "compare": _stage1_bwd_compare, "extra": _stage1_extra("stage1_bwd_bf16"),
                         "match": "stage1_bwd", "phase": lambda name: "finish" if "finish" in name
                         else "partial", "rows_entry": None, "grads": _stage1_grads},
+    "gru_wide_fwd": {"source": "gru_wide.cu", "bind": _bind_gru_wide, "cases": _gru_wide_cases,
+                     "outputs": _gru_wide_fwd_outputs, "call": _gru_wide_fwd_call,
+                     "compare": _gru_wide_fwd_compare, "extra": _gru_wide_extra("fwd"),
+                     "match": "gru_wide", "phase": None, "rows_entry": None,
+                     "launches": _wide_launches},
+    "gru_wide_chain": {"source": "gru_wide.cu", "bind": _bind_gru_wide, "cases": _gru_wide_cases,
+                       "outputs": _gru_wide_chain_outputs, "call": _gru_wide_chain_call,
+                       "compare": _gru_wide_chain_compare, "extra": _gru_wide_extra("chain"),
+                       "match": "gru_wide", "phase": None, "rows_entry": None,
+                       "launches": _wide_launches},
 }
 
 
-def _device_ms(fn, before, match: str, phase=None, calls: int = 5) -> tuple[float, dict]:
+def _device_ms(fn, before, match: str, phase=None, calls: int = 5,
+               launches=lambda name: 1) -> tuple[float, dict]:
     """The profiler's device time of one call of the kernel, all its
-    launches (the mean over the records each launch name delivered; a
-    window with none is profiled again, up to three times), and by phase
-    name; ``before()`` runs ahead of each call."""
+    launches (the mean over the records each launch name delivered, times
+    ``launches(name)`` a call; a window with none is profiled again, up to
+    three times), and by phase name; ``before()`` runs ahead of each call."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -465,7 +636,8 @@ def _device_ms(fn, before, match: str, phase=None, calls: int = 5) -> tuple[floa
                 before()
                 fn()
             torch.cuda.synchronize()
-        found = {name: sum(v) / len(v) for name, v in device_records(prof).items() if match in name}
+        found = {name: launches(name) * sum(v) / len(v)
+                 for name, v in device_records(prof).items() if match in name}
         if found:
             break
     phases: dict[str, float] = {}
@@ -494,7 +666,7 @@ def _equal(spec: dict, a: tuple, b: tuple) -> bool:
     if "grads" in spec:
         return all(torch.equal(x, y) for x, y in zip(spec["grads"](*a), spec["grads"](*b)))
     # The backward's scratch differs between its layouts; its outputs must not.
-    keys = [k for k in a[1] if k not in ("coef", "dph", "dwp", "dbp")]
+    keys = [k for k in a[1] if k not in ("coef", "dph", "dwp", "dbp", "hs", "carry", "w_t")]
     return all(torch.equal(a[1][k], b[1][k]) for k in keys)
 
 
@@ -520,9 +692,12 @@ def main() -> None:
     order = [*names, *reversed(names)] * args.rounds
     scratch = torch.empty(64 << 20, device=dev)  # 256 MB, five times the L2 cache
     before = (lambda: scratch.fill_(1.0)) if args.cold else (lambda: None)
-    timed = lambda fn: (*_device_ms(fn, before, spec["match"], spec["phase"]),  # noqa: E731
-                        _events_ms(fn, before))
     for case, ops in spec["cases"](dev).items():
+        count = spec.get("launches")
+        launches = (lambda name, ops=ops: count(name, ops)) if count else (lambda name: 1)
+        timed = lambda fn, launches=launches: (  # noqa: E731
+            *_device_ms(fn, before, spec["match"], spec["phase"], launches=launches),
+            _events_ms(fn, before))
         outs = {k: spec["outputs"](ops) for k in names}
         for k in names:
             spec["call"](libs[k], ops, outs[k])

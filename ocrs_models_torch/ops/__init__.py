@@ -40,7 +40,7 @@ KERNELS = (stage1_fwd, stage1_bwd, gru_fwd, gru_bwd, gru_wide_fwd, gru_wide_bwd,
            ctc_beta)
 """Every kernel wrapper; each counts its launches in ``.launches`` (``gru_fwd``
 and ``gru_bwd`` those of the cluster route, the ``gru_wide_*`` wrappers those
-of the wide route, :func:`gru_route`)."""
+of the wide route in either of its forms, :func:`gru_route`)."""
 
 __all__ = [
     "BiGRU", "DTYPES", "KERNELS", "ctc_alpha", "ctc_alpha_chain_probe", "ctc_alpha_reference",

@@ -14,9 +14,12 @@ memory. In bf16 their products run on the tensor cores. A cluster holds
 at most 8 blocks of 32 units, so these kernels take ``H % 8 == 0`` and
 ``H <= 256`` (:func:`gru_route`: "cluster"); every other width, as the
 Pallas kernel takes any, goes to :func:`gru_wide_fwd` and
-:func:`gru_wide_bwd` (``csrc/gru_wide.cu``: one launch per step, the
-state in device memory between launches; the backward's phases around
-its chain are ``gru_bwd.cu``'s). On CPU tensors
+:func:`gru_wide_bwd` (``csrc/gru_wide.cu``; the backward's phases around
+its chain are ``gru_bwd.cu``'s), zero-padded to a multiple of 8 first. Up
+to 512 after padding ("wide") they run in the same persistent form, one
+launch for all T steps, in clusters of up to 16 blocks with part of
+``W_hh`` in shared memory; above 512 ("stepwise") in one launch per step,
+the state in device memory between launches. On CPU tensors
 both wrappers run their plain versions (:func:`gru_recurrence_reference`,
 a Python loop of torch ops, and autograd of it). The backward kernel's
 three phases have plain versions of their own
@@ -110,16 +113,24 @@ MAX_HIDDEN = 256
 """Widest hidden size of the cluster route (``gru_fwd.cu``, ``gru_bwd.cu``:
 a cluster of ``H / 32`` blocks, at most 8); wider layers take the wide
 route (:func:`gru_route`)."""
+MAX_WIDE_HIDDEN = 512
+"""Widest hidden size, after padding to a multiple of 8, of the wide
+route's persistent form (``gru_wide.cu``: a cluster of ``ceil(H / 32)``
+blocks, at most 16); wider layers run one launch a step."""
 
 
 def gru_route(hid: int) -> str:
-    """Which kernels run a layer of hidden size ``hid`` on the card:
-    ``"cluster"`` (``gru_fwd.cu``, ``gru_bwd.cu``) for ``H % 8 == 0`` and
-    ``8 <= H <= MAX_HIDDEN``, ``"wide"`` (``gru_wide.cu``) for every other
-    ``H >= 1``."""
+    """Which kernels run a layer of hidden size ``hid`` on the card, by the
+    width alone: ``"cluster"`` (``gru_fwd.cu``, ``gru_bwd.cu``) for ``H %
+    8 == 0`` and ``8 <= H <= MAX_HIDDEN``; else, with ``H`` zero-padded to
+    the next multiple of 8, ``"wide"`` (``gru_wide.cu``'s persistent
+    kernels) up to ``MAX_WIDE_HIDDEN`` and ``"stepwise"`` (its kernels of
+    one launch a step) above it."""
     if hid < 1:
         raise ValueError(f"gru_route: the hidden size must be at least 1, got {hid}")
-    return "cluster" if hid % 8 == 0 and hid <= MAX_HIDDEN else "wide"
+    if hid % 8 == 0 and hid <= MAX_HIDDEN:
+        return "cluster"
+    return "wide" if hid + -hid % 8 <= MAX_WIDE_HIDDEN else "stepwise"
 
 
 # The wide kernels take H % 8 == 0; another width is zero-padded to the
@@ -144,11 +155,6 @@ def _unpad_gates(t: torch.Tensor, hid: int) -> torch.Tensor:
 def _pad_w(w_hh: torch.Tensor, pad: int) -> torch.Tensor:
     """``w_hh [2, H, 3H]`` as ``[2, H + pad, 3(H + pad)]``, zero-padded."""
     return F.pad(_pad_gates(w_hh, pad), (0, 0, 0, pad))
-
-
-WIDE_ROWS = 32
-"""Batch rows per block of the wide kernels; the bf16 chain writes one
-``db`` partial per tile of them."""
 
 
 def _check(name: str, tensors: dict, t_len: int, n: int, hid: int) -> None:
@@ -189,12 +195,13 @@ def gru_fwd(px_f, px_b, w_hh, b_hh):
     through ``gru_fwd.cu``'s kernel of its dtype where :func:`gru_route`
     says "cluster" (one ctypes call, one launch for all T steps; for bf16
     also the rounding of ``W_hh`` to bf16 values), else through
-    :func:`gru_wide_fwd`; a CPU tensor through the plain version."""
+    :func:`gru_wide_fwd` (routes "wide" and "stepwise"); a CPU tensor
+    through the plain version."""
     if px_f.device.type == "cpu":
         return gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
     t_len, n, hid = _cuda_sizes("gru_fwd", {"px_f": px_f, "px_b": px_b, "w_hh": w_hh,
                                             "b_hh": b_hh})
-    if gru_route(hid) == "wide":
+    if gru_route(hid) != "cluster":
         return gru_wide_fwd(px_f, px_b, w_hh, b_hh)
     ys_f = torch.empty((t_len, n, hid), device=px_f.device, dtype=px_f.dtype)
     ys_b = torch.empty_like(ys_f)
@@ -218,25 +225,51 @@ def _wide_lib() -> ctypes.CDLL:
     if lib.ocrs_gru_wide_fwd.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
+
+        def bind(name, argtypes):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i
+
         for sfx in _build.SUFFIX.values():
-            fn = getattr(lib, f"ocrs_gru_wide_fwd{sfx}")
-            fn.argtypes = [i] + [p] * 7 + [i, i, i, p]
-            fn.restype = ctypes.c_int
-        lib.ocrs_gru_wide_chain.argtypes = [i] + [p] * 8 + [i, i, i, p]
-        lib.ocrs_gru_wide_chain.restype = ctypes.c_int
-        lib.ocrs_gru_wide_chain_bf16.argtypes = [i] + [p] * 10 + [i, i, i, p]
-        lib.ocrs_gru_wide_chain_bf16.restype = ctypes.c_int
+            bind(f"ocrs_gru_wide_fwd{sfx}", [i] + [p] * 6 + [i, i, i, p])
+            bind(f"ocrs_gru_wide_fwd_stepwise{sfx}", [i] + [p] * 7 + [i, i, i, p])
+            for kind in ("fwd", "chain"):
+                bind(f"ocrs_gru_wide_{kind}{sfx}_max_clusters", [i, i, i, ctypes.POINTER(i)])
+        bind("ocrs_gru_wide_chain", [i] + [p] * 6 + [i, i, i, p])
+        bind("ocrs_gru_wide_chain_bf16", [i] + [p] * 8 + [i, i, i, i, p])
+        bind("ocrs_gru_wide_chain_stepwise", [i] + [p] * 8 + [i, i, i, p])
+        bind("ocrs_gru_wide_chain_stepwise_bf16", [i] + [p] * 10 + [i, i, i, p])
+        bind("ocrs_gru_wide_stepwise_rows", [])
     return lib
+
+
+def _wide_report(kind: str, n: int, hid: int, device: int, dtype: torch.dtype) -> dict:
+    """The persistent ``kind`` ("fwd" or "chain") launch's choice for batch
+    ``n`` and padded width ``hid``: its batch rows per block, the clusters
+    it launches and how many the card holds at once (raises where the
+    runtime reports none)."""
+    lib = _wide_lib()
+    name = f"ocrs_gru_wide_{kind}{_build.SUFFIX[dtype]}_max_clusters"
+    rows = ctypes.c_int(0)
+    got = getattr(lib, name)(device, n, hid, ctypes.byref(rows))
+    if got < 0:
+        _build.check(lib, -got, name)
+    return {"rows_per_block": rows.value, "launched": 2 * -(-n // rows.value), "max_active": got}
 
 
 def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
     """The forward on the wide route, for any hidden size; same contract
     as :func:`gru_recurrence_reference`. A CUDA tensor goes through
-    ``gru_wide.cu``'s forward of its dtype: one ctypes call, T launches
-    (one a step), the f32 state in scratch of the call's own, ``[2, 2, N,
-    H]``; for bf16 also the rounding of ``W_hh`` to bf16 values; a width
-    that is not a multiple of 8 zero-padded first (exact, see
-    :func:`_pad_gates`). A CPU tensor goes through the plain version."""
+    ``gru_wide.cu``'s forward of its dtype, in one ctypes call: up to
+    ``MAX_WIDE_HIDDEN`` after padding (:func:`gru_route`'s "wide", or a
+    width of the cluster route called here directly) the persistent
+    kernel, one launch for all T steps; above it ("stepwise") T launches,
+    one a step, with the f32 state
+    in scratch of the call's own, ``[2, 2, N, H]``. For bf16 also the
+    rounding of ``W_hh`` to bf16 values; a width that is not a multiple of
+    8 is zero-padded first (exact, see :func:`_pad_gates`). A failed launch
+    raises. A CPU tensor goes through the plain version."""
     if px_f.device.type == "cpu":
         return gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
     t_len, n, hid = _cuda_sizes("gru_wide_fwd", {"px_f": px_f, "px_b": px_b, "w_hh": w_hh,
@@ -249,14 +282,19 @@ def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
     dev = px_f.device
     ys_f = torch.empty((t_len, n, hid), device=dev, dtype=px_f.dtype)
     ys_b = torch.empty_like(ys_f)
-    hs = torch.empty((2, 2, n, hid), device=dev, dtype=torch.float32)
     w = _build.rounded(w_hh, px_f.dtype).contiguous()
     lib = _wide_lib()
     p = _build.ptr
-    rc = getattr(lib, f"ocrs_gru_wide_fwd{_build.SUFFIX[px_f.dtype]}")(
-        dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(hs), p(ys_f), p(ys_b), t_len, n, hid,
-        _build.stream_ptr(dev),
-    )
+    sfx = _build.SUFFIX[px_f.dtype]
+    if hid <= MAX_WIDE_HIDDEN:
+        rc = getattr(lib, f"ocrs_gru_wide_fwd{sfx}")(
+            dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(ys_f), p(ys_b), t_len, n, hid,
+            _build.stream_ptr(dev))
+    else:
+        hs = torch.empty((2, 2, n, hid), device=dev, dtype=torch.float32)
+        rc = getattr(lib, f"ocrs_gru_wide_fwd_stepwise{sfx}")(
+            dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(hs), p(ys_f), p(ys_b), t_len, n, hid,
+            _build.stream_ptr(dev))
     _build.check(lib, rc, "gru_wide_fwd")
     gru_wide_fwd.launches += 1
     return ys_f, ys_b
@@ -409,6 +447,19 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def wide_max_active_clusters(n: int, hid: int, device: int = 0,
+                             dtype: torch.dtype = torch.float32) -> dict:
+    """:func:`max_active_clusters` for the wide route's persistent kernels
+    (``hid`` zero-padded to a multiple of 8, at most ``MAX_WIDE_HIDDEN``):
+    ``gru_wide_fwd``'s and the chain of ``gru_wide_bwd``'s."""
+    hid += -hid % 8
+    if hid > MAX_WIDE_HIDDEN:
+        raise ValueError(f"wide_max_active_clusters: H={hid} runs one launch a step")
+    return {"cluster_size": -(-hid // 32),
+            "gru_wide_fwd": _wide_report("fwd", n, hid, device, dtype),
+            "gru_wide_bwd": _wide_report("chain", n, hid, device, dtype)}
+
+
 def max_active_clusters(n: int, hid: int, device: int = 0,
                         dtype: torch.dtype = torch.float32) -> dict:
     """For batch ``n``, hidden size ``hid`` and ``dtype``: the batch rows
@@ -446,14 +497,14 @@ def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out: dict | 
     scratch of its own and sums ``db`` itself); a CPU tensor through the
     plain version. A dict ``scratch_out`` gets the bf16 chain's ``dhn``
     (``[2, T, N, H]``), for tests of that phase. Where :func:`gru_route`
-    says "wide", the call is :func:`gru_wide_bwd`'s."""
+    says "wide" or "stepwise", the call is :func:`gru_wide_bwd`'s."""
     if px_f.device.type == "cpu":
         return gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
     t_len, n, hid = _cuda_sizes("gru_bwd", {
         "px_f": px_f, "px_b": px_b, "ys_f": ys_f, "ys_b": ys_b, "dy_f": dy_f, "dy_b": dy_b,
         "w_hh": w_hh, "b_hh": b_hh,
     })
-    if gru_route(hid) == "wide":
+    if gru_route(hid) != "cluster":
         return gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out)
     h3 = 3 * hid
     dev = px_f.device
@@ -503,14 +554,17 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
                  scratch_out: dict | None = None):
     """The backward on the wide route, for any hidden size; same contract
     as :func:`gru_bwd_reference`. A CUDA tensor goes through ``gru_bwd.cu``'s
-    coefficients (one launch), ``gru_wide.cu``'s chain (T launches, one a
-    step, its state in scratch of the call's own; bf16 also writes
-    ``bf16(dhn)`` and ``db``'s partials), then ``gru_bwd.cu``'s dW
-    reduction and sum (two launches): T + 3 launches in three ctypes
-    calls, plus the copy of ``W_hh^T`` and, for bf16, the rounding of
-    ``W_hh``. A width that is not a multiple of 8 is zero-padded first
-    (exact, see :func:`_pad_gates`). A CPU tensor goes through the plain
-    version; ``scratch_out`` as for :func:`gru_bwd`."""
+    coefficients (one launch), ``gru_wide.cu``'s chain (bf16 also writes
+    ``bf16(dhn)`` and ``db``'s partials, one per batch tile of the rows per
+    block the chain picks), then ``gru_bwd.cu``'s dW reduction and sum (two
+    launches), in three ctypes calls, plus for bf16 the rounding of
+    ``W_hh``. Up to ``MAX_WIDE_HIDDEN`` after padding the chain is the
+    persistent kernel, one launch: 4 launches a call; above it ("stepwise") T
+    launches, one a step, its state in scratch of the call's own, and the
+    copy of ``W_hh^T``: T + 4. A width that is not a multiple of 8 is
+    zero-padded first (exact, see :func:`_pad_gates`). A failed launch
+    raises. A CPU tensor goes through the plain version; ``scratch_out`` as
+    for :func:`gru_bwd`."""
     if px_f.device.type == "cpu":
         return gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
     t_len, n, hid = _cuda_sizes("gru_wide_bwd", {
@@ -546,20 +600,29 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
 
     dpx_f = torch.empty_like(px_f)
     dpx_b = torch.empty_like(px_b)
-    w_t = w.transpose(1, 2).contiguous()
-    dph = torch.empty((2, 2, n, h3), device=dev, dtype=torch.float32)
-    carry = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
+    persistent = hid <= MAX_WIDE_HIDDEN
+    if not persistent:  # the per-step chain's operand and state
+        w_t = w.transpose(1, 2).contiguous()
+        dph = torch.empty((2, 2, n, h3), device=dev, dtype=torch.float32)
+        carry = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
     splits = _dw_splits(t_len, n)
     dwp = torch.empty((splits, 2, hid, h3), device=dev, dtype=torch.float32)
     dw = torch.empty_like(w_hh)
     db = torch.empty_like(b_hh)
     if bf16:
-        tiles = -(-n // WIDE_ROWS)
+        rows = (_wide_report("chain", n, hid, dev.index, dt)["rows_per_block"] if persistent
+                else wide.ocrs_gru_wide_stepwise_rows())
+        tiles = -(-n // rows)
         dhn = torch.empty((2, t_len, n, hid), device=dev, dtype=torch.bfloat16)
         dbp = torch.empty((tiles, 2, h3), device=dev, dtype=torch.float32)
-        rc = wide.ocrs_gru_wide_chain_bf16(
-            dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f), p(dpx_b),
-            p(dhn), p(dbp), t_len, n, hid, stream)
+        if persistent:
+            rc = wide.ocrs_gru_wide_chain_bf16(
+                dev.index, p(dy_f), p(dy_b), p(w), p(coef), p(dpx_f), p(dpx_b), p(dhn), p(dbp),
+                tiles, t_len, n, hid, stream)
+        else:
+            rc = wide.ocrs_gru_wide_chain_stepwise_bf16(
+                dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f),
+                p(dpx_b), p(dhn), p(dbp), t_len, n, hid, stream)
         _build.check(wide, rc, "gru_wide_bwd (chain)")
         rc = bwd.ocrs_gru_bwd_dw_bf16(
             dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(dhn), p(dwp), p(dbp), tiles,
@@ -567,9 +630,14 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
         if scratch_out is not None:
             scratch_out["dhn"] = dhn
     else:
-        rc = wide.ocrs_gru_wide_chain(
-            dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f), p(dpx_b),
-            t_len, n, hid, stream)
+        if persistent:
+            rc = wide.ocrs_gru_wide_chain(
+                dev.index, p(dy_f), p(dy_b), p(w), p(coef), p(dpx_f), p(dpx_b), t_len, n, hid,
+                stream)
+        else:
+            rc = wide.ocrs_gru_wide_chain_stepwise(
+                dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f),
+                p(dpx_b), t_len, n, hid, stream)
         _build.check(wide, rc, "gru_wide_bwd (chain)")
         dbp = torch.empty((splits, 2, h3), device=dev, dtype=torch.float32)
         rc = bwd.ocrs_gru_bwd_dw(

@@ -172,17 +172,44 @@ def test_gru_kernels_on_two_streams_do_not_disturb_each_other(dev):
             assert torch.equal(a, b)
 
 
-# The wide route (gru_wide.cu, one launch a step; gru_bwd.cu's coef and dW
-# phases around its chain): H=12 (padded to 16), 264 (9 unit tiles, the
-# last ragged), 512 at N=259 (ragged batch tile) and at the wide training
-# step's T=257, N=128, and 1024. Tolerances those of the cluster rows, but
-# for the share of bf16 dpx equal to the plain version's at T=257, H=512:
-# 93%, not 95%. There two float32 summation orders alone disagree on 4-5%
-# of dpx's bf16 roundings: the plain version with float64 products reads
-# 95.5-95.9% equal to the float32 plain version, the kernel 95.0-95.1%, and
-# a chain that multiplies the unrounded dph 86.5% (measured on one H100 by
-# tests/torch_fixtures/wide_gru_equal_share.py).
-WIDE_SHAPES = [(5, 3, 12), (33, 40, 264), (7, 259, 512), (3, 4, 1024), (257, 128, 512)]
+# The wide route (gru_wide.cu; gru_bwd.cu's coef and dW phases around its
+# chain). Its persistent form, one launch for all T steps in clusters of
+# ceil(H/32) blocks: H=12 (padded to 16), 264 (9 unit tiles, the last
+# ragged), 320 and 512, each at N=1, 259 (ragged batch tile, more clusters
+# than one round) and 128, and at T=1 (no exchange), 2 and 257 (the wide
+# training step's T at N=128). Its per-step form: H=1024. Tolerances those
+# of the cluster rows, but for the share of bf16 dpx equal to the plain
+# version's at T=257, H=512: 93%, not 95%. There two float32 summation
+# orders alone disagree on 4-5% of dpx's bf16 roundings: the plain version
+# with float64 products reads 95.5-95.9% equal to the float32 plain
+# version, the per-step kernel 95.0-95.1%, and a chain that multiplies the
+# unrounded dph 86.5% (measured on one H100 by
+# tests/torch_fixtures/wide_gru_equal_share.py); the persistent kernels
+# read 94.9-95.0% (chip_smoke.py phase 18).
+WIDE_SHAPES = [(5, 3, 12), (33, 40, 264), (7, 259, 512), (3, 4, 1024), (257, 128, 512),
+               (1, 1, 264), (2, 259, 264), (257, 128, 264), (1, 1, 320), (2, 259, 320),
+               (257, 128, 320), (1, 1, 512), (2, 259, 512), (2, 4, 1024)]
+
+
+def _launch_calls(fn) -> dict:
+    """The runtime's launch calls of one ``fn()`` by name, read from the
+    profiler's host events (exact, unlike its device records): a cluster
+    launch is ``cudaLaunchKernelExC``, every other kernel ``cudaLaunchKernel``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"cudaLaunchKernel": 0, "cudaLaunchKernelExC": 0}
+    for e in prof.events():
+        if e.name in out:
+            out[e.name] += 1
+    return out
+
+
+def _wide_form(h: int) -> str:
+    return "wide" if h + -h % 8 <= 512 else "stepwise"
 
 
 def _wide_calls(fn, *args):
@@ -200,12 +227,20 @@ def _wide_calls(fn, *args):
 @pytest.mark.parametrize("shape", WIDE_SHAPES)
 def test_gru_wide_route_matches_plain(dev, shape, dtype):
     t, n, h = shape
-    assert gru_route(h) == "wide"
+    form = _wide_form(h)
+    assert gru_route(h) == form
     px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(
         t, n, h, dev, sum(shape) + 8, dy_scale=1.0 if t <= 65 else 0.1)
     px_f, px_b, dy_f, dy_b = (v.to(dtype) for v in (px_f, px_b, dy_f, dy_b))
     got, again, launched = _wide_calls(gru_fwd, px_f, px_b, w_hh, b_hh)
     assert launched == (0, 0, 2, 0)
+    # One recurrence kernel a call in the persistent form (a cluster
+    # launch), T in the per-step form.
+    calls = _launch_calls(lambda: gru_fwd(px_f, px_b, w_hh, b_hh))
+    if form == "wide":
+        assert calls["cudaLaunchKernelExC"] == 1
+    else:
+        assert calls["cudaLaunchKernelExC"] == 0 and calls["cudaLaunchKernel"] >= t
     want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
     for a, b, c in zip(got, again, want):
         assert a.dtype == dtype and a.shape == (t, n, h) and torch.equal(a, b)
@@ -217,6 +252,8 @@ def test_gru_wide_route_matches_plain(dev, shape, dtype):
     args = (px_f, px_b, *got, dy_f, dy_b, w_hh, b_hh)
     got, again, launched = _wide_calls(gru_bwd, *args)
     assert launched == (0, 0, 0, 2)
+    calls = _launch_calls(lambda: gru_bwd(*args))
+    assert calls["cudaLaunchKernelExC"] == (1 if form == "wide" else 0)
     want = gru_bwd_reference(*args)
     for a, b in zip(got, again):
         assert torch.equal(a, b)  # no atomics: bit-identical reruns
@@ -232,10 +269,14 @@ def test_gru_wide_route_matches_plain(dev, shape, dtype):
         torch.testing.assert_close(a, b, rtol=0, atol=scale * b.abs().max().item() + 1e-5)
 
 
-def test_gru_wide_bf16_chain_hands_on_its_plain_versions_dhn(dev):
-    # What the bf16 wide chain hands gru_bwd.cu's dW phase, bf16(dhn),
-    # against the chain's plain version, as the cluster chain's test holds it.
-    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(33, 40, 264, dev, 14)
+@pytest.mark.parametrize("shape", [(33, 40, 264), (2, 259, 512), (7, 4, 1024)])
+def test_gru_wide_bf16_chain_hands_on_its_plain_versions_dhn(dev, shape):
+    # What the bf16 wide chain hands gru_bwd.cu's dW phase, bf16(dhn), and
+    # its db partials summed, against the chain's plain version, as the
+    # cluster chain's test holds it: in both forms, and at N=259 where the
+    # persistent chain's batch tiles (and so db's partials) are ragged.
+    t, n, h = shape
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, 14)
     px_f, px_b, dy_f, dy_b = (v.to(BF16) for v in (px_f, px_b, dy_f, dy_b))
     ys_f, ys_b = gru_fwd(px_f, px_b, w_hh, b_hh)
     coef = gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh)
@@ -244,19 +285,21 @@ def test_gru_wide_bf16_chain_hands_on_its_plain_versions_dhn(dev):
     _, _, _, db = gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out=scratch)
     torch.cuda.synchronize()
     dhn = scratch["dhn"]
-    assert dhn.dtype == BF16 and dhn.shape == dhn_want.shape == (2, 33, 40, 264)
+    assert dhn.dtype == BF16 and dhn.shape == dhn_want.shape == (2, t, n, h)
     torch.testing.assert_close(dhn.float(), dhn_want.float(), rtol=0, atol=2e-2)
     assert (dhn == dhn_want).float().mean().item() >= 0.95
     torch.testing.assert_close(db, db_want, rtol=0, atol=1e-3 * db_want.abs().max().item())
 
 
+@pytest.mark.parametrize("h", [264, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_gru_wide_kernels_on_two_streams_do_not_disturb_each_other(dev, dtype):
+def test_gru_wide_kernels_on_two_streams_do_not_disturb_each_other(dev, dtype, h):
     # As the cluster kernels' test: each call's state and scratch are its
-    # own, so two calls in flight at once give what each gives alone.
+    # own, so two calls in flight at once give what each gives alone (in
+    # the persistent form at H=264 and 512, in the per-step one at 1024).
     cases = []
     for t, n, seed in ((33, 72, 15), (20, 100, 16)):
-        px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, 512, dev, seed)
+        px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, seed)
         cases.append((px_f.to(dtype), px_b.to(dtype), w_hh, b_hh, dy_f.to(dtype), dy_b.to(dtype)))
     alone = []
     for px_f, px_b, w_hh, b_hh, dy_f, dy_b in cases:

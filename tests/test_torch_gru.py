@@ -2,9 +2,9 @@
 ``gru_recurrence4`` (Pallas, interpret mode on CPU), its ``BiGRU`` on both
 backends, and torch's own ``nn.GRU``, on the same numpy inputs; at the
 shipped kind of width (H=16: the cluster route on the card) and at the
-wide route's (H=12, not a multiple of 8; H=264, above 256); the route and
-the wide route's zero padding; and the recognition weights' strict load
-at other widths."""
+wide route's (H=12, not a multiple of 8; H=264 and 320, above 256); the
+route and the wide route's zero padding; and the recognition weights'
+strict load at other widths."""
 
 import jax
 import jax.numpy as jnp
@@ -24,15 +24,22 @@ from ocrs_models_torch.ops import (
     gru_recurrence_reference,
     gru_route,
 )
-from ocrs_models_torch.ops.gru import MAX_HIDDEN, _pad_gates, _pad_w, _unpad_gates
+from ocrs_models_torch.ops.gru import (
+    MAX_HIDDEN,
+    MAX_WIDE_HIDDEN,
+    _pad_gates,
+    _pad_w,
+    _unpad_gates,
+)
 from ocrs_models_torch.weights import bigru_state_dict_from_jax, recognition_state_dict_from_jax
 from torch_port_common import random_variables
 
-# (T, H) cases: H=16 as before (their ids kept), H=12 and H=264 on the
+# (T, H) cases: H=16 as before (their ids kept), H=12, 264 and 320 on the
 # wide route; T=7 at H=264 is left out (the Pallas kernel in interpret
 # mode is the slow side there).
-WIDTH_CASES = [(1, 16), (7, 16), (33, 16), (1, 12), (7, 12), (33, 12), (1, 264), (33, 264)]
-WIDTH_IDS = ["1", "7", "33", "1-h12", "7-h12", "33-h12", "1-h264", "33-h264"]
+WIDTH_CASES = [(1, 16), (7, 16), (33, 16), (1, 12), (7, 12), (33, 12), (1, 264), (33, 264),
+               (3, 320)]
+WIDTH_IDS = ["1", "7", "33", "1-h12", "7-h12", "33-h12", "1-h264", "33-h264", "3-h320"]
 
 
 def _case(t, n=8, h=16, seed=0):
@@ -159,10 +166,14 @@ def test_backward_phases_match_autograd_at_ragged_shapes(t, n, h):
 
 def test_gru_route():
     # The cluster kernels' domain exactly (gru_cluster.cuh, shape_ok): H a
-    # multiple of 8 from 8 to 256; every other width is wide.
-    assert MAX_HIDDEN == 256
+    # multiple of 8 from 8 to 256. Every other width is wide, by its width
+    # padded to a multiple of 8: the persistent kernels ("wide", clusters
+    # of up to 16 blocks) up to 512, one launch a step above.
+    assert MAX_HIDDEN == 256 and MAX_WIDE_HIDDEN == 512
     assert [gru_route(h) for h in (8, 16, 48, 128, 248, 256)] == ["cluster"] * 6
-    assert [gru_route(h) for h in (1, 4, 12, 100, 255, 257, 264, 512, 1024)] == ["wide"] * 9
+    wide = (1, 4, 12, 100, 255, 257, 264, 320, 500, 504, 505, 512)
+    assert [gru_route(h) for h in wide] == ["wide"] * len(wide)
+    assert [gru_route(h) for h in (513, 520, 1000, 1024)] == ["stepwise"] * 4
     with pytest.raises(ValueError, match="at least 1"):
         gru_route(0)
 
@@ -198,7 +209,7 @@ def test_zero_padded_recurrence_equals_the_unpadded_one(h):
         torch.testing.assert_close(g, a, rtol=0, atol=1e-12, msg=name)
 
 
-@pytest.mark.parametrize("h", [12, 264])
+@pytest.mark.parametrize("h", [12, 264, 320])
 def test_recurrence_matches_pallas_bf16_at_wide_widths(h):
     # bf16 compute (the Pallas kernel's default) at the wide route's
     # widths, against gru_recurrence4(..., jnp.bfloat16, True) in interpret
