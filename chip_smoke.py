@@ -52,9 +52,11 @@ Phases (any failure exits non-zero, before the final line):
    it chose); the biGRU backward at T=65,
    N=256 and T=257, N=128, H=256; the CTC alpha and beta recursions at
    T=257, N=128, S=129 with ragged lengths, repeated labels, an empty
-   label and an infeasible row, and at the training step's two shapes
+   label and an infeasible row, at the training step's two shapes
    (N=256, T=65 and N=128, T=257; S=49 and 97, and S=129 as the step pads
-   its labels). Time kernel, plain version and the library yardstick
+   its labels), and past a block of positions, S=1025 and 2049 (labels
+   512 and 1024 wide, as a line of 449 or 960 characters pads them; that
+   row infeasible), bit for bit (each kernel's design printed). Time kernel, plain version and the library yardstick
    (autograd backward of conv2d+relu+max_pool2d; cuDNN nn.GRU backward;
    F.ctc_loss forward and backward) with CUDA events, the short CTC
    kernels also on the device's own clock (torch.profiler); for both CTC
@@ -69,7 +71,10 @@ Phases (any failure exits non-zero, before the final line):
    weights (bf16: loss 1e-2, each module's gradient norm 5e-2); the headline
    batch 256 x 64x256 (one warm-up step, then timed steps on which the
    loss must fall, launch counts zeroed just before and read just after);
-   the wide bucket 128 x 64x1024; in f32 ``grad_accum=4`` and ``eval_step``.
+   the wide bucket 128 x 64x1024; in f32 ``grad_accum=4`` and ``eval_step``;
+   and in both dtypes one wide-bucket step whose row 2 holds a line of 449
+   characters (labels padded to 512, S=1025; weight 0) against the plain
+   step at the same tolerances.
 9. The trainer CLI (``training/train_rec.py``) on synthetic lines, in a
    temporary directory, with exact launch counts for each run: three
    epochs at the JAX trainer's defaults (bf16, 512 augmented lines, batch 20;
@@ -169,7 +174,9 @@ Phases (any failure exits non-zero, before the final line):
     lines, f32; the env-driven join, NCCL): rank 0's checkpoint written.
 16. The real-data path on the committed toy roots (``tests/data``),
     copied to a temporary directory: (a) every fixture decoded by
-    ``data.imageio.read_grey`` on the host, the SHA-256 of its greyscale
+    ``data.imageio.read_grey`` on the host (the toy roots' pages and
+    ``tests/data/torch_decode_formats``: CMYK and YCCK JPEGs, 16-bit and
+    Adam7 PNGs), the SHA-256 of its greyscale
     bytes equal to the committed digest of Pillow's decode, and the
     decoder's ms per megapixel on a 2 MP page and on the toy pages; (b)
     ``train_rec hiertext`` (bf16, batch 4) for an epoch and a resumed
@@ -213,7 +220,8 @@ Phases (any failure exits non-zero, before the final line):
     backward, and in bf16 W_hh's two casts), reruns bit-identical, timed
     at H=512 beside the plain versions, cuDNN's ``nn.GRU`` and the bound,
     with the rows per block and the clusters launched and held at once;
-    the per-step form the same way at H=1024, T=9 (not timed); (b) the
+    the per-step form the same way at H=1024, T=9, then timed at H=1024,
+    T=257, N=128 beside its plain versions and cuDNN; (b) the
     shipped CRNN with ``gru_hidden=512``:
     3 steps against the plain step in each dtype (phase 8's tolerances for
     the first step, the CPU parity test's for later ones), then 10 timed
@@ -948,14 +956,64 @@ def _ctc_case(dev, gen, n, t_len, label_width, label_len, input_len, repeats=Fal
                 emit=emit, skip=skip, alpha0=alpha0, lens=lens)
 
 
-def _check_ctc_case(case: dict, gen, what: str, zero_rows=()) -> dict:
+def _ctc_seed(alphas, gen, zero_rows):
+    """A random negative cotangent of ``alphas[:, -1]`` (none on
+    ``zero_rows``) as ``ctc_beta`` takes it: ``(seed, sign)``."""
+    from ocrs_models_torch.ops.ctc import NEG_INF
+
+    n, _, s = alphas.shape
+    d_last = -torch.rand((n, s), generator=gen).to(alphas.device)
+    for row in zero_rows:
+        d_last[row] = 0.0
+    mag = d_last.abs()
+    seed = torch.where(mag > 0, torch.log(mag) - alphas[:, -1], torch.full_like(mag, NEG_INF))
+    return seed, torch.where(d_last < 0, -1.0, 1.0).amin(dim=1).contiguous()
+
+
+def _check_ctc_dense(case: dict, gen, what: str, zero_rows) -> None:
+    """Both wide CTC kernels bit for bit against their plain versions on
+    ``case`` with alpha0 drawn at every position: the loss's own alpha0
+    reaches position j only at step j / 2, so at T=257 the upper half of
+    1025 positions would hold NEG_INF throughout and every thread's later
+    slots (``ops.ctc.wide_slots``) would compare constants. Each slot of
+    the rows with a cotangent must hold finite states and nonzero
+    gradients at 90% of its active entries."""
+    from ocrs_models_torch.ops import ctc_alpha, ctc_alpha_reference, ctc_beta, ctc_beta_reference
+    from ocrs_models_torch.ops.ctc import NEG_INF, wide_slots
+
+    emit, skip, lens = case["emit"], case["skip"], case["lens"]
+    n, t_len, s = emit.shape
+    alpha0 = (torch.randn((n, s), generator=gen) - 3.0).to(emit.device)
+    got_a = ctc_alpha(emit, skip, alpha0, lens)
+    want_a = ctc_alpha_reference(emit, skip, alpha0, lens)
+    seed, sign = _ctc_seed(want_a, gen, zero_rows)
+    got_b = ctc_beta(emit, skip, got_a, seed, sign, lens)
+    want_b = ctc_beta_reference(emit, skip, want_a, seed, sign, lens)
+    torch.cuda.synchronize()
+    err = max((got_a - want_a).abs().max().item(), _err(got_b, want_b))
+    rows = torch.arange(t_len, device=emit.device)[None, :]
+    live = (rows >= 1) & (rows < lens[:, None].clamp(max=t_len))  # active steps past 0
+    live[list(zero_rows)] = False
+    shares = []
+    for slot in wide_slots(s):
+        cols = slice(slot.start, slot.stop)
+        for x in (want_a[:, :, cols] > NEG_INF / 2, want_b[0][:, :, cols] != 0):
+            shares.append(x[live].float().mean().item())
+    print(f"ctc {what} dense alpha0 [N={n},T={t_len},S={s}]: max_abs_err {err:.3e}; "
+          f"least live share of a slot {min(shares):.4f}", flush=True)
+    if err != 0 or min(shares) < 0.9:
+        raise AssertionError(f"CTC kernels ({what}, dense alpha0): err {err}, shares {shares}")
+
+
+def _check_ctc_case(case: dict, gen, what: str, zero_rows=(), exact=False) -> dict:
     """Both CTC kernels against their plain versions on one case, then
     their times: alphas atol 1e-3 (log values down to ~-1e3), demit and
-    dalpha0 atol 1e-5 (posteriors in [0, 1]). ``zero_rows`` carry no
-    cotangent and must get no gradient."""
+    dalpha0 atol 1e-5 (posteriors in [0, 1]); bit for bit where ``exact``,
+    then also with alpha0 at every position (:func:`_check_ctc_dense`).
+    ``zero_rows`` carry no cotangent and must get no gradient."""
     from ocrs_models_torch.ops import (ctc_alpha, ctc_alpha_chain_probe, ctc_alpha_reference,
-                                       ctc_beta, ctc_beta_chain_probe, ctc_beta_reference)
-    from ocrs_models_torch.ops.ctc import NEG_INF
+                                       ctc_beta, ctc_beta_chain_probe, ctc_beta_reference,
+                                       ctc_design)
 
     emit, skip, alpha0, lens = (case[k] for k in ("emit", "skip", "alpha0", "lens"))
     n, t_len, s = emit.shape
@@ -963,25 +1021,23 @@ def _check_ctc_case(case: dict, gen, what: str, zero_rows=()) -> dict:
     want_a = ctc_alpha_reference(emit, skip, alpha0, lens)
     got_a = ctc_alpha(emit, skip, alpha0, lens)
     got_final = ctc_alpha(emit, skip, alpha0, lens, final_only=True)
-    d_last = -torch.rand((n, s), generator=gen).to(dev)
-    for row in zero_rows:
-        d_last[row] = 0.0
-    mag = d_last.abs()
-    seed = torch.where(mag > 0, torch.log(mag) - got_a[:, -1], torch.full_like(mag, NEG_INF))
-    sign = torch.where(d_last < 0, -1.0, 1.0).amin(dim=1).contiguous()
+    seed, sign = _ctc_seed(got_a, gen, zero_rows)
     want_b = ctc_beta_reference(emit, skip, got_a, seed, sign, lens)
     got_b = ctc_beta(emit, skip, got_a, seed, sign, lens)
     torch.cuda.synchronize()
     err_a = max((got_a - want_a).abs().max().item(),
                 (got_final - want_a[:, -1]).abs().max().item())
     err_b = _err(got_b, want_b)
+    designs = {k: ctc_design(k, s, dev) for k in ("ctc_alpha", "ctc_beta")}
     print(f"ctc_alpha {what} [N={n},T={t_len},S={s}]: max_abs_err {err_a:.3e}; "
-          f"ctc_beta: max_abs_err {err_b:.3e}", flush=True)
-    if not (err_a <= 1e-3 and err_b <= 1e-5):
+          f"ctc_beta: max_abs_err {err_b:.3e}; designs {designs}", flush=True)
+    if not (err_a <= (0 if exact else 1e-3) and err_b <= (0 if exact else 1e-5)):
         raise AssertionError(f"CTC kernels disagree with their plain versions ({what}): {err_a}, {err_b}")
     if not all(torch.isfinite(t).all() for t in (*got_b, got_a)) or \
             any(got_b[0][row].abs().max() != 0 for row in zero_rows):
         raise AssertionError(f"ctc_beta ({what}): non-finite values, or a gradient on a zero row")
+    if exact:
+        _check_ctc_dense(case, gen, what, zero_rows)  # raises unless bit-equal
 
     def alpha():
         return ctc_alpha(emit, skip, alpha0, lens)
@@ -1012,18 +1068,22 @@ def _check_ctc_case(case: dict, gen, what: str, zero_rows=()) -> dict:
     steps = int(np.clip(case["input_len_np"], 1, t_len).max()) - 1
     probes = {"ctc_alpha": ctc_alpha_chain_probe(steps + 1, s, dev),
               "ctc_beta": ctc_beta_chain_probe(steps + 1, s, dev)}
-    active = int(np.minimum(case["input_len_np"], t_len).sum())
-    state_bytes = 4 * n * t_len * s
+    # Bytes: the inputs of the active rows read once (emit, and for beta
+    # the saved alphas; frozen rows are never read), every output row
+    # written once.
+    active = int(np.minimum(np.maximum(case["input_len_np"], 1), t_len).sum())
+    active_bytes, state_bytes = 4 * active * s, 4 * n * t_len * s
     out = {}
     for name, ms, dev_ms, launches, plain_ms, lib_ms, n_bytes, n_flops, err in (
         ("ctc_alpha", ms_a, dev_a, launches_a, plain_a, lib_a,
-         2 * state_bytes + 4 * (3 * n * s + n), 14 * (active - n) * s, err_a),
+         active_bytes + state_bytes + 4 * (3 * n * s + n), 14 * (active - n) * s, err_a),
         ("ctc_beta", ms_b, dev_b, launches_b, plain_b, lib_b,
-         3 * state_bytes + 4 * (4 * n * s + 2 * n), 20 * active * s, err_b),
+         2 * active_bytes + state_bytes + 4 * (4 * n * s + 2 * n), 20 * active * s, err_b),
     ):
         bound_ms, bound_by = _bound(n_bytes, n_flops)
         out[name] = {
-            "shape": f"emit [{n},{t_len},{s}] f32", "max_abs_err": err, "ms": ms,
+            "shape": f"emit [{n},{t_len},{s}] f32", "design": designs[name], "max_abs_err": err,
+            "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "device_ms": dev_ms,
             "us_per_step": None if dev_ms is None else 1e3 * dev_ms / max(steps, 1),
@@ -1051,7 +1111,11 @@ def check_ctc(dev, gen) -> list[dict]:
     length): ``headline`` N=256, T=65 with 24 labels and ``wide`` N=128,
     T=257 with 48, in label arrays as wide as the labels (S=49, S=97), and
     ``headline_padded``, ``wide_padded`` in arrays 64 wide as the training
-    step hands them over (S=129)."""
+    step hands them over (S=129). Then past a block of positions
+    (``long_s1025``, ``long_s2049``): the main case's lengths in label
+    arrays 512 and 1024 wide, as a line of 449 (960) characters pads them,
+    that row (2) holding that line, which its 20 steps cannot fit: bit for
+    bit equal to the plain versions."""
     n, t_len = 128, 257
     rng = np.random.default_rng(SEED)
     label_len = rng.integers(6, 49, n)
@@ -1068,6 +1132,14 @@ def check_ctc(dev, gen) -> list[dict]:
             case = _ctc_case(dev, gen, n, width // 4 + 1, label_width, np.full(n, chars),
                              np.full(n, width // 4))
             subs[key] = _check_ctc_case(case, gen, key)
+    for label_width, long_len in LONG_LABELS:
+        long_len_all = label_len.copy()
+        long_len_all[2] = long_len
+        case = _ctc_case(dev, gen, n, t_len, label_width, long_len_all, input_len, repeats=True)
+        key = f"long_s{2 * label_width + 1}"
+        subs[key] = _check_ctc_case(case, gen, key, zero_rows=(2,), exact=True)
+        del case
+        torch.cuda.empty_cache()
     rows = []
     for name, line in (("ctc_alpha", "119"), ("ctc_beta", "145")):
         rows.append({
@@ -1096,6 +1168,11 @@ def rec_batch(n: int, width: int, max_chars: int, dev, seed: int = 0) -> dict:
     }
     return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
 
+
+LONG_LABELS = ((512, 449), (1024, 960))
+"""Phase 7's and 8's long lines: label arrays 512 and 1024 wide (S = 1025,
+2049), as a line of 449 (960) characters pads them in the trainers'
+collation (``round_up(len, 64)``)."""
 
 TRAIN_LAUNCHES = {"stage1_fwd": 1, "stage1_bwd": 1, "gru_fwd": 2, "gru_bwd": 2,
                   "ctc_alpha": 1, "ctc_beta": 1}
@@ -1131,11 +1208,27 @@ def _expect(counts: dict, per_step: dict, steps: int, what: str) -> None:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
 
 
+def long_label_batch(dev) -> dict:
+    """The wide bucket, 128 x 64x1024 (T = 257), whose row 2 holds a line
+    of 449 characters, which its 256 steps cannot fit: the collation pads
+    every label to 512 (S = 1025) and weights that row 0."""
+    batch = rec_batch(REC_BATCH, 1024, 48, dev)
+    label_width, long_len = LONG_LABELS[0]
+    text = torch.zeros((REC_BATCH, label_width), dtype=torch.int64, device=dev)
+    text[:, :64] = batch["text"]
+    text[2, :long_len] = torch.from_numpy(
+        np.random.default_rng(SEED).integers(1, 97, long_len)).to(dev)
+    batch["text"] = text
+    batch["text_len"][2] = long_len
+    batch["sample_weight"][2] = 0.0
+    return batch
+
+
 def check_train_step_vs_plain(dev, dtype=torch.float32, gru_hidden: int = 256,
-                              steps: int = 1) -> None:
-    """``steps`` headline steps with the kernels vs the same steps with
-    every kernel's plain version swapped in, from the same weights, with a
-    biGRU of ``gru_hidden`` units. Tolerances in float32 as the CPU parity
+                              steps: int = 1, batch: dict | None = None, tag: str = "") -> None:
+    """``steps`` headline steps (or steps on ``batch``, named by ``tag``)
+    with the kernels vs the same steps with every kernel's plain version
+    swapped in, from the same weights, with a biGRU of ``gru_hidden`` units. Tolerances in float32 as the CPU parity
     test's: the first step's loss rtol 1e-5, grad norm rtol 1e-3, later
     steps' 1e-3 and 5e-2; parameters within 1e-5 but for at most 1% of
     entries after one step (max-pool near-ties route a few gradients
@@ -1153,7 +1246,7 @@ def check_train_step_vs_plain(dev, dtype=torch.float32, gru_hidden: int = 256,
     torch.manual_seed(SEED)
     model = RecognitionModel(n_classes=97, gru_hidden=gru_hidden, dtype=dtype).to(dev)
     plain_model = copy.deepcopy(model)
-    batch = rec_batch(256, 256, 24, dev)
+    batch = rec_batch(256, 256, 24, dev) if batch is None else batch
     lr = 1e-3
     results = []
     for m, plain in ((model, False), (plain_model, True)):
@@ -1196,7 +1289,7 @@ def check_train_step_vs_plain(dev, dtype=torch.float32, gru_hidden: int = 256,
         norm_rel = abs(got["grad_norm"].item() / want["grad_norm"].item() - 1)
         module_rel = {k: abs(v.item() / want["grad_norms"][k].item() - 1)
                       for k, v in got["grad_norms"].items()}
-        line = {"path": f"train_step vs plain{' bf16' if bf16 else ''}",
+        line = {"path": f"train_step vs plain{' bf16' if bf16 else ''}{tag}",
                 "loss": got["loss"].item(), "loss_plain": want["loss"].item(),
                 "loss_rel": loss_rel, "grad_norm": got["grad_norm"].item(),
                 "grad_norm_rel": norm_rel, "module_grad_norm_rel_max": max(module_rel.values()),
@@ -3267,6 +3360,38 @@ def _wide_call(fn, args, name: str):
     return out
 
 
+def _wide_operands(gen, dev, t_len: int, n: int, hid: int, dtype) -> tuple:
+    """Random wide-route operands ``(px_f, px_b, dy_f, dy_b, w_hh, b_hh)``."""
+    w_hh, b_hh = _gru_weights(gen, dev, hid)
+    px_f, px_b = (torch.randn((t_len, n, 3 * hid), generator=gen).to(dev).to(dtype)
+                  for _ in range(2))
+    dy_f, dy_b = ((torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev).to(dtype)
+                  for _ in range(2))
+    return px_f, px_b, dy_f, dy_b, w_hh, b_hh
+
+
+def _wide_errors(ys, want, grads, want_grads) -> dict:
+    """The wide route's outputs against the plain versions': largest
+    errors of ys, dpx and dW/db (and the largest dW/db), and the shares of
+    ys and dpx equal."""
+    return {"ys": _err(ys, want), "dpx": _err(grads[:2], want_grads[:2]),
+            "dw": _err(grads[2:], want_grads[2:]),
+            "dw_max": max(t.abs().max().item() for t in want_grads[2:]),
+            "ys_equal": _equal_share(ys, want), "dpx_equal": _equal_share(grads[:2], want_grads[:2])}
+
+
+def _wide_ok(errors: dict, bf16: bool, min_equal: float = 0.0) -> bool:
+    """Phase 18 (a)'s tolerances: f32 ys 1e-4, dpx 1e-3, dW and db 1e-4 of
+    their largest entry; bf16 ys and dpx 2e-2 and ``min_equal`` of them
+    equal, dW and db 1e-3 of their largest entry."""
+    if bf16:
+        return (errors["ys"] <= 2e-2 and errors["dpx"] <= 2e-2
+                and min(errors["ys_equal"], errors["dpx_equal"]) >= min_equal
+                and errors["dw"] <= 1e-3 * errors["dw_max"])
+    return (errors["ys"] <= 1e-4 and errors["dpx"] <= 1e-3
+            and errors["dw"] <= 1e-4 * errors["dw_max"])
+
+
 def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) -> dict:
     """``gru_fwd`` and ``gru_bwd`` on the wide route at (T, N, H) against
     the plain versions (phase 18 (a)'s tolerances), reruns bit-identical,
@@ -3277,11 +3402,7 @@ def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) ->
 
     bf16 = dtype == BF16
     persistent = hid + -hid % 8 <= MAX_WIDE_HIDDEN
-    w_hh, b_hh = _gru_weights(gen, dev, hid)
-    px_f, px_b = (torch.randn((t_len, n, 3 * hid), generator=gen).to(dev).to(dtype)
-                  for _ in range(2))
-    dy_f, dy_b = ((torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev).to(dtype)
-                  for _ in range(2))
+    px_f, px_b, dy_f, dy_b, w_hh, b_hh = _wide_operands(gen, dev, t_len, n, hid, dtype)
     ys = _wide_call(gru_fwd, (px_f, px_b, w_hh, b_hh), "gru_wide_fwd")
     again = gru_fwd(px_f, px_b, w_hh, b_hh)
     want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
@@ -3293,36 +3414,72 @@ def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) ->
     what = f"{tag} [T={t_len},N={n},H={hid}]"
     if not all(torch.equal(a, b) for a, b in zip((*ys, *grads), (*again, *grads_again))):
         raise AssertionError(f"the wide route is not deterministic at {what}")
-    err_ys = _err(ys, want)
-    err_dpx, err_dw = _err(grads[:2], want_grads[:2]), _err(grads[2:], want_grads[2:])
-    scale = max(t.abs().max().item() for t in want_grads[2:])
-    share_ys = _equal_share(ys, want)
-    share_dpx = _equal_share(grads[:2], want_grads[:2])
+    errors = _wide_errors(ys, want, grads, want_grads)
     launches, cluster = zip(*(_launch_calls(fn) for fn in
                               (lambda: gru_fwd(px_f, px_b, w_hh, b_hh), lambda: gru_bwd(*args))))
     # Where the wrapper pads H to a multiple of 8, its pads and slices add
     # launches of their own: the total is held only where it does not.
     expected = [_wide_launches(t_len, b, bf16, persistent) for b in (False, True)]
     print(f"gru wide {what} ({'persistent' if persistent else 'per step'}): ys max_abs_err "
-          f"{err_ys:.3e} (equal {share_ys:.4f}); dpx {err_dpx:.3e} (equal {share_dpx:.4f}), dW/db "
-          f"{err_dw:.3e} (max {scale:.3e}); device launches a call {launches[0]:g} forward, "
-          f"{launches[1]:g} backward, of them cluster launches {cluster[0]:g}, {cluster[1]:g}",
-          flush=True)
-    if bf16:
-        ok = (ys[0].dtype == BF16 and err_ys <= 2e-2 and err_dpx <= 2e-2
-              and min(share_ys, share_dpx) >= _wide_min_equal(hid) and err_dw <= 1e-3 * scale)
-    else:
-        ok = err_ys <= 1e-4 and err_dpx <= 1e-3 and err_dw <= 1e-4 * scale
-    if not ok:
+          f"{errors['ys']:.3e} (equal {errors['ys_equal']:.4f}); dpx {errors['dpx']:.3e} (equal "
+          f"{errors['dpx_equal']:.4f}), dW/db {errors['dw']:.3e} (max {errors['dw_max']:.3e}); "
+          f"device launches a call {launches[0]:g} forward, {launches[1]:g} backward, of them "
+          f"cluster launches {cluster[0]:g}, {cluster[1]:g}", flush=True)
+    if (bf16 and ys[0].dtype != BF16) or not _wide_ok(errors, bf16, _wide_min_equal(hid)):
         raise AssertionError(f"the wide route disagrees with the plain versions at {what}")
     if list(cluster) != [float(persistent)] * 2 or (hid % 8 == 0 and list(launches) != expected):
         raise AssertionError(f"the wide route at {what}: {launches} device launches a forward "
                              f"and a backward call ({cluster} cluster launches), not {expected} "
                              f"({[int(persistent)] * 2})")
-    return {"fwd": {"max_abs_err": err_ys, "equal_share": share_ys},
-            "bwd": {"max_abs_err_dpx": err_dpx, "max_abs_err_dw": err_dw, "dw_max": scale,
-                    "equal_share": share_dpx},
+    return {"fwd": {"max_abs_err": errors["ys"], "equal_share": errors["ys_equal"]},
+            "bwd": {"max_abs_err_dpx": errors["dpx"], "max_abs_err_dw": errors["dw"],
+                    "dw_max": errors["dw_max"], "equal_share": errors["dpx_equal"]},
             "inputs": (px_f, px_b, w_hh, b_hh, args)}
+
+
+def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype) -> tuple[dict, dict]:
+    """``gru_fwd`` and ``gru_bwd`` on the wide route timed on ``inputs``
+    (CUDA events, the device's records), beside the plain versions, cuDNN's
+    ``nn.GRU(128, hid)`` and the bound: bytes (px and ys, and dy and dpx
+    for the backward, in the dtype; the f32 weights) over 3.35 TB/s, or
+    the recurrent products (three for the backward) over the dtype's peak.
+    Returns the forward's and the backward's numbers."""
+    from ocrs_models_torch.ops import gru_bwd, gru_bwd_reference, gru_fwd, gru_recurrence_reference
+
+    px_f, px_b, w_hh, b_hh, args = inputs
+    bf16 = dtype == BF16
+    h3 = 3 * hid
+    size = 2 if bf16 else 4
+    weights = 4 * (2 * hid * h3 + 2 * h3)
+    io_bytes = size * (2 * t_len * n * h3 + 2 * t_len * n * hid)  # px and ys (dy, dpx)
+    flops = 2 * t_len * 2 * n * hid * h3  # one [N,H] x [H,3H] product a step and direction
+    out = []
+    for name, kernel, plain, backward in (
+        ("gru_wide_fwd", lambda: gru_fwd(px_f, px_b, w_hh, b_hh),
+         lambda: gru_recurrence_reference(px_f, px_b, w_hh, b_hh), False),
+        ("gru_wide_bwd", lambda: gru_bwd(*args), lambda: gru_bwd_reference(*args), True),
+    ):
+        ms = _cuda_time_ms(kernel, iters=5)
+        plain_ms = _cuda_time_ms(plain, iters=2, warmup=1)
+        launches, times, _ = _device_profile(kernel, calls=3)
+        with _no_tf32():
+            library_ms = _cuda_time_ms(
+                _cudnn_gru(dev, gen, t_len, n, hid, dtype, backward), iters=5)
+        bound_ms, bound_by = _bound(io_bytes * (2 if backward else 1)
+                                    + weights * (2 if backward else 1),
+                                    flops * (3 if backward else 1),
+                                    BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+        device_ms = _wide_device_ms(times, t_len, backward)
+        timed = {"shape": f"T={t_len}, N={n}, H={hid}", "ms": ms, "device_ms": device_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": library_ms, "us_per_step": 1e3 * ms / t_len,
+                 "device_launches_per_call": launches}
+        print(f"{name} {'bf16' if bf16 else 'f32'} [T={t_len},N={n},H={hid}]: {ms:.4f} ms, "
+              f"device {_fmt(device_ms)} ms, {timed['us_per_step']:.3f} us per step, "
+              f"{launches:g} device launches per call; plain {plain_ms:.3f} ms, cuDNN "
+              f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        out.append(timed)
+    return out[0], out[1]
 
 
 def check_gru_wide(dev, gen) -> list[dict]:
@@ -3336,7 +3493,10 @@ def check_gru_wide(dev, gen) -> list[dict]:
     bit-identical, device launches a call asserted. Timed at H=512 against
     the plain versions and cuDNN's ``nn.GRU``, with the launch's rows per
     block and clusters. The per-step form is held the same way at
-    STEPWISE_SHAPE. Returns the kernels line's rows."""
+    STEPWISE_SHAPE, then timed at T=257, N=128, H=1024 (the kernels rows'
+    ``stepwise`` entries), its errors there gated at the tolerances above
+    (bf16: 2e-2 and 1e-3, its equal shares printed). Returns the kernels
+    line's rows."""
     from ocrs_models_torch.ops import (
         gru_bwd,
         gru_bwd_reference,
@@ -3357,41 +3517,19 @@ def check_gru_wide(dev, gen) -> list[dict]:
                 raise AssertionError(f"H={hid} does not take the wide route's persistent form")
             got = _check_wide_case(dev, gen, t_len, n, hid, dtype, tag)
             fwd["widths"][hid], bwd["widths"][hid] = got["fwd"], got["bwd"]
-        px_f, px_b, w_hh, b_hh, args = got.pop("inputs")
         # Timed at the last width checked, WIDE_HIDDEN.
-        h3 = 3 * hid
-        size = 2 if bf16 else 4
-        weights = 4 * (2 * hid * h3 + 2 * h3)
-        io_bytes = size * (2 * t_len * n * h3 + 2 * t_len * n * hid)  # px and ys (dy, dpx)
-        flops = 2 * t_len * 2 * n * hid * h3  # one [N,H] x [H,3H] product a step and direction
+        inputs = got.pop("inputs")
         clusters = wide_max_active_clusters(n, hid, dtype=dtype)
-        for row, kernel, plain, backward in (
-            (fwd, lambda: gru_fwd(px_f, px_b, w_hh, b_hh),
-             lambda: gru_recurrence_reference(px_f, px_b, w_hh, b_hh), False),
-            (bwd, lambda: gru_bwd(*args), lambda: gru_bwd_reference(*args), True),
-        ):
-            ms = _cuda_time_ms(kernel, iters=5)
-            plain_ms = _cuda_time_ms(plain, iters=2, warmup=1)
-            launches, times, _ = _device_profile(kernel, calls=3)
-            with _no_tf32():
-                library_ms = _cuda_time_ms(
-                    _cudnn_gru(dev, gen, t_len, n, hid, dtype, backward), iters=5)
-            bound_ms, bound_by = _bound(io_bytes * (2 if backward else 1)
-                                        + weights * (2 if backward else 1),
-                                        flops * (3 if backward else 1),
-                                        BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
-            device_ms = _wide_device_ms(times, t_len, backward)
+        for row, timed in zip((fwd, bwd), _time_wide(dev, gen, inputs, t_len, n, hid, dtype)):
+            backward = row is bwd
             launch = clusters[row["name"]]
             row.update({
                 "route": "cuda", "source": "ocrs_models_torch/csrc/gru_wide.cu",
                 "replaces": "ocrs_models_tpu/ops/pallas/gru_kernel4.py:"
                 + ("171" if backward else "139"),
-                "shape": f"T={t_len}, N={n}, H={hid}",
                 "max_abs_err": max(max(v for k, v in w.items() if k.startswith("max_abs_err"))
                                    for w in row["widths"].values()),
-                "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms, "us_per_step": 1e3 * ms / t_len,
-                "device_launches_per_call": launches, "cluster_size": clusters["cluster_size"],
+                **timed, "cluster_size": clusters["cluster_size"],
                 "rows_per_block": launch["rows_per_block"],
                 "clusters_launched": launch["launched"], "max_active_clusters": launch["max_active"],
             })
@@ -3399,19 +3537,39 @@ def check_gru_wide(dev, gen) -> list[dict]:
                 row["also"] = "ocrs_models_torch/csrc/gru_bwd.cu (coef, dw, dw_sum)"
             if bf16:
                 row["equal_share"] = min(w["equal_share"] for w in row["widths"].values())
-            print(f"{row['name']} {tag} [T={t_len},N={n},H={hid}]: {ms:.4f} ms, device "
-                  f"{_fmt(device_ms)} ms, {row['us_per_step']:.3f} us per step, {launches:g} "
-                  f"device launches per call; rows per block {launch['rows_per_block']}, "
-                  f"clusters of {clusters['cluster_size']}: {launch['launched']} launched, "
-                  f"{launch['max_active']} max active; plain {plain_ms:.3f} ms, cuDNN "
-                  f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+            print(f"{row['name']} {tag} [T={t_len},N={n},H={hid}]: rows per block "
+                  f"{launch['rows_per_block']}, clusters of {clusters['cluster_size']}: "
+                  f"{launch['launched']} launched, {launch['max_active']} max active", flush=True)
             rows.append(row)
-        del px_f, px_b, w_hh, b_hh, args, got
-        # The per-step form (widths above 512), held the same way.
+        del inputs, got
+        # The per-step form (widths above 512), held the same way, then
+        # timed at the wide bucket's T=257, N=128 (its errors there beside
+        # the plain versions: f32 gated as above, bf16 within 2e-2).
         t_s, n_s, h_s = STEPWISE_SHAPE
         if gru_route(h_s) != "stepwise":
             raise AssertionError(f"H={h_s} does not take the wide route's per-step form")
         _check_wide_case(dev, gen, t_s, n_s, h_s, dtype, tag)
+        torch.cuda.empty_cache()
+        px_f, px_b, dy_f, dy_b, w_hh, b_hh = _wide_operands(gen, dev, t_len, n, h_s, dtype)
+        ys = gru_fwd(px_f, px_b, w_hh, b_hh)
+        args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
+        errors = _wide_errors(ys, gru_recurrence_reference(px_f, px_b, w_hh, b_hh),
+                              gru_bwd(*args), gru_bwd_reference(*args))
+        inputs = (px_f, px_b, w_hh, b_hh, args)
+        del ys, px_f, px_b, dy_f, dy_b, w_hh, b_hh, args
+        print(f"gru wide per step {tag} [T={t_len},N={n},H={h_s}]: {json.dumps(errors)}",
+              flush=True)
+        if not _wide_ok(errors, bf16):
+            raise AssertionError(f"the per-step wide route at H={h_s}, T={t_len} disagrees with "
+                                 f"the plain versions: {errors}")
+        for row, timed in zip((fwd, bwd), _time_wide(dev, gen, inputs, t_len, n, h_s, dtype)):
+            errs = ({"max_abs_err": errors["ys"]} if row is fwd else
+                    {"max_abs_err_dpx": errors["dpx"], "max_abs_err_dw": errors["dw"],
+                     "dw_max": errors["dw_max"]})
+            if bf16:
+                errs["equal_share"] = errors["ys_equal" if row is fwd else "dpx_equal"]
+            row["stepwise"] = {**timed, **errs}
+        del inputs
         torch.cuda.empty_cache()
     return rows
 
@@ -3589,10 +3747,13 @@ def run_phases(root: Path, keep: Path) -> int:
     kernels += [check_stage1_bwd(dev, gen), check_gru_bwd(dev, gen), *check_ctc(dev, gen)]
     kernels_bf16 += [check_stage1_bwd_bf16(dev, gen), check_gru_bwd_bf16(dev, gen)]
 
-    # Phase 8: the training step, in both dtypes.
+    # Phase 8: the training step, in both dtypes, and at the wide bucket
+    # with a line too long for its crop (S = 1025).
     train = {}
     for dtype, name in ((torch.float32, "f32"), (BF16, "bf16")):
         check_train_step_vs_plain(dev, dtype)
+        check_train_step_vs_plain(dev, dtype, batch=long_label_batch(dev),
+                                  tag=" wide, a 449-character line")
         train[name] = run_training(dev, dtype)
     for rows, name in ((kernels, "f32"), (kernels_bf16, "bf16")):
         head = train[name]["headline"]

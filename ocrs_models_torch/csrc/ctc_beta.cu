@@ -48,6 +48,11 @@
 //   others on the last position's inputs, hold NEG_INF (the padding the
 //   definition reads at p + 1, p + 2 >= S) and store nothing. It is
 //   unrolled by two so that the two state buffers are fixed addresses.
+// - Above S = 1024 a block holds 1024 threads at most, so a thread owns
+//   an even k = 2 ceil(S / 2048) positions and V lives in shared memory
+//   (or, past what a block's shared memory holds, B in demit's own rows):
+//   ctc_beta_kernel_wide. The Pallas kernel takes any S; so does this one,
+//   up to the 32-bit offsets' T * S < 2^31.
 // Measured and lost: helper warps that copy and write the gradient while
 // the others only recurse (twice the warps at the barrier lengthen the
 // chain by as much), and one warp holding several positions per lane for
@@ -201,10 +206,227 @@ __global__ void ctc_beta_kernel(const float* __restrict__ emit, const float* __r
     }
 }
 
+// S > 1024 (ctc_step.cuh, "Wide samples"): thread p owns the k positions
+// j = p + i P. Iteration q makes B[q] from V[q+1] = B[q+1] + e[q+1], which
+// the step before published in one buffer (two trailing NEG_INF lanes, and
+// lanes at or past S hold NEG_INF: the padding the definition reads), and
+// publishes V[q] into the other, then one __syncthreads. B[q] itself is
+// used at once: demit[q] = sign * exp(alpha[q] + B[q]) is stored (dalpha0
+// at q = 0) and V[q] = B[q] + e[q] published, so nothing but V crosses a
+// step. In kRing V and the skip terms of p + 2 are in shared memory, and
+// each thread copies its (emission, saved alpha) pairs of a row into a
+// ring kWideRing - 1 steps ahead (one cp.async group a row, 2k copies in
+// it; a slot is refilled one step after its row was read, past the
+// barrier that ends that read).
+// In kGlobal demit's own rows hold B: row q gets B[q], and row q + 2, read
+// by no thread after the step before, is turned into its gradient in
+// place by the thread that owns each position; row 1 follows the loop, and
+// row 0's B goes to dalpha0 before the row is zeroed. Each sum is the
+// plain version's, in its order, so the results stay its bit for bit.
+template <int kDesign, bool kProbe>
+__global__ void __launch_bounds__(ctc::kMaxThreads)
+    ctc_beta_kernel_wide(const float* __restrict__ emit, const float* __restrict__ skip,
+                         const float* __restrict__ alphas, const float* __restrict__ seed,
+                         const float* __restrict__ sign, const int* __restrict__ lens, float* demit,
+                         float* __restrict__ dalpha0, int T, int S, long long* __restrict__ probe) {
+    using namespace ctc;
+    static_assert(kDesign != kGlobal || !kProbe, "the probe keeps the state in shared memory");
+    constexpr bool kInShared = kDesign == kRing;
+    constexpr int R = kWideRing;
+    // Shared floats: [V buffer 0: W + 2][V buffer 1: W + 2][skip of p + 2: W]
+    // [ring: R x W pairs (emission, saved alpha)].
+    extern __shared__ float2 st2[];
+    float* const st = reinterpret_cast<float*>(st2);
+    const Wide w = wide_shape(S);
+    const int k = w.k, P = blockDim.x, W = w.W;
+    const int n = blockIdx.x, p = threadIdx.x;
+    float* const buf0 = st;
+    float* const buf1 = st + (W + 2);
+    float* const sk2s = st + 2 * (W + 2);
+    float2* const ring = reinterpret_cast<float2*>(sk2s + W);
+    const size_t base = (size_t)n * T * S;
+    const float* e_n = emit + base;
+    const float* a_n = alphas + base;
+    float* de = demit + base;
+    const int len = kProbe ? T : lens[n];
+    const int tl = min(max(len, 1), T) - 1;  // the row that holds the seed
+    const float sg = kProbe ? 1.f : sign[n];
+
+    // This thread's pairs of `row` into the ring, one group per row. A row
+    // below 0 copies row 0 again, into a slot no row above 0 is read from.
+    auto fetch = [&](int row) {
+        if (!kInShared) return;
+        if (!kProbe) {
+            const unsigned src = (unsigned)(max(row, 0) * S);
+            float2* dst = ring + (row & (R - 1)) * W;
+            for (int i = 0; i < k; ++i) {
+                const int j = p + i * P, q = min(j, S - 1);
+                cp_async4(&dst[j].x, e_n + src + q);
+                cp_async4(&dst[j].y, a_n + src + q);
+            }
+        }
+        cp_async_commit();
+    };
+    // (emission, saved alpha) of `row` at position j, from the ring.
+    auto inputs = [&](int row, int j) {
+        if (kProbe) return make_float2(-3.f - 0.1f * (row & 3), 0.f);
+        return ring[(row & (R - 1)) * W + j];
+    };
+    // A gradient of `row`: demit's row, or dalpha0 at row 0.
+    auto put_grad = [&](int row, int j, float g) {
+        if (row >= 1)
+            de[(unsigned)(row * S) + j] = g;
+        else
+            dalpha0[(size_t)n * S + j] = g;
+    };
+
+    if (!kProbe) {
+        // Frozen rows (t > tl) and row 0 carry no gradient (kGlobal zeroes
+        // row 0 once its B is used).
+        for (size_t i = (size_t)(tl + 1) * S + p; i < (size_t)T * S; i += P) de[i] = 0.f;
+        if (kInShared)
+            for (int j = p; j < S; j += P) de[j] = 0.f;
+    }
+    for (int d = 0; d < R; ++d) fetch(tl - d);
+    if (kInShared) {
+        cp_async_wait<R - 1>();
+        float* v = (tl & 1) ? buf1 : buf0;
+        for (int i = 0; i < k; ++i) {
+            const int j = p + i * P;
+            float b, sk2;
+            if (kProbe) {
+                b = j < S ? -1.f - 0.01f * j : kNegInf;
+                sk2 = (j & 1) && j + 2 < S ? 0.f : kNegInf;
+            } else {
+                b = j < S ? seed[(size_t)n * S + j] : kNegInf;
+                sk2 = j + 2 < S ? skip[(size_t)n * S + j + 2] : kNegInf;
+            }
+            sk2s[j] = sk2;
+            const float2 ea = inputs(tl, j);
+            if (!kProbe && j < S) put_grad(tl, j, sg * expf(ea.y + b));
+            v[j] = j < S ? b + ea.x : kNegInf;
+        }
+        if (p < 2) buf0[W + p] = buf1[W + p] = kNegInf;
+    } else if (tl >= 1) {
+        for (int j = p; j < S; j += P) de[(unsigned)(tl * S) + j] = seed[(size_t)n * S + j];
+    }
+    __syncthreads();
+    long long c0 = 0;
+    unsigned long long ns0 = 0;
+    if (kProbe) {
+        c0 = clock64();
+        ns0 = global_ns();
+    }
+
+    // Iteration q: B[q] from row q + 1.
+    auto step = [&](int q) {
+        if (kInShared) {
+            const float* vr = ((q + 1) & 1) ? buf1 : buf0;
+            float* vq = (q & 1) ? buf1 : buf0;
+            fetch(q - R + 1);  // into the slot of row q + 1, read in the step before
+            cp_async_wait<R - 1>();
+            // Two positions at a time (k is even), both read before either
+            // is written.
+            for (int i0 = 0; i0 < k; i0 += 2) {
+                float b[2];
+                float2 ea[2];
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    const int j = p + (i0 + c) * P;
+                    b[c] = lse3(vr[j], vr[j + 1], vr[j + 2] + sk2s[j]);
+                    ea[c] = inputs(q, j);
+                }
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    const int j = p + (i0 + c) * P;
+                    if (!kProbe && j < S) put_grad(q, j, sg * expf(ea[c].y + b[c]));
+                    vq[j] = j < S ? b[c] + ea[c].x : kNegInf;
+                }
+            }
+        } else {
+            const float* br = de + (unsigned)((q + 1) * S);
+            const float* er = e_n + (unsigned)((q + 1) * S);
+            for (int j = p; j < S; j += P) {
+                const float v0 = br[j] + er[j];
+                const float v1 = j + 1 < S ? br[j + 1] + er[j + 1] : kNegInf;
+                const float v2 = j + 2 < S ? br[j + 2] + er[j + 2] : kNegInf;
+                const float sk2 = j + 2 < S ? skip[(size_t)n * S + j + 2] : kNegInf;
+                de[(unsigned)(q * S) + j] = lse3(v0, v1, v2 + sk2);
+                if (q + 2 <= tl) {
+                    const unsigned at = (unsigned)((q + 2) * S) + j;
+                    de[at] = sg * expf(a_n[at] + de[at]);
+                }
+            }
+        }
+        __syncthreads();
+    };
+    for (int q = tl - 1; q >= 0; --q) step(q);
+
+    if (kProbe) {
+        const long long c1 = clock64();
+        const unsigned long long ns1 = global_ns();
+        if (p == 0) {
+            probe[0] = c1 - c0;
+            probe[1] = (long long)(ns1 - ns0);
+        }
+        if (buf0[p] == 12345.f) probe[2] = 1;  // keep the chain alive
+        return;
+    }
+    if (!kInShared) {
+        for (int j = p; j < S; j += P) {
+            if (tl >= 1) {
+                const unsigned at = (unsigned)S + j;
+                de[at] = sg * expf(a_n[at] + de[at]);
+            }
+            const float b0 = tl >= 1 ? de[j] : seed[(size_t)n * S + j];
+            dalpha0[(size_t)n * S + j] = sg * expf(a_n[j] + b0);
+            de[j] = 0.f;
+        }
+    }
+}
+
+template <int kDesign, bool kProbe>
+cudaError_t launch_wide(const float* emit, const float* skip, const float* alphas, const float* seed,
+                        const float* sign, const int* lens, float* demit, float* dalpha0, int n,
+                        int T, int S, long long* probe, size_t smem, size_t max_smem, int device,
+                        cudaStream_t s) {
+    static size_t asked[64];
+    const auto kernel = ctc_beta_kernel_wide<kDesign, kProbe>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = ctc::allow_smem(kernel, max_smem, device, asked);
+        if (err != cudaSuccess) return err;
+    }
+    kernel<<<n, ctc::wide_shape(S).P, smem, s>>>(emit, skip, alphas, seed, sign, lens, demit,
+                                                  dalpha0, T, S, probe);
+    return cudaGetLastError();
+}
+
+// The design ocrs_ctc_beta takes for S on `device` (ctc::Design), and its
+// dynamic shared memory.
+cudaError_t design_of(int device, int S, ctc::Design* design, size_t* smem, size_t* max_bytes) {
+    const cudaError_t err = ctc::max_smem(device, max_bytes);
+    if (err != cudaSuccess) return err;
+    *design = ctc::wide_design(S, 2, *max_bytes, smem);
+    return cudaSuccess;
+}
+
 template <bool kProbe>
 cudaError_t launch(const float* emit, const float* skip, const float* alphas, const float* seed,
                    const float* sign, const int* lens, float* demit, float* dalpha0, int n, int T,
-                   int S, long long* probe, cudaStream_t s) {
+                   int S, long long* probe, int device, cudaStream_t s) {
+    if (S > ctc::kMaxThreads) {
+        ctc::Design design;
+        size_t smem, max_bytes;
+        const cudaError_t err = design_of(device, S, &design, &smem, &max_bytes);
+        if (err != cudaSuccess) return err;
+#define OCRS_CTC_BETA_WIDE(d)                                                                \
+    launch_wide<d, kProbe>(emit, skip, alphas, seed, sign, lens, demit, dalpha0, n, T, S, probe, \
+                           smem, max_bytes, device, s)
+        if (design == ctc::kRing) return OCRS_CTC_BETA_WIDE(ctc::kRing);
+        if constexpr (!kProbe) return OCRS_CTC_BETA_WIDE(ctc::kGlobal);
+#undef OCRS_CTC_BETA_WIDE
+        return cudaErrorInvalidValue;  // the probe with the state in device memory
+    }
     const int P = (S + 31) / 32 * 32;
 #define OCRS_CTC_BETA(warp, ring, floats)                                               \
     ctc_beta_kernel<warp, ring, kProbe><<<n, P, sizeof(float) * (floats), s>>>(           \
@@ -225,34 +447,45 @@ extern "C" {
 
 // emit, alphas [n, T, S]; skip, seed [n, S]; sign [n]; lens [n] int32;
 // out demit [n, T, S], dalpha0 [n, S]. All contiguous, on CUDA device
-// `device`, whose stream is `stream`. S <= 1024 and T * S < 2^31. Returns
-// cudaGetLastError().
+// `device`, whose stream is `stream`. T * S < 2^31 (32-bit offsets within
+// a sample). Returns cudaGetLastError().
 int ocrs_ctc_beta(int device, const float* emit, const float* skip, const float* alphas,
                   const float* seed, const float* sign, const int* lens, float* demit,
                   float* dalpha0, int n, int T, int S, void* stream) {
-    if (S < 1 || S > 1024 || T < 1 || (long long)T * S > 0x7fffffffLL)
-        return (int)cudaErrorInvalidValue;
+    if (S < 1 || T < 1 || (long long)T * S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     const RestoreDevice restore_device;
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n == 0) return (int)cudaGetLastError();
     return (int)launch<false>(emit, skip, alphas, seed, sign, lens, demit, dalpha0, n, T, S,
-                              nullptr, (cudaStream_t)stream);
+                              nullptr, device, (cudaStream_t)stream);
+}
+
+// The design ocrs_ctc_beta takes for S on CUDA device `device`
+// (ctc_step.cuh): 0 one thread a position (S <= 1024); above, the state in
+// shared memory with a ring of inputs (1), or in device memory (2).
+// Negative: -(the CUDA error) where the card cannot be asked.
+int ocrs_ctc_beta_design(int device, int S) {
+    if (S < 1) return -(int)cudaErrorInvalidValue;
+    ctc::Design design;
+    size_t smem, max_bytes;
+    const cudaError_t err = design_of(device, S, &design, &smem, &max_bytes);
+    return err != cudaSuccess ? -(int)err : (int)design;
 }
 
 // The dependent chain alone: one sample of T steps and S positions runs the
-// recursion on made-up emissions held in registers, with no global access
-// in the loop, in the design ocrs_ctc_beta picks for S. out[0]: cycles
-// (clock64) of the T - 1 steps, out[1]: their nanoseconds (%globaltimer),
-// out[2]: unused.
+// recursion on made-up emissions held in registers (or, above 1024
+// positions, in the state's shared buffers), with no global access in the
+// loop, in the design ocrs_ctc_beta picks for S, which must keep the state
+// in shared memory. out[0]: cycles (clock64) of the T - 1 steps, out[1]:
+// their nanoseconds (%globaltimer), out[2]: unused.
 int ocrs_ctc_beta_probe(int device, int T, int S, long long* out, void* stream) {
-    if (S < 1 || S > 1024 || T < 1 || (long long)T * S > 0x7fffffffLL)
-        return (int)cudaErrorInvalidValue;
+    if (S < 1 || T < 1 || (long long)T * S > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     const RestoreDevice restore_device;
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     return (int)launch<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                             1, T, S, out, (cudaStream_t)stream);
+                             1, T, S, out, device, (cudaStream_t)stream);
 }
 
 const char* ocrs_error_string(int code) {

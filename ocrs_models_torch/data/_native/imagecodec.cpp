@@ -6,12 +6,15 @@
 // builds it with g++ at first use.
 //
 // JPEG scope: 8-bit baseline and extended-sequential Huffman (SOF0, SOF1)
-// and progressive Huffman (SOF2), one component (greyscale) or three
-// (YCbCr, or RGB when an Adobe APP14 marker says transform 0 or the
-// component ids are 'R', 'G', 'B'), sampling ratios 1 or 2 per axis,
-// restart intervals, multi-scan sequential files. Arithmetic coding,
-// lossless and hierarchical frames, 12-bit samples, CMYK/YCCK, other
-// component counts and truncated files raise. Progressive files decode
+// and progressive Huffman (SOF2), one component (greyscale), three (YCbCr,
+// or RGB when an Adobe APP14 marker says transform 0 or the component ids
+// are 'R', 'G', 'B') or four (CMYK, or YCCK when an Adobe marker says a
+// transform other than 0: libjpeg's rule), sampling ratios 1 or 2 per
+// axis, restart intervals, multi-scan sequential files. Four components
+// reach grey as Pillow takes them: libjpeg's YCCK->CMYK, Pillow's
+// inversion of Adobe CMYK ("CMYK;I"), then its cmyk2rgb and rgb2l.
+// Arithmetic coding, lossless and hierarchical frames, 12-bit samples,
+// other component counts and truncated files raise. Progressive files decode
 // without libjpeg's block smoothing, which libjpeg applies only while the
 // low AC coefficients are not yet fully refined (never once every scan of
 // a standard progression has been read).
@@ -454,8 +457,7 @@ struct Decoder {
         int nc = u8();
         if (H == 0) throw JpegError("image height 0 (a DNL marker), which is not supported");
         if (W == 0) throw JpegError("image width 0 in " + hex_marker(marker));
-        if (nc == 4) throw JpegError("4 components (CMYK/YCCK) in " + hex_marker(marker));
-        if (nc != 1 && nc != 3) throw JpegError(std::to_string(nc) + " components in " + hex_marker(marker));
+        if (nc != 1 && nc != 3 && nc != 4) throw JpegError(std::to_string(nc) + " components in " + hex_marker(marker));
         comps.resize(nc);
         for (auto& c : comps) {
             c.id = u8();
@@ -848,6 +850,37 @@ struct Decoder {
             cb_g[i] = -fix(0.34414) * x + ONE_HALF;
         }
         auto clamp = [](int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); };
+        if (comps.size() == 4) {
+            // libjpeg: no Adobe marker or transform 0 is CMYK, any other
+            // transform YCCK (ycck_cmyk_convert: C = 255 - R of the YCbCr
+            // colour, K as it is). Pillow reads either as "CMYK;I" (every
+            // byte inverted), so after it C, M, Y are R, G, B for YCCK and
+            // 255 - C, 255 - M, 255 - Y for CMYK, and K is 255 - K. Then
+            // its cmyk2rgb (MULDIV255) and rgb2l.
+            const bool ycck = saw_adobe && adobe_transform != 0;
+            const uint8_t* c3 = full[3].data();
+            auto muldiv255 = [](int a, int b) {
+                const int t = a * b + 128;
+                return ((t >> 8) + t) >> 8;
+            };
+            for (size_t i = 0; i < npix; i++) {
+                int c, m, y;
+                if (ycck) {
+                    const int luma = c0[i], cb = c1[i], cr = c2[i];
+                    c = clamp(luma + cr_r[cr]);
+                    m = clamp(luma + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
+                    y = clamp(luma + cb_b[cb]);
+                } else {
+                    c = 255 - c0[i];
+                    m = 255 - c1[i];
+                    y = 255 - c2[i];
+                }
+                const int nk = c3[i];  // 255 - (255 - K)
+                out[i] = rgb2l(clamp(nk - muldiv255(c, nk)), clamp(nk - muldiv255(m, nk)),
+                               clamp(nk - muldiv255(y, nk)));
+            }
+            return out;
+        }
         for (size_t i = 0; i < npix; i++) {
             int y = c0[i], cb = c1[i], cr = c2[i];
             int r = clamp(y + cr_r[cr]);

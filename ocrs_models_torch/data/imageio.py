@@ -11,10 +11,11 @@ parallel. There is no numpy fallback: without ``g++`` :func:`read_grey`
 raises.
 
 The format comes from the file's bytes, not its name (DDI-100 pages may
-be JPEGs named ``.png``). What the decoder refuses (arithmetic coding,
-lossless, 12-bit, CMYK/YCCK, truncated files; PNGs at 16 bits or
-interlaced, see :func:`decode_png`) raises ``ValueError`` naming
-the file.
+be JPEGs named ``.png``). JPEGs of 1, 3 (YCbCr or RGB) and 4 components
+(CMYK or YCCK, as Pillow inverts and converts them) and PNGs of every
+colour type and bit depth, interlaced or not, are read. What the decoder
+refuses (arithmetic coding, lossless and hierarchical JPEGs, 12-bit
+samples, truncated files) raises ``ValueError`` naming the file.
 """
 
 from __future__ import annotations
@@ -92,12 +93,34 @@ def png_unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, path="<bytes>")
     return out
 
 
+# Bit depths each colour type allows (the PNG specification's table).
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+"""Adam7: each pass's first column and row and its column and row steps."""
+
+
+def _samples(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """Unfiltered rows ``[h, stride]`` as samples ``[h, width * channels]``:
+    uint16 at 16 bits (big-endian in the file), else uint8 (packed depths
+    from each byte's high bits)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16)
+    if depth == 8:
+        return rows
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return ((rows[..., None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :width]
+
+
 def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """A non-interlaced PNG of 8-bit samples, or of 1, 2 or 4-bit greyscale
-    or palette samples: ``[H, W]`` uint8 for greyscale (scaled to 0-255),
-    ``[H, W, C]`` for RGB (3), palette (3: the palette's colours), LA (2)
-    and RGBA (4). Palette indices past the ``PLTE`` chunk's entries read as
-    black, as in Pillow. Anything else raises ``ValueError``."""
+    """A PNG's samples as Pillow holds them, at every colour type and bit
+    depth, interlaced (Adam7) or not: ``[H, W]`` for greyscale (uint8
+    scaled to 0-255 below 8 bits, uint16 at 16: Pillow's ``I;16``),
+    ``[H, W, C]`` uint8 for RGB (3), palette (3: the palette's colours), LA
+    (2) and RGBA (4), of which Pillow keeps the high byte at 16 bits.
+    Palette indices past the ``PLTE`` chunk's entries read as black, as in
+    Pillow. Anything else raises ``ValueError``."""
     if not data.startswith(PNG_MAGIC):
         raise ValueError(f"{path}: not a PNG file")
     pos, header, idat, palette = 8, None, [], None
@@ -116,33 +139,47 @@ def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
-    packed = color in (0, 3) and depth in (1, 2, 4)
-    if (depth != 8 and not packed) or color not in _CHANNELS or interlace != 0:
+    if color not in _DEPTHS or depth not in _DEPTHS[color] or interlace not in (0, 1):
         raise ValueError(
-            f"{path}: bit depth {depth}, colour type {color}, interlace {interlace}: only "
-            "8-bit non-interlaced greyscale (0), RGB (2), palette (3), LA (4) or RGBA (6) "
-            "PNGs (greyscale and palette also at 1, 2 or 4 bits) are read; convert it, or "
-            "save the page as .npy")
+            f"{path}: bit depth {depth}, colour type {color}, interlace {interlace}: not a "
+            "PNG layout (greyscale at 1, 2, 4, 8 or 16 bits, palette at 1 to 8, RGB, LA and "
+            "RGBA at 8 or 16; interlace 0 or 1)")
     if color == 3 and palette is None:
         raise ValueError(f"{path}: palette PNG without a PLTE chunk")
-    bpp = _CHANNELS[color]
+    ch = _CHANNELS[color]
+    bpp = max(1, ch * depth // 8)  # the filters' byte distance
     try:
         raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     except zlib.error as e:
         raise ValueError(f"{path}: corrupt PNG image data ({e})") from e
-    img = png_unfilter(raw, h, (w * bpp * depth + 7) // 8, bpp, path)
-    if packed:  # samples packed from each byte's high bits; grey scaled to 0-255
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        img = ((img[..., None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
-        if color == 0:
-            img = img * np.uint8(255 // ((1 << depth) - 1))
+    # (first column, first row, column step, row step) of each pass; a
+    # pass with no pixel has no bytes, not even filter bytes.
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(w - x0) // dx), -(-(h - y0) // dy)) for x0, y0, dx, dy in passes]
+    strides = [(pw * ch * depth + 7) // 8 for pw, _ in sizes]
+    img = np.zeros((h, w * ch), np.uint16 if depth == 16 else np.uint8)
+    start = 0
+    for (x0, y0, dx, dy), (pw, ph), stride in zip(passes, sizes, strides):
+        if not (pw and ph):
+            continue
+        n = ph * (stride + 1)
+        rows = png_unfilter(raw[start : start + n], ph, stride, bpp, path)  # checks the size
+        start += n
+        sub = _samples(rows, pw * ch, depth).reshape(ph, pw, ch)
+        img.reshape(h, w, ch)[y0::dy, x0::dx] = sub
+    if raw.size != start:
+        raise ValueError(f"{path}: PNG image data holds {raw.size} bytes, expected {start}")
+    if depth < 8 and color == 0:  # greyscale scaled to 0-255
+        img = img * np.uint8(255 // ((1 << depth) - 1))
     if color == 0:
         return img
+    if depth == 16:  # Pillow keeps the high byte ("RGB;16B", "LA;16B", "RGBA;16B")
+        img = (img >> 8).astype(np.uint8)
     if color == 3:
         colours = np.zeros((256, 3), np.uint8)
         colours[: len(palette)] = palette[:256]
         return colours[img]
-    return img.reshape(h, w, bpp)
+    return img.reshape(h, w, ch)
 
 
 def rgb_to_grey(rgb: np.ndarray) -> np.ndarray:
@@ -155,8 +192,12 @@ def rgb_to_grey(rgb: np.ndarray) -> np.ndarray:
 
 def png_to_grey(arr: np.ndarray) -> np.ndarray:
     """Pillow's conversion to "L" of decoded PNG channels: grey as it is,
-    LA's L (``la2l``), RGB and RGBA through ``rgb2l`` (``rgba2l`` ignores
-    alpha)."""
+    16-bit grey (``I;16``) clipped to 255 (``I16_L``: every value above
+    255 reads 255), LA's L (``la2l``; Pillow opens 16-bit LA as RGBA of
+    L, L, L, A, whose ``rgb2l`` is L again), RGB and RGBA through ``rgb2l``
+    (``rgba2l`` ignores alpha)."""
+    if arr.dtype == np.uint16:
+        return np.minimum(arr, 255).astype(np.uint8)
     if arr.ndim == 2:
         return arr
     if arr.shape[-1] == 2:

@@ -23,8 +23,11 @@ how far they are from the plain version's.
 ``headline_padded``, ``wide``, ``wide_padded``), and more that take them
 apart: ``wide_padded`` operands with ``ragged`` lengths and the reverse,
 ``wide_padded`` at N=120, 112, 96, 16 and 1 (a call's 34 MB of emissions
-and states shrunk step by step), and ``headline_padded`` at N=128 (one
-block on an SM, where N=256 puts two on most).
+and states shrunk step by step), ``headline_padded`` at N=128 (one
+block on an SM, where N=256 puts two on most), and past a block of
+positions, ``long_s1025`` and ``long_s2049``: ``ragged``'s lengths in label
+arrays 512 and 1024 wide, row 2 holding a line of 449 (960) characters
+that its 20 steps cannot fit (several positions a thread).
 
 ``gru_fwd_bf16`` and ``gru_bwd_bf16`` (C entries ``ocrs_gru_fwd_bf16`` and
 ``ocrs_gru_bwd_bf16``; the backward's two scratch layouts, the parent's f32
@@ -153,6 +156,11 @@ def _ctc_cases(dev) -> dict:
     for n_small in (120, 112, 96, 16, 1):
         out[f"wide_padded_n{n_small}"] = tuple(t[:n_small].contiguous() for t in padded)
     out["headline_padded_n128"] = tuple(t[:128].contiguous() for t in out["headline_padded"])
+    for label_width, long_len in ((512, 449), (1024, 960)):
+        lens = label_len.copy()
+        lens[2] = long_len
+        out[f"long_s{2 * label_width + 1}"] = _ctc_operands(dev, gen, n, t_len, label_width, lens,
+                                                            input_len, repeats=True)
     return out
 
 

@@ -6,6 +6,7 @@ from .ctc import (
     ctc_beta,
     ctc_beta_chain_probe,
     ctc_beta_reference,
+    ctc_design,
     ctc_loss,
     ctc_loss_forward,
     ctc_operands,
@@ -44,8 +45,8 @@ of the wide route in either of its forms, :func:`gru_route`)."""
 
 __all__ = [
     "BiGRU", "DTYPES", "KERNELS", "ctc_alpha", "ctc_alpha_chain_probe", "ctc_alpha_reference",
-    "ctc_beta", "ctc_beta_chain_probe", "ctc_beta_reference", "ctc_loss", "ctc_loss_forward",
-    "ctc_operands", "gru_bwd", "gru_bwd_chain_bf16_reference", "gru_bwd_chain_reference",
+    "ctc_beta", "ctc_beta_chain_probe", "ctc_beta_reference", "ctc_design", "ctc_loss",
+    "ctc_loss_forward", "ctc_operands", "gru_bwd", "gru_bwd_chain_bf16_reference", "gru_bwd_chain_reference",
     "gru_bwd_coefficients_reference", "gru_bwd_dw_bf16_reference", "gru_bwd_dw_reference",
     "gru_bwd_phases_reference", "gru_bwd_reference", "gru_fwd", "gru_recurrence",
     "gru_recurrence_reference", "gru_route", "gru_wide_bwd", "gru_wide_fwd", "stage1",

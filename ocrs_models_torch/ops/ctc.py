@@ -20,10 +20,15 @@ instead of reading the Pallas design's ``[T, N, S]`` additive gate, and
 skip the frozen steps: each runs only a sample's active steps and fills
 the frozen rows from its last state. Both kernels share one design (one
 block per sample, one warp with shuffles where ``S <= 32``; each thread
-copies its inputs eight steps ahead into a ring in shared memory, so no
-step waits for device memory), and each has a probe that times its chain
-of dependent steps alone (:func:`ctc_alpha_chain_probe`,
-:func:`ctc_beta_chain_probe`).
+copies its inputs a few steps ahead into a ring in shared memory, so no
+step waits for device memory). A block holds at most 1024 threads, so
+above ``S = 1024`` each thread owns ``2 ceil(S / 2048)`` positions and the
+state lives in shared memory beside the ring while both fit (some 8 k
+positions for alpha, 5 k for beta on an H100), past that in device memory
+(:func:`ctc_design` names the one a call takes). The kernels take any ``S`` the Pallas kernels take, up to the
+32-bit offsets' ``T * S < 2^31``, which the wrappers check. Each kernel has
+a probe that times its chain of dependent steps alone
+(:func:`ctc_alpha_chain_probe`, :func:`ctc_beta_chain_probe`).
 
 Log space uses ``NEG_INF = -1e30``, not ``-inf``, with the JAX package's
 ``_lse3`` guard: a zero-weight row whose labels cannot fit its input then
@@ -46,6 +51,14 @@ def _lse3(a, b, c):
     m_safe = torch.maximum(m, m.new_tensor(NEG_INF))
     out = m_safe + torch.log(torch.exp(a - m_safe) + torch.exp(b - m_safe) + torch.exp(c - m_safe))
     return torch.where(m <= NEG_INF, torch.full_like(out, NEG_INF), out)
+
+
+MAX_STATES = 2**31 - 1
+"""The kernels' limit on ``T * S``: offsets within a sample are 32-bit."""
+
+DESIGNS = ("per_position", "ring", "global")
+"""Where a kernel keeps a sample's state (``csrc/ctc_step.cuh``), by the
+code of its ``ocrs_ctc_*_design`` entry."""
 
 
 def _check(name: str, emit: torch.Tensor, tensors: dict, input_lengths: torch.Tensor) -> None:
@@ -96,7 +109,39 @@ def _alpha_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.ocrs_ctc_alpha_probe.argtypes = [i, i, i, p, p]
         lib.ocrs_ctc_alpha_probe.restype = ctypes.c_int
+        lib.ocrs_ctc_alpha_design.argtypes = [i, i]
+        lib.ocrs_ctc_alpha_design.restype = ctypes.c_int
     return lib
+
+
+def _check_size(name: str, t_len: int, s: int) -> None:
+    if t_len * s > MAX_STATES:
+        raise ValueError(f"{name}: T * S = {t_len} * {s} is past the kernel's 32-bit offsets "
+                         f"(at most {MAX_STATES})")
+
+
+def wide_slots(s: int) -> list[range]:
+    """The positions each thread of a block holds in turn above ``s =
+    1024`` (``wide_shape`` in ``csrc/ctc_step.cuh``): slot ``i`` is
+    position ``p + i P`` of every thread ``p < P``, ``2 ceil(s / 2048)``
+    slots, ``P`` the fewest whole warps that hold ``s`` in that many."""
+    k = 2 * ((s + 2047) // 2048)
+    width = ((s + k - 1) // k + 31) // 32 * 32
+    return [range(i * width, min((i + 1) * width, s)) for i in range(k)]
+
+
+def ctc_design(kernel: str, s: int, device: torch.device) -> str:
+    """Where ``kernel`` (``"ctc_alpha"`` or ``"ctc_beta"``) keeps a sample's
+    state at ``s`` positions on CUDA ``device``: ``"per_position"`` (one
+    thread a position, ``s <= 1024``), ``"ring"`` (shared memory, with its
+    inputs copied a few steps ahead) or ``"global"`` (device memory)."""
+    if device.type != "cuda":
+        raise RuntimeError(f"ctc_design: needs a CUDA device, got {device}")
+    lib = _alpha_lib() if kernel == "ctc_alpha" else _beta_lib()
+    code = getattr(lib, f"ocrs_{kernel}_design")(device.index, s)
+    if code < 0:
+        _build.check(lib, -code, f"{kernel}_design")
+    return DESIGNS[code]
 
 
 def ctc_alpha(emit, skip, alpha0, input_lengths, final_only=False):
@@ -104,24 +149,31 @@ def ctc_alpha(emit, skip, alpha0, input_lengths, final_only=False):
     (``input_lengths`` int32). A CUDA tensor goes through ``ctc_alpha.cu``
     (one launch, one block per sample, or one warp where ``S <= 32``; each
     sample runs only its active steps, with its emissions copied into
-    shared memory eight steps ahead, and its frozen rows are filled from
-    its last state); a CPU tensor through the plain version."""
+    shared memory a few steps ahead, and its frozen rows are filled from
+    its last state; above ``S = 1024`` a thread owns several positions,
+    see :func:`ctc_design`); a CPU tensor through the plain version.
+    ``T * S`` past :data:`MAX_STATES` raises ``ValueError`` on the card."""
     if emit.device.type == "cpu":
         return ctc_alpha_reference(emit, skip, alpha0, input_lengths, final_only)
     if not emit.is_cuda:
         raise RuntimeError(f"ctc_alpha: unsupported device {emit.device}")
     n, t_len, s = emit.shape
+    _check_size("ctc_alpha", t_len, s)
     _check("ctc_alpha", emit, {"skip": (skip, (n, s)), "alpha0": (alpha0, (n, s))}, input_lengths)
-    out = torch.empty((n, 1 if final_only else t_len, s), device=emit.device, dtype=torch.float32)
+    # With the state in device memory the kernel keeps it in the output's
+    # rows, so it stores them all, and final_only keeps the last.
+    keep_rows = final_only and s > 1024 and ctc_design("ctc_alpha", s, emit.device) == "global"
+    one_row = final_only and not keep_rows
+    out = torch.empty((n, 1 if one_row else t_len, s), device=emit.device, dtype=torch.float32)
     lib = _alpha_lib()
     p = _build.ptr
     rc = lib.ocrs_ctc_alpha(
         emit.device.index, p(emit), p(skip), p(alpha0), p(input_lengths), p(out),
-        n, t_len, s, int(final_only), _build.stream_ptr(emit.device),
+        n, t_len, s, int(one_row), _build.stream_ptr(emit.device),
     )
     _build.check(lib, rc, "ctc_alpha")
     ctc_alpha.launches += 1
-    return out[:, 0] if final_only else out
+    return out[:, -1] if final_only else out
 
 
 ctc_alpha.launches = 0
@@ -140,9 +192,10 @@ def _chain_probe(lib: ctypes.CDLL, entry: str, what: str, t_len: int, s: int,
 
 def ctc_alpha_chain_probe(t_len: int, s: int, device: torch.device) -> dict:
     """Time of :func:`ctc_alpha`'s dependent chain alone on ``device``: one
-    sample's ``t_len - 1`` steps over ``s`` positions on emissions held in
-    registers, with no global access in the loop, read from the kernel's
-    own clocks. Not a launch of the forward kernel: it counts none.
+    sample's ``t_len - 1`` steps over ``s`` positions on made-up emissions,
+    with no global access in the loop, read from the kernel's own clocks,
+    in the design :func:`ctc_design` names for ``s`` (not ``"global"``).
+    Not a launch of the forward kernel: it counts none.
 
     :return: ``steps``, ``cycles`` (``clock64``) and ``ns``
         (``%globaltimer``) of the whole chain.
@@ -200,6 +253,8 @@ def _beta_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.ocrs_ctc_beta_probe.argtypes = [i, i, i, p, p]
         lib.ocrs_ctc_beta_probe.restype = ctypes.c_int
+        lib.ocrs_ctc_beta_design.argtypes = [i, i]
+        lib.ocrs_ctc_beta_design.restype = ctypes.c_int
     return lib
 
 
@@ -208,12 +263,15 @@ def ctc_beta(emit, skip, alphas, seed, sign, input_lengths):
     A CUDA tensor goes through ``ctc_beta.cu`` (one launch, one block per
     sample, or one warp where ``S <= 32``; the recursion starts at each
     sample's last active step and its inputs are copied into shared memory
-    eight steps ahead); a CPU tensor through the plain version."""
+    a few steps ahead; above ``S = 1024`` a thread owns several positions,
+    see :func:`ctc_design`); a CPU tensor through the plain version.
+    ``T * S`` past :data:`MAX_STATES` raises ``ValueError`` on the card."""
     if emit.device.type == "cpu":
         return ctc_beta_reference(emit, skip, alphas, seed, sign, input_lengths)
     if not emit.is_cuda:
         raise RuntimeError(f"ctc_beta: unsupported device {emit.device}")
     n, t_len, s = emit.shape
+    _check_size("ctc_beta", t_len, s)
     _check("ctc_beta", emit, {
         "skip": (skip, (n, s)), "alphas": (alphas, (n, t_len, s)),
         "seed": (seed, (n, s)), "sign": (sign, (n,)),
@@ -236,9 +294,10 @@ ctc_beta.launches = 0
 
 def ctc_beta_chain_probe(t_len: int, s: int, device: torch.device) -> dict:
     """Time of :func:`ctc_beta`'s dependent chain alone on ``device``: one
-    sample's ``t_len - 1`` steps over ``s`` positions on emissions held in
-    registers, with no global access in the loop, read from the kernel's
-    own clocks. Not a launch of the gradient kernel: it counts none.
+    sample's ``t_len - 1`` steps over ``s`` positions on made-up emissions,
+    with no global access in the loop, read from the kernel's own clocks,
+    in the design :func:`ctc_design` names for ``s`` (not ``"global"``).
+    Not a launch of the gradient kernel: it counts none.
 
     :return: ``steps``, ``cycles`` (``clock64``) and ``ns``
         (``%globaltimer``) of the whole chain.

@@ -58,11 +58,11 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Read a non-interlaced PNG of 8-bit samples, or of 1, 2 or 4-bit
-    greyscale or palette samples: ``[H, W]`` uint8 for greyscale (scaled to
-    0-255), ``[H, W, C]`` for RGB (3), palette (3: the palette's colours),
-    LA (2) and RGBA (4). Anything else raises ``ValueError``. The reader is
-    ``data.imageio.decode_png``."""
+    """Read a PNG of any colour type and bit depth, interlaced or not, as
+    Pillow holds it: ``[H, W]`` for greyscale (uint8 scaled to 0-255, or
+    uint16 at 16 bits), ``[H, W, C]`` uint8 for RGB (3), palette (3: the
+    palette's colours), LA (2) and RGBA (4). Anything else raises
+    ``ValueError``. The reader is ``data.imageio.decode_png``."""
     from ..data.imageio import decode_png
 
     with open(path, "rb") as f:

@@ -280,3 +280,64 @@ def test_loss_gradient_matches_jax_with_every_sample_frozen_elsewhere(n_labels, 
     np.testing.assert_allclose(grad, want_grad, rtol=1e-4, atol=1e-5)
     for i, length in enumerate(input_lengths):
         assert (grad[i, length:] == 0).all()
+
+
+def _long_label_case(label_width, long_len, seed):
+    """N=4, T=10 over 12 classes, labels ``label_width`` wide (S = 2 *
+    label_width + 1): three rows short enough to fit, one of ``long_len``
+    labels, which 10 steps cannot hold (its NLL is 1e30), as a line of text
+    that long makes a batch of the training step. (T is short: the Pallas
+    kernels in interpret mode compile a step at a time.)"""
+    rng = np.random.default_rng(seed)
+    n, t, c = 4, 10, 12
+    logits = rng.standard_normal((n, t, c)).astype(np.float32)
+    log_probs = np.asarray(jax.nn.log_softmax(jnp.asarray(logits), -1))
+    label_lengths = np.asarray([3, 4, 1, long_len], np.int32)
+    labels = np.zeros((n, label_width), np.int32)
+    for i, ll in enumerate(label_lengths):
+        labels[i, :ll] = rng.integers(1, c, ll)
+    input_lengths = np.asarray([10, 9, 5, 10], np.int32)
+    return log_probs, labels, input_lengths, label_lengths
+
+
+@pytest.mark.parametrize("label_width,long_len", [(512, 449), (1024, 960)], ids=["S1025", "S2049"])
+@pytest.mark.parametrize("backend", ["pallas-interpret", "scan"])
+def test_long_labels_match_jax(label_width, long_len, backend):
+    # Past S = 1024 (the CUDA kernels' several positions a thread): the
+    # NLL of every row, the infeasible one's 1e30 included, and the
+    # gradient of the loss with that row weighted 0, as the training step
+    # weights a crop that cannot hold its label, against the JAX package.
+    # Tolerances as test_matches_jax.
+    args = _long_label_case(label_width, long_len, label_width)
+    weight = np.asarray([1.0, 1.0, 1.0, 0.0], np.float32)
+    lp = torch.from_numpy(args[0].copy()).requires_grad_(True)
+    nll = ctc_loss_forward(lp, *(torch.from_numpy(a) for a in args[1:]))
+    (nll / torch.from_numpy(args[3]).clamp(min=1) * torch.from_numpy(weight)).sum().backward()
+    jargs = [jnp.asarray(a) for a in args]
+
+    def weighted(x):
+        per_row = jax_ctc_loss_forward(x, *jargs[1:], backend=backend)
+        return jnp.sum(per_row / jnp.maximum(jargs[3], 1) * jnp.asarray(weight)), per_row
+
+    # Jitted: run op by op, the Pallas kernels in interpret mode and the
+    # scan take several times as long.
+    (_, want), want_grad = jax.jit(jax.value_and_grad(weighted, has_aux=True))(jargs[0])
+    assert nll[3].item() == pytest.approx(-NEG_INF) and (nll[:3] < 1e29).all()
+    np.testing.assert_allclose(nll.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lp.grad.numpy(), np.asarray(want_grad), rtol=1e-4, atol=1e-5)
+    assert (lp.grad[3] == 0).all()
+
+
+def test_zero_weight_infeasible_row_gives_zero_gradient_past_1024_positions():
+    # As test_zero_weight_infeasible_row_gives_zero_gradient, at S = 1025:
+    # the 449-label row's NLL is the finite 1e30, and weighted by 0 it
+    # leaves no trace in the loss or the gradient.
+    log_probs, labels, input_lengths, label_lengths = _long_label_case(512, 449, 7)
+    lp = torch.from_numpy(log_probs.copy()).requires_grad_(True)
+    lengths = torch.from_numpy(label_lengths)
+    nll = ctc_loss_forward(lp, torch.from_numpy(labels), torch.from_numpy(input_lengths), lengths)
+    assert labels.shape[1] * 2 + 1 == 1025 and nll[3].item() == pytest.approx(-NEG_INF)
+    loss = (nll / lengths.clamp(min=1) * torch.tensor([1.0, 1.0, 1.0, 0.0])).sum()
+    loss.backward()
+    assert np.isfinite(loss.item()) and np.isfinite(lp.grad.numpy()).all()
+    assert (lp.grad[3] == 0).all() and (lp.grad[:3] != 0).any()

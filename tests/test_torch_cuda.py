@@ -44,7 +44,9 @@ from ocrs_models_torch.ops import (
     ctc_alpha_chain_probe,
     ctc_alpha_reference,
     ctc_beta,
+    ctc_beta_chain_probe,
     ctc_beta_reference,
+    ctc_design,
     gru_bwd,
     gru_bwd_chain_bf16_reference,
     gru_bwd_coefficients_reference,
@@ -60,7 +62,7 @@ from ocrs_models_torch.ops import (
     stage1_fwd,
     stage1_reference,
 )
-from ocrs_models_torch.ops.ctc import NEG_INF
+from ocrs_models_torch.ops.ctc import NEG_INF, wide_slots
 from ocrs_models_torch.ops.losses import balanced_cross_entropy_loss
 from ocrs_models_torch.pipeline import OcrPipeline
 from ocrs_models_torch.training import eval_detection, train_detection, train_layout
@@ -461,7 +463,9 @@ def test_gru_bwd_kernel_matches_its_phases_plain_versions(dev):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-5)
 
 
-def _ctc_case(t_len, n, s, dev, seed):
+def _ctc_case(t_len, n, s, dev, seed, dense=False):
+    """Random CTC operands; ``alpha0`` as the loss builds it (finite at
+    positions 0 and 1 only), or, ``dense``, drawn at every position."""
     rng = np.random.default_rng(seed)
     emit = torch.from_numpy(rng.normal(-3.0, 1.0, (n, t_len, s)).astype(np.float32)).to(dev)
     skip = torch.from_numpy(np.where(rng.random((n, s)) < 0.5, 0.0, NEG_INF).astype(np.float32)).to(dev)
@@ -472,6 +476,8 @@ def _ctc_case(t_len, n, s, dev, seed):
     lens[1 % n] = 1  # every step after the first frozen
     d = -torch.from_numpy(rng.random((n, s)).astype(np.float32)).to(dev)
     d[0] = 0.0
+    if dense:
+        alpha0 = torch.from_numpy(rng.normal(-3.0, 1.0, (n, s)).astype(np.float32)).to(dev)
     return emit, skip, alpha0, torch.from_numpy(lens).to(dev), d
 
 
@@ -508,12 +514,17 @@ def test_ctc_kernels_match_plain(dev, t_len, n, s):
 # S = 1, 2, 31, 32: one warp per sample (lanes 0 and 1 take NEG_INF for
 # their missing neighbours); 33, 64, 65, 129: blocks of 2 to 5 warps; 512
 # and 513: the last with an 8-row ring and the first with a 4-row one; 1024:
-# the largest block. T = 20 wraps both rings. Lengths 0 (acts as 1), 1, 2,
-# T and T + 3: from every sample another step on is frozen.
-@pytest.mark.parametrize("s", [1, 2, 31, 32, 33, 64, 65, 129, 512, 513, 1024])
+# the largest block of one position a thread; 1025, 2049: two and four a
+# thread with a ring; 12001, 30001: the state in device memory (from 1025
+# on, alpha0 at every position, so that every position a thread holds has
+# a value to carry into its frozen rows). T = 20 wraps both rings. Lengths
+# 0 (acts as 1), 1, 2, T and T + 3: from every sample another step on is
+# frozen.
+@pytest.mark.parametrize("s", [1, 2, 31, 32, 33, 64, 65, 129, 512, 513, 1024, 1025, 2049,
+                               12001, 30001])
 def test_ctc_alpha_kernel_matches_plain_with_frozen_rows(dev, s):
     t_len = 20
-    emit, skip, alpha0, _, _ = _ctc_case(t_len, 5, s, dev, s + 7)
+    emit, skip, alpha0, _, _ = _ctc_case(t_len, 5, s, dev, s + 7, dense=s > 1024)
     lens = torch.tensor([0, 1, 2, t_len, t_len + 3], dtype=torch.int32, device=dev)
     before = ctc_alpha.launches
     alphas = ctc_alpha(emit, skip, alpha0, lens)
@@ -531,28 +542,77 @@ def test_ctc_alpha_kernel_matches_plain_with_frozen_rows(dev, s):
     assert torch.equal(alphas[:, 0], alpha0)
 
 
-def test_ctc_alpha_refuses_more_positions_than_a_block_holds(dev):
-    emit, skip, alpha0, lens, _ = _ctc_case(3, 2, 1025, dev, 4)
-    with pytest.raises(RuntimeError, match="ctc_alpha: CUDA error"):
-        ctc_alpha(emit, skip, alpha0, lens)
+# Above S = 1024 a thread owns 2 ceil(S / 2048) positions, one in each of
+# its slots (csrc/ctc_step.cuh, "Wide samples"; ops.ctc.wide_slots). S =
+# 1025 and 2049 are the training step's label arrays 512 and 1024 wide;
+# they, 4097 and alpha at 6001 keep the state and a ring of inputs in
+# shared memory; beta at 6001 and both at 12001 and 30001 the state in
+# device memory. The loss's own alpha0 reaches position j only at step
+# j / 2, so at a short T most positions would hold NEG_INF throughout:
+# alpha0 is drawn at every position (`dense`), and at T = 700 the loss's
+# alpha0 reaches the last of 1025 positions through the recursion itself.
+# The sample of length T (it has a cotangent) must carry live values in
+# every slot: finite states and nonzero gradients at 90% of them (dense),
+# 20% (T = 700: position j is reached at about step j / 1.5). Lengths 1
+# and T are in every case, and sample 0 has no cotangent.
+@pytest.mark.parametrize("t_len,n,s,dense,designs", [
+    (20, 4, 1025, True, ("ring", "ring")), (700, 3, 1025, False, ("ring", "ring")),
+    (20, 3, 2049, True, ("ring", "ring")), (9, 3, 4097, True, ("ring", "ring")),
+    (9, 3, 6001, True, ("ring", "global")), (5, 3, 12001, True, ("global", "global")),
+    (3, 3, 30001, True, ("global", "global")),
+])
+def test_ctc_kernels_bit_equal_to_plain_past_a_block_of_positions(dev, t_len, n, s, dense,
+                                                                  designs):
+    emit, skip, alpha0, lens, d = _ctc_case(t_len, n, s, dev, s, dense)
+    assert (ctc_design("ctc_alpha", s, dev), ctc_design("ctc_beta", s, dev)) == designs
+    before = (ctc_alpha.launches, ctc_beta.launches)
+    alphas = ctc_alpha(emit, skip, alpha0, lens)
+    final = ctc_alpha(emit, skip, alpha0, lens, final_only=True)
+    seed, sign = _beta_operands(alphas, d)
+    got = ctc_beta(emit, skip, alphas, seed, sign, lens)
+    torch.cuda.synchronize()
+    assert (ctc_alpha.launches, ctc_beta.launches) == (before[0] + 2, before[1] + 1)
+    want_a = ctc_alpha_reference(emit, skip, alpha0, lens)
+    assert torch.equal(alphas, want_a) and torch.equal(final, want_a[:, -1])
+    want = ctc_beta_reference(emit, skip, alphas, seed, sign, lens)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0][0] == 0).all() and (got[1][0] == 0).all() and (got[0][:, 0] == 0).all()
+    assert lens[-1].item() == t_len and d[-1].abs().min() > 0
+    least = 0.9 if dense else 0.2
+    for slot in wide_slots(s):
+        cols = slice(slot.start, slot.stop)
+        assert (want_a[-1, 1:, cols] > NEG_INF / 2).float().mean().item() >= least, slot
+        assert (want[0][-1, 1:, cols] != 0).float().mean().item() >= least, slot
+
+
+def test_ctc_kernels_refuse_more_states_than_32_bit_offsets_hold(dev):
+    # T * S = 2^31: refused by the wrappers before anything is checked or
+    # allocated (a broadcast tensor stands for the 8.6 GB of emissions).
+    emit = torch.zeros(1, device=dev).expand(1, 2**16, 2**15)
+    small = torch.zeros((1, 2**15), device=dev)
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    before = (ctc_alpha.launches, ctc_beta.launches)
+    with pytest.raises(ValueError, match="32-bit offsets"):
+        ctc_alpha(emit, small, small, lens)
+    with pytest.raises(ValueError, match="32-bit offsets"):
+        ctc_beta(emit, small, emit, small, torch.ones(1, device=dev), lens)
+    assert (ctc_alpha.launches, ctc_beta.launches) == before
 
 
 def test_ctc_alpha_chain_probe_times_its_steps(dev):
     # The warp path (S=13), the block paths with an 8-row and a 4-row ring
-    # (S=129, 513); the probe is no launch of the kernel.
-    before = ctc_alpha.launches
-    for t_len, s in ((9, 13), (257, 129), (20, 513)):
-        got = ctc_alpha_chain_probe(t_len, s, dev)
-        assert got["steps"] == t_len - 1 and got["cycles"] > 0 and got["ns"] >= 0
-    assert ctc_alpha.launches == before
-
-
-def test_ctc_beta_refuses_more_positions_than_a_block_holds(dev):
-    emit, skip, alpha0, lens, d = _ctc_case(3, 2, 1025, dev, 3)
-    alphas = ctc_alpha_reference(emit, skip, alpha0, lens)
-    seed, sign = _beta_operands(alphas, d)
-    with pytest.raises(RuntimeError, match="ctc_beta: CUDA error"):
-        ctc_beta(emit, skip, alphas, seed, sign, lens)
+    # (S=129, 513), and past 1024 positions (1025, 4097); the probe is no
+    # launch of the kernel. With the state in device memory (30001) there
+    # is no chain alone to time.
+    before = (ctc_alpha.launches, ctc_beta.launches)
+    for t_len, s in ((9, 13), (257, 129), (20, 513), (20, 1025), (9, 4097)):
+        for probe in (ctc_alpha_chain_probe, ctc_beta_chain_probe):
+            got = probe(t_len, s, dev)
+            assert got["steps"] == t_len - 1 and got["cycles"] > 0 and got["ns"] >= 0
+    for probe in (ctc_alpha_chain_probe, ctc_beta_chain_probe):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            probe(3, 30001, dev)
+    assert (ctc_alpha.launches, ctc_beta.launches) == before
 
 
 def test_ctc_beta_and_stage1_bwd_on_two_streams_do_not_disturb_each_other(dev):

@@ -347,22 +347,31 @@ def test_png_reader_refuses_other_formats(tmp_path):
     import struct
     import zlib
 
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(tmp_path / "deep.png")
-    # Interlaced: a valid greyscale PNG with its IHDR's interlace flag set.
+    def with_header_byte(src, name, offset, value):
+        data = bytearray((tmp_path / src).read_bytes())
+        data[offset] = value
+        data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
+        (tmp_path / name).write_bytes(bytes(data))
+
+    # 16-bit greyscale is read (since the decoder took every PNG depth), as
+    # Pillow's "I;16" holds it.
+    deep = (np.arange(16, dtype=np.uint16) * 4001).reshape(4, 4)
+    Image.fromarray(deep).save(tmp_path / "deep.png")
+    with Image.open(tmp_path / "deep.png") as img:
+        np.testing.assert_array_equal(render.read_png(str(tmp_path / "deep.png")),
+                                      np.asarray(img))
+    # Headers that lie about the data: a non-interlaced greyscale PNG with
+    # its interlace flag set (Adam7's passes need other row counts), an
+    # 8-bit RGBA PNG with its bit depth set to 16 (half the bytes needed);
+    # a layout PNG does not have: palette at 16 bits; and not a PNG.
     Image.new("L", (9, 9)).save(tmp_path / "plain.png")
-    data = bytearray((tmp_path / "plain.png").read_bytes())
-    data[28] = 1
-    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
-    (tmp_path / "interlaced.png").write_bytes(bytes(data))
-    # RGBA is read (since the real-data readers); at 16 bits a sample it
-    # is not: an RGBA PNG with its IHDR's bit depth set to 16.
+    with_header_byte("plain.png", "interlaced.png", 28, 1)
     Image.fromarray(np.zeros((4, 4, 4), np.uint8), "RGBA").save(tmp_path / "rgba8.png")
-    data = bytearray((tmp_path / "rgba8.png").read_bytes())
-    data[24] = 16
-    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
-    (tmp_path / "rgba.png").write_bytes(bytes(data))
+    with_header_byte("rgba8.png", "rgba.png", 24, 16)
+    Image.new("P", (4, 4)).save(tmp_path / "p8.png")
+    with_header_byte("p8.png", "palette16.png", 24, 16)
     (tmp_path / "text.png").write_text("not a png")
-    for name in ("rgba", "deep", "interlaced", "text"):
+    for name in ("rgba", "palette16", "interlaced", "text"):
         with pytest.raises(ValueError, match="PNG"):
             render.read_png(str(tmp_path / f"{name}.png"))
 

@@ -64,6 +64,7 @@ from ocrs_models_torch.utils.render import write_png
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from torch_fixtures.jpeg_writer import write_jpeg  # noqa: E402
+from torch_fixtures.png_writer import write_png as png_bytes  # noqa: E402
 
 DATA = Path(__file__).resolve().parent / "data"
 HIERTEXT = DATA / "torch_hiertext_toy"
@@ -180,7 +181,6 @@ def _refused_files():
     yield "arithmetic", with_marker(0xC9), "arithmetic"
     yield "lossless", with_marker(0xC3), "lossless"
     yield "12-bit", bytes(twelve), "12-bit"
-    yield "cmyk", _jpeg_bytes("CMYK"), "CMYK"
     yield "truncated", data[: len(data) // 2], "truncated"
     yield "truncated progressive", _jpeg_bytes(progressive=True)[:-40], "truncated"
     yield "no EOI", data[:-2], "truncated"
@@ -197,6 +197,9 @@ def test_decoder_refusals_name_the_file(tmp_path, case, data, reason):
     assert str(path) in str(info.value)
     if case.startswith(("truncated", "no EOI")):  # Pillow refuses these too
         with pytest.raises(OSError, match="truncated"):
+            _pillow_grey(data)
+    if case == "12-bit":  # ... and this (it reads 8-bit samples only)
+        with pytest.raises(OSError, match="cannot identify"):
             _pillow_grey(data)
 
 
@@ -256,6 +259,74 @@ def _png_of(path, samples, depth):
     path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0,
                                                                      0, 0, 0))
                      + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+CMYK_LAYOUTS = {
+    "CMYK, no marker": ([(1, 1)] * 4, {"marker": None}),
+    "CMYK, Adobe 0": ([(1, 1)] * 4, {"marker": "adobe0"}),
+    "CMYK, JFIF (read as no marker)": ([(2, 2), (1, 1), (1, 1), (1, 1)], {"marker": "jfif"}),
+    "YCCK, Adobe 2, 4:2:0": ([(2, 2), (1, 1), (1, 1), (2, 2)], {"marker": "adobe2"}),
+    "YCCK, Adobe 1, 4:2:2": ([(2, 1), (1, 1), (1, 1), (2, 1)], {"marker": "adobe1"}),
+    "YCCK, Adobe 2, one scan a component, restarts": (
+        [(1, 2), (1, 1), (1, 1), (1, 2)],
+        {"marker": "adobe2", "interleaved": False, "restart_interval": 2}),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(CMYK_LAYOUTS))
+@pytest.mark.parametrize("size", [(1, 1), (2, 3), (17, 9), (33, 31)])
+def test_decoder_reads_cmyk_and_ycck_as_pillow(layout, size):
+    # Four components: libjpeg's YCCK->CMYK where an Adobe marker says a
+    # transform other than 0, Pillow's inversion ("CMYK;I") and its
+    # cmyk2rgb and rgb2l; planes of any values, so clamps are reached.
+    sampling, options = CMYK_LAYOUTS[layout]
+    rng = np.random.default_rng(len(layout) * 100 + size[0])
+    planes = [rng.integers(0, 256, size[::-1]).astype(np.uint8) for _ in sampling]
+    data = write_jpeg(planes, sampling, **options)
+    np.testing.assert_array_equal(imageio.decode_jpeg_grey(data), _pillow_grey(data))
+
+
+@pytest.mark.parametrize("options", [{"quality": 95}, {"quality": 60, "progressive": True},
+                                     {"quality": 85, "restart_marker_blocks": 2},
+                                     {"quality": 75, "optimize": True}],
+                         ids=["q95", "progressive", "restarts", "optimized"])
+def test_decoder_reads_pillow_cmyk_jpegs(options):
+    # Pillow writes CMYK inverted with an Adobe marker of transform 0.
+    data = _jpeg_bytes("CMYK", **options)
+    with Image.open(io.BytesIO(data)) as img:
+        assert img.mode == "CMYK" and img.info["adobe_transform"] == 0
+    np.testing.assert_array_equal(imageio.decode_jpeg_grey(data), _pillow_grey(data))
+
+
+PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
+@pytest.mark.parametrize("color,depth", [(c, d) for c, ds in PNG_DEPTHS.items() for d in ds])
+def test_png_depths_and_interlacing_match_pillow(tmp_path, color, depth, interlace):
+    # Every bit depth each colour type allows, without and with Adam7
+    # (passes with no pixel at the small sizes), each row behind another
+    # filter (png_writer.py); 16-bit samples over the whole range, so that
+    # grey clips and the other types keep their high bytes.
+    rng = np.random.default_rng(10 * color + depth)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    for i, (h, w) in enumerate([(1, 1), (3, 5), (13, 11), (9, 17)]):
+        samples = rng.integers(0, 2**depth, (h, w, channels))
+        palette = rng.integers(0, 256, (2**depth - 1, 3)) if color == 3 else None
+        data = png_bytes(samples[..., 0] if channels == 1 else samples, depth, color,
+                         interlace=interlace, palette=palette, first_filter=i)
+        path = tmp_path / f"page{i}.png"
+        path.write_bytes(data)
+        np.testing.assert_array_equal(imageio.read_grey(str(path)), _pillow_grey(data))
+
+
+def test_png_16_bit_greyscale_clips_as_pillow():
+    # Pillow opens 16-bit greyscale as "I;16", and its convert("L") reads
+    # every value above 255 as 255 (the JAX package trains on that).
+    data = png_bytes(np.asarray([[0, 100, 255, 256, 1000, 65535]]), 16, 0)
+    want = np.asarray([[0, 100, 255, 255, 255, 255]], np.uint8)
+    np.testing.assert_array_equal(_pillow_grey(data), want)
+    np.testing.assert_array_equal(imageio.png_to_grey(imageio.decode_png(data)), want)
 
 
 # --------------------------------------------------------------- datasets
@@ -544,11 +615,13 @@ def test_write_png_crops_read_back(tmp_path):
 
 def test_toy_roots_are_what_the_generator_writes():
     """The committed ground truth holds every filter's failure (so the
-    line filters are exercised) and is plain JSON inside gzip."""
+    line filters are exercised) and is plain JSON inside gzip; the digests
+    cover the toy roots, the 2 MP page and the decode-format fixtures."""
     with gzip.open(HIERTEXT / "gt" / "train.jsonl.gz") as f:
         annotations = json.load(f)["annotations"]
     lines = [ln for a in annotations for p in a["paragraphs"] for ln in p["lines"]]
     assert any(not ln["legible"] for ln in lines) and any(ln["vertical"] for ln in lines)
     assert any(ln["handwritten"] for ln in lines)
     assert {n.split("/")[0] for n in DIGESTS} == {"torch_hiertext_toy", "torch_ddi_toy",
-                                                  "torch_decode_page.jpg"}
+                                                  "torch_decode_page.jpg",
+                                                  "torch_decode_formats"}

@@ -304,3 +304,30 @@ def test_schedules_match_jax():
         a = schedules.LinearWarmup(2e-3, warmup)
         b = jax_schedules.LinearWarmup(2e-3, warmup)
         assert [a.at_epoch(e) for e in range(60)] == [b.at_epoch(e) for e in range(60)]
+
+
+def test_train_step_with_a_long_label_matches_jax():
+    # A line of 449 characters in the batch (a crop 20 steps wide cannot
+    # hold it: weight 0). At the trainers' width_step of 256 the collation
+    # pads such labels to 512 (here, at 64, to 464: padded on to 512 in
+    # both batches), so S = 1025: past the CUDA kernels' one position a
+    # thread. One step against the JAX step on its CPU route (XLA stage 1,
+    # scan biGRU and CTC: the Pallas kernels' interpret mode would add some
+    # 10 s of compiling), at the first step's bounds.
+    samples = _samples(0)
+    samples[3]["text"] = np.random.default_rng(3).integers(1, 97, 449).astype(np.int32)
+    jax_batch = jax_collate(samples, width_step=64, batch_multiple=8)
+    port_batch = collate_recognition(samples, width_step=64, batch_multiple=8)
+    for batch in (jax_batch, port_batch):
+        assert batch["text"].shape == (8, 464)
+        batch["text"] = np.pad(batch["text"], ((0, 0), (0, 512 - 464)))
+    assert list(port_batch["sample_weight"]) == [1, 1, 1, 0, 1, 1, 1, 0]
+    jax_model, variables, port = _models(0)
+    jax_state = _jax_state(variables)
+    jax_train, _ = jax_make_steps(jax_model.clone(conv_backend="xla", gru_backend="scan"))
+    state = create_train_state(port, grad_clip_norm=CLIP)
+    train, _ = make_recognition_steps(port)
+    jax_state, m = jax_train(jax_state, jax_batch, jnp.float32(LR))
+    state, pm = train(state, port_batch, LR)
+    assert np.isfinite(pm["loss"].item())
+    _assert_steps_match(jax_state, [jax.tree_util.tree_map(np.asarray, m)], state, [pm], 1)

@@ -1,11 +1,13 @@
 """A small baseline JPEG writer (numpy) for the decoder tests: the frame
 layouts Pillow does not write.
 
-Pillow writes 4:4:4, 4:2:2 and 4:2:0 YCbCr, greyscale, progressive and
-restart intervals; this writes any sampling factors of 1 or 2 (4:4:0
-included), one interleaved scan or one scan per component, SOF0 or SOF1,
-16-bit quantization tables, and the colour-space signals (JFIF, Adobe
-APP14 transform, component ids). Its Huffman tables give every DC symbol a
+Pillow writes 4:4:4, 4:2:2 and 4:2:0 YCbCr, greyscale, progressive,
+restart intervals and 4:4:4 CMYK (Adobe transform 0); this writes any
+sampling factors of 1 or 2 (4:4:0 included) for 1, 3 or 4 components, one
+interleaved scan or one scan per component, SOF0 or SOF1, 16-bit
+quantization tables, and the colour-space signals (JFIF, Adobe APP14
+transform 0, 1 or 2, component ids): with 4 components transform 0 is
+CMYK and any other YCCK. Its Huffman tables give every DC symbol a
 4-bit code and every AC symbol an 8-bit one: valid, not small.
 """
 
@@ -67,8 +69,9 @@ def write_jpeg(planes, sampling, quality_table=None, interleaved=True, sof=0xC0,
     """JPEG bytes of ``planes`` (one ``[H, W]`` uint8 array a component,
     all the image's size), each component ``i`` subsampled to its
     ``sampling[i] = (h, v)`` factors by averaging. ``marker`` is "jfif",
-    "adobe0" (Adobe APP14, transform 0: RGB), "adobe1" or None; ``ids``
-    the component ids (default 1, 2, 3)."""
+    "adobe0" (Adobe APP14, transform 0: RGB, or CMYK with 4 components),
+    "adobe1", "adobe2" (YCCK with 4 components) or None; ``ids`` the
+    component ids (default 1, 2, 3, ...)."""
     planes = [np.asarray(p, np.float64) for p in planes]
     height, width = planes[0].shape
     hmax = max(h for h, _ in sampling)
@@ -94,7 +97,7 @@ def write_jpeg(planes, sampling, quality_table=None, interleaved=True, sof=0xC0,
     out = bytearray(b"\xff\xd8")
     if marker == "jfif":
         out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    elif marker in ("adobe0", "adobe1"):
+    elif marker in ("adobe0", "adobe1", "adobe2"):
         out += _segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([int(marker[-1])]))
     zz = qt[_ZIGZAG]
     out += _segment(0xDB, (b"\x10" + zz.astype(">u2").tobytes()) if qt16

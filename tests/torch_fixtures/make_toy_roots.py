@@ -39,12 +39,15 @@ sys.path.insert(0, str(ROOT))
 
 from ocrs_models_torch.data.glyphs import render_line  # noqa: E402
 from ocrs_models_torch.data.resize import resize  # noqa: E402
+from tests.torch_fixtures.jpeg_writer import write_jpeg  # noqa: E402
+from tests.torch_fixtures.png_writer import write_png  # noqa: E402
 
 DATA = ROOT / "tests" / "data"
 HIERTEXT = DATA / "torch_hiertext_toy"
 DDI = DATA / "torch_ddi_toy"
 DIGESTS = DATA / "torch_toy_digests.json"
 DECODE_PAGE = DATA / "torch_decode_page.jpg"  # a HierText-sized page (2 MP) for decode timing
+FORMATS = DATA / "torch_decode_formats"
 
 WORDS = ["the", "quick", "brown", "fox", "jumps", "over", "lazy", "dog", "OCR", "2024",
          "Page", "text", "line", "model", "train", "H100", "data", "read", "JPEG", "word"]
@@ -222,6 +225,61 @@ def write_ddi(rng) -> None:
             pickle.dump(words, f)
 
 
+def _scan(rng, w: int, h: int, scale: int, channels: int) -> np.ndarray:
+    """A small page-like image: a smooth tint and noise, a few dark
+    strokes, values in ``[0, scale)``, ``[h, w, channels]``."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = 0.85 + 0.1 * np.sin(xx / 7.0 + yy / 11.0)
+    base[(yy % 9 < 2) & (xx % 13 > 3)] = 0.15  # strokes
+    chans = [base * (0.9 + 0.1 * c) + rng.normal(0, 0.03, (h, w)) for c in range(channels)]
+    return np.clip(np.stack(chans, -1) * scale, 0, scale - 1).astype(np.int64)
+
+
+def write_decode_formats() -> list[Path]:
+    """The JPEG and PNG layouts the datasets may hold beyond the toy roots'
+    (Pillow reads them all): CMYK from Pillow and YCCK / CMYK in layouts it
+    does not write, 16-bit PNGs, Adam7 PNGs at every colour type and
+    depth. Returns the files written."""
+    rng = np.random.default_rng(20261018)
+    shutil.rmtree(FORMATS, ignore_errors=True)
+    FORMATS.mkdir(parents=True)
+    files = {}
+    cmyk = _scan(rng, 45, 37, 256, 4).astype(np.uint8)
+    for name, options in (("cmyk_pillow.jpg", {"quality": 90}),
+                          ("cmyk_pillow_progressive.jpg", {"quality": 80, "progressive": True})):
+        buf = FORMATS / name
+        Image.fromarray(cmyk, "CMYK").save(buf, "JPEG", **options)
+    planes = [cmyk[..., c] for c in range(4)]
+    for name, sampling, options in (
+        ("cmyk_no_marker_444.jpg", [(1, 1)] * 4, {"marker": None}),
+        ("ycck_adobe2_420.jpg", [(2, 2), (1, 1), (1, 1), (2, 2)], {"marker": "adobe2"}),
+        ("ycck_adobe2_422_scans.jpg", [(2, 1), (1, 1), (1, 1), (2, 1)],
+         {"marker": "adobe2", "interleaved": False, "restart_interval": 2}),
+        ("ycck_adobe1_440.jpg", [(1, 2), (1, 1), (1, 1), (1, 1)], {"marker": "adobe1"}),
+    ):
+        files[name] = write_jpeg(planes, sampling, **options)
+    depths = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+    kinds = {0: "grey", 2: "rgb", 3: "palette", 4: "la", 6: "rgba"}
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+    for color, ds in depths.items():
+        for depth in ds:
+            # 16-bit greyscale spans 0-599: Pillow's convert("L") clips it.
+            scale = 600 if (color, depth) == (0, 16) else 2 ** depth
+            samples = _scan(rng, 29 + depth, 23, scale, channels[color])
+            if channels[color] == 1:
+                samples = samples[..., 0]
+            palette = rng.integers(0, 256, (2 ** depth, 3)) if color == 3 else None
+            for interlace in (False, True) if depth == 16 and color != 0 else (True,):
+                name = f"{'adam7_' if interlace else ''}{kinds[color]}{depth}.png"
+                files[name] = write_png(samples, depth, color, interlace=interlace,
+                                        palette=palette, first_filter=depth + color)
+    grey16 = _scan(rng, 31, 19, 600, 1)[..., 0]
+    files["grey16.png"] = write_png(grey16, 16, 0)
+    for name, data in files.items():
+        (FORMATS / name).write_bytes(data)
+    return sorted(FORMATS.iterdir())
+
+
 def main() -> None:
     rng = np.random.default_rng(20241017)
     write_hiertext(rng)
@@ -229,8 +287,9 @@ def main() -> None:
     grey, _ = _hiertext_page("page", (1648, 1236), rng)
     Image.fromarray(_tint(grey, rng)).save(DECODE_PAGE, "JPEG", quality=90, subsampling=2)
     digests = {}
+    formats = write_decode_formats()
     for path in sorted(list(HIERTEXT.rglob("*.jpg")) + list((DDI / "gen_imgs").iterdir())
-                       + [DECODE_PAGE]):
+                       + [DECODE_PAGE] + formats):
         digests[str(path.relative_to(DATA))] = _grey_digest(path)
     DIGESTS.write_text(json.dumps(digests, indent=1, sort_keys=True) + "\n")
     total = sum(p.stat().st_size for p in DATA.rglob("*") if p.is_file()
