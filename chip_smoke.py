@@ -207,11 +207,13 @@ Phases (any failure exits non-zero, before the final line):
     ``ctc_beam_search_decode`` (beam 10) on the recognizer's log-probs of
     phase 5's 128 crops of width 256: host ms a crop and the share equal
     to the greedy decode (printed, not gated).
-18. The biGRU's wide route (``csrc/gru_wide.cu``; ``gru_bwd.cu``'s ``coef``
-    and ``dw`` around its chain), which takes every width the cluster
-    kernels do not (``ops.gru.gru_route``): up to 512 after padding its
-    persistent form, one launch for all T steps in clusters of up to 16
-    blocks; above, one launch a step. (a) ``gru_fwd`` and ``gru_bwd`` at
+18. The biGRU's wide route (``csrc/gru_wide.cu`` and ``csrc/gru_grid.cu``;
+    ``gru_bwd.cu``'s ``coef`` and ``dw`` around its chain), which takes
+    every width the cluster kernels do not (``ops.gru.gru_route``): up to
+    512 after padding its persistent form, one launch for all T steps in
+    clusters of up to 16 blocks; above, in bf16 up to 1440 the grid form,
+    one cooperative launch over the whole card; else one launch a step.
+    (a) ``gru_fwd`` and ``gru_bwd`` at
     T=257, N=128 and H in {100, 264, 512}, in f32 and bf16, against the
     plain versions with the cluster rows' tolerances (bf16 ``dpx`` at
     H=512: 93% equal, not 95%; see ``_wide_min_equal``), the route, the
@@ -220,15 +222,19 @@ Phases (any failure exits non-zero, before the final line):
     backward, and in bf16 W_hh's two casts), reruns bit-identical, timed
     at H=512 beside the plain versions, cuDNN's ``nn.GRU`` and the bound,
     with the rows per block and the clusters launched and held at once;
-    the per-step form the same way at H=1024, T=9, then timed at H=1024,
-    T=257, N=128 beside its plain versions and cuDNN; (b) the
-    shipped CRNN with ``gru_hidden=512``:
+    the grid form (bf16) the same way at H=1024, T=9, then at H=1024,
+    T=257, N=128 (its equal shares gated as H=512's) timed beside its plain
+    versions and cuDNN, with its blocks; the per-step form at H=1024 in f32
+    and at 1448 (above the grid form) in bf16, T=9, then timed at T=257,
+    N=128; (b) the shipped CRNN with ``gru_hidden=512``:
     3 steps against the plain step in each dtype (phase 8's tolerances for
     the first step, the CPU parity test's for later ones), then 10 timed
     steps at the headline and wide shapes (median [min, max], peak MiB,
     exact launch counts); (c) ``_recognize_crops`` with that recognizer on
     128 crops of width 256 (crops/s), the greedy strings equal to the
-    CPU's on the same weights.
+    CPU's on the same weights; (d) the CRNN with ``gru_hidden=1024`` in
+    bf16 (the grid form): 3 steps against the plain steps, 10 headline and
+    3 wide steps timed, every call counted in the grid form.
 
 Prints the nvidia-smi line, throughput lines, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -1200,6 +1206,15 @@ def _zero_counts() -> None:
 
     for k in KERNELS:
         k.launches = 0
+        for form in getattr(k, "forms", ()):
+            k.forms[form] = 0
+
+
+def _form_counts() -> dict:
+    """The wide route's wrappers' calls by form (``ops.gru.wide_form``)."""
+    from ocrs_models_torch.ops import KERNELS
+
+    return {k.__name__: dict(k.forms) for k in KERNELS if hasattr(k, "forms")}
 
 
 def _expect(counts: dict, per_step: dict, steps: int, what: str) -> None:
@@ -1308,12 +1323,14 @@ def check_train_step_vs_plain(dev, dtype=torch.float32, gru_hidden: int = 256,
                                  f"disagrees with the plain step at step {i + 1}: {module_rel}")
 
 
-def run_training(dev, dtype=torch.float32, wide_steps: int = 10, gru_hidden: int = 256) -> dict:
+def run_training(dev, dtype=torch.float32, wide_steps: int = 10, gru_hidden: int = 256,
+                 lr: float = 1e-3) -> dict:
     """Phase 8's main path in ``dtype``: headline and wide steps, and in
     float32 at the shipped width also grad_accum=4 and eval steps. Each
     step's time is also read on the device's timeline (CUDA events between
     step starts), for a median and a spread, and the peak memory of the
-    timed steps. ``gru_hidden``: the biGRU's width (phase 18: 512)."""
+    timed steps. ``gru_hidden``: the biGRU's width (phase 18: 512 and
+    1024); ``lr``: Adam's learning rate."""
     from ocrs_models_torch.models import RecognitionModel
     from ocrs_models_torch.training.state import create_train_state
     from ocrs_models_torch.training.steps import make_recognition_steps
@@ -1323,7 +1340,6 @@ def run_training(dev, dtype=torch.float32, wide_steps: int = 10, gru_hidden: int
     state = create_train_state(model, grad_clip_norm=4.0)
     tag = (" bf16" if dtype == BF16 else "") + (f" H={gru_hidden}" if gru_hidden != 256 else "")
     train_step, eval_step = make_recognition_steps(model)
-    lr = 1e-3
     report = {}
 
     def timed(batch, steps, what, step_fn=train_step, per_step=train_launches(gru_hidden)):
@@ -1356,6 +1372,8 @@ def run_training(dev, dtype=torch.float32, wide_steps: int = 10, gru_hidden: int
                 "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
                 "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
                 "losses": losses, "launches": counts}
+        if gru_hidden != 256:
+            line["forms"] = _form_counts()
         print(json.dumps(line), flush=True)
         return line
 
@@ -3288,7 +3306,8 @@ WIDE_HIDDEN = 512  # phase 18: the recognizer's biGRU width on the wide route
 WIDE_CHECK_HIDDEN = (100, 264, WIDE_HIDDEN)  # phase 18 (a): held against the plain versions
 WIDE_T = 257  # phase 18 (a): the wide training bucket's steps (1024 // 4 + 1), at N=128
 WIDE_STEPS = 3  # phase 18 (b): steps held against the plain step
-STEPWISE_SHAPE = (9, REC_BATCH, 1024)  # phase 18 (a): (T, N, H) of the per-step form's check
+STEPWISE_SHAPE = (9, REC_BATCH, 1024)  # phase 18 (a): (T, N, H) of the per-step/grid forms' check
+GRID_HIDDEN = 1024  # phase 18 (a), (d): the grid form's width, timed and trained
 
 
 def _wide_min_equal(hid: int) -> float:
@@ -3307,28 +3326,30 @@ def _wide_device_ms(times: dict, t_len: int, backward: bool) -> float | None:
     """Device ms of one wide-route call from the profiler's mean record by
     kernel, each times its launches a call: the recurrence kernel once in
     the persistent form (``gru_wide_fwd_kernel``, ``gru_wide_bwd_chain_kernel``
-    and their bf16 twins), T times in the per-step form (``*_step_kernel``),
-    and for the backward ``gru_bwd.cu``'s ``coef``, ``dw`` and ``dw_sum``
-    once each."""
+    and their bf16 twins) and in the grid form (``gru_grid_fwd_kernel``,
+    ``gru_grid_chain_kernel``), T times in the per-step form
+    (``*_step_kernel``), and for the backward ``gru_bwd.cu``'s ``coef``,
+    ``dw`` and ``dw_sum`` once each."""
     if not times:
         return None
-    part = "gru_wide_bwd_chain" if backward else "gru_wide_fwd"
-    found = {name: ms for name, ms in times.items() if part in name}
+    parts = ("gru_wide_bwd_chain", "gru_grid_chain") if backward else ("gru_wide_fwd",
+                                                                       "gru_grid_fwd")
+    found = {name: ms for name, ms in times.items() if any(part in name for part in parts)}
     if not found:
-        raise AssertionError(f"no kernel named *{part}* ran on the device: {sorted(times)}")
+        raise AssertionError(f"no kernel named *{parts}* ran on the device: {sorted(times)}")
     ms = sum(v * (t_len if "_step_kernel" in name else 1) for name, v in found.items())
     if backward:
         ms += _device_ms(times, "gru_bwd_coef") + _device_ms(times, "gru_bwd_dw")
     return ms
 
 
-def _wide_launches(t_len: int, backward: bool, bf16: bool, persistent: bool) -> int:
+def _wide_launches(t_len: int, backward: bool, bf16: bool, one_launch: bool) -> int:
     """Device launches of one wide-route call at a width that needs no
-    padding: the recurrence kernel (T in the per-step form), ``coef``,
-    ``dw``, ``dw_sum`` and (per step) the copy of W_hh^T for the backward,
-    and W_hh's two casts in bf16."""
-    chain = 1 if persistent else t_len
-    return (chain + 3 + (0 if persistent else 1) if backward else chain) + (2 if bf16 else 0)
+    padding: the recurrence kernel (once in the persistent and grid forms,
+    T in the per-step form), ``coef``, ``dw``, ``dw_sum`` and (per step)
+    the copy of W_hh^T for the backward, and W_hh's two casts in bf16."""
+    chain = 1 if one_launch else t_len
+    return (chain + 3 + (0 if one_launch else 1) if backward else chain) + (2 if bf16 else 0)
 
 
 def _launch_calls(fn, calls: int = 2) -> tuple[float, float]:
@@ -3349,14 +3370,17 @@ def _launch_calls(fn, calls: int = 2) -> tuple[float, float]:
     return device_launches(prof) / calls, cluster / calls
 
 
-def _wide_call(fn, args, name: str):
+def _wide_call(fn, args, name: str, form: str):
     """``fn(*args)`` with the launch counts zeroed just before and read just
     after: it must have gone through the wide route's wrapper ``name``
-    once and nothing else."""
+    once, in ``form``, and nothing else."""
     _zero_counts()
     out = fn(*args)
     torch.cuda.synchronize()
     _expect(_counts(), {name: 1}, 1, f"{name} (routed)")
+    forms = _form_counts()[name]
+    if forms[form] != 1:
+        raise AssertionError(f"{name} ran the forms {forms}, not {form}")
     return out
 
 
@@ -3395,19 +3419,21 @@ def _wide_ok(errors: dict, bf16: bool, min_equal: float = 0.0) -> bool:
 def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) -> dict:
     """``gru_fwd`` and ``gru_bwd`` on the wide route at (T, N, H) against
     the plain versions (phase 18 (a)'s tolerances), reruns bit-identical,
-    and the device launches of a call of each; raises on a miss. Returns
-    the widths' entries of the kernels rows and the inputs."""
+    the form each call ran, and the device launches of a call of each;
+    raises on a miss. Returns the widths' entries of the kernels rows and
+    the inputs."""
     from ocrs_models_torch.ops import gru_bwd, gru_bwd_reference, gru_fwd, gru_recurrence_reference
-    from ocrs_models_torch.ops.gru import MAX_WIDE_HIDDEN
+    from ocrs_models_torch.ops.gru import wide_form
 
     bf16 = dtype == BF16
-    persistent = hid + -hid % 8 <= MAX_WIDE_HIDDEN
+    form = wide_form(n, hid + -hid % 8, dtype, dev.index)[0]
+    one_launch = form != "stepwise"
     px_f, px_b, dy_f, dy_b, w_hh, b_hh = _wide_operands(gen, dev, t_len, n, hid, dtype)
-    ys = _wide_call(gru_fwd, (px_f, px_b, w_hh, b_hh), "gru_wide_fwd")
+    ys = _wide_call(gru_fwd, (px_f, px_b, w_hh, b_hh), "gru_wide_fwd", form)
     again = gru_fwd(px_f, px_b, w_hh, b_hh)
     want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
     args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
-    grads = _wide_call(gru_bwd, args, "gru_wide_bwd")
+    grads = _wide_call(gru_bwd, args, "gru_wide_bwd", form)
     grads_again = gru_bwd(*args)
     want_grads = gru_bwd_reference(*args)
     torch.cuda.synchronize()
@@ -3419,18 +3445,18 @@ def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) ->
                               (lambda: gru_fwd(px_f, px_b, w_hh, b_hh), lambda: gru_bwd(*args))))
     # Where the wrapper pads H to a multiple of 8, its pads and slices add
     # launches of their own: the total is held only where it does not.
-    expected = [_wide_launches(t_len, b, bf16, persistent) for b in (False, True)]
-    print(f"gru wide {what} ({'persistent' if persistent else 'per step'}): ys max_abs_err "
+    expected = [_wide_launches(t_len, b, bf16, one_launch) for b in (False, True)]
+    print(f"gru wide {what} ({form}): ys max_abs_err "
           f"{errors['ys']:.3e} (equal {errors['ys_equal']:.4f}); dpx {errors['dpx']:.3e} (equal "
           f"{errors['dpx_equal']:.4f}), dW/db {errors['dw']:.3e} (max {errors['dw_max']:.3e}); "
           f"device launches a call {launches[0]:g} forward, {launches[1]:g} backward, of them "
-          f"cluster launches {cluster[0]:g}, {cluster[1]:g}", flush=True)
+          f"cluster or cooperative launches {cluster[0]:g}, {cluster[1]:g}", flush=True)
     if (bf16 and ys[0].dtype != BF16) or not _wide_ok(errors, bf16, _wide_min_equal(hid)):
         raise AssertionError(f"the wide route disagrees with the plain versions at {what}")
-    if list(cluster) != [float(persistent)] * 2 or (hid % 8 == 0 and list(launches) != expected):
+    if list(cluster) != [float(one_launch)] * 2 or (hid % 8 == 0 and list(launches) != expected):
         raise AssertionError(f"the wide route at {what}: {launches} device launches a forward "
-                             f"and a backward call ({cluster} cluster launches), not {expected} "
-                             f"({[int(persistent)] * 2})")
+                             f"and a backward call ({cluster} launches by cudaLaunchKernelExC), "
+                             f"not {expected} ({[int(one_launch)] * 2})")
     return {"fwd": {"max_abs_err": errors["ys"], "equal_share": errors["ys_equal"]},
             "bwd": {"max_abs_err_dpx": errors["dpx"], "max_abs_err_dw": errors["dw"],
                     "dw_max": errors["dw_max"], "equal_share": errors["dpx_equal"]},
@@ -3492,19 +3518,15 @@ def check_gru_wide(dev, gen) -> list[dict]:
     them equal, dW and db 1e-3 of their largest entry. Reruns
     bit-identical, device launches a call asserted. Timed at H=512 against
     the plain versions and cuDNN's ``nn.GRU``, with the launch's rows per
-    block and clusters. The per-step form is held the same way at
-    STEPWISE_SHAPE, then timed at T=257, N=128, H=1024 (the kernels rows'
-    ``stepwise`` entries), its errors there gated at the tolerances above
-    (bf16: 2e-2 and 1e-3, its equal shares printed). Returns the kernels
-    line's rows."""
-    from ocrs_models_torch.ops import (
-        gru_bwd,
-        gru_bwd_reference,
-        gru_fwd,
-        gru_recurrence_reference,
-        gru_route,
-    )
-    from ocrs_models_torch.ops.gru import wide_max_active_clusters
+    block and clusters. Above 512: the grid form (bf16, ``gru_grid.cu``)
+    held the same way at STEPWISE_SHAPE, then gated (equal shares at
+    ``_wide_min_equal``) and timed at T=257, N=128, H=GRID_HIDDEN (the
+    kernels rows' ``grid`` entries); the per-step form the same way in f32
+    at STEPWISE_SHAPE and in bf16 at GRID_MAX_HIDDEN + 8, T=9, then timed
+    at T=257, N=128 (the ``stepwise`` entries; bf16: 2e-2 and 1e-3, its
+    equal shares printed). Returns the kernels line's rows."""
+    from ocrs_models_torch.ops import gru_route
+    from ocrs_models_torch.ops.gru import GRID_MAX_HIDDEN, wide_max_active_clusters
 
     t_len, n = WIDE_T, REC_BATCH
     rows = []
@@ -3542,36 +3564,67 @@ def check_gru_wide(dev, gen) -> list[dict]:
                   f"{launch['launched']} launched, {launch['max_active']} max active", flush=True)
             rows.append(row)
         del inputs, got
-        # The per-step form (widths above 512), held the same way, then
-        # timed at the wide bucket's T=257, N=128 (its errors there beside
-        # the plain versions: f32 gated as above, bf16 within 2e-2).
+        torch.cuda.empty_cache()
+        # Above 512: the grid form in bf16 (held at STEPWISE_SHAPE, then
+        # at the wide bucket's T=257, N=128, H=GRID_HIDDEN, gated and
+        # timed); the per-step form in f32 at the same width and in bf16
+        # above the grid form's widest width, held at T=9, then timed at
+        # T=257, N=128 (its errors there gated at the tolerances above,
+        # bf16 without an equal share: printed).
         t_s, n_s, h_s = STEPWISE_SHAPE
-        if gru_route(h_s) != "stepwise":
-            raise AssertionError(f"H={h_s} does not take the wide route's per-step form")
-        _check_wide_case(dev, gen, t_s, n_s, h_s, dtype, tag)
-        torch.cuda.empty_cache()
-        px_f, px_b, dy_f, dy_b, w_hh, b_hh = _wide_operands(gen, dev, t_len, n, h_s, dtype)
-        ys = gru_fwd(px_f, px_b, w_hh, b_hh)
-        args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
-        errors = _wide_errors(ys, gru_recurrence_reference(px_f, px_b, w_hh, b_hh),
-                              gru_bwd(*args), gru_bwd_reference(*args))
-        inputs = (px_f, px_b, w_hh, b_hh, args)
-        del ys, px_f, px_b, dy_f, dy_b, w_hh, b_hh, args
-        print(f"gru wide per step {tag} [T={t_len},N={n},H={h_s}]: {json.dumps(errors)}",
-              flush=True)
-        if not _wide_ok(errors, bf16):
-            raise AssertionError(f"the per-step wide route at H={h_s}, T={t_len} disagrees with "
-                                 f"the plain versions: {errors}")
-        for row, timed in zip((fwd, bwd), _time_wide(dev, gen, inputs, t_len, n, h_s, dtype)):
-            errs = ({"max_abs_err": errors["ys"]} if row is fwd else
-                    {"max_abs_err_dpx": errors["dpx"], "max_abs_err_dw": errors["dw"],
-                     "dw_max": errors["dw_max"]})
-            if bf16:
-                errs["equal_share"] = errors["ys_equal" if row is fwd else "dpx_equal"]
-            row["stepwise"] = {**timed, **errs}
-        del inputs
-        torch.cuda.empty_cache()
+        forms = (("grid", GRID_HIDDEN), ("stepwise", GRID_MAX_HIDDEN + 8)) if bf16 else (
+            ("stepwise", h_s),)
+        for form, hid in forms:
+            if gru_route(hid, dtype) != form:
+                raise AssertionError(f"H={hid} {tag} does not take the wide route's {form} form")
+            _check_wide_case(dev, gen, t_s, n_s, hid, dtype, tag)
+            torch.cuda.empty_cache()
+            subs = _wide_sub_rows(dev, gen, t_len, n, hid, dtype, tag, form)
+            for row, sub in zip((fwd, bwd), subs):
+                row[form] = sub
+            torch.cuda.empty_cache()
     return rows
+
+
+def _wide_sub_rows(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str,
+                   form: str) -> tuple[dict, dict]:
+    """The kernels rows' entries of the wide route's ``form`` ("grid" or
+    "stepwise") at (T, N, H): ``gru_fwd`` and ``gru_bwd`` against the plain
+    versions, gated at phase 18 (a)'s tolerances (the grid form's equal
+    shares at ``_wide_min_equal``), then timed (``_time_wide``)."""
+    from ocrs_models_torch.ops import gru_bwd, gru_bwd_reference, gru_fwd, gru_recurrence_reference
+    from ocrs_models_torch.ops.gru import wide_form
+
+    bf16 = dtype == BF16
+    px_f, px_b, dy_f, dy_b, w_hh, b_hh = _wide_operands(gen, dev, t_len, n, hid, dtype)
+    ys = _wide_call(gru_fwd, (px_f, px_b, w_hh, b_hh), "gru_wide_fwd", form)
+    args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
+    errors = _wide_errors(ys, gru_recurrence_reference(px_f, px_b, w_hh, b_hh),
+                          _wide_call(gru_bwd, args, "gru_wide_bwd", form), gru_bwd_reference(*args))
+    inputs = (px_f, px_b, w_hh, b_hh, args)
+    del ys, px_f, px_b, dy_f, dy_b, w_hh, b_hh, args
+    print(f"gru wide {form} {tag} [T={t_len},N={n},H={hid}]: {json.dumps(errors)}", flush=True)
+    min_equal = _wide_min_equal(hid) if form == "grid" else 0.0
+    if not _wide_ok(errors, bf16, min_equal):
+        raise AssertionError(f"the wide route's {form} form at H={hid}, T={t_len} disagrees with "
+                             f"the plain versions: {errors}")
+    place = {"form": form, "route": "cuda", "source": "ocrs_models_torch/csrc/"
+             + ("gru_grid.cu" if form == "grid" else "gru_wide.cu")}
+    if form == "grid":
+        units, rows = wide_form(n, hid, dtype, dev.index)[1]
+        place.update(units_per_block=units, rows_per_block=rows,
+                     blocks=2 * -(-hid // units) * -(-n // rows))
+        print(f"gru wide grid {tag} [N={n},H={hid}]: {units} units x {rows} rows a block, "
+              f"{place['blocks']} blocks in one cooperative launch", flush=True)
+    out = []
+    for name, timed in zip(("fwd", "bwd"), _time_wide(dev, gen, inputs, t_len, n, hid, dtype)):
+        errs = ({"max_abs_err": errors["ys"]} if name == "fwd" else
+                {"max_abs_err": errors["dpx"], "max_abs_err_dpx": errors["dpx"],
+                 "max_abs_err_dw": errors["dw"], "dw_max": errors["dw_max"]})
+        if bf16:
+            errs["equal_share"] = errors["ys_equal" if name == "fwd" else "dpx_equal"]
+        out.append({**place, **timed, **errs})
+    return out[0], out[1]
 
 
 def _with_recognizer(pipe, model):
@@ -3620,17 +3673,43 @@ def serve_wide(dev, crops) -> dict:
     return line
 
 
+def train_grid(dev) -> dict:
+    """Phase 18 (d): the CRNN with ``gru_hidden=GRID_HIDDEN`` in bf16, whose
+    biGRU takes the grid form: WIDE_STEPS headline steps against the plain
+    steps (phase 8's bf16 tolerances for the first, the CPU parity test's
+    for later ones), then 10 headline and 3 wide steps timed (exact launch
+    counts; Adam at 3e-4: at 1e-3 this width's loss swung between 4.7 and
+    9.4 from step to step on the fixed batch, the first steps matching the
+    plain steps'); every call of each timed run must have run the
+    grid form (``.forms``). Returns ``run_training``'s report."""
+    check_train_step_vs_plain(dev, BF16, gru_hidden=GRID_HIDDEN, steps=WIDE_STEPS)
+    report = run_training(dev, BF16, wide_steps=3, gru_hidden=GRID_HIDDEN, lr=3e-4)
+    for shape, line in report.items():
+        for name in ("gru_wide_fwd", "gru_wide_bwd"):
+            if line["forms"][name]["grid"] != line["launches"][name] or not line["launches"][name]:
+                raise AssertionError(f"the bf16 H={GRID_HIDDEN} {shape} steps ran {name} in the "
+                                     f"forms {line['forms'][name]}, not all in the grid form")
+    torch.cuda.empty_cache()
+    return report
+
+
 def run_wide_gru(dev, gen, crops) -> list[dict]:
     """Phase 18: the recognition model at ``gru_hidden=512``, a width the
     cluster kernels do not take: (a) the wide kernels against their plain
     versions; (b) the training step in f32 and bf16, WIDE_STEPS steps
     against the plain step, then 10 timed steps at the headline and wide
-    shapes (counts zeroed just before and read just after); (c) serving.
+    shapes (counts zeroed just before and read just after); (c) serving;
+    (d) the bf16 training step at ``gru_hidden=GRID_HIDDEN`` (the grid
+    form).
     Returns the kernels line's wide rows, with their launches from (b)'s
-    headline steps and (c)'s serving call."""
+    headline steps and (c)'s serving call, the bf16 rows' ``grid`` entries
+    theirs from (d)'s."""
     t0 = time.perf_counter()
     rows = check_gru_wide(dev, gen)
     print(f"phase 18a seconds {time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    grid = train_grid(dev)
+    print(f"phase 18d seconds {time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
     train = {}
     for dtype, name in ((torch.float32, "f32"), (BF16, "bf16")):
@@ -3645,6 +3724,9 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
         head = train[row["dtype"]]["headline"]
         row["launches"] = head["launches"][row["name"]]
         row["launches_per_step"] = row["launches"] // head["steps"]
+        if "grid" in row:
+            row["grid"]["launches"] = grid["headline"]["launches"][row["name"]]
+            row["grid"]["launches_per_step"] = row["grid"]["launches"] // grid["headline"]["steps"]
         if row["dtype"] == "f32" and row["name"] in served["launches"]:
             row["serve_launches"] = served["launches"][row["name"]]
         if not row["launches"] > 0:

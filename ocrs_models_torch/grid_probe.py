@@ -1,0 +1,239 @@
+"""Where a step of the biGRU's bf16 grid form (``csrc/gru_grid.cu``) spends
+its time, on the card:
+
+    python -m ocrs_models_torch.grid_probe [--t 257 --n 128 --hid 1024]
+
+Builds copies of ``csrc/gru_grid.cu`` with one part switched off each
+(their numbers are wrong; only their times count) and times the forward and
+the backward's chain of each at (T, N, H), by CUDA events:
+
+- ``full``: the source as it is;
+- ``no_wait``: no wait on the step counters (the blocks run unsynchronised);
+- ``no_product``: no product (the barrier, the gate math and its loads and
+  stores alone);
+- ``no_aload``: the product on constants instead of the A fragments it
+  loads from device memory;
+- ``fwd_batch_<k>``, ``chain_ahead_<k>``: the forward's A fragments of
+  ``k`` k16 steps loaded at once, the chain's ``k`` ahead, instead of the
+  source's numbers.
+
+Then ``phases``: a copy with ``clock64`` marks read by thread 0 of every
+block at each step's start, after its wait on the counter, after the
+product (every warp of the block) and after the gate math, and each part's
+mean cycles a step over the blocks and the steps after the first (the wait
+also at its 50th and 90th percentile). Then the bf16 backward's other
+phases on the same shape (``gru_bwd.cu``'s ``coef`` and ``dw`` with
+``dw_sum``, and W_hh's cast to bf16 values), and the forward at T = 2 and
+33. Each copy is written to ``build/probe/`` and
+compiled by ``nvcc`` with the flags of ``ops/_build.py``, all at once.
+Prints the card's name and power limit first and one JSON line a variant.
+Needs CUDA and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+
+import torch
+
+from .ops import _build
+from .ops import gru as gru_ops
+
+# (anchor in gru_grid.cu, its replacement, times it occurs): each part a
+# macro switches off.
+_PATCHES = (
+    ("if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));",
+     "\n#if !NO_WAIT\n if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n#endif\n", 2),
+    ("if (step > 0) {\n                __syncthreads();  // the warpgroup reconverged",
+     "if (step > 0 && !NO_PRODUCT) {\n                __syncthreads();  // the warpgroup reconverged", 1),
+    ("if (step > 0 && mw > 0)\n", "if (step > 0 && mw > 0 && !NO_PRODUCT)\n", 1),
+    ("? __ldcg(frag + (size_t)ks", "? PROBE_LOAD(frag + (size_t)ks", 1),
+    ("__ldcg(frag + i * tile", "PROBE_LOAD(frag + i * tile", 2),
+    ("namespace {\n", "namespace {\n#define PROBE_LOAD(p) "
+     "(NO_ALOAD ? make_uint4(threadIdx.x, 1u, 2u, 3u) : __ldcg(p))\n", 1),
+    ("constexpr int kFwdBatch = ", "constexpr int kFwdBatch = FWD_BATCH; // ", 1),
+    ("constexpr int kChainAhead = ", "constexpr int kChainAhead = CHAIN_AHEAD; // ", 1),
+)
+# The phases build: marks 0-3 a step (``PROBE_MARK``) into the buffer that
+# ``ocrs_probe_set`` hands the kernels, [blocks][T][4] cycles.
+_MARKS = (
+    ("namespace {\n", "namespace {\n__device__ long long* g_probe;\n"
+     "#define PROBE_MARK(k) do { if (PROBE_PHASES && threadIdx.x == 0) "
+     "g_probe[((size_t)blockIdx.x * T + step) * 4 + (k)] = clock64(); } while (0)\n", 1),
+    ("    for (int step = 0; step < T; ++step) {\n",
+     "    for (int step = 0; step < T; ++step) {\n        PROBE_MARK(0);\n", 2),
+    ("        if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n",
+     "        if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n        PROBE_MARK(1);\n", 2),
+    ("                __syncthreads();  // the previous pass's sums have been read\n",
+     "                __syncthreads();  // the previous pass's sums have been read\n"
+     "                PROBE_MARK(2);\n", 2),
+    ("        if (step + 1 < T) signal_step(ctr);\n",
+     "        __syncthreads();\n        PROBE_MARK(3);\n        if (step + 1 < T) signal_step(ctr);\n", 2),
+    ('extern "C" {\n', 'extern "C" {\nint ocrs_probe_set(void* p) {\n'
+     "    return (int)cudaMemcpyToSymbol(g_probe, &p, sizeof(p));\n}\n", 1),
+)
+_DEFAULTS = {"NO_WAIT": 0, "NO_PRODUCT": 0, "NO_ALOAD": 0, "PROBE_PHASES": 0}
+
+
+def _source() -> str:
+    src = (_build.CSRC_DIR / "gru_grid.cu").read_text()
+    for old, new, count in _MARKS + _PATCHES:
+        if src.count(old) != count:
+            raise RuntimeError(f"grid_probe: gru_grid.cu holds {old!r} {src.count(old)} times, "
+                               f"not {count}")
+        src = src.replace(old, new)
+    return src
+
+
+def _source_depth(name: str) -> int:
+    text = (_build.CSRC_DIR / "gru_grid.cu").read_text()
+    return int(text.split(f"constexpr int {name} = ", 1)[1].split(";", 1)[0])
+
+
+def _variants() -> dict[str, dict[str, int]]:
+    fwd, chain = _source_depth("kFwdBatch"), _source_depth("kChainAhead")
+    out = {"full": {}, "no_wait": {"NO_WAIT": 1}, "no_product": {"NO_PRODUCT": 1},
+           "no_aload": {"NO_ALOAD": 1}}
+    for k in (2, 8):
+        out[f"fwd_batch_{k}"] = {"FWD_BATCH": k}
+    for k in (4, 6):
+        out[f"chain_ahead_{k}"] = {"CHAIN_AHEAD": k}
+    out["phases"] = {"PROBE_PHASES": 1}
+    return {name: {**_DEFAULTS, "FWD_BATCH": fwd, "CHAIN_AHEAD": chain, **v}
+            for name, v in out.items()}
+
+
+def _build_all(variants: dict) -> dict[str, ctypes.CDLL]:
+    probe_dir = _build.build_dir().parent / "probe"
+    probe_dir.mkdir(parents=True, exist_ok=True)
+    src = probe_dir / "gru_grid_probe.cu"
+    src.write_text(_source())
+    procs = {}
+    for name, macros in variants.items():
+        lib = probe_dir / f"libgru_grid_{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC_DIR}",
+               *(f"-D{k}={v}" for k, v in macros.items()), "-o", str(lib), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        out, _ = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)
+        if proc.returncode:
+            raise RuntimeError(f"grid_probe: nvcc failed for {name}:\n{out}")
+        dll = ctypes.CDLL(str(lib))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        dll.ocrs_gru_grid_fwd_bf16.argtypes = [i] + [p] * 9 + [i] * 5 + [p]
+        dll.ocrs_gru_grid_chain_bf16.argtypes = [i] + [p] * 10 + [i, p] + [i] * 5 + [p]
+        dll.ocrs_probe_set.argtypes = [p]
+        libs[name] = dll
+    return libs
+
+
+def _events_ms(fn, iters: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--t", type=int, default=257)
+    ap.add_argument("--n", type=int, default=128)
+    ap.add_argument("--hid", type=int, default=1024)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("grid_probe: needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    t_len, n, hid = args.t, args.n, args.hid
+    dev, bf16 = torch.device("cuda", 0), torch.bfloat16
+    form, plan = gru_ops.wide_form(n, hid, bf16, dev.index)
+    if form != "grid":
+        raise SystemExit(f"grid_probe: H={hid} takes the {form} form, not the grid form")
+    units, rows = plan
+    libs = _build_all(_variants())
+    gen = torch.Generator().manual_seed(3)
+    px = [torch.randn((t_len, n, 3 * hid), generator=gen).to(dev, bf16) for _ in range(2)]
+    w = _build.rounded(((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) / hid**0.5)
+                       .to(dev), bf16).contiguous()
+    b = torch.zeros((2, 3 * hid), device=dev)
+    dy = [(torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev, bf16) for _ in range(2)]
+    coef = torch.rand((2, t_len * n, 5, hid), device=dev)
+    ys = [torch.empty((t_len, n, hid), device=dev, dtype=bf16) for _ in range(2)]
+    dpx = [torch.empty((t_len, n, 3 * hid), device=dev, dtype=bf16) for _ in range(2)]
+    dhn = torch.empty((2, t_len * n, hid), device=dev, dtype=bf16)
+    tiles = -(-n // rows)
+    dbp = torch.empty((tiles, 2, 3 * hid), device=dev)
+    hs, carry = torch.empty((2, n, hid), device=dev), torch.empty((2, n, hid), device=dev)
+    ctr = torch.empty((2 * tiles,), device=dev, dtype=torch.int32)
+    ffrag, cfrag = gru_ops._grid_frag(n, hid, dev), gru_ops._grid_frag(n, 3 * hid, dev)
+    ptr, stream = _build.ptr, _build.stream_ptr(dev)
+
+    def fwd(dll, steps=t_len):
+        return lambda: _build.check(dll, dll.ocrs_gru_grid_fwd_bf16(
+            dev.index, ptr(px[0]), ptr(px[1]), ptr(w), ptr(b), ptr(hs), ptr(ffrag), ptr(ys[0]),
+            ptr(ys[1]), ptr(ctr), steps, n, hid, units, rows, stream), "grid_probe forward")
+
+    def chain(dll):
+        return lambda: _build.check(dll, dll.ocrs_gru_grid_chain_bf16(
+            dev.index, ptr(dy[0]), ptr(dy[1]), ptr(w), ptr(coef), ptr(carry), ptr(cfrag),
+            ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dbp), tiles, ptr(ctr), t_len, n, hid, units,
+            rows, stream), "grid_probe chain")
+
+    shape = {"T": t_len, "N": n, "H": hid, "units": units, "rows": rows}
+    for name, dll in libs.items():
+        if name == "phases":
+            continue
+        print(json.dumps({"variant": name, **shape, "fwd_ms": _events_ms(fwd(dll)),
+                          "chain_ms": _events_ms(chain(dll))}), flush=True)
+    blocks = 2 * tiles * -(-hid // units)
+    marks = torch.zeros((blocks, t_len, 4), device=dev, dtype=torch.int64)
+    phases = libs["phases"]
+    _build.check(phases, phases.ocrs_probe_set(ptr(marks)), "grid_probe phases")
+    names = ("wait", "product", "gate_math", "signal_to_next")
+    for kernel, call in (("fwd", fwd(phases)), ("chain", chain(phases))):
+        call()
+        torch.cuda.synchronize()
+        m = marks[:, 1:].double()  # steps after the first (no wait before it)
+        parts = [m[..., 1] - m[..., 0], m[..., 2] - m[..., 1], m[..., 3] - m[..., 2],
+                 marks[:, 2:, 0].double() - marks[:, 1:-1, 3].double()]
+        wait = parts[0].flatten()
+        print(json.dumps({"phases": kernel, **shape, "blocks": blocks,
+                          **{f"{k}_cycles": p.mean().item() for k, p in zip(names, parts)},
+                          "wait_p50_cycles": wait.quantile(0.5).item(),
+                          "wait_p90_cycles": wait.quantile(0.9).item(),
+                          "step_cycles": (marks[:, 2:, 0] - marks[:, 1:-1, 0]).double().mean().item()}),
+              flush=True)
+    bwd = gru_ops._bwd_lib()
+    coef_out = torch.empty_like(coef)
+    splits = gru_ops._dw_splits(t_len, n)
+    dwp = torch.empty((splits, 2, hid, 3 * hid), device=dev)
+    dw, db = torch.empty_like(w), torch.empty_like(b)
+    split = {
+        "coef_ms": lambda: _build.check(bwd, bwd.ocrs_gru_bwd_coef_bf16(
+            dev.index, ptr(px[0]), ptr(px[1]), ptr(ys[0]), ptr(ys[1]), ptr(w), ptr(b),
+            ptr(coef_out), t_len, n, hid, stream), "grid_probe coef"),
+        "dw_ms": lambda: _build.check(bwd, bwd.ocrs_gru_bwd_dw_bf16(
+            dev.index, ptr(ys[0]), ptr(ys[1]), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
+            ptr(dbp), tiles, ptr(dw), ptr(db), splits, t_len, n, hid, stream), "grid_probe dw"),
+        "cast_ms": lambda: _build.rounded(w, bf16).contiguous(),
+    }
+    print(json.dumps({"backward_phases": True, **shape,
+                      **{k: _events_ms(fn) for k, fn in split.items()}}), flush=True)
+    for steps in (2, 33):
+        print(json.dumps({"variant": "full", **shape, "T": steps,
+                          "fwd_ms": _events_ms(fwd(libs["full"], steps))}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

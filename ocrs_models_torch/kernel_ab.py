@@ -50,16 +50,23 @@ f32 entry's outputs on the same inputs (equal digests: the f32 kernel
 unchanged, bit for bit), and for the backward its grid.
 
 ``gru_wide_fwd`` and ``gru_wide_chain`` (``csrc/gru_wide.cu``): the wide
-route's two forms against each other, its persistent entries
+route's forms against each other, its persistent entries
 (``ocrs_gru_wide_fwd[_bf16]``, ``ocrs_gru_wide_chain[_bf16]``) and its per-step
 ones (``ocrs_gru_wide_fwd_stepwise[_bf16]``, ``ocrs_gru_wide_chain_stepwise[_bf16]``,
 which take any H % 8 == 0), at T=257, N=128, H=512 in f32 and bf16, and at
-H=264 and 320: one case per (shape, dtype, form), each form's device time
-the sum over its kernels of the mean record times the kernel's launches a
-call (T for a per-step kernel). The chain's inputs are the plain versions'
-coefficients of a plain forward; its outputs are held against the plain
-chain. A source that exports ``ocrs_gru_wide_fwd_max_clusters`` also gets
-its rows per block and clusters (``rows``).
+H=264 and 320; and at H=1024 the per-step form (f32 and bf16) against the
+grid form (bf16; ``csrc/gru_grid.cu``'s ``ocrs_gru_grid_fwd_bf16``,
+``ocrs_gru_grid_chain_bf16``, always the checkout's build, with the plan of
+``ops.gru.grid_plan`` for the card: ``rows`` gives its units and rows a
+block and its blocks): one case per (shape, dtype, form), each form's
+device time the sum over its kernels of the mean record times the
+kernel's launches a call (T for a per-step kernel). The chain's inputs are
+the plain versions' coefficients of a plain forward; its outputs are held
+against the plain chain. A source that exports
+``ocrs_gru_wide_fwd_max_clusters`` also gets its rows per block and
+clusters (``rows``). The chain's bf16 cases at H=1024 also time the
+backward's other phases on the same operands, ``gru_bwd.cu``'s ``coef`` and
+``dw`` (with ``dw_sum``) and W_hh's cast (``split_ms``, events).
 
 ``--cold`` writes a 256 MB buffer before each call so that no input is
 left in the 50 MB L2 cache. Needs CUDA and ``nvcc``.
@@ -80,6 +87,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .ops import _build
 from .ops.ctc import ctc_alpha_reference, ctc_operands
+from .ops import gru as gru_ops
 from .ops.gru import (
     DW_SPLITS,
     MIN_ROWS,
@@ -336,8 +344,14 @@ def _bind_gru_wide(dll) -> None:
     _bind(dll.ocrs_gru_wide_stepwise_rows, [])
 
 
-WIDE_SHAPES = ((257, 128, 512), (257, 128, 264), (257, 128, 320))
-WIDE_FORMS = ("persistent", "stepwise")
+WIDE_SHAPES = ((257, 128, 512), (257, 128, 264), (257, 128, 320), (257, 128, 1024))
+
+
+def _wide_forms(hid: int, dt: torch.dtype) -> tuple[str, ...]:
+    """The forms timed against each other at padded width ``hid``."""
+    if hid <= gru_ops.MAX_WIDE_HIDDEN:
+        return "persistent", "stepwise"
+    return ("grid", "stepwise") if gru_ops.gru_route(hid, dt) == "grid" else ("stepwise",)
 
 
 def _gru_wide_cases(dev) -> dict:
@@ -357,9 +371,14 @@ def _gru_wide_cases(dev) -> dict:
             ys = gru_recurrence_reference(*px, w_hh, b_hh)
             coef = gru_bwd_coefficients_reference(*px, *ys, w_hh, b_hh).reshape(
                 2, t_len * n, 5, hid).contiguous()
-            for form in WIDE_FORMS:
+            for form in _wide_forms(hid, dt):
                 out[f"T{t_len}_N{n}_H{hid}_{tag}_{form}"] = (*px, *ys, *dy, w_hh, b_hh, coef, form)
     return out
+
+
+def _grid_plan(ops) -> tuple[int, int]:
+    t_len, n, h3 = ops[0].shape
+    return gru_ops.wide_form(n, h3 // 3, ops[0].dtype, ops[0].device.index)[1]
 
 
 def _sfx(ops) -> str:
@@ -368,8 +387,12 @@ def _sfx(ops) -> str:
 
 def _gru_wide_fwd_outputs(ops) -> dict:
     t_len, n, h3 = ops[0].shape
-    return {"ys_f": torch.empty_like(ops[2]), "ys_b": torch.empty_like(ops[3]),
-            "hs": torch.empty((2, 2, n, h3 // 3), device=ops[0].device)}
+    out = {"ys_f": torch.empty_like(ops[2]), "ys_b": torch.empty_like(ops[3]),
+           "hs": torch.empty((2, 2, n, h3 // 3), device=ops[0].device)}
+    if ops[-1] == "grid":
+        out["frag"] = gru_ops._grid_frag(n, h3 // 3, ops[0].device)
+        out["ctr"] = torch.empty((2 * n,), device=ops[0].device, dtype=torch.int32)
+    return out
 
 
 def _gru_wide_fwd_call(dll, ops, out, rows=0) -> None:
@@ -377,7 +400,14 @@ def _gru_wide_fwd_call(dll, ops, out, rows=0) -> None:
     t_len, n, h3 = px_f.shape
     ptr = _build.ptr
     dev, stream = px_f.device, _build.stream_ptr(px_f.device)
-    if form == "persistent":
+    if form == "grid":
+        dll = gru_ops._grid_lib()
+        units, rows = _grid_plan(ops)
+        rc = dll.ocrs_gru_grid_fwd_bf16(
+            dev.index, ptr(px_f), ptr(px_b), ptr(w_hh), ptr(b_hh), ptr(out["hs"]), ptr(out["frag"]),
+            ptr(out["ys_f"]), ptr(out["ys_b"]), ptr(out["ctr"]), t_len, n, h3 // 3, units, rows,
+            stream)
+    elif form == "persistent":
         rc = getattr(dll, f"ocrs_gru_wide_fwd{_sfx(ops)}")(
             dev.index, ptr(px_f), ptr(px_b), ptr(w_hh), ptr(b_hh), ptr(out["ys_f"]),
             ptr(out["ys_b"]), t_len, n, h3 // 3, stream)
@@ -404,6 +434,9 @@ def _gru_wide_chain_outputs(ops) -> dict:
     if px_f.dtype == torch.bfloat16:  # bf16(dhn) and db's partials, one per tile of >= 16 rows
         out["dhn"] = torch.empty((2, t_len * n, hid), device=dev, dtype=torch.bfloat16)
         out["dbp"] = torch.empty((-(-n // 16), 2, h3), device=dev, dtype=f32)
+    if ops[-1] == "grid":
+        out["frag"] = gru_ops._grid_frag(n, h3, dev)
+        out["ctr"] = torch.empty((2 * n,), device=dev, dtype=torch.int32)
     return out
 
 
@@ -414,7 +447,14 @@ def _gru_wide_chain_call(dll, ops, out, rows=0) -> None:
     dev, stream = dy_f.device, _build.stream_ptr(dy_f.device)
     bf16 = dy_f.dtype == torch.bfloat16
     extra = [ptr(out["dhn"]), ptr(out["dbp"])] if bf16 else []
-    if form == "persistent":
+    if form == "grid":
+        dll = gru_ops._grid_lib()
+        units, rows = _grid_plan(ops)
+        rc = dll.ocrs_gru_grid_chain_bf16(
+            dev.index, ptr(dy_f), ptr(dy_b), ptr(w_hh), ptr(coef), ptr(out["carry"]),
+            ptr(out["frag"]), ptr(out["dpx_f"]), ptr(out["dpx_b"]), *extra, out["dbp"].shape[0],
+            ptr(out["ctr"]), t_len, n, hid, units, rows, stream)
+    elif form == "persistent":
         parts = [out["dbp"].shape[0]] if bf16 else []
         rc = getattr(dll, f"ocrs_gru_wide_chain{_sfx(ops)}")(
             dev.index, ptr(dy_f), ptr(dy_b), ptr(w_hh), ptr(coef), ptr(out["dpx_f"]),
@@ -442,6 +482,14 @@ def _gru_wide_chain_compare(ops, out, dll=None) -> dict:
 
 def _gru_wide_extra(kind: str):
     def extra(dll, ops, line, k) -> None:
+        if kind == "chain" and ops[-1] == "grid" and "split_ms" not in line:
+            line["split_ms"] = _bwd_split_ms(ops)
+        if ops[-1] == "grid":
+            units, rows = _grid_plan(ops)
+            t_len, n, h3 = ops[0].shape
+            line.setdefault("rows", {})[k] = {"units": units, "rows": rows,
+                                              "blocks": 2 * -(-n // rows) * -(-h3 // 3 // units)}
+            return
         if ops[-1] != "persistent":
             line.setdefault("rows", {})[k] = {"rows": dll.ocrs_gru_wide_stepwise_rows()}
             return
@@ -452,6 +500,41 @@ def _gru_wide_extra(kind: str):
         line.setdefault("rows", {})[k] = {"rows": rows.value, "launched": 2 * -(-n // rows.value),
                                           "max_active": cap}
     return extra
+
+
+def _bwd_split_ms(ops) -> dict:
+    """The bf16 backward's phases around its chain on the case's operands,
+    by CUDA events: ``gru_bwd.cu``'s ``coef`` and ``dw`` (with ``dw_sum``,
+    one C call) and W_hh's cast to bf16 values, as ``ops.gru.gru_wide_bwd``
+    runs them."""
+    px_f, px_b, ys_f, ys_b = ops[:4]
+    w_hh, b_hh = ops[6], ops[7]
+    t_len, n, h3 = px_f.shape
+    hid, dev = h3 // 3, px_f.device
+    lib, ptr, stream = gru_ops._bwd_lib(), _build.ptr, _build.stream_ptr(dev)
+    coef = torch.empty((2, t_len * n, 5, hid), device=dev)
+    splits = gru_ops._dw_splits(t_len, n)
+    dpx = [torch.zeros_like(px_f) for _ in range(2)]
+    dhn = torch.zeros((2, t_len * n, hid), device=dev, dtype=torch.bfloat16)
+    dbp = torch.zeros((1, 2, h3), device=dev)
+    dwp = torch.empty((splits, 2, hid, h3), device=dev)
+    dw, db = torch.empty_like(w_hh), torch.empty_like(b_hh)
+    calls = {
+        "coef": lambda: lib.ocrs_gru_bwd_coef_bf16(
+            dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w_hh), ptr(b_hh), ptr(coef),
+            t_len, n, hid, stream),
+        "dw": lambda: lib.ocrs_gru_bwd_dw_bf16(
+            dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp), ptr(dbp),
+            1, ptr(dw), ptr(db), splits, t_len, n, hid, stream),
+        "cast": lambda: _build.rounded(w_hh, torch.bfloat16).contiguous(),
+    }
+    out = {}
+    for name, fn in calls.items():
+        rc = fn()
+        if isinstance(rc, int):
+            _build.check(lib, rc, f"kernel_ab split ({name})")
+        out[name] = _events_ms(fn, lambda: None)
+    return out
 
 
 def _wide_launches(name: str, ops) -> int:
@@ -620,17 +703,17 @@ SPECS = {
     "gru_wide_fwd": {"source": "gru_wide.cu", "bind": _bind_gru_wide, "cases": _gru_wide_cases,
                      "outputs": _gru_wide_fwd_outputs, "call": _gru_wide_fwd_call,
                      "compare": _gru_wide_fwd_compare, "extra": _gru_wide_extra("fwd"),
-                     "match": "gru_wide", "phase": None, "rows_entry": None,
+                     "match": ("gru_wide", "gru_grid"), "phase": None, "rows_entry": None,
                      "launches": _wide_launches},
     "gru_wide_chain": {"source": "gru_wide.cu", "bind": _bind_gru_wide, "cases": _gru_wide_cases,
                        "outputs": _gru_wide_chain_outputs, "call": _gru_wide_chain_call,
                        "compare": _gru_wide_chain_compare, "extra": _gru_wide_extra("chain"),
-                       "match": "gru_wide", "phase": None, "rows_entry": None,
+                       "match": ("gru_wide", "gru_grid"), "phase": None, "rows_entry": None,
                        "launches": _wide_launches},
 }
 
 
-def _device_ms(fn, before, match: str, phase=None, calls: int = 5,
+def _device_ms(fn, before, match: str | tuple, phase=None, calls: int = 5,
                launches=lambda name: 1) -> tuple[float, dict]:
     """The profiler's device time of one call of the kernel, all its
     launches (the mean over the records each launch name delivered, times
@@ -644,8 +727,9 @@ def _device_ms(fn, before, match: str, phase=None, calls: int = 5,
                 before()
                 fn()
             torch.cuda.synchronize()
+        parts = (match,) if isinstance(match, str) else match
         found = {name: launches(name) * sum(v) / len(v)
-                 for name, v in device_records(prof).items() if match in name}
+                 for name, v in device_records(prof).items() if any(m in name for m in parts)}
         if found:
             break
     phases: dict[str, float] = {}
@@ -674,7 +758,8 @@ def _equal(spec: dict, a: tuple, b: tuple) -> bool:
     if "grads" in spec:
         return all(torch.equal(x, y) for x, y in zip(spec["grads"](*a), spec["grads"](*b)))
     # The backward's scratch differs between its layouts; its outputs must not.
-    keys = [k for k in a[1] if k not in ("coef", "dph", "dwp", "dbp", "hs", "carry", "w_t")]
+    keys = [k for k in a[1] if k not in ("coef", "dph", "dwp", "dbp", "hs", "carry", "w_t", "frag",
+                                         "ctr")]
     return all(torch.equal(a[1][k], b[1][k]) for k in keys)
 
 

@@ -18,8 +18,11 @@ Pallas kernel takes any, goes to :func:`gru_wide_fwd` and
 its chain are ``gru_bwd.cu``'s), zero-padded to a multiple of 8 first. Up
 to 512 after padding ("wide") they run in the same persistent form, one
 launch for all T steps, in clusters of up to 16 blocks with part of
-``W_hh`` in shared memory; above 512 ("stepwise") in one launch per step,
-the state in device memory between launches. On CPU tensors
+``W_hh`` in shared memory; above 512 in bf16 up to ``GRID_MAX_HIDDEN``
+("grid", ``csrc/gru_grid.cu``) in one cooperative launch over the whole
+card, the state exchanged through device memory between steps; every other
+width above 512 ("stepwise") in one launch per step, the state in device
+memory between launches. On CPU tensors
 both wrappers run their plain versions (:func:`gru_recurrence_reference`,
 a Python loop of torch ops, and autograd of it). The backward kernel's
 three phases have plain versions of their own
@@ -116,21 +119,84 @@ route (:func:`gru_route`)."""
 MAX_WIDE_HIDDEN = 512
 """Widest hidden size, after padding to a multiple of 8, of the wide
 route's persistent form (``gru_wide.cu``: a cluster of ``ceil(H / 32)``
-blocks, at most 16); wider layers run one launch a step."""
+blocks, at most 16); wider layers run the grid form (bf16, up to
+``GRID_MAX_HIDDEN``) or one launch a step."""
+
+H100_SMS = 132
+"""SMs of an H100 SXM, the card :func:`gru_route` answers for."""
+H100_SMEM = 232448
+"""Dynamic shared memory an H100 block may opt into (227 KB)."""
+GRID_UNITS = (32, 24)
+"""Hidden units a block of the grid form may own, the first that fits."""
+GRID_PASS_ROWS = 64
+"""Batch rows a block of the grid form multiplies at once (``gru_grid.cu``
+runs more in passes)."""
 
 
-def gru_route(hid: int) -> str:
-    """Which kernels run a layer of hidden size ``hid`` on the card, by the
-    width alone: ``"cluster"`` (``gru_fwd.cu``, ``gru_bwd.cu``) for ``H %
-    8 == 0`` and ``8 <= H <= MAX_HIDDEN``; else, with ``H`` zero-padded to
-    the next multiple of 8, ``"wide"`` (``gru_wide.cu``'s persistent
-    kernels) up to ``MAX_WIDE_HIDDEN`` and ``"stepwise"`` (its kernels of
-    one launch a step) above it."""
+def _round16(k: int) -> int:
+    return -(-k // 16) * 16
+
+
+def grid_smem(hid: int, units: int) -> int:
+    """Dynamic shared memory of the grid form's larger kernel for padded
+    width ``hid`` and ``units`` a block (``gru_grid.cu``'s ``fwd_smem``,
+    ``chain_smem``): its bf16 slice of ``W_hh``, the forward's ``[3U][H]``
+    or the chain's ``[U][3H]``, the contraction padded to the k16 steps
+    (and the chain's rows by 8 more), beside the 24 KB where its k groups'
+    partial sums meet."""
+    return max(2 * 3 * units * _round16(hid), 2 * units * (_round16(3 * hid) + 8)) + 24576
+
+
+def grid_plan(n: int, hid: int, sms: int = H100_SMS,
+              smem: int = H100_SMEM) -> tuple[int, int] | None:
+    """The grid form's blocks for batch ``n`` and hidden size ``hid``
+    (zero-padded to a multiple of 8) on a card of ``sms`` SMs whose blocks
+    may use ``smem`` bytes of shared memory: ``(U, R)``, hidden units and
+    batch rows a block (R a multiple of 16), or None where no block of
+    ``GRID_UNITS`` fits the card. The first U whose slice fits and whose
+    ``ceil(H/U)`` unit tiles leave room for both directions on the SMs,
+    then as many row tiles as the SMs hold (each block at most 64 rows a
+    pass); it depends on the width and the card only, and R on the batch
+    too. Shared by :func:`gru_route` and the wrappers, which hand it to the
+    C entries."""
+    hid += -hid % 8
+    for units in GRID_UNITS:
+        tiles = -(-hid // units)
+        row_tiles = sms // (2 * tiles)
+        if row_tiles < 1 or grid_smem(hid, units) > smem:
+            continue
+        rows = -(-n // min(row_tiles, -(-n // GRID_PASS_ROWS)))
+        return units, 16 * -(-rows // 16)
+    return None
+
+
+GRID_MAX_HIDDEN = max(h for h in range(8, 2048, 8) if grid_plan(1, h) is not None)
+"""Widest hidden size, after padding to a multiple of 8, of the grid form
+on an H100 SXM, 1440: 24 units a block, whose ``[24][4328]`` bf16 slice of
+the chain's ``W_hh^T`` and its partial sums take 232,320 of the 232,448
+bytes (60 unit tiles; ``grid_plan`` gives None from 1448). 32 units fit up
+to 1072."""
+
+
+def gru_route(hid: int, dtype: torch.dtype = torch.float32) -> str:
+    """Which kernels run a layer of hidden size ``hid`` and compute dtype
+    ``dtype`` on an H100, by the width and the dtype alone: ``"cluster"``
+    (``gru_fwd.cu``, ``gru_bwd.cu``) for ``H % 8 == 0`` and ``8 <= H <=
+    MAX_HIDDEN``; else, with ``H`` zero-padded to the next multiple of 8,
+    ``"wide"`` (``gru_wide.cu``'s persistent kernels) up to
+    ``MAX_WIDE_HIDDEN``, ``"grid"`` (``gru_grid.cu``, bf16 only) up to
+    ``GRID_MAX_HIDDEN`` and ``"stepwise"`` (``gru_wide.cu``'s kernels of
+    one launch a step) above it, or above ``MAX_WIDE_HIDDEN`` in float32.
+    A card that cannot hold :func:`grid_plan`'s blocks runs "stepwise"
+    where this says "grid" (:func:`wide_form`)."""
     if hid < 1:
         raise ValueError(f"gru_route: the hidden size must be at least 1, got {hid}")
     if hid % 8 == 0 and hid <= MAX_HIDDEN:
         return "cluster"
-    return "wide" if hid + -hid % 8 <= MAX_WIDE_HIDDEN else "stepwise"
+    padded = hid + -hid % 8
+    if padded <= MAX_WIDE_HIDDEN:
+        return "wide"
+    return "grid" if dtype == torch.bfloat16 and padded <= GRID_MAX_HIDDEN else "stepwise"
 
 
 # The wide kernels take H % 8 == 0; another width is zero-padded to the
@@ -258,18 +324,80 @@ def _wide_report(kind: str, n: int, hid: int, device: int, dtype: torch.dtype) -
     return {"rows_per_block": rows.value, "launched": 2 * -(-n // rows.value), "max_active": got}
 
 
+def _grid_lib() -> ctypes.CDLL:
+    lib = _build.load("gru_grid")
+    if lib.ocrs_gru_grid_fwd_bf16.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.ocrs_gru_grid_fwd_bf16.argtypes = [i] + [p] * 9 + [i] * 5 + [p]
+        lib.ocrs_gru_grid_chain_bf16.argtypes = [i] + [p] * 10 + [i, p] + [i] * 5 + [p]
+        lib.ocrs_gru_grid_limits.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        for fn in (lib.ocrs_gru_grid_fwd_bf16, lib.ocrs_gru_grid_chain_bf16,
+                   lib.ocrs_gru_grid_limits):
+            fn.restype = i
+        lib.ocrs_gru_grid_smem.argtypes = [i, i, i]
+        lib.ocrs_gru_grid_smem.restype = ctypes.c_longlong
+    return lib
+
+
+_limits: dict[int, tuple[int, int]] = {}
+
+
+def grid_limits(device: int = 0) -> tuple[int, int]:
+    """The card's SM count and the shared memory a block may opt into, as
+    :func:`grid_plan` takes them (asked of the runtime once a device)."""
+    if device not in _limits:
+        lib = _grid_lib()
+        sms, smem = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(lib, lib.ocrs_gru_grid_limits(device, ctypes.byref(sms), ctypes.byref(smem)),
+                     "grid_limits")
+        _limits[device] = (sms.value, smem.value)
+    return _limits[device]
+
+
+def wide_form(n: int, hid: int, dtype: torch.dtype, device: int = 0) -> tuple[str, tuple | None]:
+    """The wide route's form for batch ``n``, padded width ``hid`` and
+    ``dtype`` on CUDA device ``device``, chosen before any launch:
+    ``("persistent", None)`` up to ``MAX_WIDE_HIDDEN``; ``("grid", (U,
+    R))`` where :func:`gru_route` says "grid" and :func:`grid_plan` finds
+    blocks for this card; else ``("stepwise", None)``."""
+    if hid <= MAX_WIDE_HIDDEN:
+        return "persistent", None
+    if gru_route(hid, dtype) == "grid":
+        plan = grid_plan(n, hid, *grid_limits(device))
+        if plan is not None:
+            return "grid", plan
+    return "stepwise", None
+
+
+def _grid_frag(n: int, k: int, dev) -> torch.Tensor:
+    """Scratch of the grid form's A operand with contraction ``k`` (H for
+    the forward, 3H for the chain) in ``mma``'s fragment order, two step
+    parities of both directions: ``[2, 2, 16 ceil(N/16), round16(k)]`` bf16
+    (any contents: ``gru_grid.cu`` writes each step's before it reads it)."""
+    return torch.empty((2, 2, 16 * -(-n // 16), _round16(k)), device=dev, dtype=torch.bfloat16)
+
+
+def _count_form(wrapper, form: str) -> None:
+    wrapper.launches += 1
+    wrapper.forms[form] += 1
+
+
 def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
     """The forward on the wide route, for any hidden size; same contract
-    as :func:`gru_recurrence_reference`. A CUDA tensor goes through
-    ``gru_wide.cu``'s forward of its dtype, in one ctypes call: up to
+    as :func:`gru_recurrence_reference`. A CUDA tensor goes, in one ctypes
+    call, through the form :func:`wide_form` picks: up to
     ``MAX_WIDE_HIDDEN`` after padding (:func:`gru_route`'s "wide", or a
-    width of the cluster route called here directly) the persistent
-    kernel, one launch for all T steps; above it ("stepwise") T launches,
-    one a step, with the f32 state
-    in scratch of the call's own, ``[2, 2, N, H]``. For bf16 also the
-    rounding of ``W_hh`` to bf16 values; a width that is not a multiple of
-    8 is zero-padded first (exact, see :func:`_pad_gates`). A failed launch
-    raises. A CPU tensor goes through the plain version."""
+    width of the cluster route called here directly) ``gru_wide.cu``'s
+    persistent kernel, one launch for all T steps; "grid" (bf16)
+    ``gru_grid.cu``'s kernel, one cooperative launch, with the f32 state
+    and the step counters in scratch of the call's own; "stepwise" T
+    launches of ``gru_wide.cu``, one a step, with the f32 state in scratch
+    of the call's own, ``[2, 2, N, H]``. For bf16 also the rounding of
+    ``W_hh`` to bf16 values; a width that is not a multiple of 8 is
+    zero-padded first (exact, see :func:`_pad_gates`). A failed launch
+    raises. A CPU tensor goes through the plain version. ``.launches``
+    counts the calls, ``.forms`` the calls of each form."""
     if px_f.device.type == "cpu":
         return gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
     t_len, n, hid = _cuda_sizes("gru_wide_fwd", {"px_f": px_f, "px_b": px_b, "w_hh": w_hh,
@@ -283,24 +411,38 @@ def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
     ys_f = torch.empty((t_len, n, hid), device=dev, dtype=px_f.dtype)
     ys_b = torch.empty_like(ys_f)
     w = _build.rounded(w_hh, px_f.dtype).contiguous()
-    lib = _wide_lib()
+    form, plan = wide_form(n, hid, px_f.dtype, dev.index)
     p = _build.ptr
     sfx = _build.SUFFIX[px_f.dtype]
-    if hid <= MAX_WIDE_HIDDEN:
+    if form == "grid":
+        lib = _grid_lib()
+        units, rows = plan
+        hs = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
+        frag = _grid_frag(n, hid, dev)
+        ctr = torch.empty((2 * -(-n // rows),), device=dev, dtype=torch.int32)
+        rc = lib.ocrs_gru_grid_fwd_bf16(
+            dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(hs), p(frag), p(ys_f), p(ys_b), p(ctr),
+            t_len, n, hid, units, rows, _build.stream_ptr(dev))
+    elif form == "persistent":
+        lib = _wide_lib()
         rc = getattr(lib, f"ocrs_gru_wide_fwd{sfx}")(
             dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(ys_f), p(ys_b), t_len, n, hid,
             _build.stream_ptr(dev))
     else:
+        lib = _wide_lib()
         hs = torch.empty((2, 2, n, hid), device=dev, dtype=torch.float32)
         rc = getattr(lib, f"ocrs_gru_wide_fwd_stepwise{sfx}")(
             dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(hs), p(ys_f), p(ys_b), t_len, n, hid,
             _build.stream_ptr(dev))
-    _build.check(lib, rc, "gru_wide_fwd")
-    gru_wide_fwd.launches += 1
+    _build.check(lib, rc, f"gru_wide_fwd ({form})")
+    _count_form(gru_wide_fwd, form)
     return ys_f, ys_b
 
 
+WIDE_FORMS = ("persistent", "grid", "stepwise")
+"""The wide route's forms (:func:`wide_form`)."""
 gru_wide_fwd.launches = 0
+gru_wide_fwd.forms = dict.fromkeys(WIDE_FORMS, 0)
 
 
 def gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh):
@@ -554,17 +696,20 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
                  scratch_out: dict | None = None):
     """The backward on the wide route, for any hidden size; same contract
     as :func:`gru_bwd_reference`. A CUDA tensor goes through ``gru_bwd.cu``'s
-    coefficients (one launch), ``gru_wide.cu``'s chain (bf16 also writes
-    ``bf16(dhn)`` and ``db``'s partials, one per batch tile of the rows per
-    block the chain picks), then ``gru_bwd.cu``'s dW reduction and sum (two
-    launches), in three ctypes calls, plus for bf16 the rounding of
-    ``W_hh``. Up to ``MAX_WIDE_HIDDEN`` after padding the chain is the
-    persistent kernel, one launch: 4 launches a call; above it ("stepwise") T
-    launches, one a step, its state in scratch of the call's own, and the
-    copy of ``W_hh^T``: T + 4. A width that is not a multiple of 8 is
-    zero-padded first (exact, see :func:`_pad_gates`). A failed launch
-    raises. A CPU tensor goes through the plain version; ``scratch_out`` as
-    for :func:`gru_bwd`."""
+    coefficients (one launch), the chain of the form :func:`wide_form`
+    picks (bf16 also writes ``bf16(dhn)`` and ``db``'s partials, one per
+    batch tile of the chain's rows per block), then ``gru_bwd.cu``'s dW
+    reduction and sum (two launches), in three ctypes calls, plus for bf16
+    the rounding of ``W_hh``. The chain: up to ``MAX_WIDE_HIDDEN`` after
+    padding ``gru_wide.cu``'s persistent kernel, one launch: 4 launches a
+    call; "grid" (bf16) ``gru_grid.cu``'s chain, one cooperative launch, its
+    ``dht * z`` and step counters in scratch of the call's own: 4 launches;
+    "stepwise" T launches of ``gru_wide.cu``, one a step, its state in
+    scratch of the call's own, and the copy of ``W_hh^T``: T + 4. A width
+    that is not a multiple of 8 is zero-padded first (exact, see
+    :func:`_pad_gates`). A failed launch raises. A CPU tensor goes through
+    the plain version; ``scratch_out`` as for :func:`gru_bwd`; ``.forms``
+    as for :func:`gru_wide_fwd`."""
     if px_f.device.type == "cpu":
         return gru_bwd_reference(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh)
     t_len, n, hid = _cuda_sizes("gru_wide_bwd", {
@@ -600,22 +745,32 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
 
     dpx_f = torch.empty_like(px_f)
     dpx_b = torch.empty_like(px_b)
-    persistent = hid <= MAX_WIDE_HIDDEN
-    if not persistent:  # the per-step chain's operand and state
+    form, plan = wide_form(n, hid, dt, dev.index)
+    persistent = form == "persistent"
+    if form != "persistent":  # the chain's dht * z
+        carry = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
+    if form == "stepwise":  # the per-step chain's operand and state
         w_t = w.transpose(1, 2).contiguous()
         dph = torch.empty((2, 2, n, h3), device=dev, dtype=torch.float32)
-        carry = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
     splits = _dw_splits(t_len, n)
     dwp = torch.empty((splits, 2, hid, h3), device=dev, dtype=torch.float32)
     dw = torch.empty_like(w_hh)
     db = torch.empty_like(b_hh)
     if bf16:
         rows = (_wide_report("chain", n, hid, dev.index, dt)["rows_per_block"] if persistent
-                else wide.ocrs_gru_wide_stepwise_rows())
+                else plan[1] if form == "grid" else wide.ocrs_gru_wide_stepwise_rows())
         tiles = -(-n // rows)
         dhn = torch.empty((2, t_len, n, hid), device=dev, dtype=torch.bfloat16)
         dbp = torch.empty((tiles, 2, h3), device=dev, dtype=torch.float32)
-        if persistent:
+        chain = wide
+        if form == "grid":
+            chain = _grid_lib()
+            frag = _grid_frag(n, h3, dev)
+            ctr = torch.empty((2 * tiles,), device=dev, dtype=torch.int32)
+            rc = chain.ocrs_gru_grid_chain_bf16(
+                dev.index, p(dy_f), p(dy_b), p(w), p(coef), p(carry), p(frag), p(dpx_f), p(dpx_b),
+                p(dhn), p(dbp), tiles, p(ctr), t_len, n, hid, plan[0], rows, stream)
+        elif persistent:
             rc = wide.ocrs_gru_wide_chain_bf16(
                 dev.index, p(dy_f), p(dy_b), p(w), p(coef), p(dpx_f), p(dpx_b), p(dhn), p(dbp),
                 tiles, t_len, n, hid, stream)
@@ -623,7 +778,7 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
             rc = wide.ocrs_gru_wide_chain_stepwise_bf16(
                 dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f),
                 p(dpx_b), p(dhn), p(dbp), t_len, n, hid, stream)
-        _build.check(wide, rc, "gru_wide_bwd (chain)")
+        _build.check(chain, rc, f"gru_wide_bwd (chain, {form})")
         rc = bwd.ocrs_gru_bwd_dw_bf16(
             dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(dhn), p(dwp), p(dbp), tiles,
             p(dw), p(db), splits, t_len, n, hid, stream)
@@ -644,11 +799,12 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
             dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(coef), p(dwp), p(dbp), p(dw),
             p(db), splits, t_len, n, hid, stream)
     _build.check(bwd, rc, "gru_wide_bwd (dw)")
-    gru_wide_bwd.launches += 1
+    _count_form(gru_wide_bwd, form)
     return dpx_f, dpx_b, dw, db
 
 
 gru_wide_bwd.launches = 0
+gru_wide_bwd.forms = dict.fromkeys(WIDE_FORMS, 0)
 
 
 class GRURecurrenceFunction(torch.autograd.Function):

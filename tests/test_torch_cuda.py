@@ -50,6 +50,7 @@ from ocrs_models_torch.ops import (
     gru_bwd,
     gru_bwd_chain_bf16_reference,
     gru_bwd_coefficients_reference,
+    gru_bwd_dw_bf16_reference,
     gru_bwd_phases_reference,
     gru_bwd_reference,
     gru_fwd,
@@ -63,6 +64,15 @@ from ocrs_models_torch.ops import (
     stage1_reference,
 )
 from ocrs_models_torch.ops.ctc import NEG_INF, wide_slots
+from ocrs_models_torch.ops.gru import (
+    GRID_MAX_HIDDEN,
+    H100_SMEM,
+    _grid_lib,
+    grid_limits,
+    grid_plan,
+    grid_smem,
+    wide_form,
+)
 from ocrs_models_torch.ops.losses import balanced_cross_entropy_loss
 from ocrs_models_torch.pipeline import OcrPipeline
 from ocrs_models_torch.training import eval_detection, train_detection, train_layout
@@ -179,7 +189,8 @@ def test_gru_kernels_on_two_streams_do_not_disturb_each_other(dev):
 # ceil(H/32) blocks: H=12 (padded to 16), 264 (9 unit tiles, the last
 # ragged), 320 and 512, each at N=1, 259 (ragged batch tile, more clusters
 # than one round) and 128, and at T=1 (no exchange), 2 and 257 (the wide
-# training step's T at N=128). Its per-step form: H=1024. Tolerances those
+# training step's T at N=128). H=1024: the per-step form in f32, the grid
+# form (gru_grid.cu, below) in bf16. Tolerances those
 # of the cluster rows, but for the share of bf16 dpx equal to the plain
 # version's at T=257, H=512: 93%, not 95%. There two float32 summation
 # orders alone disagree on 4-5% of dpx's bf16 roundings: the plain version
@@ -210,8 +221,13 @@ def _launch_calls(fn) -> dict:
     return out
 
 
-def _wide_form(h: int) -> str:
-    return "wide" if h + -h % 8 <= 512 else "stepwise"
+def _wide_form(h: int, dtype: torch.dtype) -> str:
+    """The route's form: "wide" (persistent), "grid" (bf16 above 512) or
+    "stepwise"."""
+    padded = h + -h % 8
+    if padded <= 512:
+        return "wide"
+    return "grid" if dtype == BF16 and padded <= GRID_MAX_HIDDEN else "stepwise"
 
 
 def _wide_calls(fn, *args):
@@ -229,17 +245,18 @@ def _wide_calls(fn, *args):
 @pytest.mark.parametrize("shape", WIDE_SHAPES)
 def test_gru_wide_route_matches_plain(dev, shape, dtype):
     t, n, h = shape
-    form = _wide_form(h)
-    assert gru_route(h) == form
+    form = _wide_form(h, dtype)
+    assert gru_route(h, dtype) == form
     px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(
         t, n, h, dev, sum(shape) + 8, dy_scale=1.0 if t <= 65 else 0.1)
     px_f, px_b, dy_f, dy_b = (v.to(dtype) for v in (px_f, px_b, dy_f, dy_b))
     got, again, launched = _wide_calls(gru_fwd, px_f, px_b, w_hh, b_hh)
     assert launched == (0, 0, 2, 0)
     # One recurrence kernel a call in the persistent form (a cluster
-    # launch), T in the per-step form.
+    # launch) and in the grid form (a cooperative launch), T in the
+    # per-step form.
     calls = _launch_calls(lambda: gru_fwd(px_f, px_b, w_hh, b_hh))
-    if form == "wide":
+    if form != "stepwise":
         assert calls["cudaLaunchKernelExC"] == 1
     else:
         assert calls["cudaLaunchKernelExC"] == 0 and calls["cudaLaunchKernel"] >= t
@@ -255,7 +272,7 @@ def test_gru_wide_route_matches_plain(dev, shape, dtype):
     got, again, launched = _wide_calls(gru_bwd, *args)
     assert launched == (0, 0, 0, 2)
     calls = _launch_calls(lambda: gru_bwd(*args))
-    assert calls["cudaLaunchKernelExC"] == (1 if form == "wide" else 0)
+    assert calls["cudaLaunchKernelExC"] == (0 if form == "stepwise" else 1)
     want = gru_bwd_reference(*args)
     for a, b in zip(got, again):
         assert torch.equal(a, b)  # no atomics: bit-identical reruns
@@ -269,6 +286,112 @@ def test_gru_wide_route_matches_plain(dev, shape, dtype):
     scale = 1e-3 if dtype == BF16 else 1e-4
     for a, b in zip(got[2:], want[2:]):
         torch.testing.assert_close(a, b, rtol=0, atol=scale * b.abs().max().item() + 1e-5)
+
+
+# The grid form (gru_grid.cu; bf16, padded 512 < H <= GRID_MAX_HIDDEN):
+# H=520 (17 unit tiles of 32, the last of 8 units), 1024 (32 tiles, two
+# row tiles at N=259: R=144, three passes) and GRID_MAX_HIDDEN (1408: 59
+# tiles of 24 units, one row tile), at N=3 (one m16 tile of a pass) and
+# 259, T=1 (no product), 2 (one) and 9. Tolerances of the wide route's
+# bf16 rows: ys and dpx 2e-2 and 95% equal, dW and db 1e-3 of their
+# largest entry (dW at N=3: see the test).
+GRID_SHAPES = [(t, n, h) for h in (520, 1024, GRID_MAX_HIDDEN)
+               for t, n in ((1, 3), (2, 259), (9, 3), (9, 259))]
+
+
+def _form_calls(fn, *args):
+    """``fn(*args)`` once, and the wide wrappers' calls of each form it
+    made."""
+    before = {w.__name__: dict(w.forms) for w in (gru_wide_fwd, gru_wide_bwd)}
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {w.__name__: {k: v - before[w.__name__][k] for k, v in w.forms.items()}
+                 for w in (gru_wide_fwd, gru_wide_bwd)}
+
+
+@pytest.mark.parametrize("shape", GRID_SHAPES)
+def test_gru_grid_form_matches_plain(dev, shape):
+    t, n, h = shape
+    assert gru_route(h, BF16) == "grid"
+    units, rows = grid_plan(n, h)
+    assert wide_form(n, h, BF16, dev.index) == ("grid", (units, rows))
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, sum(shape) + 19)
+    px_f, px_b, dy_f, dy_b = (v.to(BF16) for v in (px_f, px_b, dy_f, dy_b))
+    ys, forms = _form_calls(gru_fwd, px_f, px_b, w_hh, b_hh)
+    assert forms["gru_wide_fwd"]["grid"] == 1 and sum(forms["gru_wide_fwd"].values()) == 1
+    again = gru_fwd(px_f, px_b, w_hh, b_hh)
+    want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
+    for a, b, c in zip(ys, again, want):
+        assert a.dtype == BF16 and a.shape == (t, n, h) and torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), rtol=0, atol=2e-2)
+        assert (a == c).float().mean().item() >= 0.95
+    args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
+    grads, forms = _form_calls(gru_bwd, *args)
+    assert forms["gru_wide_bwd"]["grid"] == 1 and sum(forms["gru_wide_bwd"].values()) == 1
+    scratch = {}
+    for a, b in zip(grads, gru_bwd(*args, scratch_out=scratch)):
+        assert torch.equal(a, b)  # no atomics: bit-identical reruns
+    want = gru_bwd_reference(*args)
+    for a, b in zip(grads[:2], want[:2]):
+        assert a.dtype == BF16
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=2e-2)
+        assert (a == b).float().mean().item() >= 0.95
+    # db end to end. dW end to end at N=259; at N=3 a dW entry sums 3T
+    # products, and one bf16 rounding of dph that flips between the
+    # kernel's sums and the plain version's moves it by one bf16 ulp of
+    # that dph (2.1e-3 of the largest entry, read at T=9, H=1024): there dW
+    # is held against the plain dW phase on the bf16(dph) that the chain
+    # hands on (dpx and dhn), 1e-5 of its largest entry.
+    db_want = want[3]
+    torch.testing.assert_close(grads[3], db_want, rtol=0, atol=1e-3 * db_want.abs().max().item() + 1e-5)
+    if n >= 259:
+        dw_want, scale = want[2], 1e-3
+    else:
+        dw_want, scale = gru_bwd_dw_bf16_reference(*ys, grads[0], grads[1], scratch["dhn"]), 1e-5
+    torch.testing.assert_close(grads[2], dw_want, rtol=0, atol=scale * dw_want.abs().max().item() + 1e-6)
+    # Device launches a call: the forward's W_hh cast (two) and one
+    # cooperative launch; the backward's cast, coef, the chain (one
+    # cooperative launch), dw and dw_sum.
+    fwd_calls = _launch_calls(lambda: gru_fwd(px_f, px_b, w_hh, b_hh))
+    bwd_calls = _launch_calls(lambda: gru_bwd(*args))
+    assert fwd_calls == {"cudaLaunchKernel": 2, "cudaLaunchKernelExC": 1}
+    assert bwd_calls == {"cudaLaunchKernel": 5, "cudaLaunchKernelExC": 1}
+
+
+def test_grid_plan_counts_the_kernels_shared_memory(dev):
+    # grid_plan's fit rests on grid_smem; the kernels ask the runtime for
+    # their own (gru_grid.cu's fwd_smem, chain_smem): the same bytes, the
+    # larger of the two, at every width the grid form takes on an H100,
+    # within what this card's blocks may use.
+    lib = _grid_lib()
+    smem = grid_limits(dev.index)[1]
+    for h in range(520, GRID_MAX_HIDDEN + 1, 8):
+        units = grid_plan(128, h)[0]
+        sizes = [lib.ocrs_gru_grid_smem(kind, h, units) for kind in (0, 1)]
+        assert max(sizes) == grid_smem(h, units) <= min(smem, H100_SMEM), h
+
+
+def test_gru_bf16_above_the_grid_form_runs_one_launch_a_step(dev):
+    # GRID_MAX_HIDDEN + 8: no block of the grid form fits, so bf16 runs the
+    # per-step form there, as f32 does at every width above 512.
+    t, n, h = 3, 5, GRID_MAX_HIDDEN + 8
+    assert gru_route(h, BF16) == "stepwise" and grid_plan(n, h) is None
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, 23)
+    px_f, px_b, dy_f, dy_b = (v.to(BF16) for v in (px_f, px_b, dy_f, dy_b))
+    ys, forms = _form_calls(gru_fwd, px_f, px_b, w_hh, b_hh)
+    assert forms["gru_wide_fwd"]["stepwise"] == 1
+    calls = _launch_calls(lambda: gru_fwd(px_f, px_b, w_hh, b_hh))
+    assert calls["cudaLaunchKernelExC"] == 0 and calls["cudaLaunchKernel"] >= t
+    for a, c in zip(ys, gru_recurrence_reference(px_f, px_b, w_hh, b_hh)):
+        torch.testing.assert_close(a.float(), c.float(), rtol=0, atol=2e-2)
+    args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
+    grads, forms = _form_calls(gru_bwd, *args)
+    assert forms["gru_wide_bwd"]["stepwise"] == 1
+    want = gru_bwd_reference(*args)
+    for a, b in zip(grads[:2], want[:2]):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=2e-2)
+    for a, b in zip(grads[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * b.abs().max().item() + 1e-5)
 
 
 @pytest.mark.parametrize("shape", [(33, 40, 264), (2, 259, 512), (7, 4, 1024)])
@@ -298,7 +421,10 @@ def test_gru_wide_bf16_chain_hands_on_its_plain_versions_dhn(dev, shape):
 def test_gru_wide_kernels_on_two_streams_do_not_disturb_each_other(dev, dtype, h):
     # As the cluster kernels' test: each call's state and scratch are its
     # own, so two calls in flight at once give what each gives alone (in
-    # the persistent form at H=264 and 512, in the per-step one at 1024).
+    # the persistent form at H=264 and 512; at 1024 in the per-step one in
+    # f32, and in bf16 in the grid form, whose step counters are the
+    # call's own and whose cooperative launches each hold all their blocks
+    # at once).
     cases = []
     for t, n, seed in ((33, 72, 15), (20, 100, 16)):
         px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, seed)

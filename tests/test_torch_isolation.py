@@ -122,11 +122,12 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
 
 def test_every_kernel_source_has_its_note():
     names = _build.sources()
-    assert names == ["ctc_alpha", "ctc_beta", "gru_bwd", "gru_fwd", "gru_wide", "stage1_bwd",
-                     "stage1_fwd"]
-    # One source a wrapper, but the wide route's two share gru_wide.cu.
+    assert names == ["ctc_alpha", "ctc_beta", "gru_bwd", "gru_fwd", "gru_grid", "gru_wide",
+                     "stage1_bwd", "stage1_fwd"]
+    # One source a wrapper, but the wide route's two share gru_wide.cu and
+    # gru_grid.cu (its bf16 grid form).
     wrappers = {k.__name__ for k in KERNELS}
-    assert names == sorted(wrappers - {"gru_wide_fwd", "gru_wide_bwd"} | {"gru_wide"})
+    assert names == sorted(wrappers - {"gru_wide_fwd", "gru_wide_bwd"} | {"gru_wide", "gru_grid"})
     for name in names:
         text = (_build.CSRC_DIR / f"{name}.cu").read_text()
         assert "Replaces:" in text and "ocrs_models_tpu/ops/pallas/" in text
