@@ -1329,8 +1329,8 @@ def run_training(dev, dtype=torch.float32, wide_steps: int = 10, gru_hidden: int
     float32 at the shipped width also grad_accum=4 and eval steps. Each
     step's time is also read on the device's timeline (CUDA events between
     step starts), for a median and a spread, and the peak memory of the
-    timed steps. ``gru_hidden``: the biGRU's width (phase 18: 512 and
-    1024); ``lr``: Adam's learning rate."""
+    timed steps. ``gru_hidden``: the biGRU's width (phase 18: 512, 1024
+    and 2048); ``lr``: Adam's learning rate."""
     from ocrs_models_torch.models import RecognitionModel
     from ocrs_models_torch.training.state import create_train_state
     from ocrs_models_torch.training.steps import make_recognition_steps
@@ -3307,7 +3307,9 @@ WIDE_CHECK_HIDDEN = (100, 264, WIDE_HIDDEN)  # phase 18 (a): held against the pl
 WIDE_T = 257  # phase 18 (a): the wide training bucket's steps (1024 // 4 + 1), at N=128
 WIDE_STEPS = 3  # phase 18 (b): steps held against the plain step
 STEPWISE_SHAPE = (9, REC_BATCH, 1024)  # phase 18 (a): (T, N, H) of the per-step/grid forms' check
-GRID_HIDDEN = 1024  # phase 18 (a), (d): the grid form's width, timed and trained
+GRID_HIDDEN = 1024  # phase 18 (a), (d): the grid form's width (all of W resident), timed and trained
+GRID_STREAMED_HIDDEN = (1448, 2048)  # phase 18 (a): the grid form with W_hh partly streamed, timed
+GRID_TRAIN_HIDDEN = 2048  # phase 18 (e): the recognizer trained in the streamed grid form
 
 
 def _wide_min_equal(hid: int) -> float:
@@ -3327,13 +3329,16 @@ def _wide_device_ms(times: dict, t_len: int, backward: bool) -> float | None:
     kernel, each times its launches a call: the recurrence kernel once in
     the persistent form (``gru_wide_fwd_kernel``, ``gru_wide_bwd_chain_kernel``
     and their bf16 twins) and in the grid form (``gru_grid_fwd_kernel``,
-    ``gru_grid_chain_kernel``), T times in the per-step form
+    ``gru_grid_chain_kernel``, and where W_hh is streamed the layout of its
+    chunks, ``gru_grid_stream_layout_kernel``), T times in the per-step form
     (``*_step_kernel``), and for the backward ``gru_bwd.cu``'s ``coef``,
     ``dw`` and ``dw_sum`` once each."""
     if not times:
         return None
     parts = ("gru_wide_bwd_chain", "gru_grid_chain") if backward else ("gru_wide_fwd",
                                                                        "gru_grid_fwd")
+    # The streamed grid plans' layout of W's streamed chunks, one a call.
+    parts += ("gru_grid_stream",)
     found = {name: ms for name, ms in times.items() if any(part in name for part in parts)}
     if not found:
         raise AssertionError(f"no kernel named *{parts}* ran on the device: {sorted(times)}")
@@ -3343,12 +3348,14 @@ def _wide_device_ms(times: dict, t_len: int, backward: bool) -> float | None:
     return ms
 
 
-def _wide_launches(t_len: int, backward: bool, bf16: bool, one_launch: bool) -> int:
+def _wide_launches(t_len: int, backward: bool, bf16: bool, one_launch: bool,
+                   streamed: bool = False) -> int:
     """Device launches of one wide-route call at a width that needs no
     padding: the recurrence kernel (once in the persistent and grid forms,
-    T in the per-step form), ``coef``, ``dw``, ``dw_sum`` and (per step)
-    the copy of W_hh^T for the backward, and W_hh's two casts in bf16."""
-    chain = 1 if one_launch else t_len
+    T in the per-step form; the streamed grid plans' layout of W's chunks
+    before it), ``coef``, ``dw``, ``dw_sum`` and (per step) the copy of
+    W_hh^T for the backward, and W_hh's two casts in bf16."""
+    chain = (1 + streamed) if one_launch else t_len
     return (chain + 3 + (0 if one_launch else 1) if backward else chain) + (2 if bf16 else 0)
 
 
@@ -3426,8 +3433,9 @@ def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) ->
     from ocrs_models_torch.ops.gru import wide_form
 
     bf16 = dtype == BF16
-    form = wide_form(n, hid + -hid % 8, dtype, dev.index)[0]
+    form, plan = wide_form(n, hid + -hid % 8, dtype, dev.index)
     one_launch = form != "stepwise"
+    streamed = plan is not None and plan.fwd.streamed > 0
     px_f, px_b, dy_f, dy_b, w_hh, b_hh = _wide_operands(gen, dev, t_len, n, hid, dtype)
     ys = _wide_call(gru_fwd, (px_f, px_b, w_hh, b_hh), "gru_wide_fwd", form)
     again = gru_fwd(px_f, px_b, w_hh, b_hh)
@@ -3445,7 +3453,7 @@ def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) ->
                               (lambda: gru_fwd(px_f, px_b, w_hh, b_hh), lambda: gru_bwd(*args))))
     # Where the wrapper pads H to a multiple of 8, its pads and slices add
     # launches of their own: the total is held only where it does not.
-    expected = [_wide_launches(t_len, b, bf16, one_launch) for b in (False, True)]
+    expected = [_wide_launches(t_len, b, bf16, one_launch, streamed) for b in (False, True)]
     print(f"gru wide {what} ({form}): ys max_abs_err "
           f"{errors['ys']:.3e} (equal {errors['ys_equal']:.4f}); dpx {errors['dpx']:.3e} (equal "
           f"{errors['dpx_equal']:.4f}), dW/db {errors['dw']:.3e} (max {errors['dw_max']:.3e}); "
@@ -3463,14 +3471,54 @@ def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) ->
             "inputs": (px_f, px_b, w_hh, b_hh, args)}
 
 
-def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype) -> tuple[dict, dict]:
+def _phase_ms(times: dict, t_len: int, backward: bool) -> dict | None:
+    """A wide-route call's device ms by phase from the profiler's records:
+    the streamed chunks' layout (where there is one), the recurrence
+    (``fwd`` or ``chain``, T launches in the per-step form), and for the
+    backward ``coef`` and ``dw`` with ``dw_sum``; None where the profiler
+    delivered no record."""
+    if not times:
+        return None
+    out = {}
+    stream = [ms for name, ms in times.items() if "gru_grid_stream" in name]
+    if stream:
+        out["layout"] = sum(stream)
+    rec = ("gru_wide_bwd_chain", "gru_grid_chain") if backward else ("gru_wide_fwd", "gru_grid_fwd")
+    out["chain" if backward else "fwd"] = sum(
+        ms * (t_len if "_step_kernel" in name else 1) for name, ms in times.items()
+        if any(part in name for part in rec))
+    if backward:
+        out["coef"] = _device_ms(times, "gru_bwd_coef")
+        out["dw"] = _device_ms(times, "gru_bwd_dw")
+    return out
+
+
+def _per_step(fn):
+    """``fn`` with the wide wrappers on the per-step form, whatever form
+    ``wide_form`` picks (to time it beside the grid form)."""
+    def call():
+        with mock.patch("ocrs_models_torch.ops.gru.wide_form", lambda *a: ("stepwise", None)):
+            return fn()
+    return call
+
+
+def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype,
+               stepwise_too: bool = False) -> tuple[dict, dict]:
     """``gru_fwd`` and ``gru_bwd`` on the wide route timed on ``inputs``
-    (CUDA events, the device's records), beside the plain versions, cuDNN's
-    ``nn.GRU(128, hid)`` and the bound: bytes (px and ys, and dy and dpx
-    for the backward, in the dtype; the f32 weights) over 3.35 TB/s, or
-    the recurrent products (three for the backward) over the dtype's peak.
-    Returns the forward's and the backward's numbers."""
-    from ocrs_models_torch.ops import gru_bwd, gru_bwd_reference, gru_fwd, gru_recurrence_reference
+    (CUDA events, the device's records, by phase), beside the plain
+    versions, cuDNN's ``nn.GRU(128, hid)`` and the bound: bytes (px and ys,
+    and dy and dpx for the backward, in the dtype; the f32 weights) over
+    3.35 TB/s, or the recurrent products (three for the backward) over the
+    dtype's peak; with ``stepwise_too`` also the per-step form's time on
+    the same inputs (``gru_fwd``/``gru_bwd`` with ``wide_form`` answering
+    "stepwise" for the call, where the grid form runs). Returns the
+    forward's and the backward's numbers."""
+    from ocrs_models_torch.ops import (
+        gru_bwd,
+        gru_bwd_reference,
+        gru_fwd,
+        gru_recurrence_reference,
+    )
 
     px_f, px_b, w_hh, b_hh, args = inputs
     bf16 = dtype == BF16
@@ -3480,10 +3528,12 @@ def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype) -> tuple[d
     io_bytes = size * (2 * t_len * n * h3 + 2 * t_len * n * hid)  # px and ys (dy, dpx)
     flops = 2 * t_len * 2 * n * hid * h3  # one [N,H] x [H,3H] product a step and direction
     out = []
-    for name, kernel, plain, backward in (
+    for name, kernel, plain, stepwise, backward in (
         ("gru_wide_fwd", lambda: gru_fwd(px_f, px_b, w_hh, b_hh),
-         lambda: gru_recurrence_reference(px_f, px_b, w_hh, b_hh), False),
-        ("gru_wide_bwd", lambda: gru_bwd(*args), lambda: gru_bwd_reference(*args), True),
+         lambda: gru_recurrence_reference(px_f, px_b, w_hh, b_hh),
+         _per_step(lambda: gru_fwd(px_f, px_b, w_hh, b_hh)), False),
+        ("gru_wide_bwd", lambda: gru_bwd(*args), lambda: gru_bwd_reference(*args),
+         _per_step(lambda: gru_bwd(*args)), True),
     ):
         ms = _cuda_time_ms(kernel, iters=5)
         plain_ms = _cuda_time_ms(plain, iters=2, warmup=1)
@@ -3499,11 +3549,16 @@ def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype) -> tuple[d
         timed = {"shape": f"T={t_len}, N={n}, H={hid}", "ms": ms, "device_ms": device_ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": library_ms, "us_per_step": 1e3 * ms / t_len,
-                 "device_launches_per_call": launches}
+                 "device_launches_per_call": launches,
+                 "split_ms": _phase_ms(times, t_len, backward)}
+        if stepwise_too:
+            timed["stepwise_ms"] = _cuda_time_ms(stepwise, iters=3, warmup=1)
         print(f"{name} {'bf16' if bf16 else 'f32'} [T={t_len},N={n},H={hid}]: {ms:.4f} ms, "
               f"device {_fmt(device_ms)} ms, {timed['us_per_step']:.3f} us per step, "
-              f"{launches:g} device launches per call; plain {plain_ms:.3f} ms, cuDNN "
-              f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"{launches:g} device launches per call, by phase {timed['split_ms']}; plain "
+              f"{plain_ms:.3f} ms, cuDNN {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})" + (f"; the per-step form {timed['stepwise_ms']:.4f} ms"
+                                 if stepwise_too else ""), flush=True)
         out.append(timed)
     return out[0], out[1]
 
@@ -3521,10 +3576,12 @@ def check_gru_wide(dev, gen) -> list[dict]:
     block and clusters. Above 512: the grid form (bf16, ``gru_grid.cu``)
     held the same way at STEPWISE_SHAPE, then gated (equal shares at
     ``_wide_min_equal``) and timed at T=257, N=128, H=GRID_HIDDEN (the
-    kernels rows' ``grid`` entries); the per-step form the same way in f32
-    at STEPWISE_SHAPE and in bf16 at GRID_MAX_HIDDEN + 8, T=9, then timed
-    at T=257, N=128 (the ``stepwise`` entries; bf16: 2e-2 and 1e-3, its
-    equal shares printed). Returns the kernels line's rows."""
+    kernels rows' ``grid`` entries) and at each width of
+    GRID_STREAMED_HIDDEN, where W_hh is partly streamed (the
+    ``grid_streamed`` entries, the per-step form timed beside on the same
+    inputs); the per-step form the same way in f32 at STEPWISE_SHAPE, then
+    timed at T=257, N=128, and in bf16 held at GRID_MAX_HIDDEN + 8 (the
+    ``stepwise`` entries). Returns the kernels line's rows."""
     from ocrs_models_torch.ops import gru_route
     from ocrs_models_torch.ops.gru import GRID_MAX_HIDDEN, wide_max_active_clusters
 
@@ -3566,22 +3623,33 @@ def check_gru_wide(dev, gen) -> list[dict]:
         del inputs, got
         torch.cuda.empty_cache()
         # Above 512: the grid form in bf16 (held at STEPWISE_SHAPE, then
-        # at the wide bucket's T=257, N=128, H=GRID_HIDDEN, gated and
-        # timed); the per-step form in f32 at the same width and in bf16
-        # above the grid form's widest width, held at T=9, then timed at
-        # T=257, N=128 (its errors there gated at the tolerances above,
-        # bf16 without an equal share: printed).
+        # at the wide bucket's T=257, N=128, gated and timed: H=GRID_HIDDEN
+        # and the streamed plans' GRID_STREAMED_HIDDEN, these beside the
+        # per-step form); the per-step form in f32 at GRID_HIDDEN, held at
+        # T=9, then timed at T=257, N=128, and in bf16 above the grid
+        # form's widest width, held at T=9 (its errors gated at the
+        # tolerances above, bf16 without an equal share: printed).
         t_s, n_s, h_s = STEPWISE_SHAPE
-        forms = (("grid", GRID_HIDDEN), ("stepwise", GRID_MAX_HIDDEN + 8)) if bf16 else (
-            ("stepwise", h_s),)
+        forms = ((("grid", GRID_HIDDEN), *(("grid", h) for h in GRID_STREAMED_HIDDEN),
+                  ("stepwise", GRID_MAX_HIDDEN + 8)) if bf16 else (("stepwise", h_s),))
         for form, hid in forms:
             if gru_route(hid, dtype) != form:
                 raise AssertionError(f"H={hid} {tag} does not take the wide route's {form} form")
-            _check_wide_case(dev, gen, t_s, n_s, hid, dtype, tag)
+            got = _check_wide_case(dev, gen, t_s, n_s, hid, dtype, tag)
+            del got["inputs"]
             torch.cuda.empty_cache()
+            if bf16 and form == "stepwise":  # held, not timed: its times beside the streamed plans'
+                for row, name in zip((fwd, bwd), ("fwd", "bwd")):
+                    row[form] = {"form": form, "route": "cuda",
+                                 "source": "ocrs_models_torch/csrc/gru_wide.cu",
+                                 "checked": f"T={t_s}, N={n_s}, H={hid}", **got[name]}
+                continue
             subs = _wide_sub_rows(dev, gen, t_len, n, hid, dtype, tag, form)
             for row, sub in zip((fwd, bwd), subs):
-                row[form] = sub
+                if hid in GRID_STREAMED_HIDDEN:
+                    row.setdefault("grid_streamed", {})[hid] = sub
+                else:
+                    row[form] = sub
             torch.cuda.empty_cache()
     return rows
 
@@ -3610,14 +3678,21 @@ def _wide_sub_rows(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str,
                              f"the plain versions: {errors}")
     place = {"form": form, "route": "cuda", "source": "ocrs_models_torch/csrc/"
              + ("gru_grid.cu" if form == "grid" else "gru_wide.cu")}
+    streamed = False
     if form == "grid":
-        units, rows = wide_form(n, hid, dtype, dev.index)[1]
-        place.update(units_per_block=units, rows_per_block=rows,
-                     blocks=2 * -(-hid // units) * -(-n // rows))
-        print(f"gru wide grid {tag} [N={n},H={hid}]: {units} units x {rows} rows a block, "
-              f"{place['blocks']} blocks in one cooperative launch", flush=True)
+        plan = wide_form(n, hid, dtype, dev.index)[1]
+        streamed = plan.fwd.streamed > 0
+        place.update(units_per_block=plan.units, rows_per_block=plan.rows,
+                     blocks=2 * -(-hid // plan.units) * -(-n // plan.rows),
+                     w_split={"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()})
+        print(f"gru wide grid {tag} [N={n},H={hid}]: {plan.units} units x {plan.rows} rows a "
+              f"block, {place['blocks']} blocks in one cooperative launch; W_hh's k16 steps "
+              f"resident, streamed, ring stages: {place['w_split']}", flush=True)
+        if hid > 512:
+            place["also"] = "ocrs_models_torch/csrc/gru_bwd_wide.cu (coef, dw, dw_sum)"
     out = []
-    for name, timed in zip(("fwd", "bwd"), _time_wide(dev, gen, inputs, t_len, n, hid, dtype)):
+    for name, timed in zip(("fwd", "bwd"), _time_wide(dev, gen, inputs, t_len, n, hid, dtype,
+                                                      stepwise_too=streamed)):
         errs = ({"max_abs_err": errors["ys"]} if name == "fwd" else
                 {"max_abs_err": errors["dpx"], "max_abs_err_dpx": errors["dpx"],
                  "max_abs_err_dw": errors["dw"], "dw_max": errors["dw_max"]})
@@ -3673,21 +3748,23 @@ def serve_wide(dev, crops) -> dict:
     return line
 
 
-def train_grid(dev) -> dict:
-    """Phase 18 (d): the CRNN with ``gru_hidden=GRID_HIDDEN`` in bf16, whose
-    biGRU takes the grid form: WIDE_STEPS headline steps against the plain
-    steps (phase 8's bf16 tolerances for the first, the CPU parity test's
-    for later ones), then 10 headline and 3 wide steps timed (exact launch
-    counts; Adam at 3e-4: at 1e-3 this width's loss swung between 4.7 and
-    9.4 from step to step on the fixed batch, the first steps matching the
-    plain steps'); every call of each timed run must have run the
-    grid form (``.forms``). Returns ``run_training``'s report."""
-    check_train_step_vs_plain(dev, BF16, gru_hidden=GRID_HIDDEN, steps=WIDE_STEPS)
-    report = run_training(dev, BF16, wide_steps=3, gru_hidden=GRID_HIDDEN, lr=3e-4)
+def train_grid(dev, hidden: int = GRID_HIDDEN) -> dict:
+    """Phase 18 (d) and (e): the CRNN with ``gru_hidden=hidden`` in bf16,
+    whose biGRU takes the grid form (GRID_HIDDEN: all of W_hh resident;
+    GRID_TRAIN_HIDDEN: partly streamed): WIDE_STEPS headline steps against
+    the plain steps (phase 8's bf16 tolerances for the first, the CPU
+    parity test's for later ones), then 10 headline and 3 wide steps timed
+    (exact launch counts; Adam at 3e-4: at 1e-3 the loss at H=1024 swung
+    between 4.7 and 9.4 from step to step on the fixed batch, the first
+    steps matching the plain steps'); every call of each timed run must
+    have run the grid form (``.forms``). Returns ``run_training``'s
+    report."""
+    check_train_step_vs_plain(dev, BF16, gru_hidden=hidden, steps=WIDE_STEPS)
+    report = run_training(dev, BF16, wide_steps=3, gru_hidden=hidden, lr=3e-4)
     for shape, line in report.items():
         for name in ("gru_wide_fwd", "gru_wide_bwd"):
             if line["forms"][name]["grid"] != line["launches"][name] or not line["launches"][name]:
-                raise AssertionError(f"the bf16 H={GRID_HIDDEN} {shape} steps ran {name} in the "
+                raise AssertionError(f"the bf16 H={hidden} {shape} steps ran {name} in the "
                                      f"forms {line['forms'][name]}, not all in the grid form")
     torch.cuda.empty_cache()
     return report
@@ -3700,16 +3777,20 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
     against the plain step, then 10 timed steps at the headline and wide
     shapes (counts zeroed just before and read just after); (c) serving;
     (d) the bf16 training step at ``gru_hidden=GRID_HIDDEN`` (the grid
-    form).
+    form); (e) at ``gru_hidden=GRID_TRAIN_HIDDEN`` (W_hh partly streamed).
     Returns the kernels line's wide rows, with their launches from (b)'s
     headline steps and (c)'s serving call, the bf16 rows' ``grid`` entries
-    theirs from (d)'s."""
+    theirs from (d)'s and their ``grid_streamed`` entries at
+    GRID_TRAIN_HIDDEN from (e)'s."""
     t0 = time.perf_counter()
     rows = check_gru_wide(dev, gen)
     print(f"phase 18a seconds {time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
     grid = train_grid(dev)
     print(f"phase 18d seconds {time.perf_counter() - t0:.1f}", flush=True)
+    t0 = time.perf_counter()
+    streamed = train_grid(dev, GRID_TRAIN_HIDDEN)
+    print(f"phase 18e seconds {time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
     train = {}
     for dtype, name in ((torch.float32, "f32"), (BF16, "bf16")):
@@ -3724,14 +3805,20 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
         head = train[row["dtype"]]["headline"]
         row["launches"] = head["launches"][row["name"]]
         row["launches_per_step"] = row["launches"] // head["steps"]
-        if "grid" in row:
-            row["grid"]["launches"] = grid["headline"]["launches"][row["name"]]
-            row["grid"]["launches_per_step"] = row["grid"]["launches"] // grid["headline"]["steps"]
+        for sub, report in ((row.get("grid"), grid),
+                            (row.get("grid_streamed", {}).get(GRID_TRAIN_HIDDEN), streamed)):
+            if sub is not None:
+                sub["launches"] = report["headline"]["launches"][row["name"]]
+                sub["launches_per_step"] = sub["launches"] // report["headline"]["steps"]
         if row["dtype"] == "f32" and row["name"] in served["launches"]:
             row["serve_launches"] = served["launches"][row["name"]]
         if not row["launches"] > 0:
             raise AssertionError(f"the {row['dtype']} H={WIDE_HIDDEN} step never launched "
                                  f"{row['name']}")
+    print(json.dumps({"path": f"grid biGRU summary bf16 H={GRID_HIDDEN}, {GRID_TRAIN_HIDDEN}", **{
+        f"{h}_{shape}_median_ms": v[shape]["step_ms_median"]
+        for h, v in ((GRID_HIDDEN, grid), (GRID_TRAIN_HIDDEN, streamed))
+        for shape in ("headline", "wide")}}), flush=True)
     print(json.dumps({"path": f"wide biGRU summary H={WIDE_HIDDEN}", **{
         f"{k}_{shape}_median_ms": v[shape]["step_ms_median"]
         for k, v in train.items() for shape in ("headline", "wide")}, **{

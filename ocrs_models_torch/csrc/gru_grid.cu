@@ -9,10 +9,11 @@
 // `_bwd_kernel`), in bf16 compute at the widths that no thread block
 // cluster of gru_wide.cu's persistent form holds (padded H > 512). The
 // wrapper (ops/gru.py, `gru_route`, `grid_plan`) sends bf16 layers of
-// padded width 512 < H <= 1440 here, after zero-padding H to a multiple of
-// 8; f32, and bf16 above 1440, keep gru_wide.cu's kernels of one launch a
-// step. The backward's other phases, the coefficients before the chain and
-// the dW/db reduction after it, are gru_bwd.cu's bf16 entries.
+// padded width 512 < H <= 5280 (GRID_MAX_HIDDEN on an H100) here, after
+// zero-padding H to a multiple of 8; f32, and bf16 above that, keep
+// gru_wide.cu's kernels of one launch a step. The backward's other phases,
+// the coefficients before the chain and the dW/db reduction after it, are
+// gru_bwd.cu's bf16 entries (gru_bwd_wide.cu's above H = 512).
 //
 // Contract and rounding points, those of gru_wide.cu's bf16 entries (the
 // Pallas kernel's): px_f, px_b [T, N, 3H] bf16 are x @ W_ih + b_ih per
@@ -23,8 +24,8 @@
 // multiplies bf16(h) by bf16(W_hh) with f32 sums, adds the f32 b_hh and
 // writes ys = bf16(h). The chain multiplies bf16(dph) by bf16(W_hh)^T with
 // f32 sums, carries dht * z in f32, writes dpx = bf16([da_r, da_z, da_c]),
-// bf16(dhn) [2, T*N, H] for gru_bwd.cu's bf16 dW phase, and db's partials
-// [batch tiles, 2, 3H] summed from the unrounded dph.
+// bf16(dhn) [2, T*N, H] for the bf16 dW phase, and db's partials [batch
+// tiles, 2, 3H] summed from the unrounded dph.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s
 // HBM). At T=257, N=128, H=1024 the forward multiplies [N,H] x [H,3H] per
@@ -37,13 +38,16 @@
 //
 // Design: ONE cooperative launch a call (the cooperative attribute through
 // cudaLaunchKernelExC): a grid that the card cannot hold at once is
-// refused at launch instead of hanging in a barrier. The plan, (U, R),
-// comes from the wrapper (ops/gru.py `grid_plan`, which also picks this
-// form: chosen before the launch, by width, dtype, batch and the card's SM
-// count and shared memory): a block owns U hidden units (32, or 24 above H
-// = 1072) x R batch rows (a multiple of 16) of one direction; ceil(H/U)
-// unit tiles x ceil(N/R) row tiles per direction, at most one block an SM
-// (two directions of 32 x 2 blocks at H=1024, N=128).
+// refused at launch instead of hanging in a barrier. The plan comes from
+// the wrapper (ops/gru.py `grid_plan`, which also picks this form: chosen
+// before the launch, by width, dtype, batch and the card's SM count and
+// shared memory): a block owns U hidden units x R batch rows (a multiple
+// of 16) of one direction; ceil(H/U) unit tiles x ceil(N/R) row tiles per
+// direction, at most one block an SM (two directions of 32 x 2 blocks at
+// H=1024, N=128). Up to H = 1440 U is 32, or 24 above H = 1072, and the
+// whole W slice stays in shared memory; above, U is the least multiple of
+// 8 whose blocks fit the SMs (24 at 1448, 32 at 2048, 64 at 4096, 80 at
+// 5280), and the slice is split (below, "streamed W").
 // - W: the block loads its bf16 slice of W_hh once into shared memory and
 //   keeps it for all T steps: the forward's 3U rows (its units' r, z, n
 //   columns of W_hh) of H, in wgmma's K-major layout of 8 x 8 core
@@ -51,15 +55,36 @@
 //   (its units' rows of W_hh, i.e. W_hh^T's columns) of 3H, rows padded to
 //   an odd multiple of 16 bytes so that `ldmatrix` reads 8 rows in 8 bank
 //   groups; 6 * U * H bytes either way.
-// - The products, in passes of 64 batch rows, 8 warps. Forward:
-//   `wgmma.mma_async` m64n(3U)k16 bf16 -> f32, A from registers, B from
-//   shared memory by descriptor; warp w holds the m16 tile w % 4 of the
-//   pass, warpgroup w / 4 takes the k16 steps of that parity (its "k
-//   group"). Chain (N = U, too narrow for wgmma to pay for its fences):
-//   `mma.sync.m16n8k16` bf16 -> f32 (mma_bf16.cuh); warp w takes the m16
-//   tiles 2 (w % 2) and the next, whose products share each B fragment,
-//   and the k16 steps congruent to w / 2 mod 4. The k groups' partial sums
-//   meet in shared memory and are added in k-group order.
+// - Streamed W (above H = 1440, where 6 U H bytes do not fit): the block
+//   keeps the first KR k16 steps of its slice in shared memory and streams
+//   the rest through a ring of S stages, chunks of 4 k16 steps (forward)
+//   or 8 (chain). The wrapper's call first writes, once a call, a device
+//   copy of every block's streamed chunks in the exact layout of a ring
+//   stage (one launch, `gru_grid_stream_layout_kernel`), so a chunk is one
+//   contiguous `cp.async.bulk` (1-D TMA) into a stage, completing on that
+//   stage's mbarrier. The chunks do not depend on the step: thread 0
+//   issues the first S before the grid-wide sync and then, each time the
+//   warps free a stage, the chunk S further on, so the next step's first
+//   chunks land while the block does its gate math and waits at the step
+//   barrier, and later ones while the resident k steps multiply. The
+//   products take the resident k16 steps first, then the streamed ones as
+//   their stages land, in the same summation order; each warp frees a
+//   stage with one arrival. (A ninth, producer warp would cap every
+//   thread at 168 registers.)
+// - The products, 8 warps. Forward: `wgmma.mma_async` m64n(3U)k16 bf16 ->
+//   f32, A from registers, B from shared memory by descriptor. In passes
+//   of 64 batch rows warp w holds the m16 tile w % 4 of the pass and
+//   warpgroup w / 4 takes the k16 steps of that parity (its "k group");
+//   in the streamed plans where a block has more than 64 rows, passes of
+//   128 rows split by warpgroup instead (warp w holds tile w, each
+//   warpgroup all k16 steps: no partial sums to exchange, the ring read
+//   once for all the rows). Chain (N = U, too narrow for wgmma to pay for
+//   its fences): `mma.sync.m16n8k16` bf16 -> f32 (mma_bf16.cuh); warp w
+//   takes MW m16 tiles from MW (w % 2), whose products share each B
+//   fragment (MW = 2, passes of 64 rows; 4, passes of 128, in the streamed
+//   plans of up to 32 units where a block has more than 64 rows), and the
+//   k16 steps congruent to w / 2 mod 4. The k groups' partial sums meet in
+//   shared memory and are added in k-group order.
 // - The A operand, what the previous step wrote for the block's rows:
 //   bf16(h) (forward) or bf16(dph) (chain), K = H or 3H. The gate math
 //   that makes it also writes it to scratch of the call's own in device
@@ -70,12 +95,19 @@
 //   layouts line up, and wgmma's A registers are mma's), and a warp reads a
 //   whole fragment per k16 step as one 16-byte load a lane (`ld.global.cg`:
 //   from L2, never a stale L1), the next batch of k16 steps loading while
-//   one multiplies (forward: 4 steps; chain: 2 of each tile). No shared
-//   memory ring and no block barrier inside the product.
+//   one multiplies (forward: 4 steps; chain: 2 of each tile). The streamed
+//   forward stages them instead through shared memory with `cp.async`
+//   (batches of 2 steps, or 4 where its warpgroups split the rows, two
+//   batches ahead), so that wgmma.fence, which waits for every load into a
+//   register, waits for none from device memory.
 // - The gate math runs on the accumulator fragments: a thread owns 2 units
-//   x 2 rows of up to two unit groups (forward) or 2 units x 4 rows of one
-//   (chain); its loads (px, or the coefficients and dy, and the f32 state)
-//   are issued together before the product.
+//   x 2 rows of the unit groups of its k group (forward: the first or
+//   second half of the block's ceil(U/8) groups; all of them where the
+//   warpgroups split the rows) or 2 units x 2 MW rows of the groups
+//   congruent to its k group mod 4 (chain); in the kernels of up to 32
+//   units with 2 tiles a warp its loads (px, or the coefficients and dy,
+//   and the f32 state) are issued together before the product, else after
+//   it.
 //   The f32 state h (forward) and dht * z (chain) of an element live in
 //   scratch of the call's own, [2, N, H], read and written only by the
 //   thread that owns the element, so any batch runs in passes with bounded
@@ -96,6 +128,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 #include <math.h>
 #include <stdint.h>
 
@@ -114,15 +148,45 @@ constexpr int kThreads = 256;                 // 8 warps: 4 m16 tiles x 2 k grou
 constexpr int kFwdBatch = 4;                  // A fragments a forward warp loads at once (k16 steps)
 constexpr int kChainAhead = 2;                // the chain's A fragments loaded ahead, each tile
 constexpr int kNC = 5;                        // coefficients per element (gru_bwd.cu's coef)
+constexpr int kFwdChunk = 4;                  // k16 steps of W in a forward ring stage
+constexpr int kAStages = 3;                   // streamed forward: A batches a warp stages in shared memory
+constexpr int kChainChunk = 8;                // in a chain ring stage (two of each k group)
+
+// The forward's A fragments loaded at once (k16 steps of a k group):
+// kFwdBatch in the kernels that keep all of W resident, 2 in the streamed
+// ones (a batch then spans one ring chunk, their staging takes 24 KB, and
+// at 80 units a block the accumulators take 120 registers a thread; on an
+// H100 at H=1448 the forward read 9.09 ms with 2 against 10.38 with 4,
+// grid_probe).
+__host__ __device__ constexpr int fwd_batch(bool stream) { return stream ? 2 : kFwdBatch; }
+
+// The plan (ops/gru.py `grid_split`) picks each kernel's variant: the
+// streamed kernels (a ring of W, A staged in shared memory) where it has a
+// ring (S > 0), and the rows a pass, PR, 64 or 128. At 128 the streamed
+// forward splits a block's rows between its two warpgroups (each takes
+// 64 rows over the whole contraction, no partial sums to exchange, the
+// ring read once for them all) rather than the contraction (MS), and a
+// warp of the streamed chain of up to 32 units takes 4 m16 tiles instead
+// of 2 (MW = PR / 32: each B fragment serves four tiles, and a warp has
+// twice the independent products a k16 step).
+
+// The streamed forward's A staging: kAStages batches of `batch` k16 steps
+// (4 where the rows are split) of each of its 8 warps, 32 lanes x 16 bytes
+// a step.
+__host__ __device__ constexpr int fwd_astage(int batch) { return 8 * kAStages * batch * 32 * 16; }
+
 // Shared memory where the k groups' partial sums meet, [k groups][warps of
 // a k group][slots][32 lanes] float4, a slot one n8 tile of one m16 tile
-// handed to another group: the forward's 2 k groups x 4 warps x (2 unit
-// groups x 3 gates); the chain's 4 k groups x 2 warps x (3 unit groups x
-// 2 m16 tiles).
-constexpr int kFwdSlots = 6;
-constexpr int kChainSlots = 6;
-constexpr int kFwdXchg = 2 * kMT * kFwdSlots * 32 * 16;
-constexpr int kChainXchg = 4 * 2 * kChainSlots * 32 * 16;
+// handed to another group: the forward's 2 k groups x 4 warps x (its
+// ceil(UG/2) unit groups x 3 gates); the chain's 4 k groups x 2 warps x
+// (the unit groups other k groups own x 2 m16 tiles), 6 slots either way
+// up to 32 units a block (24 KB).
+__host__ __device__ constexpr int fwd_slots(int UG) { return 3 * ((UG + 1) / 2); }
+__host__ __device__ constexpr int chain_slots(int UG) { return 2 * (UG - UG / 4); }
+__host__ __device__ constexpr int fwd_xchg(int UG) { return 2 * kMT * fwd_slots(UG) * 32 * 16; }
+__host__ __device__ constexpr int chain_xchg(int UG, int MW = 2) {
+    return 4 * 2 * chain_slots(UG) * MW / 2 * 32 * 16;
+}
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 
@@ -131,7 +195,8 @@ __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 // "core matrices" (8 rows of 8 consecutive k, 128 contiguous bytes), the
 // n/8 of each 8 k side by side, k chunk after k chunk: row c, column k at
 // element ((k / 8) (n / 8) + c / 8) 64 + (c % 8) 8 + k % 8, K padded to
-// the k16 steps with zeros.
+// the k16 steps with zeros. A streamed chunk is the same layout, k counted
+// from its first step.
 __device__ __forceinline__ int w_index(int c, int k, int n_groups) {
     return (((k >> 3) * n_groups + (c >> 3)) << 6) + ((c & 7) << 3) + (k & 7);
 }
@@ -141,9 +206,36 @@ __device__ __forceinline__ int w_index(int c, int k, int n_groups) {
 // so that ldmatrix reads 8 rows in 8 bank groups.
 __host__ __device__ constexpr int w_stride(int K) { return round16(K) + 8; }
 
-size_t fwd_smem(int H, int U) { return 2 * (size_t)3 * U * round16(H) + kFwdXchg; }
+// Bytes of one ring stage (a streamed chunk): the forward's 4 k16 steps of
+// 3U rows, the chain's U rows of 8 k16 steps (row stride w_stride(128)).
+__host__ __device__ constexpr size_t fwd_chunk_bytes(int U) { return (size_t)kFwdChunk * 96 * U; }
+__host__ __device__ constexpr size_t chain_chunk_bytes(int U) {
+    return (size_t)2 * U * w_stride(16 * kChainChunk);
+}
 
-size_t chain_smem(int H, int U) { return 2 * (size_t)U * w_stride(3 * H) + kChainXchg; }
+// Dynamic shared memory of each kernel with the first KR k16 steps of W
+// resident, a ring of S stages (S = 0: the whole slice resident, KR the
+// contraction's k16 steps) and passes of PR rows: the slice, the
+// exchange, the streamed forward's A staging, the ring and its two
+// mbarriers a stage.
+size_t fwd_smem(int U, int KR, int S, int PR) {
+    const bool ms = PR > kPassRows;
+    return (size_t)96 * U * KR + (ms ? 0 : fwd_xchg(U / 8)) +
+           (S > 0 ? fwd_astage(ms ? 4 : fwd_batch(true)) : 0) + (size_t)S * (fwd_chunk_bytes(U) + 16);
+}
+
+size_t chain_smem(int U, int KR, int S, int PR) {
+    return (size_t)2 * U * w_stride(16 * KR) + chain_xchg(U / 8, PR / 32) +
+           (size_t)S * (chain_chunk_bytes(U) + 16);
+}
+
+// Whether the kernels are built for a plan: U units a block (24 or 32 where
+// the whole slice is resident, up to 80 with a ring), PR rows a pass (128
+// only with a ring, and in the chain only up to 32 units).
+bool grid_variant_ok(int kind, int U, int S, int PR) {
+    if (U % 8 != 0 || (S == 0 ? U != 24 && U != 32 : U < 24 || U > 80)) return false;
+    return PR == kPassRows || (PR == 2 * kPassRows && S > 0 && (kind == 0 || U <= 32));
+}
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
@@ -189,12 +281,24 @@ __device__ __forceinline__ uint64_t w_desc(uint32_t addr, uint32_t lbo, uint32_t
            ((uint64_t)(sbo >> 4) << 32);
 }
 
-// wgmma.mma_async m64nNk16 for the forward's N = 3U (96 or 72), A from
+// wgmma.mma_async m64nNk16 for the forward's N = 3U (72 to 240), A from
 // registers (mma.sync's A fragment layout, one m16 tile a warp of the
 // warpgroup), B from shared memory by descriptor, f32 accumulators in
 // mma.sync's C layout, one n8 tile after another; D += A B.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<72> {
+    __device__ __forceinline__ static void mma(float (&d)[9][4], const uint32_t (&a)[4], uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+    }
+};
 
 template <>
 struct Wgmma<96> {
@@ -209,17 +313,196 @@ struct Wgmma<96> {
 };
 
 template <>
-struct Wgmma<72> {
-    __device__ __forceinline__ static void mma(float (&d)[9][4], const uint32_t (&a)[4], uint64_t desc) {
+struct Wgmma<120> {
+    __device__ __forceinline__ static void mma(float (&d)[15][4], const uint32_t (&a)[4], uint64_t desc) {
         asm volatile(
-            "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
-            "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
-            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
-            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3])
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59}, {%60, %61, %62, %63}, %64, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3])
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
     }
 };
 
+template <>
+struct Wgmma<144> {
+    __device__ __forceinline__ static void mma(float (&d)[18][4], const uint32_t (&a)[4], uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+    }
+};
+
+template <>
+struct Wgmma<168> {
+    __device__ __forceinline__ static void mma(float (&d)[21][4], const uint32_t (&a)[4], uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %89, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n168k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83}, {%84, %85, %86, %87}, %88, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+    }
+};
+
+template <>
+struct Wgmma<192> {
+    __device__ __forceinline__ static void mma(float (&d)[24][4], const uint32_t (&a)[4], uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+    }
+};
+
+template <>
+struct Wgmma<216> {
+    __device__ __forceinline__ static void mma(float (&d)[27][4], const uint32_t (&a)[4], uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %113, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n216k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107}, {%108, %109, %110, %111}, %112, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]), "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]), "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]), "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+    }
+};
+
+template <>
+struct Wgmma<240> {
+    __device__ __forceinline__ static void mma(float (&d)[30][4], const uint32_t (&a)[4], uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %125, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n240k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119}, {%120, %121, %122, %123}, %124, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]), "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]), "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]), "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]), "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]), "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]), "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+    }
+};
+
+// ---------------------------------------------------------------------
+// the ring of streamed W (above H = 1440)
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of `bar` with parity `parity` has completed (a
+// phase that never completes traps after about ten seconds instead of
+// hanging).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const long long start = clock64();
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+        if (!done && clock64() - start > (1ll << 34)) __trap();
+    } while (!done);
+}
+
+// The ring: the slice's k16 steps from KR on, NC chunks a product, read
+// from `src` (this block's chunks, contiguous) through S stages of `bytes`
+// each at `stage0`, stage s full on full[s] (the issuing thread's arrival
+// and the copy's bytes) and free on empty[s] (one arrival of each warp).
+// Chunk g of the call (g = product * NC + chunk, `total` of them) lands in
+// stage g % S; its use of the stage is g / S. Thread 0 issues the chunks
+// in order (`issued`: how many so far, in its registers): without a warp
+// of its own, so that the 8 warps keep every register (a ninth warp would
+// cap them at 168).
+struct Ring {
+    int KR, NC, S;
+    uint32_t bytes;
+    const unsigned char* src;
+    unsigned char* stage0;
+    uint64_t* full;
+    uint64_t* empty;
+    unsigned total, issued;
+};
+
+__device__ __forceinline__ Ring make_ring(unsigned char* smem_end_of_slices, const bf16* src,
+                                          int KR, int NC, int S, size_t bytes) {
+    Ring r;
+    r.KR = KR;
+    r.NC = NC;
+    r.S = S;
+    r.bytes = (uint32_t)bytes;
+    r.src = reinterpret_cast<const unsigned char*>(src);
+    r.stage0 = smem_end_of_slices;
+    r.full = reinterpret_cast<uint64_t*>(smem_end_of_slices + (size_t)S * bytes);
+    r.empty = r.full + S;
+    r.total = r.issued = 0;
+    return r;
+}
+
+// Thread 0: chunk g into its stage, once every warp has freed the stage's
+// previous use.
+__device__ __forceinline__ void ring_issue(const Ring& r, unsigned g) {
+    const unsigned s = g % (unsigned)r.S, use = g / (unsigned)r.S;
+    if (use > 0) mbar_wait(r.empty + s, (use - 1) & 1u);
+    mbar_arrive_expect_tx(r.full + s, r.bytes);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(r.stage0 + (size_t)s * r.bytes)),
+           "l"(r.src + (size_t)(g % (unsigned)r.NC) * r.bytes), "r"(r.bytes),
+           "r"(smem_u32(r.full + s))
+        : "memory");
+}
+
+// Thread 0 issues the first S chunks of the call (every stage is free).
+__device__ __forceinline__ void ring_fill(Ring& r) {
+    if (threadIdx.x == 0)
+        while (r.issued < r.total && r.issued < (unsigned)r.S) ring_issue(r, r.issued++);
+}
+
+// The shared address of chunk g, once it has landed. Thread 0 first issues
+// it if it has not yet, waiting for the stages to free: every other warp
+// has freed the chunks before the one it waits for, all issued, so this
+// never waits on itself.
+__device__ __forceinline__ uint32_t ring_wait(Ring& r, unsigned g) {
+    const unsigned s = g % (unsigned)r.S;
+    if (threadIdx.x == 0)
+        while (r.issued <= g) ring_issue(r, r.issued++);
+    mbar_wait(r.full + s, (g / (unsigned)r.S) & 1u);
+    return smem_u32(r.stage0) + s * r.bytes;
+}
+
+// A warp is done with chunk g (every read of it has completed). Thread 0
+// then refills g's stage with chunk g + S as soon as every warp has freed
+// it (warp 0 waits for the others' last reads of the chunk, which they
+// make at about the same time), so that S chunks are in flight.
+__device__ __forceinline__ void ring_release(Ring& r, unsigned g) {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(r.empty + g % (unsigned)r.S);
+    if (threadIdx.x == 0)
+        while (r.issued <= g + (unsigned)r.S && r.issued < r.total) ring_issue(r, r.issued++);
+}
+
+// The ring's mbarriers (thread 0), made visible to the copies.
+__device__ __forceinline__ void ring_init(const Ring& r) {
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < r.S; ++s) {
+            mbar_init(r.full + s, 1);
+            mbar_init(r.empty + s, kThreads / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+}
 
 // This block's step is written: one more on its (direction, row tile)'s
 // counter, after every thread's writes (release at GPU scope).
@@ -273,7 +556,9 @@ __device__ __forceinline__ size_t frag_word(int r, int k, int KS) {
 
 // The warpgroup's product (warps 4 kg .. 4 kg + 3, m16 tile w % 4 each):
 // the A fragments of this warp's tile, `frag` ([KS][32] uint4; zero where
-// the tile holds no batch row, `rows`), at the k16 steps kg, kg + 2, ...,
+// the tile holds no batch row, `rows`), at the k16 steps kg, kg + KS2, ...
+// (KS2 = 2: the two warpgroups split the contraction; 1: each takes all of
+// it for rows of its own, kg = 0),
 // times the W slice at shared address `w` (8 NT rows, wgmma's layout),
 // into acc, one wgmma m64n(8 NT)k16 a step. The upper half of the last
 // k16 step is zero where K is not a multiple of 16 (`pad`). In batches of
@@ -282,18 +567,30 @@ __device__ __forceinline__ size_t frag_word(int r, int k, int KS) {
 // so they are issued after the products. Every warp of both warpgroups
 // runs the same number of steps (a step past KS multiplies zeros): control
 // flow that ptxas cannot prove uniform in the warpgroup serialises wgmma.
-template <int NT, int Batch>
+// Streamed (`Stream`, ring.NC > 0): the k16 steps from ring.KR on come
+// from the ring, chunk c of this product being the call's chunk g0 + c; a
+// batch (2 Batch steps of both k groups, 4-step chunks) waits for its
+// chunks before its fence and frees them after its wait, the same in
+// every warp. A step past the last chunk reads that chunk's last step
+// (times zeros). The streamed kernels also bring the A fragments through
+// this warp's `astage` ([kAStages][Batch][32] uint4 in shared memory) with
+// cp.async, kAStages - 1 batches ahead, and read each batch from there
+// just before its fence: the fence then waits for no load from device
+// memory.
+template <int NT, int Batch, bool Stream, int KS2 = 2>
 __device__ __forceinline__ void wg_product(float (&acc)[NT][4], const uint4* frag, bool rows, int KS,
-                                           int kg, bool pad, uint32_t w) {
+                                           int kg, bool pad, uint32_t w, Ring& ring,
+                                           unsigned g0, uint4* astage) {
+    constexpr int kHalves = KS2 * Batch / kFwdChunk;  // chunks a batch spans
     const int lane = threadIdx.x % 32;
 #pragma unroll
     for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-    const int nk = (KS + 1) / 2;  // k16 steps of either k group, rounded up
+    const int nk = (KS + KS2 - 1) / KS2;  // k16 steps of either k group, rounded up
     const uint32_t lbo = (uint32_t)NT * 128, sbo = 128;
     const auto load = [&](uint32_t (&a)[Batch][4], int i0) {
 #pragma unroll
         for (int d = 0; d < Batch; ++d) {
-            const int ks = kg + 2 * (i0 + d);
+            const int ks = kg + KS2 * (i0 + d);
             const uint4 v = rows && ks < KS ? __ldcg(frag + (size_t)ks * 32 + lane)
                                             : make_uint4(0u, 0u, 0u, 0u);
             const bool hi = !(pad && ks == KS - 1);
@@ -303,22 +600,81 @@ __device__ __forceinline__ void wg_product(float (&acc)[NT][4], const uint4* fra
             a[d][3] = hi ? v.w : 0u;
         }
     };
+    const auto stage = [&](int i0) {  // the batch from k group step i0 into its slot
+        uint4* dst = astage + (size_t)(i0 / Batch % kAStages) * Batch * 32;
+#pragma unroll
+        for (int d = 0; d < Batch; ++d) {
+            const int ks = kg + KS2 * (i0 + d);
+            const bool ok = rows && ks < KS;
+            const int nbytes = ok ? 16 : 0;
+            cp_async16(dst + d * 32 + lane, ok ? frag + (size_t)ks * 32 + lane : frag, nbytes);
+        }
+        cp_async_commit();
+    };
+    const auto staged = [&](uint32_t (&a)[Batch][4], int i0) {
+        const uint4* src = astage + (size_t)(i0 / Batch % kAStages) * Batch * 32;
+#pragma unroll
+        for (int d = 0; d < Batch; ++d) {
+            const uint4 v = src[d * 32 + lane];
+            const bool hi = !(pad && kg + KS2 * (i0 + d) == KS - 1);
+            a[d][0] = v.x;
+            a[d][1] = v.y;
+            a[d][2] = hi ? v.z : 0u;
+            a[d][3] = hi ? v.w : 0u;
+        }
+    };
+    const bool streamed = Stream && ring.NC > 0;
     uint32_t cur[Batch][4], nxt[Batch][4];
-    load(cur, 0);
+    if (Stream) {
+#pragma unroll
+        for (int b = 0; b < kAStages - 1; ++b) stage(b * Batch);
+    } else {
+        load(cur, 0);
+    }
 #pragma unroll 1
     for (int i0 = 0; i0 < nk; i0 += Batch) {
+        if (Stream) {
+            stage(i0 + (kAStages - 1) * Batch);
+            cp_async_wait<kAStages - 1>();
+            staged(cur, i0);
+        }
         // Every input register of the batch's products is set before its
         // fence: ptxas serialises products whose inputs are set between
         // them.
         uint64_t desc[Batch];
+        int chunk[kHalves];  // the ring chunk of each 4-step half of the batch, or -1
+        if (streamed) {
+            uint32_t base[kHalves];
 #pragma unroll
-        for (int d = 0; d < Batch; ++d)
-            desc[d] = w_desc(w + (uint32_t)min(kg + 2 * (i0 + d), KS - 1) * 2 * lbo, lbo, sbo);
+            for (int q = 0; q < kHalves; ++q) {
+                const int s0 = KS2 * i0 + kFwdChunk * q;
+                const int c = (s0 - ring.KR) / kFwdChunk;
+                chunk[q] = s0 >= ring.KR && c < ring.NC ? c : -1;
+                base[q] = chunk[q] >= 0 ? ring_wait(ring, g0 + chunk[q]) : 0u;
+            }
+#pragma unroll
+            for (int d = 0; d < Batch; ++d) {
+                const int ks = kg + KS2 * (i0 + d);
+                const int q = (ks - KS2 * i0) / kFwdChunk;
+                uint32_t addr;
+                if (ks < ring.KR)
+                    addr = w + (uint32_t)ks * 2 * lbo;
+                else if (chunk[q] >= 0)
+                    addr = base[q] + (uint32_t)((ks - KS2 * i0) % kFwdChunk) * 2 * lbo;
+                else  // past the last chunk, which the batch's first half holds
+                    addr = base[0] + (uint32_t)(kFwdChunk - 1) * 2 * lbo;
+                desc[d] = w_desc(addr, lbo, sbo);
+            }
+        } else {
+#pragma unroll
+            for (int d = 0; d < Batch; ++d)
+                desc[d] = w_desc(w + (uint32_t)min(kg + KS2 * (i0 + d), KS - 1) * 2 * lbo, lbo, sbo);
+        }
         wgmma_fence();
 #pragma unroll
         for (int d = 0; d < Batch; ++d) Wgmma<8 * NT>::mma(acc, cur[d], desc[d]);
         wgmma_commit();
-        load(nxt, i0 + Batch);
+        if (!Stream) load(nxt, i0 + Batch);
         wgmma_wait_all();
 #pragma unroll
         for (int t = 0; t < NT; ++t)
@@ -329,9 +685,15 @@ __device__ __forceinline__ void wg_product(float (&acc)[NT][4], const uint4* fra
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
                 keep(cur[d][r]);
-                cur[d][r] = nxt[d][r];
+                if (!Stream) cur[d][r] = nxt[d][r];
             }
+        if (streamed) {
+#pragma unroll
+            for (int q = 0; q < kHalves; ++q)
+                if (chunk[q] >= 0) ring_release(ring, g0 + chunk[q]);
+        }
     }
+    if (Stream) cp_async_wait<0>();  // the batches staged past the last: their slots are reused next
 }
 
 // The warp's product: the A fragments of its MW m16 tiles (`frag`, each
@@ -340,11 +702,16 @@ __device__ __forceinline__ void wg_product(float (&acc)[NT][4], const uint4* fra
 // stride ws; n8 tile t at rows brow(t)), into acc. The upper half of the
 // last k16 step is zero where K is not a multiple of 16 (`pad`). The
 // fragments of the next `Ahead` steps load while the warp multiplies
-// `Ahead` steps; each B fragment serves all MW tiles.
-template <int MW, int NT, int KG, int Ahead, class Rows>
+// `Ahead` steps; each B fragment serves all MW tiles. Streamed (`Stream`,
+// ring.NC > 0): the k16 steps from ring.KR on come from the ring, a chunk
+// the KG * Ahead steps of one round of every warp (chunk c of this product
+// the call's chunk g0 + c, rows of stride w_stride(128)); every warp, with
+// tiles or not, runs every round, waits for a streamed round's chunk and
+// frees it.
+template <int MW, int NT, int KG, int Ahead, bool Stream, class Rows>
 __device__ __forceinline__ void warp_product(float (&acc)[MW][NT][4], const uint4* frag, int mw,
                                              int KS, int kg, bool pad, const bf16* w, int ws,
-                                             const Rows& brow) {
+                                             const Rows& brow, Ring& ring, unsigned g0) {
     const int lane = threadIdx.x % 32;
 #pragma unroll
     for (int i = 0; i < MW; ++i)
@@ -352,11 +719,17 @@ __device__ __forceinline__ void warp_product(float (&acc)[MW][NT][4], const uint
         for (int t = 0; t < NT; ++t) acc[i][t][0] = acc[i][t][1] = acc[i][t][2] = acc[i][t][3] = 0.f;
     const int nk = (KS - kg + KG - 1) / KG;  // this k group's k16 steps
     const size_t tile = (size_t)KS * 32;
+    const bool streamed = Stream && ring.NC > 0;
+    // Rounds: this warp's own up to 32 units a block; with a ring, every
+    // warp runs all of them.
+    const int rounds = streamed ? (KS + KG * Ahead - 1) / (KG * Ahead) : (nk + Ahead - 1) / Ahead;
     uint32_t b_lane[(NT + 1) / 2];  // this lane's ldmatrix row of each pair of B tiles
+    uint32_t r_lane[Stream ? (NT + 1) / 2 : 1];  // the same in a ring stage
 #pragma unroll
     for (int t = 0; t < NT; t += 2) {
         const int row = (lane < 16 || t + 1 >= NT ? brow(t) : brow(t + 1)) + lane % 8;
         b_lane[t / 2] = smem_u32(w + (size_t)row * ws + ((lane / 8) % 2) * 8);
+        if (Stream) r_lane[Stream ? t / 2 : 0] = (uint32_t)(row * w_stride(16 * kChainChunk) + ((lane / 8) % 2) * 8) * 2;
     }
     uint4 cur[Ahead][MW], nxt[Ahead][MW];
 #pragma unroll
@@ -365,7 +738,14 @@ __device__ __forceinline__ void warp_product(float (&acc)[MW][NT][4], const uint
         for (int i = 0; i < MW; ++i)
             if (d < nk && i < mw) cur[d][i] = __ldcg(frag + i * tile + (size_t)(kg + KG * d) * 32 + lane);
 #pragma unroll 1
-    for (int i0 = 0; i0 < nk; i0 += Ahead) {
+    for (int r = 0; r < rounds; ++r) {
+        const int i0 = r * Ahead;
+        int chunk = -1;
+        uint32_t stage = 0;
+        if (streamed && KG * i0 >= ring.KR) {
+            chunk = (KG * i0 - ring.KR) / (KG * Ahead);
+            stage = ring_wait(ring, g0 + chunk);
+        }
 #pragma unroll
         for (int d = 0; d < Ahead; ++d)
 #pragma unroll
@@ -375,20 +755,21 @@ __device__ __forceinline__ void warp_product(float (&acc)[MW][NT][4], const uint
 #pragma unroll
         for (int d = 0; d < Ahead; ++d) {
             const int ks = kg + KG * (i0 + d);
-            if (i0 + d < nk) {
-                const uint32_t koff = 32u * ks;  // bytes of 16 bf16
+            if (i0 + d < nk && mw > 0) {
                 uint32_t b[NT][2];
 #pragma unroll
                 for (int t = 0; t < NT; t += 2) {
+                    const uint32_t addr = chunk >= 0 ? stage + r_lane[Stream ? t / 2 : 0] + 32u * (ks - KG * i0)
+                                                     : b_lane[t / 2] + 32u * ks;  // bytes of 16 bf16
                     if (t + 1 < NT) {
-                        uint32_t r[4];
-                        ldmatrix_x4(r, b_lane[t / 2] + koff);
-                        b[t][0] = r[0];
-                        b[t][1] = r[1];
-                        b[t + 1][0] = r[2];
-                        b[t + 1][1] = r[3];
+                        uint32_t q[4];
+                        ldmatrix_x4(q, addr);
+                        b[t][0] = q[0];
+                        b[t][1] = q[1];
+                        b[t + 1][0] = q[2];
+                        b[t + 1][1] = q[3];
                     } else {
-                        ldmatrix_x2(b[t], b_lane[t / 2] + koff);
+                        ldmatrix_x2(b[t], addr);
                     }
                 }
 #pragma unroll
@@ -402,6 +783,7 @@ __device__ __forceinline__ void warp_product(float (&acc)[MW][NT][4], const uint
                 }
             }
         }
+        if (chunk >= 0) ring_release(ring, g0 + chunk);
 #pragma unroll
         for (int d = 0; d < Ahead; ++d)
 #pragma unroll
@@ -410,8 +792,8 @@ __device__ __forceinline__ void warp_product(float (&acc)[MW][NT][4], const uint
 }
 
 // The W slice of the forward, 3U rows (w_index layout): row g U + ul,
-// column k = W[k][g H + u0 + ul] (zero past H). A warp reads 8 rows k of 4
-// float4s (64 contiguous bytes each).
+// column k = W[k][g H + u0 + ul] (zero past H), for k < KP. A warp reads 8
+// rows k of 4 float4s (64 contiguous bytes each).
 __device__ __forceinline__ void load_w_fwd(bf16* wt, const float* W, int H, int U, int u0, int KP) {
     const int H3 = 3 * H;
     const int q4 = 3 * U / 4;  // float4s of the slice in a row k
@@ -442,7 +824,7 @@ __device__ __forceinline__ void load_w_fwd(bf16* wt, const float* W, int H, int 
 }
 
 // The W_hh^T slice of the chain, [U][ws] bf16: the block's U rows of
-// W_hh, contiguous (zero past 3H and H).
+// W_hh, contiguous (zero past 3H and H), for k < KP.
 __device__ __forceinline__ void load_w_chain(bf16* wc, const float* W, int H, int U, int u0, int KP,
                                              int ws) {
     const int H3 = 3 * H;
@@ -494,36 +876,66 @@ struct FwdArgs {
     bf16* ys_f;
     bf16* ys_b;
     unsigned* ctr;    // [2 * row tiles]
+    const bf16* wst;  // the streamed chunks [2][unit tiles][NC][chunk] (gru_grid_stream_layout_kernel)
     int T, N, H, U, R;
+    int KR, NC, S;    // resident k16 steps, chunks a product, ring stages (S = 0: all resident)
 };
 
 // UG unit groups of 8 a block (U = 8 UG). Warp (mt, kg) does the gate math
-// of unit groups 2 kg and 2 kg + 1 (those below UG) of its m16 tile.
-template <int UG>
+// of unit groups kg G .. kg G + G - 1 (those below UG; G = ceil(UG / 2)) of
+// its m16 tile. `Stream`: the kernel of the streamed plans (a ring, S >
+// 0). `MS` (passes of 128 rows): warp w takes m16 tile w of a pass over
+// the whole contraction (kg = 0), and the gate math of all UG groups of
+// it.
+template <int UG, bool Stream, bool MS>
 __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs a) {
     constexpr int U = 8 * UG, NT = 3 * UG;
+    constexpr int G = MS ? UG : (UG + 1) / 2;   // unit groups of a warp's gate math
+    constexpr int Batch = MS ? 4 : fwd_batch(Stream);
+    constexpr bool Pre = UG <= 4 && !MS;        // its inputs loaded before the product
+    constexpr int Slots = fwd_slots(UG);
+    constexpr int PR = MS ? 2 * kPassRows : kPassRows;  // rows a pass
+    constexpr int Xchg = MS ? 0 : fwd_xchg(UG);
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int T = a.T, N = a.N, H = a.H, H3 = 3 * H;
     const Tile tl = block_tile(N, H, U, a.R);
     const int KP = round16(H), KS = KP / 16;
-    bf16* wt = reinterpret_cast<bf16*>(smem_raw);  // 3U rows x KP: row g U + ul = W[:, g H + u0 + ul]
-    float4* xchg = reinterpret_cast<float4*>(wt + (size_t)3 * U * KP);  // [2][kMT][kFwdSlots][32]
+    const int KR = Stream && a.S > 0 ? a.KR : KS;  // resident k16 steps
+    bf16* wt = reinterpret_cast<bf16*>(smem_raw);  // 3U rows x 16 KR: row g U + ul = W[:, g H + u0 + ul]
+    float4* xchg = reinterpret_cast<float4*>(wt + (size_t)3 * U * 16 * KR);  // [2][kMT][Slots][32]
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
     const int gid = lane / 4, tig = lane % 4;
-    const int mt = warp % kMT, kg = warp / kMT;
+    const int mt = warp % kMT, kg = MS ? 0 : warp / kMT;
+    const int mtile = MS ? warp : mt;  // the warp's m16 tile in a pass
+    const int passes = (tl.rows + PR - 1) / PR;
 
-    load_w_fwd(wt, a.w_hh + (size_t)tl.dir * H * H3, H, U, tl.u0, KP);
-    // This thread's gate-math units: unit + 8 j of group 2 kg + j, j < 2.
-    const int unit = tl.u0 + 16 * kg + 2 * tig;
-    bool uok[2];
-    float2 bias[2][3];
+    // The streamed kernel's A staging, this warp's part, after the exchange.
+    uint4* astage = reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(xchg) + Xchg) +
+                    (size_t)warp * kAStages * Batch * 32;
+    Ring ring = {};
+    if (Stream && a.S > 0) {
+        ring = make_ring(reinterpret_cast<unsigned char*>(xchg) + Xchg + fwd_astage(Batch),
+                         a.wst + ((size_t)tl.dir * tl.UT + tl.u0 / U) * a.NC * (fwd_chunk_bytes(U) / 2),
+                         KR, a.NC, a.S, fwd_chunk_bytes(U));
+        ring_init(ring);
+        ring.total = (unsigned)(T - 1) * passes * a.NC;
+        __syncthreads();
+        ring_fill(ring);  // the first S chunks: they depend on nothing the launch writes
+    }
+    load_w_fwd(wt, a.w_hh + (size_t)tl.dir * H * H3, H, U, tl.u0, 16 * KR);
+    // This thread's gate-math units: unit + 8 j of group kg G + j, j < G.
+    const int unit = tl.u0 + 8 * G * kg + 2 * tig;
+    bool uok[G];
+    float2 bias[Pre ? G : 1][3];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-        uok[j] = 2 * kg + j < UG && unit + 8 * j < H;
+    for (int j = 0; j < G; ++j) {
+        uok[j] = kg * G + j < UG && unit + 8 * j < H;
+        if (Pre) {
 #pragma unroll
-        for (int gt = 0; gt < 3; ++gt)
-            bias[j][gt] = uok[j] ? io::ldg2(a.b_hh + tl.dir * H3 + gt * H + unit + 8 * j)
-                                 : make_float2(0.f, 0.f);
+            for (int gt = 0; gt < 3; ++gt)
+                bias[Pre ? j : 0][gt] = uok[j] ? io::ldg2(a.b_hh + tl.dir * H3 + gt * H + unit + 8 * j)
+                                               : make_float2(0.f, 0.f);
+        }
     }
     start(a.ctr, 2 * tl.RT);
 
@@ -533,7 +945,6 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
     const size_t frag_len = (size_t)((N + 15) / 16) * KS * 32 * 4;  // words of one parity
     uint32_t* frag = a.frag + (size_t)tl.dir * 2 * frag_len;
     unsigned* ctr = a.ctr + tl.dir * tl.RT + tl.rt;
-    const int passes = (tl.rows + kPassRows - 1) / kPassRows;
     for (int step = 0; step < T; ++step) {
         const int t = tl.dir == 0 ? step : T - 1 - step;
         const uint32_t* fprev = frag + (size_t)((step + 1) & 1) * frag_len;
@@ -541,64 +952,76 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
         if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));
 #pragma unroll 1
         for (int p = 0; p < passes; ++p) {
-            const int m0 = tl.n0 + p * kPassRows;  // the pass's first batch row
-            const int rows = min(kPassRows, tl.rows - p * kPassRows);
-            const bool active = 16 * mt < rows;  // warp-uniform
-            // The gate math's inputs, all loads at once, in flight during
-            // the product.
-            uint32_t xv[2][2][3];
-            float2 h0[2][2];
+            const int m0 = tl.n0 + p * PR;  // the pass's first batch row
+            const int rows = min(PR, tl.rows - p * PR);
+            const bool active = 16 * mtile < rows;  // warp-uniform
+            // The gate math's inputs of group j, row half `half`: px's
+            // three gates and the f32 state. Up to 32 units a block all
+            // loads at once, in flight during the product.
+            const auto inputs = [&](int j, int half, uint32_t (&x)[3], float2& h) {
+                const int row = 16 * mtile + gid + 8 * half;
+                const bool ok = active && uok[j] && row < rows;
+                const size_t m = (size_t)m0 + row;
+                const bf16* xp = px + ((size_t)t * N + m) * H3 + unit + 8 * j;
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
+                for (int gt = 0; gt < 3; ++gt)
+                    x[gt] = ok ? __ldg(reinterpret_cast<const unsigned int*>(xp + gt * H)) : 0u;
+                h = ok && step > 0 ? *reinterpret_cast<const float2*>(hs + m * H + unit + 8 * j)
+                                   : make_float2(0.f, 0.f);
+            };
+            uint32_t xv[Pre ? G : 1][2][3];
+            float2 h0[Pre ? G : 1][2];
+            if (Pre) {
 #pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                    const int row = 16 * mt + gid + 8 * half;
-                    const bool ok = active && uok[j] && row < rows;
-                    const size_t m = (size_t)m0 + row;
-                    const bf16* x = px + ((size_t)t * N + m) * H3 + unit + 8 * j;
+                for (int j = 0; j < G; ++j)
 #pragma unroll
-                    for (int gt = 0; gt < 3; ++gt)
-                        xv[j][half][gt] = ok ? __ldg(reinterpret_cast<const unsigned int*>(x + gt * H)) : 0u;
-                    h0[j][half] = ok && step > 0 ? *reinterpret_cast<const float2*>(hs + m * H + unit + 8 * j)
-                                                 : make_float2(0.f, 0.f);
-                }
+                    for (int half = 0; half < 2; ++half) inputs(j, half, xv[Pre ? j : 0][half], h0[Pre ? j : 0][half]);
+            }
             // n8 tile t of acc: gate t / UG, unit group t % UG.
             float acc[NT][4];
             if (step > 0) {
                 __syncthreads();  // the warpgroup reconverged: wgmma runs it as one
-                wg_product<NT, kFwdBatch>(
-                    acc, reinterpret_cast<const uint4*>(fprev) + (size_t)(m0 / 16 + mt) * KS * 32, active,
-                    KS, kg, H % 16 != 0, smem_u32(wt));
+                wg_product<NT, Batch, Stream, MS ? 1 : 2>(
+                    acc, reinterpret_cast<const uint4*>(fprev) + (size_t)(m0 / 16 + mtile) * KS * 32, active,
+                    KS, kg, H % 16 != 0, smem_u32(wt), ring, (unsigned)((step - 1) * passes + p) * a.NC,
+                    astage);
             }
-            // s[j][gt]: the sums of gate gt of group 2 kg + j, k group 0's
-            // partial plus group 1's. (Register arrays take compile-time
-            // indices only: the groups are picked by value.)
-            float4 s[2][3];
+            // s[j][gt]: the sums of gate gt of group kg G + j, k group 0's
+            // partial plus group 1's (MS: the warp's own). (Register arrays
+            // take compile-time indices only: the groups are picked by
+            // value.)
+            float4 s[G][3];
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
+            for (int j = 0; j < G; ++j)
 #pragma unroll
                 for (int gt = 0; gt < 3; ++gt) s[j][gt] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (step > 0 && MS) {
+#pragma unroll
+                for (int j = 0; j < G; ++j)
+#pragma unroll
+                    for (int gt = 0; gt < 3; ++gt) s[j][gt] = frag4(acc[gt * UG + (MS ? j : 0)]);
+            }
             if (step > 0) {
                 __syncthreads();  // the previous pass's sums have been read
-                if (active) {
-                    float4* mine = xchg + (size_t)(kg * kMT + mt) * kFwdSlots * 32;
+                if (active && !MS) {
+                    float4* mine = xchg + (size_t)(kg * kMT + mt) * Slots * 32;
 #pragma unroll
-                    for (int j = 0; j < 2; ++j)
+                    for (int j = 0; j < G; ++j)
 #pragma unroll
                         for (int gt = 0; gt < 3; ++gt) {
-                            // group 2 (1 - kg) + j: the other k group's
-                            const int g0 = gt * UG + j, g1 = gt * UG + (2 + j < UG ? 2 + j : 0);
+                            // group G (1 - kg) + j: the other k group's
+                            const int g0 = gt * UG + j, g1 = gt * UG + (G + j < UG ? G + j : j);
                             mine[(j * 3 + gt) * 32 + lane] = kg == 0 ? frag4(acc[g1]) : frag4(acc[g0]);
                         }
                 }
-                __syncthreads();
-                if (active) {
-                    const float4* other = xchg + (size_t)((1 - kg) * kMT + mt) * kFwdSlots * 32;
+                if (!MS) __syncthreads();
+                if (active && !MS) {
+                    const float4* other = xchg + (size_t)((1 - kg) * kMT + mt) * Slots * 32;
 #pragma unroll
-                    for (int j = 0; j < 2; ++j)
+                    for (int j = 0; j < G; ++j)
 #pragma unroll
                         for (int gt = 0; gt < 3; ++gt) {
-                            const int g0 = gt * UG + j, g1 = gt * UG + (2 + j < UG ? 2 + j : 0);
+                            const int g0 = gt * UG + j, g1 = gt * UG + (G + j < UG ? G + j : j);
                             const float4 own = kg == 0 ? frag4(acc[g0]) : frag4(acc[g1]);
                             const float4 o = other[(j * 3 + gt) * 32 + lane];
                             s[j][gt] = kg == 0 ? add4(own, o) : add4(o, own);
@@ -607,26 +1030,40 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
             }
             if (!active) continue;
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
+            for (int j = 0; j < G; ++j)
 #pragma unroll
                 for (int half = 0; half < 2; ++half) {
-                    const int row = 16 * mt + gid + 8 * half;
+                    const int row = 16 * mtile + gid + 8 * half;
                     if (!uok[j] || row >= rows) continue;
                     const int u = unit + 8 * j;
                     const size_t m = (size_t)m0 + row;
-                    const float2 xr = as2(xv[j][half][0]), xz = as2(xv[j][half][1]),
-                                 xn = as2(xv[j][half][2]);
+                    uint32_t xl[3];
+                    float2 hl;
+                    float2 bl[3];
+                    if (Pre) {
+#pragma unroll
+                        for (int gt = 0; gt < 3; ++gt) {
+                            xl[gt] = xv[Pre ? j : 0][half][gt];
+                            bl[gt] = bias[Pre ? j : 0][gt];
+                        }
+                        hl = h0[Pre ? j : 0][half];
+                    } else {
+                        inputs(j, half, xl, hl);
+#pragma unroll
+                        for (int gt = 0; gt < 3; ++gt) bl[gt] = io::ldg2(a.b_hh + tl.dir * H3 + gt * H + u);
+                    }
+                    const float2 xr = as2(xl[0]), xz = as2(xl[1]), xn = as2(xl[2]);
                     const float sr[2] = {half ? s[j][0].z : s[j][0].x, half ? s[j][0].w : s[j][0].y};
                     const float sz[2] = {half ? s[j][1].z : s[j][1].x, half ? s[j][1].w : s[j][1].y};
                     const float sn[2] = {half ? s[j][2].z : s[j][2].x, half ? s[j][2].w : s[j][2].y};
                     float h[2];
 #pragma unroll
                     for (int e = 0; e < 2; ++e) {
-                        const float r = sigmoid((e ? xr.y : xr.x) + (sr[e] + (e ? bias[j][0].y : bias[j][0].x)));
-                        const float z = sigmoid((e ? xz.y : xz.x) + (sz[e] + (e ? bias[j][1].y : bias[j][1].x)));
+                        const float r = sigmoid((e ? xr.y : xr.x) + (sr[e] + (e ? bl[0].y : bl[0].x)));
+                        const float z = sigmoid((e ? xz.y : xz.x) + (sz[e] + (e ? bl[1].y : bl[1].x)));
                         const float cn =
-                            tanhf((e ? xn.y : xn.x) + r * (sn[e] + (e ? bias[j][2].y : bias[j][2].x)));
-                        h[e] = (1.f - z) * cn + z * (e ? h0[j][half].y : h0[j][half].x);
+                            tanhf((e ? xn.y : xn.x) + r * (sn[e] + (e ? bl[2].y : bl[2].x)));
+                        h[e] = (1.f - z) * cn + z * (e ? hl.y : hl.x);
                     }
                     *reinterpret_cast<float2*>(hs + m * H + u) = make_float2(h[0], h[1]);
                     const uint32_t hw = pack_bf16(h[0], h[1]);
@@ -658,29 +1095,57 @@ struct ChainArgs {
     bf16* dhn;       // [2, T*N, H]
     float* dbp;      // [row tiles, 2, 3H]
     unsigned* ctr;   // [2 * row tiles]
+    const bf16* wst; // the streamed chunks, as the forward's
     int T, N, H, U, R;
+    int KR, NC, S;
 };
 
-// UG unit groups of 8 a block (U = 8 UG). Warp w: m16 tiles 2 mp, 2 mp + 1
-// of a pass (mp = w % 2) and the k16 steps kg, kg + 4, ... (kg = w / 2);
-// it does the gate math of unit group kg (if below UG) of its two tiles.
-template <int UG>
+// Unit groups of 8 below UG that k group q (of 4) does not own (g % 4 !=
+// q) and come before g: where a warp of group q puts group g's partials
+// among its slots.
+__device__ __forceinline__ int chain_rank(int g, int q) { return g - (g > q ? (g - q + 3) / 4 : 0); }
+
+// UG unit groups of 8 a block (U = 8 UG). Warp w: m16 tiles MW mp .. MW mp
+// + MW - 1 of a pass of 32 MW rows (mp = w % 2; MW = PR / 32) and the
+// k16 steps kg, kg + 4, ... (kg = w / 2); it does the gate math of the
+// unit groups kg, kg + 4, ... (those below UG) of its tiles. `Stream` as
+// for the forward.
+template <int UG, bool Stream, int MW>
 __global__ void __launch_bounds__(kThreads, 1) gru_grid_chain_kernel(const ChainArgs a) {
     constexpr int U = 8 * UG;
     constexpr int KG = 4;
+    constexpr int OWN = (UG + KG - 1) / KG;  // unit groups a k group owns, at most
+    constexpr bool Pre = UG <= 4 && MW == 2; // the gate math's inputs loaded before the product
+    constexpr int Slots = chain_slots(UG) * MW / 2;
+    constexpr int PR = 32 * MW;              // rows a pass (a round of the k groups, KG * kChainAhead
+                                             // k16 steps, is one ring chunk, kChainChunk)
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int T = a.T, N = a.N, H = a.H, H3 = 3 * H, M = T * N;
     const Tile tl = block_tile(N, H, U, a.R);
-    const int KP = round16(H3), KS = KP / 16, WS = w_stride(H3);
+    const int KP = round16(H3), KS = KP / 16;
+    const int KR = Stream && a.S > 0 ? a.KR : KS, WS = w_stride(16 * KR);
     bf16* wc = reinterpret_cast<bf16*>(smem_raw);  // [U][WS]: wc[ul][j] = W[u0 + ul][j]
-    float4* xchg = reinterpret_cast<float4*>(wc + (size_t)U * WS);  // [KG][2][kChainSlots][32]
+    float4* xchg = reinterpret_cast<float4*>(wc + (size_t)U * WS);  // [KG][2][Slots][32]
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
     const int gid = lane / 4, tig = lane % 4;
     const int mp = warp % 2, kg = warp / 2;
+    const int passes = (tl.rows + PR - 1) / PR;
 
-    load_w_chain(wc, a.w_hh + (size_t)tl.dir * H * H3, H, U, tl.u0, KP, WS);
-    const int u = tl.u0 + 8 * kg + 2 * tig;  // this thread's two units (group kg)
-    const bool uok = kg < UG && u < H;
+    Ring ring = {};
+    if (Stream && a.S > 0) {
+        ring = make_ring(reinterpret_cast<unsigned char*>(xchg) + chain_xchg(UG, MW),
+                         a.wst + ((size_t)tl.dir * tl.UT + tl.u0 / U) * a.NC * (chain_chunk_bytes(U) / 2),
+                         KR, a.NC, a.S, chain_chunk_bytes(U));
+        ring_init(ring);
+        ring.total = (unsigned)(T - 1) * passes * a.NC;
+        __syncthreads();
+        ring_fill(ring);  // the first S chunks: they depend on nothing the launch writes
+    }
+    load_w_chain(wc, a.w_hh + (size_t)tl.dir * H * H3, H, U, tl.u0, 16 * KR, WS);
+    const int u = tl.u0 + 8 * kg + 2 * tig;  // this thread's two units of group kg (+ 32 o of group kg + 4 o)
+    bool uok[OWN];
+#pragma unroll
+    for (int o = 0; o < OWN; ++o) uok[o] = kg + KG * o < UG && u + 32 * o < H;
     const auto brow = [](int t) { return 8 * t; };
     start(a.ctr, 2 * tl.RT);
 
@@ -692,10 +1157,13 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_chain_kernel(const Chain
     const size_t frag_len = (size_t)((N + 15) / 16) * KS * 32 * 4;
     uint32_t* frag = a.frag + (size_t)tl.dir * 2 * frag_len;
     unsigned* ctr = a.ctr + tl.dir * tl.RT + tl.rt;
-    const int passes = (tl.rows + kPassRows - 1) / kPassRows;
     // db: this warp's column sums of da_r, da_z, dhn over its rows and the
-    // steps so far, by gate and unit e (every lane of a tig).
-    float dbs[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+    // steps so far, by owned group, gate and unit e (every lane of a tig).
+    float dbs[OWN][3][2];
+#pragma unroll
+    for (int o = 0; o < OWN; ++o)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) dbs[o][q][0] = dbs[o][q][1] = 0.f;
 
     for (int step = 0; step < T; ++step) {
         const int t = tl.dir == 0 ? T - 1 - step : step;
@@ -704,120 +1172,153 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_chain_kernel(const Chain
         if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));
 #pragma unroll 1
         for (int p = 0; p < passes; ++p) {
-            const int m0 = tl.n0 + p * kPassRows;
-            const int rows = min(kPassRows, tl.rows - p * kPassRows);
-            const int mw = min(2, max(0, (rows - 32 * mp + 15) / 16));  // this warp's tiles (warp-uniform)
-            // The gate math's inputs, all loads at once, in flight during
-            // the product.
-            float2 cv[2][2][kNC], c0[2][2];
-            uint32_t g2[2][2];
+            const int m0 = tl.n0 + p * PR;
+            const int rows = min(PR, tl.rows - p * PR);
+            const int mw = min(MW, max(0, (rows - 16 * MW * mp + 15) / 16));  // this warp's tiles (warp-uniform)
+            // The gate math's inputs of owned group o, tile i, row half
+            // `half`: the coefficients, dy and the carried dht * z. Up to 32
+            // units a block all loads at once, in flight during the product.
+            const auto inputs = [&](int o, int i, int half, float2 (&c)[kNC], uint32_t& g, float2& c0) {
+                const int row = 16 * MW * mp + 16 * i + gid + 8 * half;
+                const bool ok = uok[o] && row < rows;
+                const size_t n = (size_t)m0 + row;
+                const size_t m = (size_t)t * N + n;
+                const int uo = u + 32 * o;
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
+                for (int q = 0; q < kNC; ++q)
+                    c[q] = ok ? io::ldg2(cf + (m * kNC + q) * H + uo) : make_float2(0.f, 0.f);
+                g = ok ? __ldg(reinterpret_cast<const unsigned int*>(dy + m * H + uo)) : 0u;
+                c0 = ok && step > 0 ? *reinterpret_cast<const float2*>(carry + n * H + uo)
+                                    : make_float2(0.f, 0.f);
+            };
+            float2 cv[MW][2][Pre ? kNC : 1], c0v[MW][2];
+            uint32_t g2[MW][2];
+            if (Pre) {
 #pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                    const int row = 32 * mp + 16 * i + gid + 8 * half;
-                    const bool ok = uok && row < rows;
-                    const size_t n = (size_t)m0 + row;
-                    const size_t m = (size_t)t * N + n;
+                for (int i = 0; i < MW; ++i)
 #pragma unroll
-                    for (int q = 0; q < kNC; ++q)
-                        cv[i][half][q] = ok ? io::ldg2(cf + (m * kNC + q) * H + u) : make_float2(0.f, 0.f);
-                    g2[i][half] = ok ? __ldg(reinterpret_cast<const unsigned int*>(dy + m * H + u)) : 0u;
-                    c0[i][half] = ok && step > 0 ? *reinterpret_cast<const float2*>(carry + n * H + u)
-                                                 : make_float2(0.f, 0.f);
-                }
-            float acc[2][UG][4];
-            if (step > 0 && mw > 0)
-                warp_product<2, UG, KG, kChainAhead>(
-                    acc, reinterpret_cast<const uint4*>(fprev) + (size_t)(m0 / 16 + 2 * mp) * KS * 32, mw, KS,
-                    kg, H % 16 != 0, wc, WS, brow);
-            // s[i]: dh's product for group kg of tile i, the four k groups'
-            // partials added in k-group order. (Register arrays take
-            // compile-time indices only: the tiles are picked by value.)
-            float4 s[2];
-            s[0] = s[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+                    for (int half = 0; half < 2; ++half) {
+                        float2 c[kNC];
+                        inputs(0, i, half, c, g2[i][half], c0v[i][half]);
+#pragma unroll
+                        for (int q = 0; q < (Pre ? kNC : 1); ++q) cv[i][half][q] = c[q];
+                    }
+            }
+            float acc[MW][UG][4];
+            if (step > 0 && (Stream || mw > 0))
+                warp_product<MW, UG, KG, kChainAhead, Stream>(
+                    acc, reinterpret_cast<const uint4*>(fprev) + (size_t)(m0 / 16 + MW * mp) * KS * 32, mw, KS,
+                    kg, H % 16 != 0, wc, WS, brow, ring, (unsigned)((step - 1) * passes + p) * a.NC);
+            // s[o][i]: dh's product for owned group o of tile i, the four k
+            // groups' partials added in k-group order. (Register arrays
+            // take compile-time indices only: the groups are picked by
+            // value.)
+            float4 s[OWN][MW];
+#pragma unroll
+            for (int o = 0; o < OWN; ++o)
+#pragma unroll
+                for (int i = 0; i < MW; ++i) s[o][i] = make_float4(0.f, 0.f, 0.f, 0.f);
             if (step > 0) {
                 __syncthreads();  // the previous pass's sums have been read
                 if (mw > 0) {
-                    float4* mine = xchg + (size_t)(kg * 2 + mp) * kChainSlots * 32;
+                    float4* mine = xchg + (size_t)(kg * 2 + mp) * Slots * 32;
 #pragma unroll
                     for (int g = 0; g < UG; ++g)
 #pragma unroll
-                        for (int i = 0; i < 2; ++i)
-                            if (g != kg) mine[((g < kg ? g : g - 1) * 2 + i) * 32 + lane] = frag4(acc[i][g]);
+                        for (int i = 0; i < MW; ++i)
+                            if (g % KG != kg) mine[(chain_rank(g, kg) * MW + i) * 32 + lane] = frag4(acc[i][g]);
                 }
                 __syncthreads();
-                if (mw > 0 && kg < UG) {
+                if (mw > 0) {
 #pragma unroll
-                    for (int q = 0; q < KG; ++q) {
+                    for (int o = 0; o < OWN; ++o) {
+                        const int og = kg + KG * o;
+                        if (og >= UG) continue;  // warp-uniform
 #pragma unroll
-                        for (int i = 0; i < 2; ++i) {
-                            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-                            if (q == kg) {
+                        for (int q = 0; q < KG; ++q) {
 #pragma unroll
-                                for (int g = 0; g < UG; ++g)
-                                    if (g == kg) v = frag4(acc[i][g]);
-                            } else {
-                                v = xchg[((size_t)(q * 2 + mp) * kChainSlots + (kg < q ? kg : kg - 1) * 2 + i) * 32 + lane];
+                            for (int i = 0; i < MW; ++i) {
+                                float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+                                if (q == kg) {
+#pragma unroll
+                                    for (int g = 0; g < UG; ++g)
+                                        if (g == og) v = frag4(acc[i][g]);
+                                } else {
+                                    v = xchg[((size_t)(q * 2 + mp) * Slots + chain_rank(og, q) * MW + i) * 32 + lane];
+                                }
+                                s[o][i] = add4(s[o][i], v);
                             }
-                            s[i] = add4(s[i], v);
                         }
                     }
                 }
             }
-            if (mw == 0 || kg >= UG) continue;  // warp-uniform
-            float d[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};  // column sums of da_r, da_z, dhn
+            if (mw == 0) continue;  // warp-uniform
 #pragma unroll
-            for (int i = 0; i < 2; ++i)
+            for (int o = 0; o < OWN; ++o) {
+                if (kg + KG * o >= UG) continue;  // warp-uniform
+                const int uo = u + 32 * o;
+                float d[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};  // column sums of da_r, da_z, dhn
 #pragma unroll
-                for (int half = 0; half < 2; ++half) {
-                    const int row = 32 * mp + 16 * i + gid + 8 * half;
-                    const bool ok = uok && row < rows;
-                    const size_t n = (size_t)m0 + row;
-                    const size_t m = (size_t)t * N + n;
-                    const float2 dyv = as2(g2[i][half]);
-                    const float sp[2] = {half ? s[i].z : s[i].x, half ? s[i].w : s[i].y};
-                    const float2* c = cv[i][half];
-                    float da_r[2], da_z[2], da_c[2], dhn[2], keep[2];
+                for (int i = 0; i < MW; ++i)
+#pragma unroll
+                    for (int half = 0; half < 2; ++half) {
+                        const int row = 16 * MW * mp + 16 * i + gid + 8 * half;
+                        const bool ok = uok[o] && row < rows;
+                        const size_t n = (size_t)m0 + row;
+                        const size_t m = (size_t)t * N + n;
+                        float2 c[kNC], c0;
+                        uint32_t gw;
+                        if (Pre) {
+#pragma unroll
+                            for (int q = 0; q < kNC; ++q) c[q] = cv[i][half][Pre ? q : 0];
+                            gw = g2[i][half];
+                            c0 = c0v[i][half];
+                        } else {
+                            inputs(o, i, half, c, gw, c0);
+                        }
+                        const float2 dyv = as2(gw);
+                        const float sp[2] = {half ? s[o][i].z : s[o][i].x, half ? s[o][i].w : s[o][i].y};
+                        float da_r[2], da_z[2], da_c[2], dhn[2], keep[2];
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const float dht = ((e ? c0.y : c0.x) + sp[e]) + (e ? dyv.y : dyv.x);
+                            da_c[e] = dht * (e ? c[1].y : c[1].x);
+                            da_z[e] = dht * (e ? c[2].y : c[2].x);
+                            dhn[e] = da_c[e] * (e ? c[3].y : c[3].x);
+                            da_r[e] = da_c[e] * (e ? c[4].y : c[4].x);
+                            keep[e] = dht * (e ? c[0].y : c[0].x);
+                            if (ok) {
+                                d[0][e] += da_r[e];
+                                d[1][e] += da_z[e];
+                                d[2][e] += dhn[e];
+                            }
+                        }
+                        if (!ok) continue;
+                        bf16* out = dpx + m * H3 + uo;
+                        const uint32_t wr = pack_bf16(da_r[0], da_r[1]), wz = pack_bf16(da_z[0], da_z[1]),
+                                       wn = pack_bf16(dhn[0], dhn[1]);
+                        *reinterpret_cast<uint32_t*>(out) = wr;
+                        *reinterpret_cast<uint32_t*>(out + H) = wz;
+                        io::st2(out + 2 * H, da_c[0], da_c[1]);
+                        *reinterpret_cast<uint32_t*>(dn + m * H + uo) = wn;
+                        *reinterpret_cast<float2*>(carry + n * H + uo) = make_float2(keep[0], keep[1]);
+                        fnext[frag_word((int)n, uo, KS)] = wr;
+                        fnext[frag_word((int)n, H + uo, KS)] = wz;
+                        fnext[frag_word((int)n, 2 * H + uo, KS)] = wn;
+                    }
+                // The column sums over the warp's 16 MW rows: its own 2 MW,
+                // then the 8 lanes of a tig (lane bits 2-4).
+#pragma unroll
+                for (int q = 0; q < 3; ++q)
 #pragma unroll
                     for (int e = 0; e < 2; ++e) {
-                        const float dht = ((e ? c0[i][half].y : c0[i][half].x) + sp[e]) + (e ? dyv.y : dyv.x);
-                        da_c[e] = dht * (e ? c[1].y : c[1].x);
-                        da_z[e] = dht * (e ? c[2].y : c[2].x);
-                        dhn[e] = da_c[e] * (e ? c[3].y : c[3].x);
-                        da_r[e] = da_c[e] * (e ? c[4].y : c[4].x);
-                        keep[e] = dht * (e ? c[0].y : c[0].x);
-                        if (ok) {
-                            d[0][e] += da_r[e];
-                            d[1][e] += da_z[e];
-                            d[2][e] += dhn[e];
-                        }
+                        float v = d[q][e];
+                        v += __shfl_xor_sync(0xffffffffu, v, 4);
+                        v += __shfl_xor_sync(0xffffffffu, v, 8);
+                        v += __shfl_xor_sync(0xffffffffu, v, 16);
+                        dbs[o][q][e] += v;
                     }
-                    if (!ok) continue;
-                    bf16* o = dpx + m * H3 + u;
-                    const uint32_t wr = pack_bf16(da_r[0], da_r[1]), wz = pack_bf16(da_z[0], da_z[1]),
-                                   wn = pack_bf16(dhn[0], dhn[1]);
-                    *reinterpret_cast<uint32_t*>(o) = wr;
-                    *reinterpret_cast<uint32_t*>(o + H) = wz;
-                    io::st2(o + 2 * H, da_c[0], da_c[1]);
-                    *reinterpret_cast<uint32_t*>(dn + m * H + u) = wn;
-                    *reinterpret_cast<float2*>(carry + n * H + u) = make_float2(keep[0], keep[1]);
-                    fnext[frag_word((int)n, u, KS)] = wr;
-                    fnext[frag_word((int)n, H + u, KS)] = wz;
-                    fnext[frag_word((int)n, 2 * H + u, KS)] = wn;
-                }
-            // The column sums over the warp's 32 rows: its own four, then
-            // the 8 lanes of a tig (lane bits 2-4).
-#pragma unroll
-            for (int q = 0; q < 3; ++q)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    float v = d[q][e];
-                    v += __shfl_xor_sync(0xffffffffu, v, 4);
-                    v += __shfl_xor_sync(0xffffffffu, v, 8);
-                    v += __shfl_xor_sync(0xffffffffu, v, 16);
-                    dbs[q][e] += v;
-                }
+            }
         }
         if (step + 1 < T) signal_step(ctr);
     }
@@ -826,11 +1327,14 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_chain_kernel(const Chain
     // m-pair warps' sums added in order.
     __syncthreads();
     float* red = reinterpret_cast<float*>(xchg);  // [2][3][U]
-    if (gid == 0 && kg < UG) {
+    if (gid == 0) {
 #pragma unroll
-        for (int q = 0; q < 3; ++q)
+        for (int o = 0; o < OWN; ++o)
+            if (kg + KG * o < UG)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) red[(mp * 3 + q) * U + 8 * kg + 2 * tig + e] = dbs[q][e];
+                for (int q = 0; q < 3; ++q)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) red[(mp * 3 + q) * U + 8 * (kg + KG * o) + 2 * tig + e] = dbs[o][q][e];
     }
     __syncthreads();
     for (int i = tid; i < 3 * U; i += kThreads) {
@@ -841,13 +1345,58 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_chain_kernel(const Chain
 }
 
 // ---------------------------------------------------------------------
+// the streamed chunks
+
+// Every block's streamed chunks of its W slice, [2 dirs][unit tiles][NC][a
+// chunk's elements] bf16, each chunk in its ring stage's layout: kind 0 the
+// forward's (3U rows, wgmma's K-major core matrices of w_index, k counted
+// from the chunk's first step, 16 (KR + 4 c)), kind 1 the chain's ([U]
+// rows W_hh[u0 + ul] of stride w_stride(128) from k = 16 (KR + 8 c), the 8
+// past each row zero); zero past H and 3H.
+__global__ void __launch_bounds__(kThreads) gru_grid_stream_layout_kernel(
+    const float* __restrict__ w_hh, bf16* __restrict__ out, int H, int U, int KR, int NC, int kind) {
+    const int H3 = 3 * H, UT = (H + U - 1) / U;
+    const size_t elems = (kind == 0 ? fwd_chunk_bytes(U) : chain_chunk_bytes(U)) / 2;
+    const size_t total = (size_t)2 * UT * NC * elems;
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+         i += (size_t)gridDim.x * blockDim.x) {
+        const size_t e = i % elems, rest = i / elems;
+        const int c = (int)(rest % NC), ut = (int)(rest / NC % UT), dir = (int)(rest / NC / UT);
+        const int u0 = ut * U;
+        const float* W = w_hh + (size_t)dir * H * H3;
+        float v = 0.f;
+        if (kind == 0) {
+            const int ng = 3 * U / 8, q = (int)(e >> 6);
+            const int cc = (q % ng) * 8 + (int)((e >> 3) & 7), kl = (q / ng) * 8 + (int)(e & 7);
+            const int k = 16 * (KR + kFwdChunk * c) + kl, g = cc / U, ul = cc % U;
+            if (k < H && u0 + ul < H) v = W[(size_t)k * H3 + g * H + u0 + ul];
+        } else {
+            const int ws = w_stride(16 * kChainChunk), ul = (int)(e / ws), j = (int)(e % ws);
+            const int k = 16 * (KR + kChainChunk * c) + j;
+            if (j < 16 * kChainChunk && k < H3 && u0 + ul < H) v = W[(size_t)(u0 + ul) * H3 + k];
+        }
+        out[i] = __float2bfloat16_rn(v);
+    }
+}
+
+// ---------------------------------------------------------------------
 // launches
 
 // The plan's grid: 2 directions x ceil(N/R) row tiles x ceil(H/U) unit
-// tiles; 0 for a plan the kernels do not take (U 24 or 32).
+// tiles; 0 for a plan the kernels do not take (U a multiple of 8 from 24
+// to 80, R a multiple of 16).
 int grid_blocks(int T, int N, int H, int U, int R) {
-    if (T < 1 || N < 1 || H < 8 || H % 8 || (U != 24 && U != 32) || R < 16 || R % 16) return 0;
+    if (T < 1 || N < 1 || H < 8 || H % 8 || U < 24 || U > 80 || U % 8 || R < 16 || R % 16) return 0;
     return 2 * ((N + R - 1) / R) * ((H + U - 1) / U);
+}
+
+// The split of a kernel's KS k16 steps (chunks of CK): S = 0 keeps all
+// resident (KR = KS); else KR < KS resident steps, a multiple of CK, and
+// the chunks a product streams (-1 for a split the kernels do not take).
+int stream_chunks(int KS, int KR, int S, int CK) {
+    if (S == 0) return KR == KS ? 0 : -1;
+    if (S < 1 || KR < 0 || KR >= KS || KR % CK) return -1;
+    return (KS - KR + CK - 1) / CK;
 }
 
 // One cooperative launch of `kernel` with `blocks` blocks of kThreads and
@@ -885,6 +1434,56 @@ int launch(const void* kernel, int device, Args args, int blocks, size_t smem, v
     return (int)cudaGetLastError();
 }
 
+// The streamed chunks of kind 0 (forward) or 1 (chain) into `wst` (of
+// `wst_len` elements, refused if too short), one launch; nothing where the
+// plan streams none.
+int write_stream(int kind, const float* w_hh, bf16* wst, long long wst_len, int H, int U, int KR,
+                 int NC, cudaStream_t stream) {
+    if (NC == 0) return 0;
+    const size_t elems = (kind == 0 ? fwd_chunk_bytes(U) : chain_chunk_bytes(U)) / 2;
+    const size_t total = (size_t)2 * ((H + U - 1) / U) * NC * elems;
+    if (wst == nullptr || wst_len < (long long)total) return (int)cudaErrorInvalidValue;
+    const int blocks = (int)std::min((total + kThreads - 1) / kThreads, (size_t)132 * 16);
+    gru_grid_stream_layout_kernel<<<blocks, kThreads, 0, stream>>>(w_hh, wst, H, U, KR, NC, kind);
+    return (int)cudaGetLastError();
+}
+
+// The forward of the plan: 24 or 32 units with all of W resident without
+// the ring; every other plan with it, its rows split (MS) where the plan
+// takes passes of 128 rows.
+const void* gru_grid_fwd_kernel_for(int UG, bool stream, bool ms) {
+    if (!stream) return UG == 3 ? (const void*)gru_grid_fwd_kernel<3, false, false> : (const void*)gru_grid_fwd_kernel<4, false, false>;
+#define FWD(ug) (ms ? (const void*)gru_grid_fwd_kernel<ug, true, true> : (const void*)gru_grid_fwd_kernel<ug, true, false>)
+    switch (UG) {
+        case 3: return FWD(3);
+        case 4: return FWD(4);
+        case 5: return FWD(5);
+        case 6: return FWD(6);
+        case 7: return FWD(7);
+        case 8: return FWD(8);
+        case 9: return FWD(9);
+        default: return FWD(10);
+    }
+#undef FWD
+}
+
+// The chain of the plan: as the forward's, the streamed ones of 24 or 32
+// units with 4 tiles a warp where the plan takes passes of 128 rows.
+const void* gru_grid_chain_kernel_for(int UG, bool stream, int MW) {
+    if (!stream) return UG == 3 ? (const void*)gru_grid_chain_kernel<3, false, 2> : (const void*)gru_grid_chain_kernel<4, false, 2>;
+    if (MW == 4) return UG == 3 ? (const void*)gru_grid_chain_kernel<3, true, 4> : (const void*)gru_grid_chain_kernel<4, true, 4>;
+    switch (UG) {
+        case 3: return (const void*)gru_grid_chain_kernel<3, true, 2>;
+        case 4: return (const void*)gru_grid_chain_kernel<4, true, 2>;
+        case 5: return (const void*)gru_grid_chain_kernel<5, true, 2>;
+        case 6: return (const void*)gru_grid_chain_kernel<6, true, 2>;
+        case 7: return (const void*)gru_grid_chain_kernel<7, true, 2>;
+        case 8: return (const void*)gru_grid_chain_kernel<8, true, 2>;
+        case 9: return (const void*)gru_grid_chain_kernel<9, true, 2>;
+        default: return (const void*)gru_grid_chain_kernel<10, true, 2>;
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -898,43 +1497,69 @@ int ocrs_gru_grid_limits(int device, int* sms, int* smem) {
     return (int)err;
 }
 
-// Dynamic shared memory of each kernel for padded width H and U units a
-// block (kind 0: the forward, 1: the chain).
-long long ocrs_gru_grid_smem(int kind, int H, int U) {
-    return (long long)(kind == 0 ? fwd_smem(H, U) : chain_smem(H, U));
+// Dynamic shared memory of each kernel (kind 0: the forward, 1: the chain)
+// for U units a block with KR k16 steps of W resident, a ring of S stages
+// (S = 0: all of W resident, KR its k16 steps) and passes of PR rows.
+long long ocrs_gru_grid_smem(int kind, int U, int KR, int S, int PR) {
+    return (long long)(kind == 0 ? fwd_smem(U, KR, S, PR) : chain_smem(U, KR, S, PR));
 }
 
 // The forward: px_f, px_b [T, N, 3H] bf16; w_hh [2, H, 3H] float32 holding
 // bf16 values; b_hh [2, 3H] float32; scratch (any contents) hs [2, N, H]
-// float32, frag [2, 2, 16 ceil(N/16), round16(H)] bf16 and ctr [2 *
-// ceil(N / R)]; out ys_f, ys_b [T, N, H] bf16. H % 8 == 0; U (units a
-// block, 24 or 32) and R (rows a block, a multiple of 16) from the plan.
-// One cooperative launch.
+// float32, frag [2, 2, 16 ceil(N/16), round16(H)] bf16, ctr [2 * ceil(N /
+// R)] and wst (wst_len bf16: every block's streamed chunks, written here;
+// none where S = 0); out ys_f, ys_b [T, N, H] bf16. H % 8 == 0; U (units a
+// block), R (rows a block, a multiple of 16), KR (resident k16 steps), S
+// (ring stages) and PR (rows a pass) from the plan. The streamed chunks'
+// layout (one launch where the plan streams), then one cooperative launch.
 int ocrs_gru_grid_fwd_bf16(int device, const bf16* px_f, const bf16* px_b, const float* w_hh,
                            const float* b_hh, float* hs, uint32_t* frag, bf16* ys_f, bf16* ys_b,
-                           unsigned* ctr, int T, int N, int H, int U, int R, void* stream) {
-    const FwdArgs args = {px_f, px_b, w_hh, b_hh, hs, frag, ys_f, ys_b, ctr, T, N, H, U, R};
-    const void* kernel = U == 24 ? (const void*)gru_grid_fwd_kernel<3> : (const void*)gru_grid_fwd_kernel<4>;
-    return launch(kernel, device, args, grid_blocks(T, N, H, U, R), fwd_smem(H, U), stream);
+                           unsigned* ctr, bf16* wst, long long wst_len, int T, int N, int H, int U,
+                           int R, int KR, int S, int PR, void* stream) {
+    const int NC = stream_chunks(round16(H) / 16, KR, S, kFwdChunk);
+    const int blocks = grid_blocks(T, N, H, U, R);
+    if (NC < 0 || blocks == 0 || !grid_variant_ok(0, U, S, PR)) return (int)cudaErrorInvalidValue;
+    {
+        const RestoreDevice restore_device;
+        cudaError_t err = cudaSetDevice(device);
+        if (err != cudaSuccess) return (int)err;
+        const int rc = write_stream(0, w_hh, wst, wst_len, H, U, KR, NC, (cudaStream_t)stream);
+        if (rc != 0) return rc;
+    }
+    const FwdArgs args = {px_f, px_b, w_hh, b_hh, hs, frag, ys_f, ys_b, ctr, wst,
+                          T, N, H, U, R, KR, NC, S};
+    return launch(gru_grid_fwd_kernel_for(U / 8, S > 0, PR > kPassRows), device, args, blocks,
+                  fwd_smem(U, KR, S, PR), stream);
 }
 
 // The backward's chain: dy_f, dy_b [T, N, H] bf16; w_hh as above; coef [2,
-// T*N, 5, H] from gru_bwd.cu's ocrs_gru_bwd_coef_bf16; scratch carry [2, N,
-// H] float32, frag [2, 2, 16 ceil(N/16), round16(3H)] bf16 and ctr [2 *
-// ceil(N / R)]; out dpx_f, dpx_b [T, N, 3H] bf16, dhn [2, T*N, H] bf16 and
-// dbp [db_parts, 2, 3H] float32 (db's partial per row tile, for
-// gru_bwd.cu's ocrs_gru_bwd_dw_bf16; refused if db_parts < ceil(N / R)).
-// One cooperative launch.
+// T*N, 5, H] from the bf16 coefficients phase; scratch carry [2, N, H]
+// float32, frag [2, 2, 16 ceil(N/16), round16(3H)] bf16, ctr [2 * ceil(N /
+// R)] and wst as for the forward; out dpx_f, dpx_b [T, N, 3H] bf16, dhn
+// [2, T*N, H] bf16 and dbp [db_parts, 2, 3H] float32 (db's partial per row
+// tile, for the bf16 dW phase; refused if db_parts < ceil(N / R)). The
+// streamed chunks' layout (one launch where the plan streams), then one
+// cooperative launch.
 int ocrs_gru_grid_chain_bf16(int device, const bf16* dy_f, const bf16* dy_b, const float* w_hh,
                              const float* coef, float* carry, uint32_t* frag, bf16* dpx_f,
-                             bf16* dpx_b, bf16* dhn, float* dbp, int db_parts, unsigned* ctr, int T,
-                             int N, int H, int U, int R, void* stream) {
-    if (R < 1 || db_parts < (N + R - 1) / R) return (int)cudaErrorInvalidValue;
-    const ChainArgs args = {dy_f, dy_b, w_hh, coef, carry, frag, dpx_f, dpx_b, dhn, dbp, ctr,
-                            T, N, H, U, R};
-    const void* kernel =
-        U == 24 ? (const void*)gru_grid_chain_kernel<3> : (const void*)gru_grid_chain_kernel<4>;
-    return launch(kernel, device, args, grid_blocks(T, N, H, U, R), chain_smem(H, U), stream);
+                             bf16* dpx_b, bf16* dhn, float* dbp, int db_parts, unsigned* ctr,
+                             bf16* wst, long long wst_len, int T, int N, int H, int U, int R,
+                             int KR, int S, int PR, void* stream) {
+    const int NC = stream_chunks(round16(3 * H) / 16, KR, S, kChainChunk);
+    const int blocks = grid_blocks(T, N, H, U, R);
+    if (NC < 0 || blocks == 0 || !grid_variant_ok(1, U, S, PR) || db_parts < (N + R - 1) / R)
+        return (int)cudaErrorInvalidValue;
+    {
+        const RestoreDevice restore_device;
+        cudaError_t err = cudaSetDevice(device);
+        if (err != cudaSuccess) return (int)err;
+        const int rc = write_stream(1, w_hh, wst, wst_len, H, U, KR, NC, (cudaStream_t)stream);
+        if (rc != 0) return rc;
+    }
+    const ChainArgs args = {dy_f, dy_b, w_hh, coef, carry, frag, dpx_f, dpx_b, dhn, dbp, ctr, wst,
+                            T, N, H, U, R, KR, NC, S};
+    return launch(gru_grid_chain_kernel_for(U / 8, S > 0, PR / 32), device, args, blocks,
+                  chain_smem(U, KR, S, PR), stream);
 }
 
 const char* ocrs_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

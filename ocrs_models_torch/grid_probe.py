@@ -11,23 +11,40 @@ the backward's chain of each at (T, N, H), by CUDA events:
 - ``no_wait``: no wait on the step counters (the blocks run unsynchronised);
 - ``no_product``: no product (the barrier, the gate math and its loads and
   stores alone);
-- ``no_aload``: the product on constants instead of the A fragments it
-  loads from device memory;
+- ``no_aload``: the product on constants (zeros where the streamed plans
+  stage them in shared memory) instead of the A fragments it loads from
+  device memory;
 - ``fwd_batch_<k>``, ``chain_ahead_<k>``: the forward's A fragments of
-  ``k`` k16 steps loaded at once, the chain's ``k`` ahead, instead of the
-  source's numbers.
+  ``k`` k16 steps loaded at once (where the plan keeps all of W resident),
+  the chain's ``k`` ahead, instead of the source's numbers.
 
 Then ``phases``: a copy with ``clock64`` marks read by thread 0 of every
 block at each step's start, after its wait on the counter, after the
 product (every warp of the block) and after the gate math, and each part's
 mean cycles a step over the blocks and the steps after the first (the wait
-also at its 50th and 90th percentile). Then the bf16 backward's other
-phases on the same shape (``gru_bwd.cu``'s ``coef`` and ``dw`` with
-``dw_sum``, and W_hh's cast to bf16 values), and the forward at T = 2 and
-33. Each copy is written to ``build/probe/`` and
-compiled by ``nvcc`` with the flags of ``ops/_build.py``, all at once.
+also at its 50th and 90th percentile); where the plan streams part of
+W_hh (H above 1440), also the cycles thread 0 spends a step waiting for
+the ring's chunks to land (and issuing those not yet issued),
+``ring_wait_cycles``. Then the bf16 backward's other phases on the same
+shape (``coef`` and ``dw`` with ``dw_sum`` as the wrapper runs them above
+H=512, ``gru_bwd_wide.cu``'s on ``wgmma``, and ``gru_bwd.cu``'s
+``mma.sync`` ones beside, and W_hh's cast to bf16 values), and the
+forward at T = 2 and 33 (those up to T). Each copy is written to
+``build/probe/`` and compiled by ``nvcc`` with the flags of
+``ops/_build.py``, all at once.
 Prints the card's name and power limit first and one JSON line a variant.
 Needs CUDA and ``nvcc``.
+
+    python -m ocrs_models_torch.grid_probe --dw-readings SEED --t 2 --n 259 --hid 5280
+
+instead reads the bf16 wide route's dW end to end (``gru_fwd``, then
+``gru_bwd``, in the form the route picks; the per-step form above
+``GRID_MAX_HIDDEN``) against the plain phases (``gru_bwd_reference``) on
+the card tests' operands (``_gru_case`` of ``tests/test_torch_cuda.py``,
+from ``SEED``): the largest error over 1e-3 of the largest entry, the
+entries past that bound, dW against the plain dW phase on the bf16(dph)
+the chain handed on, and how many of the bf16 operands round otherwise
+than in the plain version (ys; dpx and dhn, the bf16(dph) of dW).
 """
 
 from __future__ import annotations
@@ -49,20 +66,31 @@ _PATCHES = (
      "\n#if !NO_WAIT\n if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n#endif\n", 2),
     ("if (step > 0) {\n                __syncthreads();  // the warpgroup reconverged",
      "if (step > 0 && !NO_PRODUCT) {\n                __syncthreads();  // the warpgroup reconverged", 1),
-    ("if (step > 0 && mw > 0)\n", "if (step > 0 && mw > 0 && !NO_PRODUCT)\n", 1),
+    ("if (step > 0 && (Stream || mw > 0))\n", "if (step > 0 && (Stream || mw > 0) && !NO_PRODUCT)\n", 1),
     ("? __ldcg(frag + (size_t)ks", "? PROBE_LOAD(frag + (size_t)ks", 1),
     ("__ldcg(frag + i * tile", "PROBE_LOAD(frag + i * tile", 2),
+    ("const int nbytes = ok ? 16 : 0;", "const int nbytes = ok && !NO_ALOAD ? 16 : 0;", 1),
     ("namespace {\n", "namespace {\n#define PROBE_LOAD(p) "
      "(NO_ALOAD ? make_uint4(threadIdx.x, 1u, 2u, 3u) : __ldcg(p))\n", 1),
     ("constexpr int kFwdBatch = ", "constexpr int kFwdBatch = FWD_BATCH; // ", 1),
     ("constexpr int kChainAhead = ", "constexpr int kChainAhead = CHAIN_AHEAD; // ", 1),
 )
 # The phases build: marks 0-3 a step (``PROBE_MARK``) into the buffer that
-# ``ocrs_probe_set`` hands the kernels, [blocks][T][4] cycles.
+# ``ocrs_probe_set`` hands the kernels, [blocks][T][5] cycles, slot 4 the
+# cycles thread 0 has spent in ring_wait so far (a running sum a block,
+# kept past the marks, [blocks]).
 _MARKS = (
-    ("namespace {\n", "namespace {\n__device__ long long* g_probe;\n"
-     "#define PROBE_MARK(k) do { if (PROBE_PHASES && threadIdx.x == 0) "
-     "g_probe[((size_t)blockIdx.x * T + step) * 4 + (k)] = clock64(); } while (0)\n", 1),
+    ("namespace {\n", "namespace {\n__device__ long long* g_probe;\n__device__ long long* g_ring;\n"
+     "#define PROBE_MARK(k) do { if (PROBE_PHASES && threadIdx.x == 0) { "
+     "g_probe[((size_t)blockIdx.x * T + step) * 5 + (k)] = clock64(); if ((k) == 3) "
+     "g_probe[((size_t)blockIdx.x * T + step) * 5 + 4] = g_ring[blockIdx.x]; } } while (0)\n", 1),
+    ("    const unsigned s = g % (unsigned)r.S;\n    if (threadIdx.x == 0)\n",
+     "    const unsigned s = g % (unsigned)r.S;\n    const long long probe_t0 = clock64();\n"
+     "    if (threadIdx.x == 0)\n", 1),
+    ("    mbar_wait(r.full + s, (g / (unsigned)r.S) & 1u);\n    return smem_u32(r.stage0) + s * r.bytes;\n",
+     "    mbar_wait(r.full + s, (g / (unsigned)r.S) & 1u);\n"
+     "    if (PROBE_PHASES && threadIdx.x == 0) g_ring[blockIdx.x] += clock64() - probe_t0;\n"
+     "    return smem_u32(r.stage0) + s * r.bytes;\n", 1),
     ("    for (int step = 0; step < T; ++step) {\n",
      "    for (int step = 0; step < T; ++step) {\n        PROBE_MARK(0);\n", 2),
     ("        if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n",
@@ -72,8 +100,9 @@ _MARKS = (
      "                PROBE_MARK(2);\n", 2),
     ("        if (step + 1 < T) signal_step(ctr);\n",
      "        __syncthreads();\n        PROBE_MARK(3);\n        if (step + 1 < T) signal_step(ctr);\n", 2),
-    ('extern "C" {\n', 'extern "C" {\nint ocrs_probe_set(void* p) {\n'
-     "    return (int)cudaMemcpyToSymbol(g_probe, &p, sizeof(p));\n}\n", 1),
+    ('extern "C" {\n', 'extern "C" {\nint ocrs_probe_set(void* p, void* ring) {\n'
+     "    cudaError_t err = cudaMemcpyToSymbol(g_probe, &p, sizeof(p));\n"
+     "    return (int)(err != cudaSuccess ? err : cudaMemcpyToSymbol(g_ring, &ring, sizeof(ring)));\n}\n", 1),
 )
 _DEFAULTS = {"NO_WAIT": 0, "NO_PRODUCT": 0, "NO_ALOAD": 0, "PROBE_PHASES": 0}
 
@@ -93,14 +122,20 @@ def _source_depth(name: str) -> int:
     return int(text.split(f"constexpr int {name} = ", 1)[1].split(";", 1)[0])
 
 
-def _variants() -> dict[str, dict[str, int]]:
+def _variants(plan: gru_ops.GridPlan) -> dict[str, dict[str, int]]:
+    """The builds to time. The forward's batch (``kFwdBatch``) is that of
+    the kernels that keep all of W resident, and a streamed chain's round
+    (4 k groups x ``kChainAhead``) must be one ring chunk: their variants
+    only where the plan streams none."""
     fwd, chain = _source_depth("kFwdBatch"), _source_depth("kChainAhead")
     out = {"full": {}, "no_wait": {"NO_WAIT": 1}, "no_product": {"NO_PRODUCT": 1},
            "no_aload": {"NO_ALOAD": 1}}
     for k in (2, 8):
-        out[f"fwd_batch_{k}"] = {"FWD_BATCH": k}
-    for k in (4, 6):
-        out[f"chain_ahead_{k}"] = {"CHAIN_AHEAD": k}
+        if plan.fwd.stages == 0:
+            out[f"fwd_batch_{k}"] = {"FWD_BATCH": k}
+    for k in (4, 6):  # a streamed chain's round of 4 k groups is one 8-step chunk
+        if plan.chain.stages == 0:
+            out[f"chain_ahead_{k}"] = {"CHAIN_AHEAD": k}
     out["phases"] = {"PROBE_PHASES": 1}
     return {name: {**_DEFAULTS, "FWD_BATCH": fwd, "CHAIN_AHEAD": chain, **v}
             for name, v in out.items()}
@@ -124,10 +159,12 @@ def _build_all(variants: dict) -> dict[str, ctypes.CDLL]:
         if proc.returncode:
             raise RuntimeError(f"grid_probe: nvcc failed for {name}:\n{out}")
         dll = ctypes.CDLL(str(lib))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        dll.ocrs_gru_grid_fwd_bf16.argtypes = [i] + [p] * 9 + [i] * 5 + [p]
-        dll.ocrs_gru_grid_chain_bf16.argtypes = [i] + [p] * 10 + [i, p] + [i] * 5 + [p]
-        dll.ocrs_probe_set.argtypes = [p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        dll.ocrs_gru_grid_fwd_bf16.argtypes = [i] + [p] * 10 + [ll] + [i] * 8 + [p]
+        dll.ocrs_gru_grid_chain_bf16.argtypes = [i] + [p] * 10 + [i, p, p, ll] + [i] * 8 + [p]
+        dll.ocrs_probe_set.argtypes = [p, p]
+        dll.ocrs_error_string.argtypes = [i]
+        dll.ocrs_error_string.restype = ctypes.c_char_p
         libs[name] = dll
     return libs
 
@@ -144,11 +181,49 @@ def _events_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def dw_readings(t_len: int, n: int, hid: int, seed: int) -> dict:
+    """The bf16 wide route's dW end to end at (T, N, H) against the plain
+    phases, on the operands the card tests make from ``seed``."""
+    dev, bf16 = torch.device("cuda", 0), torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    k = 1.0 / hid**0.5
+    px_f, px_b = (torch.randn((t_len, n, 3 * hid), generator=g).to(dev, bf16) for _ in range(2))
+    w_hh = ((torch.rand((2, hid, 3 * hid), generator=g) * 2 - 1) * k).to(dev)
+    b_hh = ((torch.rand((2, 3 * hid), generator=g) * 2 - 1) * k).to(dev)
+    dy_f, dy_b = (torch.randn((t_len, n, hid), generator=g).to(dev, bf16) for _ in range(2))
+    ys = gru_ops.gru_fwd(px_f, px_b, w_hh, b_hh)
+    args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
+    scratch = {}
+    dpx_f, dpx_b, dw, _ = gru_ops.gru_bwd(*args, scratch_out=scratch)
+    want = gru_ops.gru_bwd_reference(*args)
+    coef = gru_ops.gru_bwd_coefficients_reference(px_f, px_b, *ys, w_hh, b_hh)
+    dhn_want = gru_ops.gru_bwd_chain_bf16_reference(coef, dy_f, dy_b, w_hh)[2]
+    on_dph = gru_ops.gru_bwd_dw_bf16_reference(*ys, dpx_f, dpx_b, scratch["dhn"])
+    err, bound = (dw - want[2]).abs(), 1e-3 * want[2].abs().max().item()
+    flips = {
+        "ys": sum(int((a != b).sum()) for a, b in zip(ys, gru_ops.gru_recurrence_reference(
+            px_f, px_b, w_hh, b_hh))),
+        "dpx": sum(int((a != b).sum()) for a, b in zip((dpx_f, dpx_b), want[:2])),
+        "dhn": int((scratch["dhn"] != dhn_want).sum()),
+    }
+    return {"T": t_len, "N": n, "H": hid, "seed": seed,
+            "form": gru_ops.wide_form(n, hid + -hid % 8, bf16, dev.index)[0],
+            "dw_max": want[2].abs().max().item(), "dw_max_abs_err": err.max().item(),
+            "err_over_1e-3_of_max": err.max().item() / bound,
+            "entries_past_1e-3_of_max": int((err > bound + 1e-6).sum()), "entries": err.numel(),
+            "dw_on_chains_dph_err_over_max": (dw - on_dph).abs().max().item()
+            / on_dph.abs().max().item(),
+            "bf16_entries_rounded_otherwise": flips,
+            "bf16_entries": {"ys": 2 * ys[0].numel(), "dpx": 2 * dpx_f.numel(),
+                             "dhn": scratch["dhn"].numel()}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--t", type=int, default=257)
     ap.add_argument("--n", type=int, default=128)
     ap.add_argument("--hid", type=int, default=1024)
+    ap.add_argument("--dw-readings", type=int, metavar="SEED", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("grid_probe: needs a CUDA device")
@@ -156,12 +231,15 @@ def main() -> None:
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     t_len, n, hid = args.t, args.n, args.hid
+    if args.dw_readings is not None:
+        print(json.dumps(dw_readings(t_len, n, hid, args.dw_readings)), flush=True)
+        return
     dev, bf16 = torch.device("cuda", 0), torch.bfloat16
     form, plan = gru_ops.wide_form(n, hid, bf16, dev.index)
     if form != "grid":
         raise SystemExit(f"grid_probe: H={hid} takes the {form} form, not the grid form")
-    units, rows = plan
-    libs = _build_all(_variants())
+    units, rows = plan.units, plan.rows
+    libs = _build_all(_variants(plan))
     gen = torch.Generator().manual_seed(3)
     px = [torch.randn((t_len, n, 3 * hid), generator=gen).to(dev, bf16) for _ in range(2)]
     w = _build.rounded(((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) / hid**0.5)
@@ -177,36 +255,48 @@ def main() -> None:
     hs, carry = torch.empty((2, n, hid), device=dev), torch.empty((2, n, hid), device=dev)
     ctr = torch.empty((2 * tiles,), device=dev, dtype=torch.int32)
     ffrag, cfrag = gru_ops._grid_frag(n, hid, dev), gru_ops._grid_frag(n, 3 * hid, dev)
+    (fwst, felems), (cwst, celems) = (gru_ops._grid_stream(kind, hid, plan, dev)
+                                      for kind in ("fwd", "chain"))
     ptr, stream = _build.ptr, _build.stream_ptr(dev)
+
+    def opt(t):
+        return None if t is None else ptr(t)
 
     def fwd(dll, steps=t_len):
         return lambda: _build.check(dll, dll.ocrs_gru_grid_fwd_bf16(
             dev.index, ptr(px[0]), ptr(px[1]), ptr(w), ptr(b), ptr(hs), ptr(ffrag), ptr(ys[0]),
-            ptr(ys[1]), ptr(ctr), steps, n, hid, units, rows, stream), "grid_probe forward")
+            ptr(ys[1]), ptr(ctr), opt(fwst), felems, steps, n, hid, units, rows,
+            plan.fwd.resident, plan.fwd.stages, plan.fwd.pass_rows, stream), "grid_probe forward")
 
     def chain(dll):
         return lambda: _build.check(dll, dll.ocrs_gru_grid_chain_bf16(
             dev.index, ptr(dy[0]), ptr(dy[1]), ptr(w), ptr(coef), ptr(carry), ptr(cfrag),
-            ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dbp), tiles, ptr(ctr), t_len, n, hid, units,
-            rows, stream), "grid_probe chain")
+            ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dbp), tiles, ptr(ctr), opt(cwst), celems,
+            t_len, n, hid, units, rows, plan.chain.resident, plan.chain.stages,
+            plan.chain.pass_rows, stream),
+            "grid_probe chain")
 
-    shape = {"T": t_len, "N": n, "H": hid, "units": units, "rows": rows}
+    shape = {"T": t_len, "N": n, "H": hid, "units": units, "rows": rows,
+             "w_split": {"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()}}
     for name, dll in libs.items():
         if name == "phases":
             continue
         print(json.dumps({"variant": name, **shape, "fwd_ms": _events_ms(fwd(dll)),
                           "chain_ms": _events_ms(chain(dll))}), flush=True)
     blocks = 2 * tiles * -(-hid // units)
-    marks = torch.zeros((blocks, t_len, 4), device=dev, dtype=torch.int64)
+    marks = torch.zeros((blocks, t_len, 5), device=dev, dtype=torch.int64)
+    ring = torch.zeros((blocks,), device=dev, dtype=torch.int64)
     phases = libs["phases"]
-    _build.check(phases, phases.ocrs_probe_set(ptr(marks)), "grid_probe phases")
-    names = ("wait", "product", "gate_math", "signal_to_next")
+    _build.check(phases, phases.ocrs_probe_set(ptr(marks), ptr(ring)), "grid_probe phases")
+    names = ("wait", "product", "gate_math", "signal_to_next", "ring_wait")
     for kernel, call in (("fwd", fwd(phases)), ("chain", chain(phases))):
+        ring.zero_()
         call()
         torch.cuda.synchronize()
         m = marks[:, 1:].double()  # steps after the first (no wait before it)
         parts = [m[..., 1] - m[..., 0], m[..., 2] - m[..., 1], m[..., 3] - m[..., 2],
-                 marks[:, 2:, 0].double() - marks[:, 1:-1, 3].double()]
+                 marks[:, 2:, 0].double() - marks[:, 1:-1, 3].double(),
+                 marks[:, 1:, 4].double() - marks[:, :-1, 4].double()]
         wait = parts[0].flatten()
         print(json.dumps({"phases": kernel, **shape, "blocks": blocks,
                           **{f"{k}_cycles": p.mean().item() for k, p in zip(names, parts)},
@@ -214,23 +304,30 @@ def main() -> None:
                           "wait_p90_cycles": wait.quantile(0.9).item(),
                           "step_cycles": (marks[:, 2:, 0] - marks[:, 1:-1, 0]).double().mean().item()}),
               flush=True)
-    bwd = gru_ops._bwd_lib()
+    bwd, wide = gru_ops._bwd_lib(), gru_ops._bwd_wide_lib()
     coef_out = torch.empty_like(coef)
-    splits = gru_ops._dw_splits(t_len, n)
-    dwp = torch.empty((splits, 2, hid, 3 * hid), device=dev)
+    splits, splits_tc = gru_ops._dw_splits(t_len, n), gru_ops._dw_splits(t_len, n, hid, True)
+    dwp = torch.empty((max(splits, splits_tc), 2, hid, 3 * hid), device=dev)
     dw, db = torch.empty_like(w), torch.empty_like(b)
+    w16 = w.to(bf16)
     split = {
-        "coef_ms": lambda: _build.check(bwd, bwd.ocrs_gru_bwd_coef_bf16(
+        "coef_ms": lambda: _build.check(wide, wide.ocrs_gru_bwd_coef_wide_bf16(
+            dev.index, ptr(px[0]), ptr(px[1]), ptr(ys[0]), ptr(ys[1]), ptr(w16), ptr(b),
+            ptr(coef_out), t_len, n, hid, stream), "grid_probe coef"),
+        "dw_ms": lambda: _build.check(wide, wide.ocrs_gru_bwd_dw_wide_bf16(
+            dev.index, ptr(ys[0]), ptr(ys[1]), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
+            ptr(dbp), tiles, ptr(dw), ptr(db), splits_tc, t_len, n, hid, stream), "grid_probe dw"),
+        "coef_mma_sync_ms": lambda: _build.check(bwd, bwd.ocrs_gru_bwd_coef_bf16(
             dev.index, ptr(px[0]), ptr(px[1]), ptr(ys[0]), ptr(ys[1]), ptr(w), ptr(b),
             ptr(coef_out), t_len, n, hid, stream), "grid_probe coef"),
-        "dw_ms": lambda: _build.check(bwd, bwd.ocrs_gru_bwd_dw_bf16(
+        "dw_mma_sync_ms": lambda: _build.check(bwd, bwd.ocrs_gru_bwd_dw_bf16(
             dev.index, ptr(ys[0]), ptr(ys[1]), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
             ptr(dbp), tiles, ptr(dw), ptr(db), splits, t_len, n, hid, stream), "grid_probe dw"),
         "cast_ms": lambda: _build.rounded(w, bf16).contiguous(),
     }
     print(json.dumps({"backward_phases": True, **shape,
                       **{k: _events_ms(fn) for k, fn in split.items()}}), flush=True)
-    for steps in (2, 33):
+    for steps in (s for s in (2, 33) if s <= t_len):  # within the T steps of px and ys
         print(json.dumps({"variant": "full", **shape, "T": steps,
                           "fwd_ms": _events_ms(fwd(libs["full"], steps))}), flush=True)
 

@@ -58,15 +58,20 @@ H=264 and 320; and at H=1024 the per-step form (f32 and bf16) against the
 grid form (bf16; ``csrc/gru_grid.cu``'s ``ocrs_gru_grid_fwd_bf16``,
 ``ocrs_gru_grid_chain_bf16``, always the checkout's build, with the plan of
 ``ops.gru.grid_plan`` for the card: ``rows`` gives its units and rows a
-block and its blocks): one case per (shape, dtype, form), each form's
+block, its blocks and W_hh's split into resident and streamed k16 steps),
+and so in bf16 at H=1448 and 2048, where the grid form streams part of
+W_hh: one case per (shape, dtype, form), each form's
 device time the sum over its kernels of the mean record times the
 kernel's launches a call (T for a per-step kernel). The chain's inputs are
 the plain versions' coefficients of a plain forward; its outputs are held
 against the plain chain. A source that exports
 ``ocrs_gru_wide_fwd_max_clusters`` also gets its rows per block and
-clusters (``rows``). The chain's bf16 cases at H=1024 also time the
-backward's other phases on the same operands, ``gru_bwd.cu``'s ``coef`` and
-``dw`` (with ``dw_sum``) and W_hh's cast (``split_ms``, events).
+clusters (``rows``). The chain's bf16 grid cases also time the backward's
+other phases on the same operands (``split_ms``, events): ``coef`` and
+``dw`` (with ``dw_sum``) as ``gru_wide_bwd`` runs them above H=512
+(``csrc/gru_bwd_wide.cu``, on ``wgmma``), the same phases of
+``csrc/gru_bwd.cu`` (``mma.sync``; ``coef_mma_sync``, ``dw_mma_sync``), and
+W_hh's cast.
 
 ``--cold`` writes a 256 MB buffer before each call so that no input is
 left in the 50 MB L2 cache. Needs CUDA and ``nvcc``.
@@ -344,7 +349,9 @@ def _bind_gru_wide(dll) -> None:
     _bind(dll.ocrs_gru_wide_stepwise_rows, [])
 
 
-WIDE_SHAPES = ((257, 128, 512), (257, 128, 264), (257, 128, 320), (257, 128, 1024))
+WIDE_SHAPES = ((257, 128, 512), (257, 128, 264), (257, 128, 320), (257, 128, 1024),
+               (257, 128, 1448), (257, 128, 2048))
+WIDE_F32_MAX = 1024  # widest width of WIDE_SHAPES also timed in f32
 
 
 def _wide_forms(hid: int, dt: torch.dtype) -> tuple[str, ...]:
@@ -362,6 +369,8 @@ def _gru_wide_cases(dev) -> dict:
     out = {}
     for t_len, n, hid in WIDE_SHAPES:
         for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            if dt == torch.float32 and hid > WIDE_F32_MAX:
+                continue
             k = 1.0 / hid**0.5
             px = [torch.randn((t_len, n, 3 * hid), generator=gen).to(dev, dt) for _ in range(2)]
             w_hh = _build.rounded(((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) * k)
@@ -376,9 +385,22 @@ def _gru_wide_cases(dev) -> dict:
     return out
 
 
-def _grid_plan(ops) -> tuple[int, int]:
+def _grid_plan(ops) -> gru_ops.GridPlan:
     t_len, n, h3 = ops[0].shape
     return gru_ops.wide_form(n, h3 // 3, ops[0].dtype, ops[0].device.index)[1]
+
+
+def _grid_stream(kind: str, hid: int, ops) -> torch.Tensor:
+    """The grid form's scratch of streamed chunks of ``kind`` (empty where
+    the plan streams none)."""
+    wst, _ = gru_ops._grid_stream(kind, hid, _grid_plan(ops), ops[0].device)
+    return torch.empty((0,), device=ops[0].device, dtype=torch.bfloat16) if wst is None else wst
+
+
+def _wst(out) -> tuple:
+    """The streamed chunks' pointer (None where empty) and length."""
+    wst = out["wst"]
+    return (_build.ptr(wst) if wst.numel() else None), wst.numel()
 
 
 def _sfx(ops) -> str:
@@ -392,6 +414,7 @@ def _gru_wide_fwd_outputs(ops) -> dict:
     if ops[-1] == "grid":
         out["frag"] = gru_ops._grid_frag(n, h3 // 3, ops[0].device)
         out["ctr"] = torch.empty((2 * n,), device=ops[0].device, dtype=torch.int32)
+        out["wst"] = _grid_stream("fwd", h3 // 3, ops)
     return out
 
 
@@ -402,11 +425,11 @@ def _gru_wide_fwd_call(dll, ops, out, rows=0) -> None:
     dev, stream = px_f.device, _build.stream_ptr(px_f.device)
     if form == "grid":
         dll = gru_ops._grid_lib()
-        units, rows = _grid_plan(ops)
+        plan = _grid_plan(ops)
         rc = dll.ocrs_gru_grid_fwd_bf16(
             dev.index, ptr(px_f), ptr(px_b), ptr(w_hh), ptr(b_hh), ptr(out["hs"]), ptr(out["frag"]),
-            ptr(out["ys_f"]), ptr(out["ys_b"]), ptr(out["ctr"]), t_len, n, h3 // 3, units, rows,
-            stream)
+            ptr(out["ys_f"]), ptr(out["ys_b"]), ptr(out["ctr"]), *_wst(out), t_len, n, h3 // 3,
+            plan.units, plan.rows, plan.fwd.resident, plan.fwd.stages, plan.fwd.pass_rows, stream)
     elif form == "persistent":
         rc = getattr(dll, f"ocrs_gru_wide_fwd{_sfx(ops)}")(
             dev.index, ptr(px_f), ptr(px_b), ptr(w_hh), ptr(b_hh), ptr(out["ys_f"]),
@@ -437,6 +460,7 @@ def _gru_wide_chain_outputs(ops) -> dict:
     if ops[-1] == "grid":
         out["frag"] = gru_ops._grid_frag(n, h3, dev)
         out["ctr"] = torch.empty((2 * n,), device=dev, dtype=torch.int32)
+        out["wst"] = _grid_stream("chain", hid, ops)
     return out
 
 
@@ -449,11 +473,12 @@ def _gru_wide_chain_call(dll, ops, out, rows=0) -> None:
     extra = [ptr(out["dhn"]), ptr(out["dbp"])] if bf16 else []
     if form == "grid":
         dll = gru_ops._grid_lib()
-        units, rows = _grid_plan(ops)
+        plan = _grid_plan(ops)
         rc = dll.ocrs_gru_grid_chain_bf16(
             dev.index, ptr(dy_f), ptr(dy_b), ptr(w_hh), ptr(coef), ptr(out["carry"]),
             ptr(out["frag"]), ptr(out["dpx_f"]), ptr(out["dpx_b"]), *extra, out["dbp"].shape[0],
-            ptr(out["ctr"]), t_len, n, hid, units, rows, stream)
+            ptr(out["ctr"]), *_wst(out), t_len, n, hid, plan.units, plan.rows,
+            plan.chain.resident, plan.chain.stages, plan.chain.pass_rows, stream)
     elif form == "persistent":
         parts = [out["dbp"].shape[0]] if bf16 else []
         rc = getattr(dll, f"ocrs_gru_wide_chain{_sfx(ops)}")(
@@ -485,10 +510,12 @@ def _gru_wide_extra(kind: str):
         if kind == "chain" and ops[-1] == "grid" and "split_ms" not in line:
             line["split_ms"] = _bwd_split_ms(ops)
         if ops[-1] == "grid":
-            units, rows = _grid_plan(ops)
+            plan = _grid_plan(ops)
             t_len, n, h3 = ops[0].shape
-            line.setdefault("rows", {})[k] = {"units": units, "rows": rows,
-                                              "blocks": 2 * -(-n // rows) * -(-h3 // 3 // units)}
+            line.setdefault("rows", {})[k] = {
+                "units": plan.units, "rows": plan.rows,
+                "blocks": 2 * -(-n // plan.rows) * -(-h3 // 3 // plan.units),
+                "w_split": {"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()}}
             return
         if ops[-1] != "persistent":
             line.setdefault("rows", {})[k] = {"rows": dll.ocrs_gru_wide_stepwise_rows()}
@@ -504,26 +531,37 @@ def _gru_wide_extra(kind: str):
 
 def _bwd_split_ms(ops) -> dict:
     """The bf16 backward's phases around its chain on the case's operands,
-    by CUDA events: ``gru_bwd.cu``'s ``coef`` and ``dw`` (with ``dw_sum``,
-    one C call) and W_hh's cast to bf16 values, as ``ops.gru.gru_wide_bwd``
-    runs them."""
+    by CUDA events: ``coef`` and ``dw`` (with ``dw_sum``, one C call) as
+    ``ops.gru.gru_wide_bwd`` runs them above H=512 (``gru_bwd_wide.cu``,
+    ``wgmma``, with its row ranges), the same phases of ``gru_bwd.cu``
+    (``mma.sync``, with ``_dw_splits``'s ranges for it), and W_hh's cast to
+    bf16 values."""
     px_f, px_b, ys_f, ys_b = ops[:4]
     w_hh, b_hh = ops[6], ops[7]
     t_len, n, h3 = px_f.shape
     hid, dev = h3 // 3, px_f.device
     lib, ptr, stream = gru_ops._bwd_lib(), _build.ptr, _build.stream_ptr(dev)
+    wide = gru_ops._bwd_wide_lib()
+    w16 = w_hh.to(torch.bfloat16)
     coef = torch.empty((2, t_len * n, 5, hid), device=dev)
     splits = gru_ops._dw_splits(t_len, n)
+    splits_tc = gru_ops._dw_splits(t_len, n, hid, True)
     dpx = [torch.zeros_like(px_f) for _ in range(2)]
     dhn = torch.zeros((2, t_len * n, hid), device=dev, dtype=torch.bfloat16)
     dbp = torch.zeros((1, 2, h3), device=dev)
-    dwp = torch.empty((splits, 2, hid, h3), device=dev)
+    dwp = torch.empty((max(splits, splits_tc), 2, hid, h3), device=dev)
     dw, db = torch.empty_like(w_hh), torch.empty_like(b_hh)
     calls = {
-        "coef": lambda: lib.ocrs_gru_bwd_coef_bf16(
+        "coef": lambda: wide.ocrs_gru_bwd_coef_wide_bf16(
+            dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w16), ptr(b_hh), ptr(coef),
+            t_len, n, hid, stream),
+        "dw": lambda: wide.ocrs_gru_bwd_dw_wide_bf16(
+            dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp), ptr(dbp),
+            1, ptr(dw), ptr(db), splits_tc, t_len, n, hid, stream),
+        "coef_mma_sync": lambda: lib.ocrs_gru_bwd_coef_bf16(
             dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w_hh), ptr(b_hh), ptr(coef),
             t_len, n, hid, stream),
-        "dw": lambda: lib.ocrs_gru_bwd_dw_bf16(
+        "dw_mma_sync": lambda: lib.ocrs_gru_bwd_dw_bf16(
             dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp), ptr(dbp),
             1, ptr(dw), ptr(db), splits, t_len, n, hid, stream),
         "cast": lambda: _build.rounded(w_hh, torch.bfloat16).contiguous(),

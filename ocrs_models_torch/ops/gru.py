@@ -20,9 +20,11 @@ to 512 after padding ("wide") they run in the same persistent form, one
 launch for all T steps, in clusters of up to 16 blocks with part of
 ``W_hh`` in shared memory; above 512 in bf16 up to ``GRID_MAX_HIDDEN``
 ("grid", ``csrc/gru_grid.cu``) in one cooperative launch over the whole
-card, the state exchanged through device memory between steps; every other
-width above 512 ("stepwise") in one launch per step, the state in device
-memory between launches. On CPU tensors
+card, the state exchanged through device memory between steps, and above
+``GRID_RESIDENT_HIDDEN`` part of ``W_hh`` streamed from L2 each step; every
+other width above 512 ("stepwise") in one launch per step, the state in
+device memory between launches. In bf16 above 512 the backward's
+coefficients and dW run on ``wgmma`` (``csrc/gru_bwd_wide.cu``). On CPU tensors
 both wrappers run their plain versions (:func:`gru_recurrence_reference`,
 a Python loop of torch ops, and autograd of it). The backward kernel's
 three phases have plain versions of their own
@@ -51,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -127,55 +130,196 @@ H100_SMS = 132
 H100_SMEM = 232448
 """Dynamic shared memory an H100 block may opt into (227 KB)."""
 GRID_UNITS = (32, 24)
-"""Hidden units a block of the grid form may own, the first that fits."""
+"""Hidden units a block of the grid form may own up to
+``GRID_RESIDENT_HIDDEN``, the first that fits."""
+GRID_RESIDENT_HIDDEN = 1440
+"""Widest hidden size, after padding, whose plans keep a block's whole
+slice of ``W_hh`` in shared memory (on an H100: 24 units a block, whose
+``[24][4328]`` bf16 slice of the chain's ``W_hh^T`` and its partial sums
+take 232,320 of the 232,448 bytes; 32 units fit up to 1072). Wider plans
+stream part of the slice (:func:`grid_split`)."""
+GRID_MAX_UNITS = 80
+"""Most hidden units a block of the grid form owns: the forward's ``wgmma``
+multiplies ``3U`` columns at once, at most 256."""
 GRID_PASS_ROWS = 64
 """Batch rows a block of the grid form multiplies at once (``gru_grid.cu``
 runs more in passes)."""
+GRID_CHUNK = {"fwd": 4, "chain": 8}
+"""k16 steps of ``W_hh`` in a ring stage of each kernel of the grid form
+(``gru_grid.cu``'s ``kFwdChunk``, ``kChainChunk``)."""
+GRID_RING_BYTES = 40960
+"""Shared memory the ring of a streamed plan aims at where the slice is
+streamed mostly: enough chunks in flight to cover a read from L2."""
+GRID_MAX_STAGES = 8
+"""Most stages of a streamed plan's ring."""
+
+
+class GridSplit(NamedTuple):
+    """How a kernel of the grid form holds its slice of ``W_hh``: the first
+    ``resident`` k16 steps of the contraction in shared memory, the next
+    ``streamed`` (whole chunks of ``GRID_CHUNK``, zero past the contraction)
+    through a ring of ``stages`` stages each step; ``(k16 steps, 0, 0)``
+    where the whole slice stays. ``pass_rows``, the batch rows it
+    multiplies at once, picks the kernel's variant (:func:`grid_split`)."""
+
+    resident: int
+    streamed: int
+    stages: int
+    pass_rows: int = GRID_PASS_ROWS
+
+
+class GridPlan(NamedTuple):
+    """The grid form's blocks (:func:`grid_plan`): ``units`` hidden units x
+    ``rows`` batch rows a block, and each kernel's :class:`GridSplit`."""
+
+    units: int
+    rows: int
+    fwd: GridSplit
+    chain: GridSplit
 
 
 def _round16(k: int) -> int:
     return -(-k // 16) * 16
 
 
+def _grid_k16(kind: str, hid: int) -> int:
+    """k16 steps of the contraction of ``kind`` ("fwd": H, "chain": 3H)."""
+    return _round16(hid if kind == "fwd" else 3 * hid) // 16
+
+
+def _grid_chunk_bytes(kind: str, units: int) -> int:
+    """Bytes of a ring stage: the forward's 4 k16 steps of ``3U`` rows, the
+    chain's ``U`` rows of 8 k16 steps and 8 more bf16 a row."""
+    return 4 * 96 * units if kind == "fwd" else 2 * units * (16 * 8 + 8)
+
+
+def grid_kernel_smem(kind: str, units: int, resident: int, stages: int,
+                     pass_rows: int = GRID_PASS_ROWS) -> int:
+    """Dynamic shared memory of the grid form's ``kind`` kernel with
+    ``units`` a block, ``resident`` k16 steps of ``W_hh`` resident, a ring
+    of ``stages`` and passes of ``pass_rows`` (``gru_grid.cu``'s
+    ``fwd_smem``, ``chain_smem``): the resident slice (the forward's
+    ``[3U][16 resident]`` bf16, the chain's ``[U][16 resident + 8]``), the
+    exchange where its k groups' partial sums meet (24 KB up to 32 units
+    a block; twice that in the chain at 128 rows a pass, its warps on 4
+    m16 tiles, and none in the forward, whose warpgroups then split the
+    rows), the streamed forward's staging of its A fragments, the ring and
+    two mbarriers a stage."""
+    ug = units // 8
+    if kind == "fwd":
+        # The streamed kernels also stage each warp's A fragments: 3
+        # batches of 2 k16 steps, 512 bytes a step; of 4 at 128 rows a
+        # pass.
+        msplit = pass_rows > GRID_PASS_ROWS
+        staged = 8 * 3 * (4 if msplit else 2) * 512 if stages else 0
+        xchg = 0 if msplit else 2 * 4 * 3 * -(-ug // 2) * 512
+        return 96 * units * resident + xchg + staged + stages * (
+            _grid_chunk_bytes(kind, units) + 16)
+    tiles = pass_rows // 32
+    return 2 * units * (16 * resident + 8) + 4 * 2 * tiles * (ug - ug // 4) * 512 + stages * (
+        _grid_chunk_bytes(kind, units) + 16)
+
+
 def grid_smem(hid: int, units: int) -> int:
     """Dynamic shared memory of the grid form's larger kernel for padded
-    width ``hid`` and ``units`` a block (``gru_grid.cu``'s ``fwd_smem``,
-    ``chain_smem``): its bf16 slice of ``W_hh``, the forward's ``[3U][H]``
-    or the chain's ``[U][3H]``, the contraction padded to the k16 steps
-    (and the chain's rows by 8 more), beside the 24 KB where its k groups'
-    partial sums meet."""
-    return max(2 * 3 * units * _round16(hid), 2 * units * (_round16(3 * hid) + 8)) + 24576
+    width ``hid`` and ``units`` a block with the whole slice of ``W_hh``
+    resident: the forward's ``[3U][H]`` or the chain's ``[U][3H]`` bf16, the
+    contraction padded to the k16 steps (and the chain's rows by 8 more),
+    beside its exchange."""
+    return max(grid_kernel_smem(kind, units, _grid_k16(kind, hid), 0) for kind in ("fwd", "chain"))
+
+
+def grid_split(kind: str, hid: int, units: int, smem: int, rows: int = 64) -> GridSplit | None:
+    """How the grid form's ``kind`` kernel ("fwd" or "chain") holds its
+    slice of ``W_hh`` at padded width ``hid`` with ``units`` x ``rows`` a
+    block within ``smem`` bytes: all of it where it fits (passes of 64
+    rows); else as many k16 steps as fit beside the exchange and the ring
+    (a multiple of the chunk), the rest streamed. The ring has 2 stages
+    where that leaves at most three chunks a step (the slice only just
+    misses: a stage more would stream a chunk more), else about
+    ``GRID_RING_BYTES`` (2 to ``GRID_MAX_STAGES`` stages). A streamed kernel
+    of a block of more than 64 rows takes passes of 128, where its kernels
+    have that variant: the forward's warpgroups split the rows (not the
+    contraction) and a pass reads the ring once for all of them; the
+    chain's warps take 4 m16 tiles up to 32 units. None where not even the
+    exchange and two stages fit."""
+    k16 = _grid_k16(kind, hid)
+    if grid_kernel_smem(kind, units, k16, 0) <= smem:
+        return GridSplit(k16, 0, 0)
+    chunk, step = GRID_CHUNK[kind], grid_kernel_smem(kind, units, 1, 0) - grid_kernel_smem(
+        kind, units, 0, 0)
+    wide = rows > GRID_PASS_ROWS and (kind == "fwd" or units <= 32)
+    pass_rows = 2 * GRID_PASS_ROWS if wide else GRID_PASS_ROWS
+
+    def resident(stages: int) -> int:
+        room = smem - grid_kernel_smem(kind, units, 0, stages, pass_rows)
+        return -1 if room < 0 else min(k16 - 1, room // step) // chunk * chunk
+
+    if resident(2) < 0:
+        return None
+    chunks = -(-(k16 - resident(2)) // chunk)
+    stages = 2 if chunks <= 3 else max(2, min(GRID_MAX_STAGES, GRID_RING_BYTES // _grid_chunk_bytes(
+        kind, units)))
+    if resident(stages) < 0:
+        stages = 2
+    kept = resident(stages)
+    return GridSplit(kept, -(-(k16 - kept) // chunk) * chunk, stages, pass_rows)
+
+
+def grid_stream_elems(kind: str, hid: int, plan: GridPlan) -> int:
+    """bf16 elements of the device copy of every block's streamed chunks of
+    ``kind`` for ``plan`` at padded width ``hid`` (0 where none is
+    streamed): 2 directions x unit tiles x chunks x a stage's bytes / 2."""
+    split = plan.fwd if kind == "fwd" else plan.chain
+    chunks = split.streamed // GRID_CHUNK[kind]
+    return 2 * -(-hid // plan.units) * chunks * _grid_chunk_bytes(kind, plan.units) // 2
+
+
+def _grid_rows(n: int, row_tiles: int) -> int:
+    """Batch rows a block: as many row tiles as the SMs hold, each at most
+    64 rows a pass, R a multiple of 16."""
+    rows = -(-n // min(row_tiles, -(-n // GRID_PASS_ROWS)))
+    return 16 * -(-rows // 16)
 
 
 def grid_plan(n: int, hid: int, sms: int = H100_SMS,
-              smem: int = H100_SMEM) -> tuple[int, int] | None:
+              smem: int = H100_SMEM) -> GridPlan | None:
     """The grid form's blocks for batch ``n`` and hidden size ``hid``
     (zero-padded to a multiple of 8) on a card of ``sms`` SMs whose blocks
-    may use ``smem`` bytes of shared memory: ``(U, R)``, hidden units and
-    batch rows a block (R a multiple of 16), or None where no block of
-    ``GRID_UNITS`` fits the card. The first U whose slice fits and whose
-    ``ceil(H/U)`` unit tiles leave room for both directions on the SMs,
-    then as many row tiles as the SMs hold (each block at most 64 rows a
-    pass); it depends on the width and the card only, and R on the batch
-    too. Shared by :func:`gru_route` and the wrappers, which hand it to the
-    C entries."""
+    may use ``smem`` bytes of shared memory, or None where it has none.
+    Up to ``GRID_RESIDENT_HIDDEN``: the first U of ``GRID_UNITS`` whose whole
+    slice fits and whose ``ceil(H/U)`` unit tiles leave room for both
+    directions on the SMs. Above: the least U, a multiple of 8 from 24 to
+    ``GRID_MAX_UNITS``, whose unit tiles leave that room and whose kernels
+    both split (:func:`grid_split`). Then as many row tiles as the SMs hold
+    (each block at most 64 rows a pass). It depends on the width and the
+    card only, and R on the batch too. Shared by :func:`gru_route` and the
+    wrappers, which hand it to the C entries."""
     hid += -hid % 8
-    for units in GRID_UNITS:
+    wide = hid > GRID_RESIDENT_HIDDEN
+    for units in range(24, GRID_MAX_UNITS + 1, 8) if wide else GRID_UNITS:
         tiles = -(-hid // units)
         row_tiles = sms // (2 * tiles)
-        if row_tiles < 1 or grid_smem(hid, units) > smem:
+        if row_tiles < 1:
             continue
-        rows = -(-n // min(row_tiles, -(-n // GRID_PASS_ROWS)))
-        return units, 16 * -(-rows // 16)
+        rows = _grid_rows(n, row_tiles)
+        if wide:
+            fwd, chain = (grid_split(kind, hid, units, smem, rows) for kind in ("fwd", "chain"))
+            if fwd is None or chain is None:
+                continue
+        elif grid_smem(hid, units) > smem:
+            continue
+        else:
+            fwd, chain = (GridSplit(_grid_k16(kind, hid), 0, 0) for kind in ("fwd", "chain"))
+        return GridPlan(units, rows, fwd, chain)
     return None
 
 
-GRID_MAX_HIDDEN = max(h for h in range(8, 2048, 8) if grid_plan(1, h) is not None)
+GRID_MAX_HIDDEN = max(h for h in range(8, 8192, 8) if grid_plan(1, h) is not None)
 """Widest hidden size, after padding to a multiple of 8, of the grid form
-on an H100 SXM, 1440: 24 units a block, whose ``[24][4328]`` bf16 slice of
-the chain's ``W_hh^T`` and its partial sums take 232,320 of the 232,448
-bytes (60 unit tiles; ``grid_plan`` gives None from 1448). 32 units fit up
-to 1072."""
+on an H100 SXM, 5280: 80 units a block (the forward's ``wgmma`` n = 240), 66
+unit tiles, 132 blocks; from 5288 ``grid_plan`` gives None (88 units would
+need n = 264)."""
 
 
 def gru_route(hid: int, dtype: torch.dtype = torch.float32) -> str:
@@ -185,8 +329,11 @@ def gru_route(hid: int, dtype: torch.dtype = torch.float32) -> str:
     MAX_HIDDEN``; else, with ``H`` zero-padded to the next multiple of 8,
     ``"wide"`` (``gru_wide.cu``'s persistent kernels) up to
     ``MAX_WIDE_HIDDEN``, ``"grid"`` (``gru_grid.cu``, bf16 only) up to
-    ``GRID_MAX_HIDDEN`` and ``"stepwise"`` (``gru_wide.cu``'s kernels of
-    one launch a step) above it, or above ``MAX_WIDE_HIDDEN`` in float32.
+    ``GRID_MAX_HIDDEN`` (5280 on an H100: 80 units a block, 66 unit tiles
+    of both directions on its 132 SMs, the forward's ``wgmma`` n = 240;
+    above ``GRID_RESIDENT_HIDDEN``, 1440, with part of ``W_hh`` streamed)
+    and ``"stepwise"`` (``gru_wide.cu``'s kernels of one launch a step)
+    above it, or above ``MAX_WIDE_HIDDEN`` in float32.
     A card that cannot hold :func:`grid_plan`'s blocks runs "stepwise"
     where this says "grid" (:func:`wide_form`)."""
     if hid < 1:
@@ -329,14 +476,15 @@ def _grid_lib() -> ctypes.CDLL:
     if lib.ocrs_gru_grid_fwd_bf16.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.ocrs_gru_grid_fwd_bf16.argtypes = [i] + [p] * 9 + [i] * 5 + [p]
-        lib.ocrs_gru_grid_chain_bf16.argtypes = [i] + [p] * 10 + [i, p] + [i] * 5 + [p]
+        ll = ctypes.c_longlong
+        lib.ocrs_gru_grid_fwd_bf16.argtypes = [i] + [p] * 10 + [ll] + [i] * 8 + [p]
+        lib.ocrs_gru_grid_chain_bf16.argtypes = [i] + [p] * 10 + [i, p, p, ll] + [i] * 8 + [p]
         lib.ocrs_gru_grid_limits.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
         for fn in (lib.ocrs_gru_grid_fwd_bf16, lib.ocrs_gru_grid_chain_bf16,
                    lib.ocrs_gru_grid_limits):
             fn.restype = i
-        lib.ocrs_gru_grid_smem.argtypes = [i, i, i]
-        lib.ocrs_gru_grid_smem.restype = ctypes.c_longlong
+        lib.ocrs_gru_grid_smem.argtypes = [i] * 5
+        lib.ocrs_gru_grid_smem.restype = ll
     return lib
 
 
@@ -355,12 +503,13 @@ def grid_limits(device: int = 0) -> tuple[int, int]:
     return _limits[device]
 
 
-def wide_form(n: int, hid: int, dtype: torch.dtype, device: int = 0) -> tuple[str, tuple | None]:
+def wide_form(n: int, hid: int, dtype: torch.dtype,
+              device: int = 0) -> tuple[str, GridPlan | None]:
     """The wide route's form for batch ``n``, padded width ``hid`` and
     ``dtype`` on CUDA device ``device``, chosen before any launch:
-    ``("persistent", None)`` up to ``MAX_WIDE_HIDDEN``; ``("grid", (U,
-    R))`` where :func:`gru_route` says "grid" and :func:`grid_plan` finds
-    blocks for this card; else ``("stepwise", None)``."""
+    ``("persistent", None)`` up to ``MAX_WIDE_HIDDEN``; ``("grid", plan)``
+    where :func:`gru_route` says "grid" and :func:`grid_plan` finds blocks
+    for this card; else ``("stepwise", None)``."""
     if hid <= MAX_WIDE_HIDDEN:
         return "persistent", None
     if gru_route(hid, dtype) == "grid":
@@ -378,6 +527,14 @@ def _grid_frag(n: int, k: int, dev) -> torch.Tensor:
     return torch.empty((2, 2, 16 * -(-n // 16), _round16(k)), device=dev, dtype=torch.bfloat16)
 
 
+def _grid_stream(kind: str, hid: int, plan: GridPlan, dev) -> tuple[torch.Tensor | None, int]:
+    """Scratch of the device copy of the streamed chunks of the grid form's
+    ``kind`` kernel (written by its C entry each call; None where the plan
+    streams none) and its length in elements."""
+    elems = grid_stream_elems(kind, hid, plan)
+    return (torch.empty((elems,), device=dev, dtype=torch.bfloat16) if elems else None), elems
+
+
 def _count_form(wrapper, form: str) -> None:
     wrapper.launches += 1
     wrapper.forms[form] += 1
@@ -391,7 +548,9 @@ def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
     width of the cluster route called here directly) ``gru_wide.cu``'s
     persistent kernel, one launch for all T steps; "grid" (bf16)
     ``gru_grid.cu``'s kernel, one cooperative launch, with the f32 state
-    and the step counters in scratch of the call's own; "stepwise" T
+    and the step counters in scratch of the call's own (above
+    ``GRID_RESIDENT_HIDDEN`` also one launch before it that lays out the
+    streamed part of ``W_hh``); "stepwise" T
     launches of ``gru_wide.cu``, one a step, with the f32 state in scratch
     of the call's own, ``[2, 2, N, H]``. For bf16 also the rounding of
     ``W_hh`` to bf16 values; a width that is not a multiple of 8 is
@@ -416,13 +575,14 @@ def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
     sfx = _build.SUFFIX[px_f.dtype]
     if form == "grid":
         lib = _grid_lib()
-        units, rows = plan
         hs = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
         frag = _grid_frag(n, hid, dev)
-        ctr = torch.empty((2 * -(-n // rows),), device=dev, dtype=torch.int32)
+        ctr = torch.empty((2 * -(-n // plan.rows),), device=dev, dtype=torch.int32)
+        wst, elems = _grid_stream("fwd", hid, plan, dev)
         rc = lib.ocrs_gru_grid_fwd_bf16(
             dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(hs), p(frag), p(ys_f), p(ys_b), p(ctr),
-            t_len, n, hid, units, rows, _build.stream_ptr(dev))
+            p(wst) if wst is not None else None, elems, t_len, n, hid, plan.units, plan.rows,
+            plan.fwd.resident, plan.fwd.stages, plan.fwd.pass_rows, _build.stream_ptr(dev))
     elif form == "persistent":
         lib = _wide_lib()
         rc = getattr(lib, f"ocrs_gru_wide_fwd{sfx}")(
@@ -589,6 +749,18 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_wide_lib() -> ctypes.CDLL:
+    lib = _build.load("gru_bwd_wide")
+    if lib.ocrs_gru_bwd_coef_wide_bf16.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.ocrs_gru_bwd_coef_wide_bf16.argtypes = [i] + [p] * 7 + [i, i, i, p]
+        lib.ocrs_gru_bwd_dw_wide_bf16.argtypes = [i] + [p] * 7 + [i, p, p, i, i, i, i, p]
+        for fn in (lib.ocrs_gru_bwd_coef_wide_bf16, lib.ocrs_gru_bwd_dw_wide_bf16):
+            fn.restype = i
+    return lib
+
+
 def wide_max_active_clusters(n: int, hid: int, device: int = 0,
                              dtype: torch.dtype = torch.float32) -> dict:
     """:func:`max_active_clusters` for the wide route's persistent kernels
@@ -687,9 +859,21 @@ def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out: dict | 
 gru_bwd.launches = 0
 
 
-def _dw_splits(t_len: int, n: int) -> int:
-    """Ranges of rows in the dW reduction: enough that every SM works."""
-    return max(1, min(DW_SPLITS, t_len * n // 512))
+def _dw_splits(t_len: int, n: int, hid: int = 0, bf16: bool = False) -> int:
+    """Ranges of rows in the dW reduction: enough that every SM works. The
+    bf16 phase above ``MAX_WIDE_HIDDEN`` (``gru_bwd_wide.cu``: 2 directions
+    x ceil(H/128) x (ceil(2H/192) + ceil(H/192)) output tiles a range, one
+    after another on the card's SMs) takes the count, up to ``DW_SPLITS``
+    and one a 512 rows, whose rounds of tiles waste least: the rounds'
+    share of a range plus 0.05 of a range's time for each partial that
+    ``dw_sum`` then reads (at T=257, N=128: 4 at H=1024, whose 272 tiles
+    leave the last of 3 rounds 6% full in one range; 2 at 1448; 1 at
+    2048, whose 1056 tiles are 8 whole rounds)."""
+    most = max(1, min(DW_SPLITS, t_len * n // 512))
+    if not (bf16 and hid > MAX_WIDE_HIDDEN):
+        return most
+    tiles = 2 * -(-hid // 128) * (-(-2 * hid // 192) + -(-hid // 192))
+    return min(range(1, most + 1), key=lambda s: -(-tiles * s // H100_SMS) / s + 0.05 * s)
 
 
 def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
@@ -700,11 +884,15 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     picks (bf16 also writes ``bf16(dhn)`` and ``db``'s partials, one per
     batch tile of the chain's rows per block), then ``gru_bwd.cu``'s dW
     reduction and sum (two launches), in three ctypes calls, plus for bf16
-    the rounding of ``W_hh``. The chain: up to ``MAX_WIDE_HIDDEN`` after
-    padding ``gru_wide.cu``'s persistent kernel, one launch: 4 launches a
-    call; "grid" (bf16) ``gru_grid.cu``'s chain, one cooperative launch, its
-    ``dht * z`` and step counters in scratch of the call's own: 4 launches;
-    "stepwise" T launches of ``gru_wide.cu``, one a step, its state in
+    the rounding of ``W_hh`` (bf16 above ``MAX_WIDE_HIDDEN``: the
+    coefficients and the dW reduction are ``gru_bwd_wide.cu``'s, on
+    ``wgmma``, reading the first cast's bf16 ``W_hh``). The chain: up to
+    ``MAX_WIDE_HIDDEN`` after padding ``gru_wide.cu``'s persistent kernel,
+    one launch: 4 launches a call; "grid" (bf16) ``gru_grid.cu``'s chain,
+    one cooperative launch, its ``dht * z`` and step counters in scratch of
+    the call's own: 4 launches (5 above ``GRID_RESIDENT_HIDDEN``, whose
+    streamed part of ``W_hh`` is laid out first); "stepwise" T launches of
+    ``gru_wide.cu``, one a step, its state in
     scratch of the call's own, and the copy of ``W_hh^T``: T + 4. A width
     that is not a multiple of 8 is zero-padded first (exact, see
     :func:`_pad_gates`). A failed launch raises. A CPU tensor goes through
@@ -734,14 +922,24 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     sfx = _build.SUFFIX[dt]
     stream = _build.stream_ptr(dev)
     p = _build.ptr
-    w = _build.rounded(w_hh, dt).contiguous()
+    # The bf16 phases above MAX_WIDE_HIDDEN (gru_bwd_wide.cu) read W_hh in
+    # bf16 itself: the first of the rounding's two casts.
+    tensor_cores = bf16 and hid > MAX_WIDE_HIDDEN
+    w16 = w_hh.to(torch.bfloat16) if bf16 else None
+    w = (w16.float() if bf16 else w_hh).contiguous()
     bwd, wide = _bwd_lib(), _wide_lib()
+    phases = _bwd_wide_lib() if tensor_cores else bwd
 
     coef = torch.empty((2, t_len * n, 5, hid), device=dev, dtype=torch.float32)
-    rc = getattr(bwd, f"ocrs_gru_bwd_coef{sfx}")(
-        dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w), p(b_hh), p(coef), t_len, n, hid,
-        stream)
-    _build.check(bwd, rc, "gru_wide_bwd (coef)")
+    if tensor_cores:
+        rc = phases.ocrs_gru_bwd_coef_wide_bf16(
+            dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w16), p(b_hh), p(coef), t_len, n,
+            hid, stream)
+    else:
+        rc = getattr(bwd, f"ocrs_gru_bwd_coef{sfx}")(
+            dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w), p(b_hh), p(coef), t_len, n, hid,
+            stream)
+    _build.check(phases, rc, "gru_wide_bwd (coef)")
 
     dpx_f = torch.empty_like(px_f)
     dpx_b = torch.empty_like(px_b)
@@ -752,13 +950,13 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     if form == "stepwise":  # the per-step chain's operand and state
         w_t = w.transpose(1, 2).contiguous()
         dph = torch.empty((2, 2, n, h3), device=dev, dtype=torch.float32)
-    splits = _dw_splits(t_len, n)
+    splits = _dw_splits(t_len, n, hid, bf16)
     dwp = torch.empty((splits, 2, hid, h3), device=dev, dtype=torch.float32)
     dw = torch.empty_like(w_hh)
     db = torch.empty_like(b_hh)
     if bf16:
         rows = (_wide_report("chain", n, hid, dev.index, dt)["rows_per_block"] if persistent
-                else plan[1] if form == "grid" else wide.ocrs_gru_wide_stepwise_rows())
+                else plan.rows if form == "grid" else wide.ocrs_gru_wide_stepwise_rows())
         tiles = -(-n // rows)
         dhn = torch.empty((2, t_len, n, hid), device=dev, dtype=torch.bfloat16)
         dbp = torch.empty((tiles, 2, h3), device=dev, dtype=torch.float32)
@@ -767,9 +965,12 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
             chain = _grid_lib()
             frag = _grid_frag(n, h3, dev)
             ctr = torch.empty((2 * tiles,), device=dev, dtype=torch.int32)
+            wst, elems = _grid_stream("chain", hid, plan, dev)
             rc = chain.ocrs_gru_grid_chain_bf16(
                 dev.index, p(dy_f), p(dy_b), p(w), p(coef), p(carry), p(frag), p(dpx_f), p(dpx_b),
-                p(dhn), p(dbp), tiles, p(ctr), t_len, n, hid, plan[0], rows, stream)
+                p(dhn), p(dbp), tiles, p(ctr), p(wst) if wst is not None else None, elems,
+                t_len, n, hid, plan.units, rows, plan.chain.resident, plan.chain.stages,
+                plan.chain.pass_rows, stream)
         elif persistent:
             rc = wide.ocrs_gru_wide_chain_bf16(
                 dev.index, p(dy_f), p(dy_b), p(w), p(coef), p(dpx_f), p(dpx_b), p(dhn), p(dbp),
@@ -779,7 +980,7 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
                 dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f),
                 p(dpx_b), p(dhn), p(dbp), t_len, n, hid, stream)
         _build.check(chain, rc, f"gru_wide_bwd (chain, {form})")
-        rc = bwd.ocrs_gru_bwd_dw_bf16(
+        rc = (phases.ocrs_gru_bwd_dw_wide_bf16 if tensor_cores else bwd.ocrs_gru_bwd_dw_bf16)(
             dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(dhn), p(dwp), p(dbp), tiles,
             p(dw), p(db), splits, t_len, n, hid, stream)
         if scratch_out is not None:
@@ -798,7 +999,7 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
         rc = bwd.ocrs_gru_bwd_dw(
             dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(coef), p(dwp), p(dbp), p(dw),
             p(db), splits, t_len, n, hid, stream)
-    _build.check(bwd, rc, "gru_wide_bwd (dw)")
+    _build.check(phases, rc, "gru_wide_bwd (dw)")
     _count_form(gru_wide_bwd, form)
     return dpx_f, dpx_b, dw, db
 

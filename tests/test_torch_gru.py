@@ -25,15 +25,20 @@ from ocrs_models_torch.ops import (
     gru_route,
 )
 from ocrs_models_torch.ops.gru import (
+    GRID_CHUNK,
     GRID_MAX_HIDDEN,
+    GRID_MAX_UNITS,
+    GRID_RESIDENT_HIDDEN,
     GRID_UNITS,
     H100_SMEM,
     H100_SMS,
     MAX_HIDDEN,
     MAX_WIDE_HIDDEN,
+    GridSplit,
     _pad_gates,
     _pad_w,
     _unpad_gates,
+    grid_kernel_smem,
     grid_plan,
     grid_smem,
 )
@@ -188,43 +193,73 @@ def test_gru_route_in_bf16():
     # bf16 keeps the cluster and persistent wide answers; above 512 (after
     # padding to a multiple of 8) it takes the grid form (gru_grid.cu) up
     # to GRID_MAX_HIDDEN, the widest width grid_plan finds blocks for on an
-    # H100 (1440), and the per-step form above it. f32 keeps its answers
-    # (test_gru_route).
+    # H100 (5280: 80 units a block; above GRID_RESIDENT_HIDDEN, 1440, with
+    # part of W_hh streamed), and the per-step form above it. f32 keeps its
+    # answers (test_gru_route).
     bf16 = torch.bfloat16
-    assert GRID_MAX_HIDDEN == 1440
+    assert GRID_RESIDENT_HIDDEN == 1440 and GRID_MAX_HIDDEN == 5280
     assert [gru_route(h, bf16) for h in (8, 256, 12, 264, 512)] == ["cluster"] * 2 + ["wide"] * 3
-    grid = (513, 520, 1000, 1024, 1056, 1064, 1401, GRID_MAX_HIDDEN)
+    grid = (513, 520, 1000, 1024, 1056, 1064, 1401, 1440, 1441, 1448, 1451, 2048, 4096,
+            GRID_MAX_HIDDEN)
     assert [gru_route(h, bf16) for h in grid] == ["grid"] * len(grid)
-    assert [gru_route(h, bf16) for h in (GRID_MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 8, 2048)] == [
+    assert [gru_route(h, bf16) for h in (GRID_MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 8, 8192)] == [
         "stepwise"] * 3
-    assert [gru_route(h, torch.float32) for h in (520, 1024, GRID_MAX_HIDDEN)] == ["stepwise"] * 3
+    assert [gru_route(h, torch.float32) for h in (520, 1024, 1448, GRID_MAX_HIDDEN)] == [
+        "stepwise"] * 4
 
 
 @pytest.mark.parametrize("n,rows_at_1024", [(1, 16), (3, 16), (128, 64), (256, 128), (259, 144)])
 def test_grid_plan_fits_an_h100_up_to_its_widest_width(n, rows_at_1024):
     # The grid form's plan at every padded width from 520 to
-    # GRID_MAX_HIDDEN: U of GRID_UNITS, R a multiple of 16 that covers the
-    # batch in at most as many row tiles as the SMs hold, the W slice beside
-    # the ring within the 227 KB (232,448 bytes) a block may use, and both
-    # directions' blocks (one a co-resident SM each) within the 132 SMs.
-    # Above GRID_MAX_HIDDEN no block fits: None.
-    for h in range(520, GRID_MAX_HIDDEN + 1, 8):
-        units, rows = grid_plan(n, h)
+    # GRID_RESIDENT_HIDDEN: U of GRID_UNITS, R a multiple of 16 that covers
+    # the batch in at most as many row tiles as the SMs hold, the whole W
+    # slice beside the exchange within the 227 KB (232,448 bytes) a block
+    # may use, and both directions' blocks (one a co-resident SM each)
+    # within the 132 SMs.
+    for h in range(520, GRID_RESIDENT_HIDDEN + 1, 8):
+        units, rows, fwd, chain = grid_plan(n, h)
         assert units in GRID_UNITS and rows % 16 == 0 and rows >= 16, h
         assert rows - 16 < -(-n // -(-n // rows)), h  # no more than 15 rows of padding a tile
         assert grid_smem(h, units) <= H100_SMEM, h
         assert 2 * -(-h // units) * -(-n // rows) <= H100_SMS, h
-        assert grid_plan(n, h - 7) == (units, rows)  # the width padded to a multiple of 8
+        assert grid_plan(n, h - 7) == (units, rows, fwd, chain)  # the width padded to a multiple of 8
+        assert fwd == GridSplit(-(-h // 16), 0, 0) and chain == GridSplit(-(-3 * h // 16), 0, 0), h
     # H=1024: 32 unit tiles, two row tiles where the batch needs them.
-    assert grid_plan(n, 1024) == (32, rows_at_1024)
-    assert grid_plan(n, GRID_MAX_HIDDEN)[0] == 24
-    assert grid_smem(GRID_MAX_HIDDEN, 24) == 232320
+    assert grid_plan(n, 1024)[:2] == (32, rows_at_1024)
+    assert grid_plan(n, GRID_RESIDENT_HIDDEN)[0] == 24
+    assert grid_smem(GRID_RESIDENT_HIDDEN, 24) == 232320
+    # Above: the least U, a multiple of 8, whose blocks fit the SMs, 3U <=
+    # 256 (the forward's wgmma), each kernel's resident k16 steps (a whole
+    # number of chunks) beside its ring and exchange within the 227 KB,
+    # and the streamed chunks covering the rest of the contraction (zero
+    # past it), at every padded width up to GRID_MAX_HIDDEN.
+    for h in range(GRID_RESIDENT_HIDDEN + 8, GRID_MAX_HIDDEN + 1, 8):
+        units, rows, *splits = plan = grid_plan(n, h)
+        tiles = -(-h // units)
+        assert units % 8 == 0 and 24 <= units <= GRID_MAX_UNITS and 3 * units <= 256, h
+        assert 2 * tiles * -(-n // rows) <= H100_SMS, h
+        assert units == 24 or 2 * -(-h // (units - 8)) > H100_SMS, h
+        assert rows % 16 == 0 and rows - 16 < -(-n // -(-n // rows)), h
+        for kind, split in zip(("fwd", "chain"), splits):
+            k16 = -(-(h if kind == "fwd" else 3 * h) // 16)
+            assert grid_kernel_smem(kind, units, split.resident, split.stages,
+                                    split.pass_rows) <= H100_SMEM, h
+            assert split.pass_rows == 64 or (split.streamed and rows > 64), h
+            if split.streamed:
+                chunk = GRID_CHUNK[kind]
+                assert split.resident % chunk == 0 and split.streamed % chunk == 0, h
+                assert split.resident + split.streamed - chunk < k16 <= split.resident + split.streamed, h
+                assert 2 <= split.stages <= 8, h
+            else:
+                assert split == GridSplit(k16, 0, 0), h
+        assert grid_plan(n, h - 7) == plan, h
+    assert [grid_plan(n, h)[0] for h in (1448, 2048, 4096, GRID_MAX_HIDDEN)] == [24, 32, 64, 80]
     for h in range(GRID_MAX_HIDDEN + 8, GRID_MAX_HIDDEN + 200, 8):
         assert grid_plan(n, h) is None, h
     # A card with fewer SMs or less shared memory gets a plan that fits it,
     # or none.
-    assert grid_plan(n, 1024, sms=66) == (32, 16 * -(-n // 16))
-    assert grid_plan(n, 1024, smem=200_000) == (24, 16 * -(-n // 16))
+    assert grid_plan(n, 1024, sms=66)[:2] == (32, 16 * -(-n // 16))
+    assert grid_plan(n, 1024, smem=200_000)[:2] == (24, 16 * -(-n // 16))
     assert grid_plan(n, 1024, sms=60) is None
 
 
@@ -259,11 +294,12 @@ def test_zero_padded_recurrence_equals_the_unpadded_one(h):
         torch.testing.assert_close(g, a, rtol=0, atol=1e-12, msg=name)
 
 
-@pytest.mark.parametrize("h", [12, 264, 320, 520])
+@pytest.mark.parametrize("h", [12, 264, 320, 520, 1451])
 def test_recurrence_matches_pallas_bf16_at_wide_widths(h):
     # bf16 compute (the Pallas kernel's default) at the wide route's
     # widths (520: the grid form's, gru_grid.cu, whose twins on the card
-    # are these plain versions), against gru_recurrence4(..., jnp.bfloat16, True) in interpret
+    # are these plain versions; 1451: its streamed plans', padded to 1456,
+    # and gru_bwd_wide.cu's), against gru_recurrence4(..., jnp.bfloat16, True) in interpret
     # mode on the same bf16 inputs. Tolerances: ys 1e-2 and dpx 2e-2, as
     # tests/test_torch_bf16.py states them at H=32 (a rounding of h that
     # flips feeds the next steps); dW and db 1e-3 of their largest entry,
