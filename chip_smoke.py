@@ -264,7 +264,12 @@ REC_BATCH = 128
 BUCKET_WIDTHS = (256, 512, 768, 800)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+# float32 products on the tensor cores as error-compensated TF32 (3xTF32:
+# three TF32 products, 495 TFLOP/s dense on the H100 SXM, for each f32 one)
+TF32X3_FLOPS_PER_S = 495e12 / 3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, bf16 dense on the tensor cores
+_PEAK_NAMES = {F32_FLOPS_PER_S: "f32 FMA 67 TFLOP/s", TF32X3_FLOPS_PER_S: "3xTF32 165 TFLOP/s",
+               BF16_FLOPS_PER_S: "bf16 989 TFLOP/s"}
 PROFILE_CALLS = 10  # calls per profiler window
 BF16 = torch.bfloat16
 
@@ -370,8 +375,14 @@ def _bound(n_bytes: float, n_flops: float, flops_per_s: float = F32_FLOPS_PER_S
            ) -> tuple[float, str]:
     """The least time in ms for the work: bytes over the memory rate or
     operations over the peak rate of their type, whichever is longer."""
+    return _bound_parts(n_bytes, ((n_flops, flops_per_s),))
+
+
+def _bound_parts(n_bytes: float, parts) -> tuple[float, str]:
+    """:func:`_bound` for work whose products run on different pipes one
+    after another: ``parts`` holds (operations, peak rate) of each."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / flops_per_s * 1e3
+    t_ops = sum(n_flops / flops_per_s for n_flops, flops_per_s in parts) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -786,8 +797,10 @@ def check_gru_bwd(dev, gen) -> dict:
         h3 = 3 * hid
         n_bytes = 4 * (2 * t_len * n * h3 * 2 + 2 * t_len * n * hid * 2
                        + 2 * 2 * hid * h3 + 2 * 2 * h3)
-        n_flops = 2 * 3 * 2 * t_len * n * hid * h3
-        bound_ms, bound_by = _bound(n_bytes, n_flops)
+        # The chain's product on the FMA pipes, coef's and dw's in 3xTF32.
+        n_flops = 2 * 2 * t_len * n * hid * h3
+        bound_ms, bound_by = _bound_parts(
+            n_bytes, ((n_flops, F32_FLOPS_PER_S), (2 * n_flops, TF32X3_FLOPS_PER_S)))
         out[t_len] = dict(err=max(err_dpx, err_dw), ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                           us_per_step=1e3 * ms / t_len, device_launches_per_call=launches,
@@ -3308,6 +3321,7 @@ WIDE_T = 257  # phase 18 (a): the wide training bucket's steps (1024 // 4 + 1), 
 WIDE_STEPS = 3  # phase 18 (b): steps held against the plain step
 STEPWISE_SHAPE = (9, REC_BATCH, 1024)  # phase 18 (a): (T, N, H) of the per-step/grid forms' check
 GRID_HIDDEN = 1024  # phase 18 (a), (d): the grid form's width (all of W resident), timed and trained
+STEPWISE_F32_HIDDEN = 1064  # phase 18 (a): f32 above the f32 grid form (GRID_F32_MAX_HIDDEN + 8)
 GRID_STREAMED_HIDDEN = (1448, 2048)  # phase 18 (a): the grid form with W_hh partly streamed, timed
 GRID_TRAIN_HIDDEN = 2048  # phase 18 (e): the recognizer trained in the streamed grid form
 
@@ -3329,14 +3343,15 @@ def _wide_device_ms(times: dict, t_len: int, backward: bool) -> float | None:
     kernel, each times its launches a call: the recurrence kernel once in
     the persistent form (``gru_wide_fwd_kernel``, ``gru_wide_bwd_chain_kernel``
     and their bf16 twins) and in the grid form (``gru_grid_fwd_kernel``,
-    ``gru_grid_chain_kernel``, and where W_hh is streamed the layout of its
-    chunks, ``gru_grid_stream_layout_kernel``), T times in the per-step form
+    ``gru_grid_chain_kernel``, in f32 ``gru_grid_f32_fwd_kernel`` and
+    ``gru_grid_f32_chain_kernel``, and where W_hh is streamed the layout of
+    its chunks, ``gru_grid_stream_layout_kernel``), T times in the per-step form
     (``*_step_kernel``), and for the backward ``gru_bwd.cu``'s ``coef``,
     ``dw`` and ``dw_sum`` once each."""
     if not times:
         return None
-    parts = ("gru_wide_bwd_chain", "gru_grid_chain") if backward else ("gru_wide_fwd",
-                                                                       "gru_grid_fwd")
+    parts = (("gru_wide_bwd_chain", "gru_grid_chain", "gru_grid_f32_chain") if backward
+             else ("gru_wide_fwd", "gru_grid_fwd", "gru_grid_f32_fwd"))
     # The streamed grid plans' layout of W's streamed chunks, one a call.
     parts += ("gru_grid_stream",)
     found = {name: ms for name, ms in times.items() if any(part in name for part in parts)}
@@ -3423,6 +3438,14 @@ def _wide_ok(errors: dict, bf16: bool, min_equal: float = 0.0) -> bool:
             and errors["dw"] <= 1e-4 * errors["dw_max"])
 
 
+def _streamed(plan) -> bool:
+    """Whether a grid plan streams part of W_hh (bf16 plans above
+    GRID_RESIDENT_HIDDEN; the f32 plan keeps all of it resident)."""
+    from ocrs_models_torch.ops.gru import GridPlan
+
+    return isinstance(plan, GridPlan) and plan.fwd.streamed > 0
+
+
 def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) -> dict:
     """``gru_fwd`` and ``gru_bwd`` on the wide route at (T, N, H) against
     the plain versions (phase 18 (a)'s tolerances), reruns bit-identical,
@@ -3435,7 +3458,7 @@ def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) ->
     bf16 = dtype == BF16
     form, plan = wide_form(n, hid + -hid % 8, dtype, dev.index)
     one_launch = form != "stepwise"
-    streamed = plan is not None and plan.fwd.streamed > 0
+    streamed = _streamed(plan)
     px_f, px_b, dy_f, dy_b, w_hh, b_hh = _wide_operands(gen, dev, t_len, n, hid, dtype)
     ys = _wide_call(gru_fwd, (px_f, px_b, w_hh, b_hh), "gru_wide_fwd", form)
     again = gru_fwd(px_f, px_b, w_hh, b_hh)
@@ -3483,7 +3506,8 @@ def _phase_ms(times: dict, t_len: int, backward: bool) -> dict | None:
     stream = [ms for name, ms in times.items() if "gru_grid_stream" in name]
     if stream:
         out["layout"] = sum(stream)
-    rec = ("gru_wide_bwd_chain", "gru_grid_chain") if backward else ("gru_wide_fwd", "gru_grid_fwd")
+    rec = (("gru_wide_bwd_chain", "gru_grid_chain", "gru_grid_f32_chain") if backward
+           else ("gru_wide_fwd", "gru_grid_fwd", "gru_grid_f32_fwd"))
     out["chain" if backward else "fwd"] = sum(
         ms * (t_len if "_step_kernel" in name else 1) for name, ms in times.items()
         if any(part in name for part in rec))
@@ -3508,8 +3532,11 @@ def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype,
     (CUDA events, the device's records, by phase), beside the plain
     versions, cuDNN's ``nn.GRU(128, hid)`` and the bound: bytes (px and ys,
     and dy and dpx for the backward, in the dtype; the f32 weights) over
-    3.35 TB/s, or the recurrent products (three for the backward) over the
-    dtype's peak; with ``stepwise_too`` also the per-step form's time on
+    3.35 TB/s, or the recurrent products (three for the backward) each
+    over the peak of the pipes its kernel runs it on (``bound_peaks``):
+    bf16 on the tensor cores; in f32 the recurrence on the FMA pipes, or
+    in 3xTF32 in the f32 grid form, and the backward's coef and dw in
+    3xTF32 (``gru_bwd.cu``); with ``stepwise_too`` also the per-step form's time on
     the same inputs (``gru_fwd``/``gru_bwd`` with ``wide_form`` answering
     "stepwise" for the call, where the grid form runs). Returns the
     forward's and the backward's numbers."""
@@ -3520,8 +3547,16 @@ def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype,
         gru_recurrence_reference,
     )
 
+    from ocrs_models_torch.ops.gru import GridF32Plan, wide_form
+
     px_f, px_b, w_hh, b_hh, args = inputs
     bf16 = dtype == BF16
+    if bf16:
+        rec_peak = other_peak = BF16_FLOPS_PER_S
+    else:
+        grid = isinstance(wide_form(n, hid + -hid % 8, dtype, dev.index)[1], GridF32Plan)
+        rec_peak, other_peak = (TF32X3_FLOPS_PER_S if grid else F32_FLOPS_PER_S,
+                                TF32X3_FLOPS_PER_S)
     h3 = 3 * hid
     size = 2 if bf16 else 4
     weights = 4 * (2 * hid * h3 + 2 * h3)
@@ -3541,13 +3576,15 @@ def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype,
         with _no_tf32():
             library_ms = _cuda_time_ms(
                 _cudnn_gru(dev, gen, t_len, n, hid, dtype, backward), iters=5)
-        bound_ms, bound_by = _bound(io_bytes * (2 if backward else 1)
-                                    + weights * (2 if backward else 1),
-                                    flops * (3 if backward else 1),
-                                    BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S)
+        parts = ((flops, rec_peak), *(((2 * flops, other_peak),) if backward else ()))
+        bound_ms, bound_by = _bound_parts(io_bytes * (2 if backward else 1)
+                                          + weights * (2 if backward else 1), parts)
+        peaks = ", ".join(f"{_PEAK_NAMES[rate]} ({what})" for (_, rate), what in
+                          zip(parts, ("recurrence", "coef and dw")))
         device_ms = _wide_device_ms(times, t_len, backward)
         timed = {"shape": f"T={t_len}, N={n}, H={hid}", "ms": ms, "device_ms": device_ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "bound_peaks": peaks,
                  "library_ms": library_ms, "us_per_step": 1e3 * ms / t_len,
                  "device_launches_per_call": launches,
                  "split_ms": _phase_ms(times, t_len, backward)}
@@ -3557,7 +3594,7 @@ def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype,
               f"device {_fmt(device_ms)} ms, {timed['us_per_step']:.3f} us per step, "
               f"{launches:g} device launches per call, by phase {timed['split_ms']}; plain "
               f"{plain_ms:.3f} ms, cuDNN {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})" + (f"; the per-step form {timed['stepwise_ms']:.4f} ms"
+              f"({bound_by}; {peaks})" + (f"; the per-step form {timed['stepwise_ms']:.4f} ms"
                                  if stepwise_too else ""), flush=True)
         out.append(timed)
     return out[0], out[1]
@@ -3573,15 +3610,17 @@ def check_gru_wide(dev, gen) -> list[dict]:
     them equal, dW and db 1e-3 of their largest entry. Reruns
     bit-identical, device launches a call asserted. Timed at H=512 against
     the plain versions and cuDNN's ``nn.GRU``, with the launch's rows per
-    block and clusters. Above 512: the grid form (bf16, ``gru_grid.cu``)
-    held the same way at STEPWISE_SHAPE, then gated (equal shares at
-    ``_wide_min_equal``) and timed at T=257, N=128, H=GRID_HIDDEN (the
-    kernels rows' ``grid`` entries) and at each width of
-    GRID_STREAMED_HIDDEN, where W_hh is partly streamed (the
-    ``grid_streamed`` entries, the per-step form timed beside on the same
-    inputs); the per-step form the same way in f32 at STEPWISE_SHAPE, then
-    timed at T=257, N=128, and in bf16 held at GRID_MAX_HIDDEN + 8 (the
-    ``stepwise`` entries). Returns the kernels line's rows."""
+    block and clusters. Above 512: the grid form (``gru_grid.cu`` in bf16,
+    ``gru_grid_f32.cu`` in f32) held the same way at STEPWISE_SHAPE, then
+    gated (bf16 equal shares at ``_wide_min_equal``) and timed at T=257,
+    N=128, H=GRID_HIDDEN (the kernels rows' ``grid`` entries; in f32 the
+    per-step form timed beside on the same inputs) and in bf16 at each
+    width of GRID_STREAMED_HIDDEN, where W_hh is partly streamed (the
+    ``grid_streamed`` entries, the per-step form timed beside); the
+    per-step form held at T=9 above each dtype's widest grid width,
+    STEPWISE_F32_HIDDEN and GRID_MAX_HIDDEN + 8, this one (bf16) also gated
+    and timed at T=257, N=128 (the ``stepwise`` entries). Returns the
+    kernels line's rows."""
     from ocrs_models_torch.ops import gru_route
     from ocrs_models_torch.ops.gru import GRID_MAX_HIDDEN, wide_max_active_clusters
 
@@ -3622,34 +3661,37 @@ def check_gru_wide(dev, gen) -> list[dict]:
             rows.append(row)
         del inputs, got
         torch.cuda.empty_cache()
-        # Above 512: the grid form in bf16 (held at STEPWISE_SHAPE, then
-        # at the wide bucket's T=257, N=128, gated and timed: H=GRID_HIDDEN
-        # and the streamed plans' GRID_STREAMED_HIDDEN, these beside the
-        # per-step form); the per-step form in f32 at GRID_HIDDEN, held at
-        # T=9, then timed at T=257, N=128, and in bf16 above the grid
-        # form's widest width, held at T=9 (its errors gated at the
-        # tolerances above, bf16 without an equal share: printed).
-        t_s, n_s, h_s = STEPWISE_SHAPE
+        # Above 512: the grid form (held at STEPWISE_SHAPE, then at the
+        # wide bucket's T=257, N=128, gated and timed: H=GRID_HIDDEN in
+        # both dtypes, f32 beside the per-step form, and in bf16 the
+        # streamed plans' GRID_STREAMED_HIDDEN, these beside the per-step
+        # form too); the per-step form above each dtype's widest grid
+        # width, held at T=9 (its errors gated at the tolerances above,
+        # bf16 without an equal share: printed), and in bf16 (5288) also
+        # gated and timed at T=257, N=128 beside cuDNN.
+        t_s, n_s, _ = STEPWISE_SHAPE
         forms = ((("grid", GRID_HIDDEN), *(("grid", h) for h in GRID_STREAMED_HIDDEN),
-                  ("stepwise", GRID_MAX_HIDDEN + 8)) if bf16 else (("stepwise", h_s),))
+                  ("stepwise", GRID_MAX_HIDDEN + 8)) if bf16 else
+                 (("grid", GRID_HIDDEN), ("stepwise", STEPWISE_F32_HIDDEN)))
         for form, hid in forms:
             if gru_route(hid, dtype) != form:
                 raise AssertionError(f"H={hid} {tag} does not take the wide route's {form} form")
             got = _check_wide_case(dev, gen, t_s, n_s, hid, dtype, tag)
             del got["inputs"]
             torch.cuda.empty_cache()
-            if bf16 and form == "stepwise":  # held, not timed: its times beside the streamed plans'
+            if form == "stepwise":
                 for row, name in zip((fwd, bwd), ("fwd", "bwd")):
                     row[form] = {"form": form, "route": "cuda",
                                  "source": "ocrs_models_torch/csrc/gru_wide.cu",
                                  "checked": f"T={t_s}, N={n_s}, H={hid}", **got[name]}
-                continue
+                if not bf16:  # f32: its times at GRID_HIDDEN beside the grid form's
+                    continue
             subs = _wide_sub_rows(dev, gen, t_len, n, hid, dtype, tag, form)
             for row, sub in zip((fwd, bwd), subs):
                 if hid in GRID_STREAMED_HIDDEN:
                     row.setdefault("grid_streamed", {})[hid] = sub
                 else:
-                    row[form] = sub
+                    row[form] = {**row.get(form, {}), **sub}
             torch.cuda.empty_cache()
     return rows
 
@@ -3667,8 +3709,8 @@ def _wide_sub_rows(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str,
     px_f, px_b, dy_f, dy_b, w_hh, b_hh = _wide_operands(gen, dev, t_len, n, hid, dtype)
     ys = _wide_call(gru_fwd, (px_f, px_b, w_hh, b_hh), "gru_wide_fwd", form)
     args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
-    errors = _wide_errors(ys, gru_recurrence_reference(px_f, px_b, w_hh, b_hh),
-                          _wide_call(gru_bwd, args, "gru_wide_bwd", form), gru_bwd_reference(*args))
+    want = (gru_recurrence_reference(px_f, px_b, w_hh, b_hh), gru_bwd_reference(*args))
+    errors = _wide_errors(ys, want[0], _wide_call(gru_bwd, args, "gru_wide_bwd", form), want[1])
     inputs = (px_f, px_b, w_hh, b_hh, args)
     del ys, px_f, px_b, dy_f, dy_b, w_hh, b_hh, args
     print(f"gru wide {form} {tag} [T={t_len},N={n},H={hid}]: {json.dumps(errors)}", flush=True)
@@ -3676,29 +3718,54 @@ def _wide_sub_rows(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str,
     if not _wide_ok(errors, bf16, min_equal):
         raise AssertionError(f"the wide route's {form} form at H={hid}, T={t_len} disagrees with "
                              f"the plain versions: {errors}")
-    place = {"form": form, "route": "cuda", "source": "ocrs_models_torch/csrc/"
-             + ("gru_grid.cu" if form == "grid" else "gru_wide.cu")}
+    source = "gru_wide.cu" if form != "grid" else "gru_grid.cu" if bf16 else "gru_grid_f32.cu"
+    place = {"form": form, "route": "cuda", "source": "ocrs_models_torch/csrc/" + source}
     streamed = False
     if form == "grid":
         plan = wide_form(n, hid, dtype, dev.index)[1]
-        streamed = plan.fwd.streamed > 0
+        streamed = _streamed(plan)
         place.update(units_per_block=plan.units, rows_per_block=plan.rows,
-                     blocks=2 * -(-hid // plan.units) * -(-n // plan.rows),
-                     w_split={"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()})
-        print(f"gru wide grid {tag} [N={n},H={hid}]: {plan.units} units x {plan.rows} rows a "
-              f"block, {place['blocks']} blocks in one cooperative launch; W_hh's k16 steps "
-              f"resident, streamed, ring stages: {place['w_split']}", flush=True)
-        if hid > 512:
+                     blocks=2 * -(-hid // plan.units) * -(-n // plan.rows))
+        if bf16:
+            place["w_split"] = {"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()}
             place["also"] = "ocrs_models_torch/csrc/gru_bwd_wide.cu (coef, dw, dw_sum)"
+            layout = f"W_hh's k16 steps resident, streamed, ring stages: {place['w_split']}"
+        else:
+            place["ring_stages"] = plan.stages
+            place["also"] = "ocrs_models_torch/csrc/gru_bwd.cu (coef, dw, dw_sum)"
+            layout = f"all of W_hh resident, {plan.stages} ring stages of the A operand"
+        print(f"gru wide grid {tag} [N={n},H={hid}]: {plan.units} units x {plan.rows} rows a "
+              f"block, {place['blocks']} blocks in one cooperative launch; {layout}", flush=True)
     out = []
+    # The per-step form beside the grid form where it is the form the grid
+    # replaced at this width (f32), or where W_hh is streamed (bf16): held
+    # on the same inputs at the per-step form's tolerances, then timed.
+    beside = streamed or (form == "grid" and not bf16)
+    if beside:
+        px_f, px_b, w_hh, b_hh, args = inputs
+        stepwise = _wide_errors(_per_step(lambda: gru_fwd(px_f, px_b, w_hh, b_hh))(), want[0],
+                                _per_step(lambda: gru_bwd(*args))(), want[1])
+        del px_f, px_b, w_hh, b_hh, args
+        print(f"gru wide stepwise {tag} [T={t_len},N={n},H={hid}]: {json.dumps(stepwise)}",
+              flush=True)
+        if not _wide_ok(stepwise, bf16, 0.0):
+            raise AssertionError(f"the wide route's stepwise form at H={hid}, T={t_len} "
+                                 f"disagrees with the plain versions: {stepwise}")
+    del want
     for name, timed in zip(("fwd", "bwd"), _time_wide(dev, gen, inputs, t_len, n, hid, dtype,
-                                                      stepwise_too=streamed)):
+                                                      stepwise_too=beside)):
         errs = ({"max_abs_err": errors["ys"]} if name == "fwd" else
                 {"max_abs_err": errors["dpx"], "max_abs_err_dpx": errors["dpx"],
                  "max_abs_err_dw": errors["dw"], "dw_max": errors["dw_max"]})
         if bf16:
             errs["equal_share"] = errors["ys_equal" if name == "fwd" else "dpx_equal"]
-        out.append({**place, **timed, **errs})
+        if beside:
+            errs["stepwise_max_abs_err"] = (
+                {"ys": stepwise["ys"]} if name == "fwd" else
+                {"dpx": stepwise["dpx"], "dw": stepwise["dw"]})
+        out.append({"name": f"gru_wide_{name}", **place,
+                    "replaces": "ocrs_models_tpu/ops/pallas/gru_kernel4.py:"
+                    + ("139" if name == "fwd" else "171"), **timed, **errs})
     return out[0], out[1]
 
 
@@ -3748,23 +3815,25 @@ def serve_wide(dev, crops) -> dict:
     return line
 
 
-def train_grid(dev, hidden: int = GRID_HIDDEN) -> dict:
-    """Phase 18 (d) and (e): the CRNN with ``gru_hidden=hidden`` in bf16,
-    whose biGRU takes the grid form (GRID_HIDDEN: all of W_hh resident;
+def train_grid(dev, hidden: int = GRID_HIDDEN, dtype=BF16) -> dict:
+    """Phase 18 (d) and (e): the CRNN with ``gru_hidden=hidden`` in
+    ``dtype``, whose biGRU takes the grid form (GRID_HIDDEN: all of W_hh
+    resident, ``gru_grid.cu`` in bf16 and ``gru_grid_f32.cu`` in f32;
     GRID_TRAIN_HIDDEN: partly streamed): WIDE_STEPS headline steps against
-    the plain steps (phase 8's bf16 tolerances for the first, the CPU
-    parity test's for later ones), then 10 headline and 3 wide steps timed
+    the plain steps (phase 8's tolerances of the dtype for the first, the
+    CPU parity test's for later ones), then 10 headline and 3 wide steps timed
     (exact launch counts; Adam at 3e-4: at 1e-3 the loss at H=1024 swung
     between 4.7 and 9.4 from step to step on the fixed batch, the first
     steps matching the plain steps'); every call of each timed run must
     have run the grid form (``.forms``). Returns ``run_training``'s
     report."""
-    check_train_step_vs_plain(dev, BF16, gru_hidden=hidden, steps=WIDE_STEPS)
-    report = run_training(dev, BF16, wide_steps=3, gru_hidden=hidden, lr=3e-4)
+    check_train_step_vs_plain(dev, dtype, gru_hidden=hidden, steps=WIDE_STEPS)
+    report = run_training(dev, dtype, wide_steps=3, gru_hidden=hidden, lr=3e-4)
+    tag = "bf16" if dtype == BF16 else "f32"
     for shape, line in report.items():
         for name in ("gru_wide_fwd", "gru_wide_bwd"):
             if line["forms"][name]["grid"] != line["launches"][name] or not line["launches"][name]:
-                raise AssertionError(f"the bf16 H={hidden} {shape} steps ran {name} in the "
+                raise AssertionError(f"the {tag} H={hidden} {shape} steps ran {name} in the "
                                      f"forms {line['forms'][name]}, not all in the grid form")
     torch.cuda.empty_cache()
     return report
@@ -3776,17 +3845,17 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
     versions; (b) the training step in f32 and bf16, WIDE_STEPS steps
     against the plain step, then 10 timed steps at the headline and wide
     shapes (counts zeroed just before and read just after); (c) serving;
-    (d) the bf16 training step at ``gru_hidden=GRID_HIDDEN`` (the grid
-    form); (e) at ``gru_hidden=GRID_TRAIN_HIDDEN`` (W_hh partly streamed).
-    Returns the kernels line's wide rows, with their launches from (b)'s
-    headline steps and (c)'s serving call, the bf16 rows' ``grid`` entries
-    theirs from (d)'s and their ``grid_streamed`` entries at
-    GRID_TRAIN_HIDDEN from (e)'s."""
+    (d) the training step at ``gru_hidden=GRID_HIDDEN`` (the grid form) in
+    bf16 and f32; (e) in bf16 at ``gru_hidden=GRID_TRAIN_HIDDEN`` (W_hh
+    partly streamed). Returns the kernels line's wide rows, with their
+    launches from (b)'s headline steps and (c)'s serving call, the rows'
+    ``grid`` entries theirs from (d)'s of their dtype and the bf16 rows'
+    ``grid_streamed`` entries at GRID_TRAIN_HIDDEN from (e)'s."""
     t0 = time.perf_counter()
     rows = check_gru_wide(dev, gen)
     print(f"phase 18a seconds {time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
-    grid = train_grid(dev)
+    grid = {"bf16": train_grid(dev), "f32": train_grid(dev, GRID_HIDDEN, torch.float32)}
     print(f"phase 18d seconds {time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
     streamed = train_grid(dev, GRID_TRAIN_HIDDEN)
@@ -3805,7 +3874,7 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
         head = train[row["dtype"]]["headline"]
         row["launches"] = head["launches"][row["name"]]
         row["launches_per_step"] = row["launches"] // head["steps"]
-        for sub, report in ((row.get("grid"), grid),
+        for sub, report in ((row.get("grid"), grid[row["dtype"]]),
                             (row.get("grid_streamed", {}).get(GRID_TRAIN_HIDDEN), streamed)):
             if sub is not None:
                 sub["launches"] = report["headline"]["launches"][row["name"]]
@@ -3815,9 +3884,11 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
         if not row["launches"] > 0:
             raise AssertionError(f"the {row['dtype']} H={WIDE_HIDDEN} step never launched "
                                  f"{row['name']}")
-    print(json.dumps({"path": f"grid biGRU summary bf16 H={GRID_HIDDEN}, {GRID_TRAIN_HIDDEN}", **{
+    print(json.dumps({"path": f"grid biGRU summary H={GRID_HIDDEN} bf16 and f32, "
+                              f"{GRID_TRAIN_HIDDEN} bf16", **{
         f"{h}_{shape}_median_ms": v[shape]["step_ms_median"]
-        for h, v in ((GRID_HIDDEN, grid), (GRID_TRAIN_HIDDEN, streamed))
+        for h, v in ((GRID_HIDDEN, grid["bf16"]), (f"{GRID_HIDDEN}_f32", grid["f32"]),
+                     (GRID_TRAIN_HIDDEN, streamed))
         for shape in ("headline", "wide")}}), flush=True)
     print(json.dumps({"path": f"wide biGRU summary H={WIDE_HIDDEN}", **{
         f"{k}_{shape}_median_ms": v[shape]["step_ms_median"]

@@ -126,7 +126,6 @@
 // Every sum runs in a fixed order and there are no atomics on data, so
 // reruns agree bit for bit.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -135,10 +134,12 @@
 
 #include "bf16_io.cuh"
 #include "device_guard.cuh"
+#include "grid_step.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
+using namespace grid_step;
 using namespace tc;
 using io::bf16;
 
@@ -504,47 +505,6 @@ __device__ __forceinline__ void ring_init(const Ring& r) {
     }
 }
 
-// This block's step is written: one more on its (direction, row tile)'s
-// counter, after every thread's writes (release at GPU scope).
-__device__ __forceinline__ void signal_step(unsigned* ctr) {
-    __syncthreads();
-    if (threadIdx.x == 0) asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(ctr) : "memory");
-}
-
-// Wait until the counter reaches `target`, with the signalling blocks'
-// writes visible to every thread of this block after it.
-__device__ __forceinline__ void wait_steps(const unsigned* ctr, unsigned target) {
-    if (threadIdx.x == 0) {
-        const long long start = clock64();
-        unsigned v;
-        do {
-            asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(ctr) : "memory");
-            if (v < target && clock64() - start > (1ll << 34)) __trap();
-        } while (v < target);
-    }
-    __syncthreads();
-}
-
-// The block's place in the grid: blockIdx.x = (dir * RT + row tile) * UT +
-// unit tile.
-struct Tile {
-    int dir, rt, u0, n0, rows, UT, RT;
-};
-
-__device__ __forceinline__ Tile block_tile(int N, int H, int U, int R) {
-    Tile t;
-    t.UT = (H + U - 1) / U;
-    t.RT = (N + R - 1) / R;
-    int b = blockIdx.x;
-    t.dir = b / (t.UT * t.RT);
-    b %= t.UT * t.RT;
-    t.rt = b / t.UT;
-    t.u0 = (b % t.UT) * U;
-    t.n0 = t.rt * R;
-    t.rows = min(R, N - t.n0);
-    return t;
-}
-
 // Where the element pair (row r, columns k, k + 1; k even) of an A operand
 // with KS k16 steps sits in its fragment buffer, in 32-bit words: m16 tile
 // r / 16, k16 step k / 16, lane (r % 8) * 4 + (k % 8) / 2, register (r % 16
@@ -857,10 +817,7 @@ __device__ __forceinline__ void load_w_chain(bf16* wc, const float* W, int H, in
 // has loaded its W slice, visible to wgmma, and sees zeroed counters.
 __device__ __forceinline__ void start(unsigned* ctr, int n) {
     fence_proxy_async();
-    if (blockIdx.x == 0)
-        for (int i = threadIdx.x; i < n; i += kThreads) ctr[i] = 0u;
-    __syncthreads();
-    cooperative_groups::this_grid().sync();
+    zero_counters<kThreads>(ctr, n);
 }
 
 // ---------------------------------------------------------------------
@@ -1399,41 +1356,6 @@ int stream_chunks(int KS, int KR, int S, int CK) {
     return (KS - KR + CK - 1) / CK;
 }
 
-// One cooperative launch of `kernel` with `blocks` blocks of kThreads and
-// `smem` bytes of dynamic shared memory. Refuses (with the error the
-// launch would give) a grid that the card cannot hold at once.
-template <class Args>
-int launch(const void* kernel, int device, Args args, int blocks, size_t smem, void* stream) {
-    const RestoreDevice restore_device;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    if (blocks < 1) return (int)cudaErrorInvalidValue;
-    int optin = 0, sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return (int)err;
-    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks, 1, 1);
-    cfg.blockDim = dim3(kThreads, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = (cudaStream_t)stream;
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeCooperative;
-    attr.val.cooperative = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    void* kargs[] = {&args};
-    err = cudaLaunchKernelExC(&cfg, kernel, kargs);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-}
-
 // The streamed chunks of kind 0 (forward) or 1 (chain) into `wst` (of
 // `wst_len` elements, refused if too short), one launch; nothing where the
 // plan streams none.
@@ -1528,8 +1450,8 @@ int ocrs_gru_grid_fwd_bf16(int device, const bf16* px_f, const bf16* px_b, const
     }
     const FwdArgs args = {px_f, px_b, w_hh, b_hh, hs, frag, ys_f, ys_b, ctr, wst,
                           T, N, H, U, R, KR, NC, S};
-    return launch(gru_grid_fwd_kernel_for(U / 8, S > 0, PR > kPassRows), device, args, blocks,
-                  fwd_smem(U, KR, S, PR), stream);
+    return launch<kThreads>(gru_grid_fwd_kernel_for(U / 8, S > 0, PR > kPassRows), device, args,
+                            blocks, fwd_smem(U, KR, S, PR), stream);
 }
 
 // The backward's chain: dy_f, dy_b [T, N, H] bf16; w_hh as above; coef [2,
@@ -1558,8 +1480,8 @@ int ocrs_gru_grid_chain_bf16(int device, const bf16* dy_f, const bf16* dy_b, con
     }
     const ChainArgs args = {dy_f, dy_b, w_hh, coef, carry, frag, dpx_f, dpx_b, dhn, dbp, ctr, wst,
                             T, N, H, U, R, KR, NC, S};
-    return launch(gru_grid_chain_kernel_for(U / 8, S > 0, PR / 32), device, args, blocks,
-                  chain_smem(U, KR, S, PR), stream);
+    return launch<kThreads>(gru_grid_chain_kernel_for(U / 8, S > 0, PR / 32), device, args,
+                            blocks, chain_smem(U, KR, S, PR), stream);
 }
 
 const char* ocrs_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -35,6 +35,14 @@ forward at T = 2 and 33 (those up to T). Each copy is written to
 Prints the card's name and power limit first and one JSON line a variant.
 Needs CUDA and ``nvcc``.
 
+    python -m ocrs_models_torch.grid_probe --f32 [--t 257 --n 128 --hid 1024]
+
+does the same for the f32 grid form (``csrc/gru_grid_f32.cu``): builds
+``full``, ``no_wait``, ``no_product`` and ``no_aload`` (the staged A
+operand zero-filled, nothing read from L2) and times the forward and the
+chain of each at (T, N, H), the full build also at every ring stage count
+the kernels are built for that fits (``stages_<S>``).
+
     python -m ocrs_models_torch.grid_probe --dw-readings SEED --t 2 --n 259 --hid 5280
 
 instead reads the bf16 wide route's dW end to end (``gru_fwd``, then
@@ -105,6 +113,13 @@ _MARKS = (
      "    return (int)(err != cudaSuccess ? err : cudaMemcpyToSymbol(g_ring, &ring, sizeof(ring)));\n}\n", 1),
 )
 _DEFAULTS = {"NO_WAIT": 0, "NO_PRODUCT": 0, "NO_ALOAD": 0, "PROBE_PHASES": 0}
+# The same parts of gru_grid_f32.cu.
+_F32_PATCHES = (
+    ("if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));",
+     "\n#if !NO_WAIT\n if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n#endif\n", 2),
+    ("if (step > 0) warp_product<", "if (step > 0 && !NO_PRODUCT) warp_product<", 2),
+    ("const bool ok = r < valid && k < K;", "const bool ok = r < valid && k < K && !NO_ALOAD;", 1),
+)
 
 
 def _source() -> str:
@@ -169,6 +184,81 @@ def _build_all(variants: dict) -> dict[str, ctypes.CDLL]:
     return libs
 
 
+def f32_probe(t_len: int, n: int, hid: int) -> None:
+    """The f32 grid form's builds with one part switched off each, and the
+    full build at each ring stage count that fits, timed (one JSON line a
+    variant)."""
+    dev = torch.device("cuda", 0)
+    plan = gru_ops.grid_f32_plan(n, hid, *gru_ops.grid_limits(dev.index))
+    if plan is None or gru_ops.gru_route(hid) != "grid":
+        raise SystemExit(f"grid_probe: H={hid} takes no f32 grid form")
+    src = (_build.CSRC_DIR / "gru_grid_f32.cu").read_text()
+    for old, new, count in _F32_PATCHES:
+        if src.count(old) != count:
+            raise RuntimeError(f"grid_probe: gru_grid_f32.cu holds {old!r} {src.count(old)} "
+                               f"times, not {count}")
+        src = src.replace(old, new)
+    probe_dir = _build.build_dir().parent / "probe"
+    probe_dir.mkdir(parents=True, exist_ok=True)
+    (probe_dir / "gru_grid_f32_probe.cu").write_text(src)
+    variants = {"full": {}, "no_wait": {"NO_WAIT": 1}, "no_product": {"NO_PRODUCT": 1},
+                "no_aload": {"NO_ALOAD": 1}}
+    procs = {}
+    for name, macros in variants.items():
+        lib = probe_dir / f"libgru_grid_f32_{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC_DIR}",
+               *(f"-D{k}={v}" for k, v in {**_DEFAULTS, **macros}.items()), "-o", str(lib),
+               str(probe_dir / "gru_grid_f32_probe.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        out, _ = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)
+        if proc.returncode:
+            raise RuntimeError(f"grid_probe: nvcc failed for {name}:\n{out}")
+        dll = ctypes.CDLL(str(lib))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        dll.ocrs_gru_grid_f32_fwd.argtypes = [i] + [p] * 8 + [i] * 6 + [p]
+        dll.ocrs_gru_grid_f32_chain.argtypes = [i] + [p] * 9 + [i] * 6 + [p]
+        dll.ocrs_error_string.argtypes = [i]
+        dll.ocrs_error_string.restype = ctypes.c_char_p
+        libs[name] = dll
+    gen = torch.Generator().manual_seed(3)
+    px = [torch.randn((t_len, n, 3 * hid), generator=gen).to(dev) for _ in range(2)]
+    w = (((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) / hid**0.5).to(dev))
+    b = torch.zeros((2, 3 * hid), device=dev)
+    dy = [(torch.randn((t_len, n, hid), generator=gen) * 0.1).to(dev) for _ in range(2)]
+    coef = torch.rand((2, t_len * n, 5, hid), device=dev)
+    ys = [torch.empty((t_len, n, hid), device=dev) for _ in range(2)]
+    dpx = [torch.empty((t_len, n, 3 * hid), device=dev) for _ in range(2)]
+    hs, dph = torch.empty((2, 2, n, hid), device=dev), torch.empty((2, 2, n, 3 * hid), device=dev)
+    carry = torch.empty((2, n, hid), device=dev)
+    ctr = torch.empty((2 * -(-n // plan.rows),), device=dev, dtype=torch.int32)
+    ptr, stream = _build.ptr, _build.stream_ptr(dev)
+
+    def fwd(dll, stages):
+        return lambda: _build.check(dll, dll.ocrs_gru_grid_f32_fwd(
+            dev.index, ptr(px[0]), ptr(px[1]), ptr(w), ptr(b), ptr(hs), ptr(ys[0]), ptr(ys[1]),
+            ptr(ctr), t_len, n, hid, plan.units, plan.rows, stages, stream), "grid_probe forward")
+
+    def chain(dll, stages):
+        return lambda: _build.check(dll, dll.ocrs_gru_grid_f32_chain(
+            dev.index, ptr(dy[0]), ptr(dy[1]), ptr(w), ptr(coef), ptr(dph), ptr(carry),
+            ptr(dpx[0]), ptr(dpx[1]), ptr(ctr), t_len, n, hid, plan.units, plan.rows, stages,
+            stream), "grid_probe chain")
+
+    shape = {"T": t_len, "N": n, "H": hid, "units": plan.units, "rows": plan.rows,
+             "stages": plan.stages}
+    runs = [(name, dll, plan.stages) for name, dll in libs.items()]
+    runs += [(f"stages_{s}", libs["full"], s) for s in gru_ops.GRID_F32_STAGES
+             if s != plan.stages and max(gru_ops.grid_f32_smem(k, hid, s) for k in ("fwd", "chain"))
+             <= gru_ops.grid_limits(dev.index)[1]]
+    for name, dll, stages in runs:
+        print(json.dumps({"variant": name, **shape, "stages": stages,
+                          "fwd_ms": _events_ms(fwd(dll, stages)),
+                          "chain_ms": _events_ms(chain(dll, stages))}), flush=True)
+
+
 def _events_ms(fn, iters: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
@@ -224,6 +314,7 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=128)
     ap.add_argument("--hid", type=int, default=1024)
     ap.add_argument("--dw-readings", type=int, metavar="SEED", default=None)
+    ap.add_argument("--f32", action="store_true", help="probe the f32 grid form instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("grid_probe: needs a CUDA device")
@@ -233,6 +324,9 @@ def main() -> None:
     t_len, n, hid = args.t, args.n, args.hid
     if args.dw_readings is not None:
         print(json.dumps(dw_readings(t_len, n, hid, args.dw_readings)), flush=True)
+        return
+    if args.f32:
+        f32_probe(t_len, n, hid)
         return
     dev, bf16 = torch.device("cuda", 0), torch.bfloat16
     form, plan = gru_ops.wide_form(n, hid, bf16, dev.index)

@@ -1,8 +1,9 @@
 """Time builds of one kernel source against each other in one process.
 
     python -m ocrs_models_torch.kernel_ab [--kernel ctc_alpha|gru_fwd_bf16|gru_bwd_bf16|
-        stage1_fwd_bf16|stage1_bwd_bf16|gru_wide_fwd|gru_wide_chain] [--source NAME=PATH ...]
-        [--rounds 2] [--cold]
+        stage1_fwd_bf16|stage1_bwd_bf16|gru_wide_fwd|gru_wide_chain|gru_grid_f32_fwd|
+        gru_grid_f32_chain] [--source NAME=PATH ...]
+        [--rounds 2] [--cold] [--case TEXT]
 
 Each ``--source`` is a version of the kernel's source (``csrc/ctc_alpha.cu``,
 or ``csrc/gru_fwd.cu`` / ``csrc/gru_bwd.cu`` for the bf16 biGRU entries;
@@ -55,10 +56,13 @@ route's forms against each other, its persistent entries
 ones (``ocrs_gru_wide_fwd_stepwise[_bf16]``, ``ocrs_gru_wide_chain_stepwise[_bf16]``,
 which take any H % 8 == 0), at T=257, N=128, H=512 in f32 and bf16, and at
 H=264 and 320; and at H=1024 the per-step form (f32 and bf16) against the
-grid form (bf16; ``csrc/gru_grid.cu``'s ``ocrs_gru_grid_fwd_bf16``,
-``ocrs_gru_grid_chain_bf16``, always the checkout's build, with the plan of
-``ops.gru.grid_plan`` for the card: ``rows`` gives its units and rows a
-block, its blocks and W_hh's split into resident and streamed k16 steps),
+grid form (bf16: ``csrc/gru_grid.cu``'s ``ocrs_gru_grid_fwd_bf16``,
+``ocrs_gru_grid_chain_bf16``, with the plan of ``ops.gru.grid_plan`` for
+the card, ``rows`` giving its units and rows a block, its blocks and W_hh's
+split into resident and streamed k16 steps; f32: ``csrc/gru_grid_f32.cu``'s
+``ocrs_gru_grid_f32_fwd``, ``ocrs_gru_grid_f32_chain``, with
+``ops.gru.grid_f32_plan``'s, ``rows`` giving its ring stages; both always
+the checkout's build),
 and so in bf16 at H=1448 and 2048, where the grid form streams part of
 W_hh: one case per (shape, dtype, form), each form's
 device time the sum over its kernels of the mean record times the
@@ -66,12 +70,19 @@ kernel's launches a call (T for a per-step kernel). The chain's inputs are
 the plain versions' coefficients of a plain forward; its outputs are held
 against the plain chain. A source that exports
 ``ocrs_gru_wide_fwd_max_clusters`` also gets its rows per block and
-clusters (``rows``). The chain's bf16 grid cases also time the backward's
-other phases on the same operands (``split_ms``, events): ``coef`` and
-``dw`` (with ``dw_sum``) as ``gru_wide_bwd`` runs them above H=512
-(``csrc/gru_bwd_wide.cu``, on ``wgmma``), the same phases of
-``csrc/gru_bwd.cu`` (``mma.sync``; ``coef_mma_sync``, ``dw_mma_sync``), and
-W_hh's cast.
+clusters (``rows``). The chain's cases above H=512 also time the
+backward's other phases on the same operands (``split_ms``, events):
+``coef`` and ``dw`` (with ``dw_sum``) as ``gru_wide_bwd`` runs them there;
+in bf16 ``csrc/gru_bwd_wide.cu``'s (on ``wgmma``), the same phases of
+``csrc/gru_bwd.cu`` (``mma.sync``; ``coef_mma_sync``, ``dw_mma_sync``) and
+W_hh's cast; in f32 ``csrc/gru_bwd.cu``'s (3xTF32). ``--case TEXT`` runs
+only the cases whose name holds TEXT (``T257_N128_H1024_f32``: both forms
+of f32 at H=1024).
+
+``gru_grid_f32_fwd`` and ``gru_grid_f32_chain`` (``csrc/gru_grid_f32.cu``):
+the f32 grid form's entries alone, one source against another, at
+T=257, N=128 and H = 1024, 1056 (the widest, 3 ring stages) and 520 (33
+unit tiles, two row tiles); the chain's cases with ``split_ms`` as above.
 
 ``--cold`` writes a 256 MB buffer before each call so that no input is
 left in the 50 MB L2 cache. Needs CUDA and ``nvcc``.
@@ -361,15 +372,19 @@ def _wide_forms(hid: int, dt: torch.dtype) -> tuple[str, ...]:
     return ("grid", "stepwise") if gru_ops.gru_route(hid, dt) == "grid" else ("stepwise",)
 
 
-def _gru_wide_cases(dev) -> dict:
+def _gru_wide_cases(dev, only: str = "", shapes=WIDE_SHAPES,
+                    dtypes=((torch.float32, "f32"), (torch.bfloat16, "bf16")),
+                    f32_max: int = WIDE_F32_MAX) -> dict:
     """``(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, coef, form)`` per
-    (shape, dtype, form): w_hh rounded to bf16 values for bf16, ys from the
-    plain forward, coef [2, T*N, 5, H] the plain coefficients."""
+    (shape, dtype, form) whose name holds ``only``: w_hh rounded to bf16
+    values for bf16, ys from the plain forward, coef [2, T*N, 5, H] the
+    plain coefficients."""
     gen = torch.Generator().manual_seed(SEED)
     out = {}
-    for t_len, n, hid in WIDE_SHAPES:
-        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            if dt == torch.float32 and hid > WIDE_F32_MAX:
+    for t_len, n, hid in shapes:
+        for dt, tag in dtypes:
+            forms = [f for f in _wide_forms(hid, dt) if only in f"T{t_len}_N{n}_H{hid}_{tag}_{f}"]
+            if (dt == torch.float32 and hid > f32_max) or not forms:
                 continue
             k = 1.0 / hid**0.5
             px = [torch.randn((t_len, n, 3 * hid), generator=gen).to(dev, dt) for _ in range(2)]
@@ -380,12 +395,28 @@ def _gru_wide_cases(dev) -> dict:
             ys = gru_recurrence_reference(*px, w_hh, b_hh)
             coef = gru_bwd_coefficients_reference(*px, *ys, w_hh, b_hh).reshape(
                 2, t_len * n, 5, hid).contiguous()
-            for form in _wide_forms(hid, dt):
+            for form in forms:
                 out[f"T{t_len}_N{n}_H{hid}_{tag}_{form}"] = (*px, *ys, *dy, w_hh, b_hh, coef, form)
     return out
 
 
-def _grid_plan(ops) -> gru_ops.GridPlan:
+GRID_F32_SHAPES = ((257, 128, 1024), (257, 128, 1056), (257, 128, 520))
+
+
+def _grid_f32_cases(dev, only: str = "") -> dict:
+    """The f32 grid form's cases of :func:`_gru_wide_cases` at
+    GRID_F32_SHAPES."""
+    cases = _gru_wide_cases(dev, only, GRID_F32_SHAPES, ((torch.float32, "f32"),),
+                            gru_ops.GRID_F32_MAX_HIDDEN)
+    return {k: v for k, v in cases.items() if v[-1] == "grid"}
+
+
+def _bind_grid_f32(dll) -> None:
+    _bind(dll.ocrs_gru_grid_f32_fwd, [I] + [P] * 8 + [I] * 6 + [P])
+    _bind(dll.ocrs_gru_grid_f32_chain, [I] + [P] * 9 + [I] * 6 + [P])
+
+
+def _grid_plan(ops) -> gru_ops.GridPlan | gru_ops.GridF32Plan:
     t_len, n, h3 = ops[0].shape
     return gru_ops.wide_form(n, h3 // 3, ops[0].dtype, ops[0].device.index)[1]
 
@@ -412,9 +443,10 @@ def _gru_wide_fwd_outputs(ops) -> dict:
     out = {"ys_f": torch.empty_like(ops[2]), "ys_b": torch.empty_like(ops[3]),
            "hs": torch.empty((2, 2, n, h3 // 3), device=ops[0].device)}
     if ops[-1] == "grid":
-        out["frag"] = gru_ops._grid_frag(n, h3 // 3, ops[0].device)
         out["ctr"] = torch.empty((2 * n,), device=ops[0].device, dtype=torch.int32)
-        out["wst"] = _grid_stream("fwd", h3 // 3, ops)
+        if ops[0].dtype == torch.bfloat16:
+            out["frag"] = gru_ops._grid_frag(n, h3 // 3, ops[0].device)
+            out["wst"] = _grid_stream("fwd", h3 // 3, ops)
     return out
 
 
@@ -423,7 +455,15 @@ def _gru_wide_fwd_call(dll, ops, out, rows=0) -> None:
     t_len, n, h3 = px_f.shape
     ptr = _build.ptr
     dev, stream = px_f.device, _build.stream_ptr(px_f.device)
-    if form == "grid":
+    if form == "grid" and px_f.dtype == torch.float32:
+        # The source under test where it is gru_grid_f32.cu, else the checkout's.
+        dll = dll if hasattr(dll, "ocrs_gru_grid_f32_fwd") else gru_ops._grid_f32_lib()
+        plan = _grid_plan(ops)
+        rc = dll.ocrs_gru_grid_f32_fwd(
+            dev.index, ptr(px_f), ptr(px_b), ptr(w_hh), ptr(b_hh), ptr(out["hs"]), ptr(out["ys_f"]),
+            ptr(out["ys_b"]), ptr(out["ctr"]), t_len, n, h3 // 3, plan.units, plan.rows,
+            plan.stages, stream)
+    elif form == "grid":
         dll = gru_ops._grid_lib()
         plan = _grid_plan(ops)
         rc = dll.ocrs_gru_grid_fwd_bf16(
@@ -458,9 +498,10 @@ def _gru_wide_chain_outputs(ops) -> dict:
         out["dhn"] = torch.empty((2, t_len * n, hid), device=dev, dtype=torch.bfloat16)
         out["dbp"] = torch.empty((-(-n // 16), 2, h3), device=dev, dtype=f32)
     if ops[-1] == "grid":
-        out["frag"] = gru_ops._grid_frag(n, h3, dev)
         out["ctr"] = torch.empty((2 * n,), device=dev, dtype=torch.int32)
-        out["wst"] = _grid_stream("chain", hid, ops)
+        if px_f.dtype == torch.bfloat16:
+            out["frag"] = gru_ops._grid_frag(n, h3, dev)
+            out["wst"] = _grid_stream("chain", hid, ops)
     return out
 
 
@@ -471,7 +512,14 @@ def _gru_wide_chain_call(dll, ops, out, rows=0) -> None:
     dev, stream = dy_f.device, _build.stream_ptr(dy_f.device)
     bf16 = dy_f.dtype == torch.bfloat16
     extra = [ptr(out["dhn"]), ptr(out["dbp"])] if bf16 else []
-    if form == "grid":
+    if form == "grid" and not bf16:
+        dll = dll if hasattr(dll, "ocrs_gru_grid_f32_chain") else gru_ops._grid_f32_lib()
+        plan = _grid_plan(ops)
+        rc = dll.ocrs_gru_grid_f32_chain(
+            dev.index, ptr(dy_f), ptr(dy_b), ptr(w_hh), ptr(coef), ptr(out["dph"]),
+            ptr(out["carry"]), ptr(out["dpx_f"]), ptr(out["dpx_b"]), ptr(out["ctr"]), t_len, n,
+            hid, plan.units, plan.rows, plan.stages, stream)
+    elif form == "grid":
         dll = gru_ops._grid_lib()
         plan = _grid_plan(ops)
         rc = dll.ocrs_gru_grid_chain_bf16(
@@ -507,7 +555,8 @@ def _gru_wide_chain_compare(ops, out, dll=None) -> dict:
 
 def _gru_wide_extra(kind: str):
     def extra(dll, ops, line, k) -> None:
-        if kind == "chain" and ops[-1] == "grid" and "split_ms" not in line:
+        wide_only = ops[0].shape[-1] // 3 > gru_ops.MAX_WIDE_HIDDEN
+        if kind == "chain" and wide_only and "split_ms" not in line:
             line["split_ms"] = _bwd_split_ms(ops)
         if ops[-1] == "grid":
             plan = _grid_plan(ops)
@@ -515,7 +564,8 @@ def _gru_wide_extra(kind: str):
             line.setdefault("rows", {})[k] = {
                 "units": plan.units, "rows": plan.rows,
                 "blocks": 2 * -(-n // plan.rows) * -(-h3 // 3 // plan.units),
-                "w_split": {"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()}}
+                **({"stages": plan.stages} if isinstance(plan, gru_ops.GridF32Plan) else
+                   {"w_split": {"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()}})}
             return
         if ops[-1] != "persistent":
             line.setdefault("rows", {})[k] = {"rows": dll.ocrs_gru_wide_stepwise_rows()}
@@ -530,42 +580,55 @@ def _gru_wide_extra(kind: str):
 
 
 def _bwd_split_ms(ops) -> dict:
-    """The bf16 backward's phases around its chain on the case's operands,
-    by CUDA events: ``coef`` and ``dw`` (with ``dw_sum``, one C call) as
-    ``ops.gru.gru_wide_bwd`` runs them above H=512 (``gru_bwd_wide.cu``,
-    ``wgmma``, with its row ranges), the same phases of ``gru_bwd.cu``
-    (``mma.sync``, with ``_dw_splits``'s ranges for it), and W_hh's cast to
-    bf16 values."""
+    """The backward's phases around its chain on the case's operands, by
+    CUDA events, as ``ops.gru.gru_wide_bwd`` runs them above H=512. bf16:
+    ``coef`` and ``dw`` (with ``dw_sum``, one C call) of
+    ``gru_bwd_wide.cu`` (``wgmma``, with its row ranges), the same phases of
+    ``gru_bwd.cu`` (``mma.sync``, with ``_dw_splits``'s ranges for it), and
+    W_hh's cast to bf16 values. f32: ``gru_bwd.cu``'s ``coef`` and ``dw``
+    (3xTF32 on the tensor cores)."""
     px_f, px_b, ys_f, ys_b = ops[:4]
     w_hh, b_hh = ops[6], ops[7]
     t_len, n, h3 = px_f.shape
     hid, dev = h3 // 3, px_f.device
     lib, ptr, stream = gru_ops._bwd_lib(), _build.ptr, _build.stream_ptr(dev)
-    wide = gru_ops._bwd_wide_lib()
-    w16 = w_hh.to(torch.bfloat16)
     coef = torch.empty((2, t_len * n, 5, hid), device=dev)
     splits = gru_ops._dw_splits(t_len, n)
-    splits_tc = gru_ops._dw_splits(t_len, n, hid, True)
     dpx = [torch.zeros_like(px_f) for _ in range(2)]
-    dhn = torch.zeros((2, t_len * n, hid), device=dev, dtype=torch.bfloat16)
-    dbp = torch.zeros((1, 2, h3), device=dev)
-    dwp = torch.empty((max(splits, splits_tc), 2, hid, h3), device=dev)
     dw, db = torch.empty_like(w_hh), torch.empty_like(b_hh)
-    calls = {
-        "coef": lambda: wide.ocrs_gru_bwd_coef_wide_bf16(
-            dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w16), ptr(b_hh), ptr(coef),
-            t_len, n, hid, stream),
-        "dw": lambda: wide.ocrs_gru_bwd_dw_wide_bf16(
-            dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp), ptr(dbp),
-            1, ptr(dw), ptr(db), splits_tc, t_len, n, hid, stream),
-        "coef_mma_sync": lambda: lib.ocrs_gru_bwd_coef_bf16(
-            dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w_hh), ptr(b_hh), ptr(coef),
-            t_len, n, hid, stream),
-        "dw_mma_sync": lambda: lib.ocrs_gru_bwd_dw_bf16(
-            dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp), ptr(dbp),
-            1, ptr(dw), ptr(db), splits, t_len, n, hid, stream),
-        "cast": lambda: _build.rounded(w_hh, torch.bfloat16).contiguous(),
-    }
+    if px_f.dtype == torch.float32:
+        dwp = torch.empty((splits, 2, hid, h3), device=dev)
+        dbp = torch.empty((splits, 2, h3), device=dev)
+        calls = {
+            "coef": lambda: lib.ocrs_gru_bwd_coef(
+                dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w_hh), ptr(b_hh),
+                ptr(coef), t_len, n, hid, stream),
+            "dw": lambda: lib.ocrs_gru_bwd_dw(
+                dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(coef), ptr(dwp),
+                ptr(dbp), ptr(dw), ptr(db), splits, t_len, n, hid, stream),
+        }
+    else:
+        wide = gru_ops._bwd_wide_lib()
+        w16 = w_hh.to(torch.bfloat16)
+        splits_tc = gru_ops._dw_splits(t_len, n, hid, True)
+        dhn = torch.zeros((2, t_len * n, hid), device=dev, dtype=torch.bfloat16)
+        dbp = torch.zeros((1, 2, h3), device=dev)
+        dwp = torch.empty((max(splits, splits_tc), 2, hid, h3), device=dev)
+        calls = {
+            "coef": lambda: wide.ocrs_gru_bwd_coef_wide_bf16(
+                dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w16), ptr(b_hh),
+                ptr(coef), t_len, n, hid, stream),
+            "dw": lambda: wide.ocrs_gru_bwd_dw_wide_bf16(
+                dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
+                ptr(dbp), 1, ptr(dw), ptr(db), splits_tc, t_len, n, hid, stream),
+            "coef_mma_sync": lambda: lib.ocrs_gru_bwd_coef_bf16(
+                dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w_hh), ptr(b_hh),
+                ptr(coef), t_len, n, hid, stream),
+            "dw_mma_sync": lambda: lib.ocrs_gru_bwd_dw_bf16(
+                dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
+                ptr(dbp), 1, ptr(dw), ptr(db), splits, t_len, n, hid, stream),
+            "cast": lambda: _build.rounded(w_hh, torch.bfloat16).contiguous(),
+        }
     out = {}
     for name, fn in calls.items():
         rc = fn()
@@ -743,6 +806,16 @@ SPECS = {
                      "compare": _gru_wide_fwd_compare, "extra": _gru_wide_extra("fwd"),
                      "match": ("gru_wide", "gru_grid"), "phase": None, "rows_entry": None,
                      "launches": _wide_launches},
+    "gru_grid_f32_fwd": {"source": "gru_grid_f32.cu", "bind": _bind_grid_f32,
+                         "cases": _grid_f32_cases, "outputs": _gru_wide_fwd_outputs,
+                         "call": _gru_wide_fwd_call, "compare": _gru_wide_fwd_compare,
+                         "extra": _gru_wide_extra("fwd"), "match": "gru_grid_f32",
+                         "phase": None, "rows_entry": None, "launches": _wide_launches},
+    "gru_grid_f32_chain": {"source": "gru_grid_f32.cu", "bind": _bind_grid_f32,
+                           "cases": _grid_f32_cases, "outputs": _gru_wide_chain_outputs,
+                           "call": _gru_wide_chain_call, "compare": _gru_wide_chain_compare,
+                           "extra": _gru_wide_extra("chain"), "match": "gru_grid_f32",
+                           "phase": None, "rows_entry": None, "launches": _wide_launches},
     "gru_wide_chain": {"source": "gru_wide.cu", "bind": _bind_gru_wide, "cases": _gru_wide_cases,
                        "outputs": _gru_wide_chain_outputs, "call": _gru_wide_chain_call,
                        "compare": _gru_wide_chain_compare, "extra": _gru_wide_extra("chain"),
@@ -808,6 +881,8 @@ def main() -> None:
                     help="NAME=PATH of a version of the kernel's source to build (repeatable)")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--cold", action="store_true", help="flush the L2 cache before each call")
+    ap.add_argument("--case", default="",
+                    help="run only the cases whose name holds this text (e.g. H1024_f32)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA device")
@@ -823,7 +898,11 @@ def main() -> None:
     order = [*names, *reversed(names)] * args.rounds
     scratch = torch.empty(64 << 20, device=dev)  # 256 MB, five times the L2 cache
     before = (lambda: scratch.fill_(1.0)) if args.cold else (lambda: None)
-    for case, ops in spec["cases"](dev).items():
+    cases = (spec["cases"](dev, args.case) if spec["cases"] in (_gru_wide_cases, _grid_f32_cases)
+             else spec["cases"](dev))
+    for case, ops in cases.items():
+        if args.case not in case:
+            continue
         count = spec.get("launches")
         launches = (lambda name, ops=ops: count(name, ops)) if count else (lambda name: 1)
         timed = lambda fn, launches=launches: (  # noqa: E731

@@ -18,12 +18,14 @@ Pallas kernel takes any, goes to :func:`gru_wide_fwd` and
 its chain are ``gru_bwd.cu``'s), zero-padded to a multiple of 8 first. Up
 to 512 after padding ("wide") they run in the same persistent form, one
 launch for all T steps, in clusters of up to 16 blocks with part of
-``W_hh`` in shared memory; above 512 in bf16 up to ``GRID_MAX_HIDDEN``
-("grid", ``csrc/gru_grid.cu``) in one cooperative launch over the whole
-card, the state exchanged through device memory between steps, and above
-``GRID_RESIDENT_HIDDEN`` part of ``W_hh`` streamed from L2 each step; every
-other width above 512 ("stepwise") in one launch per step, the state in
-device memory between launches. In bf16 above 512 the backward's
+``W_hh`` in shared memory; above 512 ("grid") in one cooperative launch
+over the whole card, the state exchanged through device memory between
+steps: in bf16 up to ``GRID_MAX_HIDDEN`` (``csrc/gru_grid.cu``, above
+``GRID_RESIDENT_HIDDEN`` part of ``W_hh`` streamed from L2 each step), in
+float32 up to ``GRID_F32_MAX_HIDDEN`` (``csrc/gru_grid_f32.cu``, all of
+the f32 ``W_hh`` slice resident); every other width above 512
+("stepwise") in one launch per step, the state in device memory between
+launches. In bf16 above 512 the backward's
 coefficients and dW run on ``wgmma`` (``csrc/gru_bwd_wide.cu``). On CPU tensors
 both wrappers run their plain versions (:func:`gru_recurrence_reference`,
 a Python loop of torch ops, and autograd of it). The backward kernel's
@@ -321,6 +323,66 @@ on an H100 SXM, 5280: 80 units a block (the forward's ``wgmma`` n = 240), 66
 unit tiles, 132 blocks; from 5288 ``grid_plan`` gives None (88 units would
 need n = 264)."""
 
+GRID_F32_UNITS = 16
+"""Hidden units a block of the f32 grid form owns (``gru_grid_f32.cu``'s
+``kU``): the widest slice of ``W_hh`` in f32 that leaves a ring beside it
+in shared memory at H = 1024."""
+GRID_F32_STAGES = (4, 3)
+"""Ring stages of the f32 grid form's staged A operand, the first that
+fits beside the ``W_hh`` slice (``gru_grid_f32.cu`` is built for these):
+4 up to H = 1040 on an H100, 3 at 1048 and 1056."""
+GRID_F32_STAGE_BYTES = 8 * 16 * 16 * 4
+"""Shared memory of one ring stage of the f32 grid form: 8 warps x 16 rows
+x 16 k of f32."""
+
+
+class GridF32Plan(NamedTuple):
+    """The f32 grid form's blocks (:func:`grid_f32_plan`): ``units`` hidden
+    units x ``rows`` batch rows a block, and the ``stages`` of each warp's
+    ring of the A operand."""
+
+    units: int
+    rows: int
+    stages: int
+
+
+def grid_f32_smem(kind: str, hid: int, stages: int) -> int:
+    """Dynamic shared memory of the f32 grid form's ``kind`` kernel ("fwd"
+    or "chain") at padded width ``hid`` with ``stages`` ring stages
+    (``gru_grid_f32.cu``'s ``grid_f32_smem``): the f32 ``W_hh`` slice, the
+    forward's ``3U`` columns over ``round16(H)`` or the chain's ``U`` over
+    ``round16(3H)``, beside the warps' rings."""
+    cols, k = (3 * GRID_F32_UNITS, _round16(hid)) if kind == "fwd" else (
+        GRID_F32_UNITS, _round16(3 * hid))
+    return 4 * cols * k + stages * GRID_F32_STAGE_BYTES
+
+
+def grid_f32_plan(n: int, hid: int, sms: int = H100_SMS,
+                  smem: int = H100_SMEM) -> GridF32Plan | None:
+    """The f32 grid form's blocks for batch ``n`` and hidden size ``hid``
+    (zero-padded to a multiple of 8) on a card of ``sms`` SMs whose blocks
+    may use ``smem`` bytes of shared memory, or None where it has none:
+    ``GRID_F32_UNITS`` units a block, as many row tiles as the SMs hold for
+    both directions' ``ceil(H/16)`` unit tiles (R as :func:`grid_plan`
+    picks it), and the most of ``GRID_F32_STAGES`` whose rings fit beside
+    the whole ``W_hh`` slice. Shared by :func:`gru_route` and the wrappers,
+    which hand it to the C entries."""
+    hid += -hid % 8
+    row_tiles = sms // (2 * -(-hid // GRID_F32_UNITS))
+    if row_tiles < 1:
+        return None
+    for stages in GRID_F32_STAGES:
+        if max(grid_f32_smem(kind, hid, stages) for kind in ("fwd", "chain")) <= smem:
+            return GridF32Plan(GRID_F32_UNITS, _grid_rows(n, row_tiles), stages)
+    return None
+
+
+GRID_F32_MAX_HIDDEN = max(h for h in range(8, 2048, 8) if grid_f32_plan(1, h) is not None)
+"""Widest hidden size, after padding to a multiple of 8, of the f32 grid
+form on an H100 SXM, 1056: 66 unit tiles of 16, 132 blocks, the forward's
+``[48][1056]`` f32 slice (202,752 bytes) beside 3 ring stages; from 1064 the
+unit tiles of both directions outnumber the SMs."""
+
 
 def gru_route(hid: int, dtype: torch.dtype = torch.float32) -> str:
     """Which kernels run a layer of hidden size ``hid`` and compute dtype
@@ -328,14 +390,15 @@ def gru_route(hid: int, dtype: torch.dtype = torch.float32) -> str:
     (``gru_fwd.cu``, ``gru_bwd.cu``) for ``H % 8 == 0`` and ``8 <= H <=
     MAX_HIDDEN``; else, with ``H`` zero-padded to the next multiple of 8,
     ``"wide"`` (``gru_wide.cu``'s persistent kernels) up to
-    ``MAX_WIDE_HIDDEN``, ``"grid"`` (``gru_grid.cu``, bf16 only) up to
+    ``MAX_WIDE_HIDDEN``; then ``"grid"``, in bf16 ``gru_grid.cu`` up to
     ``GRID_MAX_HIDDEN`` (5280 on an H100: 80 units a block, 66 unit tiles
     of both directions on its 132 SMs, the forward's ``wgmma`` n = 240;
-    above ``GRID_RESIDENT_HIDDEN``, 1440, with part of ``W_hh`` streamed)
-    and ``"stepwise"`` (``gru_wide.cu``'s kernels of one launch a step)
-    above it, or above ``MAX_WIDE_HIDDEN`` in float32.
-    A card that cannot hold :func:`grid_plan`'s blocks runs "stepwise"
-    where this says "grid" (:func:`wide_form`)."""
+    above ``GRID_RESIDENT_HIDDEN``, 1440, with part of ``W_hh`` streamed),
+    in float32 ``gru_grid_f32.cu`` up to ``GRID_F32_MAX_HIDDEN`` (1056: 66
+    unit tiles of 16, the whole f32 ``W_hh`` slice resident); and
+    ``"stepwise"`` (``gru_wide.cu``'s kernels of one launch a step) above.
+    A card that cannot hold the grid plan's blocks runs "stepwise" where
+    this says "grid" (:func:`wide_form`)."""
     if hid < 1:
         raise ValueError(f"gru_route: the hidden size must be at least 1, got {hid}")
     if hid % 8 == 0 and hid <= MAX_HIDDEN:
@@ -343,7 +406,8 @@ def gru_route(hid: int, dtype: torch.dtype = torch.float32) -> str:
     padded = hid + -hid % 8
     if padded <= MAX_WIDE_HIDDEN:
         return "wide"
-    return "grid" if dtype == torch.bfloat16 and padded <= GRID_MAX_HIDDEN else "stepwise"
+    widest = GRID_MAX_HIDDEN if dtype == torch.bfloat16 else GRID_F32_MAX_HIDDEN
+    return "grid" if padded <= widest else "stepwise"
 
 
 # The wide kernels take H % 8 == 0; another width is zero-padded to the
@@ -488,6 +552,20 @@ def _grid_lib() -> ctypes.CDLL:
     return lib
 
 
+def _grid_f32_lib() -> ctypes.CDLL:
+    lib = _build.load("gru_grid_f32")
+    if lib.ocrs_gru_grid_f32_fwd.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.ocrs_gru_grid_f32_fwd.argtypes = [i] + [p] * 8 + [i] * 6 + [p]
+        lib.ocrs_gru_grid_f32_chain.argtypes = [i] + [p] * 9 + [i] * 6 + [p]
+        for fn in (lib.ocrs_gru_grid_f32_fwd, lib.ocrs_gru_grid_f32_chain):
+            fn.restype = i
+        lib.ocrs_gru_grid_f32_smem.argtypes = [i] * 3
+        lib.ocrs_gru_grid_f32_smem.restype = ctypes.c_longlong
+    return lib
+
+
 _limits: dict[int, tuple[int, int]] = {}
 
 
@@ -504,16 +582,18 @@ def grid_limits(device: int = 0) -> tuple[int, int]:
 
 
 def wide_form(n: int, hid: int, dtype: torch.dtype,
-              device: int = 0) -> tuple[str, GridPlan | None]:
+              device: int = 0) -> tuple[str, GridPlan | GridF32Plan | None]:
     """The wide route's form for batch ``n``, padded width ``hid`` and
     ``dtype`` on CUDA device ``device``, chosen before any launch:
     ``("persistent", None)`` up to ``MAX_WIDE_HIDDEN``; ``("grid", plan)``
-    where :func:`gru_route` says "grid" and :func:`grid_plan` finds blocks
-    for this card; else ``("stepwise", None)``."""
+    where :func:`gru_route` says "grid" and the dtype's plan
+    (:func:`grid_plan` in bf16, :func:`grid_f32_plan` in float32) finds
+    blocks for this card; else ``("stepwise", None)``."""
     if hid <= MAX_WIDE_HIDDEN:
         return "persistent", None
     if gru_route(hid, dtype) == "grid":
-        plan = grid_plan(n, hid, *grid_limits(device))
+        planner = grid_plan if dtype == torch.bfloat16 else grid_f32_plan
+        plan = planner(n, hid, *grid_limits(device))
         if plan is not None:
             return "grid", plan
     return "stepwise", None
@@ -546,11 +626,11 @@ def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
     call, through the form :func:`wide_form` picks: up to
     ``MAX_WIDE_HIDDEN`` after padding (:func:`gru_route`'s "wide", or a
     width of the cluster route called here directly) ``gru_wide.cu``'s
-    persistent kernel, one launch for all T steps; "grid" (bf16)
-    ``gru_grid.cu``'s kernel, one cooperative launch, with the f32 state
-    and the step counters in scratch of the call's own (above
-    ``GRID_RESIDENT_HIDDEN`` also one launch before it that lays out the
-    streamed part of ``W_hh``); "stepwise" T
+    persistent kernel, one launch for all T steps; "grid" one cooperative
+    launch of ``gru_grid.cu``'s kernel (bf16; above ``GRID_RESIDENT_HIDDEN``
+    also one launch before it that lays out the streamed part of
+    ``W_hh``) or ``gru_grid_f32.cu``'s (f32), with the f32 state and the
+    step counters in scratch of the call's own; "stepwise" T
     launches of ``gru_wide.cu``, one a step, with the f32 state in scratch
     of the call's own, ``[2, 2, N, H]``. For bf16 also the rounding of
     ``W_hh`` to bf16 values; a width that is not a multiple of 8 is
@@ -573,7 +653,14 @@ def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
     form, plan = wide_form(n, hid, px_f.dtype, dev.index)
     p = _build.ptr
     sfx = _build.SUFFIX[px_f.dtype]
-    if form == "grid":
+    if isinstance(plan, GridF32Plan):
+        lib = _grid_f32_lib()
+        hs = torch.empty((2, 2, n, hid), device=dev, dtype=torch.float32)
+        ctr = torch.empty((2 * -(-n // plan.rows),), device=dev, dtype=torch.int32)
+        rc = lib.ocrs_gru_grid_f32_fwd(
+            dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(hs), p(ys_f), p(ys_b), p(ctr), t_len, n,
+            hid, plan.units, plan.rows, plan.stages, _build.stream_ptr(dev))
+    elif isinstance(plan, GridPlan):
         lib = _grid_lib()
         hs = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
         frag = _grid_frag(n, hid, dev)
@@ -888,10 +975,11 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     coefficients and the dW reduction are ``gru_bwd_wide.cu``'s, on
     ``wgmma``, reading the first cast's bf16 ``W_hh``). The chain: up to
     ``MAX_WIDE_HIDDEN`` after padding ``gru_wide.cu``'s persistent kernel,
-    one launch: 4 launches a call; "grid" (bf16) ``gru_grid.cu``'s chain,
-    one cooperative launch, its ``dht * z`` and step counters in scratch of
-    the call's own: 4 launches (5 above ``GRID_RESIDENT_HIDDEN``, whose
-    streamed part of ``W_hh`` is laid out first); "stepwise" T launches of
+    one launch: 4 launches a call; "grid" ``gru_grid.cu``'s chain (bf16) or
+    ``gru_grid_f32.cu``'s (f32, with the previous step's ``dph`` in scratch
+    too), one cooperative launch, its ``dht * z`` and step counters in
+    scratch of the call's own: 4 launches (5 above ``GRID_RESIDENT_HIDDEN``,
+    whose streamed part of ``W_hh`` is laid out first); "stepwise" T launches of
     ``gru_wide.cu``, one a step, its state in
     scratch of the call's own, and the copy of ``W_hh^T``: T + 4. A width
     that is not a multiple of 8 is zero-padded first (exact, see
@@ -947,8 +1035,9 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     persistent = form == "persistent"
     if form != "persistent":  # the chain's dht * z
         carry = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
-    if form == "stepwise":  # the per-step chain's operand and state
+    if form == "stepwise":  # the per-step chain's operand
         w_t = w.transpose(1, 2).contiguous()
+    if form == "stepwise" or isinstance(plan, GridF32Plan):  # the previous step's dph
         dph = torch.empty((2, 2, n, h3), device=dev, dtype=torch.float32)
     splits = _dw_splits(t_len, n, hid, bf16)
     dwp = torch.empty((splits, 2, hid, h3), device=dev, dtype=torch.float32)
@@ -956,12 +1045,13 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     db = torch.empty_like(b_hh)
     if bf16:
         rows = (_wide_report("chain", n, hid, dev.index, dt)["rows_per_block"] if persistent
-                else plan.rows if form == "grid" else wide.ocrs_gru_wide_stepwise_rows())
+                else plan.rows if isinstance(plan, GridPlan)
+                else wide.ocrs_gru_wide_stepwise_rows())
         tiles = -(-n // rows)
         dhn = torch.empty((2, t_len, n, hid), device=dev, dtype=torch.bfloat16)
         dbp = torch.empty((tiles, 2, h3), device=dev, dtype=torch.float32)
         chain = wide
-        if form == "grid":
+        if isinstance(plan, GridPlan):
             chain = _grid_lib()
             frag = _grid_frag(n, h3, dev)
             ctr = torch.empty((2 * tiles,), device=dev, dtype=torch.int32)
@@ -986,15 +1076,22 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
         if scratch_out is not None:
             scratch_out["dhn"] = dhn
     else:
+        chain = wide
         if persistent:
             rc = wide.ocrs_gru_wide_chain(
                 dev.index, p(dy_f), p(dy_b), p(w), p(coef), p(dpx_f), p(dpx_b), t_len, n, hid,
                 stream)
+        elif isinstance(plan, GridF32Plan):
+            chain = _grid_f32_lib()
+            ctr = torch.empty((2 * -(-n // plan.rows),), device=dev, dtype=torch.int32)
+            rc = chain.ocrs_gru_grid_f32_chain(
+                dev.index, p(dy_f), p(dy_b), p(w), p(coef), p(dph), p(carry), p(dpx_f), p(dpx_b),
+                p(ctr), t_len, n, hid, plan.units, plan.rows, plan.stages, stream)
         else:
             rc = wide.ocrs_gru_wide_chain_stepwise(
                 dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f),
                 p(dpx_b), t_len, n, hid, stream)
-        _build.check(wide, rc, "gru_wide_bwd (chain)")
+        _build.check(chain, rc, f"gru_wide_bwd (chain, {form})")
         dbp = torch.empty((splits, 2, h3), device=dev, dtype=torch.float32)
         rc = bwd.ocrs_gru_bwd_dw(
             dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(coef), p(dwp), p(dbp), p(dw),

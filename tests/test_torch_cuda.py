@@ -66,11 +66,16 @@ from ocrs_models_torch.ops import (
 from ocrs_models_torch.ops.ctc import NEG_INF, wide_slots
 from ocrs_models_torch.ops import _build
 from ocrs_models_torch.ops.gru import (
+    GRID_F32_MAX_HIDDEN,
+    GRID_F32_STAGES,
     GRID_MAX_HIDDEN,
     GRID_RESIDENT_HIDDEN,
     H100_SMEM,
     _bwd_wide_lib,
+    _grid_f32_lib,
     _grid_lib,
+    grid_f32_plan,
+    grid_f32_smem,
     grid_kernel_smem,
     grid_limits,
     grid_plan,
@@ -193,8 +198,8 @@ def test_gru_kernels_on_two_streams_do_not_disturb_each_other(dev):
 # ceil(H/32) blocks: H=12 (padded to 16), 264 (9 unit tiles, the last
 # ragged), 320 and 512, each at N=1, 259 (ragged batch tile, more clusters
 # than one round) and 128, and at T=1 (no exchange), 2 and 257 (the wide
-# training step's T at N=128). H=1024: the per-step form in f32, the grid
-# form (gru_grid.cu, below) in bf16. Tolerances those
+# training step's T at N=128). H=1024: the grid form, gru_grid_f32.cu in
+# f32 and gru_grid.cu in bf16 (both below). Tolerances those
 # of the cluster rows, but for the share of bf16 dpx equal to the plain
 # version's at T=257, H=512: 93%, not 95%. There two float32 summation
 # orders alone disagree on 4-5% of dpx's bf16 roundings: the plain version
@@ -226,12 +231,14 @@ def _launch_calls(fn) -> dict:
 
 
 def _wide_form(h: int, dtype: torch.dtype) -> str:
-    """The route's form: "wide" (persistent), "grid" (bf16 above 512) or
+    """The route's form: "wide" (persistent), "grid" (above 512, up to
+    GRID_MAX_HIDDEN in bf16 and GRID_F32_MAX_HIDDEN in f32) or
     "stepwise"."""
     padded = h + -h % 8
     if padded <= 512:
         return "wide"
-    return "grid" if dtype == BF16 and padded <= GRID_MAX_HIDDEN else "stepwise"
+    widest = GRID_MAX_HIDDEN if dtype == BF16 else GRID_F32_MAX_HIDDEN
+    return "grid" if padded <= widest else "stepwise"
 
 
 def _wide_calls(fn, *args):
@@ -408,6 +415,99 @@ def test_gru_grid_form_matches_plain(dev, shape):
         assert bwd_calls["cudaLaunchKernel"] > 5 + streamed
 
 
+# The f32 grid form (gru_grid_f32.cu; padded 512 < H <= GRID_F32_MAX_HIDDEN):
+# H=520 (33 unit tiles of 16, the last of 8 units; two row tiles at N=259),
+# 1000 (a contraction that is no multiple of 16, 3000 in the chain), 1024,
+# 1051 (padded to 1056) and GRID_F32_MAX_HIDDEN (1056: 66 unit tiles, 132
+# blocks, 3 ring stages), at N=1 and 3 (one warp's strip, mostly rows past
+# N), 259 (three passes of up to 128 rows, the last of 16) and T=1 (no
+# product), 2 (one) and 9. Tolerances of the per-step form's f32 rows: ys
+# 1e-4, dpx 1e-3, dW and db 1e-4 of their largest entry.
+GRID_F32_SHAPES = [(t, n, h) for h in (520, 1000, 1024, 1051, GRID_F32_MAX_HIDDEN)
+                   for t, n in ((1, 3), (2, 259), (9, 1), (9, 3), (9, 259))]
+
+
+@pytest.mark.parametrize("shape", GRID_F32_SHAPES)
+def test_gru_f32_grid_form_matches_plain(dev, shape):
+    t, n, h = shape
+    assert gru_route(h) == "grid"
+    plan = grid_f32_plan(n, h)
+    assert wide_form(n, h + -h % 8, torch.float32, dev.index) == ("grid", plan)
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, sum(shape) + 21)
+    ys, forms = _form_calls(gru_fwd, px_f, px_b, w_hh, b_hh)
+    assert forms["gru_wide_fwd"]["grid"] == 1 and sum(forms["gru_wide_fwd"].values()) == 1
+    again = gru_fwd(px_f, px_b, w_hh, b_hh)
+    want = gru_recurrence_reference(px_f, px_b, w_hh, b_hh)
+    for a, b, c in zip(ys, again, want):
+        assert a.dtype == torch.float32 and a.shape == (t, n, h) and torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-4)
+    args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
+    grads, forms = _form_calls(gru_bwd, *args)
+    assert forms["gru_wide_bwd"]["grid"] == 1 and sum(forms["gru_wide_bwd"].values()) == 1
+    for a, b in zip(grads, gru_bwd(*args)):
+        assert torch.equal(a, b)  # no atomics: bit-identical reruns
+    want = gru_bwd_reference(*args)
+    for a, b in zip(grads[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    for a, b in zip(grads[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-5)
+    # Device launches a call: the forward's one cooperative launch and
+    # nothing else; the backward's coef, the chain (one cooperative
+    # launch), dw and dw_sum. A width that is not a multiple of 8 adds its
+    # pads and slices.
+    fwd_calls = _launch_calls(lambda: gru_fwd(px_f, px_b, w_hh, b_hh))
+    bwd_calls = _launch_calls(lambda: gru_bwd(*args))
+    assert fwd_calls["cudaLaunchKernelExC"] == bwd_calls["cudaLaunchKernelExC"] == 1
+    if h % 8 == 0:
+        assert fwd_calls["cudaLaunchKernel"] == 0 and bwd_calls["cudaLaunchKernel"] == 3
+
+
+def test_grid_f32_plan_counts_the_kernels_shared_memory(dev):
+    # grid_f32_plan's fit rests on grid_f32_smem; the kernels ask the
+    # runtime for their own (gru_grid_f32.cu's grid_f32_smem): the same
+    # bytes at every padded width the f32 grid form takes and every stage
+    # count it is built for, within what this card's blocks may use at the
+    # plan's stages.
+    lib = _grid_f32_lib()
+    smem = grid_limits(dev.index)[1]
+    for h in range(520, GRID_F32_MAX_HIDDEN + 1, 8):
+        for stages in GRID_F32_STAGES:
+            for kind, name in enumerate(("fwd", "chain")):
+                assert lib.ocrs_gru_grid_f32_smem(kind, h, stages) == grid_f32_smem(name, h, stages), h
+        plan = grid_f32_plan(128, h, *grid_limits(dev.index))
+        assert plan == grid_f32_plan(128, h)  # an H100's numbers
+        assert max(grid_f32_smem(k, h, plan.stages) for k in ("fwd", "chain")) <= min(smem, H100_SMEM)
+
+
+@pytest.mark.parametrize("t,n", [(3, 5), (9, 128)])
+def test_gru_f32_above_the_grid_form_runs_one_launch_a_step(dev, t, n):
+    # GRID_F32_MAX_HIDDEN + 8 (1064): 67 unit tiles of both directions
+    # outnumber the SMs, so f32 runs the per-step form there (gru_wide.cu,
+    # one launch a step), held at the per-step form's f32 tolerances, with
+    # bit-identical reruns.
+    h = GRID_F32_MAX_HIDDEN + 8
+    assert gru_route(h) == "stepwise" and grid_f32_plan(n, h) is None
+    px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, 29)
+    ys, forms = _form_calls(gru_fwd, px_f, px_b, w_hh, b_hh)
+    assert forms["gru_wide_fwd"]["stepwise"] == 1
+    calls = _launch_calls(lambda: gru_fwd(px_f, px_b, w_hh, b_hh))
+    assert calls["cudaLaunchKernelExC"] == 0 and calls["cudaLaunchKernel"] >= t
+    for a, b, c in zip(ys, gru_fwd(px_f, px_b, w_hh, b_hh),
+                       gru_recurrence_reference(px_f, px_b, w_hh, b_hh)):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=0, atol=1e-4)
+    args = (px_f, px_b, *ys, dy_f, dy_b, w_hh, b_hh)
+    grads, forms = _form_calls(gru_bwd, *args)
+    assert forms["gru_wide_bwd"]["stepwise"] == 1
+    for a, b in zip(grads, gru_bwd(*args)):
+        assert torch.equal(a, b)
+    want = gru_bwd_reference(*args)
+    for a, b in zip(grads[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+    for a, b in zip(grads[2:], want[2:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-5)
+
+
 def _assert_dw_on_the_chains_dph(px_f, px_b, ys, dy_f, dy_b, w_hh, b_hh, grads, scratch,
                                  rtol, min_equal):
     """dW against the plain dW phase on the bf16(dph) the chain handed on
@@ -452,7 +552,7 @@ def test_grid_plan_counts_the_kernels_shared_memory(dev):
 def test_gru_bf16_above_the_grid_form_runs_one_launch_a_step(dev, t, n):
     # GRID_MAX_HIDDEN + 8 (5288): no plan of the grid form (88 units a
     # block would need wgmma n = 264), so bf16 runs the per-step form
-    # there, as f32 does at every width above 512 (its coef and dW phases
+    # there, as f32 does above GRID_F32_MAX_HIDDEN (its coef and dW phases
     # gru_bwd_wide.cu's).
     h = GRID_MAX_HIDDEN + 8
     assert gru_route(h, BF16) == "stepwise" and grid_plan(n, h) is None
@@ -561,15 +661,17 @@ def test_gru_wide_bf16_chain_hands_on_its_plain_versions_dhn(dev, shape):
     torch.testing.assert_close(db, db_want, rtol=0, atol=1e-3 * db_want.abs().max().item())
 
 
-@pytest.mark.parametrize("h", [264, 512, 1024])
+@pytest.mark.parametrize("h", [264, 512, 1024, GRID_F32_MAX_HIDDEN + 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_gru_wide_kernels_on_two_streams_do_not_disturb_each_other(dev, dtype, h):
     # As the cluster kernels' test: each call's state and scratch are its
     # own, so two calls in flight at once give what each gives alone (in
-    # the persistent form at H=264 and 512; at 1024 in the per-step one in
-    # f32, and in bf16 in the grid form, whose step counters are the
-    # call's own and whose cooperative launches each hold all their blocks
-    # at once).
+    # the persistent form at H=264 and 512; at 1024 in the grid form,
+    # gru_grid_f32.cu in f32 and gru_grid.cu in bf16, whose step counters
+    # and state are the call's own and whose cooperative launches each hold
+    # all their blocks at once; at 1064 the per-step form in f32, one
+    # launch a step with the state in the call's scratch, and the grid form
+    # in bf16).
     cases = []
     for t, n, seed in ((33, 72, 15), (20, 100, 16)):
         px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, seed)

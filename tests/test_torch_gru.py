@@ -26,6 +26,9 @@ from ocrs_models_torch.ops import (
 )
 from ocrs_models_torch.ops.gru import (
     GRID_CHUNK,
+    GRID_F32_MAX_HIDDEN,
+    GRID_F32_STAGE_BYTES,
+    GRID_F32_UNITS,
     GRID_MAX_HIDDEN,
     GRID_MAX_UNITS,
     GRID_RESIDENT_HIDDEN,
@@ -34,23 +37,28 @@ from ocrs_models_torch.ops.gru import (
     H100_SMS,
     MAX_HIDDEN,
     MAX_WIDE_HIDDEN,
+    GridF32Plan,
     GridSplit,
     _pad_gates,
     _pad_w,
     _unpad_gates,
+    grid_f32_plan,
+    grid_f32_smem,
     grid_kernel_smem,
     grid_plan,
     grid_smem,
 )
 from ocrs_models_torch.weights import bigru_state_dict_from_jax, recognition_state_dict_from_jax
+from torch_fixtures.bf16_dw_reference_check import dw_check
 from torch_port_common import random_variables
 
 # (T, H) cases: H=16 as before (their ids kept), H=12, 264 and 320 on the
 # wide route; T=7 at H=264 is left out (the Pallas kernel in interpret
 # mode is the slow side there).
+# T=3 at H=520 is the f32 grid form's width (gru_grid_f32.cu, above 512).
 WIDTH_CASES = [(1, 16), (7, 16), (33, 16), (1, 12), (7, 12), (33, 12), (1, 264), (33, 264),
-               (3, 320)]
-WIDTH_IDS = ["1", "7", "33", "1-h12", "7-h12", "33-h12", "1-h264", "33-h264", "3-h320"]
+               (3, 320), (3, 520)]
+WIDTH_IDS = ["1", "7", "33", "1-h12", "7-h12", "33-h12", "1-h264", "33-h264", "3-h320", "3-h520"]
 
 
 def _case(t, n=8, h=16, seed=0):
@@ -179,12 +187,16 @@ def test_gru_route():
     # The cluster kernels' domain exactly (gru_cluster.cuh, shape_ok): H a
     # multiple of 8 from 8 to 256. Every other width is wide, by its width
     # padded to a multiple of 8: the persistent kernels ("wide", clusters
-    # of up to 16 blocks) up to 512, one launch a step above.
-    assert MAX_HIDDEN == 256 and MAX_WIDE_HIDDEN == 512
+    # of up to 16 blocks) up to 512, the f32 grid form (gru_grid_f32.cu) up
+    # to GRID_F32_MAX_HIDDEN (1056 on an H100: 66 unit tiles of 16 units,
+    # 132 blocks), one launch a step above.
+    assert MAX_HIDDEN == 256 and MAX_WIDE_HIDDEN == 512 and GRID_F32_MAX_HIDDEN == 1056
     assert [gru_route(h) for h in (8, 16, 48, 128, 248, 256)] == ["cluster"] * 6
     wide = (1, 4, 12, 100, 255, 257, 264, 320, 500, 504, 505, 512)
     assert [gru_route(h) for h in wide] == ["wide"] * len(wide)
-    assert [gru_route(h) for h in (513, 520, 1000, 1024)] == ["stepwise"] * 4
+    grid = (513, 520, 1000, 1024, 1049, GRID_F32_MAX_HIDDEN)
+    assert [gru_route(h) for h in grid] == ["grid"] * len(grid)
+    assert [gru_route(h) for h in (GRID_F32_MAX_HIDDEN + 1, 1064, 1448, 2048)] == ["stepwise"] * 4
     with pytest.raises(ValueError, match="at least 1"):
         gru_route(0)
 
@@ -205,7 +217,7 @@ def test_gru_route_in_bf16():
     assert [gru_route(h, bf16) for h in (GRID_MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 8, 8192)] == [
         "stepwise"] * 3
     assert [gru_route(h, torch.float32) for h in (520, 1024, 1448, GRID_MAX_HIDDEN)] == [
-        "stepwise"] * 4
+        "grid", "grid", "stepwise", "stepwise"]
 
 
 @pytest.mark.parametrize("n,rows_at_1024", [(1, 16), (3, 16), (128, 64), (256, 128), (259, 144)])
@@ -261,6 +273,65 @@ def test_grid_plan_fits_an_h100_up_to_its_widest_width(n, rows_at_1024):
     assert grid_plan(n, 1024, sms=66)[:2] == (32, 16 * -(-n // 16))
     assert grid_plan(n, 1024, smem=200_000)[:2] == (24, 16 * -(-n // 16))
     assert grid_plan(n, 1024, sms=60) is None
+
+
+@pytest.mark.parametrize("n,rows_at_1024", [(1, 16), (3, 16), (128, 128), (259, 272)])
+def test_grid_f32_plan_fits_an_h100_up_to_its_widest_width(n, rows_at_1024):
+    # The f32 grid form's plan at every padded width from 520 to
+    # GRID_F32_MAX_HIDDEN (1056): 16 units a block, R a multiple of 16 that
+    # covers the batch in at most as many row tiles as the SMs hold for
+    # both directions' unit tiles (passes of 128 rows inside a block), the
+    # whole f32 W_hh slice of either kernel beside the most ring stages of 4
+    # and 3 that fit in the 232,448 bytes a block may use; none above.
+    for h in range(520, GRID_F32_MAX_HIDDEN + 1, 8):
+        plan = grid_f32_plan(n, h)
+        units, rows, stages = plan
+        tiles = -(-h // units)
+        assert units == GRID_F32_UNITS == 16 and rows % 16 == 0 and rows >= 16, h
+        assert rows - 16 < -(-n // -(-n // rows)), h  # no more than 15 rows of padding a tile
+        assert 2 * tiles * -(-n // rows) <= H100_SMS, h
+        smem = [grid_f32_smem(kind, h, stages) for kind in ("fwd", "chain")]
+        assert max(smem) <= H100_SMEM and stages in (3, 4), h
+        assert stages == 4 or max(grid_f32_smem(k, h, stages + 1) for k in ("fwd", "chain")) > H100_SMEM, h
+        assert grid_f32_plan(n, h - 7) == plan, h  # the width padded to a multiple of 8
+    # The forward's [48][round16(H)] f32 slice and the chain's [16][round16(3H)]
+    # beside 8 KB a stage.
+    assert GRID_F32_STAGE_BYTES == 8192
+    assert grid_f32_smem("fwd", 1024, 4) == 4 * 48 * 1024 + 4 * 8192 == 229376
+    assert grid_f32_smem("chain", 1000, 4) == 4 * 16 * 3008 + 4 * 8192
+    assert grid_f32_plan(n, 1024) == GridF32Plan(16, rows_at_1024, 4)
+    assert grid_f32_plan(n, 1000).stages == 4 and grid_f32_plan(n, 520).stages == 4
+    assert grid_f32_plan(n, 1040).stages == 4 and grid_f32_plan(n, 1048).stages == 3
+    assert grid_f32_plan(n, GRID_F32_MAX_HIDDEN) == GridF32Plan(16, 16 * -(-n // 16), 3)
+    # H=520: 33 unit tiles, two row tiles where the batch needs them.
+    assert grid_f32_plan(n, 520).rows == (16 * -(-n // 16) if n <= 64 else 16 * -(-n // 32))
+    for h in (GRID_F32_MAX_HIDDEN + 1, 1064, 1448, 2048):
+        assert grid_f32_plan(n, h) is None, h
+    # A card with fewer SMs or less shared memory gets a plan that fits it,
+    # or none.
+    assert grid_f32_plan(n, 1024, sms=127) is None
+    assert grid_f32_plan(n, 1024, smem=222_000).stages == 3
+    assert grid_f32_plan(n, 1024, smem=220_000) is None
+
+
+def test_jax_bf16_dw_at_few_rows_nears_the_bound_the_kernels_are_held_to():
+    # The open check of the bf16 dW bound (1e-3 of the largest entry, the
+    # card tests'): at T=2 and N=5 the second chain step's rows have h_prev
+    # = 0, so a dW entry sums five products, and a rounding of dph that
+    # flips between two float32 summation orders moves it by h_prev times
+    # one bf16 step of dph. The JAX package's own bf16 dW (the Pallas
+    # kernel in interpret mode), against the port's plain version on the
+    # same saved ys, reaches 0.87 of the bound here (H=2048, seed 6) with
+    # 0.14% of dpx on the other bf16 neighbour; at H=5280 it misses by 1.65x,
+    # 511 entries past (tests/torch_fixtures/bf16_dw_reference_check.py,
+    # too large for this suite: 8 GB). The port's CPU twin is the plain
+    # version, bit for bit. The readings follow XLA's order of float32 sums
+    # on this CPU, so the test holds only that no entry passes the bound
+    # and that some dpx roundings flip.
+    got = dw_check(2, 5, 2048, 6)
+    assert got["twin_equals_plain"]
+    assert got["jax_dw_entries_past_bound"] == 0, got
+    assert got["jax_dpx_flipped_share"] > 0, got
 
 
 @pytest.mark.parametrize("h", [1, 12, 100])

@@ -123,13 +123,14 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
 def test_every_kernel_source_has_its_note():
     names = _build.sources()
     assert names == ["ctc_alpha", "ctc_beta", "gru_bwd", "gru_bwd_wide", "gru_fwd", "gru_grid",
-                     "gru_wide", "stage1_bwd", "stage1_fwd"]
+                     "gru_grid_f32", "gru_wide", "stage1_bwd", "stage1_fwd"]
     # One source a wrapper, but the wide route's two share gru_wide.cu,
-    # gru_grid.cu (its bf16 grid form) and gru_bwd_wide.cu (its bf16
-    # backward's coefficients and dW above 512).
+    # gru_grid.cu (its bf16 grid form), gru_grid_f32.cu (its f32 grid form)
+    # and gru_bwd_wide.cu (its bf16 backward's coefficients and dW above
+    # 512).
     wrappers = {k.__name__ for k in KERNELS}
     assert names == sorted(wrappers - {"gru_wide_fwd", "gru_wide_bwd"}
-                           | {"gru_wide", "gru_grid", "gru_bwd_wide"})
+                           | {"gru_wide", "gru_grid", "gru_grid_f32", "gru_bwd_wide"})
     for name in names:
         text = (_build.CSRC_DIR / f"{name}.cu").read_text()
         assert "Replaces:" in text and "ocrs_models_tpu/ops/pallas/" in text
