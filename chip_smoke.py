@@ -224,9 +224,11 @@ Phases (any failure exits non-zero, before the final line):
     with the rows per block and the clusters launched and held at once;
     the grid form (bf16) the same way at H=1024, T=9, then at H=1024,
     T=257, N=128 (its equal shares gated as H=512's) timed beside its plain
-    versions and cuDNN, with its blocks; the per-step form at H=1024 in f32
-    and at 1448 (above the grid form) in bf16, T=9, then timed at T=257,
-    N=128; (b) the shipped CRNN with ``gru_hidden=512``:
+    versions and cuDNN, with its blocks; in bf16 the streamed plans at
+    GRID_STREAMED_HIDDEN (1448, 2048, 5280 and the per-gate plan at 5288)
+    the same way, timed beside the per-step form on the same inputs; the
+    per-step form held at T=9 above each dtype's widest grid width (f32
+    1064, bf16 6344); (b) the shipped CRNN with ``gru_hidden=512``:
     3 steps against the plain step in each dtype (phase 8's tolerances for
     the first step, the CPU parity test's for later ones), then 10 timed
     steps at the headline and wide shapes (median [min, max], peak MiB,
@@ -263,6 +265,9 @@ DET_BATCH = 8
 REC_BATCH = 128
 BUCKET_WIDTHS = (256, 512, 768, 800)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+H100_L2_BYTES = 50e6  # H100 SXM data sheet: the L2 cache
+H100_SMS = 132  # H100 SXM: SMs
+H100_SMEM_BYTES = 232448  # H100: the shared memory a block of an SM may opt into
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 # float32 products on the tensor cores as error-compensated TF32 (3xTF32:
 # three TF32 products, 495 TFLOP/s dense on the H100 SXM, for each f32 one)
@@ -3322,7 +3327,8 @@ WIDE_STEPS = 3  # phase 18 (b): steps held against the plain step
 STEPWISE_SHAPE = (9, REC_BATCH, 1024)  # phase 18 (a): (T, N, H) of the per-step/grid forms' check
 GRID_HIDDEN = 1024  # phase 18 (a), (d): the grid form's width (all of W resident), timed and trained
 STEPWISE_F32_HIDDEN = 1064  # phase 18 (a): f32 above the f32 grid form (GRID_F32_MAX_HIDDEN + 8)
-GRID_STREAMED_HIDDEN = (1448, 2048)  # phase 18 (a): the grid form with W_hh partly streamed, timed
+GRID_STREAMED_HIDDEN = (1448, 2048, 5280, 5288)  # phase 18 (a): the grid form with W_hh partly
+# streamed (from L2; at 5280 and 5288 mostly from device memory, 5288 a per-gate plan), timed
 GRID_TRAIN_HIDDEN = 2048  # phase 18 (e): the recognizer trained in the streamed grid form
 
 
@@ -3526,13 +3532,26 @@ def _per_step(fn):
     return call
 
 
+def _w_reread_bytes(t_len: int, hid: int, dtype) -> float:
+    """Bytes a recurrence of ``t_len`` steps must read again from device
+    memory because W_hh outgrows the chip: each step, the part of both
+    directions' ``[H, 3H]`` W_hh in the compute dtype beyond the L2 and
+    every SM's shared memory (0 where it fits: at H=2048 in bf16 and
+    below, and in f32 up to 1024)."""
+    size = 2 if dtype == BF16 else 4
+    return t_len * max(0.0, size * 2 * hid * 3 * hid - H100_L2_BYTES - H100_SMS * H100_SMEM_BYTES)
+
+
 def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype,
                stepwise_too: bool = False) -> tuple[dict, dict]:
     """``gru_fwd`` and ``gru_bwd`` on the wide route timed on ``inputs``
     (CUDA events, the device's records, by phase), beside the plain
     versions, cuDNN's ``nn.GRU(128, hid)`` and the bound: bytes (px and ys,
-    and dy and dpx for the backward, in the dtype; the f32 weights) over
-    3.35 TB/s, or the recurrent products (three for the backward) each
+    and dy and dpx for the backward, in the dtype; the f32 weights; and
+    for the forward's recurrence and the backward's chain each the
+    per-step re-read of W_hh where it outgrows the chip, ``_w_reread_bytes``:
+    19.5 ms of the bound at H=5288 in bf16) over 3.35 TB/s, or the
+    recurrent products (three for the backward) each
     over the peak of the pipes its kernel runs it on (``bound_peaks``):
     bf16 on the tensor cores; in f32 the recurrence on the FMA pipes, or
     in 3xTF32 in the f32 grid form, and the backward's coef and dw in
@@ -3578,7 +3597,8 @@ def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype,
                 _cudnn_gru(dev, gen, t_len, n, hid, dtype, backward), iters=5)
         parts = ((flops, rec_peak), *(((2 * flops, other_peak),) if backward else ()))
         bound_ms, bound_by = _bound_parts(io_bytes * (2 if backward else 1)
-                                          + weights * (2 if backward else 1), parts)
+                                          + weights * (2 if backward else 1)
+                                          + _w_reread_bytes(t_len, hid, dtype), parts)
         peaks = ", ".join(f"{_PEAK_NAMES[rate]} ({what})" for (_, rate), what in
                           zip(parts, ("recurrence", "coef and dw")))
         device_ms = _wide_device_ms(times, t_len, backward)
@@ -3616,11 +3636,11 @@ def check_gru_wide(dev, gen) -> list[dict]:
     N=128, H=GRID_HIDDEN (the kernels rows' ``grid`` entries; in f32 the
     per-step form timed beside on the same inputs) and in bf16 at each
     width of GRID_STREAMED_HIDDEN, where W_hh is partly streamed (the
-    ``grid_streamed`` entries, the per-step form timed beside); the
-    per-step form held at T=9 above each dtype's widest grid width,
-    STEPWISE_F32_HIDDEN and GRID_MAX_HIDDEN + 8, this one (bf16) also gated
-    and timed at T=257, N=128 (the ``stepwise`` entries). Returns the
-    kernels line's rows."""
+    ``grid_streamed`` entries, the per-step form timed beside: at 5280 and
+    5288, where W_hh comes mostly from device memory, the old plan of 80
+    units and the per-gate plan of 88); the per-step form held at T=9 above
+    each dtype's widest grid width, STEPWISE_F32_HIDDEN and GRID_MAX_HIDDEN
+    + 8 (the ``stepwise`` entries). Returns the kernels line's rows."""
     from ocrs_models_torch.ops import gru_route
     from ocrs_models_torch.ops.gru import GRID_MAX_HIDDEN, wide_max_active_clusters
 
@@ -3665,10 +3685,9 @@ def check_gru_wide(dev, gen) -> list[dict]:
         # wide bucket's T=257, N=128, gated and timed: H=GRID_HIDDEN in
         # both dtypes, f32 beside the per-step form, and in bf16 the
         # streamed plans' GRID_STREAMED_HIDDEN, these beside the per-step
-        # form too); the per-step form above each dtype's widest grid
-        # width, held at T=9 (its errors gated at the tolerances above,
-        # bf16 without an equal share: printed), and in bf16 (5288) also
-        # gated and timed at T=257, N=128 beside cuDNN.
+        # form too, 5288 a per-gate plan); the per-step form above each
+        # dtype's widest grid width, held at T=9 (its errors gated at the
+        # tolerances above, bf16 without an equal share: printed).
         t_s, n_s, _ = STEPWISE_SHAPE
         forms = ((("grid", GRID_HIDDEN), *(("grid", h) for h in GRID_STREAMED_HIDDEN),
                   ("stepwise", GRID_MAX_HIDDEN + 8)) if bf16 else
@@ -3684,8 +3703,9 @@ def check_gru_wide(dev, gen) -> list[dict]:
                     row[form] = {"form": form, "route": "cuda",
                                  "source": "ocrs_models_torch/csrc/gru_wide.cu",
                                  "checked": f"T={t_s}, N={n_s}, H={hid}", **got[name]}
-                if not bf16:  # f32: its times at GRID_HIDDEN beside the grid form's
-                    continue
+                # Its times at T=257 beside the grid form's on the same
+                # inputs (f32 at GRID_HIDDEN, bf16 at GRID_STREAMED_HIDDEN).
+                continue
             subs = _wide_sub_rows(dev, gen, t_len, n, hid, dtype, tag, form)
             for row, sub in zip((fwd, bwd), subs):
                 if hid in GRID_STREAMED_HIDDEN:

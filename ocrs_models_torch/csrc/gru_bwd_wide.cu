@@ -49,6 +49,14 @@
 //   1024 its tiles, 2 * ceil(H/128) * (ceil(2H/192) + ceil(H/192)), fill
 //   the card in one range (ops/gru.py `_dw_splits`), so the partials add
 //   one [2, H, 3H] write and read.
+// - Tile order (tile_place): grouped. At H = 5288 a direction's W_hh (168
+//   MB) and h_prev (348 MB) outgrow the 50 MB L2; with the column tiles
+//   fastest, the 132 blocks in flight span all of a direction's W_hh
+//   columns (coef) or all of dph's (dw) for one or two row tiles, and
+//   every wave reads them again from device memory (coef about 86 GB a
+//   call, dw 57). In groups of 16 row tiles (coef) or 12 k tiles (dw),
+//   row tiles fastest, the blocks in flight share a few column tiles,
+//   each read once a group, while the group's rows stay in L2.
 // Every sum runs in a fixed order and there are no atomics, so reruns
 // agree bit for bit.
 
@@ -83,6 +91,34 @@ constexpr uint32_t kBox = 64 * 64 * 2;        // one 64 x 64 box (8 KB)
 // The ring (1024-byte aligned, as the 128-byte swizzle wants), then its
 // mbarriers; 1 KB more to align the dynamic shared memory's start.
 constexpr int kSmem = kStages * kStageBytes + 2 * kStages * 8 + 1024;
+constexpr int kCoefGroup = 16;             // coef: row tiles of a group (grouped order)
+constexpr int kDwGroup = 12;               // dw: dW row tiles (k) of a group (grouped order)
+
+// The tile order of the persistent loop over a product's tiles, within
+// one direction (coef) or one range of rows and direction (dw), of `outer`
+// tiles along the operand that changes slowest in the plain order (coef:
+// row tiles of h_prev, RT; dw: row tiles k of dW, KT) x `inner` along the
+// other (coef: unit tiles of W_hh's columns, UT; dw: column tiles of dph,
+// JT). Order 0, the plain one: inner fastest, so at a wide H the 132
+// blocks in flight span every inner tile (a whole direction's W_hh in
+// coef, all of dph's columns in dw) for one or two outer tiles, and each
+// wave reads those again from device memory. Order 1, grouped: groups of
+// `group` outer tiles, within a group outer fastest, so the blocks in
+// flight share a few inner tiles (each read once a group) and the group's
+// outer tiles stay in L2 while its inner tiles pass. A tile's own sums
+// are the same in both: the results are bit for bit equal.
+__device__ __forceinline__ void tile_place(int i, int outer, int inner, int group, int order,
+                                           int& o, int& in) {
+    if (order == 0) {
+        o = i / inner;
+        in = i % inner;
+        return;
+    }
+    const int first = i / (group * inner) * group, g = min(group, outer - first);
+    i -= first * inner;
+    o = first + i % g;
+    in = i / g;
+}
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
@@ -252,8 +288,9 @@ __device__ __forceinline__ void multiply(float (&acc)[kBN / 8][4], const Ring& r
 __device__ __forceinline__ void regs_copying() { asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory"); }
 __device__ __forceinline__ void regs_multiplying() { asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory"); }
 
-// (a) the coefficients. Tiles (direction, row tile, unit tile), unit tile
-// fastest; the maps: h_prev's source ys_f, ys_b ([T*N][H], boxes 64 x
+// (a) the coefficients. Tiles (direction, row tile, unit tile) in
+// `order` (tile_place: unit tiles fastest, or grouped by kCoefGroup row
+// tiles); the maps: h_prev's source ys_f, ys_b ([T*N][H], boxes 64 x
 // 128), and W_hh of each direction ([H][3H], boxes 64 x 64).
 struct CoefMaps {
     CUtensorMap ys[2];
@@ -264,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 gru_bwd_coef_wide_kernel(const __grid_constant__ CoefMaps maps, const bf16* __restrict__ px_f,
                          const bf16* __restrict__ px_b, const bf16* __restrict__ ys_f,
                          const bf16* __restrict__ ys_b, const float* __restrict__ b_hh,
-                         float* __restrict__ coef, int T, int N, int H) {
+                         float* __restrict__ coef, int T, int N, int H, int order) {
     extern __shared__ unsigned char smem_raw[];
     const Ring r = ring_setup(smem_raw);
     const int M = T * N, H3 = 3 * H, tid = threadIdx.x;
@@ -275,7 +312,9 @@ gru_bwd_coef_wide_kernel(const __grid_constant__ CoefMaps maps, const bf16* __re
         if (tid != 0) return;
         unsigned g = 0;
         for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-            const int u0 = tile % UT * kUnits, m0 = tile / UT % RT * kBM, dir = tile / UT / RT;
+            int rt, ut;
+            tile_place(tile % (UT * RT), RT, UT, kCoefGroup, order, rt, ut);
+            const int u0 = ut * kUnits, m0 = rt * kBM, dir = tile / UT / RT;
             const int src = m0 + (dir == 0 ? -N : N);  // h_prev's first row in ys
             for (int kt = 0; kt < n_kt; ++kt, ++g) {
                 const uint32_t st = ring_claim(r, g);
@@ -291,7 +330,9 @@ gru_bwd_coef_wide_kernel(const __grid_constant__ CoefMaps maps, const bf16* __re
     const int wg = tid / 128 - 1, lane = tid % 32, warp = tid / 32 % 4, gid = lane / 4, tig = lane % 4;
     unsigned g = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, g += n_kt) {
-        const int u0 = tile % UT * kUnits, m0 = tile / UT % RT * kBM, dir = tile / UT / RT;
+        int rt, ut;
+        tile_place(tile % (UT * RT), RT, UT, kCoefGroup, order, rt, ut);
+        const int u0 = ut * kUnits, m0 = rt * kBM, dir = tile / UT / RT;
         float acc[kBN / 8][4];
         multiply<0, 1>(acc, r, g, n_kt, (uint32_t)wg * 64 * 128);
 
@@ -343,7 +384,8 @@ gru_bwd_coef_wide_kernel(const __grid_constant__ CoefMaps maps, const bf16* __re
 
 // (c) dW partials: dwp[split][dir][k][j] = sum over the split's rows m of
 // h_prev[m][k] bf16(dph)[m][j]. Tiles (split * 2 + dir, k tile, column
-// tile), the column tile fastest: JD tiles over dpx's first 2H columns,
+// tile) in `order` (tile_place: column tiles fastest, or grouped by
+// kDwGroup k tiles): JD tiles over dpx's first 2H columns,
 // then ceil(H/192) over dhn's H. The maps: ys_f, ys_b ([T*N][H]), dpx_f,
 // dpx_b ([T*N][2H] of row pitch 3H), dhn of each direction ([T*N][H]), all
 // boxes 64 x 64.
@@ -355,7 +397,7 @@ struct DwMaps {
 
 __global__ void __launch_bounds__(kThreads, 1)
 gru_bwd_dw_wide_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dwp,
-                       int rows_per_split, int splits, int T, int N, int H) {
+                       int rows_per_split, int splits, int T, int N, int H, int order) {
     extern __shared__ unsigned char smem_raw[];
     const Ring r = ring_setup(smem_raw);
     const int M = T * N, H3 = 3 * H, tid = threadIdx.x;
@@ -369,8 +411,10 @@ gru_bwd_dw_wide_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ 
     };
     const auto place = [&](int tile) {
         Place p;
-        const int jt = tile % JT, z = tile / JT / KT;
-        p.k0 = tile / JT % KT * kBM;
+        int kt, jt;
+        tile_place(tile % (KT * JT), KT, JT, kDwGroup, order, kt, jt);
+        const int z = tile / JT / KT;
+        p.k0 = kt * kBM;
         p.dir = z % 2;
         p.from_dhn = jt >= JD;
         p.jm = (p.from_dhn ? jt - JD : jt) * kBN;
@@ -503,10 +547,11 @@ extern "C" {
 
 // The coefficients: px_f, px_b [T, N, 3H], ys_f, ys_b [T, N, H] bf16; w16
 // [2, H, 3H] bf16 (W_hh for h @ W); b_hh [2, 3H] float32; out coef [2,
-// T*N, 5, H] float32. H % 8 == 0. One launch.
+// T*N, 5, H] float32. H % 8 == 0; `order` the tiles' (0: unit tiles
+// fastest; 1: grouped, what the wrapper runs; the same bits). One launch.
 int ocrs_gru_bwd_coef_wide_bf16(int device, const bf16* px_f, const bf16* px_b, const bf16* ys_f,
                                 const bf16* ys_b, const bf16* w16, const float* b_hh, float* coef,
-                                int T, int N, int H, void* stream) {
+                                int T, int N, int H, int order, void* stream) {
     const RestoreDevice restore_device;
     const long long M = (long long)T * N;
     int grid = 0;
@@ -518,8 +563,9 @@ int ocrs_gru_bwd_coef_wide_bf16(int device, const bf16* px_f, const bf16* px_b, 
         if (!map2d(&maps.ys[d], d == 0 ? ys_f : ys_b, H, M, H, kBM) ||
             !map2d(&maps.w[d], w16 + (size_t)d * H * 3 * H, 3 * H, H, 3 * H, 64))
             return (int)cudaErrorInvalidValue;
+    if (order != 0 && order != 1) return (int)cudaErrorInvalidValue;
     gru_bwd_coef_wide_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-        maps, px_f, px_b, ys_f, ys_b, b_hh, coef, T, N, H);
+        maps, px_f, px_b, ys_f, ys_b, b_hh, coef, T, N, H, order);
     return (int)cudaGetLastError();
 }
 
@@ -527,13 +573,13 @@ int ocrs_gru_bwd_coef_wide_bf16(int device, const bf16* px_f, const bf16* px_b, 
 // dhn [2, T*N, H] bf16; scratch dwp [splits, 2, H, 3H] float32; dbp
 // [db_parts, 2, 3H] the chain's db partials; out dw [2, H, 3H], db [2, 3H]
 // float32. `splits` ranges of rows (each a multiple of 64 rows but the
-// last). Two launches.
+// last); `order` as for the coefficients. Two launches.
 int ocrs_gru_bwd_dw_wide_bf16(int device, const bf16* ys_f, const bf16* ys_b, const bf16* dpx_f,
                               const bf16* dpx_b, const bf16* dhn, float* dwp, const float* dbp,
                               int db_parts, float* dw, float* db, int splits, int T, int N, int H,
-                              void* stream) {
+                              int order, void* stream) {
     const RestoreDevice restore_device;
-    if (splits < 1 || db_parts < 1) return (int)cudaErrorInvalidValue;
+    if (splits < 1 || db_parts < 1 || (order != 0 && order != 1)) return (int)cudaErrorInvalidValue;
     const long long M = (long long)T * N;
     const int tiles_j = (2 * H + kBN - 1) / kBN + (H + kBN - 1) / kBN;
     int grid = 0;
@@ -548,7 +594,7 @@ int ocrs_gru_bwd_dw_wide_bf16(int device, const bf16* ys_f, const bf16* ys_b, co
             return (int)cudaErrorInvalidValue;
     const int rows = (int)(((M + splits - 1) / splits + kBK - 1) / kBK * kBK);
     gru_bwd_dw_wide_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(maps, dwp, rows, splits,
-                                                                              T, N, H);
+                                                                              T, N, H, order);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int n_dw = 2 * H * 3 * H, n_db = 2 * 3 * H;

@@ -9,7 +9,7 @@
 // `_bwd_kernel`), in bf16 compute at the widths that no thread block
 // cluster of gru_wide.cu's persistent form holds (padded H > 512). The
 // wrapper (ops/gru.py, `gru_route`, `grid_plan`) sends bf16 layers of
-// padded width 512 < H <= 5280 (GRID_MAX_HIDDEN on an H100) here, after
+// padded width 512 < H <= 6336 (GRID_MAX_HIDDEN on an H100) here, after
 // zero-padding H to a multiple of 8; f32, and bf16 above that, keep
 // gru_wide.cu's kernels of one launch a step. The backward's other phases,
 // the coefficients before the chain and the dW/db reduction after it, are
@@ -47,7 +47,21 @@
 // H=1024, N=128). Up to H = 1440 U is 32, or 24 above H = 1072, and the
 // whole W slice stays in shared memory; above, U is the least multiple of
 // 8 whose blocks fit the SMs (24 at 1448, 32 at 2048, 64 at 4096, 80 at
-// 5280), and the slice is split (below, "streamed W").
+// 5280, 88 at 5288, 96 from 5816 to 6336), and the slice is split (below,
+// "streamed W"). Past 80 units ("the per-gate plans", kGateUnits) the
+// forward's 3U columns exceed wgmma's n = 256 and the bf16 W_hh (335.6 MB
+// at 5288) outgrows the L2 and the SMs' shared memory together, so it
+// comes from device memory every step; there both kernels run on wgmma in
+// passes of 128 rows split between the warpgroups, so each streams its
+// slice once a step. The forward's ring copies are marked evict-first in
+// L2 (the state and A fragments that every block reads each step stay
+// there). The forward parks its 3U accumulators in its 4 ring stages for
+// the gate math (in registers ptxas spilled them: on an H100 at 5288 the
+// gate math took 104 k cycles a step, 64 k parked, grid_probe) and
+// refills the stages once the gate math has read them. The chain streams
+// chunks of kGateChunk k16 steps: each stage's copy cost about a latency
+// that nothing hid, so fewer, larger copies (82 a step at 5288, not 248)
+// took its call from 100.5 ms to 59.1 (grid_probe's operands).
 // - W: the block loads its bf16 slice of W_hh once into shared memory and
 //   keeps it for all T steps: the forward's 3U rows (its units' r, z, n
 //   columns of W_hh) of H, in wgmma's K-major layout of 8 x 8 core
@@ -58,7 +72,8 @@
 // - Streamed W (above H = 1440, where 6 U H bytes do not fit): the block
 //   keeps the first KR k16 steps of its slice in shared memory and streams
 //   the rest through a ring of S stages, chunks of 4 k16 steps (forward)
-//   or 8 (chain). The wrapper's call first writes, once a call, a device
+//   or 8 (chain; kGateChunk in the per-gate plans' chain). The wrapper's
+//   call first writes, once a call, a device
 //   copy of every block's streamed chunks in the exact layout of a ring
 //   stage (one launch, `gru_grid_stream_layout_kernel`), so a chunk is one
 //   contiguous `cp.async.bulk` (1-D TMA) into a stage, completing on that
@@ -72,7 +87,10 @@
 //   stage with one arrival. (A ninth, producer warp would cap every
 //   thread at 168 registers.)
 // - The products, 8 warps. Forward: `wgmma.mma_async` m64n(3U)k16 bf16 ->
-//   f32, A from registers, B from shared memory by descriptor. In passes
+//   f32 (above kGateUnits one m64nUk16 a gate, each from its gate's rows
+//   of the same slice and the same A registers; a sum keeps the order of
+//   one product), A from registers, B from shared memory by descriptor.
+//   In passes
 //   of 64 batch rows warp w holds the m16 tile w % 4 of the pass and
 //   warpgroup w / 4 takes the k16 steps of that parity (its "k group");
 //   in the streamed plans where a block has more than 64 rows, passes of
@@ -84,7 +102,14 @@
 //   fragment (MW = 2, passes of 64 rows; 4, passes of 128, in the streamed
 //   plans of up to 32 units where a block has more than 64 rows), and the
 //   k16 steps congruent to w / 2 mod 4. The k groups' partial sums meet in
-//   shared memory and are added in k-group order.
+//   shared memory and are added in k-group order. The per-gate plans'
+//   chain (gru_grid_chain_gate_kernel) multiplies as the forward does at
+//   128 rows a pass: one wgmma m64nUk16 a k16 step, B its U rows of
+//   W_hh^T in the forward's layout (streamed chunks of kGateChunk k16
+//   steps), A staged in shared memory, no partial sums to exchange (at 88 units
+//   gru_grid_chain_kernel's warps hold 2 m16 tiles in passes of 64 rows,
+//   as 4 would take 176 accumulators a thread, and stream the slice twice
+//   a step from device memory).
 // - The A operand, what the previous step wrote for the block's rows:
 //   bf16(h) (forward) or bf16(dph) (chain), K = H or 3H. The gate math
 //   that makes it also writes it to scratch of the call's own in device
@@ -152,6 +177,8 @@ constexpr int kNC = 5;                        // coefficients per element (gru_b
 constexpr int kFwdChunk = 4;                  // k16 steps of W in a forward ring stage
 constexpr int kAStages = 3;                   // streamed forward: A batches a warp stages in shared memory
 constexpr int kChainChunk = 8;                // in a chain ring stage (two of each k group)
+constexpr int kGateUnits = 80;                // most units whose forward is one wgmma of n = 3U
+constexpr int kMaxUnits = 96;                 // most units a block (the per-gate plans above kGateUnits)
 
 // The forward's A fragments loaded at once (k16 steps of a k group):
 // kFwdBatch in the kernels that keep all of W resident, 2 in the streamed
@@ -213,6 +240,16 @@ __host__ __device__ constexpr size_t fwd_chunk_bytes(int U) { return (size_t)kFw
 __host__ __device__ constexpr size_t chain_chunk_bytes(int U) {
     return (size_t)2 * U * w_stride(16 * kChainChunk);
 }
+// The per-gate plans' chain (above kGateUnits): a ring stage holds
+// kGateChunk k16 steps of its U rows in the forward's layout (w_index), as
+// wgmma reads them, and its products take one stage a batch: a stage's
+// copy (one cp.async.bulk) cost about a latency that nothing hid, so a
+// stage is as large as the shared memory allows beside 2 batches of A
+// staging (kGateAStages of each of the 8 warps, 512 bytes a k16 step).
+constexpr int kGateChunk = 12;
+__host__ __device__ constexpr size_t gate_chain_chunk_bytes(int U) { return (size_t)kGateChunk * 32 * U; }
+constexpr int kGateAStages = 2;
+__host__ __device__ constexpr int gate_chain_astage() { return 8 * kGateAStages * kGateChunk * 32 * 16; }
 
 // Dynamic shared memory of each kernel with the first KR k16 steps of W
 // resident, a ring of S stages (S = 0: the whole slice resident, KR the
@@ -226,16 +263,26 @@ size_t fwd_smem(int U, int KR, int S, int PR) {
 }
 
 size_t chain_smem(int U, int KR, int S, int PR) {
+    if (U > kGateUnits)  // the slice in wgmma's layout, the A staging, the ring, db's sums
+        return (size_t)32 * U * KR + gate_chain_astage() + (size_t)S * (gate_chain_chunk_bytes(U) + 16) +
+               (size_t)8 * 3 * U * 4;
     return (size_t)2 * U * w_stride(16 * KR) + chain_xchg(U / 8, PR / 32) +
            (size_t)S * (chain_chunk_bytes(U) + 16);
 }
 
 // Whether the kernels are built for a plan: U units a block (24 or 32 where
-// the whole slice is resident, up to 80 with a ring), PR rows a pass (128
-// only with a ring, and in the chain only up to 32 units).
+// the whole slice is resident, up to kMaxUnits with a ring), PR rows a pass
+// (128 only with a ring, and in the chain only up to 32 units; always
+// above kGateUnits, where both kernels split the rows between their
+// warpgroups and take 4 stages or more).
 bool grid_variant_ok(int kind, int U, int S, int PR) {
-    if (U % 8 != 0 || (S == 0 ? U != 24 && U != 32 : U < 24 || U > 80)) return false;
-    return PR == kPassRows || (PR == 2 * kPassRows && S > 0 && (kind == 0 || U <= 32));
+    if (U % 8 != 0) return false;
+    if (S == 0) return (U == 24 || U == 32) && PR == kPassRows;
+    if (U < 24 || U > kMaxUnits) return false;
+    // The per-gate forward parks its sums in 4 stages; the chain's next
+    // batch lands in a second stage while one multiplies.
+    if (U > kGateUnits) return PR == 2 * kPassRows && S >= (kind == 0 ? 4 : 2);
+    return PR == kPassRows || (PR == 2 * kPassRows && (kind == 0 || U <= 32));
 }
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
@@ -297,6 +344,18 @@ struct Wgmma<72> {
             "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
             "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
             : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+    }
+};
+
+template <>
+struct Wgmma<88> {
+    __device__ __forceinline__ static void mma(float (&d)[11][4], const uint32_t (&a)[4], uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 "
+            "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43}, {%44, %45, %46, %47}, %48, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3])
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
     }
 };
@@ -425,7 +484,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // stage g % S; its use of the stage is g / S. Thread 0 issues the chunks
 // in order (`issued`: how many so far, in its registers): without a warp
 // of its own, so that the 8 warps keep every register (a ninth warp would
-// cap them at 168).
+// cap them at 168). `first`: the copies are marked evict-first in L2 (the
+// per-gate forward, whose W_hh outgrows the L2 and comes from device
+// memory each step), so that they do not push out what every block reads
+// each step (the A fragments, the state): on an H100 at 5288 that helped
+// the forward and slowed the chain, each by a few per cent. Chunks from
+// `limit` on are issued only when a product waits for them (the per-gate
+// forward holds its accumulators in the stages between its products:
+// thread 0 raises the limit once they are read). `lazy`: a warp's release issues the next
+// chunks only into stages already free, without waiting for the other
+// warps (the per-gate chain: a release that waits holds the first
+// warpgroup to the second's pace; the ring_wait of a chunk issues it if
+// no release did).
 struct Ring {
     int KR, NC, S;
     uint32_t bytes;
@@ -433,11 +503,12 @@ struct Ring {
     unsigned char* stage0;
     uint64_t* full;
     uint64_t* empty;
-    unsigned total, issued;
+    unsigned total, issued, limit;
+    bool first, lazy;
 };
 
 __device__ __forceinline__ Ring make_ring(unsigned char* smem_end_of_slices, const bf16* src,
-                                          int KR, int NC, int S, size_t bytes) {
+                                          int KR, int NC, int S, size_t bytes, bool first = false) {
     Ring r;
     r.KR = KR;
     r.NC = NC;
@@ -448,6 +519,9 @@ __device__ __forceinline__ Ring make_ring(unsigned char* smem_end_of_slices, con
     r.full = reinterpret_cast<uint64_t*>(smem_end_of_slices + (size_t)S * bytes);
     r.empty = r.full + S;
     r.total = r.issued = 0;
+    r.limit = ~0u;
+    r.first = first;
+    r.lazy = false;
     return r;
 }
 
@@ -457,18 +531,42 @@ __device__ __forceinline__ void ring_issue(const Ring& r, unsigned g) {
     const unsigned s = g % (unsigned)r.S, use = g / (unsigned)r.S;
     if (use > 0) mbar_wait(r.empty + s, (use - 1) & 1u);
     mbar_arrive_expect_tx(r.full + s, r.bytes);
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-        :: "r"(smem_u32(r.stage0 + (size_t)s * r.bytes)),
-           "l"(r.src + (size_t)(g % (unsigned)r.NC) * r.bytes), "r"(r.bytes),
-           "r"(smem_u32(r.full + s))
-        : "memory");
+    const uint32_t dst = smem_u32(r.stage0 + (size_t)s * r.bytes), bar = smem_u32(r.full + s);
+    const unsigned char* src = r.src + (size_t)(g % (unsigned)r.NC) * r.bytes;
+    if (r.first) {
+        uint64_t policy;
+        asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+            " [%0], [%1], %2, [%3], %4;"
+            :: "r"(dst), "l"(src), "r"(r.bytes), "r"(bar), "l"(policy) : "memory");
+    } else {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+            :: "r"(dst), "l"(src), "r"(r.bytes), "r"(bar) : "memory");
+    }
 }
+
+// The chunks that may be issued ahead of a wait for them.
+__device__ __forceinline__ unsigned ring_end(const Ring& r) { return min(r.total, r.limit); }
 
 // Thread 0 issues the first S chunks of the call (every stage is free).
 __device__ __forceinline__ void ring_fill(Ring& r) {
     if (threadIdx.x == 0)
-        while (r.issued < r.total && r.issued < (unsigned)r.S) ring_issue(r, r.issued++);
+        while (r.issued < ring_end(r) && r.issued < (unsigned)r.S) ring_issue(r, r.issued++);
+}
+
+// Whether the stage of chunk g is free for it (its previous use released
+// by every warp), without waiting.
+__device__ __forceinline__ bool ring_free(const Ring& r, unsigned g) {
+    const unsigned use = g / (unsigned)r.S;
+    if (use == 0) return true;
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(r.empty + g % (unsigned)r.S)), "r"((use - 1) & 1u) : "memory");
+    return done != 0;
 }
 
 // The shared address of chunk g, once it has landed. Thread 0 first issues
@@ -491,7 +589,9 @@ __device__ __forceinline__ void ring_release(Ring& r, unsigned g) {
     __syncwarp();
     if (threadIdx.x % 32 == 0) mbar_arrive(r.empty + g % (unsigned)r.S);
     if (threadIdx.x == 0)
-        while (r.issued <= g + (unsigned)r.S && r.issued < r.total) ring_issue(r, r.issued++);
+        while (r.issued <= g + (unsigned)r.S && r.issued < ring_end(r) &&
+               (!r.lazy || ring_free(r, r.issued)))
+            ring_issue(r, r.issued++);
 }
 
 // The ring's mbarriers (thread 0), made visible to the copies.
@@ -514,6 +614,25 @@ __device__ __forceinline__ size_t frag_word(int r, int k, int KS) {
            ((r % 16) / 8 + 2 * ((k % 16) / 8));
 }
 
+// The first n8 tile of sub-product q of Subs over NT tiles (their widths
+// differ by one tile at most).
+template <int NT, int Subs>
+__device__ __forceinline__ uint32_t sub_tile(int q) { return (uint32_t)(q * NT / Subs); }
+
+// One k16 step of the warpgroup: Subs wgmma over consecutive n8 tiles of
+// acc (sub-product Q: tiles Q NT / Subs ..), each from its own rows of the
+// W slice (descriptor desc[Q]) and the same A registers. Independent
+// accumulators, so the products of a step overlap in the tensor cores.
+template <int NT, int Subs, int Q = 0>
+__device__ __forceinline__ void wg_mmas(float (&acc)[NT][4], const uint32_t (&a)[4],
+                                        const uint64_t (&desc)[Subs]) {
+    if constexpr (Q < Subs) {
+        constexpr int off = Q * NT / Subs, w = (Q + 1) * NT / Subs - off;
+        Wgmma<8 * w>::mma(*reinterpret_cast<float(*)[w][4]>(&acc[off][0]), a, desc[Q]);
+        wg_mmas<NT, Subs, Q + 1>(acc, a, desc);
+    }
+}
+
 // The warpgroup's product (warps 4 kg .. 4 kg + 3, m16 tile w % 4 each):
 // the A fragments of this warp's tile, `frag` ([KS][32] uint4; zero where
 // the tile holds no batch row, `rows`), at the k16 steps kg, kg + KS2, ...
@@ -533,15 +652,20 @@ __device__ __forceinline__ size_t frag_word(int r, int k, int KS) {
 // chunks before its fence and frees them after its wait, the same in
 // every warp. A step past the last chunk reads that chunk's last step
 // (times zeros). The streamed kernels also bring the A fragments through
-// this warp's `astage` ([kAStages][Batch][32] uint4 in shared memory) with
-// cp.async, kAStages - 1 batches ahead, and read each batch from there
+// this warp's `astage` ([AStages][Batch][32] uint4 in shared memory) with
+// cp.async, AStages - 1 batches ahead, and read each batch from there
 // just before its fence: the fence then waits for no load from device
-// memory.
-template <int NT, int Batch, bool Stream, int KS2 = 2>
+// memory. `Gates` > 1 (the per-gate plans' forward, 3 U > 256 columns): a
+// k16 step is that many wgmma over consecutive n8 tiles (wg_mmas), each
+// from its own rows of the slice and the same A registers: every sum
+// keeps the order of one product. `Chunk`: k16 steps of a ring stage.
+template <int NT, int Batch, bool Stream, int KS2 = 2, int Gates = 1, int AStages = kAStages,
+          int Chunk = kFwdChunk>
 __device__ __forceinline__ void wg_product(float (&acc)[NT][4], const uint4* frag, bool rows, int KS,
                                            int kg, bool pad, uint32_t w, Ring& ring,
                                            unsigned g0, uint4* astage) {
-    constexpr int kHalves = KS2 * Batch / kFwdChunk;  // chunks a batch spans
+    constexpr int kHalves = KS2 * Batch / Chunk;  // chunks a batch spans
+    static_assert(kHalves >= 1 && KS2 * Batch % Chunk == 0, "a batch spans whole chunks");
     const int lane = threadIdx.x % 32;
 #pragma unroll
     for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
@@ -561,7 +685,7 @@ __device__ __forceinline__ void wg_product(float (&acc)[NT][4], const uint4* fra
         }
     };
     const auto stage = [&](int i0) {  // the batch from k group step i0 into its slot
-        uint4* dst = astage + (size_t)(i0 / Batch % kAStages) * Batch * 32;
+        uint4* dst = astage + (size_t)(i0 / Batch % AStages) * Batch * 32;
 #pragma unroll
         for (int d = 0; d < Batch; ++d) {
             const int ks = kg + KS2 * (i0 + d);
@@ -572,7 +696,7 @@ __device__ __forceinline__ void wg_product(float (&acc)[NT][4], const uint4* fra
         cp_async_commit();
     };
     const auto staged = [&](uint32_t (&a)[Batch][4], int i0) {
-        const uint4* src = astage + (size_t)(i0 / Batch % kAStages) * Batch * 32;
+        const uint4* src = astage + (size_t)(i0 / Batch % AStages) * Batch * 32;
 #pragma unroll
         for (int d = 0; d < Batch; ++d) {
             const uint4 v = src[d * 32 + lane];
@@ -587,52 +711,56 @@ __device__ __forceinline__ void wg_product(float (&acc)[NT][4], const uint4* fra
     uint32_t cur[Batch][4], nxt[Batch][4];
     if (Stream) {
 #pragma unroll
-        for (int b = 0; b < kAStages - 1; ++b) stage(b * Batch);
+        for (int b = 0; b < AStages - 1; ++b) stage(b * Batch);
     } else {
         load(cur, 0);
     }
 #pragma unroll 1
     for (int i0 = 0; i0 < nk; i0 += Batch) {
         if (Stream) {
-            stage(i0 + (kAStages - 1) * Batch);
-            cp_async_wait<kAStages - 1>();
+            stage(i0 + (AStages - 1) * Batch);
+            cp_async_wait<AStages - 1>();
             staged(cur, i0);
         }
         // Every input register of the batch's products is set before its
         // fence: ptxas serialises products whose inputs are set between
         // them.
-        uint64_t desc[Batch];
+        uint64_t desc[Batch][Gates];
         int chunk[kHalves];  // the ring chunk of each 4-step half of the batch, or -1
         if (streamed) {
             uint32_t base[kHalves];
 #pragma unroll
             for (int q = 0; q < kHalves; ++q) {
-                const int s0 = KS2 * i0 + kFwdChunk * q;
-                const int c = (s0 - ring.KR) / kFwdChunk;
+                const int s0 = KS2 * i0 + Chunk * q;
+                const int c = (s0 - ring.KR) / Chunk;
                 chunk[q] = s0 >= ring.KR && c < ring.NC ? c : -1;
                 base[q] = chunk[q] >= 0 ? ring_wait(ring, g0 + chunk[q]) : 0u;
             }
 #pragma unroll
             for (int d = 0; d < Batch; ++d) {
                 const int ks = kg + KS2 * (i0 + d);
-                const int q = (ks - KS2 * i0) / kFwdChunk;
+                const int q = (ks - KS2 * i0) / Chunk;
                 uint32_t addr;
                 if (ks < ring.KR)
                     addr = w + (uint32_t)ks * 2 * lbo;
                 else if (chunk[q] >= 0)
-                    addr = base[q] + (uint32_t)((ks - KS2 * i0) % kFwdChunk) * 2 * lbo;
+                    addr = base[q] + (uint32_t)((ks - KS2 * i0) % Chunk) * 2 * lbo;
                 else  // past the last chunk, which the batch's first half holds
-                    addr = base[0] + (uint32_t)(kFwdChunk - 1) * 2 * lbo;
-                desc[d] = w_desc(addr, lbo, sbo);
+                    addr = base[0] + (uint32_t)(Chunk - 1) * 2 * lbo;
+#pragma unroll
+                for (int q = 0; q < Gates; ++q) desc[d][q] = w_desc(addr + sub_tile<NT, Gates>(q) * 128, lbo, sbo);
             }
         } else {
 #pragma unroll
             for (int d = 0; d < Batch; ++d)
-                desc[d] = w_desc(w + (uint32_t)min(kg + KS2 * (i0 + d), KS - 1) * 2 * lbo, lbo, sbo);
+#pragma unroll
+                for (int q = 0; q < Gates; ++q)
+                    desc[d][q] = w_desc(w + (uint32_t)min(kg + KS2 * (i0 + d), KS - 1) * 2 * lbo +
+                                            sub_tile<NT, Gates>(q) * 128, lbo, sbo);
         }
         wgmma_fence();
 #pragma unroll
-        for (int d = 0; d < Batch; ++d) Wgmma<8 * NT>::mma(acc, cur[d], desc[d]);
+        for (int d = 0; d < Batch; ++d) wg_mmas<NT, Gates>(acc, cur[d], desc[d]);
         wgmma_commit();
         if (!Stream) load(nxt, i0 + Batch);
         wgmma_wait_all();
@@ -842,11 +970,16 @@ struct FwdArgs {
 // of unit groups kg G .. kg G + G - 1 (those below UG; G = ceil(UG / 2)) of
 // its m16 tile. `Stream`: the kernel of the streamed plans (a ring, S >
 // 0). `MS` (passes of 128 rows): warp w takes m16 tile w of a pass over
-// the whole contraction (kg = 0), and the gate math of all UG groups of
-// it.
+// it. Above kGateUnits (MS only) the product is one wgmma a gate, n = U.
 template <int UG, bool Stream, bool MS>
 __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs a) {
     constexpr int U = 8 * UG, NT = 3 * UG;
+    constexpr int Gates = U > kGateUnits ? 3 : 1;  // wgmma products a k16 step
+    // The per-gate plans park the accumulators in the ring's stages (4
+    // stages of 4 k16 steps x 3U rows: 128 rows x 3U f32, exactly) for the
+    // gate math, which then reads them a group at a time: 3U accumulators
+    // a thread left too few registers for its loads (ptxas spilled them).
+    constexpr bool Park = U > kGateUnits;
     constexpr int G = MS ? UG : (UG + 1) / 2;   // unit groups of a warp's gate math
     constexpr int Batch = MS ? 4 : fwd_batch(Stream);
     constexpr bool Pre = UG <= 4 && !MS;        // its inputs loaded before the product
@@ -873,12 +1006,14 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
     if (Stream && a.S > 0) {
         ring = make_ring(reinterpret_cast<unsigned char*>(xchg) + Xchg + fwd_astage(Batch),
                          a.wst + ((size_t)tl.dir * tl.UT + tl.u0 / U) * a.NC * (fwd_chunk_bytes(U) / 2),
-                         KR, a.NC, a.S, fwd_chunk_bytes(U));
+                         KR, a.NC, a.S, fwd_chunk_bytes(U), U > kGateUnits);
         ring_init(ring);
         ring.total = (unsigned)(T - 1) * passes * a.NC;
+        if (Park) ring.limit = a.NC;  // the first product's chunks
         __syncthreads();
         ring_fill(ring);  // the first S chunks: they depend on nothing the launch writes
     }
+    float4* park = reinterpret_cast<float4*>(ring.stage0);  // [NT][kThreads]
     load_w_fwd(wt, a.w_hh + (size_t)tl.dir * H * H3, H, U, tl.u0, 16 * KR);
     // This thread's gate-math units: unit + 8 j of group kg G + j, j < G.
     const int unit = tl.u0 + 8 * G * kg + 2 * tig;
@@ -938,7 +1073,10 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
             float acc[NT][4];
             if (step > 0) {
                 __syncthreads();  // the warpgroup reconverged: wgmma runs it as one
-                wg_product<NT, Batch, Stream, MS ? 1 : 2>(
+                // (Park: every thread has read the last pass's sums; its
+                // ring may refill the stages up to this product's end.)
+                if (Park && tid == 0) ring.limit = (unsigned)((step - 1) * passes + p + 1) * a.NC;
+                wg_product<NT, Batch, Stream, MS ? 1 : 2, Gates>(
                     acc, reinterpret_cast<const uint4*>(fprev) + (size_t)(m0 / 16 + mtile) * KS * 32, active,
                     KS, kg, H % 16 != 0, smem_u32(wt), ring, (unsigned)((step - 1) * passes + p) * a.NC,
                     astage);
@@ -952,7 +1090,7 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
             for (int j = 0; j < G; ++j)
 #pragma unroll
                 for (int gt = 0; gt < 3; ++gt) s[j][gt] = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (step > 0 && MS) {
+            if (step > 0 && MS && !Park) {
 #pragma unroll
                 for (int j = 0; j < G; ++j)
 #pragma unroll
@@ -971,6 +1109,11 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
                             mine[(j * 3 + gt) * 32 + lane] = kg == 0 ? frag4(acc[g1]) : frag4(acc[g0]);
                         }
                 }
+                if (Park) {  // every product has read its last chunk: the stages hold the sums
+#pragma unroll
+                    for (int i = 0; i < NT; ++i) park[(size_t)i * kThreads + tid] = frag4(acc[i]);
+                    fence_proxy_async();  // before the ring's copies overwrite them
+                }
                 if (!MS) __syncthreads();
                 if (active && !MS) {
                     const float4* other = xchg + (size_t)((1 - kg) * kMT + mt) * Slots * 32;
@@ -986,8 +1129,25 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
                 }
             }
             if (!active) continue;
+            // Park: the next group's inputs load before this group's stores
+            // (which the compiler must assume may alias them), so that a
+            // group's loads wait one latency, not each of them in turn (on
+            // an H100 at 5288 the gate math took 65 k cycles a step
+            // without, 11 groups a thread).
+            uint32_t xq[Park ? 2 : 1][2][3];
+            float2 hq[Park ? 2 : 1][2], bq[Park ? 2 : 1][3];
+            const auto fetch = [&](int j, int b) {
 #pragma unroll
-            for (int j = 0; j < G; ++j)
+                for (int half = 0; half < 2; ++half) inputs(j, half, xq[b][half], hq[b][half]);
+#pragma unroll
+                for (int gt = 0; gt < 3; ++gt)
+                    bq[b][gt] = uok[j] ? io::ldg2(a.b_hh + tl.dir * H3 + gt * H + unit + 8 * j)
+                                       : make_float2(0.f, 0.f);
+            };
+            if (Park) fetch(0, 0);
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+                if (Park && j + 1 < G) fetch(j + 1, Park ? (j + 1) & 1 : 0);
 #pragma unroll
                 for (int half = 0; half < 2; ++half) {
                     const int row = 16 * mtile + gid + 8 * half;
@@ -997,7 +1157,14 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
                     uint32_t xl[3];
                     float2 hl;
                     float2 bl[3];
-                    if (Pre) {
+                    if (Park) {
+#pragma unroll
+                        for (int gt = 0; gt < 3; ++gt) {
+                            xl[gt] = xq[Park ? j & 1 : 0][half][gt];
+                            bl[gt] = bq[Park ? j & 1 : 0][gt];
+                        }
+                        hl = hq[Park ? j & 1 : 0][half];
+                    } else if (Pre) {
 #pragma unroll
                         for (int gt = 0; gt < 3; ++gt) {
                             xl[gt] = xv[Pre ? j : 0][half][gt];
@@ -1010,9 +1177,14 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
                         for (int gt = 0; gt < 3; ++gt) bl[gt] = io::ldg2(a.b_hh + tl.dir * H3 + gt * H + u);
                     }
                     const float2 xr = as2(xl[0]), xz = as2(xl[1]), xn = as2(xl[2]);
-                    const float sr[2] = {half ? s[j][0].z : s[j][0].x, half ? s[j][0].w : s[j][0].y};
-                    const float sz[2] = {half ? s[j][1].z : s[j][1].x, half ? s[j][1].w : s[j][1].y};
-                    const float sn[2] = {half ? s[j][2].z : s[j][2].x, half ? s[j][2].w : s[j][2].y};
+                    float4 sg[3];
+#pragma unroll
+                    for (int gt = 0; gt < 3; ++gt)
+                        sg[gt] = !Park ? s[j][gt] : step > 0 ? park[(size_t)(gt * UG + j) * kThreads + tid]
+                                                             : make_float4(0.f, 0.f, 0.f, 0.f);
+                    const float sr[2] = {half ? sg[0].z : sg[0].x, half ? sg[0].w : sg[0].y};
+                    const float sz[2] = {half ? sg[1].z : sg[1].x, half ? sg[1].w : sg[1].y};
+                    const float sn[2] = {half ? sg[2].z : sg[2].x, half ? sg[2].w : sg[2].y};
                     float h[2];
 #pragma unroll
                     for (int e = 0; e < 2; ++e) {
@@ -1027,8 +1199,17 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_fwd_kernel(const FwdArgs
                     *reinterpret_cast<uint32_t*>(ys + ((size_t)t * N + m) * H + u) = hw;
                     fnext[frag_word((int)m, u, KS)] = hw;
                 }
+            }
         }
         if (step + 1 < T) signal_step(ctr);
+        if (Park && tid == 0 && step + 1 < T) {
+            // signal_step's barrier: every thread has read this step's sums,
+            // so the next product's first chunks may land in the stages.
+            const unsigned g0 = (unsigned)(step * passes) * a.NC;
+            ring.limit = g0 + a.NC;
+            while (ring.issued < ring_end(ring) && ring.issued < g0 + a.S && ring_free(ring, ring.issued))
+                ring_issue(ring, ring.issued++);
+        }
     }
 }
 
@@ -1301,19 +1482,213 @@ __global__ void __launch_bounds__(kThreads, 1) gru_grid_chain_kernel(const Chain
     }
 }
 
+// The W_hh^T slice of the per-gate plans' chain in the forward's layout
+// (w_index, U rows): row ul, column k = W[u0 + ul][k] (zero past 3H and
+// H), for k < KP. A thread reads 4 consecutive k of a row (one float4) and
+// writes them as one 8-byte word (k % 8 stays inside a core matrix's row).
+__device__ __forceinline__ void load_w_chain_gate(bf16* wt, const float* W, int H, int U, int u0,
+                                                  int KP) {
+    const int H3 = 3 * H, q4 = KP / 4, total = U * q4;
+    for (int i = threadIdx.x; i < total; i += kThreads) {
+        const int ul = i / q4, k = 4 * (i % q4);
+        const float4 v = k < H3 && u0 + ul < H ? io::ldg4(W + (size_t)(u0 + ul) * H3 + k)
+                                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        uint2 p;
+        p.x = pack_bf16(v.x, v.y);
+        p.y = pack_bf16(v.z, v.w);
+        *reinterpret_cast<uint2*>(wt + w_index(ul, k, U / 8)) = p;
+    }
+}
+
+// The chain of the per-gate plans (U = 8 UG above kGateUnits units a
+// block, W streamed; the same contract as gru_grid_chain_kernel). Its
+// product runs on wgmma as the forward's does (wg_product, one m64nUk16 a
+// k16 step, B the block's U rows of W_hh^T in the forward's layout through
+// a ring of kGateChunk-step chunks, A staged in shared memory by
+// cp.async): passes of 128 rows, warp w holds m16 tile w of a pass over
+// the whole contraction, so no partial sums meet and the ring is read once
+// a pass for all of its rows (gru_grid_chain_kernel's warps would take 2
+// m16 tiles each in passes of 64 rows, and stream the slice once for each
+// pass). A thread then does the gate math of its tile's two rows for
+// every unit group (2 units each). db: a warp's column sums over its rows
+// by shuffles, then over the steps in shared memory (in registers they
+// took 66 a thread at 88 units), then over the 8 warps in warp order.
+template <int UG>
+__global__ void __launch_bounds__(kThreads, 1) gru_grid_chain_gate_kernel(const ChainArgs a) {
+    constexpr int U = 8 * UG, PR = 2 * kPassRows, Batch = kGateChunk;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int T = a.T, N = a.N, H = a.H, H3 = 3 * H, M = T * N;
+    const Tile tl = block_tile(N, H, U, a.R);
+    const int KS = round16(H3) / 16, KR = a.KR;
+    bf16* wt = reinterpret_cast<bf16*>(smem_raw);  // U rows x 16 KR (w_index): row ul = W[u0 + ul][:]
+    unsigned char* after = smem_raw + (size_t)32 * U * KR;
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int gid = lane / 4, tig = lane % 4;
+    const int passes = (tl.rows + PR - 1) / PR;
+    uint4* astage = reinterpret_cast<uint4*>(after) + (size_t)warp * kGateAStages * Batch * 32;
+    Ring ring = make_ring(after + gate_chain_astage(),
+                          a.wst + ((size_t)tl.dir * tl.UT + tl.u0 / U) * a.NC * (gate_chain_chunk_bytes(U) / 2),
+                          KR, a.NC, a.S, gate_chain_chunk_bytes(U));
+    ring.lazy = true;
+    ring_init(ring);
+    ring.total = (unsigned)(T - 1) * passes * a.NC;
+    // db: each warp's column sums of da_r, da_z, dhn over its rows and the
+    // steps so far, [8 warps][3][U], after the ring.
+    float* red = reinterpret_cast<float*>(ring.empty + a.S);
+    for (int i = tid; i < 8 * 3 * U; i += kThreads) red[i] = 0.f;
+    __syncthreads();
+    ring_fill(ring);  // the first S chunks: they depend on nothing the launch writes
+    load_w_chain_gate(wt, a.w_hh + (size_t)tl.dir * H * H3, H, U, tl.u0, 16 * KR);
+    const int u = tl.u0 + 2 * tig;  // this thread's two units of group 0 (+ 8 g of group g)
+    start(a.ctr, 2 * tl.RT);
+
+    const bf16* dy = tl.dir == 0 ? a.dy_f : a.dy_b;
+    bf16* dpx = tl.dir == 0 ? a.dpx_f : a.dpx_b;
+    bf16* dn = a.dhn + (size_t)tl.dir * M * H;
+    const float* cf = a.coef + (size_t)tl.dir * M * kNC * H;
+    float* carry = a.carry + (size_t)tl.dir * N * H;
+    const size_t frag_len = (size_t)((N + 15) / 16) * KS * 32 * 4;
+    uint32_t* frag = a.frag + (size_t)tl.dir * 2 * frag_len;
+    unsigned* ctr = a.ctr + tl.dir * tl.RT + tl.rt;
+
+    for (int step = 0; step < T; ++step) {
+        const int t = tl.dir == 0 ? T - 1 - step : step;
+        const uint32_t* fprev = frag + (size_t)((step + 1) & 1) * frag_len;
+        uint32_t* fnext = frag + (size_t)(step & 1) * frag_len;
+        if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));
+#pragma unroll 1
+        for (int p = 0; p < passes; ++p) {
+            const int m0 = tl.n0 + p * PR;
+            const int rows = min(PR, tl.rows - p * PR);
+            const bool active = 16 * warp < rows;  // warp-uniform
+            // n8 tile g of acc: unit group g, rows gid (+8) of the warp's tile.
+            float acc[UG][4];
+            if (step > 0) {
+                __syncthreads();  // the warpgroup reconverged: wgmma runs it as one
+                wg_product<UG, Batch, true, 1, 1, kGateAStages, kGateChunk>(
+                    acc, reinterpret_cast<const uint4*>(fprev) + (size_t)(m0 / 16 + warp) * KS * 32, active,
+                    KS, 0, H3 % 16 != 0, smem_u32(wt), ring, (unsigned)((step - 1) * passes + p) * a.NC,
+                    astage);
+            } else {
+#pragma unroll
+                for (int g = 0; g < UG; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+            }
+            if (!active) continue;
+            // The gate math's inputs of group g (the coefficients, dy, the
+            // carried dht * z), each row half: the next group's load before
+            // this group's stores (which the compiler must assume may alias
+            // them), so that a group's loads wait one latency, not each in
+            // turn.
+            float2 cq[2][2][kNC], c0q[2][2];
+            uint32_t dq[2][2];
+            const auto fetch = [&](int g, int b) {
+                const int uo = u + 8 * g;
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int row = 16 * warp + gid + 8 * half;
+                    const bool ok = uo < H && row < rows;
+                    const size_t n = (size_t)m0 + row;
+                    const size_t m = (size_t)t * N + n;
+#pragma unroll
+                    for (int q = 0; q < kNC; ++q)
+                        cq[b][half][q] = ok ? io::ldg2(cf + (m * kNC + q) * H + uo) : make_float2(0.f, 0.f);
+                    dq[b][half] = ok ? __ldg(reinterpret_cast<const unsigned int*>(dy + m * H + uo)) : 0u;
+                    c0q[b][half] = ok && step > 0 ? *reinterpret_cast<const float2*>(carry + n * H + uo)
+                                                  : make_float2(0.f, 0.f);
+                }
+            };
+            fetch(0, 0);
+#pragma unroll
+            for (int g = 0; g < UG; ++g) {
+                if (g + 1 < UG) fetch(g + 1, (g + 1) & 1);
+                const int uo = u + 8 * g;
+                float d[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};  // column sums of da_r, da_z, dhn
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int row = 16 * warp + gid + 8 * half;
+                    const bool ok = uo < H && row < rows;
+                    const size_t n = (size_t)m0 + row;
+                    const size_t m = (size_t)t * N + n;
+                    const float2 (&c)[kNC] = cq[g & 1][half];
+                    const float2 dyv = as2(dq[g & 1][half]), c0 = c0q[g & 1][half];
+                    const float sp[2] = {acc[g][2 * half], acc[g][2 * half + 1]};
+                    float da_r[2], da_z[2], da_c[2], dhn[2], keep[2];
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const float dht = ((e ? c0.y : c0.x) + sp[e]) + (e ? dyv.y : dyv.x);
+                        da_c[e] = dht * (e ? c[1].y : c[1].x);
+                        da_z[e] = dht * (e ? c[2].y : c[2].x);
+                        dhn[e] = da_c[e] * (e ? c[3].y : c[3].x);
+                        da_r[e] = da_c[e] * (e ? c[4].y : c[4].x);
+                        keep[e] = dht * (e ? c[0].y : c[0].x);
+                        if (ok) {
+                            d[0][e] += da_r[e];
+                            d[1][e] += da_z[e];
+                            d[2][e] += dhn[e];
+                        }
+                    }
+                    if (!ok) continue;
+                    bf16* out = dpx + m * H3 + uo;
+                    const uint32_t wr = pack_bf16(da_r[0], da_r[1]), wz = pack_bf16(da_z[0], da_z[1]),
+                                   wn = pack_bf16(dhn[0], dhn[1]);
+                    *reinterpret_cast<uint32_t*>(out) = wr;
+                    *reinterpret_cast<uint32_t*>(out + H) = wz;
+                    io::st2(out + 2 * H, da_c[0], da_c[1]);
+                    *reinterpret_cast<uint32_t*>(dn + m * H + uo) = wn;
+                    *reinterpret_cast<float2*>(carry + n * H + uo) = make_float2(keep[0], keep[1]);
+                    fnext[frag_word((int)n, uo, KS)] = wr;
+                    fnext[frag_word((int)n, H + uo, KS)] = wz;
+                    fnext[frag_word((int)n, 2 * H + uo, KS)] = wn;
+                }
+                // The column sums over the warp's 16 rows: its own 2, then
+                // the 8 lanes of a tig (lane bits 2-4), into the warp's sums.
+#pragma unroll
+                for (int q = 0; q < 3; ++q)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        float v = d[q][e];
+                        v += __shfl_xor_sync(0xffffffffu, v, 4);
+                        v += __shfl_xor_sync(0xffffffffu, v, 8);
+                        v += __shfl_xor_sync(0xffffffffu, v, 16);
+                        if (gid == 0) red[(warp * 3 + q) * U + 8 * g + 2 * tig + e] += v;
+                    }
+            }
+        }
+        if (step + 1 < T) signal_step(ctr);
+    }
+
+    // db of the block's 3U columns over its rows and all steps: the 8
+    // warps' sums added in warp order.
+    __syncthreads();
+    for (int i = tid; i < 3 * U; i += kThreads) {
+        const int q = i / U, ul = i % U;
+        if (tl.u0 + ul >= H) continue;
+        float v = red[q * U + ul];
+        for (int w = 1; w < kThreads / 32; ++w) v += red[(w * 3 + q) * U + ul];
+        a.dbp[((size_t)tl.rt * 2 + tl.dir) * H3 + q * H + tl.u0 + ul] = v;
+    }
+}
+
 // ---------------------------------------------------------------------
 // the streamed chunks
+
+// The bytes of a streamed chunk of kind 0 (the forward), 1 (the chain) or
+// 2 (the per-gate plans' chain).
+__host__ __device__ constexpr size_t stream_chunk_bytes(int kind, int U) {
+    return kind == 0 ? fwd_chunk_bytes(U) : kind == 1 ? chain_chunk_bytes(U) : gate_chain_chunk_bytes(U);
+}
 
 // Every block's streamed chunks of its W slice, [2 dirs][unit tiles][NC][a
 // chunk's elements] bf16, each chunk in its ring stage's layout: kind 0 the
 // forward's (3U rows, wgmma's K-major core matrices of w_index, k counted
 // from the chunk's first step, 16 (KR + 4 c)), kind 1 the chain's ([U]
 // rows W_hh[u0 + ul] of stride w_stride(128) from k = 16 (KR + 8 c), the 8
-// past each row zero); zero past H and 3H.
+// past each row zero), kind 2 the per-gate plans' chain's (U rows W_hh[u0
+// + ul] in w_index from k = 16 (KR + 4 c)); zero past H and 3H.
 __global__ void __launch_bounds__(kThreads) gru_grid_stream_layout_kernel(
     const float* __restrict__ w_hh, bf16* __restrict__ out, int H, int U, int KR, int NC, int kind) {
     const int H3 = 3 * H, UT = (H + U - 1) / U;
-    const size_t elems = (kind == 0 ? fwd_chunk_bytes(U) : chain_chunk_bytes(U)) / 2;
+    const size_t elems = stream_chunk_bytes(kind, U) / 2;
     const size_t total = (size_t)2 * UT * NC * elems;
     for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
          i += (size_t)gridDim.x * blockDim.x) {
@@ -1327,6 +1702,11 @@ __global__ void __launch_bounds__(kThreads) gru_grid_stream_layout_kernel(
             const int cc = (q % ng) * 8 + (int)((e >> 3) & 7), kl = (q / ng) * 8 + (int)(e & 7);
             const int k = 16 * (KR + kFwdChunk * c) + kl, g = cc / U, ul = cc % U;
             if (k < H && u0 + ul < H) v = W[(size_t)k * H3 + g * H + u0 + ul];
+        } else if (kind == 2) {
+            const int ng = U / 8, q = (int)(e >> 6);
+            const int ul = (q % ng) * 8 + (int)((e >> 3) & 7), kl = (q / ng) * 8 + (int)(e & 7);
+            const int k = 16 * (KR + kGateChunk * c) + kl;
+            if (k < H3 && u0 + ul < H) v = W[(size_t)(u0 + ul) * H3 + k];
         } else {
             const int ws = w_stride(16 * kChainChunk), ul = (int)(e / ws), j = (int)(e % ws);
             const int k = 16 * (KR + kChainChunk * c) + j;
@@ -1341,9 +1721,9 @@ __global__ void __launch_bounds__(kThreads) gru_grid_stream_layout_kernel(
 
 // The plan's grid: 2 directions x ceil(N/R) row tiles x ceil(H/U) unit
 // tiles; 0 for a plan the kernels do not take (U a multiple of 8 from 24
-// to 80, R a multiple of 16).
+// to kMaxUnits, R a multiple of 16).
 int grid_blocks(int T, int N, int H, int U, int R) {
-    if (T < 1 || N < 1 || H < 8 || H % 8 || U < 24 || U > 80 || U % 8 || R < 16 || R % 16) return 0;
+    if (T < 1 || N < 1 || H < 8 || H % 8 || U < 24 || U > kMaxUnits || U % 8 || R < 16 || R % 16) return 0;
     return 2 * ((N + R - 1) / R) * ((H + U - 1) / U);
 }
 
@@ -1356,13 +1736,13 @@ int stream_chunks(int KS, int KR, int S, int CK) {
     return (KS - KR + CK - 1) / CK;
 }
 
-// The streamed chunks of kind 0 (forward) or 1 (chain) into `wst` (of
-// `wst_len` elements, refused if too short), one launch; nothing where the
-// plan streams none.
+// The streamed chunks of kind 0 (forward), 1 (chain) or 2 (the per-gate
+// plans' chain) into `wst` (of `wst_len` elements, refused if too short),
+// one launch; nothing where the plan streams none.
 int write_stream(int kind, const float* w_hh, bf16* wst, long long wst_len, int H, int U, int KR,
                  int NC, cudaStream_t stream) {
     if (NC == 0) return 0;
-    const size_t elems = (kind == 0 ? fwd_chunk_bytes(U) : chain_chunk_bytes(U)) / 2;
+    const size_t elems = stream_chunk_bytes(kind, U) / 2;
     const size_t total = (size_t)2 * ((H + U - 1) / U) * NC * elems;
     if (wst == nullptr || wst_len < (long long)total) return (int)cudaErrorInvalidValue;
     const int blocks = (int)std::min((total + kThreads - 1) / kThreads, (size_t)132 * 16);
@@ -1372,9 +1752,11 @@ int write_stream(int kind, const float* w_hh, bf16* wst, long long wst_len, int 
 
 // The forward of the plan: 24 or 32 units with all of W resident without
 // the ring; every other plan with it, its rows split (MS) where the plan
-// takes passes of 128 rows.
+// takes passes of 128 rows (always above kGateUnits).
 const void* gru_grid_fwd_kernel_for(int UG, bool stream, bool ms) {
     if (!stream) return UG == 3 ? (const void*)gru_grid_fwd_kernel<3, false, false> : (const void*)gru_grid_fwd_kernel<4, false, false>;
+    if (UG > kGateUnits / 8)
+        return UG == 11 ? (const void*)gru_grid_fwd_kernel<11, true, true> : (const void*)gru_grid_fwd_kernel<12, true, true>;
 #define FWD(ug) (ms ? (const void*)gru_grid_fwd_kernel<ug, true, true> : (const void*)gru_grid_fwd_kernel<ug, true, false>)
     switch (UG) {
         case 3: return FWD(3);
@@ -1390,9 +1772,12 @@ const void* gru_grid_fwd_kernel_for(int UG, bool stream, bool ms) {
 }
 
 // The chain of the plan: as the forward's, the streamed ones of 24 or 32
-// units with 4 tiles a warp where the plan takes passes of 128 rows.
+// units with 4 tiles a warp where the plan takes passes of 128 rows, and
+// above kGateUnits the per-gate plans' chain on wgmma.
 const void* gru_grid_chain_kernel_for(int UG, bool stream, int MW) {
     if (!stream) return UG == 3 ? (const void*)gru_grid_chain_kernel<3, false, 2> : (const void*)gru_grid_chain_kernel<4, false, 2>;
+    if (UG > kGateUnits / 8)
+        return UG == 11 ? (const void*)gru_grid_chain_gate_kernel<11> : (const void*)gru_grid_chain_gate_kernel<12>;
     if (MW == 4) return UG == 3 ? (const void*)gru_grid_chain_kernel<3, true, 4> : (const void*)gru_grid_chain_kernel<4, true, 4>;
     switch (UG) {
         case 3: return (const void*)gru_grid_chain_kernel<3, true, 2>;
@@ -1467,7 +1852,8 @@ int ocrs_gru_grid_chain_bf16(int device, const bf16* dy_f, const bf16* dy_b, con
                              bf16* dpx_b, bf16* dhn, float* dbp, int db_parts, unsigned* ctr,
                              bf16* wst, long long wst_len, int T, int N, int H, int U, int R,
                              int KR, int S, int PR, void* stream) {
-    const int NC = stream_chunks(round16(3 * H) / 16, KR, S, kChainChunk);
+    const bool gate = U > kGateUnits;  // the per-gate plans' chain: wgmma, the forward's chunks
+    const int NC = stream_chunks(round16(3 * H) / 16, KR, S, gate ? kGateChunk : kChainChunk);
     const int blocks = grid_blocks(T, N, H, U, R);
     if (NC < 0 || blocks == 0 || !grid_variant_ok(1, U, S, PR) || db_parts < (N + R - 1) / R)
         return (int)cudaErrorInvalidValue;
@@ -1475,7 +1861,7 @@ int ocrs_gru_grid_chain_bf16(int device, const bf16* dy_f, const bf16* dy_b, con
         const RestoreDevice restore_device;
         cudaError_t err = cudaSetDevice(device);
         if (err != cudaSuccess) return (int)err;
-        const int rc = write_stream(1, w_hh, wst, wst_len, H, U, KR, NC, (cudaStream_t)stream);
+        const int rc = write_stream(gate ? 2 : 1, w_hh, wst, wst_len, H, U, KR, NC, (cudaStream_t)stream);
         if (rc != 0) return rc;
     }
     const ChainArgs args = {dy_f, dy_b, w_hh, coef, carry, frag, dpx_f, dpx_b, dhn, dbp, ctr, wst,

@@ -25,9 +25,12 @@ mean cycles a step over the blocks and the steps after the first (the wait
 also at its 50th and 90th percentile); where the plan streams part of
 W_hh (H above 1440), also the cycles thread 0 spends a step waiting for
 the ring's chunks to land (and issuing those not yet issued),
-``ring_wait_cycles``. Then the bf16 backward's other phases on the same
-shape (``coef`` and ``dw`` with ``dw_sum`` as the wrapper runs them above
-H=512, ``gru_bwd_wide.cu``'s on ``wgmma``, and ``gru_bwd.cu``'s
+``ring_wait_cycles``. At H = 5288 (``--hid 5288``: a per-gate plan, W_hh
+from device memory) that reads whether HBM sets the pace: the ring's
+waits against the product. Then the bf16 backward's other phases on the
+same shape (``coef`` and ``dw`` with ``dw_sum`` as the wrapper runs them
+above H=512, ``gru_bwd_wide.cu``'s on ``wgmma`` in both tile orders, the
+``_order_0`` ones in the plain order, up to H=2048 ``gru_bwd.cu``'s
 ``mma.sync`` ones beside, and W_hh's cast to bf16 values), and the
 forward at T = 2 and 33 (those up to T). Each copy is written to
 ``build/probe/`` and compiled by ``nvcc`` with the flags of
@@ -42,6 +45,13 @@ does the same for the f32 grid form (``csrc/gru_grid_f32.cu``): builds
 operand zero-filled, nothing read from L2) and times the forward and the
 chain of each at (T, N, H), the full build also at every ring stage count
 the kernels are built for that fits (``stages_<S>``).
+
+    python -m ocrs_models_torch.grid_probe --backward [--t 257 --n 128 --hid 1024]
+
+times only the backward's ``coef`` and ``dw`` (both tile orders) at (T, N,
+H): at H = 5288 a small T (one group of row tiles: W_hh read once a call
+from device memory) against T = 257 tells a tile's own pace from the
+re-reads that its order causes.
 
     python -m ocrs_models_torch.grid_probe --dw-readings SEED --t 2 --n 259 --hid 5280
 
@@ -71,9 +81,9 @@ from .ops import gru as gru_ops
 # macro switches off.
 _PATCHES = (
     ("if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));",
-     "\n#if !NO_WAIT\n if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n#endif\n", 2),
+     "\n#if !NO_WAIT\n if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n#endif\n", 3),
     ("if (step > 0) {\n                __syncthreads();  // the warpgroup reconverged",
-     "if (step > 0 && !NO_PRODUCT) {\n                __syncthreads();  // the warpgroup reconverged", 1),
+     "if (step > 0 && !NO_PRODUCT) {\n                __syncthreads();  // the warpgroup reconverged", 2),
     ("if (step > 0 && (Stream || mw > 0))\n", "if (step > 0 && (Stream || mw > 0) && !NO_PRODUCT)\n", 1),
     ("? __ldcg(frag + (size_t)ks", "? PROBE_LOAD(frag + (size_t)ks", 1),
     ("__ldcg(frag + i * tile", "PROBE_LOAD(frag + i * tile", 2),
@@ -100,14 +110,19 @@ _MARKS = (
      "    if (PROBE_PHASES && threadIdx.x == 0) g_ring[blockIdx.x] += clock64() - probe_t0;\n"
      "    return smem_u32(r.stage0) + s * r.bytes;\n", 1),
     ("    for (int step = 0; step < T; ++step) {\n",
-     "    for (int step = 0; step < T; ++step) {\n        PROBE_MARK(0);\n", 2),
+     "    for (int step = 0; step < T; ++step) {\n        PROBE_MARK(0);\n", 3),
     ("        if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n",
-     "        if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n        PROBE_MARK(1);\n", 2),
+     "        if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n        PROBE_MARK(1);\n", 3),
     ("                __syncthreads();  // the previous pass's sums have been read\n",
      "                __syncthreads();  // the previous pass's sums have been read\n"
      "                PROBE_MARK(2);\n", 2),
+    # The per-gate plans' chain has no barrier between its product and its
+    # gate math: the phases build puts one there for the mark.
+    ("            if (!active) continue;\n            // The gate math's inputs of group g",
+     "            __syncthreads();\n            PROBE_MARK(2);\n"
+     "            if (!active) continue;\n            // The gate math's inputs of group g", 1),
     ("        if (step + 1 < T) signal_step(ctr);\n",
-     "        __syncthreads();\n        PROBE_MARK(3);\n        if (step + 1 < T) signal_step(ctr);\n", 2),
+     "        __syncthreads();\n        PROBE_MARK(3);\n        if (step + 1 < T) signal_step(ctr);\n", 3),
     ('extern "C" {\n', 'extern "C" {\nint ocrs_probe_set(void* p, void* ring) {\n'
      "    cudaError_t err = cudaMemcpyToSymbol(g_probe, &p, sizeof(p));\n"
      "    return (int)(err != cudaSuccess ? err : cudaMemcpyToSymbol(g_ring, &ring, sizeof(ring)));\n}\n", 1),
@@ -315,6 +330,8 @@ def main() -> None:
     ap.add_argument("--hid", type=int, default=1024)
     ap.add_argument("--dw-readings", type=int, metavar="SEED", default=None)
     ap.add_argument("--f32", action="store_true", help="probe the f32 grid form instead")
+    ap.add_argument("--backward", action="store_true",
+                    help="only the backward's coef and dw (both tile orders) at (T, N, H)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("grid_probe: needs a CUDA device")
@@ -333,7 +350,7 @@ def main() -> None:
     if form != "grid":
         raise SystemExit(f"grid_probe: H={hid} takes the {form} form, not the grid form")
     units, rows = plan.units, plan.rows
-    libs = _build_all(_variants(plan))
+    libs = {} if args.backward else _build_all(_variants(plan))
     gen = torch.Generator().manual_seed(3)
     px = [torch.randn((t_len, n, 3 * hid), generator=gen).to(dev, bf16) for _ in range(2)]
     w = _build.rounded(((torch.rand((2, hid, 3 * hid), generator=gen) * 2 - 1) / hid**0.5)
@@ -375,9 +392,14 @@ def main() -> None:
     for name, dll in libs.items():
         if name == "phases":
             continue
+        if args.backward:
+            break
         print(json.dumps({"variant": name, **shape, "fwd_ms": _events_ms(fwd(dll)),
                           "chain_ms": _events_ms(chain(dll))}), flush=True)
     blocks = 2 * tiles * -(-hid // units)
+    if args.backward:
+        _backward_phases(shape, dev, t_len, n, hid, px, ys, dpx, dhn, dbp, tiles, w, b, coef)
+        return
     marks = torch.zeros((blocks, t_len, 5), device=dev, dtype=torch.int64)
     ring = torch.zeros((blocks,), device=dev, dtype=torch.int64)
     phases = libs["phases"]
@@ -398,32 +420,44 @@ def main() -> None:
                           "wait_p90_cycles": wait.quantile(0.9).item(),
                           "step_cycles": (marks[:, 2:, 0] - marks[:, 1:-1, 0]).double().mean().item()}),
               flush=True)
+    _backward_phases(shape, dev, t_len, n, hid, px, ys, dpx, dhn, dbp, tiles, w, b, coef)
+    for steps in (s for s in (2, 33) if s <= t_len):  # within the T steps of px and ys
+        print(json.dumps({"variant": "full", **shape, "T": steps,
+                          "fwd_ms": _events_ms(fwd(libs["full"], steps))}), flush=True)
+
+
+def _backward_phases(shape, dev, t_len, n, hid, px, ys, dpx, dhn, dbp, tiles, w, b, coef) -> None:
+    """The bf16 backward's phases around the chain at (T, N, H), by CUDA
+    events (one JSON line): ``coef`` and ``dw`` of ``gru_bwd_wide.cu`` in
+    both tile orders, up to H=2048 ``gru_bwd.cu``'s beside, W_hh's cast."""
+    bf16, ptr, stream = torch.bfloat16, _build.ptr, _build.stream_ptr(dev)
     bwd, wide = gru_ops._bwd_lib(), gru_ops._bwd_wide_lib()
     coef_out = torch.empty_like(coef)
     splits, splits_tc = gru_ops._dw_splits(t_len, n), gru_ops._dw_splits(t_len, n, hid, True)
     dwp = torch.empty((max(splits, splits_tc), 2, hid, 3 * hid), device=dev)
     dw, db = torch.empty_like(w), torch.empty_like(b)
     w16 = w.to(bf16)
+    order = gru_ops.BWD_WIDE_ORDER
     split = {
-        "coef_ms": lambda: _build.check(wide, wide.ocrs_gru_bwd_coef_wide_bf16(
-            dev.index, ptr(px[0]), ptr(px[1]), ptr(ys[0]), ptr(ys[1]), ptr(w16), ptr(b),
-            ptr(coef_out), t_len, n, hid, stream), "grid_probe coef"),
-        "dw_ms": lambda: _build.check(wide, wide.ocrs_gru_bwd_dw_wide_bf16(
-            dev.index, ptr(ys[0]), ptr(ys[1]), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
-            ptr(dbp), tiles, ptr(dw), ptr(db), splits_tc, t_len, n, hid, stream), "grid_probe dw"),
+        f"{name}{'' if o == order else '_order_' + str(o)}_ms": fn
+        for o in (order, 1 - order) for name, fn in (
+            ("coef", lambda o=o: _build.check(wide, wide.ocrs_gru_bwd_coef_wide_bf16(
+                dev.index, ptr(px[0]), ptr(px[1]), ptr(ys[0]), ptr(ys[1]), ptr(w16), ptr(b),
+                ptr(coef_out), t_len, n, hid, o, stream), "grid_probe coef")),
+            ("dw", lambda o=o: _build.check(wide, wide.ocrs_gru_bwd_dw_wide_bf16(
+                dev.index, ptr(ys[0]), ptr(ys[1]), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
+                ptr(dbp), tiles, ptr(dw), ptr(db), splits_tc, t_len, n, hid, o, stream),
+                "grid_probe dw")))}
+    split.update({} if hid > 2048 else {
         "coef_mma_sync_ms": lambda: _build.check(bwd, bwd.ocrs_gru_bwd_coef_bf16(
             dev.index, ptr(px[0]), ptr(px[1]), ptr(ys[0]), ptr(ys[1]), ptr(w), ptr(b),
             ptr(coef_out), t_len, n, hid, stream), "grid_probe coef"),
         "dw_mma_sync_ms": lambda: _build.check(bwd, bwd.ocrs_gru_bwd_dw_bf16(
             dev.index, ptr(ys[0]), ptr(ys[1]), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
-            ptr(dbp), tiles, ptr(dw), ptr(db), splits, t_len, n, hid, stream), "grid_probe dw"),
-        "cast_ms": lambda: _build.rounded(w, bf16).contiguous(),
-    }
+            ptr(dbp), tiles, ptr(dw), ptr(db), splits, t_len, n, hid, stream), "grid_probe dw")})
+    split["cast_ms"] = lambda: _build.rounded(w, bf16).contiguous()
     print(json.dumps({"backward_phases": True, **shape,
                       **{k: _events_ms(fn) for k, fn in split.items()}}), flush=True)
-    for steps in (s for s in (2, 33) if s <= t_len):  # within the T steps of px and ys
-        print(json.dumps({"variant": "full", **shape, "T": steps,
-                          "fwd_ms": _events_ms(fwd(libs["full"], steps))}), flush=True)
 
 
 if __name__ == "__main__":

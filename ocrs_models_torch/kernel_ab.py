@@ -64,7 +64,9 @@ split into resident and streamed k16 steps; f32: ``csrc/gru_grid_f32.cu``'s
 ``ops.gru.grid_f32_plan``'s, ``rows`` giving its ring stages; both always
 the checkout's build),
 and so in bf16 at H=1448 and 2048, where the grid form streams part of
-W_hh: one case per (shape, dtype, form), each form's
+W_hh, and at 5288 (``T257_N128_H5288_bf16``: a per-gate plan, 88 units a
+block, W_hh streamed from device memory): one case per (shape, dtype,
+form), each form's
 device time the sum over its kernels of the mean record times the
 kernel's launches a call (T for a per-step kernel). The chain's inputs are
 the plain versions' coefficients of a plain forward; its outputs are held
@@ -73,9 +75,10 @@ against the plain chain. A source that exports
 clusters (``rows``). The chain's cases above H=512 also time the
 backward's other phases on the same operands (``split_ms``, events):
 ``coef`` and ``dw`` (with ``dw_sum``) as ``gru_wide_bwd`` runs them there;
-in bf16 ``csrc/gru_bwd_wide.cu``'s (on ``wgmma``), the same phases of
-``csrc/gru_bwd.cu`` (``mma.sync``; ``coef_mma_sync``, ``dw_mma_sync``) and
-W_hh's cast; in f32 ``csrc/gru_bwd.cu``'s (3xTF32). ``--case TEXT`` runs
+in bf16 ``csrc/gru_bwd_wide.cu``'s (on ``wgmma``) in both tile orders
+(``coef_order_0``, ``dw_order_0``: the plain one), up to H=2048 the same
+phases of ``csrc/gru_bwd.cu`` (``mma.sync``; ``coef_mma_sync``,
+``dw_mma_sync``) and W_hh's cast; in f32 ``csrc/gru_bwd.cu``'s (3xTF32). ``--case TEXT`` runs
 only the cases whose name holds TEXT (``T257_N128_H1024_f32``: both forms
 of f32 at H=1024).
 
@@ -361,7 +364,7 @@ def _bind_gru_wide(dll) -> None:
 
 
 WIDE_SHAPES = ((257, 128, 512), (257, 128, 264), (257, 128, 320), (257, 128, 1024),
-               (257, 128, 1448), (257, 128, 2048))
+               (257, 128, 1448), (257, 128, 2048), (257, 128, 5288))
 WIDE_F32_MAX = 1024  # widest width of WIDE_SHAPES also timed in f32
 
 
@@ -579,11 +582,17 @@ def _gru_wide_extra(kind: str):
     return extra
 
 
+MMA_SYNC_MAX = 2048  # widest H whose split also times gru_bwd.cu's bf16 coef and dw
+
+
 def _bwd_split_ms(ops) -> dict:
     """The backward's phases around its chain on the case's operands, by
     CUDA events, as ``ops.gru.gru_wide_bwd`` runs them above H=512. bf16:
     ``coef`` and ``dw`` (with ``dw_sum``, one C call) of
-    ``gru_bwd_wide.cu`` (``wgmma``, with its row ranges), the same phases of
+    ``gru_bwd_wide.cu`` (``wgmma``, with its row ranges) in the wrapper's
+    tile order (``ops.gru.BWD_WIDE_ORDER``) and in the other
+    (``coef_order_0``, ``dw_order_0``: the plain order, the unit or column
+    tiles fastest), up to ``MMA_SYNC_MAX`` the same phases of
     ``gru_bwd.cu`` (``mma.sync``, with ``_dw_splits``'s ranges for it), and
     W_hh's cast to bf16 values. f32: ``gru_bwd.cu``'s ``coef`` and ``dw``
     (3xTF32 on the tensor cores)."""
@@ -613,22 +622,26 @@ def _bwd_split_ms(ops) -> dict:
         splits_tc = gru_ops._dw_splits(t_len, n, hid, True)
         dhn = torch.zeros((2, t_len * n, hid), device=dev, dtype=torch.bfloat16)
         dbp = torch.zeros((1, 2, h3), device=dev)
-        dwp = torch.empty((max(splits, splits_tc), 2, hid, h3), device=dev)
+        mma_sync = hid <= MMA_SYNC_MAX
+        dwp = torch.empty((max(splits if mma_sync else 1, splits_tc), 2, hid, h3), device=dev)
+        order = gru_ops.BWD_WIDE_ORDER
         calls = {
-            "coef": lambda: wide.ocrs_gru_bwd_coef_wide_bf16(
-                dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w16), ptr(b_hh),
-                ptr(coef), t_len, n, hid, stream),
-            "dw": lambda: wide.ocrs_gru_bwd_dw_wide_bf16(
-                dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
-                ptr(dbp), 1, ptr(dw), ptr(db), splits_tc, t_len, n, hid, stream),
+            f"{name}{'' if o == order else '_order_' + str(o)}": fn
+            for o in (order, 1 - order) for name, fn in (
+                ("coef", lambda o=o: wide.ocrs_gru_bwd_coef_wide_bf16(
+                    dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w16), ptr(b_hh),
+                    ptr(coef), t_len, n, hid, o, stream)),
+                ("dw", lambda o=o: wide.ocrs_gru_bwd_dw_wide_bf16(
+                    dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
+                    ptr(dbp), 1, ptr(dw), ptr(db), splits_tc, t_len, n, hid, o, stream)))}
+        calls.update({} if not mma_sync else {
             "coef_mma_sync": lambda: lib.ocrs_gru_bwd_coef_bf16(
                 dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w_hh), ptr(b_hh),
                 ptr(coef), t_len, n, hid, stream),
             "dw_mma_sync": lambda: lib.ocrs_gru_bwd_dw_bf16(
                 dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(dhn), ptr(dwp),
-                ptr(dbp), 1, ptr(dw), ptr(db), splits, t_len, n, hid, stream),
-            "cast": lambda: _build.rounded(w_hh, torch.bfloat16).contiguous(),
-        }
+                ptr(dbp), 1, ptr(dw), ptr(db), splits, t_len, n, hid, stream)})
+        calls["cast"] = lambda: _build.rounded(w_hh, torch.bfloat16).contiguous()
     out = {}
     for name, fn in calls.items():
         rc = fn()

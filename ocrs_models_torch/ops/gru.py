@@ -21,7 +21,8 @@ launch for all T steps, in clusters of up to 16 blocks with part of
 ``W_hh`` in shared memory; above 512 ("grid") in one cooperative launch
 over the whole card, the state exchanged through device memory between
 steps: in bf16 up to ``GRID_MAX_HIDDEN`` (``csrc/gru_grid.cu``, above
-``GRID_RESIDENT_HIDDEN`` part of ``W_hh`` streamed from L2 each step), in
+``GRID_RESIDENT_HIDDEN`` part of ``W_hh`` streamed each step, from L2 and,
+past ``GRID_GATE_UNITS`` units a block, from device memory), in
 float32 up to ``GRID_F32_MAX_HIDDEN`` (``csrc/gru_grid_f32.cu``, all of
 the f32 ``W_hh`` slice resident); every other width above 512
 ("stepwise") in one launch per step, the state in device memory between
@@ -140,18 +141,39 @@ slice of ``W_hh`` in shared memory (on an H100: 24 units a block, whose
 ``[24][4328]`` bf16 slice of the chain's ``W_hh^T`` and its partial sums
 take 232,320 of the 232,448 bytes; 32 units fit up to 1072). Wider plans
 stream part of the slice (:func:`grid_split`)."""
-GRID_MAX_UNITS = 80
-"""Most hidden units a block of the grid form owns: the forward's ``wgmma``
-multiplies ``3U`` columns at once, at most 256."""
+GRID_GATE_UNITS = 80
+"""Most hidden units a block whose forward multiplies its ``3U`` columns in
+one ``wgmma`` (n = 3U, at most 256). Above, up to ``GRID_MAX_UNITS`` ("the
+per-gate plans", past H = 5280 on an H100), the forward takes one ``wgmma``
+a gate (n = U) and the chain runs on ``wgmma`` too (n = U), both in passes
+of 128 rows split between the two warpgroups; their ``W_hh`` comes from
+device memory each step (it outgrows the L2), through rings sized by
+``GRID_HBM_RING_BYTES`` (the forward's copies marked evict-first in L2)."""
+GRID_MAX_UNITS = 96
+"""Most hidden units a block of the grid form owns: 66 unit tiles of 96 at
+H = 6336 fill an H100's 132 SMs with both directions."""
 GRID_PASS_ROWS = 64
 """Batch rows a block of the grid form multiplies at once (``gru_grid.cu``
 runs more in passes)."""
+GRID_GATE_CHAIN_CHUNK = 12
+"""k16 steps of ``W_hh`` in a ring stage of the per-gate plans' chain
+(``gru_grid.cu``'s ``kGateChunk``), one batch of its products: one
+``cp.async.bulk`` a stage, as few a step as its shared memory allows."""
 GRID_CHUNK = {"fwd": 4, "chain": 8}
 """k16 steps of ``W_hh`` in a ring stage of each kernel of the grid form
-(``gru_grid.cu``'s ``kFwdChunk``, ``kChainChunk``)."""
+(``gru_grid.cu``'s ``kFwdChunk``, ``kChainChunk``; the per-gate plans'
+chain takes the forward's, :func:`grid_chunk`)."""
 GRID_RING_BYTES = 40960
 """Shared memory the ring of a streamed plan aims at where the slice is
 streamed mostly: enough chunks in flight to cover a read from L2."""
+GRID_HBM_RING_BYTES = {"fwd": 147456, "chain": 73728}
+"""Shared memory the rings of a per-gate plan aim at. Its slice comes from
+device memory, about 2.8 MB an SM each step at H = 5288. The forward's 4
+stages of 4 k16 steps (135 KB at 88 units, 147 KB at 96) also hold its
+accumulators, 128 rows x 3U f32, between its products; the chain's 2
+stages of ``GRID_GATE_CHAIN_CHUNK`` steps (34-37 KB) leave room for its A
+staging: each stage's copy cost about a latency that nothing hid, so the
+chain takes few, large ones (``gru_grid.cu``)."""
 GRID_MAX_STAGES = 8
 """Most stages of a streamed plan's ring."""
 
@@ -189,10 +211,25 @@ def _grid_k16(kind: str, hid: int) -> int:
     return _round16(hid if kind == "fwd" else 3 * hid) // 16
 
 
+def grid_chunk(kind: str, units: int) -> int:
+    """k16 steps of ``W_hh`` in a ring stage of the grid form's ``kind``
+    kernel with ``units`` a block: ``GRID_CHUNK``'s, and 4 in the chain of
+    the per-gate plans (above ``GRID_GATE_UNITS``), which reads its slice
+    through ``wgmma``'s layout as the forward does."""
+    if units > GRID_GATE_UNITS:
+        return GRID_CHUNK["fwd"] if kind == "fwd" else GRID_GATE_CHAIN_CHUNK
+    return GRID_CHUNK[kind]
+
+
 def _grid_chunk_bytes(kind: str, units: int) -> int:
     """Bytes of a ring stage: the forward's 4 k16 steps of ``3U`` rows, the
-    chain's ``U`` rows of 8 k16 steps and 8 more bf16 a row."""
-    return 4 * 96 * units if kind == "fwd" else 2 * units * (16 * 8 + 8)
+    chain's ``U`` rows of 8 k16 steps and 8 more bf16 a row (of the
+    per-gate plans: 4 k16 steps of ``U`` rows)."""
+    if kind == "fwd":
+        return 4 * 96 * units
+    if units > GRID_GATE_UNITS:
+        return GRID_GATE_CHAIN_CHUNK * 32 * units
+    return 2 * units * (16 * 8 + 8)
 
 
 def grid_kernel_smem(kind: str, units: int, resident: int, stages: int,
@@ -201,25 +238,28 @@ def grid_kernel_smem(kind: str, units: int, resident: int, stages: int,
     ``units`` a block, ``resident`` k16 steps of ``W_hh`` resident, a ring
     of ``stages`` and passes of ``pass_rows`` (``gru_grid.cu``'s
     ``fwd_smem``, ``chain_smem``): the resident slice (the forward's
-    ``[3U][16 resident]`` bf16, the chain's ``[U][16 resident + 8]``), the
-    exchange where its k groups' partial sums meet (24 KB up to 32 units
-    a block; twice that in the chain at 128 rows a pass, its warps on 4
-    m16 tiles, and none in the forward, whose warpgroups then split the
-    rows), the streamed forward's staging of its A fragments, the ring and
-    two mbarriers a stage."""
+    ``[3U][16 resident]`` bf16, the chain's ``[U][16 resident + 8]``, or
+    ``[U][16 resident]`` in the per-gate plans), the exchange where its k
+    groups' partial sums meet (24 KB up to 32 units a block; twice that in
+    the chain at 128 rows a pass, its warps on 4 m16 tiles, and none where
+    the warpgroups split the rows: the forward at 128 rows a pass and the
+    per-gate plans' chain), the staging of the A fragments (streamed
+    forward, per-gate chain), the ring and two mbarriers a stage."""
     ug = units // 8
+    ring = stages * (_grid_chunk_bytes(kind, units) + 16)
+    # The streamed kernels on wgmma stage each warp's A fragments: 3
+    # batches of 2 k16 steps, 512 bytes a step; of 4 at 128 rows a pass;
+    # the per-gate chain 2 batches of 16.
+    msplit = pass_rows > GRID_PASS_ROWS
+    staged = 8 * 3 * (4 if msplit else 2) * 512 if stages else 0
     if kind == "fwd":
-        # The streamed kernels also stage each warp's A fragments: 3
-        # batches of 2 k16 steps, 512 bytes a step; of 4 at 128 rows a
-        # pass.
-        msplit = pass_rows > GRID_PASS_ROWS
-        staged = 8 * 3 * (4 if msplit else 2) * 512 if stages else 0
         xchg = 0 if msplit else 2 * 4 * 3 * -(-ug // 2) * 512
-        return 96 * units * resident + xchg + staged + stages * (
-            _grid_chunk_bytes(kind, units) + 16)
+        return 96 * units * resident + xchg + staged + ring
+    if units > GRID_GATE_UNITS:  # its batches of GRID_GATE_CHAIN_CHUNK steps; db's sums
+        return (32 * units * resident + 8 * 2 * GRID_GATE_CHAIN_CHUNK * 512 + ring
+                + 8 * 3 * units * 4)
     tiles = pass_rows // 32
-    return 2 * units * (16 * resident + 8) + 4 * 2 * tiles * (ug - ug // 4) * 512 + stages * (
-        _grid_chunk_bytes(kind, units) + 16)
+    return 2 * units * (16 * resident + 8) + 4 * 2 * tiles * (ug - ug // 4) * 512 + ring
 
 
 def grid_smem(hid: int, units: int) -> int:
@@ -236,34 +276,40 @@ def grid_split(kind: str, hid: int, units: int, smem: int, rows: int = 64) -> Gr
     slice of ``W_hh`` at padded width ``hid`` with ``units`` x ``rows`` a
     block within ``smem`` bytes: all of it where it fits (passes of 64
     rows); else as many k16 steps as fit beside the exchange and the ring
-    (a multiple of the chunk), the rest streamed. The ring has 2 stages
-    where that leaves at most three chunks a step (the slice only just
-    misses: a stage more would stream a chunk more), else about
-    ``GRID_RING_BYTES`` (2 to ``GRID_MAX_STAGES`` stages). A streamed kernel
-    of a block of more than 64 rows takes passes of 128, where its kernels
-    have that variant: the forward's warpgroups split the rows (not the
-    contraction) and a pass reads the ring once for all of them; the
-    chain's warps take 4 m16 tiles up to 32 units. None where not even the
-    exchange and two stages fit."""
+    (a multiple of the chunk, :func:`grid_chunk`), the rest streamed. The
+    ring has 2 stages where that leaves at most three chunks a step (the
+    slice only just misses: a stage more would stream a chunk more), else
+    about ``GRID_RING_BYTES`` (``GRID_HBM_RING_BYTES`` in the per-gate plans;
+    2 to ``GRID_MAX_STAGES`` stages). A streamed kernel of a block of more
+    than 64 rows takes passes of 128, where its kernels have that variant:
+    the forward's warpgroups split the rows (not the contraction) and a
+    pass reads the ring once for all of them; the chain's warps take 4 m16
+    tiles up to 32 units. The per-gate plans (above ``GRID_GATE_UNITS``)
+    have only that variant, in both kernels: their chain's warpgroups split
+    the rows too. None where not even the exchange and two stages fit."""
     k16 = _grid_k16(kind, hid)
     if grid_kernel_smem(kind, units, k16, 0) <= smem:
         return GridSplit(k16, 0, 0)
-    chunk, step = GRID_CHUNK[kind], grid_kernel_smem(kind, units, 1, 0) - grid_kernel_smem(
+    chunk, step = grid_chunk(kind, units), grid_kernel_smem(kind, units, 1, 0) - grid_kernel_smem(
         kind, units, 0, 0)
-    wide = rows > GRID_PASS_ROWS and (kind == "fwd" or units <= 32)
+    gate = units > GRID_GATE_UNITS
+    wide = gate or (rows > GRID_PASS_ROWS and (kind == "fwd" or units <= 32))
     pass_rows = 2 * GRID_PASS_ROWS if wide else GRID_PASS_ROWS
+    # The per-gate forward parks its sums in 4 stages.
+    least = 4 if gate and kind == "fwd" else 2
 
     def resident(stages: int) -> int:
         room = smem - grid_kernel_smem(kind, units, 0, stages, pass_rows)
         return -1 if room < 0 else min(k16 - 1, room // step) // chunk * chunk
 
-    if resident(2) < 0:
+    if resident(least) < 0:
         return None
-    chunks = -(-(k16 - resident(2)) // chunk)
-    stages = 2 if chunks <= 3 else max(2, min(GRID_MAX_STAGES, GRID_RING_BYTES // _grid_chunk_bytes(
+    chunks = -(-(k16 - resident(least)) // chunk)
+    ring = GRID_HBM_RING_BYTES[kind] if gate else GRID_RING_BYTES
+    stages = least if chunks <= 3 else max(least, min(GRID_MAX_STAGES, ring // _grid_chunk_bytes(
         kind, units)))
     if resident(stages) < 0:
-        stages = 2
+        stages = least
     kept = resident(stages)
     return GridSplit(kept, -(-(k16 - kept) // chunk) * chunk, stages, pass_rows)
 
@@ -273,7 +319,7 @@ def grid_stream_elems(kind: str, hid: int, plan: GridPlan) -> int:
     ``kind`` for ``plan`` at padded width ``hid`` (0 where none is
     streamed): 2 directions x unit tiles x chunks x a stage's bytes / 2."""
     split = plan.fwd if kind == "fwd" else plan.chain
-    chunks = split.streamed // GRID_CHUNK[kind]
+    chunks = split.streamed // grid_chunk(kind, plan.units)
     return 2 * -(-hid // plan.units) * chunks * _grid_chunk_bytes(kind, plan.units) // 2
 
 
@@ -293,10 +339,12 @@ def grid_plan(n: int, hid: int, sms: int = H100_SMS,
     slice fits and whose ``ceil(H/U)`` unit tiles leave room for both
     directions on the SMs. Above: the least U, a multiple of 8 from 24 to
     ``GRID_MAX_UNITS``, whose unit tiles leave that room and whose kernels
-    both split (:func:`grid_split`). Then as many row tiles as the SMs hold
-    (each block at most 64 rows a pass). It depends on the width and the
-    card only, and R on the batch too. Shared by :func:`gru_route` and the
-    wrappers, which hand it to the C entries."""
+    both split (:func:`grid_split`; above ``GRID_GATE_UNITS`` the per-gate
+    plans). Then as many row tiles as the SMs hold (each block at most 64
+    rows a pass, 128 where the kernels split the rows between their
+    warpgroups). It depends on the width and the card only, and R on the
+    batch too. Shared by :func:`gru_route` and the wrappers, which hand it
+    to the C entries."""
     hid += -hid % 8
     wide = hid > GRID_RESIDENT_HIDDEN
     for units in range(24, GRID_MAX_UNITS + 1, 8) if wide else GRID_UNITS:
@@ -319,9 +367,11 @@ def grid_plan(n: int, hid: int, sms: int = H100_SMS,
 
 GRID_MAX_HIDDEN = max(h for h in range(8, 8192, 8) if grid_plan(1, h) is not None)
 """Widest hidden size, after padding to a multiple of 8, of the grid form
-on an H100 SXM, 5280: 80 units a block (the forward's ``wgmma`` n = 240), 66
-unit tiles, 132 blocks; from 5288 ``grid_plan`` gives None (88 units would
-need n = 264)."""
+on an H100 SXM, 6336: 96 units a block (the per-gate plans' ``wgmma`` n =
+96), 66 unit tiles, 132 blocks; from 6344 ``grid_plan`` gives None (67 unit
+tiles of 96 a direction outnumber the SMs, and 104 units are not built).
+Up to 5280 the plans take at most ``GRID_GATE_UNITS`` (80 at 5280, the
+forward's ``wgmma`` n = 240); 88 from 5288, 96 from 5816."""
 
 GRID_F32_UNITS = 16
 """Hidden units a block of the f32 grid form owns (``gru_grid_f32.cu``'s
@@ -391,9 +441,10 @@ def gru_route(hid: int, dtype: torch.dtype = torch.float32) -> str:
     MAX_HIDDEN``; else, with ``H`` zero-padded to the next multiple of 8,
     ``"wide"`` (``gru_wide.cu``'s persistent kernels) up to
     ``MAX_WIDE_HIDDEN``; then ``"grid"``, in bf16 ``gru_grid.cu`` up to
-    ``GRID_MAX_HIDDEN`` (5280 on an H100: 80 units a block, 66 unit tiles
-    of both directions on its 132 SMs, the forward's ``wgmma`` n = 240;
-    above ``GRID_RESIDENT_HIDDEN``, 1440, with part of ``W_hh`` streamed),
+    ``GRID_MAX_HIDDEN`` (6336 on an H100: 96 units a block, 66 unit tiles
+    of both directions on its 132 SMs; above ``GRID_RESIDENT_HIDDEN``,
+    1440, with part of ``W_hh`` streamed; above 5280, 80 units a block,
+    the per-gate plans, one ``wgmma`` of n = U a gate),
     in float32 ``gru_grid_f32.cu`` up to ``GRID_F32_MAX_HIDDEN`` (1056: 66
     unit tiles of 16, the whole f32 ``W_hh`` slice resident); and
     ``"stepwise"`` (``gru_wide.cu``'s kernels of one launch a step) above.
@@ -836,13 +887,20 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+BWD_WIDE_ORDER = 1
+"""The tile order ``gru_bwd_wide.cu``'s ``coef`` and ``dw`` run in: 1, grouped
+(the blocks in flight share a few of W_hh's and dph's column tiles, which
+their group's rows then reuse from L2), rather than 0, the plain order
+(column tiles fastest); the results are the same bits."""
+
+
 def _bwd_wide_lib() -> ctypes.CDLL:
     lib = _build.load("gru_bwd_wide")
     if lib.ocrs_gru_bwd_coef_wide_bf16.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.ocrs_gru_bwd_coef_wide_bf16.argtypes = [i] + [p] * 7 + [i, i, i, p]
-        lib.ocrs_gru_bwd_dw_wide_bf16.argtypes = [i] + [p] * 7 + [i, p, p, i, i, i, i, p]
+        lib.ocrs_gru_bwd_coef_wide_bf16.argtypes = [i] + [p] * 7 + [i, i, i, i, p]
+        lib.ocrs_gru_bwd_dw_wide_bf16.argtypes = [i] + [p] * 7 + [i, p, p, i, i, i, i, i, p]
         for fn in (lib.ocrs_gru_bwd_coef_wide_bf16, lib.ocrs_gru_bwd_dw_wide_bf16):
             fn.restype = i
     return lib
@@ -1022,7 +1080,7 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     if tensor_cores:
         rc = phases.ocrs_gru_bwd_coef_wide_bf16(
             dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w16), p(b_hh), p(coef), t_len, n,
-            hid, stream)
+            hid, BWD_WIDE_ORDER, stream)
     else:
         rc = getattr(bwd, f"ocrs_gru_bwd_coef{sfx}")(
             dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w), p(b_hh), p(coef), t_len, n, hid,
@@ -1070,9 +1128,10 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
                 dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f),
                 p(dpx_b), p(dhn), p(dbp), t_len, n, hid, stream)
         _build.check(chain, rc, f"gru_wide_bwd (chain, {form})")
-        rc = (phases.ocrs_gru_bwd_dw_wide_bf16 if tensor_cores else bwd.ocrs_gru_bwd_dw_bf16)(
-            dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(dhn), p(dwp), p(dbp), tiles,
-            p(dw), p(db), splits, t_len, n, hid, stream)
+        dw_args = (dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(dhn), p(dwp), p(dbp), tiles,
+                   p(dw), p(db), splits, t_len, n, hid)
+        rc = (phases.ocrs_gru_bwd_dw_wide_bf16(*dw_args, BWD_WIDE_ORDER, stream) if tensor_cores
+              else bwd.ocrs_gru_bwd_dw_bf16(*dw_args, stream))
         if scratch_out is not None:
             scratch_out["dhn"] = dhn
     else:

@@ -68,7 +68,9 @@ from ocrs_models_torch.ops import _build
 from ocrs_models_torch.ops.gru import (
     GRID_F32_MAX_HIDDEN,
     GRID_F32_STAGES,
+    GRID_GATE_UNITS,
     GRID_MAX_HIDDEN,
+    GRID_MAX_UNITS,
     GRID_RESIDENT_HIDDEN,
     H100_SMEM,
     _bwd_wide_lib,
@@ -305,13 +307,17 @@ def test_gru_wide_route_matches_plain(dev, shape, dtype):
 # 60 tiles of 24 units, one row tile), the whole W slice resident; then
 # the streamed plans, part of W through the ring: 1448 (24 units), 1451
 # (padded to 1456: its chain streams 8 chunks through 6 stages), 2048 (32
-# units), 4096 (64) and GRID_MAX_HIDDEN (5280: 80 units, the forward's
-# wgmma n = 240), at N=3 (one m16 tile of a pass) and 259, T=1 (no
-# product), 2 (one) and 9; and one width of each other U a streamed plan
-# takes, 2560, 3072, 3584 and 4608 (40, 48, 56 and 72 units: odd unit
-# groups, 5, 7 and 9, in the gate math and the exchange), at T=2, N=259
-# (R > 64: the forward's warpgroups split the rows) and T=9, N=3 (they
-# split the contraction). Tolerances of the wide route's bf16 rows: ys
+# units), 4096 (64), 5280 (80 units, the forward's wgmma n = 240) and the
+# per-gate plans past it (W_hh from device memory, one wgmma a gate and
+# the chain on wgmma, passes of 128 rows at every batch): 5288 (88 units,
+# a contraction that is no multiple of 16), 5816 (96 units, the same) and
+# GRID_MAX_HIDDEN (6336: 96 units, 66 unit tiles, 132 blocks), at N=3 (one
+# m16 tile of a pass) and 259, T=1 (no product), 2 (one) and 9; and one
+# width of each other U a streamed plan takes, 2560, 3072, 3584 and 4608
+# (40, 48, 56 and 72 units: odd unit groups, 5, 7 and 9, in the gate math
+# and the exchange), at T=2, N=259 (R > 64: the forward's warpgroups split
+# the rows) and T=9, N=3 (they split the contraction). Tolerances of the
+# wide route's bf16 rows: ys
 # and dpx 2e-2 and 95% equal (93% in the streamed plans, phase 18's gate
 # above H=264: their sums run over up to 3H = 15,840 terms), dW and db
 # 1e-3 of their largest entry (dW at N=3: see the test). In the streamed
@@ -319,7 +325,7 @@ def test_gru_wide_route_matches_plain(dev, shape, dtype):
 # their dpx reach |4| at T=9, N=259 (H=4096), where a rounding that flips
 # between two f32 sum orders moves an entry by 0.03125.
 GRID_SHAPES = [(t, n, h) for h in (520, 1024, GRID_RESIDENT_HIDDEN, 1448, 1451, 2048, 4096,
-                                   GRID_MAX_HIDDEN)
+                                   5280, 5288, 5816, GRID_MAX_HIDDEN)
                for t, n in ((1, 3), (2, 259), (9, 3), (9, 259))] + [
     (t, n, h) for h in (2560, 3072, 3584, 4608) for t, n in ((2, 259), (9, 3))]
 
@@ -336,7 +342,8 @@ def test_grid_shapes_run_every_plan_of_the_grid_form():
     assert kinds(range(520, GRID_MAX_HIDDEN + 1, 8), (3, 259)) == kinds(
         {h for _, _, h in GRID_SHAPES}, (3, 259))
     assert {(grid_plan(n, h).units, n > 64) for t, n, h in GRID_SHAPES if t >= 2} >= {
-        (u, big) for u in range(24, 81, 8) for big in (False, True)}
+        (u, big) for u in range(24, GRID_MAX_UNITS + 1, 8) for big in (False, True)}
+    assert {grid_plan(n, h).units for _, n, h in GRID_SHAPES} > {GRID_GATE_UNITS + 8, GRID_MAX_UNITS}
 
 
 def _form_calls(fn, *args):
@@ -386,14 +393,14 @@ def test_gru_grid_form_matches_plain(dev, shape):
     # that dph (2.1e-3 of the largest entry, read at T=9, H=1024): there dW
     # is held against the plain dW phase on the bf16(dph) that the chain
     # hands on (dpx and dhn), 1e-5 of its largest entry, and that dhn
-    # against the chain's plain version as dpx is held. So too at
-    # GRID_MAX_HIDDEN, T=2, N=259, where only the first step of the chain
-    # has rows with h_prev != 0: their dph rounds the coefficients' sums
-    # over H = 5280 terms, and the flips leave 19 of 167M dW entries up to
-    # 1.08 times 1e-3 of the largest end to end (PERF.md; T=9 holds).
+    # against the chain's plain version as dpx is held. So too from 5280
+    # up at T=2, N=259, where only the first step of the chain has rows
+    # with h_prev != 0: their dph rounds the coefficients' sums over H >=
+    # 5280 terms, and the flips leave 19 of 167M dW entries up to 1.08
+    # times 1e-3 of the largest end to end at 5280 (PERF.md; T=9 holds).
     db_want = want[3]
     torch.testing.assert_close(grads[3], db_want, rtol=0, atol=1e-3 * db_want.abs().max().item() + 1e-5)
-    if n >= 259 and (h < GRID_MAX_HIDDEN or t >= 9):
+    if n >= 259 and (h < 5280 or t >= 9):
         torch.testing.assert_close(grads[2], want[2], rtol=0,
                                    atol=1e-3 * want[2].abs().max().item() + 1e-6)
     else:
@@ -550,10 +557,10 @@ def test_grid_plan_counts_the_kernels_shared_memory(dev):
 
 @pytest.mark.parametrize("t,n", [(3, 5), (9, 128)])
 def test_gru_bf16_above_the_grid_form_runs_one_launch_a_step(dev, t, n):
-    # GRID_MAX_HIDDEN + 8 (5288): no plan of the grid form (88 units a
-    # block would need wgmma n = 264), so bf16 runs the per-step form
-    # there, as f32 does above GRID_F32_MAX_HIDDEN (its coef and dW phases
-    # gru_bwd_wide.cu's).
+    # GRID_MAX_HIDDEN + 8 (6344): no plan of the grid form (67 unit tiles
+    # of 96 units a direction outnumber the SMs), so bf16 runs the
+    # per-step form there, as f32 does above GRID_F32_MAX_HIDDEN (its coef
+    # and dW phases gru_bwd_wide.cu's).
     h = GRID_MAX_HIDDEN + 8
     assert gru_route(h, BF16) == "stepwise" and grid_plan(n, h) is None
     px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, 23)
@@ -575,9 +582,9 @@ def test_gru_bf16_above_the_grid_form_runs_one_launch_a_step(dev, t, n):
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     # db end to end; dW end to end at T=9, N=128 (1024 rows a dW entry).
     # At T=3, N=5, 15 rows, dW is held as the grid form's test holds it at
-    # N=3 (the flips of bf16(dph), whose sums run over 3H = 15,864 terms,
-    # leave 20 of 168M entries up to 1.1 times 1e-3 of the largest end to
-    # end: PERF.md).
+    # N=3 (the flips of bf16(dph), whose sums run over 3H terms, left 20 of
+    # 168M entries up to 1.1 times 1e-3 of the largest end to end at H =
+    # 5288: PERF.md).
     torch.testing.assert_close(grads[3], want[3], rtol=0, atol=1e-3 * want[3].abs().max().item() + 1e-5)
     if n >= 128:
         torch.testing.assert_close(grads[2], want[2], rtol=0,
@@ -587,7 +594,7 @@ def test_gru_bf16_above_the_grid_form_runs_one_launch_a_step(dev, t, n):
                                      0.0, 0.93)
 
 
-@pytest.mark.parametrize("h", [520, 1024, 1448])
+@pytest.mark.parametrize("h", [520, 1024, 1448, 4096])
 @pytest.mark.parametrize("t,n", [(9, 259), (2, 3)])
 def test_bf16_coef_and_dw_on_wgmma_match_their_plain_versions(dev, t, n, h):
     # gru_bwd_wide.cu's coefficients and dW/db (bf16 above 512) against
@@ -595,9 +602,12 @@ def test_bf16_coef_and_dw_on_wgmma_match_their_plain_versions(dev, t, n, h):
     # same bf16 operands: the products of bf16 values are exact in f32, so
     # only the order of the f32 sums differs, within 1e-5 of the largest
     # entry (coef: the gates through sigmoid and tanh of those sums); db is
-    # the chain's partials summed in order. Reruns are bit-identical. At
-    # N=259, T=9: 2331 rows, 19 row tiles of coef and 37 stages of dW, the
-    # last ragged; at N=3, T=2 one stage, mostly zero-filled.
+    # the chain's partials summed in order. Reruns are bit-identical, and
+    # the grouped tile order (1, the wrapper's) gives the same bits as the
+    # plain one (0). At N=259, T=9: 2331 rows, 19 row tiles of coef (two
+    # groups of its grouped order, the last of 3) and 37 stages of dW, the
+    # last ragged; at N=3, T=2 one stage, mostly zero-filled; H=4096: 32 k
+    # tiles of dW (three groups, the last of 8).
     px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, h + t)
     px_f, px_b = px_f.to(BF16), px_b.to(BF16)
     ys_f, ys_b = ((torch.rand((t, n, h), device=dev) * 2 - 1).to(BF16) for _ in range(2))
@@ -608,26 +618,26 @@ def test_bf16_coef_and_dw_on_wgmma_match_their_plain_versions(dev, t, n, h):
     stream = _build.stream_ptr(dev)
     w16 = w_hh.to(BF16)
 
-    def coef():
+    def coef(order=1):
         out = torch.empty((2, t * n, 5, h), device=dev)
         _build.check(lib, lib.ocrs_gru_bwd_coef_wide_bf16(
             dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w16), p(b_hh), p(out), t, n, h,
-            stream), "coef")
+            order, stream), "coef")
         return out
 
     parts = 3
     dbp = torch.randn((parts, 2, 3 * h), device=dev)
 
-    def dw(splits):
+    def dw(splits, order=1):
         dwp = torch.empty((splits, 2, h, 3 * h), device=dev)
         out, db = torch.empty_like(w_hh), torch.empty_like(b_hh)
         _build.check(lib, lib.ocrs_gru_bwd_dw_wide_bf16(
             dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(dhn), p(dwp), p(dbp), parts,
-            p(out), p(db), splits, t, n, h, stream), "dw")
+            p(out), p(db), splits, t, n, h, order, stream), "dw")
         return out, db
 
     got = coef()
-    assert torch.equal(got, coef())
+    assert torch.equal(got, coef()) and torch.equal(got, coef(order=0))
     want = gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh).reshape(got.shape)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
     dw_want = gru_bwd_dw_bf16_reference(ys_f, ys_b, dpx_f, dpx_b, dhn)
@@ -635,6 +645,7 @@ def test_bf16_coef_and_dw_on_wgmma_match_their_plain_versions(dev, t, n, h):
     for splits in (1, 2):
         dw_got, db_got = dw(splits)
         assert all(torch.equal(a, b) for a, b in zip((dw_got, db_got), dw(splits)))
+        assert all(torch.equal(a, b) for a, b in zip((dw_got, db_got), dw(splits, order=0)))
         torch.testing.assert_close(dw_got, dw_want, rtol=0, atol=1e-5 * dw_want.abs().max().item())
         assert torch.equal(db_got, db_want)
 

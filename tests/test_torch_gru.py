@@ -25,10 +25,11 @@ from ocrs_models_torch.ops import (
     gru_route,
 )
 from ocrs_models_torch.ops.gru import (
-    GRID_CHUNK,
     GRID_F32_MAX_HIDDEN,
     GRID_F32_STAGE_BYTES,
     GRID_F32_UNITS,
+    GRID_GATE_CHAIN_CHUNK,
+    GRID_GATE_UNITS,
     GRID_MAX_HIDDEN,
     GRID_MAX_UNITS,
     GRID_RESIDENT_HIDDEN,
@@ -43,6 +44,7 @@ from ocrs_models_torch.ops.gru import (
     _pad_w,
     _unpad_gates,
     grid_f32_plan,
+    grid_chunk,
     grid_f32_smem,
     grid_kernel_smem,
     grid_plan,
@@ -205,14 +207,15 @@ def test_gru_route_in_bf16():
     # bf16 keeps the cluster and persistent wide answers; above 512 (after
     # padding to a multiple of 8) it takes the grid form (gru_grid.cu) up
     # to GRID_MAX_HIDDEN, the widest width grid_plan finds blocks for on an
-    # H100 (5280: 80 units a block; above GRID_RESIDENT_HIDDEN, 1440, with
-    # part of W_hh streamed), and the per-step form above it. f32 keeps its
-    # answers (test_gru_route).
+    # H100 (6336: 96 units a block; above GRID_RESIDENT_HIDDEN, 1440, with
+    # part of W_hh streamed; above 5280, 80 units a block, the per-gate
+    # plans), and the per-step form above it. f32 keeps its answers
+    # (test_gru_route).
     bf16 = torch.bfloat16
-    assert GRID_RESIDENT_HIDDEN == 1440 and GRID_MAX_HIDDEN == 5280
+    assert GRID_RESIDENT_HIDDEN == 1440 and GRID_MAX_HIDDEN == 6336
     assert [gru_route(h, bf16) for h in (8, 256, 12, 264, 512)] == ["cluster"] * 2 + ["wide"] * 3
-    grid = (513, 520, 1000, 1024, 1056, 1064, 1401, 1440, 1441, 1448, 1451, 2048, 4096,
-            GRID_MAX_HIDDEN)
+    grid = (513, 520, 1000, 1024, 1056, 1064, 1401, 1440, 1441, 1448, 1451, 2048, 4096, 5280,
+            5281, 5288, 5808, 5816, 6329, GRID_MAX_HIDDEN)
     assert [gru_route(h, bf16) for h in grid] == ["grid"] * len(grid)
     assert [gru_route(h, bf16) for h in (GRID_MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 8, 8192)] == [
         "stepwise"] * 3
@@ -240,15 +243,22 @@ def test_grid_plan_fits_an_h100_up_to_its_widest_width(n, rows_at_1024):
     assert grid_plan(n, 1024)[:2] == (32, rows_at_1024)
     assert grid_plan(n, GRID_RESIDENT_HIDDEN)[0] == 24
     assert grid_smem(GRID_RESIDENT_HIDDEN, 24) == 232320
-    # Above: the least U, a multiple of 8, whose blocks fit the SMs, 3U <=
-    # 256 (the forward's wgmma), each kernel's resident k16 steps (a whole
-    # number of chunks) beside its ring and exchange within the 227 KB,
-    # and the streamed chunks covering the rest of the contraction (zero
-    # past it), at every padded width up to GRID_MAX_HIDDEN.
+    # Above: the least U, a multiple of 8, whose blocks fit the SMs, each
+    # wgmma of the forward n <= 256 (one of 3U columns up to
+    # GRID_GATE_UNITS, one a gate, n = U, above), each kernel's resident k16
+    # steps (a whole number of chunks) beside its ring and exchange within
+    # the 227 KB, and the streamed chunks covering the rest of the
+    # contraction (zero past it), at every padded width up to
+    # GRID_MAX_HIDDEN. The per-gate plans take passes of 128 rows in both
+    # kernels at every batch (their warpgroups split the rows, so a pass
+    # covers the units a block at once), the forward 4 ring stages or more
+    # and the chain chunks of GRID_GATE_CHAIN_CHUNK k16 steps.
     for h in range(GRID_RESIDENT_HIDDEN + 8, GRID_MAX_HIDDEN + 1, 8):
         units, rows, *splits = plan = grid_plan(n, h)
         tiles = -(-h // units)
-        assert units % 8 == 0 and 24 <= units <= GRID_MAX_UNITS and 3 * units <= 256, h
+        gate = units > GRID_GATE_UNITS
+        assert units % 8 == 0 and 24 <= units <= GRID_MAX_UNITS, h
+        assert (units if gate else 3 * units) <= 256 and gate == (h > 5280), h
         assert 2 * tiles * -(-n // rows) <= H100_SMS, h
         assert units == 24 or 2 * -(-h // (units - 8)) > H100_SMS, h
         assert rows % 16 == 0 and rows - 16 < -(-n // -(-n // rows)), h
@@ -256,16 +266,23 @@ def test_grid_plan_fits_an_h100_up_to_its_widest_width(n, rows_at_1024):
             k16 = -(-(h if kind == "fwd" else 3 * h) // 16)
             assert grid_kernel_smem(kind, units, split.resident, split.stages,
                                     split.pass_rows) <= H100_SMEM, h
-            assert split.pass_rows == 64 or (split.streamed and rows > 64), h
+            assert split.pass_rows == (128 if gate else 64) or (split.streamed and rows > 64), h
             if split.streamed:
-                chunk = GRID_CHUNK[kind]
+                chunk = grid_chunk(kind, units)
+                assert chunk == (4 if kind == "fwd" else GRID_GATE_CHAIN_CHUNK if gate else 8), h
                 assert split.resident % chunk == 0 and split.streamed % chunk == 0, h
                 assert split.resident + split.streamed - chunk < k16 <= split.resident + split.streamed, h
-                assert 2 <= split.stages <= 8, h
+                # The per-gate forward parks its sums in 4 stages.
+                assert (4 if gate and kind == "fwd" else 2) <= split.stages <= 8, h
             else:
-                assert split == GridSplit(k16, 0, 0), h
+                assert split == GridSplit(k16, 0, 0) and not gate, h
+        # The forward's products cover the 3U columns, each wgmma n <= 256:
+        # one of 3U, or one a gate of U (the chain's products, n = U, too).
+        products, width = (3, units) if gate else (1, 3 * units)
+        assert products * width == 3 * units and width <= 256, h
         assert grid_plan(n, h - 7) == plan, h
-    assert [grid_plan(n, h)[0] for h in (1448, 2048, 4096, GRID_MAX_HIDDEN)] == [24, 32, 64, 80]
+    assert [grid_plan(n, h)[0] for h in (1448, 2048, 4096, 5280, 5288, 5808, 5816,
+                                         GRID_MAX_HIDDEN)] == [24, 32, 64, 80, 88, 88, 96, 96]
     for h in range(GRID_MAX_HIDDEN + 8, GRID_MAX_HIDDEN + 200, 8):
         assert grid_plan(n, h) is None, h
     # A card with fewer SMs or less shared memory gets a plan that fits it,
