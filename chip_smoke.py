@@ -226,9 +226,10 @@ Phases (any failure exits non-zero, before the final line):
     T=257, N=128 (its equal shares gated as H=512's) timed beside its plain
     versions and cuDNN, with its blocks; in bf16 the streamed plans at
     GRID_STREAMED_HIDDEN (1448, 2048, 5280 and the per-gate plan at 5288)
-    the same way, timed beside the per-step form on the same inputs; the
-    per-step form held at T=9 above each dtype's widest grid width (f32
-    1064, bf16 6344); (b) the shipped CRNN with ``gru_hidden=512``:
+    the same way, timed beside the per-step form on the same inputs, and
+    so the f32 streamed plans at GRID_F32_STREAMED_HIDDEN (1064, 1448,
+    2048); the per-step form held at T=9 above each dtype's widest grid
+    width (f32 2120, bf16 6344); (b) the shipped CRNN with ``gru_hidden=512``:
     3 steps against the plain step in each dtype (phase 8's tolerances for
     the first step, the CPU parity test's for later ones), then 10 timed
     steps at the headline and wide shapes (median [min, max], peak MiB,
@@ -236,7 +237,8 @@ Phases (any failure exits non-zero, before the final line):
     128 crops of width 256 (crops/s), the greedy strings equal to the
     CPU's on the same weights; (d) the CRNN with ``gru_hidden=1024`` in
     bf16 (the grid form): 3 steps against the plain steps, 10 headline and
-    3 wide steps timed, every call counted in the grid form.
+    3 wide steps timed, every call counted in the grid form; (e) the same
+    at ``gru_hidden=2048`` in bf16 and f32 (W_hh partly streamed).
 
 Prints the nvidia-smi line, throughput lines, one ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -3326,9 +3328,11 @@ WIDE_T = 257  # phase 18 (a): the wide training bucket's steps (1024 // 4 + 1), 
 WIDE_STEPS = 3  # phase 18 (b): steps held against the plain step
 STEPWISE_SHAPE = (9, REC_BATCH, 1024)  # phase 18 (a): (T, N, H) of the per-step/grid forms' check
 GRID_HIDDEN = 1024  # phase 18 (a), (d): the grid form's width (all of W resident), timed and trained
-STEPWISE_F32_HIDDEN = 1064  # phase 18 (a): f32 above the f32 grid form (GRID_F32_MAX_HIDDEN + 8)
+STEPWISE_F32_HIDDEN = 2120  # phase 18 (a): f32 above the f32 grid form (GRID_F32_MAX_HIDDEN + 8)
 GRID_STREAMED_HIDDEN = (1448, 2048, 5280, 5288)  # phase 18 (a): the grid form with W_hh partly
 # streamed (from L2; at 5280 and 5288 mostly from device memory, 5288 a per-gate plan), timed
+GRID_F32_STREAMED_HIDDEN = (1064, 1448, 2048)  # phase 18 (a): the f32 grid form with W_hh
+# partly streamed (24, 24 and 32 units a block; at 2048 beyond the L2 and shared memory), timed
 GRID_TRAIN_HIDDEN = 2048  # phase 18 (e): the recognizer trained in the streamed grid form
 
 
@@ -3351,7 +3355,8 @@ def _wide_device_ms(times: dict, t_len: int, backward: bool) -> float | None:
     and their bf16 twins) and in the grid form (``gru_grid_fwd_kernel``,
     ``gru_grid_chain_kernel``, in f32 ``gru_grid_f32_fwd_kernel`` and
     ``gru_grid_f32_chain_kernel``, and where W_hh is streamed the layout of
-    its chunks, ``gru_grid_stream_layout_kernel``), T times in the per-step form
+    its chunks, ``gru_grid_stream_layout_kernel`` or
+    ``gru_grid_f32_stream_layout_kernel``), T times in the per-step form
     (``*_step_kernel``), and for the backward ``gru_bwd.cu``'s ``coef``,
     ``dw`` and ``dw_sum`` once each."""
     if not times:
@@ -3359,7 +3364,7 @@ def _wide_device_ms(times: dict, t_len: int, backward: bool) -> float | None:
     parts = (("gru_wide_bwd_chain", "gru_grid_chain", "gru_grid_f32_chain") if backward
              else ("gru_wide_fwd", "gru_grid_fwd", "gru_grid_f32_fwd"))
     # The streamed grid plans' layout of W's streamed chunks, one a call.
-    parts += ("gru_grid_stream",)
+    parts += ("_stream_layout",)
     found = {name: ms for name, ms in times.items() if any(part in name for part in parts)}
     if not found:
         raise AssertionError(f"no kernel named *{parts}* ran on the device: {sorted(times)}")
@@ -3446,10 +3451,8 @@ def _wide_ok(errors: dict, bf16: bool, min_equal: float = 0.0) -> bool:
 
 def _streamed(plan) -> bool:
     """Whether a grid plan streams part of W_hh (bf16 plans above
-    GRID_RESIDENT_HIDDEN; the f32 plan keeps all of it resident)."""
-    from ocrs_models_torch.ops.gru import GridPlan
-
-    return isinstance(plan, GridPlan) and plan.fwd.streamed > 0
+    GRID_RESIDENT_HIDDEN, f32 plans above GRID_F32_RESIDENT_HIDDEN)."""
+    return plan is not None and plan.fwd.streamed > 0
 
 
 def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) -> dict:
@@ -3509,7 +3512,7 @@ def _phase_ms(times: dict, t_len: int, backward: bool) -> dict | None:
     if not times:
         return None
     out = {}
-    stream = [ms for name, ms in times.items() if "gru_grid_stream" in name]
+    stream = [ms for name, ms in times.items() if "_stream_layout" in name]
     if stream:
         out["layout"] = sum(stream)
     rec = (("gru_wide_bwd_chain", "gru_grid_chain", "gru_grid_f32_chain") if backward
@@ -3638,11 +3641,20 @@ def check_gru_wide(dev, gen) -> list[dict]:
     width of GRID_STREAMED_HIDDEN, where W_hh is partly streamed (the
     ``grid_streamed`` entries, the per-step form timed beside: at 5280 and
     5288, where W_hh comes mostly from device memory, the old plan of 80
-    units and the per-gate plan of 88); the per-step form held at T=9 above
+    units and the per-gate plan of 88), and in f32 at each width of
+    GRID_F32_STREAMED_HIDDEN the same way; the per-step form held at T=9 above
     each dtype's widest grid width, STEPWISE_F32_HIDDEN and GRID_MAX_HIDDEN
     + 8 (the ``stepwise`` entries). Returns the kernels line's rows."""
     from ocrs_models_torch.ops import gru_route
-    from ocrs_models_torch.ops.gru import GRID_MAX_HIDDEN, wide_max_active_clusters
+    from ocrs_models_torch.ops.gru import (
+        GRID_F32_MAX_HIDDEN,
+        GRID_MAX_HIDDEN,
+        wide_max_active_clusters,
+    )
+
+    if STEPWISE_F32_HIDDEN != GRID_F32_MAX_HIDDEN + 8:
+        raise AssertionError(f"STEPWISE_F32_HIDDEN {STEPWISE_F32_HIDDEN} is not the width above "
+                             f"the f32 grid form, {GRID_F32_MAX_HIDDEN + 8}")
 
     t_len, n = WIDE_T, REC_BATCH
     rows = []
@@ -3683,15 +3695,17 @@ def check_gru_wide(dev, gen) -> list[dict]:
         torch.cuda.empty_cache()
         # Above 512: the grid form (held at STEPWISE_SHAPE, then at the
         # wide bucket's T=257, N=128, gated and timed: H=GRID_HIDDEN in
-        # both dtypes, f32 beside the per-step form, and in bf16 the
-        # streamed plans' GRID_STREAMED_HIDDEN, these beside the per-step
-        # form too, 5288 a per-gate plan); the per-step form above each
+        # both dtypes, f32 beside the per-step form, and the streamed plans'
+        # GRID_STREAMED_HIDDEN in bf16 and GRID_F32_STREAMED_HIDDEN in f32,
+        # these beside the per-step form too, 5288 a per-gate plan); the
+        # per-step form above each
         # dtype's widest grid width, held at T=9 (its errors gated at the
         # tolerances above, bf16 without an equal share: printed).
         t_s, n_s, _ = STEPWISE_SHAPE
         forms = ((("grid", GRID_HIDDEN), *(("grid", h) for h in GRID_STREAMED_HIDDEN),
                   ("stepwise", GRID_MAX_HIDDEN + 8)) if bf16 else
-                 (("grid", GRID_HIDDEN), ("stepwise", STEPWISE_F32_HIDDEN)))
+                 (("grid", GRID_HIDDEN), *(("grid", h) for h in GRID_F32_STREAMED_HIDDEN),
+                  ("stepwise", STEPWISE_F32_HIDDEN)))
         for form, hid in forms:
             if gru_route(hid, dtype) != form:
                 raise AssertionError(f"H={hid} {tag} does not take the wide route's {form} form")
@@ -3704,11 +3718,12 @@ def check_gru_wide(dev, gen) -> list[dict]:
                                  "source": "ocrs_models_torch/csrc/gru_wide.cu",
                                  "checked": f"T={t_s}, N={n_s}, H={hid}", **got[name]}
                 # Its times at T=257 beside the grid form's on the same
-                # inputs (f32 at GRID_HIDDEN, bf16 at GRID_STREAMED_HIDDEN).
+                # inputs (f32 at GRID_HIDDEN and GRID_F32_STREAMED_HIDDEN,
+                # bf16 at GRID_STREAMED_HIDDEN).
                 continue
             subs = _wide_sub_rows(dev, gen, t_len, n, hid, dtype, tag, form)
             for row, sub in zip((fwd, bwd), subs):
-                if hid in GRID_STREAMED_HIDDEN:
+                if hid in (GRID_STREAMED_HIDDEN if bf16 else GRID_F32_STREAMED_HIDDEN):
                     row.setdefault("grid_streamed", {})[hid] = sub
                 else:
                     row[form] = {**row.get(form, {}), **sub}
@@ -3746,14 +3761,14 @@ def _wide_sub_rows(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str,
         streamed = _streamed(plan)
         place.update(units_per_block=plan.units, rows_per_block=plan.rows,
                      blocks=2 * -(-hid // plan.units) * -(-n // plan.rows))
+        place["w_split"] = {"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()}
+        layout = f"W_hh's k16 steps resident, streamed, ring stages: {place['w_split']}"
         if bf16:
-            place["w_split"] = {"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()}
             place["also"] = "ocrs_models_torch/csrc/gru_bwd_wide.cu (coef, dw, dw_sum)"
-            layout = f"W_hh's k16 steps resident, streamed, ring stages: {place['w_split']}"
         else:
             place["ring_stages"] = plan.stages
             place["also"] = "ocrs_models_torch/csrc/gru_bwd.cu (coef, dw, dw_sum)"
-            layout = f"all of W_hh resident, {plan.stages} ring stages of the A operand"
+            layout += f"; {plan.stages} ring stages of the A operand"
         print(f"gru wide grid {tag} [N={n},H={hid}]: {plan.units} units x {plan.rows} rows a "
               f"block, {place['blocks']} blocks in one cooperative launch; {layout}", flush=True)
     out = []
@@ -3866,11 +3881,12 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
     against the plain step, then 10 timed steps at the headline and wide
     shapes (counts zeroed just before and read just after); (c) serving;
     (d) the training step at ``gru_hidden=GRID_HIDDEN`` (the grid form) in
-    bf16 and f32; (e) in bf16 at ``gru_hidden=GRID_TRAIN_HIDDEN`` (W_hh
-    partly streamed). Returns the kernels line's wide rows, with their
+    bf16 and f32; (e) in bf16 and f32 at ``gru_hidden=GRID_TRAIN_HIDDEN``
+    (W_hh partly streamed). Returns the kernels line's wide rows, with their
     launches from (b)'s headline steps and (c)'s serving call, the rows'
-    ``grid`` entries theirs from (d)'s of their dtype and the bf16 rows'
-    ``grid_streamed`` entries at GRID_TRAIN_HIDDEN from (e)'s."""
+    ``grid`` entries theirs from (d)'s of their dtype and the rows'
+    ``grid_streamed`` entries at GRID_TRAIN_HIDDEN from (e)'s of their
+    dtype."""
     t0 = time.perf_counter()
     rows = check_gru_wide(dev, gen)
     print(f"phase 18a seconds {time.perf_counter() - t0:.1f}", flush=True)
@@ -3878,7 +3894,8 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
     grid = {"bf16": train_grid(dev), "f32": train_grid(dev, GRID_HIDDEN, torch.float32)}
     print(f"phase 18d seconds {time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
-    streamed = train_grid(dev, GRID_TRAIN_HIDDEN)
+    streamed = {"bf16": train_grid(dev, GRID_TRAIN_HIDDEN),
+                "f32": train_grid(dev, GRID_TRAIN_HIDDEN, torch.float32)}
     print(f"phase 18e seconds {time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
     train = {}
@@ -3895,7 +3912,8 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
         row["launches"] = head["launches"][row["name"]]
         row["launches_per_step"] = row["launches"] // head["steps"]
         for sub, report in ((row.get("grid"), grid[row["dtype"]]),
-                            (row.get("grid_streamed", {}).get(GRID_TRAIN_HIDDEN), streamed)):
+                            (row.get("grid_streamed", {}).get(GRID_TRAIN_HIDDEN),
+                             streamed[row["dtype"]])):
             if sub is not None:
                 sub["launches"] = report["headline"]["launches"][row["name"]]
                 sub["launches_per_step"] = sub["launches"] // report["headline"]["steps"]
@@ -3904,11 +3922,12 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
         if not row["launches"] > 0:
             raise AssertionError(f"the {row['dtype']} H={WIDE_HIDDEN} step never launched "
                                  f"{row['name']}")
-    print(json.dumps({"path": f"grid biGRU summary H={GRID_HIDDEN} bf16 and f32, "
-                              f"{GRID_TRAIN_HIDDEN} bf16", **{
+    print(json.dumps({"path": f"grid biGRU summary H={GRID_HIDDEN} and {GRID_TRAIN_HIDDEN}, "
+                              "bf16 and f32", **{
         f"{h}_{shape}_median_ms": v[shape]["step_ms_median"]
         for h, v in ((GRID_HIDDEN, grid["bf16"]), (f"{GRID_HIDDEN}_f32", grid["f32"]),
-                     (GRID_TRAIN_HIDDEN, streamed))
+                     (GRID_TRAIN_HIDDEN, streamed["bf16"]),
+                     (f"{GRID_TRAIN_HIDDEN}_f32", streamed["f32"]))
         for shape in ("headline", "wide")}}), flush=True)
     print(json.dumps({"path": f"wide biGRU summary H={WIDE_HIDDEN}", **{
         f"{k}_{shape}_median_ms": v[shape]["step_ms_median"]

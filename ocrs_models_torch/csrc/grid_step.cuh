@@ -11,11 +11,15 @@
 // zeroed by block 0 before one grid-wide sync at the start. The
 // cooperative launch refuses a grid that the card cannot hold at once
 // instead of hanging in a barrier.
+//
+// Also the mbarrier operations of the rings through which the streamed
+// plans of both forms copy the part of W_hh a block does not keep.
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "device_guard.cuh"
 
@@ -50,6 +54,51 @@ __device__ __forceinline__ void wait_steps(const unsigned* ctr, unsigned target)
         } while (v < target);
     }
     __syncthreads();
+}
+
+// mbarriers in shared memory (CTA scope).
+__device__ __forceinline__ uint32_t bar_addr(const uint64_t* bar) {
+    return (uint32_t)__cvta_generic_to_shared(bar);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar_addr(bar)), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Whether the phase of `bar` with parity `parity` has completed, without
+// waiting.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar_addr(bar)), "r"(parity) : "memory");
+    return done != 0;
+}
+
+// Wait until the phase of `bar` with parity `parity` has completed (a
+// phase that never completes traps after about ten seconds instead of
+// hanging).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const long long start = clock64();
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(bar_addr(bar)), "r"(parity) : "memory");
+        if (!done && clock64() - start > (1ll << 34)) __trap();
+    } while (!done);
 }
 
 // The block's place in the grid: blockIdx.x = (dir * RT + row tile) * UT +

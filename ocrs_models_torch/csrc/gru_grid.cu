@@ -447,35 +447,6 @@ struct Wgmma<240> {
 // ---------------------------------------------------------------------
 // the ring of streamed W (above H = 1440)
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of `bar` with parity `parity` has completed (a
-// phase that never completes traps after about ten seconds instead of
-// hanging).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    const long long start = clock64();
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            " selp.u32 %0, 1, 0, p;\n}"
-            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-        if (!done && clock64() - start > (1ll << 34)) __trap();
-    } while (!done);
-}
-
 // The ring: the slice's k16 steps from KR on, NC chunks a product, read
 // from `src` (this block's chunks, contiguous) through S stages of `bytes`
 // each at `stage0`, stage s full on full[s] (the issuing thread's arrival

@@ -42,9 +42,14 @@ Needs CUDA and ``nvcc``.
 
 does the same for the f32 grid form (``csrc/gru_grid_f32.cu``): builds
 ``full``, ``no_wait``, ``no_product`` and ``no_aload`` (the staged A
-operand zero-filled, nothing read from L2) and times the forward and the
-chain of each at (T, N, H), the full build also at every ring stage count
-the kernels are built for that fits (``stages_<S>``).
+operand zero-filled, nothing of the state read from L2) and times the
+forward and the chain of each at (T, N, H), the full build also at every
+ring stage count the kernels are built for that fits (``stages_<S>``,
+the resident plans up to H = 1056); then, at N a multiple of 128,
+``phases``: a step's cycles by phase (the wait, the product, the gate
+math, to the next step) and, where the plan streams part of W_hh
+(``--hid 1064``, ``1448``, ``2048``), thread 0's cycles waiting for ring
+chunks, as for the bf16 form.
 
     python -m ocrs_models_torch.grid_probe --backward [--t 257 --n 128 --hid 1024]
 
@@ -128,12 +133,34 @@ _MARKS = (
      "    return (int)(err != cudaSuccess ? err : cudaMemcpyToSymbol(g_ring, &ring, sizeof(ring)));\n}\n", 1),
 )
 _DEFAULTS = {"NO_WAIT": 0, "NO_PRODUCT": 0, "NO_ALOAD": 0, "PROBE_PHASES": 0}
-# The same parts of gru_grid_f32.cu.
+# The same parts of gru_grid_f32.cu, and its phases build's marks: 0 at a
+# step's start, 1 after the wait, 2 after the product and 3 after the gate
+# math (each behind a block barrier in that build only, so every warp of
+# the block must hold rows: N a multiple of 128), slot 4 the cycles thread
+# 0 has spent in ring_wait so far.
 _F32_PATCHES = (
+    ("namespace {\n", "namespace {\n__device__ long long* g_probe;\n__device__ long long* g_ring;\n"
+     "#define PROBE_MARK(k) do { if (PROBE_PHASES) { __syncthreads(); if (threadIdx.x == 0) { "
+     "g_probe[((size_t)blockIdx.x * T + step) * 5 + (k)] = clock64(); if ((k) == 3) "
+     "g_probe[((size_t)blockIdx.x * T + step) * 5 + 4] = g_ring[blockIdx.x]; } } } while (0)\n", 1),
+    ("    for (int step = 0; step < T; ++step) {\n",
+     "    for (int step = 0; step < T; ++step) {\n        PROBE_MARK(0);\n", 2),
     ("if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));",
-     "\n#if !NO_WAIT\n if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n#endif\n", 2),
-    ("if (step > 0) warp_product<", "if (step > 0 && !NO_PRODUCT) warp_product<", 2),
+     "\n#if !NO_WAIT\n if (step > 0) wait_steps(ctr, (unsigned)(tl.UT * step));\n#endif\n"
+     " PROBE_MARK(1);\n", 2),
+    ("if (step > 0)\n                warp_product<", "if (step > 0 && !NO_PRODUCT)\n                warp_product<", 2),
+    ("row0, valid, H, lane);\n", "row0, valid, H, lane);\n            PROBE_MARK(2);\n", 1),
+    ("row0, valid, H3, lane);\n", "row0, valid, H3, lane);\n            PROBE_MARK(2);\n", 1),
+    ("        signal_step(ctr);\n", "        PROBE_MARK(3);\n        signal_step(ctr);\n", 2),
     ("const bool ok = r < valid && k < K;", "const bool ok = r < valid && k < K && !NO_ALOAD;", 1),
+    ("const float* ring_wait(const WRing& r, unsigned g) {\n",
+     "const float* ring_wait(const WRing& r, unsigned g) {\n    const long long probe_t0 = clock64();\n", 1),
+    ("    mbar_wait(r.full + g % (unsigned)r.SW, (g / (unsigned)r.SW) & 1u);\n",
+     "    mbar_wait(r.full + g % (unsigned)r.SW, (g / (unsigned)r.SW) & 1u);\n"
+     "    if (PROBE_PHASES && threadIdx.x == 0) g_ring[blockIdx.x] += clock64() - probe_t0;\n", 1),
+    ('extern "C" {\n', 'extern "C" {\nint ocrs_probe_set(void* p, void* ring) {\n'
+     "    cudaError_t err = cudaMemcpyToSymbol(g_probe, &p, sizeof(p));\n"
+     "    return (int)(err != cudaSuccess ? err : cudaMemcpyToSymbol(g_ring, &ring, sizeof(ring)));\n}\n", 1),
 )
 
 
@@ -200,9 +227,9 @@ def _build_all(variants: dict) -> dict[str, ctypes.CDLL]:
 
 
 def f32_probe(t_len: int, n: int, hid: int) -> None:
-    """The f32 grid form's builds with one part switched off each, and the
-    full build at each ring stage count that fits, timed (one JSON line a
-    variant)."""
+    """The f32 grid form's builds with one part switched off each and the
+    full build at each A ring stage count that fits (the resident plans),
+    timed, and a step's cycles by phase (one JSON line a variant)."""
     dev = torch.device("cuda", 0)
     plan = gru_ops.grid_f32_plan(n, hid, *gru_ops.grid_limits(dev.index))
     if plan is None or gru_ops.gru_route(hid) != "grid":
@@ -218,6 +245,8 @@ def f32_probe(t_len: int, n: int, hid: int) -> None:
     (probe_dir / "gru_grid_f32_probe.cu").write_text(src)
     variants = {"full": {}, "no_wait": {"NO_WAIT": 1}, "no_product": {"NO_PRODUCT": 1},
                 "no_aload": {"NO_ALOAD": 1}}
+    if n % 128 == 0:
+        variants["phases"] = {"PROBE_PHASES": 1}
     procs = {}
     for name, macros in variants.items():
         lib = probe_dir / f"libgru_grid_f32_{name}.so"
@@ -232,9 +261,10 @@ def f32_probe(t_len: int, n: int, hid: int) -> None:
         if proc.returncode:
             raise RuntimeError(f"grid_probe: nvcc failed for {name}:\n{out}")
         dll = ctypes.CDLL(str(lib))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        dll.ocrs_gru_grid_f32_fwd.argtypes = [i] + [p] * 8 + [i] * 6 + [p]
-        dll.ocrs_gru_grid_f32_chain.argtypes = [i] + [p] * 9 + [i] * 6 + [p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        dll.ocrs_gru_grid_f32_fwd.argtypes = [i] + [p] * 9 + [ll] + [i] * 8 + [p]
+        dll.ocrs_gru_grid_f32_chain.argtypes = [i] + [p] * 10 + [ll] + [i] * 8 + [p]
+        dll.ocrs_probe_set.argtypes = [p, p]
         dll.ocrs_error_string.argtypes = [i]
         dll.ocrs_error_string.restype = ctypes.c_char_p
         libs[name] = dll
@@ -249,29 +279,62 @@ def f32_probe(t_len: int, n: int, hid: int) -> None:
     hs, dph = torch.empty((2, 2, n, hid), device=dev), torch.empty((2, 2, n, 3 * hid), device=dev)
     carry = torch.empty((2, n, hid), device=dev)
     ctr = torch.empty((2 * -(-n // plan.rows),), device=dev, dtype=torch.int32)
+    (fwst, felems), (cwst, celems) = (gru_ops._grid_stream(kind, hid, plan, dev)
+                                      for kind in ("fwd", "chain"))
     ptr, stream = _build.ptr, _build.stream_ptr(dev)
 
-    def fwd(dll, stages):
+    def opt(t):
+        return None if t is None else ptr(t)
+
+    def fwd(dll, stages, split):
         return lambda: _build.check(dll, dll.ocrs_gru_grid_f32_fwd(
             dev.index, ptr(px[0]), ptr(px[1]), ptr(w), ptr(b), ptr(hs), ptr(ys[0]), ptr(ys[1]),
-            ptr(ctr), t_len, n, hid, plan.units, plan.rows, stages, stream), "grid_probe forward")
+            ptr(ctr), opt(fwst), felems, t_len, n, hid, plan.units, plan.rows, stages,
+            split.resident, split.stages, stream), "grid_probe forward")
 
-    def chain(dll, stages):
+    def chain(dll, stages, split):
         return lambda: _build.check(dll, dll.ocrs_gru_grid_f32_chain(
             dev.index, ptr(dy[0]), ptr(dy[1]), ptr(w), ptr(coef), ptr(dph), ptr(carry),
-            ptr(dpx[0]), ptr(dpx[1]), ptr(ctr), t_len, n, hid, plan.units, plan.rows, stages,
-            stream), "grid_probe chain")
+            ptr(dpx[0]), ptr(dpx[1]), ptr(ctr), opt(cwst), celems, t_len, n, hid, plan.units,
+            plan.rows, stages, split.resident, split.stages, stream), "grid_probe chain")
 
     shape = {"T": t_len, "N": n, "H": hid, "units": plan.units, "rows": plan.rows,
-             "stages": plan.stages}
-    runs = [(name, dll, plan.stages) for name, dll in libs.items()]
-    runs += [(f"stages_{s}", libs["full"], s) for s in gru_ops.GRID_F32_STAGES
-             if s != plan.stages and max(gru_ops.grid_f32_smem(k, hid, s) for k in ("fwd", "chain"))
-             <= gru_ops.grid_limits(dev.index)[1]]
+             "stages": plan.stages,
+             "w_split": {"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()}}
+    runs = [(name, dll, plan.stages) for name, dll in libs.items() if name != "phases"]
+    if not plan.fwd.stages:  # the resident plans' A ring stages
+        runs += [(f"stages_{s}", libs["full"], s) for s in gru_ops.GRID_F32_STAGES
+                 if s != plan.stages and max(gru_ops.grid_f32_smem(k, hid, s)
+                                             for k in ("fwd", "chain"))
+                 <= gru_ops.grid_limits(dev.index)[1]]
     for name, dll, stages in runs:
         print(json.dumps({"variant": name, **shape, "stages": stages,
-                          "fwd_ms": _events_ms(fwd(dll, stages)),
-                          "chain_ms": _events_ms(chain(dll, stages))}), flush=True)
+                          "fwd_ms": _events_ms(fwd(dll, stages, plan.fwd)),
+                          "chain_ms": _events_ms(chain(dll, stages, plan.chain))}), flush=True)
+    if "phases" not in libs:
+        return
+    blocks = 2 * -(-n // plan.rows) * -(-hid // plan.units)
+    marks = torch.zeros((blocks, t_len, 5), device=dev, dtype=torch.int64)
+    ring = torch.zeros((blocks,), device=dev, dtype=torch.int64)
+    phases = libs["phases"]
+    _build.check(phases, phases.ocrs_probe_set(ptr(marks), ptr(ring)), "grid_probe phases")
+    names = ("wait", "product", "gate_math", "signal_to_next", "ring_wait")
+    for kernel, call in (("fwd", fwd(phases, plan.stages, plan.fwd)),
+                         ("chain", chain(phases, plan.stages, plan.chain))):
+        ring.zero_()
+        call()
+        torch.cuda.synchronize()
+        m = marks[:, 1:].double()  # steps after the first (no wait, no product before it)
+        parts = [m[..., 1] - m[..., 0], m[..., 2] - m[..., 1], m[..., 3] - m[..., 2],
+                 marks[:, 2:, 0].double() - marks[:, 1:-1, 3].double(),
+                 marks[:, 1:, 4].double() - marks[:, :-1, 4].double()]
+        wait = parts[0].flatten()
+        print(json.dumps({"phases": kernel, **shape, "blocks": blocks,
+                          **{f"{k}_cycles": p.mean().item() for k, p in zip(names, parts)},
+                          "wait_p50_cycles": wait.quantile(0.5).item(),
+                          "wait_p90_cycles": wait.quantile(0.9).item(),
+                          "step_cycles": (marks[:, 2:, 0] - marks[:, 1:-1, 0]).double().mean().item()}),
+              flush=True)
 
 
 def _events_ms(fn, iters: int = 5) -> float:

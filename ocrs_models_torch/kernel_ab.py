@@ -61,8 +61,9 @@ grid form (bf16: ``csrc/gru_grid.cu``'s ``ocrs_gru_grid_fwd_bf16``,
 the card, ``rows`` giving its units and rows a block, its blocks and W_hh's
 split into resident and streamed k16 steps; f32: ``csrc/gru_grid_f32.cu``'s
 ``ocrs_gru_grid_f32_fwd``, ``ocrs_gru_grid_f32_chain``, with
-``ops.gru.grid_f32_plan``'s, ``rows`` giving its ring stages; both always
-the checkout's build),
+``ops.gru.grid_f32_plan``'s, ``rows`` giving its A ring stages; both
+with each kernel's split of W_hh, ``w_split``; both always the
+checkout's build),
 and so in bf16 at H=1448 and 2048, where the grid form streams part of
 W_hh, and at 5288 (``T257_N128_H5288_bf16``: a per-gate plan, 88 units a
 block, W_hh streamed from device memory): one case per (shape, dtype,
@@ -84,8 +85,10 @@ of f32 at H=1024).
 
 ``gru_grid_f32_fwd`` and ``gru_grid_f32_chain`` (``csrc/gru_grid_f32.cu``):
 the f32 grid form's entries alone, one source against another, at
-T=257, N=128 and H = 1024, 1056 (the widest, 3 ring stages) and 520 (33
-unit tiles, two row tiles); the chain's cases with ``split_ms`` as above.
+T=257, N=128 and H = 1024, 1056 (the widest resident plan, 3 ring stages),
+520 (33 unit tiles, two row tiles), 1064, 1448 (24 units a block, W_hh
+partly streamed) and 2048 (32 units); the chain's cases with ``split_ms``
+as above.
 
 ``--cold`` writes a 256 MB buffer before each call so that no input is
 left in the 50 MB L2 cache. Needs CUDA and ``nvcc``.
@@ -125,11 +128,18 @@ P, I = ctypes.c_void_p, ctypes.c_int
 
 
 def _load(kernel: str, name: str, src: Path) -> ctypes.CDLL:
+    """``src`` built into ``build/ab/`` (once for a given text of the source
+    and of the headers beside the checkout's kernels: a later run with
+    another ``--kernel`` reuses it) and bound for ``kernel``."""
     ab_dir = _build.build_dir().parent / "ab"
     ab_dir.mkdir(parents=True, exist_ok=True)
-    lib = ab_dir / f"lib{kernel}_{name}.so"
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC_DIR}", "-o", str(lib), str(src)]
-    subprocess.run(cmd, check=True, capture_output=True, timeout=_build.BUILD_TIMEOUT_S)
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(_build.CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    lib = ab_dir / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    if not lib.exists():
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC_DIR}", "-o", str(lib), str(src)]
+        subprocess.run(cmd, check=True, capture_output=True, timeout=_build.BUILD_TIMEOUT_S)
     dll = ctypes.CDLL(str(lib))
     dll.ocrs_error_string.argtypes = [I]
     dll.ocrs_error_string.restype = ctypes.c_char_p
@@ -403,7 +413,8 @@ def _gru_wide_cases(dev, only: str = "", shapes=WIDE_SHAPES,
     return out
 
 
-GRID_F32_SHAPES = ((257, 128, 1024), (257, 128, 1056), (257, 128, 520))
+GRID_F32_SHAPES = ((257, 128, 1024), (257, 128, 1056), (257, 128, 520), (257, 128, 1064),
+                   (257, 128, 1448), (257, 128, 2048))
 
 
 def _grid_f32_cases(dev, only: str = "") -> dict:
@@ -415,8 +426,9 @@ def _grid_f32_cases(dev, only: str = "") -> dict:
 
 
 def _bind_grid_f32(dll) -> None:
-    _bind(dll.ocrs_gru_grid_f32_fwd, [I] + [P] * 8 + [I] * 6 + [P])
-    _bind(dll.ocrs_gru_grid_f32_chain, [I] + [P] * 9 + [I] * 6 + [P])
+    ll = ctypes.c_longlong
+    _bind(dll.ocrs_gru_grid_f32_fwd, [I] + [P] * 9 + [ll] + [I] * 8 + [P])
+    _bind(dll.ocrs_gru_grid_f32_chain, [I] + [P] * 10 + [ll] + [I] * 8 + [P])
 
 
 def _grid_plan(ops) -> gru_ops.GridPlan | gru_ops.GridF32Plan:
@@ -428,7 +440,7 @@ def _grid_stream(kind: str, hid: int, ops) -> torch.Tensor:
     """The grid form's scratch of streamed chunks of ``kind`` (empty where
     the plan streams none)."""
     wst, _ = gru_ops._grid_stream(kind, hid, _grid_plan(ops), ops[0].device)
-    return torch.empty((0,), device=ops[0].device, dtype=torch.bfloat16) if wst is None else wst
+    return torch.empty((0,), device=ops[0].device) if wst is None else wst
 
 
 def _wst(out) -> tuple:
@@ -447,9 +459,9 @@ def _gru_wide_fwd_outputs(ops) -> dict:
            "hs": torch.empty((2, 2, n, h3 // 3), device=ops[0].device)}
     if ops[-1] == "grid":
         out["ctr"] = torch.empty((2 * n,), device=ops[0].device, dtype=torch.int32)
+        out["wst"] = _grid_stream("fwd", h3 // 3, ops)
         if ops[0].dtype == torch.bfloat16:
             out["frag"] = gru_ops._grid_frag(n, h3 // 3, ops[0].device)
-            out["wst"] = _grid_stream("fwd", h3 // 3, ops)
     return out
 
 
@@ -464,8 +476,8 @@ def _gru_wide_fwd_call(dll, ops, out, rows=0) -> None:
         plan = _grid_plan(ops)
         rc = dll.ocrs_gru_grid_f32_fwd(
             dev.index, ptr(px_f), ptr(px_b), ptr(w_hh), ptr(b_hh), ptr(out["hs"]), ptr(out["ys_f"]),
-            ptr(out["ys_b"]), ptr(out["ctr"]), t_len, n, h3 // 3, plan.units, plan.rows,
-            plan.stages, stream)
+            ptr(out["ys_b"]), ptr(out["ctr"]), *_wst(out), t_len, n, h3 // 3, plan.units,
+            plan.rows, plan.stages, plan.fwd.resident, plan.fwd.stages, stream)
     elif form == "grid":
         dll = gru_ops._grid_lib()
         plan = _grid_plan(ops)
@@ -502,9 +514,9 @@ def _gru_wide_chain_outputs(ops) -> dict:
         out["dbp"] = torch.empty((-(-n // 16), 2, h3), device=dev, dtype=f32)
     if ops[-1] == "grid":
         out["ctr"] = torch.empty((2 * n,), device=dev, dtype=torch.int32)
+        out["wst"] = _grid_stream("chain", hid, ops)
         if px_f.dtype == torch.bfloat16:
             out["frag"] = gru_ops._grid_frag(n, h3, dev)
-            out["wst"] = _grid_stream("chain", hid, ops)
     return out
 
 
@@ -520,8 +532,9 @@ def _gru_wide_chain_call(dll, ops, out, rows=0) -> None:
         plan = _grid_plan(ops)
         rc = dll.ocrs_gru_grid_f32_chain(
             dev.index, ptr(dy_f), ptr(dy_b), ptr(w_hh), ptr(coef), ptr(out["dph"]),
-            ptr(out["carry"]), ptr(out["dpx_f"]), ptr(out["dpx_b"]), ptr(out["ctr"]), t_len, n,
-            hid, plan.units, plan.rows, plan.stages, stream)
+            ptr(out["carry"]), ptr(out["dpx_f"]), ptr(out["dpx_b"]), ptr(out["ctr"]), *_wst(out),
+            t_len, n, hid, plan.units, plan.rows, plan.stages, plan.chain.resident,
+            plan.chain.stages, stream)
     elif form == "grid":
         dll = gru_ops._grid_lib()
         plan = _grid_plan(ops)
@@ -567,8 +580,8 @@ def _gru_wide_extra(kind: str):
             line.setdefault("rows", {})[k] = {
                 "units": plan.units, "rows": plan.rows,
                 "blocks": 2 * -(-n // plan.rows) * -(-h3 // 3 // plan.units),
-                **({"stages": plan.stages} if isinstance(plan, gru_ops.GridF32Plan) else
-                   {"w_split": {"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()}})}
+                **({"stages": plan.stages} if isinstance(plan, gru_ops.GridF32Plan) else {}),
+                "w_split": {"fwd": plan.fwd._asdict(), "chain": plan.chain._asdict()}}
             return
         if ops[-1] != "persistent":
             line.setdefault("rows", {})[k] = {"rows": dll.ocrs_gru_wide_stepwise_rows()}

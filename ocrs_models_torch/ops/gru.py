@@ -24,7 +24,8 @@ steps: in bf16 up to ``GRID_MAX_HIDDEN`` (``csrc/gru_grid.cu``, above
 ``GRID_RESIDENT_HIDDEN`` part of ``W_hh`` streamed each step, from L2 and,
 past ``GRID_GATE_UNITS`` units a block, from device memory), in
 float32 up to ``GRID_F32_MAX_HIDDEN`` (``csrc/gru_grid_f32.cu``, all of
-the f32 ``W_hh`` slice resident); every other width above 512
+the f32 ``W_hh`` slice resident up to ``GRID_F32_RESIDENT_HIDDEN``, part of
+it streamed each step above); every other width above 512
 ("stepwise") in one launch per step, the state in device memory between
 launches. In bf16 above 512 the backward's
 coefficients and dW run on ``wgmma`` (``csrc/gru_bwd_wide.cu``). On CPU tensors
@@ -125,8 +126,9 @@ route (:func:`gru_route`)."""
 MAX_WIDE_HIDDEN = 512
 """Widest hidden size, after padding to a multiple of 8, of the wide
 route's persistent form (``gru_wide.cu``: a cluster of ``ceil(H / 32)``
-blocks, at most 16); wider layers run the grid form (bf16, up to
-``GRID_MAX_HIDDEN``) or one launch a step."""
+blocks, at most 16); wider layers run the grid form (bf16 up to
+``GRID_MAX_HIDDEN``, float32 up to ``GRID_F32_MAX_HIDDEN``) or one launch a
+step."""
 
 H100_SMS = 132
 """SMs of an H100 SXM, the card :func:`gru_route` answers for."""
@@ -374,64 +376,163 @@ Up to 5280 the plans take at most ``GRID_GATE_UNITS`` (80 at 5280, the
 forward's ``wgmma`` n = 240); 88 from 5288, 96 from 5816."""
 
 GRID_F32_UNITS = 16
-"""Hidden units a block of the f32 grid form owns (``gru_grid_f32.cu``'s
-``kU``): the widest slice of ``W_hh`` in f32 that leaves a ring beside it
-in shared memory at H = 1024."""
+"""Hidden units a block of the f32 grid form owns up to
+``GRID_F32_RESIDENT_HIDDEN`` (``gru_grid_f32.cu``'s resident plans): the
+widest slice of ``W_hh`` in f32 that leaves a ring beside it in shared
+memory at H = 1024."""
+GRID_F32_RESIDENT_HIDDEN = 1056
+"""Widest hidden size, after padding, of the f32 grid form's resident
+plans on an H100: 66 unit tiles of 16 for both directions fill its 132
+SMs. Wider plans take ``GRID_F32_STREAM_UNITS`` and stream part of the
+slice (:func:`grid_f32_split`)."""
+GRID_F32_STREAM_UNITS = (24, 32)
+"""Hidden units a block of the f32 grid form may own above
+``GRID_F32_RESIDENT_HIDDEN``, the least whose unit tiles fit the SMs (24
+up to 1584, 32 up to 2112 on an H100); ``gru_grid_f32.cu`` is built for
+these (wider blocks would hold more accumulators than registers)."""
 GRID_F32_STAGES = (4, 3)
 """Ring stages of the f32 grid form's staged A operand, the first that
 fits beside the ``W_hh`` slice (``gru_grid_f32.cu`` is built for these):
-4 up to H = 1040 on an H100, 3 at 1048 and 1056."""
+4 up to H = 1040 on an H100, 3 at 1048 and 1056; the streamed plans take
+4."""
 GRID_F32_STAGE_BYTES = 8 * 16 * 16 * 4
 """Shared memory of one ring stage of the f32 grid form: 8 warps x 16 rows
 x 16 k of f32."""
+GRID_F32_CHUNK = {"fwd": 2, "chain": 6}
+"""k16 steps of ``W_hh`` in a ring stage of each kernel of the f32 grid
+form's streamed plans (``gru_grid_f32.cu``'s ``kFwdChunk``,
+``kChainChunk``): 9 KB at 24 units a block, 12 KB at 32, in both."""
+GRID_F32_RING_BYTES = 49152
+"""Shared memory the W ring of an f32 streamed plan aims at: 4 stages of
+12 KB at 32 units, 5 of 9 KB at 24, enough chunks in flight to cover a
+read from device memory while a chunk multiplies."""
+
+
+class GridF32Split(NamedTuple):
+    """How a kernel of the f32 grid form holds its slice of ``W_hh``: the
+    first ``resident`` k16 steps of the contraction in shared memory, the
+    next ``streamed`` (whole chunks of ``GRID_F32_CHUNK``, zero past the
+    contraction) through a ring of ``stages`` stages each step, copied
+    evict-first in L2; ``(k16 steps, 0, 0)`` where the whole slice stays."""
+
+    resident: int
+    streamed: int
+    stages: int
 
 
 class GridF32Plan(NamedTuple):
     """The f32 grid form's blocks (:func:`grid_f32_plan`): ``units`` hidden
-    units x ``rows`` batch rows a block, and the ``stages`` of each warp's
-    ring of the A operand."""
+    units x ``rows`` batch rows a block, the ``stages`` of each warp's ring
+    of the A operand, and each kernel's :class:`GridF32Split`."""
 
     units: int
     rows: int
     stages: int
+    fwd: GridF32Split
+    chain: GridF32Split
+
+
+def _grid_f32_cols(kind: str, units: int) -> int:
+    """Columns of the f32 slice: the forward's ``3U``, the chain's ``U``."""
+    return 3 * units if kind == "fwd" else units
+
+
+def _grid_f32_chunk_bytes(kind: str, units: int) -> int:
+    """Bytes of a W ring stage of the f32 grid form's ``kind`` kernel."""
+    return 4 * 16 * _grid_f32_cols(kind, units) * GRID_F32_CHUNK[kind]
+
+
+def grid_f32_kernel_smem(kind: str, units: int, resident: int, ring: int, stages: int) -> int:
+    """Dynamic shared memory of the f32 grid form's ``kind`` kernel ("fwd"
+    or "chain") with ``units`` a block (``gru_grid_f32.cu``'s
+    ``grid_f32_smem``): ``resident`` k16 steps of the f32 ``W_hh`` slice
+    (the forward's ``3U`` columns, the chain's ``U``), a W ring of ``ring``
+    stages with two mbarriers and a counter each, and the warps' A rings of
+    ``stages``."""
+    return (4 * 16 * _grid_f32_cols(kind, units) * resident
+            + ring * (_grid_f32_chunk_bytes(kind, units) + 20) + stages * GRID_F32_STAGE_BYTES)
 
 
 def grid_f32_smem(kind: str, hid: int, stages: int) -> int:
-    """Dynamic shared memory of the f32 grid form's ``kind`` kernel ("fwd"
-    or "chain") at padded width ``hid`` with ``stages`` ring stages
-    (``gru_grid_f32.cu``'s ``grid_f32_smem``): the f32 ``W_hh`` slice, the
-    forward's ``3U`` columns over ``round16(H)`` or the chain's ``U`` over
+    """Dynamic shared memory of the f32 grid form's ``kind`` kernel with
+    the whole slice resident at padded width ``hid`` and ``stages`` A ring
+    stages (the resident plans, ``GRID_F32_UNITS`` units): the forward's
+    ``3U`` columns over ``round16(H)`` or the chain's ``U`` over
     ``round16(3H)``, beside the warps' rings."""
-    cols, k = (3 * GRID_F32_UNITS, _round16(hid)) if kind == "fwd" else (
-        GRID_F32_UNITS, _round16(3 * hid))
-    return 4 * cols * k + stages * GRID_F32_STAGE_BYTES
+    return grid_f32_kernel_smem(kind, GRID_F32_UNITS, _grid_k16(kind, hid), 0, stages)
+
+
+def grid_f32_split(kind: str, hid: int, units: int, smem: int,
+                   stages: int) -> GridF32Split | None:
+    """How the f32 grid form's ``kind`` kernel holds its slice of ``W_hh``
+    at padded width ``hid`` with ``units`` a block and A rings of
+    ``stages``, within ``smem`` bytes: all of it where it fits; else a W
+    ring of ``GRID_F32_RING_BYTES`` in whole chunks, as many k16 steps
+    resident as fit beside it, the rest streamed in whole chunks. None
+    where not even the ring fits."""
+    k16 = _grid_k16(kind, hid)
+    if grid_f32_kernel_smem(kind, units, k16, 0, stages) <= smem:
+        return GridF32Split(k16, 0, 0)
+    chunk = GRID_F32_CHUNK[kind]
+    ring = GRID_F32_RING_BYTES // _grid_f32_chunk_bytes(kind, units)
+    room = smem - grid_f32_kernel_smem(kind, units, 0, ring, stages)
+    if room < 0:
+        return None
+    kept = min(k16 - 1, room // (4 * 16 * _grid_f32_cols(kind, units)))
+    return GridF32Split(kept, -(-(k16 - kept) // chunk) * chunk, ring)
+
+
+def grid_f32_stream_elems(kind: str, hid: int, plan: GridF32Plan) -> int:
+    """float32 elements of the device copy of every block's streamed chunks
+    of ``kind`` for ``plan`` at padded width ``hid`` (0 where none is
+    streamed): 2 directions x unit tiles x chunks x a stage's floats."""
+    split = plan.fwd if kind == "fwd" else plan.chain
+    chunks = split.streamed // GRID_F32_CHUNK[kind]
+    return 2 * -(-hid // plan.units) * chunks * _grid_f32_chunk_bytes(kind, plan.units) // 4
 
 
 def grid_f32_plan(n: int, hid: int, sms: int = H100_SMS,
                   smem: int = H100_SMEM) -> GridF32Plan | None:
     """The f32 grid form's blocks for batch ``n`` and hidden size ``hid``
     (zero-padded to a multiple of 8) on a card of ``sms`` SMs whose blocks
-    may use ``smem`` bytes of shared memory, or None where it has none:
-    ``GRID_F32_UNITS`` units a block, as many row tiles as the SMs hold for
-    both directions' ``ceil(H/16)`` unit tiles (R as :func:`grid_plan`
-    picks it), and the most of ``GRID_F32_STAGES`` whose rings fit beside
-    the whole ``W_hh`` slice. Shared by :func:`gru_route` and the wrappers,
-    which hand it to the C entries."""
+    may use ``smem`` bytes of shared memory, or None where it has none. Up
+    to ``GRID_F32_RESIDENT_HIDDEN``: ``GRID_F32_UNITS`` units a block, as
+    many row tiles as the SMs hold for both directions' ``ceil(H/16)`` unit
+    tiles (R as :func:`grid_plan` picks it), and the most of
+    ``GRID_F32_STAGES`` whose rings fit beside the whole ``W_hh`` slice.
+    Above: the least U of ``GRID_F32_STREAM_UNITS`` whose unit tiles leave
+    room for both directions on the SMs and whose kernels both split
+    (:func:`grid_f32_split`, A rings of ``GRID_F32_STAGES[0]``). Shared by
+    :func:`gru_route` and the wrappers, which hand it to the C entries."""
     hid += -hid % 8
-    row_tiles = sms // (2 * -(-hid // GRID_F32_UNITS))
-    if row_tiles < 1:
+    if hid <= GRID_F32_RESIDENT_HIDDEN:
+        row_tiles = sms // (2 * -(-hid // GRID_F32_UNITS))
+        if row_tiles < 1:
+            return None
+        for stages in GRID_F32_STAGES:
+            if max(grid_f32_smem(kind, hid, stages) for kind in ("fwd", "chain")) <= smem:
+                fwd, chain = (GridF32Split(_grid_k16(kind, hid), 0, 0) for kind in ("fwd", "chain"))
+                return GridF32Plan(GRID_F32_UNITS, _grid_rows(n, row_tiles), stages, fwd, chain)
         return None
-    for stages in GRID_F32_STAGES:
-        if max(grid_f32_smem(kind, hid, stages) for kind in ("fwd", "chain")) <= smem:
-            return GridF32Plan(GRID_F32_UNITS, _grid_rows(n, row_tiles), stages)
+    stages = GRID_F32_STAGES[0]
+    for units in GRID_F32_STREAM_UNITS:
+        tiles = -(-hid // units)
+        row_tiles = sms // (2 * tiles)
+        if row_tiles < 1:
+            continue
+        fwd, chain = (grid_f32_split(kind, hid, units, smem, stages) for kind in ("fwd", "chain"))
+        if fwd is not None and chain is not None:
+            return GridF32Plan(units, _grid_rows(n, row_tiles), stages, fwd, chain)
     return None
 
 
-GRID_F32_MAX_HIDDEN = max(h for h in range(8, 2048, 8) if grid_f32_plan(1, h) is not None)
+GRID_F32_MAX_HIDDEN = max(h for h in range(8, 8192, 8) if grid_f32_plan(1, h) is not None)
 """Widest hidden size, after padding to a multiple of 8, of the f32 grid
-form on an H100 SXM, 1056: 66 unit tiles of 16, 132 blocks, the forward's
-``[48][1056]`` f32 slice (202,752 bytes) beside 3 ring stages; from 1064 the
-unit tiles of both directions outnumber the SMs."""
+form on an H100 SXM, 2112: 66 unit tiles of 32, 132 blocks, each kernel's
+slice (811 KB) mostly streamed; from 2120 the unit tiles of both
+directions outnumber the SMs (and 40 units are not built). Up to
+``GRID_F32_RESIDENT_HIDDEN`` (1056) the plans keep the whole slice, 16
+units a block; 24 units from 1064, 32 from 1592."""
 
 
 def gru_route(hid: int, dtype: torch.dtype = torch.float32) -> str:
@@ -445,8 +546,9 @@ def gru_route(hid: int, dtype: torch.dtype = torch.float32) -> str:
     of both directions on its 132 SMs; above ``GRID_RESIDENT_HIDDEN``,
     1440, with part of ``W_hh`` streamed; above 5280, 80 units a block,
     the per-gate plans, one ``wgmma`` of n = U a gate),
-    in float32 ``gru_grid_f32.cu`` up to ``GRID_F32_MAX_HIDDEN`` (1056: 66
-    unit tiles of 16, the whole f32 ``W_hh`` slice resident); and
+    in float32 ``gru_grid_f32.cu`` up to ``GRID_F32_MAX_HIDDEN`` (2112: 66
+    unit tiles of 32; up to 1056 16 units a block with the whole f32
+    ``W_hh`` slice resident, above 24 or 32 with part of it streamed); and
     ``"stepwise"`` (``gru_wide.cu``'s kernels of one launch a step) above.
     A card that cannot hold the grid plan's blocks runs "stepwise" where
     this says "grid" (:func:`wide_form`)."""
@@ -608,11 +710,12 @@ def _grid_f32_lib() -> ctypes.CDLL:
     if lib.ocrs_gru_grid_f32_fwd.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.ocrs_gru_grid_f32_fwd.argtypes = [i] + [p] * 8 + [i] * 6 + [p]
-        lib.ocrs_gru_grid_f32_chain.argtypes = [i] + [p] * 9 + [i] * 6 + [p]
+        ll = ctypes.c_longlong
+        lib.ocrs_gru_grid_f32_fwd.argtypes = [i] + [p] * 9 + [ll] + [i] * 8 + [p]
+        lib.ocrs_gru_grid_f32_chain.argtypes = [i] + [p] * 10 + [ll] + [i] * 8 + [p]
         for fn in (lib.ocrs_gru_grid_f32_fwd, lib.ocrs_gru_grid_f32_chain):
             fn.restype = i
-        lib.ocrs_gru_grid_f32_smem.argtypes = [i] * 3
+        lib.ocrs_gru_grid_f32_smem.argtypes = [i] * 5
         lib.ocrs_gru_grid_f32_smem.restype = ctypes.c_longlong
     return lib
 
@@ -658,12 +761,18 @@ def _grid_frag(n: int, k: int, dev) -> torch.Tensor:
     return torch.empty((2, 2, 16 * -(-n // 16), _round16(k)), device=dev, dtype=torch.bfloat16)
 
 
-def _grid_stream(kind: str, hid: int, plan: GridPlan, dev) -> tuple[torch.Tensor | None, int]:
+def _grid_stream(kind: str, hid: int, plan: GridPlan | GridF32Plan,
+                 dev) -> tuple[torch.Tensor | None, int]:
     """Scratch of the device copy of the streamed chunks of the grid form's
     ``kind`` kernel (written by its C entry each call; None where the plan
-    streams none) and its length in elements."""
-    elems = grid_stream_elems(kind, hid, plan)
-    return (torch.empty((elems,), device=dev, dtype=torch.bfloat16) if elems else None), elems
+    streams none; bf16 for a :class:`GridPlan`, float32 for a
+    :class:`GridF32Plan`) and its length in elements."""
+    if isinstance(plan, GridF32Plan):
+        elems, dt = grid_f32_stream_elems(kind, hid, plan), torch.float32
+    else:
+        elems, dt = grid_stream_elems(kind, hid, plan), torch.bfloat16
+    return (torch.empty((elems,), device=dev, dtype=dt) if elems else None), elems
+
 
 
 def _count_form(wrapper, form: str) -> None:
@@ -680,7 +789,8 @@ def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
     persistent kernel, one launch for all T steps; "grid" one cooperative
     launch of ``gru_grid.cu``'s kernel (bf16; above ``GRID_RESIDENT_HIDDEN``
     also one launch before it that lays out the streamed part of
-    ``W_hh``) or ``gru_grid_f32.cu``'s (f32), with the f32 state and the
+    ``W_hh``) or ``gru_grid_f32.cu``'s (f32; the same layout launch above
+    ``GRID_F32_RESIDENT_HIDDEN``), with the f32 state and the
     step counters in scratch of the call's own; "stepwise" T
     launches of ``gru_wide.cu``, one a step, with the f32 state in scratch
     of the call's own, ``[2, 2, N, H]``. For bf16 also the rounding of
@@ -708,9 +818,11 @@ def gru_wide_fwd(px_f, px_b, w_hh, b_hh):
         lib = _grid_f32_lib()
         hs = torch.empty((2, 2, n, hid), device=dev, dtype=torch.float32)
         ctr = torch.empty((2 * -(-n // plan.rows),), device=dev, dtype=torch.int32)
+        wst, elems = _grid_stream("fwd", hid, plan, dev)
         rc = lib.ocrs_gru_grid_f32_fwd(
-            dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(hs), p(ys_f), p(ys_b), p(ctr), t_len, n,
-            hid, plan.units, plan.rows, plan.stages, _build.stream_ptr(dev))
+            dev.index, p(px_f), p(px_b), p(w), p(b_hh), p(hs), p(ys_f), p(ys_b), p(ctr),
+            p(wst) if wst is not None else None, elems, t_len, n, hid, plan.units, plan.rows,
+            plan.stages, plan.fwd.resident, plan.fwd.stages, _build.stream_ptr(dev))
     elif isinstance(plan, GridPlan):
         lib = _grid_lib()
         hs = torch.empty((2, n, hid), device=dev, dtype=torch.float32)
@@ -1036,8 +1148,9 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     one launch: 4 launches a call; "grid" ``gru_grid.cu``'s chain (bf16) or
     ``gru_grid_f32.cu``'s (f32, with the previous step's ``dph`` in scratch
     too), one cooperative launch, its ``dht * z`` and step counters in
-    scratch of the call's own: 4 launches (5 above ``GRID_RESIDENT_HIDDEN``,
-    whose streamed part of ``W_hh`` is laid out first); "stepwise" T launches of
+    scratch of the call's own: 4 launches (5 above ``GRID_RESIDENT_HIDDEN``
+    in bf16 and ``GRID_F32_RESIDENT_HIDDEN`` in f32, whose streamed part of
+    ``W_hh`` is laid out first); "stepwise" T launches of
     ``gru_wide.cu``, one a step, its state in
     scratch of the call's own, and the copy of ``W_hh^T``: T + 4. A width
     that is not a multiple of 8 is zero-padded first (exact, see
@@ -1143,9 +1256,11 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
         elif isinstance(plan, GridF32Plan):
             chain = _grid_f32_lib()
             ctr = torch.empty((2 * -(-n // plan.rows),), device=dev, dtype=torch.int32)
+            wst, elems = _grid_stream("chain", hid, plan, dev)
             rc = chain.ocrs_gru_grid_f32_chain(
                 dev.index, p(dy_f), p(dy_b), p(w), p(coef), p(dph), p(carry), p(dpx_f), p(dpx_b),
-                p(ctr), t_len, n, hid, plan.units, plan.rows, plan.stages, stream)
+                p(ctr), p(wst) if wst is not None else None, elems, t_len, n, hid, plan.units,
+                plan.rows, plan.stages, plan.chain.resident, plan.chain.stages, stream)
         else:
             rc = wide.ocrs_gru_wide_chain_stepwise(
                 dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f),

@@ -67,6 +67,7 @@ from ocrs_models_torch.ops.ctc import NEG_INF, wide_slots
 from ocrs_models_torch.ops import _build
 from ocrs_models_torch.ops.gru import (
     GRID_F32_MAX_HIDDEN,
+    GRID_F32_RESIDENT_HIDDEN,
     GRID_F32_STAGES,
     GRID_GATE_UNITS,
     GRID_MAX_HIDDEN,
@@ -76,6 +77,7 @@ from ocrs_models_torch.ops.gru import (
     _bwd_wide_lib,
     _grid_f32_lib,
     _grid_lib,
+    grid_f32_kernel_smem,
     grid_f32_plan,
     grid_f32_smem,
     grid_kernel_smem,
@@ -425,12 +427,18 @@ def test_gru_grid_form_matches_plain(dev, shape):
 # The f32 grid form (gru_grid_f32.cu; padded 512 < H <= GRID_F32_MAX_HIDDEN):
 # H=520 (33 unit tiles of 16, the last of 8 units; two row tiles at N=259),
 # 1000 (a contraction that is no multiple of 16, 3000 in the chain), 1024,
-# 1051 (padded to 1056) and GRID_F32_MAX_HIDDEN (1056: 66 unit tiles, 132
-# blocks, 3 ring stages), at N=1 and 3 (one warp's strip, mostly rows past
-# N), 259 (three passes of up to 128 rows, the last of 16) and T=1 (no
-# product), 2 (one) and 9. Tolerances of the per-step form's f32 rows: ys
-# 1e-4, dpx 1e-3, dW and db 1e-4 of their largest entry.
-GRID_F32_SHAPES = [(t, n, h) for h in (520, 1000, 1024, 1051, GRID_F32_MAX_HIDDEN)
+# 1051 (padded to 1056) and GRID_F32_RESIDENT_HIDDEN (1056: 66 unit tiles,
+# 132 blocks, 3 ring stages), all of W_hh resident; then its streamed
+# plans: 1064 (24 units, 45 unit tiles, the last of 8 units; a contraction
+# of 1064 = 66.5 k16 steps, 3192 in the chain), 1448, 1451 (padded to
+# 1456), 2048 (32 units) and GRID_F32_MAX_HIDDEN (2112: 66 unit tiles of
+# 32, 132 blocks); at N=1 and 3 (one warp's strip, mostly rows past N: the
+# other warps still walk the ring), 259 (three passes of up to 128 rows,
+# the last of 16, each streaming the slice) and T=1 (no product), 2 (one)
+# and 9. Tolerances of the per-step form's f32 rows: ys 1e-4, dpx 1e-3,
+# dW and db 1e-4 of their largest entry.
+GRID_F32_SHAPES = [(t, n, h) for h in (520, 1000, 1024, 1051, GRID_F32_RESIDENT_HIDDEN, 1064,
+                                       1448, 1451, 2048, GRID_F32_MAX_HIDDEN)
                    for t, n in ((1, 3), (2, 259), (9, 1), (9, 3), (9, 259))]
 
 
@@ -460,36 +468,50 @@ def test_gru_f32_grid_form_matches_plain(dev, shape):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-5)
     # Device launches a call: the forward's one cooperative launch and
     # nothing else; the backward's coef, the chain (one cooperative
-    # launch), dw and dw_sum. A width that is not a multiple of 8 adds its
-    # pads and slices.
+    # launch), dw and dw_sum; a streamed plan adds, before each cooperative
+    # launch, the layout of its streamed chunks. A width that is not a
+    # multiple of 8 adds its pads and slices.
+    streamed = int(plan.fwd.streamed > 0)
+    assert streamed == (h > GRID_F32_RESIDENT_HIDDEN) == (plan.chain.streamed > 0)
     fwd_calls = _launch_calls(lambda: gru_fwd(px_f, px_b, w_hh, b_hh))
     bwd_calls = _launch_calls(lambda: gru_bwd(*args))
     assert fwd_calls["cudaLaunchKernelExC"] == bwd_calls["cudaLaunchKernelExC"] == 1
     if h % 8 == 0:
-        assert fwd_calls["cudaLaunchKernel"] == 0 and bwd_calls["cudaLaunchKernel"] == 3
+        assert fwd_calls["cudaLaunchKernel"] == streamed
+        assert bwd_calls["cudaLaunchKernel"] == 3 + streamed
 
 
 def test_grid_f32_plan_counts_the_kernels_shared_memory(dev):
-    # grid_f32_plan's fit rests on grid_f32_smem; the kernels ask the
-    # runtime for their own (gru_grid_f32.cu's grid_f32_smem): the same
-    # bytes at every padded width the f32 grid form takes and every stage
-    # count it is built for, within what this card's blocks may use at the
-    # plan's stages.
+    # grid_f32_plan's fit rests on grid_f32_kernel_smem (grid_f32_smem for
+    # the resident plans); the kernels ask the runtime for their own
+    # (gru_grid_f32.cu's grid_f32_smem): the same bytes at every padded
+    # width the f32 grid form takes, every A stage count the resident plans
+    # are built for and each streamed plan's resident k16 steps and W ring
+    # (and a ring one stage longer and shorter), within what this card's
+    # blocks may use at the plan's.
     lib = _grid_f32_lib()
     smem = grid_limits(dev.index)[1]
     for h in range(520, GRID_F32_MAX_HIDDEN + 1, 8):
-        for stages in GRID_F32_STAGES:
-            for kind, name in enumerate(("fwd", "chain")):
-                assert lib.ocrs_gru_grid_f32_smem(kind, h, stages) == grid_f32_smem(name, h, stages), h
         plan = grid_f32_plan(128, h, *grid_limits(dev.index))
         assert plan == grid_f32_plan(128, h)  # an H100's numbers
-        assert max(grid_f32_smem(k, h, plan.stages) for k in ("fwd", "chain")) <= min(smem, H100_SMEM)
+        for kind, name in enumerate(("fwd", "chain")):
+            split = plan.fwd if name == "fwd" else plan.chain
+            if h <= GRID_F32_RESIDENT_HIDDEN:
+                for stages in GRID_F32_STAGES:
+                    assert lib.ocrs_gru_grid_f32_smem(kind, 16, split.resident, 0, stages) == \
+                        grid_f32_smem(name, h, stages), h
+            for ring in {split.stages, split.stages + 1, max(split.stages - 1, 0)}:
+                assert lib.ocrs_gru_grid_f32_smem(kind, plan.units, split.resident, ring,
+                                                  plan.stages) == grid_f32_kernel_smem(
+                    name, plan.units, split.resident, ring, plan.stages), h
+            got = grid_f32_kernel_smem(name, plan.units, split.resident, split.stages, plan.stages)
+            assert got <= min(smem, H100_SMEM), h
 
 
 @pytest.mark.parametrize("t,n", [(3, 5), (9, 128)])
 def test_gru_f32_above_the_grid_form_runs_one_launch_a_step(dev, t, n):
-    # GRID_F32_MAX_HIDDEN + 8 (1064): 67 unit tiles of both directions
-    # outnumber the SMs, so f32 runs the per-step form there (gru_wide.cu,
+    # GRID_F32_MAX_HIDDEN + 8 (2120): 67 unit tiles of 32 units in both
+    # directions outnumber the SMs, so f32 runs the per-step form there (gru_wide.cu,
     # one launch a step), held at the per-step form's f32 tolerances, with
     # bit-identical reruns.
     h = GRID_F32_MAX_HIDDEN + 8
@@ -680,9 +702,9 @@ def test_gru_wide_kernels_on_two_streams_do_not_disturb_each_other(dev, dtype, h
     # the persistent form at H=264 and 512; at 1024 in the grid form,
     # gru_grid_f32.cu in f32 and gru_grid.cu in bf16, whose step counters
     # and state are the call's own and whose cooperative launches each hold
-    # all their blocks at once; at 1064 the per-step form in f32, one
+    # all their blocks at once; at 2120 the per-step form in f32, one
     # launch a step with the state in the call's scratch, and the grid form
-    # in bf16).
+    # in bf16, W_hh partly streamed).
     cases = []
     for t, n, seed in ((33, 72, 15), (20, 100, 16)):
         px_f, px_b, w_hh, b_hh, dy_f, dy_b = _gru_case(t, n, h, dev, seed)

@@ -25,8 +25,11 @@ from ocrs_models_torch.ops import (
     gru_route,
 )
 from ocrs_models_torch.ops.gru import (
+    GRID_F32_CHUNK,
     GRID_F32_MAX_HIDDEN,
+    GRID_F32_RESIDENT_HIDDEN,
     GRID_F32_STAGE_BYTES,
+    GRID_F32_STREAM_UNITS,
     GRID_F32_UNITS,
     GRID_GATE_CHAIN_CHUNK,
     GRID_GATE_UNITS,
@@ -39,13 +42,16 @@ from ocrs_models_torch.ops.gru import (
     MAX_HIDDEN,
     MAX_WIDE_HIDDEN,
     GridF32Plan,
+    GridF32Split,
     GridSplit,
     _pad_gates,
     _pad_w,
     _unpad_gates,
     grid_f32_plan,
     grid_chunk,
+    grid_f32_kernel_smem,
     grid_f32_smem,
+    grid_f32_stream_elems,
     grid_kernel_smem,
     grid_plan,
     grid_smem,
@@ -57,10 +63,12 @@ from torch_port_common import random_variables
 # (T, H) cases: H=16 as before (their ids kept), H=12, 264 and 320 on the
 # wide route; T=7 at H=264 is left out (the Pallas kernel in interpret
 # mode is the slow side there).
-# T=3 at H=520 is the f32 grid form's width (gru_grid_f32.cu, above 512).
+# T=3 at H=520 is the f32 grid form's width (gru_grid_f32.cu, above 512);
+# at H=1451 (padded to 1456) that of its streamed plans.
 WIDTH_CASES = [(1, 16), (7, 16), (33, 16), (1, 12), (7, 12), (33, 12), (1, 264), (33, 264),
-               (3, 320), (3, 520)]
-WIDTH_IDS = ["1", "7", "33", "1-h12", "7-h12", "33-h12", "1-h264", "33-h264", "3-h320", "3-h520"]
+               (3, 320), (3, 520), (3, 1451)]
+WIDTH_IDS = ["1", "7", "33", "1-h12", "7-h12", "33-h12", "1-h264", "33-h264", "3-h320", "3-h520",
+             "3-h1451"]
 
 
 def _case(t, n=8, h=16, seed=0):
@@ -190,15 +198,19 @@ def test_gru_route():
     # multiple of 8 from 8 to 256. Every other width is wide, by its width
     # padded to a multiple of 8: the persistent kernels ("wide", clusters
     # of up to 16 blocks) up to 512, the f32 grid form (gru_grid_f32.cu) up
-    # to GRID_F32_MAX_HIDDEN (1056 on an H100: 66 unit tiles of 16 units,
-    # 132 blocks), one launch a step above.
-    assert MAX_HIDDEN == 256 and MAX_WIDE_HIDDEN == 512 and GRID_F32_MAX_HIDDEN == 1056
+    # to GRID_F32_MAX_HIDDEN (2112 on an H100: 66 unit tiles of 32 units,
+    # 132 blocks; up to GRID_F32_RESIDENT_HIDDEN, 1056, all of W_hh
+    # resident, above it partly streamed), one launch a step above.
+    assert MAX_HIDDEN == 256 and MAX_WIDE_HIDDEN == 512 and GRID_F32_MAX_HIDDEN == 2112
+    assert GRID_F32_RESIDENT_HIDDEN == 1056
     assert [gru_route(h) for h in (8, 16, 48, 128, 248, 256)] == ["cluster"] * 6
     wide = (1, 4, 12, 100, 255, 257, 264, 320, 500, 504, 505, 512)
     assert [gru_route(h) for h in wide] == ["wide"] * len(wide)
-    grid = (513, 520, 1000, 1024, 1049, GRID_F32_MAX_HIDDEN)
+    grid = (513, 520, 1000, 1024, 1049, 1056, 1057, 1064, 1448, 1451, 1584, 1592, 2048,
+            GRID_F32_MAX_HIDDEN)
     assert [gru_route(h) for h in grid] == ["grid"] * len(grid)
-    assert [gru_route(h) for h in (GRID_F32_MAX_HIDDEN + 1, 1064, 1448, 2048)] == ["stepwise"] * 4
+    assert [gru_route(h) for h in (GRID_F32_MAX_HIDDEN + 1, GRID_F32_MAX_HIDDEN + 8, 4096,
+                                   GRID_MAX_HIDDEN)] == ["stepwise"] * 4
     with pytest.raises(ValueError, match="at least 1"):
         gru_route(0)
 
@@ -219,8 +231,8 @@ def test_gru_route_in_bf16():
     assert [gru_route(h, bf16) for h in grid] == ["grid"] * len(grid)
     assert [gru_route(h, bf16) for h in (GRID_MAX_HIDDEN + 1, GRID_MAX_HIDDEN + 8, 8192)] == [
         "stepwise"] * 3
-    assert [gru_route(h, torch.float32) for h in (520, 1024, 1448, GRID_MAX_HIDDEN)] == [
-        "grid", "grid", "stepwise", "stepwise"]
+    assert [gru_route(h, torch.float32) for h in (520, 1024, 1448, 2048, 2120, GRID_MAX_HIDDEN)] == [
+        "grid", "grid", "grid", "grid", "stepwise", "stepwise"]
 
 
 @pytest.mark.parametrize("n,rows_at_1024", [(1, 16), (3, 16), (128, 64), (256, 128), (259, 144)])
@@ -295,18 +307,21 @@ def test_grid_plan_fits_an_h100_up_to_its_widest_width(n, rows_at_1024):
 @pytest.mark.parametrize("n,rows_at_1024", [(1, 16), (3, 16), (128, 128), (259, 272)])
 def test_grid_f32_plan_fits_an_h100_up_to_its_widest_width(n, rows_at_1024):
     # The f32 grid form's plan at every padded width from 520 to
-    # GRID_F32_MAX_HIDDEN (1056): 16 units a block, R a multiple of 16 that
-    # covers the batch in at most as many row tiles as the SMs hold for
-    # both directions' unit tiles (passes of 128 rows inside a block), the
-    # whole f32 W_hh slice of either kernel beside the most ring stages of 4
-    # and 3 that fit in the 232,448 bytes a block may use; none above.
-    for h in range(520, GRID_F32_MAX_HIDDEN + 1, 8):
+    # GRID_F32_RESIDENT_HIDDEN (1056): 16 units a block, R a multiple of 16
+    # that covers the batch in at most as many row tiles as the SMs hold
+    # for both directions' unit tiles (passes of 128 rows inside a block),
+    # the whole f32 W_hh slice of either kernel beside the most ring stages
+    # of 4 and 3 that fit in the 232,448 bytes a block may use. Above it the
+    # streamed plans (test_grid_f32_streamed_plans_fit_an_h100), up to
+    # GRID_F32_MAX_HIDDEN (2112); none above.
+    for h in range(520, GRID_F32_RESIDENT_HIDDEN + 1, 8):
         plan = grid_f32_plan(n, h)
-        units, rows, stages = plan
+        units, rows, stages, fwd, chain = plan
         tiles = -(-h // units)
         assert units == GRID_F32_UNITS == 16 and rows % 16 == 0 and rows >= 16, h
         assert rows - 16 < -(-n // -(-n // rows)), h  # no more than 15 rows of padding a tile
         assert 2 * tiles * -(-n // rows) <= H100_SMS, h
+        assert fwd == GridF32Split(-(-h // 16), 0, 0) and chain == GridF32Split(-(-3 * h // 16), 0, 0)
         smem = [grid_f32_smem(kind, h, stages) for kind in ("fwd", "chain")]
         assert max(smem) <= H100_SMEM and stages in (3, 4), h
         assert stages == 4 or max(grid_f32_smem(k, h, stages + 1) for k in ("fwd", "chain")) > H100_SMEM, h
@@ -316,19 +331,77 @@ def test_grid_f32_plan_fits_an_h100_up_to_its_widest_width(n, rows_at_1024):
     assert GRID_F32_STAGE_BYTES == 8192
     assert grid_f32_smem("fwd", 1024, 4) == 4 * 48 * 1024 + 4 * 8192 == 229376
     assert grid_f32_smem("chain", 1000, 4) == 4 * 16 * 3008 + 4 * 8192
-    assert grid_f32_plan(n, 1024) == GridF32Plan(16, rows_at_1024, 4)
+    assert grid_f32_plan(n, 1024)[:3] == (16, rows_at_1024, 4)
     assert grid_f32_plan(n, 1000).stages == 4 and grid_f32_plan(n, 520).stages == 4
     assert grid_f32_plan(n, 1040).stages == 4 and grid_f32_plan(n, 1048).stages == 3
-    assert grid_f32_plan(n, GRID_F32_MAX_HIDDEN) == GridF32Plan(16, 16 * -(-n // 16), 3)
+    assert grid_f32_plan(n, GRID_F32_RESIDENT_HIDDEN)[:3] == (16, 16 * -(-n // 16), 3)
     # H=520: 33 unit tiles, two row tiles where the batch needs them.
     assert grid_f32_plan(n, 520).rows == (16 * -(-n // 16) if n <= 64 else 16 * -(-n // 32))
-    for h in (GRID_F32_MAX_HIDDEN + 1, 1064, 1448, 2048):
+    assert [grid_f32_plan(n, h).units for h in (1064, 1448, 1584, 1592, 2048, GRID_F32_MAX_HIDDEN)
+            ] == [24, 24, 24, 32, 32, 32]
+    for h in (GRID_F32_MAX_HIDDEN + 1, GRID_F32_MAX_HIDDEN + 8, 4096):
         assert grid_f32_plan(n, h) is None, h
     # A card with fewer SMs or less shared memory gets a plan that fits it,
     # or none.
     assert grid_f32_plan(n, 1024, sms=127) is None
     assert grid_f32_plan(n, 1024, smem=222_000).stages == 3
     assert grid_f32_plan(n, 1024, smem=220_000) is None
+
+
+# The f32 plans up to 1056 as the resident form defined them (all of W_hh
+# resident): for each batch, runs of padded widths (first, last) with
+# their (rows, A stages); 16 units a block throughout.
+_F32_RESIDENT_PLANS = {
+    1: [(520, 1040, (16, 4)), (1048, 1056, (16, 3))],
+    3: [(520, 1040, (16, 4)), (1048, 1056, (16, 3))],
+    128: [(520, 528, (64, 4)), (536, 1040, (128, 4)), (1048, 1056, (128, 3))],
+    259: [(520, 528, (144, 4)), (536, 1040, (272, 4)), (1048, 1056, (272, 3))],
+}
+
+
+@pytest.mark.parametrize("n", [1, 3, 128, 259])
+def test_grid_f32_streamed_plans_fit_an_h100(n):
+    # Above GRID_F32_RESIDENT_HIDDEN, at every padded width up to
+    # GRID_F32_MAX_HIDDEN: U the least of GRID_F32_STREAM_UNITS (24, 32)
+    # whose unit tiles of both directions fit the 132 SMs, at most 132
+    # blocks, R as the resident plans pick it, 4 A ring stages; each
+    # kernel's resident k16 steps, its W ring (GRID_F32_RING_BYTES of whole
+    # chunks of GRID_F32_CHUNK k16 steps: 4 or 5 stages) and its A rings
+    # within the 232,448 bytes a block may use, with not one k16 step more
+    # resident; the resident and streamed steps covering the contraction,
+    # the streamed ones zero past it by less than a chunk.
+    for h in range(GRID_F32_RESIDENT_HIDDEN + 8, GRID_F32_MAX_HIDDEN + 1, 8):
+        plan = grid_f32_plan(n, h)
+        units, rows, stages, *splits = plan
+        tiles = -(-h // units)
+        blocks = 2 * tiles * -(-n // rows)
+        assert units in GRID_F32_STREAM_UNITS and blocks <= H100_SMS, h
+        assert units == GRID_F32_STREAM_UNITS[0] or 2 * -(-h // (units - 8)) > H100_SMS, h
+        assert rows % 16 == 0 and rows - 16 < -(-n // -(-n // rows)) and stages == 4, h
+        for kind, split in zip(("fwd", "chain"), splits):
+            k16 = -(-(h if kind == "fwd" else 3 * h) // 16)
+            chunk = GRID_F32_CHUNK[kind]
+            assert grid_f32_kernel_smem(kind, units, split.resident, split.stages, stages) <= H100_SMEM
+            assert grid_f32_kernel_smem(kind, units, split.resident + 1, split.stages,
+                                        stages) > H100_SMEM, h
+            chunk_bytes = 4 * 16 * chunk * (3 * units if kind == "fwd" else units)
+            assert split.stages == 49152 // chunk_bytes in (4, 5) and split.streamed % chunk == 0, h
+            assert split.resident + split.streamed - chunk < k16 <= split.resident + split.streamed
+            nc = split.streamed // chunk
+            assert grid_f32_stream_elems(kind, h, plan) == 2 * tiles * nc * chunk_bytes // 4
+        assert grid_f32_plan(n, h - 7) == plan, h
+    # The plans of the widths the smoke times: 24 units at 1064 (90 blocks)
+    # and 1448 (122), 32 at 2048 (128 blocks, 52 chunks a block and kernel
+    # streamed each step).
+    p1064, p2048 = grid_f32_plan(n, 1064), grid_f32_plan(n, 2048)
+    assert p1064.fwd == GridF32Split(33, 34, 5) and p1064.chain == GridF32Split(99, 102, 5)
+    assert p2048.fwd == GridF32Split(24, 104, 4) and p2048.chain == GridF32Split(73, 312, 4)
+    # Every plan up to GRID_F32_RESIDENT_HIDDEN is as the resident form defined it.
+    for first, last, (rows, stages) in _F32_RESIDENT_PLANS[n]:
+        for h in range(first, last + 1, 8):
+            plan = grid_f32_plan(n, h)
+            assert plan[:3] == (16, rows, stages), h
+            assert plan.fwd.streamed == plan.chain.streamed == 0, h
 
 
 def test_jax_bf16_dw_at_few_rows_nears_the_bound_the_kernels_are_held_to():
