@@ -1222,12 +1222,20 @@ def _counts() -> dict:
 
 
 def _zero_counts() -> None:
-    from ocrs_models_torch.ops import KERNELS
+    from ocrs_models_torch.ops import KERNELS, PHASE_KERNELS
 
-    for k in KERNELS:
+    for k in KERNELS + PHASE_KERNELS:
         k.launches = 0
         for form in getattr(k, "forms", ()):
             k.forms[form] = 0
+
+
+def _phase_counts() -> dict:
+    """The launches of the f32 wide backward's ``coef`` and ``dw`` wrappers
+    (``ops.PHASE_KERNELS``, called inside ``gru_wide_bwd`` above 512)."""
+    from ocrs_models_torch.ops import PHASE_KERNELS
+
+    return {k.__name__: k.launches for k in PHASE_KERNELS}
 
 
 def _form_counts() -> dict:
@@ -1394,6 +1402,7 @@ def run_training(dev, dtype=torch.float32, wide_steps: int = 10, gru_hidden: int
                 "losses": losses, "launches": counts}
         if gru_hidden != 256:
             line["forms"] = _form_counts()
+            line["phase_launches"] = _phase_counts()
         print(json.dumps(line), flush=True)
         return line
 
@@ -3334,6 +3343,9 @@ GRID_STREAMED_HIDDEN = (1448, 2048, 5280, 5288)  # phase 18 (a): the grid form w
 GRID_F32_STREAMED_HIDDEN = (1064, 1448, 2048)  # phase 18 (a): the f32 grid form with W_hh
 # partly streamed (24, 24 and 32 units a block; at 2048 beyond the L2 and shared memory), timed
 GRID_TRAIN_HIDDEN = 2048  # phase 18 (e): the recognizer trained in the streamed grid form
+F32_PHASES_CHECK = (9, 259, 1064)  # phase 18 (a): (T, N, H) of the f32 wgmma coef/dw check:
+# 2331 rows (ragged row tiles and dW stages), ragged unit tiles and k tiles
+F32_PHASES_TIMED = (1024, 1064, 1448, GRID_TRAIN_HIDDEN)  # phase 18 (a): their widths timed
 
 
 def _wide_min_equal(hid: int) -> float:
@@ -3357,8 +3369,10 @@ def _wide_device_ms(times: dict, t_len: int, backward: bool) -> float | None:
     ``gru_grid_f32_chain_kernel``, and where W_hh is streamed the layout of
     its chunks, ``gru_grid_stream_layout_kernel`` or
     ``gru_grid_f32_stream_layout_kernel``), T times in the per-step form
-    (``*_step_kernel``), and for the backward ``gru_bwd.cu``'s ``coef``,
-    ``dw`` and ``dw_sum`` once each."""
+    (``*_step_kernel``), and for the backward ``coef``, ``dw`` and
+    ``dw_sum`` once each (``gru_bwd.cu``'s, or ``gru_bwd_wide.cu``'s above
+    512, in f32 with the pre-passes ``gru_bwd_coef_split_kernel`` and
+    ``gru_bwd_dw_split_kernel``, whose names put them in their phase)."""
     if not times:
         return None
     parts = (("gru_wide_bwd_chain", "gru_grid_chain", "gru_grid_f32_chain") if backward
@@ -3375,14 +3389,17 @@ def _wide_device_ms(times: dict, t_len: int, backward: bool) -> float | None:
 
 
 def _wide_launches(t_len: int, backward: bool, bf16: bool, one_launch: bool,
-                   streamed: bool = False) -> int:
+                   streamed: bool = False, prepasses: bool = False) -> int:
     """Device launches of one wide-route call at a width that needs no
     padding: the recurrence kernel (once in the persistent and grid forms,
     T in the per-step form; the streamed grid plans' layout of W's chunks
     before it), ``coef``, ``dw``, ``dw_sum`` and (per step) the copy of
-    W_hh^T for the backward, and W_hh's two casts in bf16."""
+    W_hh^T for the backward, with ``prepasses`` (f32 above 512,
+    ``gru_bwd_wide.cu``) the pre-passes of ``coef`` and ``dw``, and W_hh's
+    two casts in bf16."""
     chain = (1 + streamed) if one_launch else t_len
-    return (chain + 3 + (0 if one_launch else 1) if backward else chain) + (2 if bf16 else 0)
+    phases = 3 + 2 * prepasses
+    return (chain + phases + (0 if one_launch else 1) if backward else chain) + (2 if bf16 else 0)
 
 
 def _launch_calls(fn, calls: int = 2) -> tuple[float, float]:
@@ -3462,7 +3479,7 @@ def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) ->
     raises on a miss. Returns the widths' entries of the kernels rows and
     the inputs."""
     from ocrs_models_torch.ops import gru_bwd, gru_bwd_reference, gru_fwd, gru_recurrence_reference
-    from ocrs_models_torch.ops.gru import wide_form
+    from ocrs_models_torch.ops.gru import bwd_phases, wide_form
 
     bf16 = dtype == BF16
     form, plan = wide_form(n, hid + -hid % 8, dtype, dev.index)
@@ -3485,7 +3502,9 @@ def _check_wide_case(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str) ->
                               (lambda: gru_fwd(px_f, px_b, w_hh, b_hh), lambda: gru_bwd(*args))))
     # Where the wrapper pads H to a multiple of 8, its pads and slices add
     # launches of their own: the total is held only where it does not.
-    expected = [_wide_launches(t_len, b, bf16, one_launch, streamed) for b in (False, True)]
+    prepasses = not bf16 and bwd_phases(hid + -hid % 8) == "gru_bwd_wide"
+    expected = [_wide_launches(t_len, b, bf16, one_launch, streamed, prepasses)
+                for b in (False, True)]
     print(f"gru wide {what} ({form}): ys max_abs_err "
           f"{errors['ys']:.3e} (equal {errors['ys_equal']:.4f}); dpx {errors['dpx']:.3e} (equal "
           f"{errors['dpx_equal']:.4f}), dW/db {errors['dw']:.3e} (max {errors['dw_max']:.3e}); "
@@ -3507,8 +3526,8 @@ def _phase_ms(times: dict, t_len: int, backward: bool) -> dict | None:
     """A wide-route call's device ms by phase from the profiler's records:
     the streamed chunks' layout (where there is one), the recurrence
     (``fwd`` or ``chain``, T launches in the per-step form), and for the
-    backward ``coef`` and ``dw`` with ``dw_sum``; None where the profiler
-    delivered no record."""
+    backward ``coef`` and ``dw`` with ``dw_sum`` (in f32 above 512 each
+    with its pre-pass); None where the profiler delivered no record."""
     if not times:
         return None
     out = {}
@@ -3524,6 +3543,32 @@ def _phase_ms(times: dict, t_len: int, backward: bool) -> dict | None:
         out["coef"] = _device_ms(times, "gru_bwd_coef")
         out["dw"] = _device_ms(times, "gru_bwd_dw")
     return out
+
+
+_F32_PHASES_OLD = ("gru_bwd_coef_kernel", "gru_bwd_dw_kernel", "gru_bwd_dw_sum_kernel")
+"""``gru_bwd.cu``'s f32 ``coef``, ``dw`` and ``dw_sum`` kernels (up to 512)."""
+_F32_PHASES_NEW = ("gru_bwd_coef_split_kernel", "gru_bwd_coef_wide_f32_kernel",
+                   "gru_bwd_dw_split_kernel", "gru_bwd_dw_wide_f32_kernel",
+                   "gru_bwd_dw_sum_wide_kernel")
+"""``gru_bwd_wide.cu``'s f32 ``coef`` and ``dw`` with their pre-passes and
+``dw_sum`` (above 512)."""
+
+
+def _f32_phase_kernels(times: dict, hid: int) -> list[str] | None:
+    """The f32 backward's ``coef``/``dw`` kernels by the profiler's names in
+    one wide call's records: above 512 (padded) ``gru_bwd_wide.cu``'s (its
+    five) and none of ``gru_bwd.cu``'s, at and below 512 only
+    ``gru_bwd.cu``'s three; raises on a kernel of the other source, or on
+    none of the right one (the profiler may drop a kernel's records, not
+    all of them). None where the profiler delivered no record."""
+    if not times:
+        return None
+    seen = [k for k in _F32_PHASES_NEW + _F32_PHASES_OLD if any(k in name for name in times)]
+    want = _F32_PHASES_NEW if hid + -hid % 8 > 512 else _F32_PHASES_OLD
+    if not seen or any(k not in want for k in seen):
+        raise AssertionError(f"the f32 backward at H={hid} ran the coef/dw kernels {seen}, "
+                             f"not {list(want)}")
+    return seen
 
 
 def _per_step(fn):
@@ -3605,12 +3650,15 @@ def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype,
         peaks = ", ".join(f"{_PEAK_NAMES[rate]} ({what})" for (_, rate), what in
                           zip(parts, ("recurrence", "coef and dw")))
         device_ms = _wide_device_ms(times, t_len, backward)
+        phase_kernels = _f32_phase_kernels(times, hid) if backward and not bf16 else None
         timed = {"shape": f"T={t_len}, N={n}, H={hid}", "ms": ms, "device_ms": device_ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                  "bound_peaks": peaks,
                  "library_ms": library_ms, "us_per_step": 1e3 * ms / t_len,
                  "device_launches_per_call": launches,
                  "split_ms": _phase_ms(times, t_len, backward)}
+        if phase_kernels is not None:
+            timed["phase_kernels"] = phase_kernels
         if stepwise_too:
             timed["stepwise_ms"] = _cuda_time_ms(stepwise, iters=3, warmup=1)
         print(f"{name} {'bf16' if bf16 else 'f32'} [T={t_len},N={n},H={hid}]: {ms:.4f} ms, "
@@ -3618,7 +3666,8 @@ def _time_wide(dev, gen, inputs, t_len: int, n: int, hid: int, dtype,
               f"{launches:g} device launches per call, by phase {timed['split_ms']}; plain "
               f"{plain_ms:.3f} ms, cuDNN {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {peaks})" + (f"; the per-step form {timed['stepwise_ms']:.4f} ms"
-                                 if stepwise_too else ""), flush=True)
+                                 if stepwise_too else "")
+              + (f"; coef/dw kernels {phase_kernels}" if phase_kernels else ""), flush=True)
         out.append(timed)
     return out[0], out[1]
 
@@ -3767,7 +3816,8 @@ def _wide_sub_rows(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str,
             place["also"] = "ocrs_models_torch/csrc/gru_bwd_wide.cu (coef, dw, dw_sum)"
         else:
             place["ring_stages"] = plan.stages
-            place["also"] = "ocrs_models_torch/csrc/gru_bwd.cu (coef, dw, dw_sum)"
+            place["also"] = ("ocrs_models_torch/csrc/gru_bwd_wide.cu (coef, dw, dw_sum and their "
+                             "pre-passes, f32 3xTF32 on wgmma)")
             layout += f"; {plan.stages} ring stages of the A operand"
         print(f"gru wide grid {tag} [N={n},H={hid}]: {plan.units} units x {plan.rows} rows a "
               f"block, {place['blocks']} blocks in one cooperative launch; {layout}", flush=True)
@@ -3802,6 +3852,154 @@ def _wide_sub_rows(dev, gen, t_len: int, n: int, hid: int, dtype, tag: str,
                     "replaces": "ocrs_models_tpu/ops/pallas/gru_kernel4.py:"
                     + ("139" if name == "fwd" else "171"), **timed, **errs})
     return out[0], out[1]
+
+
+def _f32_phase_inputs(gen, dev, t_len: int, n: int, hid: int) -> dict:
+    """Random operands of the f32 backward's ``coef`` and ``dw`` phases."""
+    w_hh, b_hh = _gru_weights(gen, dev, hid)
+    rand = lambda *shape: torch.rand(shape, generator=gen).to(dev) * 2 - 1  # noqa: E731
+    return {"px": [torch.randn((t_len, n, 3 * hid), generator=gen).to(dev) for _ in range(2)],
+            "ys": [rand(t_len, n, hid) for _ in range(2)],
+            "dpx": [(torch.randn((t_len, n, 3 * hid), generator=gen) * 0.1).to(dev)
+                    for _ in range(2)],
+            "w_hh": w_hh, "b_hh": b_hh}
+
+
+def _f32_phase_calls(x: dict) -> dict:
+    """Per phase, the new kernel's call (``gru_bwd_wide.cu`` through its
+    wrapper), the old one's (``gru_bwd.cu``'s f32 entry, its C call), the
+    plain version and the library call (one ``torch.matmul`` of the
+    phase's product shapes at the default "highest" f32 precision, no
+    TF32), on the operands ``x`` (``coef`` the plain one's)."""
+    from ocrs_models_torch.ops import gru_bwd_coef_wide_f32, gru_bwd_dw_wide_f32
+    from ocrs_models_torch.ops import gru_bwd_coefficients_reference, gru_bwd_dw_reference
+    from ocrs_models_torch.ops import _build
+    from ocrs_models_torch.ops.gru import _bwd_lib, _dph, _dw_splits, _h_prev
+
+    (px_f, px_b), (ys_f, ys_b), (dpx_f, dpx_b) = x["px"], x["ys"], x["dpx"]
+    w_hh, b_hh, coef = x["w_hh"], x["b_hh"], x["coef"]
+    t_len, n, hid = ys_f.shape
+    dev, m, h3 = ys_f.device, t_len * n, 3 * hid
+    lib, ptr, stream = _bwd_lib(), _build.ptr, _build.stream_ptr(ys_f.device)
+    splits = _dw_splits(t_len, n)  # gru_bwd.cu's ranges
+    old = {"coef": torch.empty_like(coef), "dwp": torch.empty((splits, 2, hid, h3), device=dev),
+           "dbp": torch.empty((splits, 2, h3), device=dev), "dw": torch.empty_like(w_hh),
+           "db": torch.empty_like(b_hh)}
+    h_prev = _h_prev(ys_f, ys_b).reshape(2, m, hid)
+    dph = _dph(dpx_f, dpx_b, coef).reshape(2, m, h3)
+    return {
+        "coef": {
+            "new": lambda: gru_bwd_coef_wide_f32(px_f, px_b, ys_f, ys_b, w_hh, b_hh),
+            "old": lambda: _build.check(lib, lib.ocrs_gru_bwd_coef(
+                dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w_hh), ptr(b_hh),
+                ptr(old["coef"]), t_len, n, hid, stream), "gru_bwd.cu coef"),
+            "plain": lambda: gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh),
+            "library": lambda: torch.matmul(h_prev, w_hh)},
+        "dw": {
+            "new": lambda: gru_bwd_dw_wide_f32(ys_f, ys_b, dpx_f, dpx_b, coef),
+            "old": lambda: _build.check(lib, lib.ocrs_gru_bwd_dw(
+                dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx_f), ptr(dpx_b), ptr(coef), ptr(old["dwp"]),
+                ptr(old["dbp"]), ptr(old["dw"]), ptr(old["db"]), splits, t_len, n, hid, stream),
+                "gru_bwd.cu dw"),
+            "plain": lambda: gru_bwd_dw_reference(ys_f, ys_b, _dph(dpx_f, dpx_b, coef)),
+            "library": lambda: torch.matmul(h_prev.transpose(1, 2), dph)},
+    }
+
+
+def check_f32_phases(dev, gen) -> list[dict]:
+    """Phase 18 (a): the f32 backward's ``coef`` and ``dw`` above 512,
+    ``gru_bwd_wide.cu``'s 3xTF32 kernels on ``wgmma`` through their
+    wrappers (``ops.PHASE_KERNELS``), against the plain versions at the
+    ragged F32_PHASES_CHECK (coef within 1e-4 of its largest entry, dW and
+    db 1e-4 of theirs + 1e-5, as the card tests hold them), reruns, both
+    tile orders and 1 and 2 ranges of rows bit-identical, and the device
+    launches of a call (coef 2, dw 3: each with its pre-pass); then at
+    T=257, N=128 and each width of F32_PHASES_TIMED timed (CUDA events)
+    beside ``gru_bwd.cu``'s f32 ``coef`` and ``dw`` (the kernels they
+    replace, on the same operands) and, at GRID_TRAIN_HIDDEN, the plain
+    versions, the library call (``torch.matmul`` on the same product
+    shapes, "highest" f32 precision) and the bound: the products, 2 T N H
+    3H x 2 directions each, over the 3xTF32 peak, or the bytes (inputs
+    read once, outputs written once, and the pre-pass's copies written and
+    read), the longer. Returns the kernels line's two rows (``launches``
+    filled by ``run_wide_gru`` from phase 18 (e))."""
+    from ocrs_models_torch.ops import gru_bwd_coef_wide_f32, gru_bwd_dw_wide_f32
+
+    t_len, n, hid = F32_PHASES_CHECK
+    x = _f32_phase_inputs(gen, dev, t_len, n, hid)
+    (px_f, px_b), (ys_f, ys_b), (dpx_f, dpx_b) = x["px"], x["ys"], x["dpx"]
+    coef = gru_bwd_coef_wide_f32(px_f, px_b, ys_f, ys_b, x["w_hh"], x["b_hh"])
+    x["coef"] = coef
+    calls = _f32_phase_calls(x)
+    want = {"coef": calls["coef"]["plain"]().reshape(coef.shape), "dw": calls["dw"]["plain"]()}
+    same = (torch.equal(coef, calls["coef"]["new"]()) and torch.equal(
+        coef, gru_bwd_coef_wide_f32(px_f, px_b, ys_f, ys_b, x["w_hh"], x["b_hh"], order=0)))
+    err = {"coef": (coef - want["coef"]).abs().max().item()}
+    dw_err = []
+    for splits in (1, 2):
+        got = gru_bwd_dw_wide_f32(ys_f, ys_b, dpx_f, dpx_b, coef, splits)
+        for again in (gru_bwd_dw_wide_f32(ys_f, ys_b, dpx_f, dpx_b, coef, splits),
+                      gru_bwd_dw_wide_f32(ys_f, ys_b, dpx_f, dpx_b, coef, splits, order=0)):
+            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
+        dw_err.append([((a - b).abs().max().item(), b.abs().max().item())
+                       for a, b in zip(got, want["dw"])])
+    err["dw"] = max(e for pair in dw_err for e, _ in pair)
+    ok = (err["coef"] <= 1e-4 * want["coef"].abs().max().item()
+          and all(e <= 1e-4 * top + 1e-5 for pair in dw_err for e, top in pair))
+    launches = {name: _launch_calls(calls[name]["new"])[0] for name in ("coef", "dw")}
+    print(f"f32 wgmma phases [T={t_len},N={n},H={hid}]: coef max_abs_err {err['coef']:.3e}, dW/db "
+          f"{dw_err} (max_abs_err, largest entry) at 1 and 2 ranges; reruns and tile orders "
+          f"bit-identical: {same}; device launches a call {launches}", flush=True)
+    if not ok or not same or launches != {"coef": 2, "dw": 3}:
+        raise AssertionError(f"the f32 wgmma coef/dw at [T={t_len},N={n},H={hid}]: errors {err}, "
+                             f"{dw_err}, bit-identical {same}, launches {launches}")
+    del x, calls, want, coef
+    torch.cuda.empty_cache()
+
+    rows = {name: {"name": f"gru_bwd_{name}_wide_f32", "route": "cuda",
+                   "source": "ocrs_models_torch/csrc/gru_bwd_wide.cu",
+                   "replaces": "ocrs_models_tpu/ops/pallas/gru_kernel4.py:171",
+                   "old_source": "ocrs_models_torch/csrc/gru_bwd.cu", "max_abs_err": err[name],
+                   "widths": {}} for name in ("coef", "dw")}
+    t_len, n = WIDE_T, REC_BATCH
+    for hid in F32_PHASES_TIMED:
+        x = _f32_phase_inputs(gen, dev, t_len, n, hid)
+        (px_f, px_b), (ys_f, ys_b) = x["px"], x["ys"]
+        x["coef"] = gru_bwd_coef_wide_f32(px_f, px_b, ys_f, ys_b, x["w_hh"], x["b_hh"])
+        calls = _f32_phase_calls(x)
+        m, h3 = t_len * n, 3 * hid
+        flops = 2 * 2 * m * hid * h3
+        # The pre-pass's hi and lo copies (of W_hh^T, of ys^T) written once
+        # and read once: 16 bytes an element.
+        pre = {"coef": 16 * 2 * hid * h3, "dw": 16 * 2 * m * hid}
+        io_bytes = {"coef": 4 * (2 * m * h3 + 2 * m * hid + 2 * hid * h3 + 2 * h3 + 2 * m * 5 * hid),
+                    "dw": 4 * (2 * m * hid + 2 * m * h3 + 2 * m * hid + 2 * hid * h3 + 2 * h3)}
+        for name, row in rows.items():
+            timed = {"ms": _cuda_time_ms(calls[name]["new"], iters=5),
+                     "old_ms": _cuda_time_ms(calls[name]["old"], iters=5)}
+            timed["bound_ms"], timed["bound_by"] = _bound_parts(
+                io_bytes[name] + pre[name], ((flops, TF32X3_FLOPS_PER_S),))
+            if hid == GRID_TRAIN_HIDDEN:
+                got, plain = calls[name]["new"](), calls[name]["plain"]()
+                got = got if isinstance(got, tuple) else (got,)
+                plain = plain if isinstance(plain, tuple) else (plain.reshape(got[0].shape),)
+                row["max_abs_err"] = max(row["max_abs_err"], _err(got, plain))
+                del got, plain
+                timed["plain_ms"] = _cuda_time_ms(calls[name]["plain"], iters=2, warmup=1)
+                timed["library_ms"] = _cuda_time_ms(calls[name]["library"], iters=3, warmup=1)
+                _, times, _ = _device_profile(calls[name]["new"], calls=3)
+                timed["device_ms"] = _device_ms(times, f"gru_bwd_{name}")
+                row.update({"shape": f"T={t_len}, N={n}, H={hid}", **timed})
+            row["widths"][hid] = timed
+            print(f"f32 wgmma {name} [T={t_len},N={n},H={hid}]: {timed['ms']:.4f} ms (gru_bwd.cu's "
+                  f"mma.sync {timed['old_ms']:.4f} ms), bound {timed['bound_ms']:.4f} ms "
+                  f"({timed['bound_by']}; 3xTF32 165 TFLOP/s)"
+                  + (f"; device {_fmt(timed['device_ms'])} ms, plain {timed['plain_ms']:.3f} ms, "
+                     f"torch.matmul f32 \"highest\" {timed['library_ms']:.4f} ms"
+                     if "plain_ms" in timed else ""), flush=True)
+        del x, calls
+        torch.cuda.empty_cache()
+    return list(rows.values())
 
 
 def _with_recognizer(pipe, model):
@@ -3889,6 +4087,7 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
     dtype."""
     t0 = time.perf_counter()
     rows = check_gru_wide(dev, gen)
+    phase_rows = check_f32_phases(dev, gen)
     print(f"phase 18a seconds {time.perf_counter() - t0:.1f}", flush=True)
     t0 = time.perf_counter()
     grid = {"bf16": train_grid(dev), "f32": train_grid(dev, GRID_HIDDEN, torch.float32)}
@@ -3922,6 +4121,17 @@ def run_wide_gru(dev, gen, crops) -> list[dict]:
         if not row["launches"] > 0:
             raise AssertionError(f"the {row['dtype']} H={WIDE_HIDDEN} step never launched "
                                  f"{row['name']}")
+    # The f32 coef and dw above 512: their launches in (e)'s f32 headline
+    # steps, one each for every gru_wide_bwd call there.
+    head = streamed["f32"]["headline"]
+    for row in phase_rows:
+        row["launches"] = head["phase_launches"][row["name"]]
+        row["launches_per_step"] = row["launches"] // head["steps"]
+        if not 0 < row["launches"] == head["launches"]["gru_wide_bwd"]:
+            raise AssertionError(f"the f32 H={GRID_TRAIN_HIDDEN} steps launched {row['name']} "
+                                 f"{row['launches']} times, gru_wide_bwd "
+                                 f"{head['launches']['gru_wide_bwd']}")
+    rows += phase_rows
     print(json.dumps({"path": f"grid biGRU summary H={GRID_HIDDEN} and {GRID_TRAIN_HIDDEN}, "
                               "bf16 and f32", **{
         f"{h}_{shape}_median_ms": v[shape]["step_ms_median"]

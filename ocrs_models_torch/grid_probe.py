@@ -68,6 +68,16 @@ from ``SEED``): the largest error over 1e-3 of the largest entry, the
 entries past that bound, dW against the plain dW phase on the bf16(dph)
 the chain handed on, and how many of the bf16 operands round otherwise
 than in the plain version (ys; dpx and dhn, the bf16(dph) of dW).
+
+    python -m ocrs_models_torch.grid_probe --f32-phase-readings SEED --t 257 --n 128 --hid 2048
+
+instead reads the f32 backward's ``coef`` and ``dw`` above 512 (3xTF32:
+``gru_bwd_wide.cu``'s on ``wgmma`` and ``gru_bwd.cu``'s on ``mma.sync``)
+and the f32 plain versions against float64 plain versions, on random
+operands from ``SEED``: coef's largest error (by coefficient for the
+``wgmma`` one) and whether the two kernels' coef agree bit for bit; dW's
+and db's largest errors with ``dw`` in 1 and 2 ranges of rows and in the
+wrapper's (``_dw_splits``), and ``gru_bwd.cu``'s in its ranges.
 """
 
 from __future__ import annotations
@@ -386,12 +396,65 @@ def dw_readings(t_len: int, n: int, hid: int, seed: int) -> dict:
                              "dhn": scratch["dhn"].numel()}}
 
 
+def f32_phase_readings(t_len: int, n: int, hid: int, seed: int) -> dict:
+    """The f32 backward's coef and dW/db at (T, N, H), the 3xTF32 kernels'
+    and the f32 plain versions', against float64 plain versions."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator().manual_seed(seed)
+    k = 1.0 / hid**0.5
+    px = [torch.randn((t_len, n, 3 * hid), generator=g).to(dev) for _ in range(2)]
+    w = ((torch.rand((2, hid, 3 * hid), generator=g) * 2 - 1) * k).to(dev)
+    b = ((torch.rand((2, 3 * hid), generator=g) * 2 - 1) * k).to(dev)
+    ys = [(torch.rand((t_len, n, hid), generator=g) * 2 - 1).to(dev) for _ in range(2)]
+    dpx = [(torch.randn((t_len, n, 3 * hid), generator=g) * 0.1).to(dev) for _ in range(2)]
+    lib, ptr, stream = gru_ops._bwd_lib(), _build.ptr, _build.stream_ptr(dev)
+    coef = gru_ops.gru_bwd_coef_wide_f32(*px, *ys, w, b)
+    old = torch.empty_like(coef)
+    _build.check(lib, lib.ocrs_gru_bwd_coef(dev.index, ptr(px[0]), ptr(px[1]), ptr(ys[0]),
+                                            ptr(ys[1]), ptr(w), ptr(b), ptr(old), t_len, n, hid,
+                                            stream), "gru_bwd.cu coef")
+    exact = gru_ops.gru_bwd_coefficients_reference(
+        *(x.double() for x in (*px, *ys, w, b))).reshape(coef.shape)
+    plain = gru_ops.gru_bwd_coefficients_reference(*px, *ys, w, b).reshape(coef.shape)
+    out = {"T": t_len, "N": n, "H": hid, "seed": seed, "coef_max": exact.abs().max().item(),
+           "coef_err": {name: (v.double() - exact).abs().max().item()
+                        for name, v in (("wgmma", coef), ("mma_sync", old), ("plain", plain))},
+           "coef_wgmma_err_by_coefficient": [(coef.double() - exact)[:, :, q].abs().max().item()
+                                             for q in range(5)],
+           "coef_wgmma_equals_mma_sync": torch.equal(coef, old)}
+    del px, old, plain, exact
+    ops64 = (ys[0].double(), ys[1].double(), gru_ops._dph(dpx[0].double(), dpx[1].double(),
+                                                         coef.double()))
+    dw64, db64 = gru_ops.gru_bwd_dw_reference(*ops64)
+    del ops64
+    errs = lambda dw, db: ((dw.double() - dw64).abs().max().item(),  # noqa: E731
+                           (db.double() - db64).abs().max().item())
+    splits = gru_ops._dw_splits(t_len, n, hid)
+    out.update(dw_max=dw64.abs().max().item(), db_max=db64.abs().max().item(), dw_ranges=splits)
+    out["dw_db_err"] = {f"wgmma_{s}": errs(*gru_ops.gru_bwd_dw_wide_f32(*ys, *dpx, coef, s))
+                        for s in sorted({1, 2, splits})}
+    old_splits = gru_ops._dw_splits(t_len, n)
+    h3 = 3 * hid
+    dwp = torch.empty((old_splits, 2, hid, h3), device=dev)
+    dbp = torch.empty((old_splits, 2, h3), device=dev)
+    dw, db = torch.empty_like(w), torch.empty_like(b)
+    _build.check(lib, lib.ocrs_gru_bwd_dw(dev.index, ptr(ys[0]), ptr(ys[1]), ptr(dpx[0]),
+                                          ptr(dpx[1]), ptr(coef), ptr(dwp), ptr(dbp), ptr(dw),
+                                          ptr(db), old_splits, t_len, n, hid, stream),
+                 "gru_bwd.cu dw")
+    out["dw_db_err"][f"mma_sync_{old_splits}"] = errs(dw, db)
+    out["dw_db_err"]["plain"] = errs(*gru_ops.gru_bwd_dw_reference(
+        *ys, gru_ops._dph(*dpx, coef)))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--t", type=int, default=257)
     ap.add_argument("--n", type=int, default=128)
     ap.add_argument("--hid", type=int, default=1024)
     ap.add_argument("--dw-readings", type=int, metavar="SEED", default=None)
+    ap.add_argument("--f32-phase-readings", type=int, metavar="SEED", default=None)
     ap.add_argument("--f32", action="store_true", help="probe the f32 grid form instead")
     ap.add_argument("--backward", action="store_true",
                     help="only the backward's coef and dw (both tile orders) at (T, N, H)")
@@ -404,6 +467,9 @@ def main() -> None:
     t_len, n, hid = args.t, args.n, args.hid
     if args.dw_readings is not None:
         print(json.dumps(dw_readings(t_len, n, hid, args.dw_readings)), flush=True)
+        return
+    if args.f32_phase_readings is not None:
+        print(json.dumps(f32_phase_readings(t_len, n, hid, args.f32_phase_readings)), flush=True)
         return
     if args.f32:
         f32_probe(t_len, n, hid)

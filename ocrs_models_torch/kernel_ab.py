@@ -79,7 +79,9 @@ backward's other phases on the same operands (``split_ms``, events):
 in bf16 ``csrc/gru_bwd_wide.cu``'s (on ``wgmma``) in both tile orders
 (``coef_order_0``, ``dw_order_0``: the plain one), up to H=2048 the same
 phases of ``csrc/gru_bwd.cu`` (``mma.sync``; ``coef_mma_sync``,
-``dw_mma_sync``) and W_hh's cast; in f32 ``csrc/gru_bwd.cu``'s (3xTF32). ``--case TEXT`` runs
+``dw_mma_sync``) and W_hh's cast; in f32 (3xTF32) ``csrc/gru_bwd_wide.cu``'s
+``f32::`` kernels (``wgmma``, both tile orders) beside ``csrc/gru_bwd.cu``'s
+(``mma.sync``), the A/B of those phases. ``--case TEXT`` runs
 only the cases whose name holds TEXT (``T257_N128_H1024_f32``: both forms
 of f32 at H=1024).
 
@@ -607,8 +609,11 @@ def _bwd_split_ms(ops) -> dict:
     (``coef_order_0``, ``dw_order_0``: the plain order, the unit or column
     tiles fastest), up to ``MMA_SYNC_MAX`` the same phases of
     ``gru_bwd.cu`` (``mma.sync``, with ``_dw_splits``'s ranges for it), and
-    W_hh's cast to bf16 values. f32: ``gru_bwd.cu``'s ``coef`` and ``dw``
-    (3xTF32 on the tensor cores)."""
+    W_hh's cast to bf16 values. f32 (3xTF32 on the tensor cores): the same
+    of ``gru_bwd_wide.cu``'s ``f32::`` kernels on ``wgmma`` (each C call
+    with its pre-pass), in both tile orders, beside ``gru_bwd.cu``'s
+    (``mma.sync``; ``coef_mma_sync``, ``dw_mma_sync``, with its ranges)
+    at every width: the A/B of the phases this port replaced."""
     px_f, px_b, ys_f, ys_b = ops[:4]
     w_hh, b_hh = ops[6], ops[7]
     t_len, n, h3 = px_f.shape
@@ -619,16 +624,30 @@ def _bwd_split_ms(ops) -> dict:
     dpx = [torch.zeros_like(px_f) for _ in range(2)]
     dw, db = torch.empty_like(w_hh), torch.empty_like(b_hh)
     if px_f.dtype == torch.float32:
-        dwp = torch.empty((splits, 2, hid, h3), device=dev)
-        dbp = torch.empty((splits, 2, h3), device=dev)
+        wide = gru_ops._bwd_wide_lib()
+        splits_tc = gru_ops._dw_splits(t_len, n, hid)
+        dwp = torch.empty((max(splits, splits_tc), 2, hid, h3), device=dev)
+        dbp = torch.empty((max(splits, splits_tc), 2, h3), device=dev)
+        wt = torch.empty((2, 2, h3, hid), device=dev)
+        yt = torch.empty((2, 2, hid, wide.ocrs_gru_bwd_dw_wide_f32_pitch(t_len, n)), device=dev)
+        order = gru_ops.BWD_WIDE_ORDER
         calls = {
-            "coef": lambda: lib.ocrs_gru_bwd_coef(
+            f"{name}{'' if o == order else '_order_' + str(o)}": fn
+            for o in (order, 1 - order) for name, fn in (
+                ("coef", lambda o=o: wide.ocrs_gru_bwd_coef_wide_f32(
+                    dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w_hh), ptr(b_hh),
+                    ptr(wt), ptr(coef), t_len, n, hid, o, stream)),
+                ("dw", lambda o=o: wide.ocrs_gru_bwd_dw_wide_f32(
+                    dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(coef), ptr(yt),
+                    ptr(dwp), ptr(dbp), ptr(dw), ptr(db), splits_tc, t_len, n, hid, o, stream)))}
+        calls.update({
+            "coef_mma_sync": lambda: lib.ocrs_gru_bwd_coef(
                 dev.index, ptr(px_f), ptr(px_b), ptr(ys_f), ptr(ys_b), ptr(w_hh), ptr(b_hh),
                 ptr(coef), t_len, n, hid, stream),
-            "dw": lambda: lib.ocrs_gru_bwd_dw(
+            "dw_mma_sync": lambda: lib.ocrs_gru_bwd_dw(
                 dev.index, ptr(ys_f), ptr(ys_b), ptr(dpx[0]), ptr(dpx[1]), ptr(coef), ptr(dwp),
                 ptr(dbp), ptr(dw), ptr(db), splits, t_len, n, hid, stream),
-        }
+        })
     else:
         wide = gru_ops._bwd_wide_lib()
         w16 = w_hh.to(torch.bfloat16)

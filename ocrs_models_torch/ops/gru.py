@@ -27,8 +27,10 @@ float32 up to ``GRID_F32_MAX_HIDDEN`` (``csrc/gru_grid_f32.cu``, all of
 the f32 ``W_hh`` slice resident up to ``GRID_F32_RESIDENT_HIDDEN``, part of
 it streamed each step above); every other width above 512
 ("stepwise") in one launch per step, the state in device memory between
-launches. In bf16 above 512 the backward's
-coefficients and dW run on ``wgmma`` (``csrc/gru_bwd_wide.cu``). On CPU tensors
+launches. Above 512 the backward's coefficients and dW run on
+``wgmma`` (``csrc/gru_bwd_wide.cu``), in float32 as error-compensated
+TF32 (:func:`bwd_phases`, :func:`gru_bwd_coef_wide_f32`,
+:func:`gru_bwd_dw_wide_f32`). On CPU tensors
 both wrappers run their plain versions (:func:`gru_recurrence_reference`,
 a Python loop of torch ops, and autograd of it). The backward kernel's
 three phases have plain versions of their own
@@ -1013,9 +1015,166 @@ def _bwd_wide_lib() -> ctypes.CDLL:
         i = ctypes.c_int
         lib.ocrs_gru_bwd_coef_wide_bf16.argtypes = [i] + [p] * 7 + [i, i, i, i, p]
         lib.ocrs_gru_bwd_dw_wide_bf16.argtypes = [i] + [p] * 7 + [i, p, p, i, i, i, i, i, p]
-        for fn in (lib.ocrs_gru_bwd_coef_wide_bf16, lib.ocrs_gru_bwd_dw_wide_bf16):
+        lib.ocrs_gru_bwd_coef_wide_f32.argtypes = [i] + [p] * 8 + [i, i, i, i, p]
+        lib.ocrs_gru_bwd_dw_wide_f32.argtypes = [i] + [p] * 10 + [i, i, i, i, i, p]
+        lib.ocrs_gru_bwd_dw_wide_f32_pitch.argtypes = [i, i]
+        lib.ocrs_gru_bwd_wide_f32_smem.argtypes = [i]
+        for fn in (lib.ocrs_gru_bwd_coef_wide_bf16, lib.ocrs_gru_bwd_dw_wide_bf16,
+                   lib.ocrs_gru_bwd_coef_wide_f32, lib.ocrs_gru_bwd_dw_wide_f32,
+                   lib.ocrs_gru_bwd_dw_wide_f32_pitch, lib.ocrs_gru_bwd_wide_f32_smem):
             fn.restype = i
     return lib
+
+
+def bwd_phases(hid: int) -> str:
+    """Whose coefficients and dW the wide backward runs at padded width
+    ``hid``: ``"gru_bwd_wide"`` (``wgmma``; bf16, and f32 in 3xTF32, faster
+    than ``gru_bwd.cu``'s at every f32 width measured, 520 to 2048: PERF.md)
+    above ``MAX_WIDE_HIDDEN``, else ``"gru_bwd"`` (``mma.sync`` tiles)."""
+    return "gru_bwd_wide" if hid > MAX_WIDE_HIDDEN else "gru_bwd"
+
+
+BWD_WIDE_TILE = (128, 192)
+"""Output tile of ``gru_bwd_wide.cu``'s products, rows x columns: its two
+multiplying warpgroups' 64 rows each, one ``wgmma`` n = 192."""
+BWD_WIDE_F32_K = 16
+"""Contraction a ring stage of ``gru_bwd_wide.cu``'s f32 kernels (two k8
+steps)."""
+BWD_WIDE_F32_STAGES = {"coef": 6, "dw": 5}
+"""Ring stages of ``gru_bwd_wide.cu``'s f32 kernels."""
+
+
+def bwd_wide_f32_smem(kind: str) -> int:
+    """Dynamic shared memory a block of ``gru_bwd_wide.cu``'s f32 ``kind``
+    ("coef" or "dw") asks for, whatever H is: its ring, a stage
+    ``BWD_WIDE_F32_K`` of the contraction of A's source (the tile's 128
+    rows: h_prev, or dpx and coef's r) and of B's hi and lo (192 rows
+    each), 4 bytes an element; an mbarrier pair a stage; 1 KB to align
+    the ring (``ocrs_gru_bwd_wide_f32_smem``)."""
+    rows, cols = BWD_WIDE_TILE
+    stage = 4 * BWD_WIDE_F32_K * (rows * (2 if kind == "dw" else 1) + 2 * cols)
+    stages = BWD_WIDE_F32_STAGES[kind]
+    return stages * stage + 16 * stages + 1024
+
+
+TF32_MASK = -8192
+"""``0xffffe000`` as an int32: the bits of an f32 that a tf32 operand keeps."""
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A float32 ``x`` as the 3xTF32 products split it (``gru_bwd.cu``'s
+    ``split_tf32``, ``gru_bwd_wide.cu``'s ``f32::split``): hi, the upper 19
+    bits of x, and lo, those of ``x - hi`` (the bits the tensor core reads)."""
+    hi = (x.contiguous().view(torch.int32) & TF32_MASK).view(torch.float32)
+    lo = ((x - hi).contiguous().view(torch.int32) & TF32_MASK).view(torch.float32)
+    return hi, lo
+
+
+def tf32x3_matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (float32) as the 3xTF32 products take it, ``a_lo b_hi +
+    a_hi b_lo + a_hi b_hi`` of :func:`tf32_split`'s parts, in float64 (so
+    the products are exact and only the split's dropped terms differ from
+    ``a @ b`` in float64: below ``3 * 2**-20`` of ``|a| @ |b|``)."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    ah, al, bh, bl = (t.double() for t in (ah, al, bh, bl))
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _dph(dpx_f, dpx_b, coef):
+    """The f32 backward's ``dph [2, T, N, 3H]`` from what its dW phase
+    reads: dpx's r and z columns, and its n columns (``da_c``) times
+    ``coef``'s r (``dhn = da_c r``)."""
+    t_len, n, h3 = dpx_f.shape
+    hid = h3 // 3
+    dpx = torch.stack([dpx_f, dpx_b])
+    r = coef.reshape(2, t_len, n, 5, hid)[..., 3, :]
+    return torch.cat([dpx[..., : 2 * hid], dpx[..., 2 * hid:] * r], dim=-1)
+
+
+def gru_bwd_coef_wide_f32(px_f, px_b, ys_f, ys_b, w_hh, b_hh, order: int | None = None):
+    """The float32 backward's coefficients above ``MAX_WIDE_HIDDEN``, ``coef
+    [2, T*N, 5, H]`` as :func:`gru_bwd_coefficients_reference` gives them
+    (``[2, T, N, 5, H]`` flattened). A CUDA tensor (H a multiple of 8) goes
+    through ``gru_bwd_wide.cu``'s ``ocrs_gru_bwd_coef_wide_f32``: the
+    pre-pass that writes ``W_hh^T``'s tf32 hi and lo parts into scratch
+    ``[2, 2, 3H, H]``, then the 3xTF32 product on ``wgmma`` with the gate
+    epilogue (two launches), in tile ``order`` (default
+    ``BWD_WIDE_ORDER``; the same bits either way); a CPU tensor through the
+    plain version. ``.launches`` counts the calls that launch the kernel."""
+    t_len, n, hid = ys_f.shape
+    if px_f.device.type == "cpu":
+        return gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh).reshape(
+            2, t_len * n, 5, hid)
+    _cuda_sizes("gru_bwd_coef_wide_f32", {"px_f": px_f, "px_b": px_b, "ys_f": ys_f, "ys_b": ys_b,
+                                          "w_hh": w_hh, "b_hh": b_hh})
+    if px_f.dtype != torch.float32 or hid % 8:
+        raise ValueError(f"gru_bwd_coef_wide_f32: float32 and H % 8 == 0, got {px_f.dtype}, "
+                         f"H={hid}")
+    dev = px_f.device
+    wt = torch.empty((2, 2, 3 * hid, hid), device=dev, dtype=torch.float32)
+    coef = torch.empty((2, t_len * n, 5, hid), device=dev, dtype=torch.float32)
+    lib = _bwd_wide_lib()
+    p = _build.ptr
+    rc = lib.ocrs_gru_bwd_coef_wide_f32(
+        dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w_hh), p(b_hh), p(wt), p(coef), t_len, n,
+        hid, BWD_WIDE_ORDER if order is None else order, _build.stream_ptr(dev))
+    _build.check(lib, rc, "gru_bwd_coef_wide_f32")
+    gru_bwd_coef_wide_f32.launches += 1
+    return coef
+
+
+gru_bwd_coef_wide_f32.launches = 0
+
+
+def gru_bwd_dw_wide_f32(ys_f, ys_b, dpx_f, dpx_b, coef, splits: int | None = None,
+                        order: int | None = None):
+    """The float32 backward's ``(dw_hh [2, H, 3H], db_hh [2, 3H])`` above
+    ``MAX_WIDE_HIDDEN`` from the chain's ``dpx_f``, ``dpx_b`` and ``coef``
+    (:func:`gru_bwd_coef_wide_f32`'s, for its r): :func:`gru_bwd_dw_reference`
+    on :func:`_dph`. A CUDA tensor (H a multiple of 8) goes through
+    ``gru_bwd_wide.cu``'s ``ocrs_gru_bwd_dw_wide_f32``: the pre-pass that
+    writes ``h_prev^T``'s tf32 hi and lo parts (``ys`` shifted by a step and
+    transposed) into scratch ``[2, 2, H, pitch]``, the 3xTF32 product ``dph^T h_prev`` on
+    ``wgmma`` over ``splits`` ranges of rows (default :func:`_dw_splits`'s)
+    into partials ``[splits, 2, H, 3H]``, with db's, and their sum in range
+    order (three launches), in tile ``order``; a CPU tensor through the
+    plain version. ``.launches`` counts the calls that launch the kernel."""
+    t_len, n, hid = ys_f.shape
+    if ys_f.device.type == "cpu":
+        return gru_bwd_dw_reference(ys_f, ys_b, _dph(dpx_f, dpx_b, coef))
+    _cuda_sizes("gru_bwd_dw_wide_f32", {"px_f": dpx_f, "px_b": dpx_b, "ys_f": ys_f, "ys_b": ys_b})
+    if ys_f.dtype != torch.float32 or hid % 8:
+        raise ValueError(f"gru_bwd_dw_wide_f32: float32 and H % 8 == 0, got {ys_f.dtype}, H={hid}")
+    dev = ys_f.device
+    if (coef.device != dev or coef.dtype != torch.float32 or not coef.is_contiguous()
+            or tuple(coef.shape) != (2, t_len * n, 5, hid)):
+        raise ValueError(f"gru_bwd_dw_wide_f32: coef must be contiguous float32 "
+                         f"{(2, t_len * n, 5, hid)} on {dev}")
+    splits = _dw_splits(t_len, n, hid) if splits is None else splits
+    lib = _bwd_wide_lib()
+    h3 = 3 * hid
+    yt = torch.empty((2, 2, hid, lib.ocrs_gru_bwd_dw_wide_f32_pitch(t_len, n)), device=dev,
+                     dtype=torch.float32)
+    dwp = torch.empty((splits, 2, hid, h3), device=dev, dtype=torch.float32)
+    dbp = torch.empty((splits, 2, h3), device=dev, dtype=torch.float32)
+    dw = torch.empty((2, hid, h3), device=dev, dtype=torch.float32)
+    db = torch.empty((2, h3), device=dev, dtype=torch.float32)
+    p = _build.ptr
+    rc = lib.ocrs_gru_bwd_dw_wide_f32(
+        dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(coef), p(yt), p(dwp), p(dbp), p(dw),
+        p(db), splits, t_len, n, hid, BWD_WIDE_ORDER if order is None else order,
+        _build.stream_ptr(dev))
+    _build.check(lib, rc, "gru_bwd_dw_wide_f32")
+    gru_bwd_dw_wide_f32.launches += 1
+    return dw, db
+
+
+gru_bwd_dw_wide_f32.launches = 0
+
+PHASE_KERNELS = (gru_bwd_coef_wide_f32, gru_bwd_dw_wide_f32)
+"""The wrappers of the f32 backward's ``coef`` and ``dw`` above
+``MAX_WIDE_HIDDEN``, which :func:`gru_wide_bwd` calls; each counts its
+launches in ``.launches``, as ``ops.KERNELS``' wrappers do."""
 
 
 def wide_max_active_clusters(n: int, hid: int, device: int = 0,
@@ -1116,20 +1275,36 @@ def gru_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh, scratch_out: dict | 
 gru_bwd.launches = 0
 
 
+def _dw_wide_tiles(hid: int, bf16: bool) -> int:
+    """Output tiles a range of rows of ``gru_bwd_wide.cu``'s dW: bf16 2
+    directions x ceil(H/128) rows k x (ceil(2H/192) + ceil(H/192)) columns
+    j; f32 (the transposed product) 2 x ceil(H/192) columns k x
+    (ceil(2H/128) + ceil(H/128)) rows j."""
+    if bf16:
+        return 2 * -(-hid // 128) * (-(-2 * hid // 192) + -(-hid // 192))
+    return 2 * -(-hid // 192) * (-(-2 * hid // 128) + -(-hid // 128))
+
+
 def _dw_splits(t_len: int, n: int, hid: int = 0, bf16: bool = False) -> int:
-    """Ranges of rows in the dW reduction: enough that every SM works. The
-    bf16 phase above ``MAX_WIDE_HIDDEN`` (``gru_bwd_wide.cu``: 2 directions
-    x ceil(H/128) x (ceil(2H/192) + ceil(H/192)) output tiles a range, one
-    after another on the card's SMs) takes the count, up to ``DW_SPLITS``
-    and one a 512 rows, whose rounds of tiles waste least: the rounds'
-    share of a range plus 0.05 of a range's time for each partial that
-    ``dw_sum`` then reads (at T=257, N=128: 4 at H=1024, whose 272 tiles
-    leave the last of 3 rounds 6% full in one range; 2 at 1448; 1 at
-    2048, whose 1056 tiles are 8 whole rounds)."""
+    """Ranges of rows in the dW reduction: one a 512 rows, up to
+    ``DW_SPLITS``, so that every SM works. f32 keeps that count at every
+    width, for accuracy: the tensor cores' f32 sums truncate, so a range's
+    error grows with its rows (3xTF32 on ``wgmma`` at T=257, N=128, H=2048
+    against float64: 2.4e-4 of the largest dW entry in one range, 3.1e-5
+    in 8 ranges of 4112 rows, as ``gru_bwd.cu``'s; ``grid_probe
+    --f32-phase-readings``, PERF.md). The
+    bf16 phase above ``MAX_WIDE_HIDDEN`` on ``wgmma`` (its products are
+    exact in f32; :func:`_dw_wide_tiles` output tiles a range, one after
+    another on the card's SMs) takes the count, up to that one, whose
+    rounds of tiles waste least: the rounds' share of a range plus 0.05 of
+    a range's time for each partial that ``dw_sum`` then reads (at T=257,
+    N=128: 4 at H=1024, whose 272 tiles leave the last of 3 rounds 6% full
+    in one range; 2 at 1448; 1 at 2048, whose 1056 tiles are 8 whole
+    rounds)."""
     most = max(1, min(DW_SPLITS, t_len * n // 512))
-    if not (bf16 and hid > MAX_WIDE_HIDDEN):
+    if not bf16 or bwd_phases(hid) != "gru_bwd_wide":
         return most
-    tiles = 2 * -(-hid // 128) * (-(-2 * hid // 192) + -(-hid // 192))
+    tiles = _dw_wide_tiles(hid, bf16)
     return min(range(1, most + 1), key=lambda s: -(-tiles * s // H100_SMS) / s + 0.05 * s)
 
 
@@ -1141,9 +1316,13 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     picks (bf16 also writes ``bf16(dhn)`` and ``db``'s partials, one per
     batch tile of the chain's rows per block), then ``gru_bwd.cu``'s dW
     reduction and sum (two launches), in three ctypes calls, plus for bf16
-    the rounding of ``W_hh`` (bf16 above ``MAX_WIDE_HIDDEN``: the
-    coefficients and the dW reduction are ``gru_bwd_wide.cu``'s, on
-    ``wgmma``, reading the first cast's bf16 ``W_hh``). The chain: up to
+    the rounding of ``W_hh``. Above ``MAX_WIDE_HIDDEN`` (:func:`bwd_phases`)
+    the coefficients and the dW reduction are ``gru_bwd_wide.cu``'s, on
+    ``wgmma``: in bf16 reading the first cast's bf16 ``W_hh``; in f32 in
+    3xTF32 through :func:`gru_bwd_coef_wide_f32` and
+    :func:`gru_bwd_dw_wide_f32`, each with a pre-pass that writes the tf32
+    hi and lo parts of its shared-memory operand (``W_hh^T``, ``h_prev^T``):
+    2 launches more a call. The chain: up to
     ``MAX_WIDE_HIDDEN`` after padding ``gru_wide.cu``'s persistent kernel,
     one launch: 4 launches a call; "grid" ``gru_grid.cu``'s chain (bf16) or
     ``gru_grid_f32.cu``'s (f32, with the previous step's ``dph`` in scratch
@@ -1181,24 +1360,29 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     sfx = _build.SUFFIX[dt]
     stream = _build.stream_ptr(dev)
     p = _build.ptr
-    # The bf16 phases above MAX_WIDE_HIDDEN (gru_bwd_wide.cu) read W_hh in
-    # bf16 itself: the first of the rounding's two casts.
-    tensor_cores = bf16 and hid > MAX_WIDE_HIDDEN
+    # The phases above MAX_WIDE_HIDDEN run on wgmma (gru_bwd_wide.cu); in
+    # bf16 they read W_hh in bf16 itself: the first of the rounding's two
+    # casts; in f32 through their own wrappers (PHASE_KERNELS).
+    wgmma = bwd_phases(hid) == "gru_bwd_wide"
+    tensor_cores = bf16 and wgmma
     w16 = w_hh.to(torch.bfloat16) if bf16 else None
     w = (w16.float() if bf16 else w_hh).contiguous()
     bwd, wide = _bwd_lib(), _wide_lib()
     phases = _bwd_wide_lib() if tensor_cores else bwd
 
-    coef = torch.empty((2, t_len * n, 5, hid), device=dev, dtype=torch.float32)
-    if tensor_cores:
-        rc = phases.ocrs_gru_bwd_coef_wide_bf16(
-            dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w16), p(b_hh), p(coef), t_len, n,
-            hid, BWD_WIDE_ORDER, stream)
+    if wgmma and not bf16:
+        coef = gru_bwd_coef_wide_f32(px_f, px_b, ys_f, ys_b, w, b_hh)
     else:
-        rc = getattr(bwd, f"ocrs_gru_bwd_coef{sfx}")(
-            dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w), p(b_hh), p(coef), t_len, n, hid,
-            stream)
-    _build.check(phases, rc, "gru_wide_bwd (coef)")
+        coef = torch.empty((2, t_len * n, 5, hid), device=dev, dtype=torch.float32)
+        if tensor_cores:
+            rc = phases.ocrs_gru_bwd_coef_wide_bf16(
+                dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w16), p(b_hh), p(coef), t_len, n,
+                hid, BWD_WIDE_ORDER, stream)
+        else:
+            rc = getattr(bwd, f"ocrs_gru_bwd_coef{sfx}")(
+                dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w), p(b_hh), p(coef), t_len, n,
+                hid, stream)
+        _build.check(phases, rc, "gru_wide_bwd (coef)")
 
     dpx_f = torch.empty_like(px_f)
     dpx_b = torch.empty_like(px_b)
@@ -1211,9 +1395,10 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
     if form == "stepwise" or isinstance(plan, GridF32Plan):  # the previous step's dph
         dph = torch.empty((2, 2, n, h3), device=dev, dtype=torch.float32)
     splits = _dw_splits(t_len, n, hid, bf16)
-    dwp = torch.empty((splits, 2, hid, h3), device=dev, dtype=torch.float32)
-    dw = torch.empty_like(w_hh)
-    db = torch.empty_like(b_hh)
+    if not wgmma or bf16:
+        dwp = torch.empty((splits, 2, hid, h3), device=dev, dtype=torch.float32)
+        dw = torch.empty_like(w_hh)
+        db = torch.empty_like(b_hh)
     if bf16:
         rows = (_wide_report("chain", n, hid, dev.index, dt)["rows_per_block"] if persistent
                 else plan.rows if isinstance(plan, GridPlan)
@@ -1266,10 +1451,14 @@ def gru_wide_bwd(px_f, px_b, ys_f, ys_b, dy_f, dy_b, w_hh, b_hh,
                 dev.index, p(dy_f), p(dy_b), p(w_t), p(coef), p(dph), p(carry), p(dpx_f),
                 p(dpx_b), t_len, n, hid, stream)
         _build.check(chain, rc, f"gru_wide_bwd (chain, {form})")
-        dbp = torch.empty((splits, 2, h3), device=dev, dtype=torch.float32)
-        rc = bwd.ocrs_gru_bwd_dw(
-            dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(coef), p(dwp), p(dbp), p(dw),
-            p(db), splits, t_len, n, hid, stream)
+        if wgmma:
+            dw, db = gru_bwd_dw_wide_f32(ys_f, ys_b, dpx_f, dpx_b, coef, splits)
+            rc = 0
+        else:
+            dbp = torch.empty((splits, 2, h3), device=dev, dtype=torch.float32)
+            rc = bwd.ocrs_gru_bwd_dw(
+                dev.index, p(ys_f), p(ys_b), p(dpx_f), p(dpx_b), p(coef), p(dwp), p(dbp), p(dw),
+                p(db), splits, t_len, n, hid, stream)
     _build.check(phases, rc, "gru_wide_bwd (dw)")
     _count_form(gru_wide_bwd, form)
     return dpx_f, dpx_b, dw, db

@@ -50,7 +50,10 @@ from ocrs_models_torch.ops import (
     gru_bwd,
     gru_bwd_chain_bf16_reference,
     gru_bwd_coefficients_reference,
+    gru_bwd_coef_wide_f32,
     gru_bwd_dw_bf16_reference,
+    gru_bwd_dw_reference,
+    gru_bwd_dw_wide_f32,
     gru_bwd_phases_reference,
     gru_bwd_reference,
     gru_fwd,
@@ -74,9 +77,13 @@ from ocrs_models_torch.ops.gru import (
     GRID_MAX_UNITS,
     GRID_RESIDENT_HIDDEN,
     H100_SMEM,
+    _bwd_lib,
     _bwd_wide_lib,
+    _dph,
     _grid_f32_lib,
     _grid_lib,
+    bwd_phases,
+    bwd_wide_f32_smem,
     grid_f32_kernel_smem,
     grid_f32_plan,
     grid_f32_smem,
@@ -468,9 +475,11 @@ def test_gru_f32_grid_form_matches_plain(dev, shape):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-5)
     # Device launches a call: the forward's one cooperative launch and
     # nothing else; the backward's coef, the chain (one cooperative
-    # launch), dw and dw_sum; a streamed plan adds, before each cooperative
-    # launch, the layout of its streamed chunks. A width that is not a
-    # multiple of 8 adds its pads and slices.
+    # launch), dw and dw_sum, and before coef and dw each their pre-pass
+    # (gru_bwd_wide.cu's tf32 hi and lo of W_hh^T and ys^T, the wgmma
+    # products' shared-memory operands); a streamed plan adds, before each
+    # cooperative launch, the layout of its streamed chunks. A width that
+    # is not a multiple of 8 adds its pads and slices.
     streamed = int(plan.fwd.streamed > 0)
     assert streamed == (h > GRID_F32_RESIDENT_HIDDEN) == (plan.chain.streamed > 0)
     fwd_calls = _launch_calls(lambda: gru_fwd(px_f, px_b, w_hh, b_hh))
@@ -478,7 +487,8 @@ def test_gru_f32_grid_form_matches_plain(dev, shape):
     assert fwd_calls["cudaLaunchKernelExC"] == bwd_calls["cudaLaunchKernelExC"] == 1
     if h % 8 == 0:
         assert fwd_calls["cudaLaunchKernel"] == streamed
-        assert bwd_calls["cudaLaunchKernel"] == 3 + streamed
+        assert bwd_phases(h) == "gru_bwd_wide"
+        assert bwd_calls["cudaLaunchKernel"] == 5 + streamed
 
 
 def test_grid_f32_plan_counts_the_kernels_shared_memory(dev):
@@ -670,6 +680,61 @@ def test_bf16_coef_and_dw_on_wgmma_match_their_plain_versions(dev, t, n, h):
         assert all(torch.equal(a, b) for a, b in zip((dw_got, db_got), dw(splits, order=0)))
         torch.testing.assert_close(dw_got, dw_want, rtol=0, atol=1e-5 * dw_want.abs().max().item())
         assert torch.equal(db_got, db_want)
+
+
+@pytest.mark.parametrize("h", [520, 1064, 2048, 2120])
+@pytest.mark.parametrize("t,n", [(9, 259), (2, 3)])
+def test_f32_coef_and_dw_on_wgmma_match_their_plain_versions(dev, t, n, h):
+    # gru_bwd_wide.cu's f32 coefficients and dW/db (3xTF32 on wgmma, the
+    # wide backward's above 512) against gru_bwd_coefficients_reference and
+    # gru_bwd_dw_reference on the dph that dpx and coef's r give, both in
+    # f32: coef within 1e-4 of its largest entry (the gates of 3xTF32 sums:
+    # the tensor cores' f32 sums truncate, so at H=2048, T=9, N=259 coef
+    # reads 1.3e-5 against float64, the f32 plain version 1.3e-6: grid_probe
+    # --f32-phase-readings, PERF.md) and bit for
+    # bit gru_bwd.cu's mma.sync coef (the same split, the same k8 steps in
+    # the same order, the same gate epilogue), dW and db within the f32
+    # wide tests' 1e-4 of their largest entry + 1e-5.
+    # Reruns are bit-identical, and the grouped tile order (1, the
+    # wrappers') gives the same bits as the plain one (0), with 1 and 2
+    # ranges of rows. At N=259, T=9: 2331 rows, 19 row tiles of coef (two
+    # groups, the last of 3) and 146 stages of dW, the last ragged; at
+    # H=1064 the last unit tile (64 units) and k tile (192) of dW ragged,
+    # 2120 too (in coef 34 unit tiles, 12 k tiles of dW: two groups of its
+    # grouped order); at N=3, T=2 one stage, mostly zero-filled.
+    px_f, px_b, w_hh, b_hh, _, _ = _gru_case(t, n, h, dev, h + t + 1)
+    ys_f, ys_b = ((torch.rand((t, n, h), device=dev) * 2 - 1) for _ in range(2))
+    dpx_f, dpx_b = ((torch.randn((t, n, 3 * h), device=dev) * 0.1) for _ in range(2))
+    got = gru_bwd_coef_wide_f32(px_f, px_b, ys_f, ys_b, w_hh, b_hh)
+    assert torch.equal(got, gru_bwd_coef_wide_f32(px_f, px_b, ys_f, ys_b, w_hh, b_hh))
+    assert torch.equal(got, gru_bwd_coef_wide_f32(px_f, px_b, ys_f, ys_b, w_hh, b_hh, order=0))
+    want = gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w_hh, b_hh).reshape(got.shape)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+    lib, p = _bwd_lib(), _build.ptr
+    old = torch.empty_like(got)
+    _build.check(lib, lib.ocrs_gru_bwd_coef(
+        dev.index, p(px_f), p(px_b), p(ys_f), p(ys_b), p(w_hh), p(b_hh), p(old), t, n, h,
+        _build.stream_ptr(dev)), "gru_bwd.cu coef")
+    assert torch.equal(got, old)
+    dw_want, db_want = gru_bwd_dw_reference(ys_f, ys_b, _dph(dpx_f, dpx_b, want))
+    for splits in (1, 2):
+        dw, db = gru_bwd_dw_wide_f32(ys_f, ys_b, dpx_f, dpx_b, got, splits)
+        for again in (gru_bwd_dw_wide_f32(ys_f, ys_b, dpx_f, dpx_b, got, splits),
+                      gru_bwd_dw_wide_f32(ys_f, ys_b, dpx_f, dpx_b, got, splits, order=0)):
+            assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+        for a, b in ((dw, dw_want), (db, db_want)):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item() + 1e-5)
+
+
+def test_f32_wgmma_phases_ask_for_the_shared_memory_their_mirror_counts(dev):
+    # bwd_wide_f32_smem (what the CPU tests hold against the card's 227 KB)
+    # is what gru_bwd_wide.cu's f32 kernels ask the runtime for, within
+    # what this card's blocks may use.
+    lib = _bwd_wide_lib()
+    smem = grid_limits(dev.index)[1]
+    for kind, name in enumerate(("coef", "dw")):
+        assert lib.ocrs_gru_bwd_wide_f32_smem(kind) == bwd_wide_f32_smem(name)
+        assert bwd_wide_f32_smem(name) <= min(smem, H100_SMEM)
 
 
 @pytest.mark.parametrize("shape", [(33, 40, 264), (2, 259, 512), (7, 4, 1024)])

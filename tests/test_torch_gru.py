@@ -18,6 +18,11 @@ from ocrs_models_tpu.ops.pallas.gru_kernel4 import gru_recurrence4
 from ocrs_models_torch.models import RecognitionModel
 from ocrs_models_torch.ops import (
     BiGRU,
+    gru_bwd_chain_reference,
+    gru_bwd_coef_wide_f32,
+    gru_bwd_coefficients_reference,
+    gru_bwd_dw_reference,
+    gru_bwd_dw_wide_f32,
     gru_bwd_phases_reference,
     gru_bwd_reference,
     gru_recurrence,
@@ -44,9 +49,14 @@ from ocrs_models_torch.ops.gru import (
     GridF32Plan,
     GridF32Split,
     GridSplit,
+    _dph,
+    _dw_splits,
+    _dw_wide_tiles,
     _pad_gates,
     _pad_w,
     _unpad_gates,
+    bwd_phases,
+    bwd_wide_f32_smem,
     grid_f32_plan,
     grid_chunk,
     grid_f32_kernel_smem,
@@ -55,6 +65,8 @@ from ocrs_models_torch.ops.gru import (
     grid_kernel_smem,
     grid_plan,
     grid_smem,
+    tf32_split,
+    tf32x3_matmul_reference,
 )
 from ocrs_models_torch.weights import bigru_state_dict_from_jax, recognition_state_dict_from_jax
 from torch_fixtures.bf16_dw_reference_check import dw_check
@@ -357,6 +369,128 @@ _F32_RESIDENT_PLANS = {
     128: [(520, 528, (64, 4)), (536, 1040, (128, 4)), (1048, 1056, (128, 3))],
     259: [(520, 528, (144, 4)), (536, 1040, (272, 4)), (1048, 1056, (272, 3))],
 }
+
+
+def test_wide_backward_phases_route():
+    # gru_wide_bwd's coefficients and dW, in both dtypes: gru_bwd.cu's
+    # mma.sync tiles up to MAX_WIDE_HIDDEN (the persistent form's widths,
+    # padded), above it gru_bwd_wide.cu's wgmma kernels, f32 in 3xTF32 at
+    # every width (none measured slower than gru_bwd.cu's: PERF.md).
+    assert [bwd_phases(h) for h in (8, 256, 264, 504, 512)] == ["gru_bwd"] * 5
+    wide = (520, 1024, 1064, 1448, 2048, 2112, 2120, 5288, 6336, 8192)
+    assert [bwd_phases(h) for h in wide] == ["gru_bwd_wide"] * len(wide)
+
+
+def test_f32_wgmma_phases_fit_an_h100_at_every_width():
+    # gru_bwd_wide.cu's f32 kernels ask for the same ring whatever H is
+    # (their tiles are 128 x 192, 16 of the contraction a stage): coef 6
+    # stages of 32 KB (h_prev [128][16], W_hh^T hi and lo [192][16]), dw 5
+    # of 40 KB (dpx and r [16][128], h_prev^T hi and lo), with their
+    # mbarriers and 1 KB of alignment, within an H100 block's 227 KB at
+    # every padded f32 width that runs them, up to 8192 (the card tests
+    # hold the mirror against the kernels' own count).
+    assert bwd_wide_f32_smem("coef") == 6 * 32768 + 6 * 16 + 1024 == 197728
+    assert bwd_wide_f32_smem("dw") == 5 * 40960 + 5 * 16 + 1024 == 205904
+    widths = [h for h in range(8, 8193, 8) if bwd_phases(h) == "gru_bwd_wide"]
+    assert widths[0] == MAX_WIDE_HIDDEN + 8 and widths[-1] == 8192
+    for h in widths:
+        assert max(bwd_wide_f32_smem("coef"), bwd_wide_f32_smem("dw")) <= H100_SMEM, h
+
+
+@pytest.mark.parametrize("h,tiles,rounds", [(1064, 312, 19), (1448, 560, 34), (2048, 1056, 64),
+                                            (5288, 7000, 425)])
+def test_f32_dw_splits_keep_the_ranges_short_and_fill_the_card(h, tiles, rounds):
+    # The f32 dW on wgmma (the transposed product: rows j of dph, 128 a
+    # tile, over dpx's first 2H columns and then its last H; columns k of
+    # dW, 192 a tile) has 2 * ceil(H/192) * (ceil(2H/128) + ceil(H/128))
+    # tiles a range of rows. f32 keeps gru_bwd.cu's ranges at every width,
+    # one a 512 rows up to 8 (at T=257, N=128: 8 of 4112 rows), for the
+    # accuracy of the tensor cores' truncating f32 sums; the 8 ranges' tiles
+    # then fill the card's 132 SMs in whole rounds but for under 1% (1064:
+    # 2496 tiles in 19 rounds; 1448: 4480 in 34; 2048: 8448, 64 whole
+    # rounds; 5288: 56000 in 425).
+    assert _dw_wide_tiles(h, False) == tiles
+    assert _dw_splits(257, 128, h) == 8 == _dw_splits(257, 128, h, False)
+    assert -(-8 * tiles // H100_SMS) == rounds and 8 * tiles / (rounds * H100_SMS) > 0.99
+    # At most one range a 512 rows; the bf16 tiles' counts stay theirs.
+    assert _dw_splits(2, 3, h) == 1 and _dw_splits(9, 259, h) == 4
+    assert _dw_splits(257, 128, 1024, True) == 4 and _dw_splits(257, 128, 2048, True) == 1
+
+
+def test_tf32x3_split_products_keep_f32_accuracy():
+    # The 3xTF32 products of gru_bwd_wide.cu's f32 coef and dw (and of
+    # gru_bwd.cu's): hi = the upper 19 bits of x, lo = those of x - hi,
+    # a b as a_lo b_hi + a_hi b_lo + a_hi b_hi. Each part is a tf32 value;
+    # |x - hi - lo| < 2**-20 |x|, so a product drops less than 3 * 2**-20
+    # |a| |b|. Here in float64 (exact products) against the float64
+    # product, and coef and dW/db built from those products against the f32
+    # plain versions at H=520 within the card tests' tolerances (coef 1e-5
+    # of its largest entry; dW, db 1e-4 of theirs + 1e-5).
+    rng = np.random.default_rng(24)
+    t, n, h = 2, 5, 520
+    x = torch.from_numpy(rng.normal(size=4096).astype(np.float32))
+    hi, lo = tf32_split(x)
+    bits = torch.cat([hi, lo]).view(torch.int32) & 0x1FFF
+    assert not bits.any()
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert (err < 2.0**-20 * x.double().abs()).all()
+    px_f, px_b = (torch.from_numpy(rng.normal(size=(t, n, 3 * h)).astype(np.float32))
+                  for _ in range(2))
+    w = torch.from_numpy(((rng.random((2, h, 3 * h)) * 2 - 1) / h**0.5).astype(np.float32))
+    b = torch.from_numpy(((rng.random((2, 3 * h)) * 2 - 1) / h**0.5).astype(np.float32))
+    ys_f, ys_b = (torch.from_numpy((rng.random((t, n, h)) * 2 - 1).astype(np.float32))
+                  for _ in range(2))
+    dpx_f, dpx_b = (torch.from_numpy((rng.normal(size=(t, n, 3 * h)) * 0.1).astype(np.float32))
+                    for _ in range(2))
+    h_prev = torch.stack([torch.cat([torch.zeros_like(ys_f[:1]), ys_f[:-1]]),
+                          torch.cat([ys_b[1:], torch.zeros_like(ys_b[:1])])]).reshape(2, t * n, h)
+    ph = tf32x3_matmul_reference(h_prev, w)
+    exact = h_prev.double() @ w.double()
+    assert ((ph - exact).abs() <= 3 * 2.0**-20 * (h_prev.double().abs() @ w.double().abs())).all()
+    # coef from the 3xTF32 ph (the gate math in f32, as the kernel's).
+    ph = ph.float() + b[:, None, :]
+    xr, xz, xn = torch.stack([px_f, px_b]).reshape(2, t * n, 3 * h).split(h, dim=-1)
+    hr, hz, hn = ph.split(h, dim=-1)
+    r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+    c = torch.tanh(xn + r * hn)
+    coef = torch.stack([z, (1 - z) * (1 - c * c), (h_prev - c) * z * (1 - z), r,
+                        hn * r * (1 - r)], dim=2)
+    want = gru_bwd_coefficients_reference(px_f, px_b, ys_f, ys_b, w, b).reshape(coef.shape)
+    torch.testing.assert_close(coef, want, rtol=0, atol=1e-5 * want.abs().max().item())
+    dph = _dph(dpx_f, dpx_b, want).reshape(2, t * n, 3 * h)
+    dw = tf32x3_matmul_reference(h_prev.transpose(1, 2), dph)
+    exact = h_prev.double().transpose(1, 2) @ dph.double()
+    assert ((dw - exact).abs() <= 3 * 2.0**-20 * (h_prev.double().abs().transpose(1, 2)
+                                                  @ dph.double().abs())).all()
+    dw_want, db_want = gru_bwd_dw_reference(ys_f, ys_b, dph.reshape(2, t, n, 3 * h))
+    torch.testing.assert_close(dw.float(), dw_want, rtol=0,
+                               atol=1e-4 * dw_want.abs().max().item() + 1e-5)
+    torch.testing.assert_close(dph.sum(dim=1), db_want, rtol=0,
+                               atol=1e-4 * db_want.abs().max().item() + 1e-5)
+
+
+def test_f32_wgmma_phases_plain_versions_compose_to_the_pallas_vjp():
+    # On CPU tensors gru_bwd_coef_wide_f32 and gru_bwd_dw_wide_f32 run their
+    # plain versions; around the chain's they give the backward's dW and db
+    # as gru_recurrence4's Pallas backward in interpret mode does (atol
+    # 1e-5, as the phases' test), and the dph the dW phase rebuilds from
+    # dpx and coef's r is the chain's own, bit for bit.
+    t, h = 7, 16
+    args = _case(t, seed=24)
+    rng = np.random.default_rng(25)
+    dys = [rng.normal(size=(t, 8, h)).astype(np.float32) for _ in range(2)]
+    _, vjp = jax.vjp(lambda *a: gru_recurrence4(*a, jnp.float32, True), *map(jnp.asarray, args))
+    want = vjp(tuple(map(jnp.asarray, dys)))
+    px_f, px_b, w, b = map(torch.from_numpy, args)
+    dy_f, dy_b = map(torch.from_numpy, dys)
+    ys_f, ys_b = gru_recurrence_reference(px_f, px_b, w, b)
+    coef = gru_bwd_coef_wide_f32(px_f, px_b, ys_f, ys_b, w, b)
+    assert coef.shape == (2, t * 8, 5, h)
+    dpx_f, dpx_b, dph = gru_bwd_chain_reference(coef.reshape(2, t, 8, 5, h), dy_f, dy_b, w)
+    assert torch.equal(_dph(dpx_f, dpx_b, coef), dph)
+    dw, db = gru_bwd_dw_wide_f32(ys_f, ys_b, dpx_f, dpx_b, coef)
+    for name, g, j in zip(("dw_hh", "db_hh"), (dw, db), want[2:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), rtol=0, atol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("n", [1, 3, 128, 259])
